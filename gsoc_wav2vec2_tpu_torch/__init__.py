@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the gsoc_wav2vec2_tpu framework, for NVIDIA Hopper.
 
 The JAX package `gsoc_wav2vec2_tpu` stays the reference; this package
-imports none of it.  The first slice covers batched bf16 inference of
-`Wav2Vec2ForCTC` in the base family with greedy CTC decoding; its four
-TPU kernels are hand-written CUDA kernels under `csrc/`.
+imports none of it.  It covers batched bf16 inference of `Wav2Vec2ForCTC`
+in the base family with greedy CTC decoding, and the CTC fine-tuning step
+(`training/`, stages 1 and 2 of the recipe); the TPU kernels of both paths
+are hand-written CUDA kernels under `csrc/`.
 """
 
 from .data.processor import Wav2Vec2Processor

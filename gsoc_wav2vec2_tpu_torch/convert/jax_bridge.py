@@ -30,7 +30,8 @@ def _flatten(node, prefix: str, out: Dict[str, np.ndarray]) -> None:
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
-    """JAX parameter tree -> state dict (copies; dtypes kept)."""
+    """JAX parameter tree -> state dict (copies; dtypes kept).  Leaves that
+    are empty tuples (optax's `MaskedNode` of a masked-out leaf) are absent."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     out = {}
@@ -59,6 +60,51 @@ def _fold(node, key=None):
         items = [children[str(i)] for i in range(len(children))]
         return _stack(items) if key == "layers" else tuple(items)
     return children
+
+
+def _find_adam(node):
+    """The first `ScaleByAdamState`-like node (a namedtuple with count, mu,
+    nu) in an optax state tree, through namedtuples, tuples and dicts (the
+    containers `multi_transform`, `masked`, `chain` and `inject_hyperparams`
+    build their states from)."""
+    fields = getattr(node, "_fields", ())
+    if {"count", "mu", "nu"} <= set(fields):
+        return node
+    children = node.values() if isinstance(node, dict) else (
+        node if isinstance(node, (list, tuple)) else ())
+    for child in children:
+        found = _find_adam(child)
+        if found is not None:
+            return found
+    return None
+
+
+def adam_state_from_jax(opt_state, model: torch.nn.Module) -> Dict[torch.nn.Parameter, dict]:
+    """optax Adam state (numpy leaves: `jax.tree.map(np.asarray, opt_state)`)
+    -> `torch.optim.Adam` per-parameter state, keyed by the model's
+    parameters: `optimizer.state.update(adam_state_from_jax(s, model))`.
+
+    Walks to the `ScaleByAdamState` (count, mu, nu) inside
+    `multi_transform` / `masked`; its mu and nu are parameter trees whose
+    frozen leaves are `MaskedNode`s, so frozen parameters get no state.
+    `count` becomes each parameter's `step` (a float32 scalar, as Adam keeps
+    it), mu `exp_avg` and nu `exp_avg_sq`.
+    """
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optimizer state")
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    step = float(np.asarray(adam.count))
+    params = dict(model.named_parameters())
+    out = {}
+    for name, m in mu.items():
+        p = params[name]
+        out[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": m.to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype),
+        }
+    return out
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> dict:

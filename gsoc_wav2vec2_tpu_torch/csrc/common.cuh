@@ -64,6 +64,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 4-byte variant (cp.async.ca: .cg takes 16 bytes only), for f32 rows whose
+// start need not be 16-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 
 template <int N>

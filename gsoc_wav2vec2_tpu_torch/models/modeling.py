@@ -16,9 +16,22 @@ the compute dtype is bf16 and the four kernel sites (conv front end, its
 statistics, positional conv, attention) run in the port's Hopper kernels;
 on the CPU every site runs its plain PyTorch version.
 
-This slice is inference only: no dropout, no SpecAugment, no stochastic
-depth, and the parameters do not require gradients (the kernels have no
-backward yet).
+`training=True` is the fine-tuning forward (JAX `modeling.py:176-535`):
+dropout at every JAX site, SpecAugment, stochastic depth, attention and the
+positional conv through their autograd functions (kernel backwards).  The
+randomness comes from one `torch.Generator`, drawn in JAX's key-stream
+order: the head's dropout, then the body (projection dropout, SpecAugment,
+the encoder's dropout, then 4 draws per layer: attention seed, post-attention
+dropout, FFN dropout, stochastic depth).  Every site draws whether or not
+its rate is 0, so the stream does not depend on the rates.  What is frozen
+is what has `requires_grad` off: the models are built so, and
+`training.set_trainable` turns on the trainable leaves.  Autograd then
+builds no backward for a frozen region (JAX's `stop_gradient` at the same
+places), and the attention and positional-conv sites take their
+differentiable kernels only where an input needs a gradient.  On the card
+the conv front end has no backward kernel: with grad enabled and a
+trainable conv0/conv1 it raises (freeze "feature_extractor", as both
+stages of the recipe do).
 """
 
 from __future__ import annotations
@@ -32,10 +45,11 @@ import torch
 from torch import nn
 
 from ..convert.hf_torch import state_dict_from_hf
-from ..ops.attention import mask_to_bias, mha
-from ..ops.basic import dense, gelu, group_norm, layer_norm
+from ..ops.attention import attention_seed, mask_to_bias, mha
+from ..ops.basic import dense, dropout, gelu, group_norm, layer_norm, seed_words, stochastic_depth
 from ..ops.conv import conv1d, init_weight_g, pos_conv_embed
 from ..ops.kernels import conv_frontend
+from ..ops.specaugment import apply_feature_masking, apply_spec_augmentation
 from ..utils.devices import resolve_device
 from .config import RobustWav2Vec2Config, Wav2Vec2Config, config_from_hf_dict, is_hf_config_dict
 
@@ -194,6 +208,12 @@ def feature_encoder_forward(
     start = 0
     if fused:
         p0, p1 = layers[0], layers[1]
+        if waveform.is_cuda and torch.is_grad_enabled() and any(
+                p.requires_grad for p in (*p0.parameters(), *p1.parameters())):
+            raise NotImplementedError(
+                "the fused conv front end kernel has no backward: on CUDA conv0/conv1 train "
+                "only frozen (set_trainable(model, (\"feature_extractor\",)))"
+            )
         x = conv_frontend.fused_conv01(
             waveform, p0.conv.kernel, p0.layer_norm.gamma, p0.layer_norm.beta,
             p1.conv.kernel, eps=1e-5, gelu_approx=True,
@@ -216,17 +236,34 @@ def feature_encoder_forward(
     return x
 
 
+def _check_training(training: bool, generator: Optional[torch.Generator]) -> None:
+    if training and generator is None:
+        raise ValueError("the training forward draws its randomness from a torch.Generator")
+
+
 def transformer_layer_forward(
     x: torch.Tensor, p: TransformerLayer, config: Wav2Vec2Config,
-    mask_bias: Optional[torch.Tensor],
+    mask_bias: Optional[torch.Tensor], *, training: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """One encoder layer at inference (reference `encoder.py:111-134`)."""
-    eps = config.layer_norm_eps
+    """One encoder layer (reference `encoder.py:111-134`); in training it
+    draws, in order, the attention seed, the post-attention and FFN dropout
+    seeds and the stochastic-depth Bernoulli."""
+    _check_training(training, generator)
+    if training:
+        attn_seed = attention_seed(generator)
+        attn_drop, ffn_drop = seed_words(generator), seed_words(generator)
+        keep_ffn = bool(torch.rand((), generator=generator) < config.survival_prob)
+    else:
+        attn_seed = attn_drop = ffn_drop = keep_ffn = None
+    eps, rate = config.layer_norm_eps, config.dropout
     prenorm = config.attention_norm_type == "prenorm"
     residual = x
     if prenorm:
         x = layer_norm(x, p.layer_norm.gamma, p.layer_norm.beta, eps)
-    x = mha(x, p.attention, config.num_heads, mask_bias) + residual
+    x = mha(x, p.attention, config.num_heads, mask_bias, dropout_rate=rate, seed=attn_seed,
+            training=training)
+    x = dropout(x, rate, attn_drop, not training) + residual
     if not prenorm:
         x = layer_norm(x, p.layer_norm.gamma, p.layer_norm.beta, eps)
 
@@ -238,8 +275,10 @@ def transformer_layer_forward(
         dense(x, ff.intermediate_dense.kernel, ff.intermediate_dense.bias),
         approximate=config.is_gelu_approx,
     )
-    # stochastic depth at eval: the plain residual sum, not rescaled
-    x = residual + dense(x, ff.output_dense.kernel, ff.output_dense.bias)
+    x = dropout(x, rate, ffn_drop, not training)
+    # at eval the plain residual sum, not rescaled
+    x = stochastic_depth(residual, dense(x, ff.output_dense.kernel, ff.output_dense.bias),
+                         config.survival_prob, keep_ffn, not training)
     if not prenorm:
         x = layer_norm(x, p.final_layer_norm.gamma, p.final_layer_norm.beta, eps)
     return x
@@ -247,10 +286,12 @@ def transformer_layer_forward(
 
 def encoder_forward(
     params: Encoder, config: Wav2Vec2Config, x: torch.Tensor,
-    frame_mask: Optional[torch.Tensor],
+    frame_mask: Optional[torch.Tensor], *, training: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Positional conv embed + N transformer layers (a loop over the
     `ModuleList` where JAX scans)."""
+    _check_training(training, generator)
     mask_bias = None
     if frame_mask is not None:
         x = torch.where(frame_mask[:, :, None], x, torch.zeros_like(x))
@@ -264,8 +305,10 @@ def encoder_forward(
     ln = params.layer_norm
     if not prenorm:
         x = layer_norm(x, ln.gamma, ln.beta, config.layer_norm_eps)
+    x = dropout(x, config.dropout, seed_words(generator) if training else None, not training)
     for layer in params.layers:
-        x = transformer_layer_forward(x, layer, config, mask_bias)
+        x = transformer_layer_forward(x, layer, config, mask_bias, training=training,
+                                      generator=generator)
     if prenorm:
         x = layer_norm(x, ln.gamma, ln.beta, config.layer_norm_eps)
     return x
@@ -274,35 +317,53 @@ def encoder_forward(
 def wav2vec2_forward(
     params: "Wav2Vec2Model", config: Wav2Vec2Config, batch: torch.Tensor,
     attention_mask: Optional[torch.Tensor] = None, *,
-    compute_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32, training: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """(B, L_samples) normalised waveform [+ 0/1 sample mask] ->
-    (B, L_frames, hidden_size) hidden states."""
+    (B, L_frames, hidden_size) hidden states.  `training` and `generator`
+    as in the module docstring."""
     if batch.is_cuda and compute_dtype != torch.bfloat16:
         raise ValueError(f"on CUDA the compute dtype is bf16 (its kernels' only dtype), got {compute_dtype}")
+    _check_training(training, generator)
     x = feature_encoder_forward(params.feature_extractor, config, batch, compute_dtype)
     fp = params.feature_projection
     if fp.layer_norm is not None:
         x = layer_norm(x, fp.layer_norm.gamma, fp.layer_norm.beta, config.layer_norm_eps)
     x = dense(x, fp.projection.kernel, fp.projection.bias)
+    x = dropout(x, config.dropout, seed_words(generator) if training else None, not training)
+
+    if training and config.apply_spec_augment:
+        x = apply_spec_augmentation(generator, x, params.masked_spec_embed,
+                                    config.mask_time_prob, config.mask_time_length)
+        if config.mask_feature_prob > 0:
+            x = apply_feature_masking(generator, x, config.mask_feature_prob,
+                                      config.mask_feature_length, config.mask_feature_min_masks)
 
     frame_mask = None
     if attention_mask is not None:
         input_length = attention_mask.to(torch.int64).sum(dim=-1)
         frame_length = config.conv_output_length(input_length)
         frame_mask = torch.arange(x.shape[1], device=x.device)[None, :] < frame_length[:, None]
-    return encoder_forward(params.encoder, config, x, frame_mask)
+    return encoder_forward(params.encoder, config, x, frame_mask, training=training,
+                           generator=generator)
 
 
 def wav2vec2_for_ctc_forward(
     params: "Wav2Vec2ForCTC", config: Wav2Vec2Config, batch: torch.Tensor,
     attention_mask: Optional[torch.Tensor] = None, *,
-    compute_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32, training: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Base model -> LM head; (B, L_frames, vocab) logits in f32."""
+    """Base model -> dropout -> LM head; (B, L_frames, vocab) logits in
+    f32."""
+    _check_training(training, generator)
+    head_seed = seed_words(generator) if training else None
     x = wav2vec2_forward(
-        params.wav2vec2, config, batch, attention_mask, compute_dtype=compute_dtype
+        params.wav2vec2, config, batch, attention_mask, compute_dtype=compute_dtype,
+        training=training, generator=generator,
     )
+    x = dropout(x, config.dropout, head_seed, not training)
     return dense(x, params.lm_head.kernel, params.lm_head.bias).float()
 
 

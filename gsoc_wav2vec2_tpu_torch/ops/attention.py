@@ -2,9 +2,10 @@
 
 Separate q/k/v/out projections, q scaled by `head_size ** -0.5`, an additive
 key bias on the raw scores, softmax in float32 and probabilities cast to the
-compute dtype before the product with v.  `mha` runs the core through
-`ops/kernels/flash_attention.py`: the hand-written kernel for a CUDA tensor,
-its plain version on the CPU.  `mha_plain` is the full-materialisation
+compute dtype before the product with v, prob dropout in training.  `mha`
+runs the core through `ops/kernels/flash_attention.py` (forward and
+backward): the hand-written kernels for a CUDA tensor, their plain versions
+on the CPU.  `mha_plain` is the full-materialisation
 formulation (the counterpart of JAX's `mha_xla`) the tests hold it against.
 """
 
@@ -55,17 +56,36 @@ def mha_plain(
     return dense(merge_heads(context), params.out_proj.kernel, params.out_proj.bias)
 
 
+def attention_seed(generator: torch.Generator) -> int:
+    """The per-call seed of the in-kernel prob dropout, drawn in [0, 2**23)
+    (JAX: `jax.random.randint(rng, (), 0, 2**23)`); the kernel adds the
+    (batch, head) index to it."""
+    return int(torch.randint(0, 2**23, (), generator=generator))
+
+
 def mha(
-    x: torch.Tensor, params, num_heads: int, mask_bias: Optional[torch.Tensor] = None
+    x: torch.Tensor, params, num_heads: int, mask_bias: Optional[torch.Tensor] = None, *,
+    dropout_rate: float = 0.0, seed: Optional[int] = None, training: bool = False,
 ) -> torch.Tensor:
-    """Attention through the flash kernel wrapper; `mask_bias` as in
-    `mha_plain`, a key bias broadcastable to (B, 1, 1, L)."""
+    """Attention through the flash kernel wrappers; `mask_bias` as in
+    `mha_plain`, a key bias broadcastable to (B, 1, 1, L).  In training,
+    prob dropout at `dropout_rate` runs inside the kernel from `seed`
+    (`attention_seed`).  When the projections need gradients the call goes
+    through the `FlashAttention` autograd function (kernel backward);
+    otherwise through the forward kernel alone."""
     q, k, v = _project_qkv(x, params, num_heads)
     bias = None
     if mask_bias is not None:
         b, l = x.shape[0], x.shape[1]
         bias = mask_bias.float().expand(b, 1, 1, l).reshape(b, l)
-    context, _ = flash.flash_attention_fwd(q, k, v, bias)
+    rate = dropout_rate if training else 0.0
+    if rate > 0.0 and seed is None:
+        raise ValueError("attention dropout in training requires a seed")
+    seed = 0 if seed is None else seed
+    if q.requires_grad:
+        context = flash.flash_attention(q, k, v, bias, dropout_rate=rate, seed=seed)
+    else:
+        context, _ = flash.flash_attention_fwd(q, k, v, bias, dropout_rate=rate, seed=seed)
     return dense(merge_heads(context), params.out_proj.kernel, params.out_proj.bias)
 
 

@@ -2,16 +2,101 @@
 
 Normalisation statistics and the norm affine always run in float32 and the
 result is cast back to the input dtype, so bfloat16 forwards stay stable.
-This slice is inference only: there is no dropout and no stochastic depth
-(whose eval-time sum is the plain, un-rescaled residual sum).
+Dropout is JAX's counter-hash dropout (`_hash_keep_mask`), bit for bit for
+the same two seed words; JAX draws the words from its key, the port from an
+explicit `torch.Generator` (`seed_words`).  Stochastic depth draws one
+Bernoulli per batch and does not rescale at eval.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+SeedWords = Tuple[int, int]
+
+# uint32 arithmetic with wraparound, carried in int32 bit patterns (torch's
+# uint32 has no CPU arange and few ops): multiplication and xor wrap alike,
+# a right shift must be made logical, and an unsigned compare flips the sign
+# bit of both sides.
+_INT32_MIN = -(2**31)
+
+
+def _i32(v: int) -> int:
+    """A uint32 value (any Python int, wrapped) as the int32 with its bits."""
+    v &= 0xFFFFFFFF
+    return v - 2**32 if v >= 2**31 else v
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int32 bit patterns (torch's is arithmetic)."""
+    return torch.bitwise_right_shift(x, s).bitwise_and_((1 << (32 - s)) - 1)
+
+
+def keep_threshold(rate: float) -> int:
+    """Keep while the hash is below this uint32 (computed in double, as JAX)."""
+    return int((1.0 - rate) * float(2**32 - 1))
+
+
+def below_threshold(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Unsigned x < keep_threshold(rate), on int32 bit patterns (in place on x)."""
+    return x.bitwise_xor_(_INT32_MIN) < _i32(keep_threshold(rate) ^ 0x80000000)
+
+
+def seed_words(generator: torch.Generator) -> SeedWords:
+    """Two uint32 words from `generator` (JAX: `jax.random.bits(rng, (2,),
+    uint32)`): the seed of one dropout mask."""
+    w = torch.randint(0, 2**32, (2,), generator=generator, dtype=torch.int64)
+    return int(w[0]), int(w[1])
+
+
+def murmur_mix(x: torch.Tensor) -> torch.Tensor:
+    """Murmur3 32-bit finaliser on int32 bit patterns (uint32 arithmetic with
+    wraparound); updates `x` in place and returns it."""
+    x.bitwise_xor_(_shr(x, 16)).mul_(_i32(0x7FEB352D))
+    x.bitwise_xor_(_shr(x, 15)).mul_(_i32(0x846CA68B))
+    return x.bitwise_xor_(_shr(x, 16))
+
+
+def _hash_keep_mask(seed: SeedWords, shape, rate: float, device=None) -> torch.Tensor:
+    """Bool keep-mask of `shape`: `murmur_mix` of the row-major element index
+    and both seed words, bit for bit JAX's `_hash_keep_mask`."""
+    n = 1
+    for s in shape:
+        n *= s
+    if n < 2**31:
+        idx = torch.arange(n, dtype=torch.int32, device=device)
+    else:  # the uint32 index wraps, as in JAX
+        idx = torch.arange(n, dtype=torch.int64, device=device) & 0xFFFFFFFF
+        idx = torch.where(idx >= 2**31, idx - 2**32, idx).to(torch.int32)
+    x = murmur_mix(idx.bitwise_xor_(_i32(seed[0] * 2654435761)))
+    x = murmur_mix(x.bitwise_xor_(_i32(seed[1])))
+    return below_threshold(x, rate).reshape(shape)
+
+
+def dropout(x: torch.Tensor, rate: float, seed: Optional[SeedWords],
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout with the hash mask of `seed` (two uint32 words)."""
+    if deterministic or rate == 0.0:
+        return x
+    if seed is None:
+        raise ValueError("dropout requires seed words when not deterministic")
+    keep = _hash_keep_mask(seed, x.shape, rate, device=x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def stochastic_depth(residual: torch.Tensor, branch: torch.Tensor, survival_prob: float,
+                     keep: Optional[bool], deterministic: bool) -> torch.Tensor:
+    """Residual + branch, the branch kept with probability `survival_prob`
+    in training (`keep`: one Bernoulli draw for the whole batch); at eval
+    the sum is not rescaled (reference `tensorflow_addons.py:386-390`)."""
+    if deterministic or survival_prob >= 1.0:
+        return residual + branch
+    if keep is None:
+        raise ValueError("stochastic_depth requires a draw when training")
+    return residual + (branch if keep else torch.zeros_like(branch))
 
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:

@@ -68,11 +68,17 @@ def pos_conv_embed(
     a symmetric pad of `kernel_size // 2`, the trailing frame cropped when
     the kernel is even, then GELU.  The caller adds it to `x`.
 
-    Runs through `ops/kernels/pos_conv.pos_conv`: the hand-written kernel
-    for a CUDA tensor, its plain version for a CPU one.
+    Runs through `ops/kernels/pos_conv`: the hand-written kernels for a CUDA
+    tensor, their plain versions for a CPU one.  When an input needs a
+    gradient it is the `PosConvTrain` autograd function (kernel forward and
+    backward); the weight-norm recomposition stays plain torch,
+    differentiated by autograd.  Otherwise (inference, a frozen backbone)
+    it is the forward kernel alone.
     """
     kernel = weight_norm_kernel(weight_v, weight_g)
     gelu_approx = is_gelu_approx or x.dtype == torch.bfloat16
+    if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad or bias.requires_grad):
+        return pos_conv_kernel.PosConvTrain.apply(x, kernel, bias, groups, gelu_approx)
     return pos_conv_kernel.pos_conv(
         x, kernel, bias, groups=groups, gelu_approx=gelu_approx
     )

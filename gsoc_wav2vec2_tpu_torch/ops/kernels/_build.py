@@ -9,6 +9,11 @@ nothing falls back.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()` after the launch; `check` raises on anything but 0.
+
+    python -c "from gsoc_wav2vec2_tpu_torch.ops.kernels import _build; print(_build.ptxas_report())"
+
+compiles every source once more with `-Xptxas -v` (in parallel, nothing
+kept) and prints each kernel's registers, spills and shared memory.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ NVCC_FLAGS = [
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
+F = ctypes.c_float
 LL = ctypes.c_longlong
 # entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
@@ -42,8 +49,20 @@ SIGNATURES = {
     "w2v2_conv01": [P, P, P, P, P, P, I, I, I, I, P],
     # x, w, bias, out, B, T, C, G, K, stream
     "w2v2_pos_conv": [P, P, P, P, I, I, I, I, I, P],
-    # q, k, v, bias, out, lse, BH, H, L, D, stride_b, stride_h, stride_l, stream
-    "w2v2_flash_fwd": [P, P, P, P, P, P, I, I, I, I, LL, LL, LL, P],
+    # x, w, bias, out, pre, B, T, C, G, K, stream
+    "w2v2_pos_conv_train_fwd": [P, P, P, P, P, I, I, I, I, I, P],
+    # dpre, w_flipped, dx, B, T, C, G, K, stream
+    "w2v2_pos_conv_dx": [P, P, P, I, I, I, I, I, P],
+    # x, dpre, part, dw, B, T, C, G, K, splits, stream
+    "w2v2_pos_conv_dw": [P, P, P, P, I, I, I, I, I, I, P],
+    # q, k, v, bias, out, lse, BH, H, L, D, stride_b, stride_h, stride_l,
+    # seed, threshold, hash_stride, inv_keep, dropout, stream
+    "w2v2_flash_fwd": [P, P, P, P, P, P, I, I, I, I, LL, LL, LL, I, U, U, F, I, P],
+    # q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H, L, D,
+    # qkv strides (b, h, l), out strides, dout strides,
+    # seed, threshold, hash_stride, inv_keep, dropout, stream
+    "w2v2_flash_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                       LL, LL, LL, LL, LL, LL, LL, LL, LL, I, U, U, F, I, P],
 }
 
 
@@ -61,6 +80,25 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _compile_all(out_of, extra=()):
+    """One nvcc per source, all started together; [(source, output)] in
+    source order.  Raises `RuntimeError` with the output of every failure."""
+    nvcc = find_nvcc()
+    procs = [(src, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC_DIR), "-c", str(src), "-o", str(out_of(src))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )) for src in _sources()]
+    outputs, failures = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        outputs.append((src, out))
+        if proc.returncode != 0:
+            failures.append(f"{src.name}:\n{out}")
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return outputs
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC_DIR.glob("*.cu*")):
@@ -76,28 +114,14 @@ def build() -> Path:
     lib_path = BUILD_DIR / f"libw2v2_kernels_{_digest()}.so"
     if lib_path.is_file():
         return lib_path
-    nvcc = find_nvcc()
     # objects per process, so that concurrent first uses cannot clobber each other
     obj_dir = BUILD_DIR / f"obj-{os.getpid()}"
     obj_dir.mkdir(parents=True, exist_ok=True)
-    objs, procs = [], []
-    for src in _sources():
-        obj = obj_dir / f"{src.stem}.o"
-        objs.append(obj)
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src), "-o", str(obj)]
-        procs.append((src, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
-    failures = []
-    for src, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{src.name}:\n{out}")
-    if failures:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    objs = [obj_dir / f"{src.stem}.o" for src in _sources()]
+    _compile_all(lambda src: obj_dir / f"{src.stem}.o")  # same order as `objs`
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run(
-        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+        [find_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if link.returncode != 0:
@@ -131,3 +155,14 @@ def check(name: str, err: int) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptxas_report() -> str:
+    """Registers, spills and shared memory of every kernel, from a
+    `-Xptxas -v` compile of each source (objects discarded)."""
+    lines = []
+    for src, out in _compile_all(lambda src: os.devnull, ("-Xptxas", "-v")):
+        lines.append(f"== {src.name}")
+        lines += [ln for ln in out.splitlines()
+                  if any(w in ln for w in ("Compiling entry", "registers", "spill"))]
+    return "\n".join(lines)

@@ -1,13 +1,21 @@
-"""Flash attention forward, head dim 64 (`csrc/flash_attention.cu`).
+"""Flash attention, head dim 64 (`csrc/flash_attention.cu`): forward with
+in-kernel prob dropout, backward, and the `torch.autograd.Function` over
+both.
 
-Counterpart of `gsoc_wav2vec2_tpu/ops/pallas/flash_attention.py::_flash_fwd`:
-softmax(q k^T + key_bias) v with q already scaled by D^-1/2, softmax in f32,
-probabilities cast to the compute dtype before the product with v; returns
-the output and the row logsumexp (kept for the backward of a later slice).
-The key bias is (B, L) f32 (0 / -10000 from `mask_to_bias`); the kernel masks
-the ragged edge itself, so L needs no padding.  q, k, v may be strided views
-(the heads split out of the projections); the kernel reads them in place.  Prob dropout is not in this
-slice: a rate other than 0 raises.
+Counterpart of `gsoc_wav2vec2_tpu/ops/pallas/flash_attention.py`
+(`_flash_fwd`, `_flash_bwd` and the custom VJP `_flash_attention_core`):
+softmax(q k^T + key_bias) [-> dropout] v with q already scaled by D^-1/2,
+softmax in f32, probabilities cast to the compute dtype before the product
+with v; the forward also returns the row logsumexp of the undropped softmax,
+from which the backward recomputes p.  The key bias is (B, L) f32 (0 / -10000
+from `mask_to_bias`); the kernels mask the ragged edge themselves, so L
+needs no padding.  q, k, v may be strided views (the heads split out of the
+projections); the kernels read them in place.
+
+Dropout is the JAX kernel's counter hash (`dropout_mask`): the keep bit of
+element (b, h, row, col) hashes seed + b*H + h and row * Lp + col, with Lp =
+L rounded up to 128 (the JAX wrapper pads L to Lp before its kernel).  The
+same bits come back in the backward, so no mask is ever stored.
 """
 
 from __future__ import annotations
@@ -16,48 +24,142 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..basic import _i32, _shr, below_threshold, keep_threshold
 from . import _build
+
+
+def _mix_seed(seed) -> torch.Tensor:
+    """(seed as uint32) * 2654435761, wrapped to 32 bits, as int32 bits."""
+    s = torch.as_tensor(seed, dtype=torch.int64)
+    s = (s & 0xFFFFFFFF) * 2654435761 & 0xFFFFFFFF
+    return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
+
+
+def dropout_mask(shape, rate: float, seed, row_offset: int = 0, col_offset: int = 0,
+                 row_stride: Optional[int] = None, device=None) -> torch.Tensor:
+    """Bool keep-mask of `shape` (rows, cols), bit for bit JAX's
+    `_dropout_mask`.  `seed` is an int or an integer tensor that broadcasts
+    against the mask from the left (e.g. (B, H, 1, 1) per-head seeds); the
+    arithmetic is uint32 with wraparound, carried in int32 bit patterns."""
+    rows, cols = shape
+    stride = cols if row_stride is None else row_stride
+    r = torch.arange(rows, dtype=torch.int64, device=device) + row_offset
+    c = torch.arange(cols, dtype=torch.int64, device=device) + col_offset
+    idx = (r[:, None] * stride + c[None, :]) & 0xFFFFFFFF
+    x = torch.where(idx >= 2**31, idx - 2**32, idx).to(torch.int32)
+    mix = _mix_seed(seed).to(x.device)
+    x = torch.bitwise_xor(x, mix).mul_(_i32(0x7FEB352D))
+    x = x.bitwise_xor_(_shr(x, 15)).mul_(_i32(0x846CA68B))
+    return below_threshold(x, rate)
+
+
+def padded_length(l: int) -> int:
+    """The hash's row stride: L rounded up to a multiple of 128."""
+    return -(-l // 128) * 128
+
+
+def _head_seeds(seed: int, b: int, h: int, device) -> torch.Tensor:
+    """seed + b*H + h, one per (batch, head): the kernel's flat grid index."""
+    return (seed + torch.arange(b * h, dtype=torch.int64, device=device)).reshape(b, h, 1, 1)
+
+
+def _scores(q, k, bias):
+    s = q.float() @ k.float().transpose(-1, -2)
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    return s
+
+
+def _keep(q, rate, seed):
+    b, h, l, _ = q.shape
+    return dropout_mask((l, l), rate, _head_seeds(seed, b, h, q.device),
+                        row_stride=padded_length(l), device=q.device)
 
 
 def flash_attention_fwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor] = None,
+    *, dropout_rate: float = 0.0, seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k, v (B, H, L, D); bias (B, L) f32 or None -> (out (B, H, L, D) in
-    q's dtype, lse (B, H, L) f32)."""
-    s = q.float() @ k.float().transpose(-1, -2)
-    if bias is not None:
-        s = s + bias.float()[:, None, None, :]
+    q's dtype, lse (B, H, L) f32).  Dropout as JAX's kernel: normalise, cast
+    to the compute dtype, drop, scale by 1 / (1 - rate) in that dtype."""
+    s = _scores(q, k, bias)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None]).to(v.dtype)
+    if dropout_rate:
+        p = torch.where(_keep(q, dropout_rate, seed), p / (1.0 - dropout_rate),
+                        torch.zeros_like(p)).to(v.dtype)
     return (p.float() @ v.float()).to(q.dtype), lse
+
+
+def flash_attention_bwd_plain(
+    q, k, v, bias, out, lse, dout, *, dropout_rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention_fwd_plain`'s out, by recomputing
+    p = exp(s - lse), with the kernel's roundings: ds and the dropped p cast
+    to the compute dtype before their products.  The softmax correction is
+    delta = sum_d dout * out (equal to JAX's sum_k p * dp, dropout included)."""
+    s = _scores(q, k, bias)
+    p = torch.exp(s - lse[..., None])
+    dpt = dout.float() @ v.float().transpose(-1, -2)
+    if dropout_rate:
+        keep = _keep(q, dropout_rate, seed)
+        scale = 1.0 / (1.0 - dropout_rate)
+        r = torch.where(keep, p * scale, torch.zeros_like(p))
+        dp = torch.where(keep, dpt * scale, torch.zeros_like(dpt))
+    else:
+        r, dp = p, dpt
+    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = ds @ k.float()
+    dk = ds.transpose(-1, -2) @ q.float()
+    dv = r.to(v.dtype).float().transpose(-1, -2) @ dout.float()
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _check(name, q, k, v, bias):
+    b, h, l, d = q.shape
+    if d != 64:
+        raise ValueError(f"{name} takes head dim 64, got {d}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise ValueError(f"{name} takes bf16 q, k, v, got {q.dtype}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k, v must share one (B, H, L, D) shape")
+    if not (q.stride() == k.stride() == v.stride()) or not _strided_ok(q):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if bias is not None:
+        if tuple(bias.shape) != (b, l):
+            raise ValueError(f"{name}: bias must be (B, L), got {tuple(bias.shape)}")
+        bias = bias.float().contiguous()
+    return q, k, v, bias
+
+
+def _strided_ok(x: torch.Tensor) -> bool:
+    """Rows of 64 contiguous elements at 16-byte-aligned (batch, head, row)
+    strides: what the kernels' 16-byte copies read in place."""
+    return x.stride(-1) == 1 and not any(st % 8 for st in x.stride()[:3]) and x.data_ptr() % 16 == 0
+
+
+def _check_rate(rate: float) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+
+
+def _dropout_args(l: int, rate: float):
+    return keep_threshold(rate), padded_length(l), 1.0 / (1.0 - rate), int(rate > 0.0)
 
 
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor] = None,
-    *, dropout_rate: float = 0.0,
+    *, dropout_rate: float = 0.0, seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper of `flash_attention_fwd_plain`."""
-    if dropout_rate != 0.0:
-        raise NotImplementedError(
-            "attention-prob dropout arrives with the flash backward; inference passes 0"
-        )
+    _check_rate(dropout_rate)
     if not q.is_cuda:
-        return flash_attention_fwd_plain(q, k, v, bias)
+        return flash_attention_fwd_plain(q, k, v, bias, dropout_rate=dropout_rate, seed=seed)
+    q, k, v, bias = _check("flash_attention_fwd", q, k, v, bias)
     b, h, l, d = q.shape
-    if d != 64:
-        raise ValueError(f"flash_attention_fwd takes head dim 64, got {d}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise ValueError(f"flash_attention_fwd takes bf16 q, k, v, got {q.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("flash_attention_fwd: q, k, v must share one (B, H, L, D) shape")
-    if not (q.stride() == k.stride() == v.stride()) or q.stride(-1) != 1 or any(
-        st % 8 for st in q.stride()[:3]
-    ):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if bias is not None:
-        if tuple(bias.shape) != (b, l):
-            raise ValueError(f"flash_attention_fwd: bias must be (B, L), got {tuple(bias.shape)}")
-        bias = bias.float().contiguous()
+    threshold, stride, inv_keep, drop = _dropout_args(l, dropout_rate)
     # written (B, L, H, D); returned as the (B, H, L, D) view
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
@@ -65,9 +167,72 @@ def flash_attention_fwd(
     lib = _build.library()
     _build.check("flash_attention_fwd", lib.w2v2_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if bias is None else bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b * h, h, l, d, sb, sh, sl, _build.stream_of(q)))
+        out.data_ptr(), lse.data_ptr(), b * h, h, l, d, sb, sh, sl,
+        int(seed), threshold, stride, inv_keep, drop, _build.stream_of(q)))
     flash_attention_fwd.launches += 1
     return out.transpose(1, 2), lse
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(
+    q, k, v, bias, out, lse, dout, *, dropout_rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of `flash_attention_bwd_plain` (three launches: the
+    row deltas, dk/dv, dq).  dq, dk, dv come back as (B, H, L, D) views of
+    (B, L, H, D) tensors, the layout the head split's autograd wants."""
+    _check_rate(dropout_rate)
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, bias, out, lse, dout,
+                                         dropout_rate=dropout_rate, seed=seed)
+    q, k, v, bias = _check("flash_attention_bwd", q, k, v, bias)
+    b, h, l, d = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, l):
+        raise ValueError("flash_attention_bwd: out, dout (B, H, L, D) and lse (B, H, L) expected")
+    if out.dtype != torch.bfloat16 or dout.dtype != torch.bfloat16 or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd takes bf16 out, dout and f32 lse")
+    out = out if _strided_ok(out) else out.contiguous()
+    dout = dout if _strided_ok(dout) else dout.contiguous()
+    lse = lse.contiguous()
+    threshold, stride, inv_keep, drop = _dropout_args(l, dropout_rate)
+    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty((b, l, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    lib = _build.library()
+    _build.check("flash_attention_bwd", lib.w2v2_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if bias is None else bias.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, l, d,
+        *q.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
+        int(seed), threshold, stride, inv_keep, drop, _build.stream_of(q)))
+    flash_attention_bwd.launches += 1
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the counterpart of JAX's custom VJP).
+    The forward saves q, k, v, the bias, out and lse; the backward is the
+    kernel for CUDA tensors and the plain version for CPU ones.  The bias
+    (a mask constant) and the seed get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, dropout_rate: float, seed: int):
+        out, lse = flash_attention_fwd(q, k, v, bias, dropout_rate=dropout_rate, seed=seed)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.dropout_rate, ctx.seed = dropout_rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, bias, out, lse, dout,
+                                         dropout_rate=ctx.dropout_rate, seed=ctx.seed)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, bias=None, *, dropout_rate: float = 0.0, seed: int = 0):
+    """Differentiable attention output (B, H, L, D) through `FlashAttention`."""
+    return FlashAttention.apply(q, k, v, bias, float(dropout_rate), int(seed))

@@ -1,11 +1,25 @@
-"""Grouped positional convolution + bias + GELU (`csrc/pos_conv.cu`).
+"""Grouped positional convolution (`csrc/pos_conv.cu`): the inference
+forward, and the training forward with its backward kernels.
 
-Counterpart of `gsoc_wav2vec2_tpu/ops/pallas/pos_conv.py::pos_conv_fused`:
-GELU(grouped_conv1d(x, kernel, pad=K//2) + bias), trailing frame cropped
-for even K, output (B, T, C).  The kernel is already weight-norm
-recomposed, in the JAX layout (K, C // groups, C).  The CUDA kernel tiles
-time itself, so it takes any T (the TPU kernel stopped at MAX_T = 2048 and
-needed the halo-tiled `pos_conv_blocked` beyond).
+Counterpart of `gsoc_wav2vec2_tpu/ops/pallas/pos_conv.py`:
+
+* `pos_conv` replaces `pos_conv_fused`: GELU(grouped_conv1d(x, kernel,
+  pad=K//2) + bias), trailing frame cropped for even K, output (B, T, C);
+* `pos_conv_train_fwd` replaces `_fwd_train_call`: the same output and the
+  f32 pre-activation (conv + bias), kept for the exact GELU';
+* `pos_conv_dx` replaces `_dx_call`: the correlation of dpre with the
+  tap-flipped, in/out-swapped kernel, pad (K/2 - 1, K/2);
+* `pos_conv_dw` replaces `_dw_call`: dW = sum over (b, t) of the input
+  window times dpre, f32, in the kernel layout (K, C // groups, C);
+* `PosConvTrain` is the `torch.autograd.Function` of JAX's custom VJP
+  `_train_core`; GELU' and db = sum(dpre) stay plain torch around the
+  kernels, as they are XLA code in JAX.
+
+The kernel is already weight-norm recomposed, in the JAX layout
+(K, C // groups, C).  The CUDA kernels tile time themselves, so they take
+any T (the TPU kernels stopped at MAX_T = 2048 and needed the halo-tiled
+`pos_conv_blocked` beyond).  The pre-activation and dpre are (B, T, C) here
+(JAX keeps them grouped, (B, G, T, C // G)).
 """
 
 from __future__ import annotations
@@ -17,17 +31,43 @@ from ..basic import gelu
 from . import _build
 
 
+def _conv_plain(x: torch.Tensor, kernel: torch.Tensor, groups: int, pad_lo: int) -> torch.Tensor:
+    """sum_{k, i} x[t + k - pad_lo, g*CG + i] * kernel[k, i, g*CG + o] in f32
+    from operands rounded to x's dtype; zero outside [0, T); (B, T, C) out."""
+    k = kernel.shape[0]
+    w = kernel.to(x.dtype).float().permute(2, 1, 0)  # (C, C // groups, K)
+    xp = F.pad(x.float().transpose(1, 2), (pad_lo, k - 1 - pad_lo))
+    return F.conv1d(xp, w, groups=groups).transpose(1, 2)
+
+
 def pos_conv_plain(
     x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,
     groups: int, gelu_approx: bool,
 ) -> torch.Tensor:
     """Same function as the kernel: the kernel is cast to the activation
     dtype and every product accumulates in f32 before bias and GELU."""
-    k = kernel.shape[0]
-    w = kernel.to(x.dtype).float().permute(2, 1, 0)  # (C, C // groups, K)
-    y = F.conv1d(x.float().transpose(1, 2), w, bias.float(), padding=k // 2, groups=groups)
-    y = y[:, :, : x.shape[1]].transpose(1, 2)  # crops the even-K trailing frame
+    y = _conv_plain(x, kernel, groups, kernel.shape[0] // 2) + bias.float()
     return gelu(y, approximate=gelu_approx).to(x.dtype)
+
+
+def _check(name, x, kernel, groups):
+    b, t, c = x.shape
+    k, cg, c_out = kernel.shape
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name} takes bf16 activations, got {x.dtype}")
+    if c % groups or cg != c // groups or c_out != c or cg not in (16, 48):
+        raise ValueError(
+            f"{name}: kernel {tuple(kernel.shape)} with {groups} groups does not fit "
+            f"{c} channels (the kernel takes C // groups of 48, base, or 16)"
+        )
+    return b, t, c, k, cg
+
+
+def _grouped(kernel: torch.Tensor, groups: int) -> torch.Tensor:
+    """(K, CG, C) -> (G, K * CG, CG) bf16: group g's block, rows (tap, in-channel)."""
+    k, cg, _ = kernel.shape
+    return (kernel.reshape(k, cg, groups, cg).permute(2, 0, 1, 3)
+            .reshape(groups, k * cg, cg).to(torch.bfloat16).contiguous())
 
 
 def pos_conv(
@@ -37,23 +77,11 @@ def pos_conv(
     """Kernel wrapper of `pos_conv_plain`."""
     if not x.is_cuda:
         return pos_conv_plain(x, kernel, bias, groups=groups, gelu_approx=gelu_approx)
-    b, t, c = x.shape
-    k, cg, c_out = kernel.shape
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"pos_conv takes bf16 activations, got {x.dtype}")
+    b, t, c, k, _ = _check("pos_conv", x, kernel, groups)
     if not gelu_approx:
         raise ValueError("pos_conv computes tanh GELU only, the form every bf16 path takes")
-    if c % groups or cg != c // groups or c_out != c or cg not in (16, 48):
-        raise ValueError(
-            f"pos_conv: kernel {tuple(kernel.shape)} with {groups} groups does not fit "
-            f"{c} channels (the kernel takes C // groups of 48, base, or 16)"
-        )
     x = x.contiguous()
-    # (K, CG, C) -> (G, K * CG, CG): group g's block, rows ordered (tap, in-channel)
-    wg = (
-        kernel.reshape(k, cg, groups, cg).permute(2, 0, 1, 3)
-        .reshape(groups, k * cg, cg).to(torch.bfloat16).contiguous()
-    )
+    wg = _grouped(kernel, groups)
     bias = bias.float().contiguous()
     out = torch.empty_like(x)
     lib = _build.library()
@@ -65,3 +93,141 @@ def pos_conv(
 
 
 pos_conv.launches = 0
+
+
+def pos_conv_train_fwd_plain(x, kernel, bias, *, groups: int, gelu_approx: bool):
+    """(GELU(pre) in x's dtype, pre (B, T, C) f32), pre = conv + bias."""
+    pre = _conv_plain(x, kernel, groups, kernel.shape[0] // 2) + bias.float()
+    return gelu(pre, approximate=gelu_approx).to(x.dtype), pre
+
+
+def pos_conv_train_fwd(x, kernel, bias, *, groups: int, gelu_approx: bool):
+    """Kernel wrapper of `pos_conv_train_fwd_plain`."""
+    if not x.is_cuda:
+        return pos_conv_train_fwd_plain(x, kernel, bias, groups=groups, gelu_approx=gelu_approx)
+    b, t, c, k, _ = _check("pos_conv_train_fwd", x, kernel, groups)
+    if not gelu_approx:
+        raise ValueError("pos_conv_train_fwd computes tanh GELU only, the form every bf16 path takes")
+    x = x.contiguous()
+    wg = _grouped(kernel, groups)
+    bias = bias.float().contiguous()
+    out = torch.empty_like(x)
+    pre = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    _build.check("pos_conv_train_fwd", lib.w2v2_pos_conv_train_fwd(
+        x.data_ptr(), wg.data_ptr(), bias.data_ptr(), out.data_ptr(), pre.data_ptr(),
+        b, t, c, groups, k, _build.stream_of(x)))
+    pos_conv_train_fwd.launches += 1
+    return out, pre
+
+
+pos_conv_train_fwd.launches = 0
+
+
+def dx_kernel(kernel: torch.Tensor, groups: int) -> torch.Tensor:
+    """The dx correlation's kernel in the (K, CG, C) layout: taps flipped and,
+    within each group, input and output channels swapped."""
+    k, cg, c = kernel.shape
+    return (kernel.reshape(k, cg, groups, cg).flip(0).permute(0, 3, 2, 1)
+            .reshape(k, cg, c))
+
+
+def pos_conv_dx_plain(dpre: torch.Tensor, kernel: torch.Tensor, *, groups: int) -> torch.Tensor:
+    """dx (B, T, C) in dpre's dtype: the forward conv of dpre with
+    `dx_kernel(kernel)` and pad (K/2 - 1, K/2), f32 sums."""
+    k = kernel.shape[0]
+    return _conv_plain(dpre, dx_kernel(kernel, groups), groups, k // 2 - 1).to(dpre.dtype)
+
+
+def pos_conv_dx(dpre: torch.Tensor, kernel: torch.Tensor, *, groups: int) -> torch.Tensor:
+    """Kernel wrapper of `pos_conv_dx_plain` (dpre in bf16 on the card)."""
+    if not dpre.is_cuda:
+        return pos_conv_dx_plain(dpre, kernel, groups=groups)
+    b, t, c, k, _ = _check("pos_conv_dx", dpre, kernel, groups)
+    dpre = dpre.contiguous()
+    wk = _grouped(dx_kernel(kernel, groups), groups)
+    dx = torch.empty_like(dpre)
+    lib = _build.library()
+    _build.check("pos_conv_dx", lib.w2v2_pos_conv_dx(
+        dpre.data_ptr(), wk.data_ptr(), dx.data_ptr(), b, t, c, groups, k, _build.stream_of(dpre)))
+    pos_conv_dx.launches += 1
+    return dx
+
+
+pos_conv_dx.launches = 0
+
+
+def pos_conv_dw_plain(x: torch.Tensor, dpre: torch.Tensor, kernel_size: int, *,
+                      groups: int) -> torch.Tensor:
+    """dW (K, C // groups, C) f32: dW[k, i, g*CG + o] = sum over (b, t) of
+    x[b, t + k - K/2, g*CG + i] * dpre[b, t, g*CG + o] (zero outside [0, T)),
+    one batched product per tap."""
+    b, t, c = x.shape
+    k, cg = kernel_size, c // groups
+    xp = F.pad(x.float(), (0, 0, k // 2, k - 1 - k // 2))  # (B, T + K - 1, C)
+    d = dpre.float().reshape(b * t, groups, cg).permute(1, 0, 2)  # (G, BT, CG)
+    dw = torch.empty((k, cg, c), dtype=torch.float32, device=x.device)
+    for tap in range(k):
+        win = xp[:, tap:tap + t].reshape(b * t, groups, cg).permute(1, 2, 0)  # (G, CG, BT)
+        dw[tap] = (win @ d).permute(1, 0, 2).reshape(cg, c)
+    return dw
+
+
+def pos_conv_dw(x: torch.Tensor, dpre: torch.Tensor, kernel_size: int, *,
+                groups: int) -> torch.Tensor:
+    """Kernel wrapper of `pos_conv_dw_plain` (x and dpre bf16 on the card):
+    the batch is split over up to 4 partial tiles, summed in a fixed order."""
+    if not x.is_cuda:
+        return pos_conv_dw_plain(x, dpre, kernel_size, groups=groups)
+    b, t, c = x.shape
+    k, cg = kernel_size, c // groups
+    if x.dtype != torch.bfloat16 or dpre.dtype != torch.bfloat16 or dpre.shape != x.shape:
+        raise ValueError("pos_conv_dw takes bf16 x and dpre of one (B, T, C) shape")
+    if c % groups or cg not in (16, 48) or k % 8:
+        raise ValueError(
+            f"pos_conv_dw takes C // groups of 48 (base) or 16 and a multiple of 8 taps, "
+            f"got {c} channels, {groups} groups, {k} taps"
+        )
+    x, dpre = x.contiguous(), dpre.contiguous()
+    splits = min(b, 4)
+    part = torch.empty((splits, groups, k * cg, cg), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, cg, c), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    _build.check("pos_conv_dw", lib.w2v2_pos_conv_dw(
+        x.data_ptr(), dpre.data_ptr(), part.data_ptr(), dw.data_ptr(), b, t, c, groups, k,
+        splits, _build.stream_of(x)))
+    pos_conv_dw.launches += 1
+    return dw
+
+
+pos_conv_dw.launches = 0
+
+
+class PosConvTrain(torch.autograd.Function):
+    """GELU(grouped conv + bias) with the kernels' backward (JAX's
+    `_train_core` / `_train_fwd` / `_train_bwd`).  Saves x, the kernel and
+    the f32 pre-activation; the backward takes GELU' from the saved
+    pre-activation, db = sum(dpre), and dx, dW from the kernels (their plain
+    versions for CPU tensors), with dpre cast to x's dtype first."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, groups: int, gelu_approx: bool):
+        y, pre = pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=gelu_approx)
+        ctx.save_for_backward(x, kernel, pre)
+        ctx.groups, ctx.gelu_approx, ctx.bias_dtype = groups, gelu_approx, bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kernel, pre = ctx.saved_tensors
+        dpre = torch.ops.aten.gelu_backward(
+            dy.float(), pre, approximate="tanh" if ctx.gelu_approx else "none")
+        dx = dk = db = None
+        if ctx.needs_input_grad[2]:
+            db = dpre.sum(dim=(0, 1)).to(ctx.bias_dtype)
+        dpre = dpre.to(x.dtype)
+        if ctx.needs_input_grad[0]:
+            dx = pos_conv_dx(dpre, kernel, groups=ctx.groups)
+        if ctx.needs_input_grad[1]:
+            dk = pos_conv_dw(x, dpre, kernel.shape[0], groups=ctx.groups).to(kernel.dtype)
+        return dx, dk, db, None, None

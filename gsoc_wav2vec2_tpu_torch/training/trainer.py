@@ -1,0 +1,163 @@
+"""Train and eval steps (counterpart of `gsoc_wav2vec2_tpu/training/trainer.py`).
+
+JAX compiles forward, CTC loss, backward and the Adam update into one `jit`
+with donated state.  PyTorch runs them eagerly; the step updates the model's
+parameters and the optimizer's state in place (the counterpart of the
+donation), and returns the same `TrainState` object.  The loss is JAX's:
+SUM of per-sample CTC losses over the batch divided by `division_factor`
+(the global batch size, reference `main.py:196-200`), with either the
+reference's constant logit length or the `length_aware` one.
+
+`batch` is a dict with "speech" (B, L) float, "labels" (B, U) int, pad-padded,
+and optionally "attention_mask" (B, L); tensors or numpy arrays, moved to the
+model's device.  Randomness (dropout, SpecAugment, stochastic depth) comes
+from the `torch.Generator` the caller passes to each step.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
+
+from ..models.config import Wav2Vec2Config
+from ..models.modeling import default_compute_dtype, wav2vec2_for_ctc_forward
+from ..ops.ctc import ctc_loss_fn
+from .state import TrainState
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32."""
+    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+
+
+def _to_device(batch: dict, device: torch.device) -> dict:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def make_ctc_loss_fn(config: Wav2Vec2Config, *, division_factor: float,
+                     with_attention_mask: bool = False, length_aware: bool = False,
+                     compute_dtype: Optional[torch.dtype] = None):
+    """`(model, batch, generator) -> scalar loss` of the training forward
+    (JAX `_make_ctc_loss_fn`).  What is frozen is what has `requires_grad`
+    off (`set_trainable`)."""
+
+    def loss_fn(model, batch: dict, generator: torch.Generator) -> torch.Tensor:
+        dev = model.device
+        batch = _to_device(batch, dev)
+        mask = batch.get("attention_mask") if with_attention_mask else None
+        logits = wav2vec2_for_ctc_forward(
+            model, config, batch["speech"].float(), mask,
+            compute_dtype=compute_dtype or default_compute_dtype(dev),
+            training=True, generator=generator,
+        )
+        b, t = logits.shape[0], logits.shape[1]
+        if length_aware and mask is not None:
+            logit_lengths = config.conv_output_length(mask.to(torch.int64).sum(dim=-1))
+        else:
+            # the reference's constant logit length, padding frames included
+            logit_lengths = torch.full((b,), t, dtype=torch.int64)
+        per_sample = ctc_loss_fn(logits, batch["labels"], logit_lengths, config.pad_id)
+        return per_sample.sum() / division_factor
+
+    return loss_fn
+
+
+def ema_update(ema_params: Dict[str, torch.Tensor], model, decay: float) -> None:
+    """In place, `ema <- ema * decay + params * (1 - decay)` (no bias
+    correction: the shadow starts at the initial parameters)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            e = ema_params[name]
+            e.copy_(e * decay + p.to(e.dtype) * (1.0 - decay))
+
+
+def _trainable(model):
+    return [p for p in model.parameters() if p.requires_grad]
+
+
+def _apply(state: TrainState, loss: torch.Tensor, ema_decay: Optional[float]):
+    grads = [p.grad for p in _trainable(state.model) if p.grad is not None]
+    metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+    state.optimizer.step()
+    if ema_decay is not None:
+        ema_update(state.ema_params, state.model, ema_decay)
+    state.step += 1
+    return state, metrics
+
+
+def make_train_step(config: Wav2Vec2Config, *, division_factor: float,
+                    with_attention_mask: bool = False, length_aware: bool = False,
+                    compute_dtype: Optional[torch.dtype] = None,
+                    ema_decay: Optional[float] = None):
+    """`(state, batch, generator) -> (state, {"loss", "grad_norm"})`: one
+    forward, backward and Adam update, in place, of the parameters that
+    `set_trainable` left trainable.  With `ema_decay` the state must carry
+    `ema_params`."""
+    loss_fn = make_ctc_loss_fn(config, division_factor=division_factor,
+                               with_attention_mask=with_attention_mask,
+                               length_aware=length_aware, compute_dtype=compute_dtype)
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(state.model, batch, generator)
+        loss.backward()
+        return _apply(state, loss, ema_decay)
+
+    return step
+
+
+def make_grad_accum_steps(config: Wav2Vec2Config, *, division_factor: float,
+                          with_attention_mask: bool = False, length_aware: bool = False,
+                          compute_dtype: Optional[torch.dtype] = None,
+                          ema_decay: Optional[float] = None):
+    """Gradient accumulation, `(init_fn, accum_fn, apply_fn)`: microbatch
+    gradients sum in the parameters' `.grad`, so with `division_factor` the
+    effective batch size the update equals one step on the whole batch::
+
+        loss = init_fn(state)
+        for batch in microbatches:
+            loss = accum_fn(state, batch, generator, loss)
+        state, metrics = apply_fn(state, loss)
+    """
+    loss_fn = make_ctc_loss_fn(config, division_factor=division_factor,
+                               with_attention_mask=with_attention_mask,
+                               length_aware=length_aware, compute_dtype=compute_dtype)
+
+    def init_fn(state: TrainState) -> torch.Tensor:
+        state.optimizer.zero_grad(set_to_none=True)
+        return torch.zeros((), dtype=torch.float32)
+
+    def accum_fn(state: TrainState, batch: dict, generator: torch.Generator,
+                 loss_acc: torch.Tensor) -> torch.Tensor:
+        loss = loss_fn(state.model, batch, generator)
+        loss.backward()
+        return loss_acc + loss.detach().cpu()
+
+    def apply_fn(state: TrainState, loss_acc: torch.Tensor):
+        return _apply(state, loss_acc, ema_decay)
+
+    return init_fn, accum_fn, apply_fn
+
+
+def make_eval_step(config: Wav2Vec2Config, *, with_attention_mask: bool = False,
+                   compute_dtype: Optional[torch.dtype] = None):
+    """`(model, batch) -> (greedy_ids (B, T) int32, frame_lengths (B,) int32)`
+    for WER evaluation; the CTC collapse stays on the host."""
+
+    def eval_step(model, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        dev = model.device
+        batch = _to_device(batch, dev)
+        mask = batch.get("attention_mask") if with_attention_mask else None
+        with torch.inference_mode():
+            logits = wav2vec2_for_ctc_forward(
+                model, config, batch["speech"].float(), mask,
+                compute_dtype=compute_dtype or default_compute_dtype(dev))
+        predictions = logits.argmax(dim=-1).to(torch.int32)
+        if mask is not None:
+            lengths = config.conv_output_length(mask.to(torch.int64).sum(dim=-1))
+        else:
+            lengths = torch.full((logits.shape[0],), logits.shape[1], dtype=torch.int64)
+        return predictions, lengths.to(torch.int32)
+
+    return eval_step

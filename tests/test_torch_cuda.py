@@ -133,3 +133,135 @@ def test_robust_family_raises_on_card(cuda):
     with pytest.raises(NotImplementedError, match="fused_conv01_robust"):
         with torch.inference_mode():
             model(torch.randn(1, 16000, device=cuda))
+
+
+def _peaky_qkv(b, h, l, g, cuda):
+    """bf16 q, k, v, dout with scores of std ~6: most rows have one
+    dominant key, so a keep bit that differs moves that row by ~|v|."""
+    q, k, v, dout = (torch.randn(b, h, l, 64, generator=g).to(cuda, torch.bfloat16)
+                     for _ in range(4))
+    return q * 0.75, k, v, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [200, 768])
+def test_flash_dropout_fwd_bwd_match_plain_on_card(cuda, l):
+    """The kernels' dropout against the plain versions, same seed, ragged
+    bias, forward and backward.  The tolerances are far below what one
+    differing keep bit moves; a plain run with another seed shows it."""
+    g = torch.Generator().manual_seed(l)
+    q, k, v, dout = _peaky_qkv(2, 4, l, g, cuda)
+    bias = torch.zeros(2, l)
+    bias[1, l // 3:] = -10000.0
+    bias = bias.to(cuda)
+    for rate in (0.0, 0.1):
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, bias, dropout_rate=rate, seed=99)
+        pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=rate,
+                                                               seed=99)
+        assert (out.float() - pout.float()).abs().max().item() < 0.04
+        torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-3)
+        grads = flash_attention.flash_attention_bwd(q, k, v, bias, pout, plse, dout,
+                                                    dropout_rate=rate, seed=99)
+        pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, bias, pout, plse, dout,
+                                                           dropout_rate=rate, seed=99)
+        for got, want in zip(grads, pgrads):
+            scale = want.float().abs().max().item()
+            assert (got.float() - want.float()).abs().max().item() < 0.01 * scale
+    other, _ = flash_attention.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=0.1, seed=100)
+    assert (other.float() - pout.float()).abs().max().item() > 0.4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [768, 256])
+def test_pos_conv_train_kernels_match_plain_on_card(cuda, c):
+    """Training forward (output and f32 pre-activation), dx and dW against
+    their plain versions, C/G = 48 and 16, a ragged T."""
+    g = torch.Generator().manual_seed(c)
+    t, groups = 300, 16
+    x, dpre = (torch.randn(2, t, c, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    kernel = (torch.randn(128, c // groups, c, generator=g) * 0.02).to(cuda)
+    bias = (0.1 * torch.randn(c, generator=g)).to(cuda)
+    y, pre = pos_conv.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True)
+    py, ppre = pos_conv.pos_conv_train_fwd_plain(x, kernel, bias, groups=groups, gelu_approx=True)
+    assert (y.float() - py.float()).abs().max().item() < 0.05
+    torch.testing.assert_close(pre, ppre, rtol=0, atol=1e-4 * ppre.abs().max().item())
+    dx = pos_conv.pos_conv_dx(dpre, kernel, groups=groups).float()
+    pdx = pos_conv.pos_conv_dx_plain(dpre, kernel, groups=groups).float()
+    assert (dx - pdx).abs().max().item() < 0.015 * pdx.abs().max().item()
+    dw = pos_conv.pos_conv_dw(x, dpre, 128, groups=groups)
+    pdw = pos_conv.pos_conv_dw_plain(x, dpre, 128, groups=groups)
+    torch.testing.assert_close(dw, pdw, rtol=0, atol=1e-4 * pdw.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_train_kernel_wrappers_raise_on_wrong_dtype(cuda):
+    x = torch.randn(2, 64, 768, device=cuda)
+    kernel = torch.randn(128, 48, 768, device=cuda)
+    bias = torch.zeros(768, device=cuda)
+    with pytest.raises(ValueError):
+        pos_conv.pos_conv_train_fwd(x, kernel, bias, groups=16, gelu_approx=True)
+    with pytest.raises(ValueError):
+        pos_conv.pos_conv_dx(x, kernel, groups=16)
+    with pytest.raises(ValueError):
+        pos_conv.pos_conv_dw(x, x, 128, groups=16)
+    q = torch.randn(2, 4, 64, 64, device=cuda)
+    lse = torch.zeros(2, 4, 64, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_bwd(q, q, q, None, q, lse, q)
+
+
+@pytest.mark.cuda
+def test_small_model_train_step_goes_through_the_kernels(cuda):
+    """A narrow base model's stage-2 step launches each kernel once per
+    site (the attention ones once per layer), and its loss goes down over
+    a few steps on one fixed batch."""
+    from gsoc_wav2vec2_tpu_torch.training import (
+        create_optimizer, create_train_state, make_train_step, set_trainable)
+
+    cfg = Wav2Vec2Config(hidden_size=128, num_heads=2, num_layers=2, intermediate_size=256,
+                         filter_sizes=[256] * 7, num_conv_pos_embedding_groups=8,
+                         dropout=0.0, apply_spec_augment=False)
+    model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    labels = torch.randint(1, cfg.vocab_size, (2, 12), generator=g)
+    labels[1, 8:] = 0
+    batch = {"speech": torch.randn(2, 32000, generator=g), "labels": labels}
+    set_trainable(model, ("feature_extractor",))
+    state = create_train_state(model, create_optimizer(model, 1e-3))
+    step = make_train_step(cfg, division_factor=2)
+    kernels = {"window_stats": conv_frontend.window_stats, "conv01": conv_frontend.conv01,
+               "pos_conv": pos_conv.pos_conv, "pos_conv_train_fwd": pos_conv.pos_conv_train_fwd,
+               "pos_conv_dx": pos_conv.pos_conv_dx, "pos_conv_dw": pos_conv.pos_conv_dw,
+               "flash_attention_fwd": flash_attention.flash_attention_fwd,
+               "flash_attention_bwd": flash_attention.flash_attention_bwd}
+    losses = []
+    for i in range(6):
+        for fn in kernels.values():
+            fn.launches = 0
+        state, metrics = step(state, batch, torch.Generator().manual_seed(i))
+        losses.append(metrics["loss"].item())
+        assert {k: fn.launches for k, fn in kernels.items()} == {
+            "window_stats": 1, "conv01": 1, "pos_conv": 0, "pos_conv_train_fwd": 1,
+            "pos_conv_dx": 1, "pos_conv_dw": 1, "flash_attention_fwd": 2,
+            "flash_attention_bwd": 2}
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_trainable_front_end_raises_on_card(cuda):
+    """The fused conv front end has no backward kernel: a step that would
+    train conv0/conv1 on the card raises instead of dropping their
+    gradients."""
+    from gsoc_wav2vec2_tpu_torch.training import (
+        create_optimizer, create_train_state, make_train_step, set_trainable)
+
+    cfg = Wav2Vec2Config(hidden_size=128, num_heads=2, num_layers=1, intermediate_size=256,
+                         filter_sizes=[256] * 7, num_conv_pos_embedding_groups=8,
+                         dropout=0.0, apply_spec_augment=False)
+    model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+    set_trainable(model, ())
+    state = create_train_state(model, create_optimizer(model, 1e-3))
+    batch = {"speech": torch.randn(2, 16000), "labels": torch.ones(2, 4, dtype=torch.int64)}
+    with pytest.raises(NotImplementedError, match="no backward"):
+        make_train_step(cfg, division_factor=2)(state, batch, torch.Generator().manual_seed(0))

@@ -34,6 +34,32 @@ def test_port_imports_no_jax(pattern):
     assert not hits, hits
 
 
+def test_sources_cover_training():
+    names = {str(f.relative_to(PORT)) for f in _sources() if PORT in f.parents}
+    assert {"training/__init__.py", "training/state.py", "training/trainer.py"} <= names
+
+
+def test_importing_the_port_loads_no_jax():
+    """A fresh interpreter that imports every module of the port, training/*
+    included, has neither `jax` nor the JAX package in `sys.modules`."""
+    mods = sorted(
+        ".".join(("gsoc_wav2vec2_tpu_torch",) + f.relative_to(PORT).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for f in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'gsoc_wav2vec2_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "gsoc_wav2vec2_tpu_torch.training.trainer" in mods
+
+
 def test_port_calls_no_library_kernels():
     hits = [str(f.relative_to(ROOT)) for f in sorted(PORT.rglob("*.py"))
             if re.search(r"scaled_dot_product_attention|torch\.compile", f.read_text())]

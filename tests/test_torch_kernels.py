@@ -125,6 +125,26 @@ def test_flash_plain_matches_pallas(ragged):
 
 
 def test_flash_rejects_dropout():
+    """Prob dropout is in the kernel now; only rates outside [0, 1) raise."""
     q, k, v = map(_t, _qkv(4, l=16))
-    with pytest.raises(NotImplementedError):
-        flash_attention.flash_attention_fwd(q, k, v, dropout_rate=0.1)
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError, match="dropout rate"):
+            flash_attention.flash_attention_fwd(q, k, v, dropout_rate=rate)
+    out, _ = flash_attention.flash_attention_fwd(q, k, v, dropout_rate=0.1, seed=3)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("l", [200, 256])
+def test_flash_dropout_plain_matches_pallas(l):
+    """Dropout 0.3 with a ragged bias, same seed: the plain forward against
+    the Pallas kernel in interpret mode (L = 200 hashes with the padded
+    stride 256)."""
+    q, k, v = _qkv(5, l=l)
+    mask = np.ones((2, l), np.float32)
+    mask[1, l // 3:] = 0.0
+    bias = np.asarray(jax_mask_to_bias(jnp.asarray(mask)))
+    want = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v)), jnp.asarray(bias),
+                                dropout_rate=0.3, dropout_seed=21, interpret=True))
+    out, _ = flash_attention.flash_attention_fwd(
+        _t(q), _t(k), _t(v), _t(bias.reshape(2, l)), dropout_rate=0.3, seed=21)
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-4)
