@@ -6,10 +6,12 @@ Phases, each printing one JSON line:
   1. card    -- device name and `nvidia-smi` name / power limit;
   2. build   -- the CUDA kernels built from `gsoc_wav2vec2_tpu_torch/csrc`;
   3. kernels -- each kernel against its plain PyTorch version at the main
-                paths' shapes (inference: B=16 x 246000 samples; training:
-                B=32 x 246000, base width), with its median time, the plain
-                version's, a PyTorch library call's (a yardstick the port
-                never calls) and the card's bound;
+                paths' shapes (base inference: B=16 x 246000 samples; base
+                training: B=32 x 246000; long: 1 x 1,920,000 samples = 5999
+                frames, attention also at 8192 and 32768 frames; those of
+                the robust/large shapes open phase 7), with its median
+                time, the plain version's, a PyTorch library call's (a
+                yardstick the port never calls) and the card's bound;
   4. main    -- full-width, full-depth base `Wav2Vec2ForCTC` from seeded
                 weights: a bf16 batch through `GreedyCTCEvaluator`, three
                 requests of different lengths, one 40 s clip through
@@ -22,7 +24,23 @@ Phases, each printing one JSON line:
                 stage-2 step, step time, peak memory; then one
                 deterministic stage-2 loss + gradient on the card (bf16)
                 against the same card step through the plain attention
-                backward and against the f32 CPU copy.
+                backward and against the f32 CPU copy;
+  7. robust  -- the robust/large family at full width and depth (1024-d, 24
+                pre-norm layers, 16 heads, LayerNorm conv stack), seeded
+                weights: its kernels as in phase 3 (B=8 x 246000: conv front
+                end with LayerNorm, pos conv at 64 channels a group, attention
+                at 16 heads), then a ragged B=8 x 246000 batch through
+                `GreedyCTCEvaluator.predict_batch` (sample mask on every
+                call), `evaluate_bucketed` over 24 utterances of mixed
+                length, a timed and a profiled forward, one row's logits
+                against the f32 CPU copy; then one stage-1 and 6 stage-2
+                steps at B=8 x 246000 with dropout 0.1, SpecAugment and the
+                mask; exact launch counts per forward and per step;
+  8. long    -- 120 s of audio in one pass (base width, 4 layers): one
+                utterance of 1,920,000 samples (5999 frames) through
+                `predict_batch` and through a stage-2 step with dropout
+                0.1, each held against the same path through the plain
+                versions on the card.
 Then the `kernels` line (every kernel's record), the card line and, last,
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 non-zero without that line; without CUDA it exits at once.
@@ -30,6 +48,7 @@ non-zero without that line; without CUDA it exits at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -39,8 +58,13 @@ import time
 import numpy as np
 import torch
 
-from gsoc_wav2vec2_tpu_torch import GreedyCTCEvaluator, Wav2Vec2Config, Wav2Vec2ForCTC
-from gsoc_wav2vec2_tpu_torch.evaluation import plan_chunks
+from gsoc_wav2vec2_tpu_torch import (
+    GreedyCTCEvaluator,
+    RobustWav2Vec2Config,
+    Wav2Vec2Config,
+    Wav2Vec2ForCTC,
+)
+from gsoc_wav2vec2_tpu_torch.evaluation import default_buckets, plan_chunks
 from gsoc_wav2vec2_tpu_torch.models.modeling import wav2vec2_for_ctc_forward
 from gsoc_wav2vec2_tpu_torch.ops import conv as conv_ops
 from gsoc_wav2vec2_tpu_torch.ops.kernels import _build
@@ -64,6 +88,66 @@ TRAIN_B = 32  # the recipe's per-device batch (cli/train.py)
 STAGE2 = ("feature_extractor",)
 STAGE1 = ("wav2vec2",)
 STAGE2_STEPS = 12
+ROBUST_B = 8            # the JAX package's own large-model shape: B=8 x 246000
+ROBUST_STAGE2_STEPS = 6
+LONG_SAMPLES = 1_920_000  # 120 s: 5999 frames, past 4096 and not a multiple of 128
+LONG_LAYERS = 4
+CSRC = "gsoc_wav2vec2_tpu_torch/csrc/"
+PALLAS = "gsoc_wav2vec2_tpu/ops/pallas/"
+
+# every kernel wrapper that counts its launches
+KERNELS = {
+    "window_stats": cf.window_stats, "fused_conv01": cf.conv01,
+    "conv01_robust": cf.conv01_robust, "pos_conv": pc.pos_conv,
+    "pos_conv_train_fwd": pc.pos_conv_train_fwd, "pos_conv_dx": pc.pos_conv_dx,
+    "pos_conv_dw": pc.pos_conv_dw, "flash_attention_fwd": fa.flash_attention_fwd,
+    "flash_attention_bwd": fa.flash_attention_bwd,
+}
+# the paths whose launches count for each family of records
+BASE_PATHS = ("inference", "train", "long_inference", "long_train")
+ROBUST_PATHS = ("robust_inference", "robust_train")
+SHORT_PATHS = ("inference", "train") + ROBUST_PATHS
+LONG_PATHS = ("long_inference", "long_train")
+
+
+def reset_counts() -> None:
+    torch.cuda.synchronize()
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in KERNELS.items()}
+
+
+def counts_since(before: dict) -> dict:
+    return {k: fn.launches - before[k] for k, fn in KERNELS.items()}
+
+
+def expect_counts(what: str, got: dict, want: dict) -> None:
+    """Exact launch counts: every wrapper not named in `want` must show 0."""
+    full = {k: want.get(k, 0) for k in KERNELS}
+    require(got == full, f"launches in {what}: {got} != {full}")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route every kernel wrapper to its plain version (on the card), to hold
+    a whole path through the kernels against the same path without them."""
+    swaps = [(cf, "window_stats", cf.window_stats_plain), (cf, "conv01", cf.conv01_plain),
+             (cf, "conv01_robust", cf.conv01_robust_plain), (pc, "pos_conv", pc.pos_conv_plain),
+             (pc, "pos_conv_train_fwd", pc.pos_conv_train_fwd_plain),
+             (pc, "pos_conv_dx", pc.pos_conv_dx_plain), (pc, "pos_conv_dw", pc.pos_conv_dw_plain),
+             (fa, "flash_attention_fwd", fa.flash_attention_fwd_plain),
+             (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -134,6 +218,40 @@ def profile_forward(model, config, x, reps: int = 3):
     return profile_device(forward, reps, "forward")
 
 
+def pos_conv_eval_record(kernel, bias, b, t, name, paths, gen):
+    """The inference pos conv against its plain version at (b, t, C) and at
+    T = 3000 (2 rows); returns its record, timed at (b, t, C)."""
+    dev = torch.device("cuda")
+    k, cg, h = kernel.shape
+    groups = h // cg
+    for tt in (3000, t):
+        xs = torch.randn(b if tt == t else 2, tt, h, generator=gen).to(dev, torch.bfloat16)
+        got = pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True)
+        want = pc.pos_conv_plain(xs, kernel, bias, groups=groups, gelu_approx=True)
+        torch.cuda.synchronize()
+        err, mean_err = errors(got, want)
+        tol = 0.05
+        require(err <= tol and mean_err <= 5e-3, f"{name} T={tt}: err {err} / mean {mean_err}")
+    nbytes = xs.numel() * 2 * 2 + kernel.numel() * 2 + h * 4
+    flops = 2 * b * t * k * cg * h
+    bms, by = bound(nbytes, flops, PEAK_BF16)
+    wt = kernel.to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, CG, K)
+    bb = bias.to(torch.bfloat16)
+
+    def library_pos_conv():
+        y = torch.nn.functional.conv1d(xs.transpose(1, 2), wt, bb, padding=k // 2, groups=groups)
+        return torch.nn.functional.gelu(y[:, :, :t], approximate="tanh")
+
+    return dict(
+        name=name, counter="pos_conv", paths=paths, route="cuda", source=CSRC + "pos_conv.cu",
+        replaces=PALLAS + "pos_conv.py:250", shape=[b, t, h], channels_per_group=cg,
+        max_abs_err=err, mean_abs_err=mean_err, tol=tol,
+        ms=time_ms(lambda: pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True), 20),
+        plain_ms=time_ms(lambda: pc.pos_conv_plain(xs, kernel, bias, groups=groups, gelu_approx=True), 5),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(library_pos_conv, 20),
+    )
+
+
 def check_kernels(model):
     """Phase 3.  Returns the kernel records (launches filled in later)."""
     dev = torch.device("cuda")
@@ -146,8 +264,7 @@ def check_kernels(model):
 
     # -- window_stats + fused_conv01 at (16, 246000) --------------------------
     x = torch.randn(B, SAMPLES, generator=gen).to(dev, torch.bfloat16)
-    t0 = cf.conv0_length(SAMPLES)
-    t1 = 1 + (t0 - 3) // 2
+    t0, t1 = cf.conv0_length(SAMPLES), cf.conv1_length(SAMPLES)
     gram, rsum = cf.window_stats(x, t0)
     pgram, prsum = cf.window_stats_plain(x, t0)
     torch.cuda.synchronize()
@@ -161,8 +278,8 @@ def check_kernels(model):
     flops = B * t0 * (2 * 55 + 10)
     bms, by = bound(nbytes, flops, PEAK_BF16)
     records.append(dict(
-        name="window_stats", route="cuda", source="gsoc_wav2vec2_tpu_torch/csrc/conv_frontend.cu",
-        replaces="gsoc_wav2vec2_tpu/ops/pallas/conv_frontend.py:87",
+        name="window_stats", counter="window_stats", paths=BASE_PATHS, route="cuda",
+        source=CSRC + "conv_frontend.cu", replaces=PALLAS + "conv_frontend.py:87",
         max_abs_err=err, mean_abs_err=mean_err, tol=tol,
         ms=time_ms(lambda: cf.window_stats(x, t0), 20),
         plain_ms=time_ms(lambda: cf.window_stats_plain(x, t0), 5),
@@ -192,8 +309,8 @@ def check_kernels(model):
         return torch.nn.functional.gelu(y, approximate="tanh")
 
     records.append(dict(
-        name="fused_conv01", route="cuda", source="gsoc_wav2vec2_tpu_torch/csrc/conv_frontend.cu",
-        replaces="gsoc_wav2vec2_tpu/ops/pallas/conv_frontend.py:251",
+        name="fused_conv01", counter="fused_conv01", paths=BASE_PATHS, route="cuda",
+        source=CSRC + "conv_frontend.cu", replaces=PALLAS + "conv_frontend.py:251",
         max_abs_err=err, mean_abs_err=mean_err, tol=tol,
         ms=time_ms(lambda: cf.conv01(x, w0, scale, shift, w1, t1, True), 10),
         plain_ms=time_ms(lambda: cf.conv01_plain(x, w0, scale, shift, w1, t1, True), 3, 1),
@@ -204,36 +321,10 @@ def check_kernels(model):
     # -- pos_conv at (16, 768, 768), also checked at T = 3000 -----------------
     pcv = model.wav2vec2.encoder.pos_conv_embed.conv
     kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
-    k, cg, h = kernel.shape
-    groups = h // cg
+    h = kernel.shape[-1]
     bias = (0.1 * torch.randn(h, generator=gen)).to(dev)
     t = model.config.conv_output_length(SAMPLES)  # 768 frames
-    for tt in (3000, t):
-        xs = torch.randn(B if tt == t else 2, tt, h, generator=gen).to(dev, torch.bfloat16)
-        got = pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True)
-        want = pc.pos_conv_plain(xs, kernel, bias, groups=groups, gelu_approx=True)
-        torch.cuda.synchronize()
-        err, mean_err = errors(got, want)
-        tol = 0.05
-        require(err <= tol and mean_err <= 5e-3, f"pos_conv T={tt}: err {err} / mean {mean_err}")
-    nbytes = xs.numel() * 2 * 2 + kernel.numel() * 2 + h * 4
-    flops = 2 * B * t * k * cg * h
-    bms, by = bound(nbytes, flops, PEAK_BF16)
-    wt = kernel.to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, CG, K)
-    bb = bias.to(torch.bfloat16)
-
-    def library_pos_conv():
-        y = torch.nn.functional.conv1d(xs.transpose(1, 2), wt, bb, padding=k // 2, groups=groups)
-        return torch.nn.functional.gelu(y[:, :, :t], approximate="tanh")
-
-    records.append(dict(
-        name="pos_conv", route="cuda", source="gsoc_wav2vec2_tpu_torch/csrc/pos_conv.cu",
-        replaces="gsoc_wav2vec2_tpu/ops/pallas/pos_conv.py:250",
-        max_abs_err=err, mean_abs_err=mean_err, tol=tol,
-        ms=time_ms(lambda: pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True), 20),
-        plain_ms=time_ms(lambda: pc.pos_conv_plain(xs, kernel, bias, groups=groups, gelu_approx=True), 5),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(library_pos_conv, 20),
-    ))
+    records.append(pos_conv_eval_record(kernel, bias, B, t, "pos_conv", ("inference", "train", "long_inference"), gen))
 
     # -- flash attention at (16, 12, 768, 64); ragged masks and L = 1249 -------
     heads = model.config.num_heads
@@ -259,9 +350,8 @@ def check_kernels(model):
     flops = 4 * B * heads * t * t * d
     bms, by = bound(nbytes, flops, PEAK_BF16)
     records.append(dict(
-        name="flash_attention_fwd", route="cuda",
-        source="gsoc_wav2vec2_tpu_torch/csrc/flash_attention.cu",
-        replaces="gsoc_wav2vec2_tpu/ops/pallas/flash_attention.py:224",
+        name="flash_attention_fwd", counter="flash_attention_fwd", paths=SHORT_PATHS, route="cuda",
+        source=CSRC + "flash_attention.cu", replaces=PALLAS + "flash_attention.py:224",
         max_abs_err=max(checks), mean_abs_err=mean_err, tol=tol,
         ms=time_ms(lambda: fa.flash_attention_fwd(q, kk, v), 20),
         plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(q, kk, v), 5),
@@ -272,105 +362,15 @@ def check_kernels(model):
     return records
 
 
-def _ragged_bias(b: int, l: int, gen: torch.Generator) -> torch.Tensor:
-    lengths = torch.randint(l // 4, l + 1, (b,), generator=gen)
-    return torch.where(torch.arange(l)[None, :] < lengths[:, None], 0.0, -10000.0).cuda()
-
-
-def check_train_kernels(model, records):
-    """Phase 3, training shapes (B=32 x 246000: L = T = 768, base width):
-    flash forward with dropout (into the forward's record), flash backward,
-    and the positional conv's training forward, dx and dW.  Appends records."""
+def pos_conv_train_records(kernel, bias, b, t, suffix, paths, gen):
+    """The pos conv's training forward, dx and dW against their plain
+    versions at (b, t, C) and at T = 3000 (2 rows); returns their three
+    records (names + `suffix`), timed at (b, t, C)."""
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(4321)
-    heads = model.config.num_heads
-    h = model.config.hidden_size
-    d = h // heads
-    t = model.config.conv_output_length(SAMPLES)  # 768
-    rate, seed = 0.1, 12345
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    # -- flash forward with dropout 0.1; ragged bias; L = 768 and 1249 --------
-    fwd = next(r for r in records if r["name"] == "flash_attention_fwd")
-    bwd_errs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    fwd_err, bwd_abs, bwd_mean = (0.0, 0.0), 0.0, 0.0
-    for b, l in ((8, 1249), (TRAIN_B, t)):
-        q, kk, v, dout = (torch.randn(b, heads, l, d, generator=gen).to(dev, torch.bfloat16)
-                          for _ in range(4))
-        q = q * (2.0 * d ** -0.5)  # scores with std ~2 after the D^-1/2 prescale
-        kb = _ragged_bias(b, l, gen)
-        out, lse = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
-        pout, plse = fa.flash_attention_fwd_plain(q, kk, v, kb, dropout_rate=rate, seed=seed)
-        torch.cuda.synchronize()
-        err, mean_err = errors(out, pout)
-        lse_err, _ = errors(lse, plse)
-        # bf16 output (|out| < 4: ulp 2^-6): p rounded before / after the
-        # normalisation and the 1 / (1 - rate) scaling: 2.5 ulp; a mask that
-        # differed in one element of a row would move that row by ~|v| p / 0.9
-        tol = 0.04
-        require(err <= tol and mean_err <= 2e-3 and lse_err <= 1e-3,
-                f"flash dropout L={l}: {err} / mean {mean_err} / lse {lse_err}")
-        fwd_err = max(fwd_err, (err, mean_err))
-        # -- the backward, same inputs ------------------------------------------
-        grads = fa.flash_attention_bwd(q, kk, v, kb, pout, plse, dout, dropout_rate=rate, seed=seed)
-        pgrads = fa.flash_attention_bwd_plain(q, kk, v, kb, pout, plse, dout,
-                                              dropout_rate=rate, seed=seed)
-        torch.cuda.synchronize()
-        for name, g, pg in zip(("dq", "dk", "dv"), grads, pgrads):
-            err, mean_err = errors(g, pg)
-            scale = pg.float().abs().max().item()
-            # bf16 outputs of f32 sums over L in another order: 1% of the
-            # tensor's scale (~1.3 ulp at its top), mean 0.1%
-            require(err <= 0.01 * scale and mean_err <= 1e-3 * scale,
-                    f"flash bwd {name} L={l}: {err} / mean {mean_err} (scale {scale})")
-            bwd_errs[name] = max(bwd_errs[name], err / scale)
-            bwd_abs, bwd_mean = max(bwd_abs, err), max(bwd_mean, mean_err)
-        del grads, pgrads, pout
-    n_qkv = q.numel()
-    mask4 = kb[:, None, None, :].to(q.dtype)  # SDPA's additive mask
-    nbytes = 4 * n_qkv * 2 + TRAIN_B * heads * t * 4 + TRAIN_B * t * 4
-    bms, by = bound(nbytes, 4 * TRAIN_B * heads * t * t * d, PEAK_BF16)
-    fwd["train"] = dict(
-        shape=[TRAIN_B, heads, t, d], dropout=rate, ragged_bias=True,
-        max_abs_err=fwd_err[0], mean_abs_err=fwd_err[1], tol=0.04,
-        ms=time_ms(lambda: fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed), 20),
-        plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
-            q, kk, v, kb, dropout_rate=rate, seed=seed), 3, 1),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: sdpa(q, kk, v, attn_mask=mask4, dropout_p=rate, scale=1.0), 20),
-    )
-    # backward: q, k, v, out, dout, lse, bias in; dq, dk, dv out; the five
-    # products S, dP, dV, dK, dQ of 2 B H L^2 D each
-    nbytes = 8 * n_qkv * 2 + TRAIN_B * heads * t * 4 + TRAIN_B * t * 4
-    bms, by = bound(nbytes, 5 * 2 * TRAIN_B * heads * t * t * d, PEAK_BF16)
-    qg, kg, vg = (x.detach().requires_grad_() for x in (q, kk, v))
-    lib_out = sdpa(qg, kg, vg, attn_mask=mask4, dropout_p=rate, scale=1.0)
-    records.append(dict(
-        name="flash_attention_bwd", route="cuda",
-        source="gsoc_wav2vec2_tpu_torch/csrc/flash_attention.cu",
-        replaces="gsoc_wav2vec2_tpu/ops/pallas/flash_attention.py:285",
-        shape=[TRAIN_B, heads, t, d], dropout=rate, ragged_bias=True,
-        max_abs_err=bwd_abs, mean_abs_err=bwd_mean, max_rel_err_by_grad=bwd_errs,
-        tol="0.01 x each gradient's max |value|",
-        ms=time_ms(lambda: fa.flash_attention_bwd(q, kk, v, kb, out, lse, dout,
-                                                  dropout_rate=rate, seed=seed), 20),
-        plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
-            q, kk, v, kb, out, lse, dout, dropout_rate=rate, seed=seed), 3, 1),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout,
-                                                       retain_graph=True), 20),
-    ))
-    del q, kk, v, dout, out, lse, qg, kg, vg, lib_out, mask4
-    torch.cuda.empty_cache()
-
-    # -- positional conv: training forward, dx (also at T = 3000), dW --------
-    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
-    kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
-    k, cg, _ = kernel.shape
+    k, cg, h = kernel.shape
     groups = h // cg
-    bias = (0.1 * torch.randn(h, generator=gen)).to(dev)
     for tt in (3000, t):
-        bb = TRAIN_B if tt == t else 2
+        bb = b if tt == t else 2
         x, dpre = (torch.randn(bb, tt, h, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
         y, pre = pc.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True)
         py, ppre = pc.pos_conv_train_fwd_plain(x, kernel, bias, groups=groups, gelu_approx=True)
@@ -383,7 +383,7 @@ def check_train_kernels(model, records):
                   "pos_conv_dx": errors(dx, pdx), "pos_conv_dw": errors(dw, pdw)}
         # bf16 outputs: as pos_conv (0.05, mean 5e-3); dx 1.5% of its scale
         # (2 ulp at its top); f32 outputs (pre-activation, dW: sums of
-        # K*CG = 6144 and B*T products in another order): 1e-4 of the scale
+        # K*CG (6144 or 8192) and B*T products in another order): 1e-4 of the scale
         scales = {"pre": ppre.abs().max().item(), "pos_conv_dx": pdx.float().abs().max().item(),
                   "pos_conv_dw": pdw.abs().max().item()}
         tols = {"pos_conv_train_fwd": 0.05, "pre": 1e-4 * scales["pre"],
@@ -392,7 +392,7 @@ def check_train_kernels(model, records):
             require(err <= tols[name], f"{name} T={tt}: err {err} > {tols[name]}")
         require(checks["pos_conv_train_fwd"][1] <= 5e-3, "pos_conv_train_fwd: mean error")
         del y, py, pre, ppre, dx, pdx, dw, pdw
-    flops = 2 * TRAIN_B * t * k * cg * h
+    flops = 2 * b * t * k * cg * h
     act = x.numel() * 2  # one (B, T, C) bf16 tensor
     wt = kernel.to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, CG, K)
     bb16 = bias.to(torch.bfloat16)
@@ -435,11 +435,12 @@ def check_train_kernels(model, records):
          lambda: pc.pos_conv_dw_plain(x, dpre, k, groups=groups),
          lambda: library_grad([False, True, False]), checks["pos_conv_dw"]),
     ]
+    records = []
     for name, replaces, nbytes, kern_fn, plain_fn, lib_fn, (err, mean_err) in specs:
         bms, by = bound(nbytes, flops, PEAK_BF16)
         records.append(dict(
-            name=name, route="cuda", source="gsoc_wav2vec2_tpu_torch/csrc/pos_conv.cu",
-            replaces=replaces, shape=[TRAIN_B, t, h],
+            name=name + suffix, counter=name, paths=paths, route="cuda",
+            source=CSRC + "pos_conv.cu", replaces=replaces, shape=[b, t, h], channels_per_group=cg,
             max_abs_err=err, mean_abs_err=mean_err, tol=tols[name],
             ms=time_ms(kern_fn, 20), plain_ms=time_ms(plain_fn, 3, 1),
             bound_ms=bms, bound_by=by, library_ms=time_ms(lib_fn, 20),
@@ -449,50 +450,349 @@ def check_train_kernels(model, records):
     records[-2]["library_conv_backward_ms"] = time_ms(lambda: library_grad([True, False, False]), 3, 1)
     del x, dpre, xt, dt, dy, wdx
     torch.cuda.empty_cache()
+    return records
 
 
-def _labels(rng, b: int, vocab: int) -> np.ndarray:
-    """50-200 non-pad ids per sample from the vocabulary, pad (0) after."""
-    lengths = rng.integers(50, 201, size=b)
-    labels = np.zeros((b, 200), np.int64)
+def _ragged_bias(b: int, l: int, gen: torch.Generator) -> torch.Tensor:
+    lengths = torch.randint(l // 4, l + 1, (b,), generator=gen)
+    return torch.where(torch.arange(l)[None, :] < lengths[:, None], 0.0, -10000.0).cuda()
+
+
+def flash_dropout_errors(q, kk, v, dout, kb, rate, seed, what, backward=True):
+    """The flash forward with dropout and, on the same inputs, the backward,
+    each against its plain version.  Returns ((fwd err, mean), out, lse,
+    {dq, dk, dv: err / scale}, bwd max abs err, bwd max mean err)."""
+    out, lse = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
+    pout, plse = fa.flash_attention_fwd_plain(q, kk, v, kb, dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    err, mean_err = errors(out, pout)
+    lse_err, _ = errors(lse, plse)
+    # bf16 output (|out| < 4: ulp 2^-6): p rounded before / after the
+    # normalisation and the 1 / (1 - rate) scaling: 2.5 ulp; a mask that
+    # differed in one element of a row would move that row by ~|v| p / 0.9
+    tol = 0.04
+    require(err <= tol and mean_err <= 2e-3 and lse_err <= 1e-3,
+            f"flash dropout {what}: {err} / mean {mean_err} / lse {lse_err}")
+    rel, bwd_abs, bwd_mean = {}, 0.0, 0.0
+    if backward:
+        grads = fa.flash_attention_bwd(q, kk, v, kb, pout, plse, dout, dropout_rate=rate, seed=seed)
+        pgrads = fa.flash_attention_bwd_plain(q, kk, v, kb, pout, plse, dout,
+                                              dropout_rate=rate, seed=seed)
+        torch.cuda.synchronize()
+        for name, g, pg in zip(("dq", "dk", "dv"), grads, pgrads):
+            gerr, gmean = errors(g, pg)
+            scale = pg.float().abs().max().item()
+            # bf16 outputs of f32 sums over L in another order: 1% of the
+            # tensor's scale (~1.3 ulp at its top), mean 0.1%
+            require(gerr <= 0.01 * scale and gmean <= 1e-3 * scale,
+                    f"flash bwd {name} {what}: {gerr} / mean {gmean} (scale {scale})")
+            rel[name] = gerr / scale
+            bwd_abs, bwd_mean = max(bwd_abs, gerr), max(bwd_mean, gmean)
+    return (err, mean_err), out, lse, rel, bwd_abs, bwd_mean
+
+
+def flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed):
+    """Times and bounds of the flash forward with dropout and of the backward
+    at q's shape: (forward dict, backward dict), each with ms, plain_ms,
+    bound_ms, bound_by and library_ms (SDPA with the same mask and rate)."""
+    b, heads, l, d = q.shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_qkv = q.numel()
+    mask4 = kb[:, None, None, :].to(q.dtype)  # SDPA's additive mask
+    shape = dict(shape=[b, heads, l, d], dropout=rate, ragged_bias=True)
+    nbytes = 4 * n_qkv * 2 + b * heads * l * 4 + b * l * 4
+    bms, by = bound(nbytes, 4 * b * heads * l * l * d, PEAK_BF16)
+    fwd = dict(
+        **shape,
+        ms=time_ms(lambda: fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed), 20),
+        plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
+            q, kk, v, kb, dropout_rate=rate, seed=seed), 3, 1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: sdpa(q, kk, v, attn_mask=mask4, dropout_p=rate, scale=1.0), 20),
+    )
+    # backward: q, k, v, out, dout, lse, bias in; dq, dk, dv out; the five
+    # products S, dP, dV, dK, dQ of 2 B H L^2 D each
+    nbytes = 8 * n_qkv * 2 + b * heads * l * 4 + b * l * 4
+    bms, by = bound(nbytes, 5 * 2 * b * heads * l * l * d, PEAK_BF16)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, kk, v))
+    lib_out = sdpa(qg, kg, vg, attn_mask=mask4, dropout_p=rate, scale=1.0)
+    bwd = dict(
+        **shape,
+        ms=time_ms(lambda: fa.flash_attention_bwd(q, kk, v, kb, out, lse, dout,
+                                                  dropout_rate=rate, seed=seed), 20),
+        plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, kk, v, kb, out, lse, dout, dropout_rate=rate, seed=seed), 3, 1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout,
+                                                       retain_graph=True), 20),
+    )
+    return fwd, bwd
+
+
+def _peaky(b, heads, l, d, gen, n=4):
+    """bf16 q, k, v (and dout) with scores of std ~2 after the D^-1/2 prescale."""
+    ts = [torch.randn(b, heads, l, d, generator=gen).cuda().to(torch.bfloat16) for _ in range(n)]
+    ts[0] = ts[0] * (2.0 * d ** -0.5)
+    return ts
+
+
+def check_train_kernels(model, records):
+    """Phase 3, training shapes (B=32 x 246000: L = T = 768, base width):
+    flash forward with dropout (into the forward's record), flash backward,
+    and the positional conv's training forward, dx and dW.  Appends records."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4321)
+    heads = model.config.num_heads
+    h = model.config.hidden_size
+    d = h // heads
+    t = model.config.conv_output_length(SAMPLES)  # 768
+    rate, seed = 0.1, 12345
+
+    # -- flash forward with dropout 0.1; ragged bias; L = 768 and 1249 --------
+    fwd = next(r for r in records if r["name"] == "flash_attention_fwd")
+    bwd_errs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    fwd_err, bwd_abs, bwd_mean = (0.0, 0.0), 0.0, 0.0
+    for b, l in ((8, 1249), (TRAIN_B, t)):
+        q, kk, v, dout = _peaky(b, heads, l, d, gen)
+        kb = _ragged_bias(b, l, gen)
+        err, out, lse, rel, gabs, gmean = flash_dropout_errors(q, kk, v, dout, kb, rate, seed, f"L={l}")
+        fwd_err = max(fwd_err, err)
+        bwd_errs = {n: max(bwd_errs[n], rel[n]) for n in rel}
+        bwd_abs, bwd_mean = max(bwd_abs, gabs), max(bwd_mean, gmean)
+    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed)
+    fwd["train"] = dict(max_abs_err=fwd_err[0], mean_abs_err=fwd_err[1], tol=0.04, **fwd_rec)
+    records.append(dict(
+        name="flash_attention_bwd", counter="flash_attention_bwd", paths=("train", "robust_train"),
+        route="cuda", source=CSRC + "flash_attention.cu", replaces=PALLAS + "flash_attention.py:285",
+        max_abs_err=bwd_abs, mean_abs_err=bwd_mean, max_rel_err_by_grad=bwd_errs,
+        tol="0.01 x each gradient's max |value|", **bwd_rec,
+    ))
+    del q, kk, v, dout, out, lse
+    torch.cuda.empty_cache()
+
+    # -- positional conv: training forward, dx (also at T = 3000), dW --------
+    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
+    kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
+    bias = (0.1 * torch.randn(h, generator=gen)).to(dev)
+    records.extend(pos_conv_train_records(kernel, bias, TRAIN_B, t, "", ("train", "long_train"), gen))
+
+
+def check_robust_kernels(model, records):
+    """Phase 7, first part: the robust/large shapes (B=8 x 246000; C = 512 conv stack
+    with LayerNorm and bias, 1024-d, 16 heads, pos conv at 64 channels a
+    group): `conv01_robust` and the four pos-conv kernels get records; the
+    flash forward is checked at H = 16 with a ragged bias (into its record)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5678)
+    fe = model.wav2vec2.feature_extractor.conv_layers
+    # random biases and affines: the model's own are zeros and ones
+    c = fe[0].conv.kernel.shape[-1]
+    vec = lambda scale, offset: (offset + scale * torch.randn(c, generator=gen)).to(dev)
+    params = (fe[0].conv.kernel, vec(0.1, 0.0), vec(0.1, 1.0), vec(0.1, 0.0),
+              fe[1].conv.kernel, vec(0.1, 0.0), vec(0.1, 1.0), vec(0.1, 0.0))
+    b = ROBUST_B
+    x = torch.randn(b, SAMPLES, generator=gen).to(dev, torch.bfloat16)
+    t1 = cf.conv1_length(SAMPLES)  # 24599: the last tile is ragged
+    got = cf.conv01_robust(x, *params, t1, 1e-5, True)
+    want = cf.conv01_robust_plain(x, *params, t1, 1e-5, True)
+    torch.cuda.synchronize()
+    require(got.shape == (b, t1, c), f"conv01_robust shape {tuple(got.shape)}")
+    err, mean_err = errors(got, want)
+    del want, got
+    tol = 0.05  # bf16 output (ulp 2^-6 at |y| in [2, 4)) over f32 sums in another order
+    require(err <= tol and mean_err <= 5e-3, f"conv01_robust: err {err} / mean {mean_err}")
+    nbytes = x.numel() * 2 + (10 * c + 3 * c * c) * 2 + 6 * c * 4 + b * t1 * c * 2
+    flops = 2 * b * t1 * (2 * 10 * c + 3 * c * c)
+    bms, by = bound(nbytes, flops, PEAK_BF16)
+    w0, b0, g0, e0, w1, b1, g1, e1 = params
+    w0t = w0.to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, 1, 10)
+    w1t = w1.to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, C, 3)
+    half = [v.to(torch.bfloat16) for v in (b0, g0, e0, b1, g1, e1)]
+    fn = torch.nn.functional
+
+    def library_conv01_robust():
+        y = fn.conv1d(x[:, None, :], w0t, half[0], stride=5).transpose(1, 2)
+        y = fn.gelu(fn.layer_norm(y, (c,), half[1], half[2], 1e-5), approximate="tanh")
+        y = fn.conv1d(y.transpose(1, 2), w1t, half[3], stride=2).transpose(1, 2)
+        return fn.gelu(fn.layer_norm(y, (c,), half[4], half[5], 1e-5), approximate="tanh")
+
+    records.append(dict(
+        name="conv01_robust", counter="conv01_robust", paths=ROBUST_PATHS, route="cuda",
+        source=CSRC + "conv_frontend.cu", replaces=PALLAS + "conv_frontend.py:334",
+        shape=[b, SAMPLES], max_abs_err=err, mean_abs_err=mean_err, tol=tol,
+        ms=time_ms(lambda: cf.conv01_robust(x, *params, t1, 1e-5, True), 10),
+        plain_ms=time_ms(lambda: cf.conv01_robust_plain(x, *params, t1, 1e-5, True), 3, 1),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(library_conv01_robust, 10),
+    ))
+    del x
+    torch.cuda.empty_cache()
+
+    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
+    kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
+    h = kernel.shape[-1]
+    require(kernel.shape[1] == 64, f"robust pos conv C/G {kernel.shape[1]}")
+    bias = (0.1 * torch.randn(h, generator=gen)).to(dev)
+    t = model.config.conv_output_length(SAMPLES)  # 768
+    records.append(pos_conv_eval_record(kernel, bias, b, t, "pos_conv_cg64", ROBUST_PATHS, gen))
+    records.extend(pos_conv_train_records(kernel, bias, b, t, "_cg64", ("robust_train",), gen))
+
+    # flash forward at (8, 16, 768, 64), ragged bias, with and without dropout
+    heads = model.config.num_heads
+    q, kk, v, dout = _peaky(b, heads, t, h // heads, gen)
+    kb = _ragged_bias(b, t, gen)
+    out, _ = fa.flash_attention_fwd(q, kk, v, kb)
+    pout, _ = fa.flash_attention_fwd_plain(q, kk, v, kb)
+    torch.cuda.synchronize()
+    err, mean_err = errors(out, pout)
+    require(err <= 0.02, f"flash H={heads} ragged: {err}")
+    derr, _, _, rel, _, _ = flash_dropout_errors(q, kk, v, dout, kb, 0.1, 321, f"H={heads}")
+    fwd = next(r for r in records if r["name"] == "flash_attention_fwd")
+    fwd["robust"] = dict(
+        shape=[b, heads, t, h // heads], ragged_bias=True, max_abs_err=err, mean_abs_err=mean_err,
+        tol=0.02, dropout_max_abs_err=derr[0], bwd_max_rel_err_by_grad=rel,
+        ms=time_ms(lambda: fa.flash_attention_fwd(q, kk, v, kb), 20))
+    torch.cuda.empty_cache()
+
+
+def check_long_kernels(model, records):
+    """Phase 3, the long shapes (base width; 1 x 1,920,000 samples = 5999
+    frames).  The flash forward and backward past 4096 frames, where the JAX
+    package switches to its kv-blocked kernels, get records of their own
+    (the same CUDA kernels as at L <= 4096): checked at L = 5999 (hash stride
+    6016) and 8192 with dropout 0.1 and a ragged bias, forward also at 32768;
+    timed at the path's (1, 12, 5999, 64).  The conv front end at 1,920,000
+    samples and the pos-conv kernels at T = 5999 are held against their
+    plain versions (into their records)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2468)
+    config = model.config
+    heads, h = config.num_heads, config.hidden_size
+    d = h // heads
+    rate, seed = 0.1, 2**23 - 5
+    by_name = {r["name"]: r for r in records}
+
+    # -- flash: L = 32768 forward (B*H = 1: the plain version holds L x L) -----
+    l = 32768
+    q, kk, v = _peaky(1, 1, l, d, gen, n=3)
+    kb = _ragged_bias(1, l, gen)
+    err32k, _, _, _, _, _ = flash_dropout_errors(q, kk, v, None, kb, rate, seed, f"L={l}",
+                                                 backward=False)
+    del q, kk, v
+    torch.cuda.empty_cache()
+    # -- L = 8192 (B*H = 4) and the path's L = 5999 (H = 12), forward and backward
+    fwd_err, bwd_errs, bwd_abs, bwd_mean = (0.0, 0.0), {"dq": 0.0, "dk": 0.0, "dv": 0.0}, 0.0, 0.0
+    for hh, l in ((4, 8192), (heads, config.conv_output_length(LONG_SAMPLES))):
+        q, kk, v, dout = _peaky(1, hh, l, d, gen)
+        kb = _ragged_bias(1, l, gen)
+        err, out, lse, rel, gabs, gmean = flash_dropout_errors(q, kk, v, dout, kb, rate, seed, f"L={l}")
+        torch.cuda.empty_cache()
+        fwd_err = max(fwd_err, err)
+        bwd_errs = {n: max(bwd_errs[n], rel[n]) for n in rel}
+        bwd_abs, bwd_mean = max(bwd_abs, gabs), max(bwd_mean, gmean)
+    require(l == 5999, f"the long path has {l} frames")
+    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed)
+    checked = [5999, 8192]
+    records.append(dict(
+        name="flash_attention_fwd_long", counter="flash_attention_fwd", paths=LONG_PATHS,
+        route="cuda", source=CSRC + "flash_attention.cu", replaces=PALLAS + "flash_attention.py:516",
+        same_kernel_as="flash_attention_fwd", checked_at_L=checked + [32768],
+        max_abs_err=max(fwd_err[0], err32k[0]), mean_abs_err=max(fwd_err[1], err32k[1]), tol=0.04,
+        max_abs_err_L32768=err32k[0], **fwd_rec,
+    ))
+    records.append(dict(
+        name="flash_attention_bwd_long", counter="flash_attention_bwd", paths=("long_train",),
+        route="cuda", source=CSRC + "flash_attention.cu", replaces=PALLAS + "flash_attention.py:595",
+        also_replaces=[PALLAS + "flash_attention.py:638"], same_kernel_as="flash_attention_bwd",
+        checked_at_L=checked, max_abs_err=bwd_abs, mean_abs_err=bwd_mean,
+        max_rel_err_by_grad=bwd_errs, tol="0.01 x each gradient's max |value|", **bwd_rec,
+    ))
+    del q, kk, v, dout, out, lse
+    torch.cuda.empty_cache()
+
+    # -- the base conv front end at (1, 1,920,000) -------------------------------
+    fe = model.wav2vec2.feature_extractor.conv_layers
+    w0, w1 = fe[0].conv.kernel, fe[1].conv.kernel
+    x = torch.randn(1, LONG_SAMPLES, generator=gen).to(dev, torch.bfloat16)
+    t0, t1 = cf.conv0_length(LONG_SAMPLES), cf.conv1_length(LONG_SAMPLES)
+    gram, rsum = cf.window_stats(x, t0)
+    pgram, prsum = cf.window_stats_plain(x, t0)
+    torch.cuda.synchronize()
+    tol = 1e-5 * max(pgram.abs().max().item(), prsum.abs().max().item())
+    err, _ = max(errors(gram, pgram), errors(rsum, prsum))
+    require(err <= tol, f"window_stats at {LONG_SAMPLES} samples: {err} > {tol}")
+    by_name["window_stats"]["long"] = dict(shape=[1, LONG_SAMPLES], max_abs_err=err, tol=tol)
+    scale, shift = cf.groupnorm_scale_shift(pgram, prsum, w0, fe[0].layer_norm.gamma,
+                                            fe[0].layer_norm.beta, t0, 1e-5)
+    err, mean_err = errors(cf.conv01(x, w0, scale, shift, w1, t1, True),
+                           cf.conv01_plain(x, w0, scale, shift, w1, t1, True))
+    require(err <= 0.05 and mean_err <= 5e-3, f"fused_conv01 at {LONG_SAMPLES} samples: {err}")
+    by_name["fused_conv01"]["long"] = dict(
+        shape=[1, LONG_SAMPLES], max_abs_err=err, mean_abs_err=mean_err, tol=0.05,
+        ms=time_ms(lambda: cf.conv01(x, w0, scale, shift, w1, t1, True), 5))
+    del x
+    torch.cuda.empty_cache()
+
+    # -- the pos-conv kernels at (1, 5999, 768) ----------------------------------
+    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
+    kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
+    k, cg, _ = kernel.shape
+    groups = h // cg
+    bias = (0.1 * torch.randn(h, generator=gen)).to(dev)
+    xs, dpre = (torch.randn(1, l, h, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    y, pre = pc.pos_conv_train_fwd(xs, kernel, bias, groups=groups, gelu_approx=True)
+    py, ppre = pc.pos_conv_train_fwd_plain(xs, kernel, bias, groups=groups, gelu_approx=True)
+    pdx = pc.pos_conv_dx_plain(dpre, kernel, groups=groups)
+    pdw = pc.pos_conv_dw_plain(xs, dpre, k, groups=groups)
+    held = {
+        "pos_conv": (pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True), py, 0.05),
+        "pos_conv_train_fwd": (y, py, 0.05),
+        "pre": (pre, ppre, 1e-4 * ppre.abs().max().item()),
+        "pos_conv_dx": (pc.pos_conv_dx(dpre, kernel, groups=groups), pdx,
+                        0.015 * pdx.float().abs().max().item()),
+        "pos_conv_dw": (pc.pos_conv_dw(xs, dpre, k, groups=groups), pdw,
+                        1e-4 * pdw.abs().max().item()),
+    }
+    torch.cuda.synchronize()
+    for name, (got, want, tol) in held.items():
+        err, mean_err = errors(got, want)
+        require(err <= tol, f"{name} at T={l}: err {err} > {tol}")
+        if name in by_name:
+            by_name[name]["long"] = dict(shape=[1, l, h], max_abs_err=err, mean_abs_err=mean_err, tol=tol)
+    by_name["pos_conv_train_fwd"]["long"]["pre_max_abs_err"] = errors(pre, ppre)[0]
+    torch.cuda.empty_cache()
+
+
+def _labels(rng, b: int, vocab: int, longest: int = 200) -> np.ndarray:
+    """50-`longest` non-pad ids per sample from the vocabulary, pad (0) after."""
+    lengths = rng.integers(50, longest + 1, size=b)
+    labels = np.zeros((b, longest), np.int64)
     for i, n in enumerate(lengths):
         labels[i, :n] = rng.integers(1, vocab, size=n)
     return labels
 
 
-def train_phase(kernels, smi: str):
-    """Phase 6.  Returns the launch counts of the counted run (one stage-1
-    step and the stage-2 steps)."""
-    dev = torch.device("cuda")
-    config = Wav2Vec2Config()  # base, the recipe's dropout 0.1 and SpecAugment
-    require(config.dropout == 0.1 and config.apply_spec_augment, "the recipe's regularisation")
-    model = Wav2Vec2ForCTC(config, device=dev, generator=torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(0)
-    batch = {"speech": rng.standard_normal((TRAIN_B, SAMPLES)).astype(np.float32),
-             "labels": _labels(rng, TRAIN_B, config.vocab_size)}
+def train_phase(phase, what, model, config, batch, per_step, steps, smi, **step_kwargs):
+    """One stage-1 step and `steps` stage-2 steps of `make_train_step` on
+    `model`, launch counts held exactly per stage-2 step.  Returns the launch
+    counts of the counted run and the stage-2 step function and state."""
+    b = batch["speech"].shape[0]
     gen = torch.Generator().manual_seed(0)
-    per_step = {"window_stats": 1, "fused_conv01": 1, "pos_conv": 0,
-                "pos_conv_train_fwd": 1, "pos_conv_dx": 1, "pos_conv_dw": 1,
-                "flash_attention_fwd": config.num_layers, "flash_attention_bwd": config.num_layers}
-
-    torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts()
     # stage 1: the backbone frozen, Adam 1e-3 on the head
     set_trainable(model, STAGE1)
     st = create_train_state(model, create_optimizer(model, 1e-3))
-    step1 = make_train_step(config, division_factor=TRAIN_B)
+    step1 = make_train_step(config, division_factor=b, **step_kwargs)
     st, m1 = step1(st, batch, gen)
     loss1 = m1["loss"].item()
     # stage 2: all but the conv front end, Adam 1e-4
     mask = set_trainable(model, STAGE2)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     st = create_train_state(model, create_optimizer(model, 1e-4))
-    step2 = make_train_step(config, division_factor=TRAIN_B)
+    step2 = make_train_step(config, division_factor=b, **step_kwargs)
     torch.cuda.reset_peak_memory_stats()
     losses, norms, times = [], [], []
-    for i in range(STAGE2_STEPS):
-        counts = {k: fn.launches for k, fn in kernels.items()}
+    for i in range(steps):
+        counts = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st, m = step2(st, batch, gen)
@@ -500,9 +800,8 @@ def train_phase(kernels, smi: str):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         norms.append(m["grad_norm"].item())
-        got = {k: fn.launches - counts[k] for k, fn in kernels.items()}
-        require(got == per_step, f"launches in stage-2 step {i}: {got} != {per_step}")
-    launches = {k: fn.launches for k, fn in kernels.items()}
+        expect_counts(f"{phase} stage-2 step {i}", counts_since(counts), per_step)
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(all(np.isfinite(losses + norms)) and np.isfinite(loss1), f"losses {loss1} {losses}")
     for name, p in model.named_parameters():
@@ -510,21 +809,287 @@ def train_phase(kernels, smi: str):
         require(same != mask[name], f"{name}: trainable {mask[name]}, unchanged {same}")
     steady = times[2:]
     step_ms = statistics.median(steady)
-    audio_s = TRAIN_B * SAMPLES / 16000
-    emit({"phase": "train", "config": "base (768-d, 12 layers) dropout 0.1, SpecAugment, seed 0",
-          "batch": [TRAIN_B, SAMPLES], "stage1_loss": loss1, "stage2_losses": losses,
+    audio_s = b * batch["speech"].shape[1] / 16000
+    emit({"phase": phase, "config": what, "batch": list(batch["speech"].shape),
+          "stage1_loss": loss1, "stage2_losses": losses,
           "stage2_grad_norms": norms, "launches_per_stage2_step": per_step,
           "ms_per_stage2_step": step_ms, "ms_min_max": [min(steady), max(steady)],
           "steps_timed": len(steady), "first_steps_ms": times[:2],
           "audio_s_trained_per_s": audio_s / (step_ms / 1e3), "peak_memory_gb": peak_gb,
           "card": smi})
     # one more stage-2 step under the profiler (after the counted run)
-    emit({"phase": "train_profile",
+    emit({"phase": phase + "_profile", "card": smi,
           **profile_device(lambda: step2(st, batch, gen), 1, "stage2_step", top=25)})
-    del st, model, before
+    return launches
+
+
+def base_train_phase(smi: str):
+    """Phase 6.  Returns the launch counts of the counted run."""
+    config = Wav2Vec2Config()  # base, the recipe's dropout 0.1 and SpecAugment
+    require(config.dropout == 0.1 and config.apply_spec_augment, "the recipe's regularisation")
+    model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"speech": rng.standard_normal((TRAIN_B, SAMPLES)).astype(np.float32),
+             "labels": _labels(rng, TRAIN_B, config.vocab_size)}
+    per_step = {"window_stats": 1, "fused_conv01": 1,
+                "pos_conv_train_fwd": 1, "pos_conv_dx": 1, "pos_conv_dw": 1,
+                "flash_attention_fwd": config.num_layers, "flash_attention_bwd": config.num_layers}
+    launches = train_phase("train", "base (768-d, 12 layers) dropout 0.1, SpecAugment, seed 0",
+                           model, config, batch, per_step, STAGE2_STEPS, smi)
+    del model
     torch.cuda.empty_cache()
     card_vs_cpu(config)
     return launches
+
+
+def _ragged_batch(rng, b: int, samples: int, shortest: int):
+    """(speech (b, samples) f32, zero past each row's length; lengths), row 0
+    at full length."""
+    lengths = rng.integers(shortest, samples + 1, size=b)
+    lengths[0] = samples
+    speech = rng.standard_normal((b, samples)).astype(np.float32)
+    speech[np.arange(samples)[None, :] >= lengths[:, None]] = 0.0
+    return speech, lengths
+
+
+def logits_vs(got: torch.Tensor, ref: torch.Tensor):
+    """(max abs diff, mean abs diff, ref's max |logit|, share of frames with
+    the same argmax) of two (frames, vocab) logit matrices."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    diff = (got - ref).abs()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    return diff.max().item(), diff.mean().item(), ref.abs().max().item(), agree
+
+
+def robust_phases(model, smi: str):
+    """Phase 7: the robust/large family through the evaluator's entry points
+    and through the training step.  Returns {path: launch counts}."""
+    dev = torch.device("cuda")
+    config = model.config
+    layers = config.num_layers
+    per_forward = {"conv01_robust": 1, "pos_conv": 1, "flash_attention_fwd": layers}
+    evaluator = GreedyCTCEvaluator(model)
+    require(evaluator.compute_dtype == torch.bfloat16 and evaluator.use_attention_mask,
+            "the robust card path runs in bf16 with a sample mask")
+    rng = np.random.default_rng(7)
+    speech, lengths = _ragged_batch(rng, ROBUST_B, SAMPLES, 80000)
+    words = ["A", "IT", "THE", "CAT", "HELLO", "WORLD", "OF"]
+    corpus = [(rng.standard_normal(int(n)).astype(np.float32),
+               " ".join(rng.choice(words, size=int(rng.integers(2, 12)))))
+              for n in rng.integers(20000, SAMPLES + 1, size=24)]
+    buckets = default_buckets()
+    in_bucket = {}
+    for audio, _ in corpus:
+        bucket = next(bk for bk in buckets if len(audio) <= bk)
+        in_bucket[bucket] = in_bucket.get(bucket, 0) + 1
+    eval_forwards = sum(-(-n // ROBUST_B) for n in in_bucket.values())
+
+    reset_counts()
+    t = time.perf_counter()
+    texts = evaluator.predict_batch(speech, lengths)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t
+    expect_counts("one robust forward", read_counts(), per_forward)
+    t = time.perf_counter()
+    wer, n_scored = evaluator.evaluate_bucketed(corpus, batch_size=ROBUST_B)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    # a row of padding only decodes nothing
+    tail = evaluator.predict_batch(speech[:2, :80000], np.array([80000, 0]))
+    forwards = 1 + eval_forwards + 1
+    launches = read_counts()
+    expect_counts("the robust inference path", launches,
+                  {k: v * forwards for k, v in per_forward.items()})
+    require(len(texts) == ROBUST_B and all(isinstance(x, str) for x in texts),
+            "predict_batch returned the wrong number of transcripts")
+    require(n_scored == len(corpus) and np.isfinite(wer), f"evaluate_bucketed: {wer}, {n_scored}")
+    require(tail[1] == "", f"a padded row decoded {tail[1]!r}")
+
+    # steady-state forward of the ragged batch (device-synchronised host clock)
+    x = torch.from_numpy(speech).to(dev)
+    m = torch.from_numpy((np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.float32)).to(dev)
+    frames = config.conv_output_length(SAMPLES)
+
+    def forward():
+        with torch.inference_mode():
+            return wav2vec2_for_ctc_forward(model, config, x, m, compute_dtype=torch.bfloat16)
+
+    logits = forward()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(logits).all()), "non-finite robust logits on the card")
+    require(logits.shape == (ROBUST_B, frames, config.vocab_size), f"logits {tuple(logits.shape)}")
+    reps = []
+    for _ in range(10):
+        t = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t) * 1e3)
+    fwd_ms = statistics.median(reps)
+    row0 = logits[0].float().cpu()
+    profile = profile_device(forward, 3, "forward")
+    del x, m, logits
+
+    # row 0 (full length) against the f32 CPU copy: the same seed gives the same weights
+    cpu_model = Wav2Vec2ForCTC(config, device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        ref = wav2vec2_for_ctc_forward(
+            cpu_model, config, torch.from_numpy(speech[:1]), torch.ones(1, SAMPLES),
+            compute_dtype=torch.float32)[0]
+    del cpu_model
+    err, mean_err, scale, agree = logits_vs(row0, ref)
+    # bf16 through 24 pre-norm layers against f32: twice the base model's
+    # depth, so twice its limit (5% of the logit scale at 12 layers; measured
+    # there 1.8-2.5%), and the greedy path on >= 90% of frames
+    require(err <= 0.10 * scale and agree >= 0.9,
+            f"robust card bf16 vs CPU f32: max {err} (scale {scale}), argmax agree {agree}")
+    emit({"phase": "robust_main",
+          "config": "robust/large (1024-d, 24 pre-norm layers, 16 heads, LayerNorm conv stack) seed 0",
+          "batch": [ROBUST_B, SAMPLES], "lengths": lengths.tolist(),
+          "launches_per_forward": per_forward, "forwards": forwards,
+          "evaluate_bucketed": {"utterances": len(corpus), "per_bucket": in_bucket,
+                                "forwards": eval_forwards, "seconds": eval_s, "wer": wer},
+          "ms_per_forward": fwd_ms, "ms_per_forward_min_max": [min(reps), max(reps)],
+          "forward_reps": len(reps),
+          "audio_s_per_s_padded": ROBUST_B * SAMPLES / 16000 / (fwd_ms / 1e3),
+          "audio_s_per_s_real": float(lengths.sum()) / 16000 / (fwd_ms / 1e3),
+          "predict_batch_s": batch_s, "cpu_f32_max_abs_err": err, "cpu_f32_mean_abs_err": mean_err,
+          "logit_scale": scale, "argmax_agree": agree, "card": smi})
+    emit({"phase": "robust_profile", "card": smi, **profile})
+
+    # training: the recipe's regularisation, the mask and length-aware CTC
+    tconfig = RobustWav2Vec2Config()
+    require(tconfig.dropout == 0.1 and tconfig.apply_spec_augment, "the recipe's regularisation")
+    batch = {"speech": speech, "labels": _labels(rng, ROBUST_B, tconfig.vocab_size, 120),
+             "attention_mask": (np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.int32)}
+    per_step = {"conv01_robust": 1, "pos_conv_train_fwd": 1, "pos_conv_dx": 1, "pos_conv_dw": 1,
+                "flash_attention_fwd": layers, "flash_attention_bwd": layers}
+    train = train_phase(
+        "robust_train", "robust/large (1024-d, 24 layers) dropout 0.1, SpecAugment, mask, seed 0",
+        model, tconfig, batch, per_step, ROBUST_STAGE2_STEPS, smi,
+        with_attention_mask=True, length_aware=True)
+    return {"robust_inference": launches, "robust_train": train}
+
+
+def long_phases(smi: str):
+    """Phase 8: 120 s of audio in one pass (5999 frames), base width at
+    `LONG_LAYERS` layers: `predict_batch`, then a stage-2 step with dropout
+    0.1; both also through the plain versions on the card.  Returns
+    {path: launch counts}."""
+    dev = torch.device("cuda")
+    config = Wav2Vec2Config(num_layers=LONG_LAYERS, dropout=0.0, apply_spec_augment=False)
+    model = Wav2Vec2ForCTC(config, device=dev, generator=torch.Generator().manual_seed(0))
+    frames = config.conv_output_length(LONG_SAMPLES)
+    rng = np.random.default_rng(11)
+    clip = rng.standard_normal((1, LONG_SAMPLES)).astype(np.float32)
+    per_forward = {"window_stats": 1, "fused_conv01": 1, "pos_conv": 1,
+                   "flash_attention_fwd": LONG_LAYERS}
+    evaluator = GreedyCTCEvaluator(model)
+    reset_counts()
+    t = time.perf_counter()
+    text = evaluator.predict_batch(clip)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = read_counts()
+    expect_counts("the long forward", launches, per_forward)
+    require(len(text) == 1 and isinstance(text[0], str), "predict_batch on the long clip")
+
+    x = torch.from_numpy(clip).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            return wav2vec2_for_ctc_forward(model, config, x, compute_dtype=torch.bfloat16)
+
+    logits = forward()
+    reps = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t) * 1e3)
+    with plain_kernels():
+        plain = forward()
+    torch.cuda.synchronize()
+    require(logits.shape == (1, frames, config.vocab_size) and bool(torch.isfinite(logits).all()),
+            f"long logits {tuple(logits.shape)}")
+    err, mean_err, scale, agree = logits_vs(logits[0], plain[0])
+    # two bf16 paths that round at other places, 4 layers: 3% of the logit
+    # scale (the 12-layer model against f32 is held to 5%), same greedy path
+    # on >= 90% of frames
+    require(err <= 0.03 * scale and agree >= 0.9,
+            f"long forward, kernels vs plain: max {err} (scale {scale}), argmax agree {agree}")
+    fwd_ms = statistics.median(reps)
+    emit({"phase": "long_main", "config": f"base width, {LONG_LAYERS} layers, seed 0",
+          "batch": [1, LONG_SAMPLES], "frames": frames, "launches_per_forward": per_forward,
+          "ms_per_forward": fwd_ms, "ms_per_forward_min_max": [min(reps), max(reps)],
+          "forward_reps": len(reps), "audio_s_per_s": LONG_SAMPLES / 16000 / (fwd_ms / 1e3),
+          "predict_batch_s": first_s, "plain_path_max_abs_err": err,
+          "plain_path_mean_abs_err": mean_err, "logit_scale": scale, "argmax_agree": agree,
+          "card": smi})
+    del logits, plain, x
+    torch.cuda.empty_cache()
+
+    # one stage-2 loss + gradient through the kernels and through the plain
+    # versions: same weights, same batch, same generator seed (so the same
+    # dropout bits and SpecAugment spans)
+    tconfig = Wav2Vec2Config(num_layers=LONG_LAYERS)
+    batch = {"speech": clip, "labels": _labels(rng, 1, tconfig.vocab_size)}
+    mask = set_trainable(model, STAGE2)
+    loss_fn = make_ctc_loss_fn(tconfig, division_factor=1)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch, torch.Generator().manual_seed(0))
+        loss.backward()
+        grads = torch.cat([p.grad.detach().double().flatten()
+                           for n, p in model.named_parameters() if mask[n] and p.grad is not None])
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    card_loss, card_grads = loss_and_grads()
+    with plain_kernels():
+        plain_loss, plain_grads = loss_and_grads()
+    rel = abs(card_loss - plain_loss) / abs(plain_loss)
+    cos = (card_grads @ plain_grads / (card_grads.norm() * plain_grads.norm())).item()
+    rel_grad = ((card_grads - plain_grads).norm() / plain_grads.norm()).item()
+    # the limits of the base step against f32 (loss 1.5%: two forwards of
+    # one model differ by up to 0.54% through window_stats' atomics; cosine 0.999)
+    require(np.isfinite(card_loss) and rel <= 0.015 and cos >= 0.999,
+            f"long step, kernels vs plain: loss {card_loss} vs {plain_loss}, grad cosine {cos}")
+    del card_grads, plain_grads
+    torch.cuda.empty_cache()
+
+    per_step = {"window_stats": 1, "fused_conv01": 1, "pos_conv_train_fwd": 1, "pos_conv_dx": 1,
+                "pos_conv_dw": 1, "flash_attention_fwd": LONG_LAYERS,
+                "flash_attention_bwd": LONG_LAYERS}
+    st = create_train_state(model, create_optimizer(model, 1e-4))
+    step = make_train_step(tconfig, division_factor=1)
+    gen = torch.Generator().manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    reset_counts()
+    for i in range(4):
+        counts = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, metrics = step(st, batch, gen)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        expect_counts(f"long stage-2 step {i}", counts_since(counts), per_step)
+    train = read_counts()
+    require(all(np.isfinite(losses)), f"long step losses {losses}")
+    steady = times[1:]
+    emit({"phase": "long_train", "config": f"base width, {LONG_LAYERS} layers, dropout 0.1, SpecAugment",
+          "batch": [1, LONG_SAMPLES], "frames": frames, "launches_per_stage2_step": per_step,
+          "losses": losses, "ms_per_stage2_step": statistics.median(steady),
+          "ms_min_max": [min(steady), max(steady)], "steps_timed": len(steady),
+          "first_step_ms": times[0], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "kernel_path_loss": card_loss, "plain_path_loss": plain_loss, "loss_rel_diff": rel,
+          "grad_cosine_vs_plain_path": cos, "grad_rel_err_vs_plain_path": rel_grad, "card": smi})
+    emit({"phase": "long_train_profile", "card": smi,
+          **profile_device(lambda: step(st, batch, gen), 1, "stage2_step", top=25)})
+    return {"long_inference": launches, "long_train": train}
 
 
 def card_vs_cpu(base_config):
@@ -638,14 +1203,13 @@ def main() -> int:
     config = Wav2Vec2Config(dropout=0.0, apply_spec_augment=False)  # base: 768-d, 12 layers
     model = Wav2Vec2ForCTC(config, device=dev, generator=torch.Generator().manual_seed(0))
 
-    # 3. kernels
+    # 3. kernels (those of the robust/large shapes come with its model, in phase 7)
     records = check_kernels(model)
     check_train_kernels(model, records)
-    emit({"phase": "kernels", "checked": [r["name"] for r in records]})
+    check_long_kernels(model, records)
+    emit({"phase": "kernels", "checked": [r["name"] for r in records], "card": smi})
 
     # 4. main path
-    kernels = {"window_stats": cf.window_stats, "fused_conv01": cf.conv01,
-               "pos_conv": pc.pos_conv, "flash_attention_fwd": fa.flash_attention_fwd}
     per_forward = {"window_stats": 1, "fused_conv01": 1, "pos_conv": 1,
                    "flash_attention_fwd": config.num_layers}
     evaluator = GreedyCTCEvaluator(model)
@@ -655,14 +1219,12 @@ def main() -> int:
     utterances = [rng.standard_normal(n).astype(np.float32) for n in (SAMPLES, 160000, 83000)]
     clip = rng.standard_normal(40 * 16000).astype(np.float32)
 
-    torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts()
     t_main = time.perf_counter()
     texts = evaluator.predict_batch(speech)
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t_main
-    first = {k: fn.launches for k, fn in kernels.items()}
+    first = read_counts()
     padded = np.zeros((3, SAMPLES), np.float32)
     for i, u in enumerate(utterances):
         padded[i, : len(u)] = u
@@ -673,12 +1235,11 @@ def main() -> int:
     long_text = evaluator.transcribe_long(clip)
     long_s = time.perf_counter() - t_long
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    require(first == per_forward, f"launches in one forward {first} != {per_forward}")
+    launches = read_counts()
+    expect_counts("one forward", first, per_forward)
     n_chunks = len(plan_chunks(len(clip), 246000, 16000, config.conv_output_length, 320))
     forwards = 2 + n_chunks
-    want = {k: v * forwards for k, v in per_forward.items()}
-    require(launches == want, f"launches over the main path {launches} != {want}")
+    expect_counts("the main path", launches, {k: v * forwards for k, v in per_forward.items()})
     require(len(texts) == B and len(answers) == 3 and isinstance(long_text, str),
             "the evaluator returned the wrong number of transcripts")
     by_path = {"inference": launches}
@@ -707,33 +1268,44 @@ def main() -> int:
     with torch.inference_mode():
         ref = wav2vec2_for_ctc_forward(
             cpu_model, config, torch.from_numpy(speech[:1]), compute_dtype=torch.float32)[0]
-    diff = (row0 - ref).abs()
-    scale = ref.abs().max().item()
-    agree = (row0.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    err, mean_err, scale, agree = logits_vs(row0, ref)
     # bf16 through 12 layers against f32: 5% of the logit scale, and the
     # greedy path (argmax per frame) on >= 90% of frames
-    require(diff.max().item() <= 0.05 * scale and agree >= 0.9,
-             f"card bf16 vs CPU f32: max {diff.max().item()} (scale {scale}), argmax agree {agree}")
+    require(err <= 0.05 * scale and agree >= 0.9,
+            f"card bf16 vs CPU f32: max {err} (scale {scale}), argmax agree {agree}")
     audio_s = B * SAMPLES / 16000
     emit({"phase": "main", "config": "base (768-d, 12 layers, 12 heads) random seed 0",
-          "batch": [B, SAMPLES], "launches_per_forward": first, "forwards": forwards,
+          "batch": [B, SAMPLES], "launches_per_forward": per_forward, "forwards": forwards,
           "ms_per_forward": fwd_ms, "ms_per_forward_min_max": [min(reps) * 1e3, max(reps) * 1e3],
           "forward_reps": len(reps), "audio_s_per_s": audio_s / (fwd_ms / 1e3),
           "predict_batch_s": batch_s, "requests_s": req_s, "transcribe_long_s": long_s,
-          "long_chunks": n_chunks, "cpu_f32_max_abs_err": diff.max().item(),
-          "cpu_f32_mean_abs_err": diff.mean().item(), "logit_scale": scale,
+          "long_chunks": n_chunks, "cpu_f32_max_abs_err": err,
+          "cpu_f32_mean_abs_err": mean_err, "logit_scale": scale,
           "argmax_agree": agree, "card": smi})
-    emit({"phase": "profile", **profile})
+    emit({"phase": "profile", "card": smi, **profile})
+    del model, cpu_model
 
-    # 6. training
-    train_kernels = {**kernels, "pos_conv_train_fwd": pc.pos_conv_train_fwd,
-                     "pos_conv_dx": pc.pos_conv_dx, "pos_conv_dw": pc.pos_conv_dw,
-                     "flash_attention_bwd": fa.flash_attention_bwd}
-    by_path["train"] = train_phase(train_kernels, smi)
+    # 6. training (base)
+    by_path["train"] = base_train_phase(smi)
+    # 7. the robust/large family: its kernels at its shapes, then its paths.  The
+    # model comes only now, so that the base phases' peak memory is theirs alone
+    robust_model = Wav2Vec2ForCTC(
+        RobustWav2Vec2Config(dropout=0.0, apply_spec_augment=False), device=dev,
+        generator=torch.Generator().manual_seed(0))
+    n_base = len(records)
+    check_robust_kernels(robust_model, records)
+    emit({"phase": "robust_kernels", "checked": [r["name"] for r in records[n_base:]], "card": smi})
+    by_path.update(robust_phases(robust_model, smi))
+    del robust_model
+    torch.cuda.empty_cache()
+    # 8. long audio in one pass
+    by_path.update(long_phases(smi))
     for r in records:
-        r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
+        counter, paths = r.pop("counter"), r.pop("paths")
+        r["launches_by_path"] = {p: by_path[p][counter] for p in paths}
         r["launches"] = sum(r["launches_by_path"].values())
-        require(r["launches"] > 0, f"{r['name']} never launched on a main path")
+        require(r["launches"] > 0 and all(r["launches_by_path"].values()),
+                f"{r['name']} was not launched on each of its paths: {r['launches_by_path']}")
 
     emit({"kernels": records})
     print(smi, flush=True)

@@ -2,9 +2,10 @@
 
 The JAX package `gsoc_wav2vec2_tpu` stays the reference; this package
 imports none of it.  It covers batched bf16 inference of `Wav2Vec2ForCTC`
-in the base family with greedy CTC decoding, and the CTC fine-tuning step
-(`training/`, stages 1 and 2 of the recipe); the TPU kernels of both paths
-are hand-written CUDA kernels under `csrc/`.
+in both families (base and robust/large/XLSR) with greedy CTC decoding and
+padded or bucketed WER evaluation, at any sequence length, and the CTC
+fine-tuning step (`training/`, stages 1 and 2 of the recipe); the TPU
+kernels of these paths are hand-written CUDA kernels under `csrc/`.
 """
 
 from .data.processor import Wav2Vec2Processor

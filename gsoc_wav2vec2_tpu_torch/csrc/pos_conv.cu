@@ -157,27 +157,28 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out, vo
 template <int kMode>
 int dispatch(const void* x, const void* w, const void* bias, void* out, void* pre, int B, int T,
              int C, int G, int K, int pad, cudaStream_t s) {
-  // C / G is 48 in the base family; 16 is the narrow geometry of the tests
+  // C / G is 48 in the base family and 64 in the robust/large one; 16 is the
+  // narrow geometry of the tests
   switch (C / G) {
     case 16: return (int)launch<2, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     case 48: return (int)launch<6, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
+    case 64: return (int)launch<8, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // --- dW ---------------------------------------------------------------------
 
-constexpr int kDwTaps = 8;   // taps per block: M = kDwTaps * CG rows
 constexpr int kDwT = 64;     // time rows per staged tile
 
-template <int NT>
+template <int NT, int kDwTaps>  // kDwTaps taps per block: M = kDwTaps * CG rows
 __global__ void __launch_bounds__(kThreads)
 pos_conv_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dpre,
                    float* __restrict__ part, int B, int T, int C, int K, int splits) {
   constexpr int CG = NT * 8;
   constexpr int kLd = CG + 8;
   constexpr int kVecRow = CG / 8;
-  constexpr int MT = CG / 16;            // 16-row m-tiles per warp (8 warps x MT = kDwTaps*CG/16)
+  constexpr int MT = kDwTaps * CG / 128;  // 16-row m-tiles per warp (8 warps x MT = kDwTaps*CG/16)
   constexpr int kWinRows = kDwT + kDwTaps;  // window rows staged (one spare)
   __shared__ __align__(128) __nv_bfloat16 xs[kWinRows * kLd];
   __shared__ __align__(128) __nv_bfloat16 ds[kDwT * kLd];
@@ -198,7 +199,7 @@ pos_conv_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
   for (int b = split; b < B; b += splits) {
     for (int t0 = 0; t0 < T; t0 += kDwT) {
       __syncthreads();  // the previous tiles are no longer read
-      // x rows t0 + tap0 - K/2 + r (the window of taps tap0 .. tap0 + 7)
+      // x rows t0 + tap0 - K/2 + r (the window of taps tap0 .. tap0 + kDwTaps - 1)
       for (int i = tid; i < kWinRows * kVecRow; i += kThreads) {
         const int row = i / kVecRow, v = i % kVecRow;
         const int tr = t0 + tap0 - half + row;
@@ -276,11 +277,12 @@ pos_conv_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw
   dw[idx] = sum;
 }
 
-template <int NT>
+template <int NT, int kDwTaps>
 cudaError_t launch_dw(const void* x, const void* dpre, void* part, void* dw, int B, int T, int C,
                       int G, int K, int splits, cudaStream_t s) {
+  if (K % kDwTaps) return cudaErrorInvalidValue;
   const dim3 grid(K / kDwTaps, G, splits);
-  pos_conv_dw_kernel<NT><<<grid, kThreads, 0, s>>>(
+  pos_conv_dw_kernel<NT, kDwTaps><<<grid, kThreads, 0, s>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)dpre, (float*)part, B, T, C, K, splits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -316,11 +318,11 @@ extern "C" int w2v2_pos_conv_dx(const void* dpre, const void* w, void* dx, int B
 // splits * G * K * CG * CG; K must be a multiple of 8
 extern "C" int w2v2_pos_conv_dw(const void* x, const void* dpre, void* part, void* dw, int B,
                                 int T, int C, int G, int K, int splits, void* stream) {
-  if (K % kDwTaps) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (C / G) {
-    case 16: return (int)launch_dw<2>(x, dpre, part, dw, B, T, C, G, K, splits, s);
-    case 48: return (int)launch_dw<6>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 16: return (int)launch_dw<2, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 48: return (int)launch_dw<6, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 64: return (int)launch_dw<8, 4>(x, dpre, part, dw, B, T, C, G, K, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,20 +1,31 @@
-"""Greedy-CTC inference (the inference half of
+"""Greedy-CTC inference and WER evaluation (the single-process half of
 `gsoc_wav2vec2_tpu/evaluation.py::GreedyCTCEvaluator`).
 
 Device side: forward + argmax.  Host side: CTC collapse + string join
-(`Wav2Vec2Processor.decode`).  No mesh, no beam search, no timestamps and
-no streaming in this slice.
+(`Wav2Vec2Processor.decode`).  `evaluate_padded` is the reference's
+constant-pad mode, `evaluate_bucketed` groups samples into a handful of
+length buckets so that padding within a batch stays bounded.  No mesh, no
+multi-host lockstep, no beam search, no timestamps and no streaming yet.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from collections import defaultdict
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .data.processor import Wav2Vec2Processor
 from .models.modeling import default_compute_dtype, wav2vec2_for_ctc_forward
+from .utils.metrics import wer
+
+
+def default_buckets(max_len: int = 400000, num: int = 8) -> List[int]:
+    """Bucket boundaries in waveform samples, multiples of 16000 (1 s),
+    biased toward typical LibriSpeech utterance lengths."""
+    edges = np.linspace(max_len / num, max_len, num)
+    return [int(np.ceil(e / 16000) * 16000) for e in edges]
 
 
 def plan_chunks(
@@ -124,6 +135,51 @@ class GreedyCTCEvaluator:
         sample_lengths = np.asarray(sample_lengths, np.int64)
         ids, frame_lengths = self._device_outputs(speech, sample_lengths)
         return [self.tokenizer.decode(ids[i, : frame_lengths[i]]) for i in range(b)]
+
+    def evaluate_padded(
+        self,
+        samples: Iterable[Tuple[np.ndarray, str]],
+        batch_size: int = 8,
+        pad_to: int = 246000,
+    ) -> Tuple[float, int]:
+        """Reference constant-pad mode: every batch padded to `pad_to`
+        samples, which is bucketed mode with one bucket.  `samples` yields
+        (audio, reference text); returns (wer, num_samples)."""
+        return self.evaluate_bucketed(samples, batch_size, [pad_to])
+
+    def evaluate_bucketed(
+        self,
+        samples: Iterable[Tuple[np.ndarray, str]],
+        batch_size: int = 8,
+        buckets: Optional[Sequence[int]] = None,
+    ) -> Tuple[float, int]:
+        """Bucketed mode: each sample goes to the smallest bucket that holds
+        it (the largest cuts longer audio), a bucket is run when it has
+        `batch_size` samples, and the tails run at the end in bucket order:
+        a handful of batch shapes, minimal padding.  Returns
+        (wer, num_samples)."""
+        buckets = sorted(default_buckets() if buckets is None else buckets)
+        pending = defaultdict(list)  # bucket -> [(audio, text)]
+        refs, hyps = [], []
+
+        def flush(entries, bucket):
+            """One forward over the entries' audio, zero-padded (or cut) to `bucket`."""
+            speech = np.zeros((len(entries), bucket), np.float32)
+            lengths = np.zeros((len(entries),), np.int64)
+            for i, (audio, _) in enumerate(entries):
+                lengths[i] = min(len(audio), bucket)
+                speech[i, : lengths[i]] = audio[:bucket]
+            hyps.extend(self.predict_batch(speech, lengths))
+            refs.extend(text for _, text in entries)
+
+        for audio, text in samples:
+            bucket = next((b for b in buckets if len(audio) <= b), buckets[-1])
+            pending[bucket].append((audio, text))
+            if len(pending[bucket]) == batch_size:
+                flush(pending.pop(bucket), bucket)
+        for bucket in sorted(pending):  # each holds fewer than batch_size
+            flush(pending[bucket], bucket)
+        return wer(refs, hyps), len(refs)
 
     def transcribe_long(
         self,

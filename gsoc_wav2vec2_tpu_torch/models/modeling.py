@@ -12,9 +12,9 @@ The forward passes are plain functions with the JAX names, taking the
 module as `params`.  `compute_dtype` works as in JAX: f32 master weights,
 each weight cast to the compute dtype where it is used, norm affine and
 weight-norm g/v applied in f32, logits returned in f32.  On a CUDA device
-the compute dtype is bf16 and the four kernel sites (conv front end, its
-statistics, positional conv, attention) run in the port's Hopper kernels;
-on the CPU every site runs its plain PyTorch version.
+the compute dtype is bf16 and the kernel sites (the conv front end of either
+family, the base one's statistics, positional conv, attention) run in the
+port's Hopper kernels; on the CPU every site runs its plain PyTorch version.
 
 `training=True` is the fine-tuning forward (JAX `modeling.py:176-535`):
 dropout at every JAX site, SpecAugment, stochastic depth, attention and the
@@ -190,20 +190,17 @@ def feature_encoder_forward(
     params: FeatureEncoder, config: Wav2Vec2Config, waveform: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """(B, L_samples) -> (B, L_frames, C).  In bf16 the base family's first
-    two layers run fused (`ops/kernels/conv_frontend.py`): the kernels on
+    """(B, L_samples) -> (B, L_frames, C).  In bf16 the first two layers run
+    fused (`ops/kernels/conv_frontend.py`: `fused_conv01` for the base
+    family, `fused_conv01_robust` for the robust/large one): the kernels on
     the card, their plain versions on the CPU."""
     layers = params.conv_layers
     fused = compute_dtype == torch.bfloat16 and conv_frontend.supports(config)
     if waveform.is_cuda and not fused:
-        if config.feature_extractor_norm_type == "layer":
-            raise NotImplementedError(
-                "the robust/large conv front end has no Hopper kernel yet (it ports Pallas "
-                "conv_frontend.py::fused_conv01_robust); run this config on the CPU"
-            )
         raise NotImplementedError(
-            "on CUDA the conv front end runs only in its fused bf16 kernel, which takes "
-            "conv0 k10 s5 and conv1 k3 s2 of equal width with GroupNorm and no bias"
+            "on CUDA the conv front end runs only in its fused bf16 kernels, which take "
+            "conv0 k10 s5 and conv1 k3 s2 of equal width: GroupNorm on layer 0 and no bias "
+            "(base), or LayerNorm on every layer (robust/large)"
         )
     start = 0
     if fused:
@@ -211,13 +208,24 @@ def feature_encoder_forward(
         if waveform.is_cuda and torch.is_grad_enabled() and any(
                 p.requires_grad for p in (*p0.parameters(), *p1.parameters())):
             raise NotImplementedError(
-                "the fused conv front end kernel has no backward: on CUDA conv0/conv1 train "
+                "the fused conv front end kernels have no backward: on CUDA conv0/conv1 train "
                 "only frozen (set_trainable(model, (\"feature_extractor\",)))"
             )
-        x = conv_frontend.fused_conv01(
-            waveform, p0.conv.kernel, p0.layer_norm.gamma, p0.layer_norm.beta,
-            p1.conv.kernel, eps=1e-5, gelu_approx=True,
-        )
+        if config.feature_extractor_norm_type == "group":
+            x = conv_frontend.fused_conv01(
+                waveform, p0.conv.kernel, p0.layer_norm.gamma, p0.layer_norm.beta,
+                p1.conv.kernel, eps=1e-5, gelu_approx=True,
+            )
+        else:  # robust/large family: LayerNorm (+ bias) on both layers
+            zeros = torch.zeros_like(p0.layer_norm.gamma)
+            x = conv_frontend.fused_conv01_robust(
+                waveform,
+                p0.conv.kernel, zeros if p0.conv.bias is None else p0.conv.bias,
+                p0.layer_norm.gamma, p0.layer_norm.beta,
+                p1.conv.kernel, zeros if p1.conv.bias is None else p1.conv.bias,
+                p1.layer_norm.gamma, p1.layer_norm.beta,
+                eps=1e-5, gelu_approx=True,
+            )
         start = 2
     else:
         x = waveform[:, :, None].to(compute_dtype)

@@ -47,6 +47,8 @@ SIGNATURES = {
     "w2v2_window_stats": [P, P, I, I, I, I, P],
     # x, w0, scale, shift, w1, out, B, L, T1, C, stream
     "w2v2_conv01": [P, P, P, P, P, P, I, I, I, I, P],
+    # x, w0, p0 [bias, gamma, beta], w1, p1, out, B, L, T1, C, eps, stream
+    "w2v2_conv01_robust": [P, P, P, P, P, P, I, I, I, I, F, P],
     # x, w, bias, out, B, T, C, G, K, stream
     "w2v2_pos_conv": [P, P, P, P, I, I, I, I, I, P],
     # x, w, bias, out, pre, B, T, C, G, K, stream

@@ -1,17 +1,23 @@
-"""Fused conv front end, layers 0 + 1 of the base feature encoder.
+"""Fused conv front end, layers 0 + 1 of the feature encoder, both families.
 
-Counterpart of `gsoc_wav2vec2_tpu/ops/pallas/conv_frontend.py`:
+Counterpart of `gsoc_wav2vec2_tpu/ops/pallas/conv_frontend.py`.  Base family:
 
     conv0 (k10 s5, 1 -> C, no bias) -> GroupNorm(C groups) -> GELU
         -> conv1 (k3 s2, C -> C, no bias) -> GELU
 
-Two kernels (`csrc/conv_frontend.cu`):
+Robust/large/XLSR family (`fused_conv01_robust`):
+
+    conv0 + b0 -> LayerNorm -> GELU -> conv1 + b1 -> LayerNorm -> GELU
+
+Three kernels (`csrc/conv_frontend.cu`):
 
 * `window_stats` replaces `_window_stats`: conv0's exact GroupNorm
   statistics from the 10x10 Gram matrix and row sum of its sample windows,
   so conv0 never has to exist in device memory;
 * `conv01` replaces the body of `fused_conv01`: conv0 recomputed per tile,
-  normalised with the folded scale/shift, GELU, conv1, GELU, bf16 out.
+  normalised with the folded scale/shift, GELU, conv1, GELU, bf16 out;
+* `conv01_robust` replaces the body of `fused_conv01_robust`: both
+  LayerNorms per frame in f32 inside the kernel, no statistics pass.
 
 The scale/shift algebra between them (`groupnorm_scale_shift`) is plain
 torch on (B, C) tensors, as it is XLA code outside the Pallas calls in JAX.
@@ -24,6 +30,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..basic import gelu
 from . import _build
@@ -37,6 +44,10 @@ def _phase_rows(t0: int) -> Tuple[int, int]:
 
 def conv0_length(num_samples: int) -> int:
     return 1 + (num_samples - 10) // 5
+
+
+def conv1_length(num_samples: int) -> int:
+    return 1 + (conv0_length(num_samples) - 3) // 2
 
 
 def window_stats_plain(x: torch.Tensor, t0: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -126,7 +137,7 @@ def conv01(
             f"{tuple(w0.shape)}, {tuple(w1.shape)}"
         )
     b, l = x.shape
-    if t1 < 1 or 1 + (conv0_length(l) - 3) // 2 < t1:
+    if t1 < 1 or conv1_length(l) < t1:
         raise ValueError(f"conv01: {t1} output rows do not fit {l} samples")
     x = x.contiguous()
     w0b = w0.reshape(10, c).to(torch.bfloat16).contiguous()
@@ -158,15 +169,96 @@ def fused_conv01(
     """
     x = waveform.to(torch.bfloat16)
     t0 = conv0_length(x.shape[-1])
-    t1 = 1 + (t0 - 3) // 2
+    t1 = conv1_length(x.shape[-1])
     gram, row_sum = window_stats(x, t0)
     scale, shift = groupnorm_scale_shift(gram, row_sum, w0, gamma, beta, t0, eps)
     return conv01(x, w0, scale, shift, w1, t1, gelu_approx)
 
 
-def supports(config) -> bool:
-    """Base-family geometry the fused path computes: conv0 k10 s5 and conv1
-    k3 s2 with equal widths, GroupNorm on layer 0, no conv bias."""
+def conv01_robust_plain(
+    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, gamma0: torch.Tensor,
+    beta0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, gamma1: torch.Tensor,
+    beta1: torch.Tensor, t1: int, eps: float, gelu_approx: bool,
+) -> torch.Tensor:
+    """x: (B, L) bf16 waveform; w0 (10, 1, C); w1 (3, C, C) (JAX layout);
+    biases and LayerNorm affines (C,) -> (B, t1, C) bf16.  Products of bf16
+    values accumulate in f32 and both LayerNorms run in f32 over the
+    channels of a frame, as in the kernel; conv0's activations are rounded
+    to bf16 before conv1."""
+    c = w0.shape[-1]
+    win = x.float().unfold(-1, 10, 5)[:, : 2 * t1 + 1]  # conv0 rows 0 .. 2 t1
+    y0 = win @ w0.reshape(10, c).to(torch.bfloat16).float() + b0.float()
+    y0 = F.layer_norm(y0, (c,), gamma0.float(), beta0.float(), eps)
+    y0 = gelu(y0, approximate=gelu_approx).to(torch.bfloat16).float()
+    w1f = w1.to(torch.bfloat16).float()
+    y1 = (
+        y0[:, 0 : 2 * t1 : 2] @ w1f[0]
+        + y0[:, 1 : 2 * t1 + 1 : 2] @ w1f[1]
+        + y0[:, 2 : 2 * t1 + 1 : 2] @ w1f[2]
+    ) + b1.float()
+    y1 = F.layer_norm(y1, (c,), gamma1.float(), beta1.float(), eps)
+    return gelu(y1, approximate=gelu_approx).to(torch.bfloat16)
+
+
+def conv01_robust(
+    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, gamma0: torch.Tensor,
+    beta0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, gamma1: torch.Tensor,
+    beta1: torch.Tensor, t1: int, eps: float, gelu_approx: bool,
+) -> torch.Tensor:
+    """Kernel wrapper of `conv01_robust_plain` (replaces the Pallas call of
+    `fused_conv01_robust`)."""
+    if not x.is_cuda:
+        return conv01_robust_plain(x, w0, b0, gamma0, beta0, w1, b1, gamma1, beta1, t1, eps,
+                                   gelu_approx)
+    c = w0.shape[-1]
+    if x.dtype != torch.bfloat16 or x.dim() != 2:
+        raise ValueError(
+            f"conv01_robust takes a (B, L) bf16 waveform, got {x.dtype} {tuple(x.shape)}")
+    if not gelu_approx:
+        raise ValueError("conv01_robust computes tanh GELU only, the form every bf16 path takes")
+    if tuple(w0.shape) != (10, 1, c) or tuple(w1.shape) != (3, c, c) or c not in (256, 512):
+        raise ValueError(
+            f"conv01_robust takes w0 (10, 1, C), w1 (3, C, C) with C of 512 or 256, got "
+            f"{tuple(w0.shape)}, {tuple(w1.shape)}"
+        )
+    b, l = x.shape
+    if t1 < 1 or conv1_length(l) < t1:
+        raise ValueError(f"conv01_robust: {t1} output rows do not fit {l} samples")
+    x = x.contiguous()
+    w0b = w0.reshape(10, c).to(torch.bfloat16).contiguous()
+    w1b = w1.to(torch.bfloat16).contiguous()
+    # rows [bias, gamma, beta] of each conv, f32
+    p0 = torch.stack([b0, gamma0, beta0]).float().contiguous()
+    p1 = torch.stack([b1, gamma1, beta1]).float().contiguous()
+    if p0.shape != (3, c) or p1.shape != (3, c):
+        raise ValueError("conv01_robust takes (C,) biases and LayerNorm affines")
+    out = torch.empty((b, t1, c), dtype=torch.bfloat16, device=x.device)
+    lib = _build.library()
+    _build.check("conv01_robust", lib.w2v2_conv01_robust(
+        x.data_ptr(), w0b.data_ptr(), p0.data_ptr(), w1b.data_ptr(), p1.data_ptr(),
+        out.data_ptr(), b, l, t1, c, eps, _build.stream_of(x)))
+    conv01_robust.launches += 1
+    return out
+
+
+conv01_robust.launches = 0
+
+
+def fused_conv01_robust(
+    waveform: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, gamma0: torch.Tensor,
+    beta0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, gamma1: torch.Tensor,
+    beta1: torch.Tensor, *, eps: float = 1e-5, gelu_approx: bool = False,
+) -> torch.Tensor:
+    """conv0(k10,s5)+bias -> LayerNorm -> GELU -> conv1(k3,s2)+bias ->
+    LayerNorm -> GELU.  waveform (B, L) float, cast to bf16 first as in the
+    JAX kernel; returns (B, T1, C) bf16.  LayerNorm is per frame, so there is
+    no statistics pass."""
+    x = waveform.to(torch.bfloat16)
+    return conv01_robust(x, w0, b0, gamma0, beta0, w1, b1, gamma1, beta1,
+                         conv1_length(x.shape[-1]), eps, gelu_approx)
+
+
+def _geometry_ok(config) -> bool:
     return (
         len(config.kernal_sizes) >= 2
         and config.kernal_sizes[0] == 10
@@ -174,6 +266,16 @@ def supports(config) -> bool:
         and config.kernal_sizes[1] == 3
         and config.strides[1] == 2
         and config.filter_sizes[0] == config.filter_sizes[1]
-        and config.feature_extractor_norm_type == "group"
-        and not config.conv_bias
     )
+
+
+def supports(config) -> bool:
+    """Both conv-stack families: base (GroupNorm on layer 0, no bias:
+    `fused_conv01`) and robust/large/XLSR (LayerNorm on every layer, biases:
+    `fused_conv01_robust`), at conv0 k10 s5 and conv1 k3 s2 of equal
+    widths."""
+    if not _geometry_ok(config):
+        return False
+    if config.feature_extractor_norm_type == "group":
+        return not config.conv_bias
+    return config.feature_extractor_norm_type == "layer"

@@ -31,6 +31,11 @@ from ..basic import gelu
 from . import _build
 
 
+# C // groups the CUDA kernels are instantiated for: base, robust/large, and
+# the narrow geometry of the tests
+KERNEL_GROUP_WIDTHS = (48, 64, 16)
+
+
 def _conv_plain(x: torch.Tensor, kernel: torch.Tensor, groups: int, pad_lo: int) -> torch.Tensor:
     """sum_{k, i} x[t + k - pad_lo, g*CG + i] * kernel[k, i, g*CG + o] in f32
     from operands rounded to x's dtype; zero outside [0, T); (B, T, C) out."""
@@ -55,10 +60,10 @@ def _check(name, x, kernel, groups):
     k, cg, c_out = kernel.shape
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{name} takes bf16 activations, got {x.dtype}")
-    if c % groups or cg != c // groups or c_out != c or cg not in (16, 48):
+    if c % groups or cg != c // groups or c_out != c or cg not in KERNEL_GROUP_WIDTHS:
         raise ValueError(
             f"{name}: kernel {tuple(kernel.shape)} with {groups} groups does not fit "
-            f"{c} channels (the kernel takes C // groups of 48, base, or 16)"
+            f"{c} channels (the kernel takes C // groups of 48, base, 64, robust/large, or 16)"
         )
     return b, t, c, k, cg
 
@@ -183,9 +188,9 @@ def pos_conv_dw(x: torch.Tensor, dpre: torch.Tensor, kernel_size: int, *,
     k, cg = kernel_size, c // groups
     if x.dtype != torch.bfloat16 or dpre.dtype != torch.bfloat16 or dpre.shape != x.shape:
         raise ValueError("pos_conv_dw takes bf16 x and dpre of one (B, T, C) shape")
-    if c % groups or cg not in (16, 48) or k % 8:
+    if c % groups or cg not in KERNEL_GROUP_WIDTHS or k % 8:
         raise ValueError(
-            f"pos_conv_dw takes C // groups of 48 (base) or 16 and a multiple of 8 taps, "
+            f"pos_conv_dw takes C // groups of 48 (base), 64 (robust/large) or 16 and a multiple of 8 taps, "
             f"got {c} channels, {groups} groups, {k} taps"
         )
     x, dpre = x.contiguous(), dpre.contiguous()

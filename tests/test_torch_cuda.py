@@ -120,19 +120,145 @@ def test_small_model_goes_through_the_kernels(cuda):
     assert (logits.cpu() - ref).abs().max().item() < 0.1 * (1 + ref.abs().max().item())
 
 
+ROBUST_SMALL = dict(hidden_size=256, num_heads=4, num_layers=2, intermediate_size=512,
+                    filter_sizes=[256] * 7, num_conv_pos_embedding_groups=4,
+                    dropout=0.0, apply_spec_augment=False)  # pos conv C/G = 64
+
+
+def _robust_frontend_inputs(c, length, g, cuda, b=2):
+    wave = torch.randn(b, length, generator=g).to(cuda, torch.bfloat16)
+    w0 = (torch.randn(10, 1, c, generator=g) * 0.3).to(cuda)
+    w1 = (torch.randn(3, c, c, generator=g) * 0.05).to(cuda)
+    vecs = [(s * torch.randn(c, generator=g) + o).to(cuda)
+            for s, o in ((0.1, 0.0), (0.1, 1.0), (0.1, 0.0), (0.1, 0.0), (0.1, 1.0), (0.1, 0.0))]
+    b0, g0, e0, b1, g1, e1 = vecs
+    return wave, (w0, b0, g0, e0, w1, b1, g1, e1)
+
+
 @pytest.mark.cuda
-def test_robust_family_raises_on_card(cuda):
-    """The robust front end kernel is not ported: on the card the model
-    raises instead of running some other path."""
+@pytest.mark.parametrize("c,length", [(512, 26003), (256, 24000), (512, 40975)])
+def test_conv01_robust_matches_plain_on_card(cuda, c, length):
+    """The robust front end kernel against its plain version: full tiles, a
+    tail tile (T1 not a multiple of 64) and a waveform whose last conv0
+    window ends at the last sample."""
+    g = torch.Generator().manual_seed(c + length)
+    wave, params = _robust_frontend_inputs(c, length, g, cuda)
+    t1 = conv_frontend.conv1_length(length)
+    got = conv_frontend.conv01_robust(wave, *params, t1, 1e-5, True)
+    want = conv_frontend.conv01_robust_plain(wave, *params, t1, 1e-5, True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, t1, c) and got.dtype == torch.bfloat16
+    d = (got.float() - want.float()).abs()
+    # bf16 outputs (ulp 2^-6 at |y| in [2, 4)) over f32 sums in another order
+    assert d.max().item() < 0.05 and d.mean().item() < 5e-3
+    with pytest.raises(ValueError, match="tanh GELU"):
+        conv_frontend.conv01_robust(wave, *params, t1, 1e-5, False)
+    with pytest.raises(ValueError):
+        conv_frontend.conv01_robust(wave.float(), *params, t1, 1e-5, True)
+
+
+@pytest.mark.cuda
+def test_robust_family_runs_on_card(cuda):
+    """A narrow robust model (LayerNorm front end, pre-norm layers, pos conv
+    at C/G = 64) on the card with a ragged mask launches its kernels (no
+    statistics pass) and tracks its f32 CPU copy."""
     from gsoc_wav2vec2_tpu_torch.models.config import RobustWav2Vec2Config
 
-    cfg = RobustWav2Vec2Config(hidden_size=128, num_heads=2, num_layers=1, intermediate_size=256,
-                               filter_sizes=[256] * 7, num_conv_pos_embedding_groups=8,
-                               dropout=0.0, apply_spec_augment=False)
+    cfg = RobustWav2Vec2Config(**ROBUST_SMALL)
     model = Wav2Vec2ForCTC(cfg, device=cuda)
-    with pytest.raises(NotImplementedError, match="fused_conv01_robust"):
-        with torch.inference_mode():
-            model(torch.randn(1, 16000, device=cuda))
+    x = torch.randn(2, 16000, generator=torch.Generator().manual_seed(1))
+    mask = torch.ones(2, 16000, dtype=torch.int64)
+    mask[1, 9000:] = 0
+    x[1, 9000:] = 0.0
+    kernels = (conv_frontend.window_stats, conv_frontend.conv01, conv_frontend.conv01_robust,
+               pos_conv.pos_conv, flash_attention.flash_attention_fwd)
+    for k in kernels:
+        k.launches = 0
+    with torch.inference_mode():
+        logits = model(x.to(cuda), mask.to(cuda))
+        torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [0, 0, 1, 1, cfg.num_layers]
+    assert torch.isfinite(logits).all()
+    cpu = model.to("cpu")
+    with torch.inference_mode():
+        ref = wav2vec2_for_ctc_forward(cpu, cfg, x, mask)
+    assert (logits.cpu() - ref).abs().max().item() < 0.1 * (1 + ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_robust_trainable_front_end_raises_on_card(cuda):
+    """The robust front end kernel has no backward either: a forward with
+    grad enabled and a trainable conv0 raises."""
+    from gsoc_wav2vec2_tpu_torch.models.config import RobustWav2Vec2Config
+    from gsoc_wav2vec2_tpu_torch.training import set_trainable
+
+    cfg = RobustWav2Vec2Config(**ROBUST_SMALL)
+    model = Wav2Vec2ForCTC(cfg, device=cuda)
+    set_trainable(model, ())
+    with pytest.raises(NotImplementedError, match="no backward"):
+        model(torch.randn(1, 16000, device=cuda))
+
+
+@pytest.mark.cuda
+def test_small_robust_train_step_goes_through_the_kernels(cuda):
+    """The narrow robust model's stage-2 step (mask, length-aware CTC)
+    launches each kernel once per site and its loss goes down."""
+    from gsoc_wav2vec2_tpu_torch.models.config import RobustWav2Vec2Config
+    from gsoc_wav2vec2_tpu_torch.training import (
+        create_optimizer, create_train_state, make_train_step, set_trainable)
+
+    cfg = RobustWav2Vec2Config(**ROBUST_SMALL)
+    model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    labels = torch.randint(1, cfg.vocab_size, (2, 12), generator=g)
+    labels[1, 8:] = 0
+    mask = torch.ones(2, 32000, dtype=torch.int64)
+    mask[1, 25000:] = 0
+    batch = {"speech": torch.randn(2, 32000, generator=g) * mask, "labels": labels,
+             "attention_mask": mask}
+    set_trainable(model, ("feature_extractor",))
+    state = create_train_state(model, create_optimizer(model, 1e-3))
+    step = make_train_step(cfg, division_factor=2, with_attention_mask=True, length_aware=True)
+    kernels = {"conv01_robust": conv_frontend.conv01_robust, "window_stats": conv_frontend.window_stats,
+               "pos_conv_train_fwd": pos_conv.pos_conv_train_fwd,
+               "pos_conv_dx": pos_conv.pos_conv_dx, "pos_conv_dw": pos_conv.pos_conv_dw,
+               "flash_attention_fwd": flash_attention.flash_attention_fwd,
+               "flash_attention_bwd": flash_attention.flash_attention_bwd}
+    losses = []
+    for i in range(6):
+        for fn in kernels.values():
+            fn.launches = 0
+        state, metrics = step(state, batch, torch.Generator().manual_seed(i))
+        losses.append(metrics["loss"].item())
+        assert {k: fn.launches for k, fn in kernels.items()} == {
+            "conv01_robust": 1, "window_stats": 0, "pos_conv_train_fwd": 1, "pos_conv_dx": 1,
+            "pos_conv_dw": 1, "flash_attention_fwd": 2, "flash_attention_bwd": 2}
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,b,h", [(5999, 1, 2), (8192, 1, 2)])
+def test_flash_long_sequences_match_plain_on_card(cuda, l, b, h):
+    """Past 4096 frames (where the TPU package switches to its kv-blocked
+    kernels): forward and backward with dropout 0.1 and a ragged key bias
+    against the plain versions; L = 5999 hashes with the padded stride 6016."""
+    g = torch.Generator().manual_seed(l)
+    q, k, v, dout = _peaky_qkv(b, h, l, g, cuda)
+    bias = torch.zeros(b, l)
+    bias[0, (2 * l) // 3:] = -10000.0
+    bias = bias.to(cuda)
+    out, lse = flash_attention.flash_attention_fwd(q, k, v, bias, dropout_rate=0.1, seed=7)
+    pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=0.1, seed=7)
+    assert (out.float() - pout.float()).abs().max().item() < 0.04
+    torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-3)
+    grads = flash_attention.flash_attention_bwd(q, k, v, bias, pout, plse, dout,
+                                                dropout_rate=0.1, seed=7)
+    pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, bias, pout, plse, dout,
+                                                       dropout_rate=0.1, seed=7)
+    for got, want in zip(grads, pgrads):
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() < 0.01 * scale
 
 
 def _peaky_qkv(b, h, l, g, cuda):
@@ -172,10 +298,10 @@ def test_flash_dropout_fwd_bwd_match_plain_on_card(cuda, l):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [768, 256])
+@pytest.mark.parametrize("c", [768, 256, 1024])
 def test_pos_conv_train_kernels_match_plain_on_card(cuda, c):
-    """Training forward (output and f32 pre-activation), dx and dW against
-    their plain versions, C/G = 48 and 16, a ragged T."""
+    """Inference forward, training forward (output and f32 pre-activation),
+    dx and dW against their plain versions, C/G = 48, 16 and 64, a ragged T."""
     g = torch.Generator().manual_seed(c)
     t, groups = 300, 16
     x, dpre = (torch.randn(2, t, c, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
@@ -184,6 +310,8 @@ def test_pos_conv_train_kernels_match_plain_on_card(cuda, c):
     y, pre = pos_conv.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True)
     py, ppre = pos_conv.pos_conv_train_fwd_plain(x, kernel, bias, groups=groups, gelu_approx=True)
     assert (y.float() - py.float()).abs().max().item() < 0.05
+    ye = pos_conv.pos_conv(x, kernel, bias, groups=groups, gelu_approx=True)
+    assert (ye.float() - py.float()).abs().max().item() < 0.05
     torch.testing.assert_close(pre, ppre, rtol=0, atol=1e-4 * ppre.abs().max().item())
     dx = pos_conv.pos_conv_dx(dpre, kernel, groups=groups).float()
     pdx = pos_conv.pos_conv_dx_plain(dpre, kernel, groups=groups).float()
