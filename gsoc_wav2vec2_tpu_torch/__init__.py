@@ -4,19 +4,30 @@ The JAX package `gsoc_wav2vec2_tpu` stays the reference; this package
 imports none of it.  It covers batched bf16 inference of `Wav2Vec2ForCTC`
 in both families (base and robust/large/XLSR) with greedy CTC decoding and
 padded or bucketed WER evaluation, at any sequence length, and the CTC
-fine-tuning step (`training/`, stages 1 and 2 of the recipe); the TPU
-kernels of these paths are hand-written CUDA kernels under `csrc/`.
+fine-tuning step (`training/`, stages 1 and 2 of the recipe), and
+self-supervised pretraining (`models/pretraining.py`: Gumbel quantizer,
+contrastive + diversity loss, the pretraining step); the TPU kernels of
+these paths are hand-written CUDA kernels under `csrc/`.
 """
 
 from .data.processor import Wav2Vec2Processor
 from .evaluation import GreedyCTCEvaluator
-from .models.config import RobustWav2Vec2Config, Wav2Vec2Config
+from .models.config import (
+    RobustWav2Vec2Config,
+    RobustWav2Vec2PretrainingConfig,
+    Wav2Vec2Config,
+    Wav2Vec2PretrainingConfig,
+)
 from .models.modeling import Wav2Vec2ForCTC, Wav2Vec2Model
+from .models.pretraining import Wav2Vec2ForPreTraining
 
 __all__ = [
     "Wav2Vec2Config",
     "RobustWav2Vec2Config",
+    "Wav2Vec2PretrainingConfig",
+    "RobustWav2Vec2PretrainingConfig",
     "Wav2Vec2ForCTC",
+    "Wav2Vec2ForPreTraining",
     "Wav2Vec2Model",
     "Wav2Vec2Processor",
     "GreedyCTCEvaluator",

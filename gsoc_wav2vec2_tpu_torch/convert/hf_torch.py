@@ -34,12 +34,14 @@ def _transpose3(t: torch.Tensor) -> torch.Tensor:
     return t.permute(2, 1, 0)
 
 
-def hf_name_map(config, with_lm_head: bool, prefix: str) -> Dict[str, Tuple[str, Callable]]:
+def hf_name_map(config, with_lm_head: bool, prefix: str,
+                pretraining: bool = False) -> Dict[str, Tuple[str, Callable]]:
     """Port name -> (HF name, transform), for every parameter the port's
     model of `config` holds (optional ones included; the caller drops the
-    absent)."""
+    absent).  `pretraining`: the `Wav2Vec2ForPreTraining` names (quantizer
+    and the two projection heads beside the backbone)."""
     m: Dict[str, Tuple[str, Callable]] = {}
-    back = "wav2vec2." if with_lm_head else ""
+    back = "wav2vec2." if with_lm_head or pretraining else ""
 
     def dense(ours: str, theirs: str):
         m[f"{ours}.kernel"] = (f"{theirs}.weight", _transpose2)
@@ -72,14 +74,21 @@ def hf_name_map(config, with_lm_head: bool, prefix: str) -> Dict[str, Tuple[str,
         norm(f"{back}{base}.final_layer_norm", f"{prefix}{base}.final_layer_norm")
     if with_lm_head:
         dense("lm_head", "lm_head")
+    if pretraining:
+        # the codebooks keep the HF layout (1, G * V, d / G)
+        m["quantizer.codevectors"] = ("quantizer.codevectors", _same)
+        for name in ("quantizer.weight_proj", "project_hid", "project_q"):
+            dense(name, name)
     return m
 
 
 def state_dict_from_hf(
-    state_dict: Dict[str, torch.Tensor], config, with_lm_head: bool = True
+    state_dict: Dict[str, torch.Tensor], config, with_lm_head: bool = True,
+    pretraining: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """The port's state dict (f32 tensors) from an HF `Wav2Vec2ForCTC` /
-    `Wav2Vec2Model` (or HuBERT) state dict."""
+    `Wav2Vec2Model` (or HuBERT) state dict, or with `pretraining` (and
+    `with_lm_head=False`) from a `Wav2Vec2ForPreTraining` one."""
     sd = {
         k.replace("parametrizations.weight.original0", "weight_g")
         .replace("parametrizations.weight.original1", "weight_v"): v
@@ -87,10 +96,10 @@ def state_dict_from_hf(
     }
     prefix = next((p for p in ("wav2vec2.", "hubert.") if any(k.startswith(p) for k in sd)), "")
     out = {}
-    for ours, (theirs, transform) in hf_name_map(config, with_lm_head, prefix).items():
+    for ours, (theirs, transform) in hf_name_map(config, with_lm_head, prefix, pretraining).items():
         if theirs in sd:
             out[ours] = transform(sd[theirs]).float().contiguous()
-    spec = ("wav2vec2." if with_lm_head else "") + "masked_spec_embed"
+    spec = ("wav2vec2." if with_lm_head or pretraining else "") + "masked_spec_embed"
     if spec not in out:
         # inference-only checkpoints may omit it; only SpecAugment reads it
         out[spec] = torch.zeros(config.hidden_size)

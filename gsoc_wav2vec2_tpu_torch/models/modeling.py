@@ -28,10 +28,11 @@ is what has `requires_grad` off: the models are built so, and
 `training.set_trainable` turns on the trainable leaves.  Autograd then
 builds no backward for a frozen region (JAX's `stop_gradient` at the same
 places), and the attention and positional-conv sites take their
-differentiable kernels only where an input needs a gradient.  On the card
-the conv front end has no backward kernel: with grad enabled and a
-trainable conv0/conv1 it raises (freeze "feature_extractor", as both
-stages of the recipe do).
+differentiable kernels only where an input needs a gradient.  The fused
+conv front end has no backward kernel: where a gradient can reach conv0 or
+conv1 (grad enabled and one of their parameters trainable, as in
+pretraining) the two layers run as plain convolutions like layers 2-6, which
+is the JAX package's own dispatch (`conv_frontend.supports`).
 """
 
 from __future__ import annotations
@@ -193,24 +194,22 @@ def feature_encoder_forward(
     """(B, L_samples) -> (B, L_frames, C).  In bf16 the first two layers run
     fused (`ops/kernels/conv_frontend.py`: `fused_conv01` for the base
     family, `fused_conv01_robust` for the robust/large one): the kernels on
-    the card, their plain versions on the CPU."""
+    the card, their plain versions on the CPU.  The fused kernels have no
+    backward, so where a gradient can reach conv0/conv1 all seven layers run
+    the plain loop and autograd gives the backward."""
     layers = params.conv_layers
-    fused = compute_dtype == torch.bfloat16 and conv_frontend.supports(config)
-    if waveform.is_cuda and not fused:
+    fusable = compute_dtype == torch.bfloat16 and conv_frontend.supports(config)
+    if waveform.is_cuda and not fusable:
         raise NotImplementedError(
-            "on CUDA the conv front end runs only in its fused bf16 kernels, which take "
-            "conv0 k10 s5 and conv1 k3 s2 of equal width: GroupNorm on layer 0 and no bias "
-            "(base), or LayerNorm on every layer (robust/large)"
+            "on CUDA the conv front end runs only in bf16, with conv0 k10 s5 and conv1 k3 s2 of "
+            "equal width: GroupNorm on layer 0 and no bias (base), or LayerNorm on every layer "
+            "(robust/large)"
         )
+    p0, p1 = layers[0], layers[1]
+    trains = torch.is_grad_enabled() and any(
+        p.requires_grad for p in (*p0.parameters(), *p1.parameters()))
     start = 0
-    if fused:
-        p0, p1 = layers[0], layers[1]
-        if waveform.is_cuda and torch.is_grad_enabled() and any(
-                p.requires_grad for p in (*p0.parameters(), *p1.parameters())):
-            raise NotImplementedError(
-                "the fused conv front end kernels have no backward: on CUDA conv0/conv1 train "
-                "only frozen (set_trainable(model, (\"feature_extractor\",)))"
-            )
+    if fusable and not trains:
         if config.feature_extractor_norm_type == "group":
             x = conv_frontend.fused_conv01(
                 waveform, p0.conv.kernel, p0.layer_norm.gamma, p0.layer_norm.beta,
@@ -380,9 +379,13 @@ def wav2vec2_for_ctc_forward(
 # ---------------------------------------------------------------------------
 
 
-def _load_config(save_dir: str) -> Wav2Vec2Config:
+def _read_config_json(save_dir: str) -> dict:
     with open(os.path.join(save_dir, "config.json")) as f:
-        d = json.load(f)
+        return json.load(f)
+
+
+def _load_config(save_dir: str) -> Wav2Vec2Config:
+    d = _read_config_json(save_dir)
     if is_hf_config_dict(d):
         return config_from_hf_dict(d)
     config = Wav2Vec2Config(**d)
@@ -392,10 +395,12 @@ def _load_config(save_dir: str) -> Wav2Vec2Config:
 
 
 class _Pretrained(nn.Module):
-    """Shared construction and `from_pretrained` of the two models."""
+    """Shared construction and `from_pretrained` of the models."""
 
     _with_lm_head = False
+    _pretraining_heads = False
     _forward = None
+    _load_config = staticmethod(_load_config)
 
     def _setup(self, config, device, generator):
         if not isinstance(config, Wav2Vec2Config):
@@ -426,7 +431,7 @@ class _Pretrained(nn.Module):
         `pytorch_model.bin` (read with `torch.load(weights_only=True)`,
         both weight-norm namings)."""
         dev = resolve_device(device)
-        config = _load_config(save_dir)
+        config = cls._load_config(save_dir)
         path = os.path.join(save_dir, HF_WEIGHTS_NAME)
         if not os.path.isfile(path):
             raise FileNotFoundError(
@@ -436,7 +441,8 @@ class _Pretrained(nn.Module):
         model = cls(config, device="cpu")
         sd = torch.load(path, map_location="cpu", weights_only=True)
         model.load_state_dict(
-            state_dict_from_hf(sd, config, with_lm_head=cls._with_lm_head), strict=True
+            state_dict_from_hf(sd, config, with_lm_head=cls._with_lm_head,
+                               pretraining=cls._pretraining_heads), strict=True
         )
         return model.to(dev)
 

@@ -65,6 +65,8 @@ SIGNATURES = {
     # seed, threshold, hash_stride, inv_keep, dropout, stream
     "w2v2_flash_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
                        LL, LL, LL, LL, LL, LL, LL, LL, LL, I, U, U, F, I, P],
+    # dneg, idx, part, out, B, N, D, L, seg_len, bf16, stream
+    "w2v2_scatter_rows_add": [P, P, P, P, I, I, I, I, I, I, P],
 }
 
 

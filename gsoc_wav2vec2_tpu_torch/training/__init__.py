@@ -1,10 +1,12 @@
-"""CTC fine-tuning: train state, optimizer recipe, train / eval steps."""
+"""Train state, optimizer recipes (CTC fine-tuning, pretraining), train / eval steps."""
 
 from .state import (
     TrainState,
     create_optimizer,
+    create_pretrain_optimizer,
     create_train_state,
     get_learning_rate,
+    pretrain_lr_schedule,
     set_learning_rate,
     set_trainable,
     stage2_lr_schedule,
@@ -22,8 +24,10 @@ from .trainer import (
 __all__ = [
     "TrainState",
     "create_optimizer",
+    "create_pretrain_optimizer",
     "create_train_state",
     "get_learning_rate",
+    "pretrain_lr_schedule",
     "set_learning_rate",
     "set_trainable",
     "stage2_lr_schedule",

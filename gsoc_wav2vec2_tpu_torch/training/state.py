@@ -13,6 +13,9 @@ JAX masks the frozen leaves out of the optimizer (`optax.multi_transform`
 with `set_to_zero`); here they have `requires_grad` off and the Adam holds
 only the trainable parameters, so frozen leaves get no gradient, no state
 and no update.
+
+Pretraining trains every parameter with AdamW under a warmup -> linear-decay
+schedule (`create_pretrain_optimizer`, `pretrain_lr_schedule`).
 """
 
 from __future__ import annotations
@@ -68,6 +71,37 @@ def create_optimizer(model: nn.Module, learning_rate: float) -> torch.optim.Adam
     if not params:
         raise ValueError("no parameter requires a gradient: call set_trainable first")
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+def pretrain_lr_schedule(lr: float, warmup_steps: int,
+                         total_steps: int) -> Callable[[int], float]:
+    """Update count -> learning rate: linear warmup from 0 to `lr` over
+    `warmup_steps`, then linear decay to 0 at `total_steps` (JAX:
+    `optax.join_schedules` of two `linear_schedule`s).  optax counts from 0,
+    so the first update runs at learning rate 0: call it with `state.step`
+    before each step."""
+    warm = max(warmup_steps, 1)
+    decay = max(total_steps - warmup_steps, 1)
+
+    def schedule(count: int) -> float:
+        if count < warm:
+            return lr * min(max(count / warm, 0.0), 1.0)
+        return lr * (1.0 - min((count - warm) / decay, 1.0))
+
+    return schedule
+
+
+def create_pretrain_optimizer(model: nn.Module, learning_rate: float, *,
+                              weight_decay: float = 0.01,
+                              eps: float = 1e-6) -> torch.optim.AdamW:
+    """The pretraining optimizer: AdamW (b1 0.9, b2 0.999, decoupled decay)
+    over every parameter that requires a gradient, biases and norms included,
+    as `optax.adamw` decays every leaf."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    if not params:
+        raise ValueError("no parameter requires a gradient: call set_trainable first")
+    return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=eps,
+                             weight_decay=weight_decay)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

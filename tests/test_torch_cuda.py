@@ -10,7 +10,7 @@ import torch
 
 from gsoc_wav2vec2_tpu_torch.models.config import Wav2Vec2Config
 from gsoc_wav2vec2_tpu_torch.models.modeling import Wav2Vec2ForCTC, wav2vec2_for_ctc_forward
-from gsoc_wav2vec2_tpu_torch.ops.kernels import conv_frontend, flash_attention, pos_conv
+from gsoc_wav2vec2_tpu_torch.ops.kernels import conv_frontend, flash_attention, pos_conv, scatter_add
 
 torch.set_num_threads(2)
 
@@ -183,20 +183,6 @@ def test_robust_family_runs_on_card(cuda):
     with torch.inference_mode():
         ref = wav2vec2_for_ctc_forward(cpu, cfg, x, mask)
     assert (logits.cpu() - ref).abs().max().item() < 0.1 * (1 + ref.abs().max().item())
-
-
-@pytest.mark.cuda
-def test_robust_trainable_front_end_raises_on_card(cuda):
-    """The robust front end kernel has no backward either: a forward with
-    grad enabled and a trainable conv0 raises."""
-    from gsoc_wav2vec2_tpu_torch.models.config import RobustWav2Vec2Config
-    from gsoc_wav2vec2_tpu_torch.training import set_trainable
-
-    cfg = RobustWav2Vec2Config(**ROBUST_SMALL)
-    model = Wav2Vec2ForCTC(cfg, device=cuda)
-    set_trainable(model, ())
-    with pytest.raises(NotImplementedError, match="no backward"):
-        model(torch.randn(1, 16000, device=cuda))
 
 
 @pytest.mark.cuda
@@ -377,19 +363,147 @@ def test_small_model_train_step_goes_through_the_kernels(cuda):
 
 
 @pytest.mark.cuda
-def test_trainable_front_end_raises_on_card(cuda):
-    """The fused conv front end has no backward kernel: a step that would
-    train conv0/conv1 on the card raises instead of dropping their
-    gradients."""
-    from gsoc_wav2vec2_tpu_torch.training import (
-        create_optimizer, create_train_state, make_train_step, set_trainable)
+@pytest.mark.parametrize("robust", [False, True])
+def test_trainable_front_end_trains_on_card(cuda, robust):
+    """With conv0/conv1 trainable the front end runs as plain convolutions
+    (the fused kernels have no backward and are not launched): the step's
+    loss is finite and the conv0/conv1 gradients follow the f32 CPU copy's."""
+    from gsoc_wav2vec2_tpu_torch.models.config import RobustWav2Vec2Config
+    from gsoc_wav2vec2_tpu_torch.training import make_ctc_loss_fn, set_trainable
 
-    cfg = Wav2Vec2Config(hidden_size=128, num_heads=2, num_layers=1, intermediate_size=256,
-                         filter_sizes=[256] * 7, num_conv_pos_embedding_groups=8,
-                         dropout=0.0, apply_spec_augment=False)
+    if robust:
+        cfg = RobustWav2Vec2Config(**ROBUST_SMALL)
+    else:
+        cfg = Wav2Vec2Config(hidden_size=128, num_heads=2, num_layers=1, intermediate_size=256,
+                             filter_sizes=[256] * 7, num_conv_pos_embedding_groups=8,
+                             dropout=0.0, apply_spec_augment=False)
     model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
     set_trainable(model, ())
-    state = create_train_state(model, create_optimizer(model, 1e-3))
-    batch = {"speech": torch.randn(2, 16000), "labels": torch.ones(2, 4, dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="no backward"):
-        make_train_step(cfg, division_factor=2)(state, batch, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batch = {"speech": torch.randn(2, 16000, generator=g),
+             "labels": torch.randint(1, cfg.vocab_size, (2, 6), generator=g)}
+    loss_fn = make_ctc_loss_fn(cfg, division_factor=2)
+    fused = (conv_frontend.window_stats, conv_frontend.conv01, conv_frontend.conv01_robust)
+
+    def run():
+        for fn in fused:
+            fn.launches = 0
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch, torch.Generator().manual_seed(0))
+        loss.backward()
+        layers = model.wav2vec2.feature_extractor.conv_layers
+        return loss.item(), [layers[i].conv.kernel.grad.detach().double().cpu().flatten()
+                             for i in (0, 1)]
+
+    card_loss, card_grads = run()
+    assert [fn.launches for fn in fused] == [0, 0, 0]
+    # frozen again, the same forward takes the fused kernel
+    set_trainable(model, ("feature_extractor",))
+    loss_fn(model, batch, torch.Generator().manual_seed(0))
+    assert sum(fn.launches for fn in fused) == (1 if robust else 2)
+    set_trainable(model, ())
+    model.to("cpu")
+    cpu_loss, cpu_grads = run()
+    # bf16 on the card against f32 on the CPU through a 1-2 layer model
+    assert abs(card_loss - cpu_loss) <= 0.02 * abs(cpu_loss)
+    for got, want in zip(card_grads, cpu_grads):
+        assert torch.isfinite(got).all() and got.abs().sum() > 0
+        assert (got @ want / (got.norm() * want.norm())).item() >= 0.99
+
+
+def _skewed_indices(b, n, l_rows, g, hot=0.6):
+    """(B, N) int32 rows: a share `hot` of the sources in runs on row 0 (as
+    the negative sampler gives unmasked frames), the rest uniform; row 1 of
+    the batch scatters everything onto one row."""
+    idx = torch.randint(0, l_rows, (b, n), generator=g)
+    runs = torch.rand(b, -(-n // 10), generator=g) < hot
+    idx[runs.repeat_interleave(10, dim=1)[:, :n]] = 0
+    if b > 1:
+        idx[1] = min(7, l_rows - 1)
+    return idx.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,l_rows", [(1000, 128, 64), (9000, 256, 768), (5000, 768, 200),
+                                         (300, 40, 24), (4500, 256, 1536)])
+def test_scatter_rows_add_matches_plain_on_card(cuda, n, d, l_rows, dtype):
+    """The scatter kernel against its plain version: N not a multiple of
+    anything, one and several segments, a hot row, a row tile that is not
+    full, a width that is not a multiple of 32, twice the recipe's rows; two
+    launches are bit-equal."""
+    g = torch.Generator().manual_seed(n + d)
+    dneg = torch.randn(3, n, d, generator=g).to(cuda, dtype)
+    idx = _skewed_indices(3, n, l_rows, g).to(cuda)
+    scatter_add.scatter_rows_add.launches = 0
+    got = scatter_add.scatter_rows_add(dneg, idx, l_rows=l_rows)
+    again = scatter_add.scatter_rows_add(dneg, idx, l_rows=l_rows)
+    want = scatter_add.scatter_rows_add_plain(dneg, idx, l_rows=l_rows)
+    exact = torch.zeros(3 * l_rows, d, dtype=torch.float64, device=cuda).index_add_(
+        0, (idx.long() + torch.arange(3, device=cuda)[:, None] * l_rows).flatten(),
+        dneg.double().reshape(-1, d)).reshape(3, l_rows, d)
+    torch.cuda.synchronize()
+    assert scatter_add.scatter_rows_add.launches == 2
+    assert got.shape == (3, l_rows, d) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    # f32 sums of up to N addends of unit scale in another order
+    tol = 1e-5 * max(1.0, exact.abs().max().item())
+    assert (got.double() - exact).abs().max().item() <= tol
+    assert (got - want).abs().max().item() <= 2 * tol
+
+
+@pytest.mark.cuda
+def test_scatter_rows_add_raises_and_drops_on_card(cuda):
+    dneg = torch.randn(2, 50, 64, device=cuda)
+    idx = torch.zeros(2, 50, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        scatter_add.scatter_rows_add(dneg.half(), idx, l_rows=8)
+    with pytest.raises(ValueError):
+        scatter_add.scatter_rows_add(dneg, idx.long(), l_rows=8)
+    with pytest.raises(ValueError):
+        scatter_add.scatter_rows_add(dneg, idx[:, :40], l_rows=8)
+    # an index outside [0, l_rows) is dropped, never written out of bounds
+    idx[0, :10] = 8
+    idx[1, :10] = -1
+    got = scatter_add.scatter_rows_add(dneg, idx, l_rows=8)
+    want = dneg[:, 10:].sum(dim=1)
+    torch.testing.assert_close(got[:, 0], want, rtol=1e-5, atol=1e-5)
+    assert not got[:, 1:].any()
+
+
+@pytest.mark.cuda
+def test_gather_rows_backward_matches_autograd_on_card(cuda):
+    """`pretraining_loss`'s gather path through the scatter kernel against the
+    same loss through autograd's own index backward, and against `gram`."""
+    from gsoc_wav2vec2_tpu_torch.models import pretraining
+    from gsoc_wav2vec2_tpu_torch.models.config import Wav2Vec2PretrainingConfig
+
+    cfg = Wav2Vec2PretrainingConfig(num_negatives=20)
+    b, l, d = 3, 96, cfg.proj_codevector_dim
+    g = torch.Generator().manual_seed(5)
+    states, quantized = (torch.randn(b, l, d, generator=g).to(cuda) for _ in range(2))
+    mti = (torch.rand(b, l, generator=g) < 0.5).to(cuda)
+    code_ids = torch.randint(0, 4, (b, l, 2), generator=g).to(cuda, torch.int32)
+    negs = pretraining.sample_negative_indices(g, mti, cfg.num_negatives)
+    perp = torch.tensor(5.0, device=cuda)
+
+    def grads(impl, kernel):
+        s, q = states.clone().requires_grad_(), quantized.clone().requires_grad_()
+        loss = pretraining.pretraining_loss(s, q, perp, mti, negs, cfg, code_ids=code_ids,
+                                            scatter_kernel=kernel, contrastive_impl=impl)["loss"]
+        loss.backward()
+        return loss.item(), s.grad, q.grad
+
+    scatter_add.scatter_rows_add.launches = 0
+    kern = grads("gather", True)
+    assert scatter_add.scatter_rows_add.launches == 1
+    auto = grads("gather", False)
+    gram = grads("gram", None)
+    assert scatter_add.scatter_rows_add.launches == 1
+    assert kern[0] == auto[0]
+    assert abs(gram[0] - auto[0]) <= 1e-5 * abs(auto[0])
+    for got, other, want in zip(kern[1:], gram[1:], auto[1:]):
+        scale = want.abs().max().item()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+        assert (other - want).abs().max().item() <= 1e-3 * scale

@@ -36,7 +36,8 @@ def test_port_imports_no_jax(pattern):
 
 def test_sources_cover_training():
     names = {str(f.relative_to(PORT)) for f in _sources() if PORT in f.parents}
-    assert {"training/__init__.py", "training/state.py", "training/trainer.py"} <= names
+    assert {"training/__init__.py", "training/state.py", "training/trainer.py",
+            "models/pretraining.py", "ops/kernels/scatter_add.py", "cli/pretrain.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -57,7 +58,9 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "gsoc_wav2vec2_tpu_torch.training.trainer" in mods
+    assert {"gsoc_wav2vec2_tpu_torch.training.trainer", "gsoc_wav2vec2_tpu_torch.models.pretraining",
+            "gsoc_wav2vec2_tpu_torch.ops.kernels.scatter_add",
+            "gsoc_wav2vec2_tpu_torch.cli.pretrain"} <= set(mods)
 
 
 def test_port_calls_no_library_kernels():

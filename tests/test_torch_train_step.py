@@ -9,7 +9,8 @@ autograd function taken only where a gradient is needed; one Adam step
 against optax
 (also from an optax state carried across); gradient accumulation; EMA and
 the learning-rate setters; the training forward against the eval forward;
-the eval step.
+the eval step; the unfrozen step (no frozen subtree, so the conv front end
+trains through the plain layer loop).
 """
 
 import dataclasses
@@ -97,6 +98,69 @@ def test_loss_and_grads_match_jax(stage, masked):
         else:
             assert p.grad is None, name  # never built: requires_grad is off
             assert not want.any(), name  # JAX: zero behind stop_gradient
+
+
+@pytest.mark.parametrize("robust", [False, True])
+def test_unfrozen_loss_and_front_end_grads_match_jax(robust):
+    """No frozen subtree (`set_trainable(model, ())`, JAX `frozen=()`): every
+    leaf trains, conv0/conv1 included, and their gradients follow JAX's."""
+    cfg = tiny_config(robust=robust)
+    params = jax_modeling.init_wav2vec2_for_ctc_params(jax.random.PRNGKey(14), cfg)
+    pcfg = (port_config.RobustWav2Vec2Config if robust else port_config.Wav2Vec2Config)(
+        **dataclasses.asdict(cfg))
+    model = modeling.Wav2Vec2ForCTC(pcfg, device="cpu")
+    model.load_state_dict(params_from_jax(params), strict=True)
+    batch = _batch(seed=15)
+    want_loss, want_grads = _jax_loss_and_grads(cfg, params, batch, (), 2.0)
+    mask = state.set_trainable(model, ())
+    assert all(mask.values())
+    loss = trainer.make_ctc_loss_fn(pcfg, division_factor=2.0)(
+        model, batch, torch.Generator().manual_seed(0))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=1e-5)
+    front = [n for n in mask if "feature_extractor.conv_layers" in n]
+    assert any(".0.conv.kernel" in n for n in front) and any(".1.conv.kernel" in n for n in front)
+    for name, p in model.named_parameters():
+        if name == "wav2vec2.masked_spec_embed":  # unused with SpecAugment off
+            continue
+        want = want_grads[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), want, atol=1e-4, err_msg=name)
+        if name in front and name.endswith("kernel"):
+            assert np.abs(want).sum() > 0, name
+
+
+@pytest.mark.parametrize("robust", [False, True])
+def test_bf16_front_end_takes_the_layer_loop_only_where_it_trains(monkeypatch, robust):
+    """In bf16 a frozen front end goes through the fused conv0/conv1 function
+    and a trainable one through the plain layer loop, which gives conv0 and
+    conv1 their gradients; the two forwards agree to bf16 rounding."""
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import conv_frontend
+
+    pcfg = (port_config.RobustWav2Vec2Config if robust else port_config.Wav2Vec2Config)(
+        **dataclasses.asdict(tiny_config(robust=robust)))
+    model = modeling.Wav2Vec2ForCTC(pcfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    name = "fused_conv01_robust" if robust else "fused_conv01"
+    fused = getattr(conv_frontend, name)
+    seen = []
+    monkeypatch.setattr(conv_frontend, name, lambda *a, **kw: seen.append(1) or fused(*a, **kw))
+    x = torch.from_numpy(_batch(seed=16)["speech"])
+    fe = model.wav2vec2.feature_extractor
+
+    state.set_trainable(model, STAGES["stage2"])
+    frozen = modeling.feature_encoder_forward(fe, pcfg, x, torch.bfloat16)
+    assert len(seen) == 1 and not frozen.requires_grad
+    state.set_trainable(model, ())
+    with torch.no_grad():  # no gradient can reach conv0/conv1: the fused function again
+        modeling.feature_encoder_forward(fe, pcfg, x, torch.bfloat16)
+    assert len(seen) == 2
+    trained = modeling.feature_encoder_forward(fe, pcfg, x, torch.bfloat16)
+    assert len(seen) == 2 and trained.dtype == torch.bfloat16
+    trained.float().square().sum().backward()
+    for i in (0, 1):
+        g = fe.conv_layers[i].conv.kernel.grad
+        assert g is not None and torch.isfinite(g).all() and g.abs().sum() > 0
+    scale = frozen.float().abs().max().item()
+    assert (trained.float() - frozen.float()).abs().max().item() <= 0.05 * scale
 
 
 @pytest.mark.parametrize("stage,calls", [("stage1", 0), ("stage2", 1)])
