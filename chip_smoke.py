@@ -9,9 +9,12 @@ Phases, each printing one JSON line:
                 paths' shapes (base inference: B=16 x 246000 samples; base
                 training: B=32 x 246000; long: 1 x 1,920,000 samples = 5999
                 frames, attention also at 8192 and 32768 frames; those of
-                the robust/large shapes open phase 7), with its median
-                time, the plain version's, a PyTorch library call's (a
-                yardstick the port never calls) and the card's bound;
+                the robust/large shapes open phase 7), with its time a
+                call (CUDA events over a back-to-back run), the plain
+                version's, a PyTorch library call's (a yardstick the port
+                never calls) and the card's bound; the flash kernels also
+                with the profiler's device time, the bound of their
+                exponentials and the library's kernel names;
   4. main    -- full-width, full-depth base `Wav2Vec2ForCTC` from seeded
                 weights: a bf16 batch through `GreedyCTCEvaluator`, three
                 requests of different lengths, one 40 s clip through
@@ -106,6 +109,8 @@ from gsoc_wav2vec2_tpu_torch.training import (
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
+HOST_CYCLES_PER_CALL = 1e6  # device clocks (~0.5 ms) of sleep per timed call: above any wrapper's host time
+MUFU_EX2 = 132 * 16 * 1.98e9  # exp2 results a second: 16 a clock on each of 132 SMs at 1.98 GHz
 
 B, SAMPLES = 16, 246000
 TRAIN_B = 32  # the recipe's per-device batch (cli/train.py)
@@ -192,18 +197,34 @@ def bound(nbytes: float, flops: float, peak: float):
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+    """Device time of one call: CUDA events around `iters` back-to-back calls
+    after `warmup` calls, over `iters`.  A device-side sleep ahead of the run
+    holds the stream while the host enqueues it, so the host's wrapper work
+    is counted in no call, even where it outlasts a call's kernels (one
+    pair of events around each call would count it in every call)."""
     for _ in range(warmup):
         fn()
-    times = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(iters * HOST_CYCLES_PER_CALL))
+    start.record()
     for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def exp_bound_ms(n_exp: float) -> float:
+    """The least time for `n_exp` exponentials on the SFUs (MUFU.EX2)."""
+    return n_exp / MUFU_EX2 * 1e3
+
+
+def device_kernels(fn, reps: int = 5):
+    """(device ms a call by the profiler, [kernel names by device time]) of
+    `fn`: what a library call launched, and its kernels' time alone."""
+    prof = profile_device(fn, reps, "call", top=4)
+    return prof["device_busy_ms_per_call"], [k["kernel"] for k in prof["top"]]
 
 
 def errors(got: torch.Tensor, want: torch.Tensor):
@@ -376,15 +397,18 @@ def check_kernels(model):
     nbytes = 4 * q.numel() * 2 + B * heads * t * 4
     flops = 4 * B * heads * t * t * d
     bms, by = bound(nbytes, flops, PEAK_BF16)
+    run_flash = lambda: fa.flash_attention_fwd(q, kk, v)
+    run_library = lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, v, scale=1.0)
+    dev_ms, _ = device_kernels(run_flash)
+    lib_dev_ms, lib_kernels = device_kernels(run_library)
     records.append(dict(
         name="flash_attention_fwd", counter="flash_attention_fwd", paths=SHORT_PATHS, route="cuda",
         source=CSRC + "flash_attention.cu", replaces=PALLAS + "flash_attention.py:224",
-        max_abs_err=max(checks), mean_abs_err=mean_err, tol=tol,
-        ms=time_ms(lambda: fa.flash_attention_fwd(q, kk, v), 20),
+        shape=[B, heads, t, d], max_abs_err=max(checks), mean_abs_err=mean_err, tol=tol,
+        ms=time_ms(run_flash, 50), device_ms=dev_ms,
         plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(q, kk, v), 5),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, kk, v, scale=1.0), 20),
+        bound_ms=bms, bound_by=by, exp_bound_ms=exp_bound_ms(B * heads * t * t),
+        library_ms=time_ms(run_library, 50), library_device_ms=lib_dev_ms, library_kernels=lib_kernels,
     ))
     return records
 
@@ -519,9 +543,11 @@ def flash_dropout_errors(q, kk, v, dout, kb, rate, seed, what, backward=True):
 
 
 def flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed):
-    """Times and bounds of the flash forward with dropout and of the backward
-    at q's shape: (forward dict, backward dict), each with ms, plain_ms,
-    bound_ms, bound_by and library_ms (SDPA with the same mask and rate)."""
+    """Times and bounds of the flash forward (with dropout `rate`) and of the
+    backward at q's shape: (forward dict, backward dict), each with ms (CUDA
+    events), device_ms (profiler), plain_ms, bound_ms, bound_by, exp_bound_ms
+    and library_ms (SDPA with the same mask and rate), with the names of the
+    kernels SDPA launched."""
     b, heads, l, d = q.shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
     n_qkv = q.numel()
@@ -529,29 +555,34 @@ def flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed):
     shape = dict(shape=[b, heads, l, d], dropout=rate, ragged_bias=True)
     nbytes = 4 * n_qkv * 2 + b * heads * l * 4 + b * l * 4
     bms, by = bound(nbytes, 4 * b * heads * l * l * d, PEAK_BF16)
+    run_flash = lambda: fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
+    run_library = lambda: sdpa(q, kk, v, attn_mask=mask4, dropout_p=rate, scale=1.0)
+    dev_ms, _ = device_kernels(run_flash)
+    lib_dev_ms, lib_kernels = device_kernels(run_library)
     fwd = dict(
-        **shape,
-        ms=time_ms(lambda: fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed), 20),
+        **shape, ms=time_ms(run_flash, 30), device_ms=dev_ms,
         plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
             q, kk, v, kb, dropout_rate=rate, seed=seed), 3, 1),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: sdpa(q, kk, v, attn_mask=mask4, dropout_p=rate, scale=1.0), 20),
+        bound_ms=bms, bound_by=by, exp_bound_ms=exp_bound_ms(b * heads * l * l),
+        library_ms=time_ms(run_library, 30), library_device_ms=lib_dev_ms, library_kernels=lib_kernels,
     )
     # backward: q, k, v, out, dout, lse, bias in; dq, dk, dv out; the five
-    # products S, dP, dV, dK, dQ of 2 B H L^2 D each
+    # products S, dP, dV, dK, dQ of 2 B H L^2 D each; the exponentials of p
+    # in both passes (dK/dV and dQ recompute them)
     nbytes = 8 * n_qkv * 2 + b * heads * l * 4 + b * l * 4
     bms, by = bound(nbytes, 5 * 2 * b * heads * l * l * d, PEAK_BF16)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, kk, v))
     lib_out = sdpa(qg, kg, vg, attn_mask=mask4, dropout_p=rate, scale=1.0)
+    run_flash = lambda: fa.flash_attention_bwd(q, kk, v, kb, out, lse, dout, dropout_rate=rate, seed=seed)
+    run_library = lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True)
+    dev_ms, _ = device_kernels(run_flash)
+    lib_dev_ms, lib_kernels = device_kernels(run_library)
     bwd = dict(
-        **shape,
-        ms=time_ms(lambda: fa.flash_attention_bwd(q, kk, v, kb, out, lse, dout,
-                                                  dropout_rate=rate, seed=seed), 20),
+        **shape, ms=time_ms(run_flash, 30), device_ms=dev_ms,
         plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
             q, kk, v, kb, out, lse, dout, dropout_rate=rate, seed=seed), 3, 1),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout,
-                                                       retain_graph=True), 20),
+        bound_ms=bms, bound_by=by, exp_bound_ms=exp_bound_ms(2 * b * heads * l * l),
+        library_ms=time_ms(run_library, 30), library_device_ms=lib_dev_ms, library_kernels=lib_kernels,
     )
     return fwd, bwd
 
@@ -676,10 +707,25 @@ def check_robust_kernels(model, records):
     require(err <= 0.02, f"flash H={heads} ragged: {err}")
     derr, _, _, rel, _, _ = flash_dropout_errors(q, kk, v, dout, kb, 0.1, 321, f"H={heads}")
     fwd = next(r for r in records if r["name"] == "flash_attention_fwd")
+    bwd = next(r for r in records if r["name"] == "flash_attention_bwd")
+    run_flash = lambda: fa.flash_attention_fwd(q, kk, v, kb)
+    run_library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kk, v, attn_mask=kb[:, None, None, :].to(q.dtype), scale=1.0)
+    dev_ms, _ = device_kernels(run_flash)
+    lib_dev_ms, lib_kernels = device_kernels(run_library)
+    d = h // heads
+    bms, by = bound(4 * q.numel() * 2 + b * heads * t * 4 + b * t * 4, 4 * b * heads * t * t * d, PEAK_BF16)
     fwd["robust"] = dict(
-        shape=[b, heads, t, h // heads], ragged_bias=True, max_abs_err=err, mean_abs_err=mean_err,
+        shape=[b, heads, t, d], ragged_bias=True, max_abs_err=err, mean_abs_err=mean_err,
         tol=0.02, dropout_max_abs_err=derr[0], bwd_max_rel_err_by_grad=rel,
-        ms=time_ms(lambda: fa.flash_attention_fwd(q, kk, v, kb), 20))
+        ms=time_ms(run_flash, 30), device_ms=dev_ms, bound_ms=bms, bound_by=by,
+        exp_bound_ms=exp_bound_ms(b * heads * t * t), library_ms=time_ms(run_library, 30),
+        library_device_ms=lib_dev_ms, library_kernels=lib_kernels)
+    # the robust training pair: forward with dropout 0.1 and the backward
+    out, lse = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=0.1, seed=321)
+    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, 0.1, 321)
+    fwd["robust"]["train"] = fwd_rec
+    bwd["robust"] = dict(max_rel_err_by_grad=rel, **bwd_rec)
     torch.cuda.empty_cache()
 
 

@@ -10,7 +10,9 @@ with v; the forward also returns the row logsumexp of the undropped softmax,
 from which the backward recomputes p.  The key bias is (B, L) f32 (0 / -10000
 from `mask_to_bias`); the kernels mask the ragged edge themselves, so L
 needs no padding.  q, k, v may be strided views (the heads split out of the
-projections); the kernels read them in place.
+projections); the kernels read them in place through TMA tensor maps
+(`tma_layout`), which take a 16-byte-aligned base and 16-byte byte strides;
+a view that breaks those rules is copied first.
 
 Dropout is the JAX kernel's counter hash (`dropout_mask`): the keep bit of
 element (b, h, row, col) hashes seed + b*H + h and row * Lp + col, with Lp =
@@ -20,6 +22,7 @@ same bits come back in the backward, so no mask is ever stored.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -125,8 +128,10 @@ def _check(name, q, k, v, bias):
         raise ValueError(f"{name} takes bf16 q, k, v, got {q.dtype}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k, v must share one (B, H, L, D) shape")
-    if not (q.stride() == k.stride() == v.stride()) or not _strided_ok(q):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    st = q.stride()
+    if (not (st == k.stride() == v.stride()) or not _layout_ok(tuple(q.shape), st)
+            or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16):
+        q, k, v = _dense(q), _dense(k), _dense(v)
     if bias is not None:
         if tuple(bias.shape) != (b, l):
             raise ValueError(f"{name}: bias must be (B, L), got {tuple(bias.shape)}")
@@ -134,10 +139,52 @@ def _check(name, q, k, v, bias):
     return q, k, v, bias
 
 
+def tma_layout(shape, strides):
+    """The 4-D tensor map the kernels read a (B, H, L, 64) tensor through, as
+    `encode_bhld` in `csrc/flash_attention.cu` builds it from the element
+    strides (sb, sh, sl, 1): dims innermost first, (64, L, H, B), or (64, H,
+    L, B) when sh < sl (the heads of a row side by side, as in the (B, L, H*D)
+    projections), so that the strides ascend; a dimension of size 1 gets the
+    packed stride.  Returns (dims, byte strides of dims 1-3, box,
+    heads_inner); the box is 64 rows of 64 elements."""
+    b, h, l, d = shape
+    sb, sh, sl = strides[:3]
+    heads_inner = sh < sl
+    dims = [d, h, l, b] if heads_inner else [d, l, h, b]
+    st = [sh, sl, sb] if heads_inner else [sl, sh, sb]
+    span = d
+    for i in range(3):
+        if dims[i + 1] == 1:
+            st[i] = span
+        span = st[i] * dims[i + 1]
+    box = [d, 1, 64, 1] if heads_inner else [d, 64, 1, 1]
+    return dims, [2 * s for s in st], box, heads_inner
+
+
 def _strided_ok(x: torch.Tensor) -> bool:
-    """Rows of 64 contiguous elements at 16-byte-aligned (batch, head, row)
-    strides: what the kernels' 16-byte copies read in place."""
-    return x.stride(-1) == 1 and not any(st % 8 for st in x.stride()[:3]) and x.data_ptr() % 16 == 0
+    """What TMA reads in place: rows of 64 contiguous bf16 at a 16-byte-aligned
+    base, byte strides that are multiples of 16 below 2^40, and nested
+    (non-overlapping) dimensions in the `tma_layout` order."""
+    return x.data_ptr() % 16 == 0 and _layout_ok(tuple(x.shape), x.stride())
+
+
+@functools.lru_cache(maxsize=256)
+def _layout_ok(shape, strides) -> bool:
+    if len(shape) != 4 or shape[-1] != 64 or strides[-1] != 1:
+        return False
+    dims, byte_strides, _, _ = tma_layout(shape, strides)
+    if any(s % 16 or s >= 2**40 for s in byte_strides):
+        return False
+    spans = [dims[0] * 2] + [s * n for s, n in zip(byte_strides, dims[1:])]
+    return all(s >= span for s, span in zip(byte_strides, spans))
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous copy where `x` breaks a TMA rule (a contiguous view at
+    a misaligned offset copies too: `contiguous` would return it as it is)."""
+    if _strided_ok(x) and x.is_contiguous():
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _check_rate(rate: float) -> None:
@@ -192,8 +239,8 @@ def flash_attention_bwd(
         raise ValueError("flash_attention_bwd: out, dout (B, H, L, D) and lse (B, H, L) expected")
     if out.dtype != torch.bfloat16 or dout.dtype != torch.bfloat16 or lse.dtype != torch.float32:
         raise ValueError("flash_attention_bwd takes bf16 out, dout and f32 lse")
-    out = out if _strided_ok(out) else out.contiguous()
-    dout = dout if _strided_ok(dout) else dout.contiguous()
+    out = out if _strided_ok(out) else _dense(out)
+    dout = dout if _strided_ok(dout) else _dense(dout)
     lse = lse.contiguous()
     threshold, stride, inv_keep, drop = _dropout_args(l, dropout_rate)
     delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)

@@ -507,3 +507,104 @@ def test_gather_rows_backward_matches_autograd_on_card(cuda):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max().item() <= 1e-5 * scale
         assert (other - want).abs().max().item() <= 1e-3 * scale
+
+
+def _proj_view(x):
+    """(B, H, L, 64) -> the same values as the head split of a (B, L, H*64)
+    projection: a strided view with the heads of a row side by side."""
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d).view(b, l, h, d).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 127, 128, 129, 768, 1249])
+def test_flash_tiles_and_edges_match_plain_on_card(cuda, l):
+    """The wgmma/TMA kernels against the plain versions at every edge of their
+    tiles (64-row boxes, 128-query blocks, 128-key forward tiles): no bias and
+    a ragged bias, dropout 0 and 0.1 (keep bits from `dropout_mask` in the
+    plain path: one differing bit would move a row of these peaky scores far
+    past the tolerance), q/k/v contiguous and as projection head views."""
+    from gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention import _strided_ok
+
+    g = torch.Generator().manual_seed(1000 + l)
+    q, k, v, dout = _peaky_qkv(2, 3, l, g, cuda)
+    ragged = torch.zeros(2, l)
+    ragged[1, max(1, (2 * l) // 3):] = -10000.0
+    ragged = ragged.to(cuda)
+    views = (q, k, v), tuple(_proj_view(x) for x in (q, k, v))
+    assert _strided_ok(views[1][0]) and (l == 1 or not views[1][0].is_contiguous())
+    for bias in (None, ragged):
+        for rate in (0.0, 0.1):
+            pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=rate, seed=5)
+            pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, bias, pout, plse, dout,
+                                                               dropout_rate=rate, seed=5)
+            for qq, kk, vv in views:
+                out, lse = flash_attention.flash_attention_fwd(qq, kk, vv, bias, dropout_rate=rate, seed=5)
+                # bf16 outputs of these peaky rows reach |v| ~ 5 (ulp 0.03); p is
+                # rounded before the normalisation here, after it in the plain path
+                d = (out.float() - pout.float()).abs()
+                assert d.max().item() < 0.04 and d.mean().item() < 2e-3, (bias is None, rate, d.max(), d.mean())
+                torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-3)
+                dd = dout if qq is q else _proj_view(dout)
+                grads = flash_attention.flash_attention_bwd(qq, kk, vv, bias, pout, plse, dd,
+                                                            dropout_rate=rate, seed=5)
+                for got, want in zip(grads, pgrads):
+                    scale = want.float().abs().max().item()
+                    err = (got.float() - want.float()).abs().max().item()
+                    # at L = 1, dq = dk = 0 up to rounding (ds = dp - delta = 0)
+                    assert err <= 0.01 * scale + 1e-4, (bias is None, rate, err, scale)
+
+
+@pytest.mark.cuda
+def test_flash_launches_are_deterministic_on_card(cuda):
+    """No float atomics: two launches of the forward and of the backward give
+    equal bits (dropout, ragged bias, a ragged last tile)."""
+    g = torch.Generator().manual_seed(11)
+    q, k, v, dout = _peaky_qkv(2, 4, 1000, g, cuda)
+    bias = torch.zeros(2, 1000)
+    bias[0, 700:] = -10000.0
+    bias = bias.to(cuda)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, bias, dropout_rate=0.1, seed=3)
+        grads = flash_attention.flash_attention_bwd(q, k, v, bias, out, lse, dout,
+                                                    dropout_rate=0.1, seed=3)
+        runs.append((out, lse) + tuple(grads))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_misaligned_views_are_copied_on_card(cuda):
+    """Views that break TMA's 16-byte rules (a base 2 bytes off, a row stride
+    of 68 elements) are copied by the wrappers, never handed to the tensor
+    maps, and give the plain versions' results."""
+    from gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention import _strided_ok
+
+    g = torch.Generator().manual_seed(12)
+    b, h, l = 1, 2, 200
+    q, k, v, dout = _peaky_qkv(b, h, l, g, cuda)
+    n = q.numel()
+
+    def shifted(x):
+        flat = torch.empty(n + 8, dtype=x.dtype, device=cuda)
+        y = flat[1:1 + n].view(x.shape)
+        y.copy_(x)
+        return y
+
+    def wide(x):
+        buf = torch.zeros(b, h, l, 68, dtype=x.dtype, device=cuda)
+        buf[..., :64] = x
+        return buf[..., :64]
+
+    pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v)
+    pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, None, pout, plse, dout)
+    for make in (shifted, wide):
+        qq, kk, vv, dd = (make(x) for x in (q, k, v, dout))
+        assert not _strided_ok(qq)
+        out, lse = flash_attention.flash_attention_fwd(qq, kk, vv)
+        assert (out.float() - pout.float()).abs().max().item() < 0.04
+        torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-3)
+        grads = flash_attention.flash_attention_bwd(qq, kk, vv, None, make(pout), plse, dd)
+        for got, want in zip(grads, pgrads):
+            assert (got.float() - want.float()).abs().max().item() <= 0.01 * want.float().abs().max().item()
