@@ -1,18 +1,26 @@
-"""Times the port's flash-attention kernels against SDPA on one NVIDIA GPU.
+"""Times the port's hand-written kernels on one NVIDIA GPU.
 
-    python3 flash_bench.py [--root DIR] [--label NAME]
+    python3 flash_bench.py [--family flash|conv] [--root DIR] [--label NAME]
 
-At each shape of the main paths (base inference, base training, robust,
-long), the forward and the backward wrappers of
-`gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention`, and
-`scaled_dot_product_attention` with the same mask and dropout rate: device
-ms a call by CUDA events around 50 back-to-back calls after warm-up (a
-device sleep ahead of them keeps the host's wrapper work out), and by
-the profiler (the kernels' own time, without the host's wrapper work); and
-the wrappers' host time a call at a tiny shape.
-`--root` imports the package from another checkout, so that two trees are
-compared on one card in one run (parent, change, change, parent).  Prints
-one JSON line per shape and the card's name and power limit.
+`--family flash` (the default): at each shape of the main paths (base
+inference, base training, robust, long), the forward and the backward
+wrappers of `gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention`, and
+`scaled_dot_product_attention` with the same mask and dropout rate; and the
+wrappers' host time a call at a tiny shape.
+
+`--family conv`: the conv front-end kernels of
+`gsoc_wav2vec2_tpu_torch.ops.kernels.conv_frontend` at the main paths'
+shapes (x 246000 samples): `window_stats` and `conv01` (the base family,
+GroupNorm folded into scale/shift) at B=16 (inference) and B=32 (training),
+`conv01_robust` at B=8.
+
+Each time is device ms a call by CUDA events around a back-to-back run after
+warm-up (a device sleep ahead of it keeps the host's wrapper work out), and
+by the profiler (flash: every kernel of the call; conv: the call's largest
+kernel, named).  `--root` imports the package from another checkout, so
+that two trees are compared on one card in one run (parent, change, change,
+parent).  Prints one JSON line per shape, then the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -24,47 +32,45 @@ import sys
 import time
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=".", help="checkout to import the package from")
-    ap.add_argument("--label", default="this tree")
-    args = ap.parse_args()
-    sys.path.insert(0, args.root)
-    import torch
+def events_ms(torch, fn, iters):
+    """Device ms of one call: CUDA events around `iters` back-to-back calls
+    after 3 warm-up calls, behind a device sleep that holds the stream while
+    the host enqueues the run."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(iters * 1_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiled_ms(torch, fn, reps):
+    """(device ms a call of every kernel, of the largest kernel, its name)
+    by the profiler over `reps` calls."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    top = max(rows, key=lambda e: e.self_device_time_total)
+    return (sum(e.self_device_time_total for e in rows) / 1e3 / reps,
+            top.self_device_time_total / 1e3 / reps, top.key[:80])
+
+
+def bench_flash(torch, label):
     from gsoc_wav2vec2_tpu_torch.ops.kernels import flash_attention as fa
 
-    if not torch.cuda.is_available():
-        print("flash_bench: needs the card", file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def events_ms(fn, iters=50):
-        for _ in range(3):
-            fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(iters * 1_000_000)  # holds the stream while the host enqueues the run
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def profiled_ms(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        return sum(e.self_device_time_total for e in rows) / 1e3 / reps
-
     gen = torch.Generator().manual_seed(0)
     for b, h, l, rate, ragged in ((16, 12, 768, 0.0, False), (32, 12, 768, 0.1, True),
                                   (8, 16, 768, 0.0, True), (8, 16, 768, 0.1, True),
@@ -86,10 +92,10 @@ def main() -> int:
             "sdpa_fwd": lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=rate, scale=1.0),
             "sdpa_bwd": lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True),
         }
-        row = {"label": args.label, "shape": [b, h, l, 64], "dropout": rate, "ragged_bias": ragged}
+        row = {"label": label, "shape": [b, h, l, 64], "dropout": rate, "ragged_bias": ragged}
         for name, fn in fns.items():
-            row[name + "_ms"] = events_ms(fn)
-            row[name + "_device_ms"] = profiled_ms(fn)
+            row[name + "_ms"] = events_ms(torch, fn, 50)
+            row[name + "_device_ms"] = profiled_ms(torch, fn, 10)[0]
         print(json.dumps(row), flush=True)
         del q, k, v, dout, out, lse, qg, kg, vg, lib_out
         torch.cuda.empty_cache()
@@ -97,7 +103,7 @@ def main() -> int:
     q, k, v, dout = (torch.randn(1, 1, 64, 64, generator=gen).cuda().to(torch.bfloat16)
                      for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v)
-    row = {"label": args.label, "host_us_per_call_at": [1, 1, 64, 64]}
+    row = {"label": label, "host_us_per_call_at": [1, 1, 64, 64]}
     for name, fn in (("fwd", lambda: fa.flash_attention_fwd(q, k, v)),
                      ("bwd", lambda: fa.flash_attention_bwd(q, k, v, None, out, lse, dout))):
         fn()
@@ -108,6 +114,52 @@ def main() -> int:
         row[name + "_host_us"] = (time.perf_counter() - t) / 500 * 1e6
         torch.cuda.synchronize()
     print(json.dumps(row), flush=True)
+
+
+def bench_conv(torch, label):
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import conv_frontend as cf
+
+    gen = torch.Generator().manual_seed(0)
+    samples, c = 246000, 512
+    t0, t1 = cf.conv0_length(samples), cf.conv1_length(samples)
+    w0 = (torch.randn(10, 1, c, generator=gen) * 0.3).cuda()
+    w1 = (torch.randn(3, c, c, generator=gen) * (1.5 / c ** 0.5)).cuda()
+    vec = lambda scale, offset: (offset + scale * torch.randn(c, generator=gen)).cuda()
+    gamma, beta = vec(0.1, 1.0), vec(0.1, 0.0)
+    robust = (w0, vec(0.1, 0.0), vec(0.1, 1.0), vec(0.1, 0.0), w1, vec(0.1, 0.0), vec(0.1, 1.0),
+              vec(0.1, 0.0))
+    for name, b in (("window_stats", 16), ("conv01", 16), ("conv01", 32), ("conv01_robust", 8)):
+        x = torch.randn(b, samples, generator=gen).cuda().to(torch.bfloat16)
+        if name == "window_stats":
+            fn = lambda: cf.window_stats(x, t0)
+        elif name == "conv01":
+            gram, rsum = cf.window_stats_plain(x, t0)
+            scale, shift = cf.groupnorm_scale_shift(gram, rsum, w0, gamma, beta, t0, 1e-5)
+            fn = lambda: cf.conv01(x, w0, scale, shift, w1, t1, True)
+        else:
+            fn = lambda: cf.conv01_robust(x, *robust, t1, 1e-5, True)
+        row = {"label": label, "kernel": name, "shape": [b, samples], "ms": events_ms(torch, fn, 20)}
+        _, row["device_ms"], row["device_kernel"] = profiled_ms(torch, fn, 5)
+        print(json.dumps(row), flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--family", choices=("flash", "conv"), default="flash")
+    ap.add_argument("--root", default=".", help="checkout to import the package from")
+    ap.add_argument("--label", default="this tree")
+    args = ap.parse_args()
+    sys.path.insert(0, args.root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flash_bench: needs the card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    (bench_flash if args.family == "flash" else bench_conv)(torch, args.label)
     print(smi, flush=True)
     return 0
 

@@ -1,6 +1,7 @@
 // Shared helpers of the port's Hopper kernels (sm_90a): the warp-level
-// mma.sync primitives of the conv and pos-conv kernels, and the Hopper
-// building blocks (mbarriers, TMA, wgmma) of the flash-attention kernels.
+// mma.sync primitives of the pos-conv kernels, and the Hopper building blocks
+// (mbarriers, TMA, clusters, wgmma) of the flash-attention and conv
+// front-end kernels.
 #pragma once
 
 #include <cuda.h>
@@ -128,6 +129,58 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// TMA: the box at (c0, c1) of a 2-D tensor map into this block's shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// TMA multicast: the box lands at the same offset `dst` in the shared memory
+// of every block of the cluster in `mask`, and completes its bytes on each
+// one's barrier at the offset of `bar`
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                      int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%4, %5}], [%2], %3;\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// --- thread block clusters -----------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives and waits (the
+// cluster's __syncthreads; its release/acquire orders shared-memory writes)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one arrival on the barrier at the offset of `bar` in block `cta` of the
+// cluster.  The default (CTA-scope) release: the arrival only hands back a
+// slot whose reads (wgmma) are complete; a .release.cluster arrival, which
+// waits for this thread's earlier writes to reach the cluster, took ~850
+// cycles each and made a cluster of 2 2.6x slower than no cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(smem_addr(bar)), "r"(cta) : "memory");
 }
 
 // TMA: a shared-memory box out to a 4-D tensor map; elements out of bounds
@@ -265,4 +318,49 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// the dynamic shared memory as an `S` on a 1024-byte boundary (the 128-byte
+// swizzle's atom); launches ask for smem_bytes<S>() = sizeof(S) + 1024 bytes
+template <typename S>
+__device__ __forceinline__ S& block_smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t pad = (1024u - (smem_addr(smem_raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<S*>(smem_raw + pad);
+}
+
+template <typename S>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(S)) + 1024;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point lookup (no link
+// against libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
 }  // namespace w2v2
+
+// return the error of a runtime call that fails
+#define W2V2_TRY(expr)                   \
+  do {                                   \
+    const cudaError_t err_ = (expr);     \
+    if (err_ != cudaSuccess) return err_; \
+  } while (0)

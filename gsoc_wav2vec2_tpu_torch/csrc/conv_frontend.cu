@@ -2,65 +2,108 @@
 // families.
 //
 // Replaces the three Pallas kernels of gsoc_wav2vec2_tpu/ops/pallas/conv_frontend.py:
-//   * _window_stats       (_stats_kernel)   -> window_stats_kernel
-//   * fused_conv01        (_kernel)         -> conv01_kernel
-//   * fused_conv01_robust (_kernel_robust)  -> conv01_robust_kernel
+//   * _window_stats       (_stats_kernel)   -> window_stats_kernel + window_stats_reduce_kernel
+//   * fused_conv01        (_kernel)         -> conv01_kernel<C, false>
+//   * fused_conv01_robust (_kernel_robust)  -> conv01_kernel<C, true>
 //
-// window_stats_kernel: the exact GroupNorm statistics of conv0 without conv0.
-// Per batch row it sums the 10x10 Gram matrix and the 10-vector row sum of
-// conv0's sample windows, read straight from the bf16 waveform at their phase
-// offsets (A row r = x[10r:10r+10], B row r = x[10r+5:10r+15]; rows past
-// na / nb are masked).  Bound on the H100: bytes (one pass over the
-// waveform, ~7.9 MB at B=16 x 246000: ~2.4 us), in practice launch latency.
-// Design: each thread keeps 55 Gram + 10 sum partials in registers, a warp
-// shuffle and one shared-memory reduction per block, then one float
-// atomicAdd per value and block into the zeroed output.  Atomics make the
-// last bits depend on the order blocks finish: the result is not bitwise
-// deterministic run to run.
+// window_stats: the exact GroupNorm statistics of conv0 without conv0.  Per
+// batch row it sums the 10x10 Gram matrix and the 10-vector row sum of conv0's
+// sample windows, read straight from the bf16 waveform at their phase offsets
+// (A row r = x[10r:10r+10], B row r = x[10r+5:10r+15]; rows past na / nb are
+// masked).  Bound on the H100: bytes (one pass over the waveform, ~7.9 MB at
+// B=16 x 246000: ~2.4 us), in practice launch latency.  Deterministic: each
+// thread keeps 55 Gram + 10 sum partials in registers; a warp shuffle tree,
+// then per-warp slots in shared memory summed in warp order give one partial
+// row per block, written to a (B, blocks, 65) scratch; a second one-block-a-row
+// kernel sums those in block order.  No atomics, so a relaunch is bit-equal.
 //
-// conv01_kernel: conv0 (k10 s5, 1->C) -> scale/shift (GroupNorm folded) ->
-// tanh-GELU -> conv1 (k3 s2, C->C) -> tanh-GELU, bf16 out; conv0 never reaches device
-// memory.  Bound on the H100: operations (~6.3e11 FLOP at the main path, mostly
-// conv1's three CxC products: ~0.64 ms at 989 TFLOP/s, against ~0.12 ms for
-// the 403 MB output).  Design: one block per (64 conv1 rows, 256 output
-// channels, batch row); per chunk of 32 input channels the block recomputes
-// the 129 conv0 rows its tile needs (2r, 2r+1, 2r+2) into shared memory in
-// bf16 while the three 32x256 slices of W1 arrive by cp.async, then
-// accumulates conv1 as three tensor-core products (mma.sync m16n8k16 bf16,
-// f32 accumulators in registers, each warp a 32x64 tile, operands by
-// ldmatrix).  The conv0 rows are stored split by parity, so the tap-j
-// operand (rows 2r + j) is a contiguous tile; shared-memory rows are padded
-// against bank conflicts.  W1 is re-read from L2 by every block (~9.5 GB at
-// the main path) and conv0 is recomputed by both column blocks: the next
-// steps are a larger row tile and wgmma/TMA.
+// conv01_kernel: both families in one skeleton, templated on the norm.
+//   base:   conv0 (k10 s5, 1->C) -> scale/shift (GroupNorm folded) -> GELU
+//           -> conv1 (k3 s2, C->C) -> GELU
+//   robust: conv0 + b0 -> LayerNorm -> GELU -> conv1 + b1 -> LayerNorm -> GELU
+// bf16 in and out, f32 sums, tanh GELU; conv0 never reaches device memory.
+// Bound on the H100: operations, 2 B T1 (2 10 C + 3 C^2) FLOP, nearly all of
+// it conv1's three C x C products (base at B=16 x 246000, C=512: ~6.3e11, 0.64
+// ms at 989 TFLOP/s, against ~0.12 ms for the 403 MB output).
 //
-// conv01_robust_kernel<C> (robust/large/XLSR family): conv0 + b0 -> LayerNorm
-// -> tanh-GELU -> conv1 + b1 -> LayerNorm -> tanh-GELU, bf16 out.  Both norms
-// run over all C channels of a frame, in f32, two-pass (the mean, then the
-// mean of squared deviations), eps inside the rsqrt; there is no statistics
-// pre-pass.  Bound on the H100: operations (2*B*T1*(2*10*C + 3*C*C) FLOP,
-// ~3.1e11 at B=8 x 246000, C=512: ~0.31 ms at 989 TFLOP/s; the 201 MB output
-// takes ~0.06 ms).  Design: both norms reduce over a whole row, so ONE block
-// owns all C output channels of its 64 conv1 rows (16 warps: 2 row halves x 8
-// column groups of C/8, f32 accumulators in registers) and no partial sums
-// cross blocks.  Conv0 is computed exactly once per tile: a warp takes two of
-// the tile's 129 conv0 rows at a time, each lane C/32 channels of both rows
-// in registers (10 FMAs each from the waveform samples and W0 staged in
-// shared memory), so the row statistics are two warp reductions over values
-// that are still in registers, and the normalised, GELU'd rows go to shared
-// memory in bf16, split by parity as in conv01_kernel.  The whole conv0 tile
-// (129 x C) then stays resident while W1 streams through a three-stage
-// cp.async ring of (one tap, 16 input channels, C) slabs: one block-wide
-// barrier and 2 * C/64 mma.sync m16n8k16 per warp and step.  The second
-// LayerNorm exchanges the 8 column groups' row sums through shared memory
-// (sum, then squared deviations).  Samples at or past L read as 0, rows at or
-// past T1 are computed and not stored.  W1 is re-read from L2 by every block
-// (3*C*C*2 bytes per 64 rows).
+// Design (sm_90a: wgmma, TMA, clusters, warp specialisation):
+//   * A tile is 64 conv1 rows x all C output channels.  Two consumer
+//     warpgroups each own C/2 columns (N = 64 x C/128 per k-step, issued as
+//     C/128 wgmma m64n64k16 with f32 accumulators in registers: 128 a thread
+//     at C = 512).  A producer warpgroup: one thread issues every copy, one
+//     warp stages the samples of the next tile; setmaxnreg moves the
+//     registers: 232 a consumer thread, 40 a producer thread.
+//   * conv0 is computed once per tile, on the tensor cores: the tile's even
+//     rows (2r) and odd rows (2r + 1) are two 64-row products of the sample
+//     windows (64 x 16, taps 10-15 zero) with W0 zero-padded to 16 taps.  The
+//     windows overlap (stride 5, width 10), so no TMA box yields them: each
+//     thread packs its A fragment (RS wgmma) straight from the tile's staged
+//     samples.  The 129th conv0 row (the next tile's first even row, read by
+//     conv1's tap 2 of row 63) is one row on the CUDA cores, by warp 0 of each
+//     warpgroup.  The epilogue runs in registers (scale/shift, or bias +
+//     LayerNorm) -> GELU -> bf16 into the resident conv0 tile, split by parity
+//     (`ye`, `yo`), so conv1's tap j reads the contiguous rows 2r + j.
+//   * conv1 = ye[r] W1[0] + yo[r] W1[1] + ye[r + 1] W1[2]: W1 streams through a
+//     4-slot ring of (16 input channels, C outputs) slabs, one k16 step each,
+//     by TMA with the 128-byte swizzle (64-column atoms of 16 rows, B MN-major
+//     through the transpose bit).  The A operand comes from registers (RS wgmma),
+//     loaded by ldmatrix from the padded conv0 tile: tap 2's rows start one
+//     row in, which breaks the 8-row alignment of a swizzled SS descriptor,
+//     and ldmatrix takes any row address.  Full/empty mbarriers per stage
+//     replace every block-wide barrier in the k loop.
+//   * Clusters of 4 CTAs on neighbouring row tiles: each CTA loads 1/4 of
+//     every slab and multicasts it to the cluster, so W1 crosses L2 once per
+//     cluster-tile (base at B=16: ~9.7 -> ~2.4 GB).  Clusters of 1 and 2, and
+//     one cluster per cluster-tile in place of the persistent grid, were
+//     slower on the H100 (PERF.md §6).
+//   * Persistent: the clusters the card holds at once walk the tiles (grid
+//     from the occupancy query), W0 is loaded once per CTA and stays, and
+//     the producer runs into the next tile's slabs while the consumers do
+//     the epilogues and the next conv0.
+//   * What bounds it: W1 streams at 64 bytes per 4096 FLOP of a 64-row tile
+//     (the accumulators of 64 rows x C fill the consumers' registers), so
+//     the ring's bytes in flight over the latency of a multicast slab set
+//     the pace.  The shared memory (the resident conv0 tile, 134 KB at C =
+//     512) leaves room for 4 slots.  W0 through the ring for a fifth was
+//     slower, and so was releasing each slot as soon as its own product
+//     completed (wgmma_wait<0>): PERF.md §6.
+//   * The robust LayerNorms reduce over all C channels of a row, split over
+//     the two warpgroups: each writes its per-row (mean, M2) over its C/2
+//     columns to shared memory, and both combine the two in a fixed order
+//     (Chan's pairwise formula): one 256-thread named barrier a norm.
+// Samples at or past L read as 0; rows at or past T1 are computed and not
+// stored.  Every output element is written by one CTA from sums in a fixed
+// k order, so a relaunch is bit-equal.
+//
+// Traps, as met in this design:
+//   * After warp specialisation a __syncthreads() that the looping producer
+//     never reaches deadlocks: consumer-only syncs are named barrier 1 over
+//     the 256 consumer threads.
+//   * With multicast a ring slot is free only when the consumers of every CTA
+//     it was written into have released it: each consumer warp arrives on
+//     the empty barrier of every CTA of the cluster (mapa +
+//     mbarrier.arrive.shared::cluster), and the empty barrier counts 8
+//     warps x cluster arrivals.
+//   * A CTA whose tile is past the last one (odd tile count) still walks
+//     every slab and every barrier phase with its partner; it only skips
+//     its stores.  Its producer waits for the last releases of every slot
+//     before it exits, so no remote arrival or multicast write can reach a
+//     CTA that has left.
+//   * Cluster launches go through cudaLaunchKernelExC with the cluster
+//     dimension attribute; the grid is a multiple of the cluster.
+//   * Serialised wgmma (ptxas C7514): every product of the k loop has one
+//     shape, and the accumulators are zeroed in registers before a tile's
+//     first, so ptxas serialises none (`_build.ptxas_report()` shows no
+//     warning).  A 288-thread block without setmaxnreg still compiled to 168
+//     registers a thread and spilled; setmaxnreg gives the consumers 232.
 #include "common.cuh"
 
 namespace {
 
+// -- window_stats ------------------------------------------------------------
+
 constexpr int kStatsThreads = 256;
+constexpr int kStatsWarps = kStatsThreads / 32;
 constexpr int kStatsValues = 65;  // 55 upper-triangle Gram entries + 10 sums
 
 __device__ __forceinline__ void accumulate_row(const __nv_bfloat16* p, float acc[kStatsValues]) {
@@ -77,451 +120,591 @@ __device__ __forceinline__ void accumulate_row(const __nv_bfloat16* p, float acc
   for (int j = 0; j < 10; ++j) acc[55 + j] += v[j];
 }
 
-__global__ void window_stats_kernel(const __nv_bfloat16* __restrict__ x,
-                                    float* __restrict__ out, int L, int na, int nb) {
-  __shared__ float red[kStatsValues];
+// part[b, block, :] = this block's 65 partial sums
+__global__ void __launch_bounds__(kStatsThreads)
+window_stats_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ part, int L, int na,
+                    int nb) {
+  __shared__ float red[kStatsWarps][kStatsValues];
   const int b = blockIdx.y;
   const __nv_bfloat16* xb = x + (size_t)b * L;
   float acc[kStatsValues];
 #pragma unroll
   for (int i = 0; i < kStatsValues; ++i) acc[i] = 0.f;
-  for (int i = threadIdx.x; i < kStatsValues; i += blockDim.x) red[i] = 0.f;
-  __syncthreads();
-
   const int rows = max(na, nb);
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += gridDim.x * blockDim.x) {
     if (r < na) accumulate_row(xb + 10 * (size_t)r, acc);
     if (r < nb) accumulate_row(xb + 10 * (size_t)r + 5, acc);
   }
-  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < kStatsValues; ++i) {
     const float s = w2v2::warp_sum(acc[i]);
-    if (lane == 0) atomicAdd(&red[i], s);
+    if (lane == 0) red[warp][i] = s;
   }
   __syncthreads();
-  // out row: [gram (10x10, row-major) | row_sum (10)]
+  if (threadIdx.x < kStatsValues) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kStatsWarps; ++w) s += red[w][threadIdx.x];
+    part[((size_t)b * gridDim.x + blockIdx.x) * kStatsValues + threadIdx.x] = s;
+  }
+}
+
+// out row b: [gram (10x10, row-major) | row_sum (10)], the blocks' partials
+// summed in block order
+__global__ void window_stats_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                           int blocks) {
+  const int b = blockIdx.x, i = threadIdx.x;
+  if (i >= kStatsValues) return;
+  const float* pb = part + (size_t)b * blocks * kStatsValues + i;
+  float s = 0.f;
+  for (int k = 0; k < blocks; ++k) s += pb[(size_t)k * kStatsValues];
   float* ob = out + (size_t)b * 110;
-  for (int i = threadIdx.x; i < kStatsValues; i += blockDim.x) {
-    if (i >= 55) {
-      atomicAdd(&ob[100 + (i - 55)], red[i]);
-      continue;
-    }
-    int j = 0, rem = i;
-    while (rem >= 10 - j) { rem -= 10 - j; ++j; }
-    const int k = j + rem;
-    atomicAdd(&ob[j * 10 + k], red[i]);
-    if (k != j) atomicAdd(&ob[k * 10 + j], red[i]);
+  if (i >= 55) {
+    ob[100 + (i - 55)] = s;
+    return;
   }
+  int j = 0, rem = i;
+  while (rem >= 10 - j) { rem -= 10 - j; ++j; }
+  const int k = j + rem;
+  ob[j * 10 + k] = s;
+  ob[k * 10 + j] = s;
 }
 
-constexpr int kTM = 64;    // conv1 output rows per block
-constexpr int kTN = 256;   // output channels per block
-constexpr int kKC = 32;    // input channels per chunk
-constexpr int kRows = 2 * kTM + 1;              // conv0 rows a tile reads
-constexpr int kSamples = 5 * (kRows - 1) + 10;  // waveform samples a tile reads
-constexpr int kThreads = 256;  // 8 warps: 2 (rows, 32 each) x 4 (cols, 64 each)
-// padded shared-memory rows (elements): the 8 rows an ldmatrix reads fall in
-// distinct banks
-constexpr int kLdY = kKC + 8;  // conv0 tile rows (80 B)
-constexpr int kLdW = kTN + 8;  // W1 slab rows (528 B)
+// -- conv01 (both families) ----------------------------------------------------
 
-__host__ __device__ constexpr int round32(int bytes) { return (bytes + 31) / 32 * 32; }
-
-// [waveform (f32) | conv0 even rows | conv0 odd rows | W1 slab]
-constexpr int kSmemXs = round32(kSamples * 4);
-constexpr int kSmemYe = round32((kTM + 1) * kLdY * 2);
-constexpr int kSmemYo = round32(kTM * kLdY * 2);
-constexpr int kSmemConv01 = kSmemXs + kSmemYe + kSmemYo + 3 * kKC * kLdW * 2;
-
-__global__ void __launch_bounds__(kThreads, 2)
-conv01_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
-              const float* __restrict__ scale, const float* __restrict__ shift,
-              const __nv_bfloat16* __restrict__ w1, __nv_bfloat16* __restrict__ out,
-              int L, int T1, int C) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);
-  // conv0 rows 2r in `ye` (kTM + 1 rows), rows 2r + 1 in `yo` (kTM rows):
-  // conv1 row r reads ye[r], yo[r], ye[r + 1], each a contiguous operand
-  __nv_bfloat16* ye = reinterpret_cast<__nv_bfloat16*>(smem + kSmemXs);
-  __nv_bfloat16* yo = reinterpret_cast<__nv_bfloat16*>(smem + kSmemXs + kSmemYe);
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + kSmemXs + kSmemYe + kSmemYo);
-
-  const int r0 = blockIdx.x * kTM;
-  const int n0 = blockIdx.y * kTN;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int g = lane >> 2, t = lane & 3;
-
-  const __nv_bfloat16* xb = x + (size_t)b * L;
-  const size_t s0 = 10 * (size_t)r0;  // first sample of conv0 row 2 * r0
-  for (int i = tid; i < kSamples; i += kThreads) {
-    const size_t s = s0 + i;
-    xs[i] = s < (size_t)L ? __bfloat162float(xb[s]) : 0.f;
-  }
-
-  float acc[2][8][4];  // 2 m16 tiles x 8 n8 tiles of the warp's 32 x 64
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 8; ++nj) acc[mi][nj][0] = acc[mi][nj][1] = acc[mi][nj][2] = acc[mi][nj][3] = 0.f;
-
-  // a thread always computes channel `ch` of a chunk (kThreads % kKC == 0)
-  const int ch = tid % kKC;
-  for (int c0 = 0; c0 < C; c0 += kKC) {
-    __syncthreads();  // the previous chunk's tiles are no longer read
-    // W1[j, c0:c0+32, n0:n0+256] for the three taps, in flight during conv0
-    for (int i = tid; i < 3 * kKC * kTN / 8; i += kThreads) {
-      const int e = i * 8;
-      const int jc = e / kTN;  // j * kKC + c
-      const int n = e % kTN;
-      const int j = jc / kKC, c = jc % kKC;
-      w2v2::cp_async16(ws + jc * kLdW + n, w1 + ((size_t)j * C + c0 + c) * C + n0 + n, true);
-    }
-    w2v2::cp_async_commit();
-
-    // conv0 rows of this tile for channels [c0, c0 + 32): normalise, GELU, bf16
-    float wk[10];
-#pragma unroll
-    for (int k = 0; k < 10; ++k) wk[k] = __bfloat162float(w0[k * C + c0 + ch]);
-    const float sc = scale[(size_t)b * C + c0 + ch], sh = shift[(size_t)b * C + c0 + ch];
-    for (int row = tid / kKC; row < kRows; row += kThreads / kKC) {
-      const float* xw = xs + 5 * row;
-      float y = 0.f;
-#pragma unroll
-      for (int k = 0; k < 10; ++k) y += xw[k] * wk[k];
-      __nv_bfloat16* dst = (row & 1 ? yo : ye) + (row >> 1) * kLdY + ch;
-      *dst = __float2bfloat16(w2v2::gelu_tanh(y * sc + sh));
-    }
-    w2v2::cp_async_wait<0>();
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const __nv_bfloat16* ya = (j == 1 ? yo : ye) + (j == 2 ? kLdY : 0);
-#pragma unroll
-      for (int kk = 0; kk < kKC / 16; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          w2v2::ldmatrix_x4(a[mi], ya + (wm * 32 + mi * 16 + (lane & 15)) * kLdY + kk * 16 +
-                                       (lane >> 4) * 8);
-#pragma unroll
-        for (int nj = 0; nj < 8; nj += 2) {
-          uint32_t bw[4];  // b0, b1 of n-tile nj, then of n-tile nj + 1
-          w2v2::ldmatrix_x4_trans(
-              bw, ws + (j * kKC + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdW +
-                      wn * 64 + nj * 8 + (lane >> 4) * 8);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            w2v2::mma_bf16_16816(acc[mi][nj], a[mi], bw[0], bw[1]);
-            w2v2::mma_bf16_16816(acc[mi][nj + 1], a[mi], bw[2], bw[3]);
-          }
-        }
-      }
-    }
-  }
-
-  // epilogue straight from the accumulators: GELU, bf16 pairs
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + wm * 32 + mi * 16 + g + 8 * h;
-      if (r >= T1) continue;
-      __nv_bfloat16* orow = out + ((size_t)b * T1 + r) * C + n0 + wn * 64 + 2 * t;
-#pragma unroll
-      for (int nj = 0; nj < 8; ++nj)
-        *reinterpret_cast<__nv_bfloat162*>(orow + nj * 8) = __floats2bfloat162_rn(
-            w2v2::gelu_tanh(acc[mi][nj][2 * h]), w2v2::gelu_tanh(acc[mi][nj][2 * h + 1]));
-    }
-  }
-}
-
-// --- robust family: conv0 + b0 -> LayerNorm -> GELU -> conv1 + b1 -> LayerNorm -> GELU
-
-constexpr int kRM = 64;                 // conv1 output rows per block
-constexpr int kRRows = 2 * kRM + 1;     // conv0 rows a tile reads
-constexpr int kRThreads = 512;          // 16 warps: 2 (rows, 32 each) x 8 (column groups)
-constexpr int kRWarps = kRThreads / 32;
-constexpr int kRKC = 16;                // input channels per W1 slab (one mma k-step)
-constexpr int kRStages = 3;             // W1 slabs in flight
-// waveform samples of a tile, with room for the one row past the tile that
-// the last row pair computes and drops
-constexpr int kRSamples = 5 * (kRRows + 1) + 10;
+constexpr int kTileRows = 64;                   // conv1 rows a tile
+constexpr int kConsumers = 2;                   // consumer warpgroups, C/2 columns each
+constexpr int kConvThreads = 128 * (kConsumers + 1);
+constexpr int kStages = 4;                      // W1 slabs in flight
+constexpr int kSlabRows = 16;                   // input channels of a slab (W0: taps, 10 of 16 used)
+constexpr int kAtomCols = 64;                   // output channels of a 128-byte swizzle atom
+constexpr int kAtomBytes = kSlabRows * kAtomCols * 2;  // 2 KB: 16 rows x 128 B
+constexpr int kTileSamples = 10 * kTileRows + 10;      // conv0 rows 0 .. 128 of the tile read these
+constexpr int kSamplesPad = 672;                       // a sample buffer: 650 rounded up to 32 lanes
+constexpr int kExtraSample = 10 * kTileRows;    // conv0 row 128 (= ye[64]) starts here
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;              // 128 x 40 + 256 x 232 <= 65536
+constexpr int kConsumerBarrier = 1;             // named barrier of the 256 consumer threads
+constexpr int kCluster = 4;                     // CTAs sharing each W1 slab by multicast
 
 template <int C>
-struct RobustSmem {
-  static constexpr int kLd = C + 8;  // padded rows: ldmatrix reads 8 rows in distinct banks
-  static constexpr int kYe = round32((kRM + 1) * kLd * 2);
-  static constexpr int kYo = round32(kRM * kLd * 2);
-  static constexpr int kSlab = round32(kRKC * kLd * 2);
-  static constexpr int kXs = round32(kRSamples * 4);
-  static constexpr int kW0 = round32(10 * C * 2);
-  static constexpr int kP0 = round32(3 * C * 4);
-  static constexpr int kRed = round32(kRM * 8 * 4);
-  static constexpr int kBytes = kYe + kYo + kRStages * kSlab + kXs + kW0 + kP0 + kRed;
+struct ConvSmem {
+  static constexpr int kLd = C + 8;  // padded conv0 rows: the 8 rows an ldmatrix reads hit distinct banks
+  static constexpr int kSlabBytes = kSlabRows * C * 2;
+  // the W1 slabs: C / 64 swizzled atoms of 16 rows x 64 columns
+  unsigned char ring[kStages][kSlabBytes];
+  unsigned char w0[kSlabBytes];  // W0 padded to 16 taps, the same layout
+  __nv_bfloat16 ye[(kTileRows + 1) * kLd];  // conv0 rows 2r, r = 0 .. 64
+  __nv_bfloat16 yo[kTileRows * kLd];        // conv0 rows 2r + 1
+  float xrow[C];                            // conv0 row 128 before its norm (+ bias), f32
+  uint16_t xs[2][kSamplesPad];              // the samples of two tiles, bf16 bits (0 at or past L)
+  // per-row (mean, M2) over each warpgroup's C/2 columns: conv0's even rows
+  // (and row 128 at [64]), its odd rows, conv1
+  float2 red[3][kConsumers][kTileRows + 1];
+  uint64_t full[kStages], empty[kStages], w0_full, xs_full[2], xs_empty[2];
 };
 
+struct ConvArgs {
+  const __nv_bfloat16* x;  // (B, L)
+  const __nv_bfloat16* w0;  // (16, C): W0, taps 10-15 zero
+  const float* p0;  // base: GroupNorm scale (B, C); robust: conv0 [bias | gamma | beta] (3, C)
+  const float* p1;  // base: shift (B, C); robust: conv1 [bias | gamma | beta] (3, C)
+  __nv_bfloat16* out;  // (B, T1, C)
+  int L, T1, tiles_per_row, tiles;
+  float eps;
+};
+
+__device__ __forceinline__ uint32_t pack_samples(const uint16_t* xs, int i) {
+  return uint32_t(xs[i]) | (uint32_t(xs[i + 1]) << 16);
+}
+
+__device__ __forceinline__ float bf16_bits_to_float(uint16_t v) {
+  return __uint_as_float(uint32_t(v) << 16);
+}
+
+// The consumer side of a tile's row: which batch row and first conv1 row,
+// and whether the tile exists at all (a cluster partner past the last tile
+// walks the slabs without storing).
+struct Tile {
+  int b, r0;
+  bool valid;
+};
+
+__device__ __forceinline__ Tile tile_of(const ConvArgs& a, int t) {
+  const bool valid = t < a.tiles;
+  return Tile{valid ? t / a.tiles_per_row : 0, valid ? (t % a.tiles_per_row) * kTileRows : 0, valid};
+}
+
+// consumer warp's release of a ring slot: one arrival on the slot's empty
+// barrier in every CTA of the cluster (each was written by the multicast)
+__device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) w2v2::mbar_arrive_cluster(empty, q);
+  }
+}
+
+// this warpgroup's C/2 columns of a 64-row product with B a 16-row slab in
+// shared memory (C/64 atoms; the warpgroup's are wg * C/128 ..): acc += A B
 template <int C>
-__global__ void __launch_bounds__(kRThreads, 1)
-conv01_robust_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
-                     const float* __restrict__ p0, const __nv_bfloat16* __restrict__ w1,
-                     const float* __restrict__ p1, __nv_bfloat16* __restrict__ out, int L, int T1,
-                     float eps) {
-  using S = RobustSmem<C>;
-  constexpr int kLd = S::kLd;
-  constexpr int NJ = C / 64;   // n8 tiles per warp (the warp's C/8 columns)
-  constexpr int NP = C / 64;   // channel pairs per lane in the conv0 phase
-  constexpr int kSteps = 3 * (C / kRKC);
-  extern __shared__ __align__(128) unsigned char smem[];
-  // conv0 rows 2r in `ye` (kRM + 1 rows), rows 2r + 1 in `yo` (kRM rows)
-  __nv_bfloat16* ye = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* yo = reinterpret_cast<__nv_bfloat16*>(smem + S::kYe);
-  unsigned char* ring = smem + S::kYe + S::kYo;
-  float* xs = reinterpret_cast<float*>(ring + kRStages * S::kSlab);
-  __nv_bfloat162* w0s = reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<unsigned char*>(xs) + S::kXs);
-  float* p0s = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(w0s) + S::kW0);
-  float* red = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(p0s) + S::kP0);
+__device__ __forceinline__ void issue_slab(float (&acc)[C / 128][32], const uint32_t a[4],
+                                           const unsigned char* slab, int wg) {
+  constexpr int kAtoms = C / 128;
+#pragma unroll
+  for (int at = 0; at < kAtoms; ++at) w2v2::fence_operands(acc[at]);
+  w2v2::wgmma_fence();
+#pragma unroll
+  for (int at = 0; at < kAtoms; ++at)
+    w2v2::wgmma_rs_n64_mn(acc[at], a, w2v2::wgmma_desc(slab + (wg * kAtoms + at) * kAtomBytes));
+  w2v2::wgmma_commit();
+}
 
-  const int r0 = blockIdx.x * kRM;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int g = lane >> 2, t = lane & 3;
+template <int C>
+__device__ __forceinline__ void zero(float (&acc)[C / 128][32]) {
+#pragma unroll
+  for (int at = 0; at < C / 128; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[at][i] = 0.f;
+}
 
-  // slab s of W1: tap s / (C/16), input channels ((s % (C/16)) * 16 ..+15), all C outputs
-  auto load_slab = [&](int s) {
-    const int j = s / (C / kRKC), c0 = (s % (C / kRKC)) * kRKC;
-    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(ring + (s % kRStages) * S::kSlab);
-    for (int i = tid; i < kRKC * C / 8; i += kRThreads) {
-      const int row = i / (C / 8), v = i % (C / 8);
-      w2v2::cp_async16(dst + row * kLd + v * 8, w1 + ((size_t)j * C + c0 + row) * C + v * 8, true);
-    }
-  };
-  load_slab(0);
-  w2v2::cp_async_commit();
-  load_slab(1);
-  w2v2::cp_async_commit();
+// Column of accumulator element (at, j, e) of this thread in the warpgroup's
+// half: acc[at][4j + e] is row 16w + g + 8 (e / 2), column wg C/2 + 64 at + 8 j
+// + 2 tq + e % 2 (the m64nN accumulator layout of common.cuh's pack_a note).
+template <int C>
+__device__ __forceinline__ int col_of(int wg, int at, int j, int tq) {
+  return wg * (C / 2) + at * kAtomCols + 8 * j + 2 * tq;
+}
 
-  // stage the tile's samples, W0 (as channel pairs) and conv0's bias / gamma / beta
-  const __nv_bfloat16* xb = x + (size_t)b * L;
-  const size_t s0 = 10 * (size_t)r0;  // first sample of conv0 row 2 * r0
-  for (int i = tid; i < kRSamples; i += kRThreads) {
-    const size_t s = s0 + i;
-    xs[i] = s < (size_t)L ? __bfloat162float(xb[s]) : 0.f;
+// per-row (mean, M2) of v over this warpgroup's C/2 columns, for this
+// thread's rows ra and ra + 8, into red_wg[row] (lane tq == 0 of each quad)
+template <int C>
+__device__ __forceinline__ void row_moments(const float (&v)[C / 128][32], float2* red_wg, int ra,
+                                            int tq) {
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int at = 0; at < C / 128; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[(i >> 1) & 1] += v[at][i];
+  float mean[2], m2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+    mean[h] = s[h] * (2.f / C);
   }
-  const __nv_bfloat162* w0g = reinterpret_cast<const __nv_bfloat162*>(w0);
-  for (int i = tid; i < 10 * C / 2; i += kRThreads) w0s[i] = w0g[i];
-  for (int i = tid; i < 3 * C; i += kRThreads) p0s[i] = p0[i];
-  __syncthreads();
-
-  // conv0 + b0 -> LayerNorm -> GELU, two rows per warp at a time; lane owns
-  // channels 2 * (lane + 32 i), +1 of both rows
-  for (int rp = warp; rp < (kRRows + 1) / 2; rp += kRWarps) {
-    float xa[10], xc[10];
 #pragma unroll
-    for (int k = 0; k < 10; ++k) {
-      xa[k] = xs[10 * rp + k];      // row 2 rp
-      xc[k] = xs[10 * rp + 5 + k];  // row 2 rp + 1
+  for (int at = 0; at < C / 128; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float d = v[at][i] - mean[(i >> 1) & 1];
+      m2[(i >> 1) & 1] += d * d;
     }
-    float ya[2 * NP], yc[2 * NP];
-    float sa = 0.f, sc = 0.f;
 #pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const int cp = lane + 32 * i;  // channel pair
-      float a0 = 0.f, a1 = 0.f, c0 = 0.f, c1 = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 1);
+    m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 2);
+    if (tq == 0) red_wg[ra + 8 * h] = make_float2(mean[h], m2[h]);
+  }
+}
+
+// (mean, 1 / std) of a row over all C columns from the two warpgroups'
+// halves, combined in a fixed order (both warpgroups get the same bits)
+template <int C>
+__device__ __forceinline__ float2 row_norm(const float2 (&red)[kConsumers][kTileRows + 1], int row,
+                                           float eps) {
+  const float2 a = red[0][row], c = red[1][row];
+  const float d = a.x - c.x;
+  const float m2 = a.y + c.y + d * d * (C / 4.f);
+  return make_float2(0.5f * (a.x + c.x), rsqrtf(m2 * (1.f / C) + eps));
+}
+
+// bias of the robust family's conv (row 0 of p), added in place
+template <int C>
+__device__ __forceinline__ void add_bias(float (&v)[C / 128][32], const float* p, int wg, int tq) {
 #pragma unroll
-      for (int k = 0; k < 10; ++k) {
-        const float2 w = __bfloat1622float2(w0s[k * (C / 2) + cp]);
-        a0 += xa[k] * w.x;
-        a1 += xa[k] * w.y;
-        c0 += xc[k] * w.x;
-        c1 += xc[k] * w.y;
+  for (int at = 0; at < C / 128; ++at)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bias = *reinterpret_cast<const float2*>(p + col_of<C>(wg, at, j, tq));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[at][4 * j + e] += (e & 1) ? bias.y : bias.x;
+    }
+}
+
+// GELU(norm(v)) of the thread's two rows as bf16 pairs, handed to
+// store(h, col, bits) (h: row ra or ra + 8).  kLayer: v is already biased,
+// norm = (v - mean) rstd gamma + beta with gamma, beta rows 1, 2 of p;
+// else v scale + shift, scale and shift from (p, q) at this batch row.
+template <int C, bool kLayer, typename Store>
+__device__ __forceinline__ void activate(const float (&v)[C / 128][32], const float* p,
+                                         const float* q, const float2 (&stat)[2], int wg, int tq,
+                                         Store store) {
+#pragma unroll
+  for (int at = 0; at < C / 128; ++at)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col_of<C>(wg, at, j, tq);
+      float2 mul, add;
+      if constexpr (kLayer) {
+        mul = *reinterpret_cast<const float2*>(p + C + col);
+        add = *reinterpret_cast<const float2*>(p + 2 * C + col);
+      } else {
+        mul = *reinterpret_cast<const float2*>(p + col);
+        add = *reinterpret_cast<const float2*>(q + col);
       }
-      const float b0 = p0s[2 * cp], b1 = p0s[2 * cp + 1];
-      ya[2 * i] = a0 + b0;
-      ya[2 * i + 1] = a1 + b1;
-      yc[2 * i] = c0 + b0;
-      yc[2 * i + 1] = c1 + b1;
-      sa += ya[2 * i] + ya[2 * i + 1];
-      sc += yc[2 * i] + yc[2 * i + 1];
-    }
-    const float ma = w2v2::warp_sum(sa) * (1.f / C), mc = w2v2::warp_sum(sc) * (1.f / C);
-    float va = 0.f, vc = 0.f;
-#pragma unroll
-    for (int i = 0; i < 2 * NP; ++i) {
-      ya[i] -= ma;
-      yc[i] -= mc;
-      va += ya[i] * ya[i];
-      vc += yc[i] * yc[i];
-    }
-    const float ra = rsqrtf(w2v2::warp_sum(va) * (1.f / C) + eps);
-    const float rc = rsqrtf(w2v2::warp_sum(vc) * (1.f / C) + eps);
-    const bool odd_valid = 2 * rp + 1 < kRRows;
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const int c = 2 * (lane + 32 * i);
-      const float g0 = p0s[C + c], g1 = p0s[C + c + 1];
-      const float e0 = p0s[2 * C + c], e1 = p0s[2 * C + c + 1];
-      *reinterpret_cast<__nv_bfloat162*>(ye + rp * kLd + c) = __floats2bfloat162_rn(
-          w2v2::gelu_tanh(ya[2 * i] * ra * g0 + e0), w2v2::gelu_tanh(ya[2 * i + 1] * ra * g1 + e1));
-      if (odd_valid)
-        *reinterpret_cast<__nv_bfloat162*>(yo + rp * kLd + c) = __floats2bfloat162_rn(
-            w2v2::gelu_tanh(yc[2 * i] * rc * g0 + e0), w2v2::gelu_tanh(yc[2 * i + 1] * rc * g1 + e1));
-    }
-  }
-
-  float acc[2][NJ][4];  // 2 m16 tiles x NJ n8 tiles: the warp's 32 rows x C/8 columns
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj) acc[mi][nj][0] = acc[mi][nj][1] = acc[mi][nj][2] = acc[mi][nj][3] = 0.f;
-
-  // conv1: y1[r] = ye[r] W1[0] + yo[r] W1[1] + ye[r + 1] W1[2], slab by slab
-  for (int s = 0; s < kSteps; ++s) {
-    w2v2::cp_async_wait<1>();  // slab s has landed (all groups but the newest)
-    __syncthreads();           // ... for every thread; slab s - 1 is no longer read
-    if (s + 2 < kSteps) load_slab(s + 2);
-    w2v2::cp_async_commit();   // always: the group count stays uniform
-    const int j = s / (C / kRKC), c0 = (s % (C / kRKC)) * kRKC;
-    const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(ring + (s % kRStages) * S::kSlab);
-    const __nv_bfloat16* ya = (j == 1 ? yo : ye) + (j == 2 ? kLd : 0);
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      w2v2::ldmatrix_x4(a[mi], ya + (wm * 32 + mi * 16 + (lane & 15)) * kLd + c0 + (lane >> 4) * 8);
-#pragma unroll
-    for (int nj = 0; nj < NJ; nj += 2) {
-      uint32_t bw[4];  // b0, b1 of n-tile nj, then of n-tile nj + 1
-      w2v2::ldmatrix_x4_trans(bw, ws + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd + wn * (C / 8) +
-                                      nj * 8 + (lane >> 4) * 8);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        w2v2::mma_bf16_16816(acc[mi][nj], a[mi], bw[0], bw[1]);
-        w2v2::mma_bf16_16816(acc[mi][nj + 1], a[mi], bw[2], bw[3]);
-      }
-    }
-  }
-
-  // + b1 -> LayerNorm over the row's C channels (8 column groups, through
-  // shared memory) -> GELU -> bf16.  This thread: rows g, g + 8 of 2 m-tiles.
-  const int col0 = wn * (C / 8) + 2 * t;
-  float mean[2][2] = {}, rstd[2][2] = {};
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj) {
-      const float b0 = p1[col0 + nj * 8], b1 = p1[col0 + nj * 8 + 1];
-      acc[mi][nj][0] += b0;
-      acc[mi][nj][1] += b1;
-      acc[mi][nj][2] += b0;
-      acc[mi][nj][3] += b1;
-    }
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float sum = 0.f;
-#pragma unroll
-        for (int nj = 0; nj < NJ; ++nj) {
-          const float d0 = acc[mi][nj][2 * h] - (pass ? mean[mi][h] : 0.f);
-          const float d1 = acc[mi][nj][2 * h + 1] - (pass ? mean[mi][h] : 0.f);
-          sum += pass ? d0 * d0 + d1 * d1 : d0 + d1;
+        float y0 = v[at][4 * j + 2 * h], y1 = v[at][4 * j + 2 * h + 1];
+        if constexpr (kLayer) {
+          y0 = (y0 - stat[h].x) * stat[h].y;
+          y1 = (y1 - stat[h].x) * stat[h].y;
         }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        if (t == 0) red[(wm * 32 + mi * 16 + g + 8 * h) * 8 + wn] = sum;
-      }
-    __syncthreads();
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float* rr = red + (wm * 32 + mi * 16 + g + 8 * h) * 8;
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) sum += rr[i];
-        if (pass == 0) mean[mi][h] = sum * (1.f / C);
-        else rstd[mi][h] = rsqrtf(sum * (1.f / C) + eps);
-      }
-    __syncthreads();  // `red` is rewritten by the next pass
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + wm * 32 + mi * 16 + g + 8 * h;
-      if (r >= T1) continue;
-      __nv_bfloat16* orow = out + ((size_t)b * T1 + r) * C + col0;
-#pragma unroll
-      for (int nj = 0; nj < NJ; ++nj) {
-        const int c = col0 + nj * 8;
-        const float y0 = (acc[mi][nj][2 * h] - mean[mi][h]) * rstd[mi][h] * p1[C + c] + p1[2 * C + c];
-        const float y1 = (acc[mi][nj][2 * h + 1] - mean[mi][h]) * rstd[mi][h] * p1[C + c + 1] +
-                         p1[2 * C + c + 1];
-        *reinterpret_cast<__nv_bfloat162*>(orow + nj * 8) =
-            __floats2bfloat162_rn(w2v2::gelu_tanh(y0), w2v2::gelu_tanh(y1));
+        store(h, col, w2v2::pack_bf16x2(w2v2::gelu_tanh(y0 * mul.x + add.x),
+                                        w2v2::gelu_tanh(y1 * mul.y + add.y)));
       }
     }
 }
 
-template <int C>
-cudaError_t launch_robust(const void* x, const void* w0, const void* p0, const void* w1,
-                          const void* p1, void* out, int B, int L, int T1, float eps,
-                          cudaStream_t s) {
-  constexpr int smem = RobustSmem<C>::kBytes;
-  cudaError_t err = w2v2::allow_smem(conv01_robust_kernel<C>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T1 + kRM - 1) / kRM, B);
-  conv01_robust_kernel<C><<<grid, kRThreads, smem, s>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w0, (const float*)p0,
-      (const __nv_bfloat16*)w1, (const float*)p1, (__nv_bfloat16*)out, L, T1, eps);
+template <int C, bool kLayer>
+__global__ void __launch_bounds__(kConvThreads, 1)
+conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant__ CUtensorMap w0_map,
+              const ConvArgs args) {
+  using S = ConvSmem<C>;
+  constexpr int kLd = S::kLd;
+  constexpr int kAtoms = C / 128;              // 64-column atoms a warpgroup
+  constexpr int kSlabs = 3 * C / kSlabRows;    // W1 slabs (k16 steps) a tile
+  constexpr int kAtomsPerCta = C / kAtomCols / kCluster;
+  S& sm = w2v2::block_smem<S>();
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
+  const uint32_t rank = w2v2::cluster_rank();
+  const int clusters = gridDim.x / kCluster, cluster = blockIdx.x / kCluster;
+  const int steps = (args.tiles + kCluster - 1) / kCluster;  // cluster-tiles
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      w2v2::mbar_init(&sm.full[s], 1);
+      w2v2::mbar_init(&sm.empty[s], kCluster * kConsumers * 4);
+    }
+    w2v2::mbar_init(&sm.w0_full, 1);
+    for (int k = 0; k < 2; ++k) {
+      w2v2::mbar_init(&sm.xs_full[k], 32);
+      w2v2::mbar_init(&sm.xs_empty[k], 1);
+    }
+    w2v2::mbar_init_fence();
+  }
+  // the partner's multicast and arrivals may only start once every barrier
+  // of the cluster is initialised
+  w2v2::cluster_sync();
+
+  if (wg == kConsumers) {
+    w2v2::setmaxnreg_dec<kProducerRegs>();
+    const int pw = (tid % 128) / 32;
+    if (pw == 1) {
+      // the sample warp: the n-th tile's samples into buffer n % 2, once the
+      // consumers are done with tile n - 2's
+      for (int step = cluster, n = 0; step < steps; step += clusters, ++n) {
+        if (n >= 2) w2v2::mbar_wait(&sm.xs_empty[n & 1], ((n >> 1) + 1) & 1);
+        const Tile t = tile_of(args, step * kCluster + rank);
+        const uint16_t* xb = reinterpret_cast<const uint16_t*>(args.x) + (size_t)t.b * args.L;
+        const long long s0 = 10LL * t.r0;
+        for (int i = lane; i < kSamplesPad; i += 32)
+          sm.xs[n & 1][i] = (t.valid && i < kTileSamples && s0 + i < args.L) ? xb[s0 + i] : uint16_t(0);
+        w2v2::mbar_arrive(&sm.xs_full[n & 1]);
+      }
+      return;
+    }
+    if (tid % 128 != 0) return;
+    // the copy thread: for every tile, W0 then each W1 slab, this CTA's
+    // share of their atoms, multicast to the cluster
+    // slot st of the ring, in its round `round` (the slot's first use is round 0)
+    w2v2::mbar_arrive_expect_tx(&sm.w0_full, S::kSlabBytes);
+    for (int at = 0; at < C / kAtomCols; ++at)
+      w2v2::tma_load_2d(sm.w0 + at * kAtomBytes, &w0_map, &sm.w0_full, at * kAtomCols, 0);
+    int st = 0;
+    uint32_t round = 0;
+    for (int step = cluster; step < steps; step += clusters) {
+      for (int e = 0; e < kSlabs; ++e) {
+        const int row = e * kSlabRows;
+        if (round > 0) w2v2::mbar_wait(&sm.empty[st], (round - 1) & 1);
+        w2v2::mbar_arrive_expect_tx(&sm.full[st], S::kSlabBytes);
+        for (int at = int(rank) * kAtomsPerCta; at < int(rank + 1) * kAtomsPerCta; ++at)
+          w2v2::tma_load_2d_multicast(sm.ring[st] + at * kAtomBytes, &w1_map, &sm.full[st],
+                                      at * kAtomCols, row, (1u << kCluster) - 1);
+        if (++st == kStages) st = 0, ++round;
+      }
+    }
+    // every slot's last release, from every consumer of the cluster, before
+    // this CTA may exit
+    for (int k = 0; k < kStages; ++k) {
+      if (round > 0) w2v2::mbar_wait(&sm.empty[st], (round - 1) & 1);
+      if (++st == kStages) st = 0, ++round;
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output columns wg C/2 .. + C/2 - 1 of the tile
+  w2v2::setmaxnreg_inc<kConsumerRegs>();
+  const int w = (tid % 128) / 32, g = lane >> 2, tq = lane & 3;
+  const int ra = 16 * w + g;  // this thread's rows of a 64-row block: ra, ra + 8
+  float acc[kAtoms][32];
+  // the ring slot of the next entry and its round's parity, carried along
+  // (no division by the 5 slots in the k loop)
+  int st = 0;
+  uint32_t ph = 0;
+  w2v2::mbar_wait(&sm.w0_full, 0);
+  for (int step = cluster, n = 0; step < steps; step += clusters, ++n) {
+    const Tile t = tile_of(args, step * kCluster + rank);
+    const uint16_t* xs = sm.xs[n & 1];
+    const float* p = args.p0 + (kLayer ? 0 : (size_t)t.b * C);  // conv0's norm
+    const float* q = args.p1 + (kLayer ? 0 : (size_t)t.b * C);
+    w2v2::mbar_wait(&sm.xs_full[n & 1], (n >> 1) & 1);
+    // the last tile's conv1 reads of ye / yo are done
+    w2v2::named_barrier_sync(kConsumerBarrier, 256);
+
+    // -- the tile's conv0 row 128 (ye[64]) on the CUDA cores, by warp 0 of
+    //    each warpgroup (a lane: C/64 adjacent channels of the warpgroup's
+    //    half), parked in f32 (+ bias) until its norm
+    constexpr int kPer = C / 64;
+    const int col_x = wg * (C / 2) + lane * kPer;
+    if (w == 0) {
+      float xw[10], s = 0.f;
+#pragma unroll
+      for (int k = 0; k < 10; ++k) xw[k] = bf16_bits_to_float(xs[kExtraSample + k]);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        float y = kLayer ? p[col_x + i] : 0.f;
+#pragma unroll
+        for (int k = 0; k < 10; ++k) y += xw[k] * __bfloat162float(args.w0[k * C + col_x + i]);
+        sm.xrow[col_x + i] = y;
+        s += y;
+      }
+      if constexpr (kLayer) {
+        const float mean = w2v2::warp_sum(s) * (2.f / C);
+        float m2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const float d = sm.xrow[col_x + i] - mean;
+          m2 += d * d;
+        }
+        m2 = w2v2::warp_sum(m2);
+        if (lane == 0) sm.red[0][wg][kTileRows] = make_float2(mean, m2);
+      }
+    }
+
+    // -- conv0, even rows (ye[0..63]), then odd rows (yo), each a 64 x 16
+    //    window block times W0 (the tile's first ring entry), A packed from
+    //    the samples
+    const unsigned char* w0s = sm.w0;
+#pragma unroll 1
+    for (int par = 0; par < 2; ++par) {
+      const int off = 5 * par;
+      uint32_t a[4];
+      a[0] = pack_samples(xs, 10 * ra + off + 2 * tq);
+      a[1] = pack_samples(xs, 10 * (ra + 8) + off + 2 * tq);
+      a[2] = tq == 0 ? pack_samples(xs, 10 * ra + off + 8) : 0u;  // taps 8, 9; 10-15 are 0
+      a[3] = tq == 0 ? pack_samples(xs, 10 * (ra + 8) + off + 8) : 0u;
+      zero<C>(acc);
+      issue_slab<C>(acc, a, w0s, wg);
+      w2v2::wgmma_wait<0>();
+#pragma unroll
+      for (int at = 0; at < kAtoms; ++at) w2v2::fence_operands(acc[at]);
+      __nv_bfloat16* dst = par ? sm.yo : sm.ye;
+      float2 stat[2] = {};
+      if constexpr (kLayer) {
+        add_bias<C>(acc, p, wg, tq);
+        row_moments<C>(acc, sm.red[par][wg], ra, tq);
+        w2v2::named_barrier_sync(kConsumerBarrier, 256);
+        stat[0] = row_norm<C>(sm.red[par], ra, args.eps);
+        stat[1] = row_norm<C>(sm.red[par], ra + 8, args.eps);
+      }
+      activate<C, kLayer>(acc, p, q, stat, wg, tq, [&](int h, int col, uint32_t bits) {
+        *reinterpret_cast<uint32_t*>(dst + (ra + 8 * h) * kLd + col) = bits;
+      });
+    }
+    if (w == 0) {
+      float2 stat_x = {};
+      if constexpr (kLayer) stat_x = row_norm<C>(sm.red[0], kTileRows, args.eps);
+#pragma unroll
+      for (int i = 0; i < kPer; i += 2) {
+        const int col = col_x + i;
+        float y0 = sm.xrow[col], y1 = sm.xrow[col + 1];
+        if constexpr (kLayer) {
+          y0 = (y0 - stat_x.x) * stat_x.y * p[C + col] + p[2 * C + col];
+          y1 = (y1 - stat_x.x) * stat_x.y * p[C + col + 1] + p[2 * C + col + 1];
+        } else {
+          y0 = y0 * p[col] + q[col];
+          y1 = y1 * p[col + 1] + q[col + 1];
+        }
+        *reinterpret_cast<uint32_t*>(sm.ye + kTileRows * kLd + col) =
+            w2v2::pack_bf16x2(w2v2::gelu_tanh(y0), w2v2::gelu_tanh(y1));
+      }
+    }
+    // the conv0 tile is whole; the sample buffer goes back to the sample warp
+    w2v2::named_barrier_sync(kConsumerBarrier, 256);
+    if (tid == 0) w2v2::mbar_arrive(&sm.xs_empty[n & 1]);
+
+    // -- conv1: slab s is tap s / (C/16), input channels 16 (s % (C/16)) ..;
+    //    A (this warp's 16 rows x 16 channels) by ldmatrix from ye / yo
+    zero<C>(acc);
+    uint32_t a[2][4];
+    const int lrow = 16 * w + (lane & 15), lcol = (lane >> 4) * 8;
+    int prev = 0;  // the slot of the slab before
+#pragma unroll 1
+    for (int s = 0; s < kSlabs; s += 2) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int ss = s + u;
+        const int j = ss / (C / kSlabRows), c0 = (ss % (C / kSlabRows)) * kSlabRows;
+        const __nv_bfloat16* src = (j == 1 ? sm.yo : sm.ye) + (j == 2 ? kLd : 0);
+        w2v2::ldmatrix_x4(a[u], src + lrow * kLd + c0 + lcol);
+        w2v2::mbar_wait(&sm.full[st], ph);
+        issue_slab<C>(acc, a[u], sm.ring[st], wg);
+        w2v2::wgmma_wait<1>();  // slab ss - 1 is read: its slot goes back
+#pragma unroll
+        for (int at = 0; at < kAtoms; ++at) w2v2::fence_operands(acc[at]);
+        if (ss > 0) release_slot(&sm.empty[prev], lane);
+        prev = st;
+        if (++st == kStages) st = 0, ph ^= 1;
+      }
+    }
+    w2v2::wgmma_wait<0>();
+#pragma unroll
+    for (int at = 0; at < kAtoms; ++at) w2v2::fence_operands(acc[at]);
+    release_slot(&sm.empty[prev], lane);
+
+    // -- epilogue: [+ b1 -> LayerNorm] -> GELU -> bf16 rows < T1
+    float2 stat[2] = {};
+    if constexpr (kLayer) {
+      add_bias<C>(acc, args.p1, wg, tq);
+      row_moments<C>(acc, sm.red[2][wg], ra, tq);
+      w2v2::named_barrier_sync(kConsumerBarrier, 256);
+      stat[0] = row_norm<C>(sm.red[2], ra, args.eps);
+      stat[1] = row_norm<C>(sm.red[2], ra + 8, args.eps);
+    }
+    __nv_bfloat16* orow = args.out + ((size_t)t.b * args.T1 + t.r0 + ra) * C;
+    const bool ok[2] = {t.valid && t.r0 + ra < args.T1, t.valid && t.r0 + ra + 8 < args.T1};
+    if constexpr (kLayer) {
+      activate<C, true>(acc, args.p1, nullptr, stat, wg, tq, [&](int h, int col, uint32_t bits) {
+        if (ok[h]) *reinterpret_cast<uint32_t*>(orow + (size_t)8 * h * C + col) = bits;
+      });
+    } else {
+      // GELU alone: the activation of conv1 has no norm
+#pragma unroll
+      for (int at = 0; at < kAtoms; ++at)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = col_of<C>(wg, at, j, tq);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (ok[h])
+              *reinterpret_cast<uint32_t*>(orow + (size_t)8 * h * C + col) = w2v2::pack_bf16x2(
+                  w2v2::gelu_tanh(acc[at][4 * j + 2 * h]), w2v2::gelu_tanh(acc[at][4 * j + 2 * h + 1]));
+        }
+    }
+  }
+}
+
+// -- host side -------------------------------------------------------------------
+
+// a row-major (rows, cols) bf16 matrix as a 2-D tensor map with boxes of 16
+// rows x 64 columns and the 128-byte swizzle: one swizzle atom of a slab
+cudaError_t encode_slabs(CUtensorMap* map, const void* base, int rows, int cols) {
+  const w2v2::EncodeTiled encode = w2v2::encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kAtomCols, (cuuint32_t)kSlabRows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                              strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A persistent grid: as many clusters as the card holds at once (or as there
+// are cluster-tiles, if fewer), each walking the tiles.
+template <int C, bool kLayer>
+cudaError_t launch_conv(const ConvArgs& args, const void* w1, cudaStream_t s) {
+  CUtensorMap w1_map, w0_map;
+  W2V2_TRY(encode_slabs(&w1_map, w1, 3 * C, C));
+  W2V2_TRY(encode_slabs(&w0_map, args.w0, kSlabRows, C));
+  const auto kernel = conv01_kernel<C, kLayer>;
+  constexpr int smem = w2v2::smem_bytes<ConvSmem<C>>();
+  W2V2_TRY(w2v2::allow_smem(kernel, smem));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kConvThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int steps = (args.tiles + kCluster - 1) / kCluster;
+  static int resident = 0;  // clusters the card holds at once, for this instance
+  if (!resident) {
+    cfg.gridDim = dim3(kCluster);
+    W2V2_TRY(cudaOccupancyMaxActiveClusters(&resident, kernel, &cfg));
+    if (resident < 1) return cudaErrorInvalidConfiguration;
+  }
+  const int clusters = steps < resident ? steps : resident;
+  cfg.gridDim = dim3(clusters * kCluster);
+  void* params[] = {&w1_map, &w0_map, const_cast<ConvArgs*>(&args)};
+  W2V2_TRY(cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), params));
   return cudaGetLastError();
+}
+
+template <bool kLayer>
+cudaError_t launch_conv01(const ConvArgs& args, const void* w1, int C, cudaStream_t s) {
+  if (C == 256) return launch_conv<256, kLayer>(args, w1, s);
+  if (C == 512) return launch_conv<512, kLayer>(args, w1, s);
+  return cudaErrorInvalidValue;
+}
+
+ConvArgs conv_args(const void* x, const void* w0p, const void* p0, const void* p1, void* out,
+                   int B, int L, int T1, float eps) {
+  const int tpr = (T1 + kTileRows - 1) / kTileRows;
+  return ConvArgs{(const __nv_bfloat16*)x, (const __nv_bfloat16*)w0p, (const float*)p0,
+                  (const float*)p1, (__nv_bfloat16*)out, L, T1, tpr, B * tpr, eps};
 }
 
 }  // namespace
 
-extern "C" int w2v2_window_stats(const void* x, void* out, int B, int L, int na, int nb,
-                                 void* stream) {
-  const int rows = na > nb ? na : nb;
-  int blocks = (rows + kStatsThreads - 1) / kStatsThreads;
-  if (blocks > 32) blocks = 32;
-  if (blocks < 1) blocks = 1;
-  window_stats_kernel<<<dim3(blocks, B), kStatsThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (float*)out, L, na, nb);
+// x (B, L) bf16 -> out (B, 110) f32 [gram | row_sum]; part is (B, blocks, 65)
+// f32 scratch, blocks in [1, 32]
+extern "C" int w2v2_window_stats(const void* x, void* part, void* out, int B, int L, int na,
+                                 int nb, int blocks, void* stream) {
+  if (blocks < 1 || blocks > 32) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  window_stats_kernel<<<dim3(blocks, B), kStatsThreads, 0, s>>>(
+      (const __nv_bfloat16*)x, (float*)part, L, na, nb);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  window_stats_reduce_kernel<<<B, 96, 0, s>>>((const float*)part, (float*)out, blocks);
   return (int)cudaGetLastError();
 }
 
-extern "C" int w2v2_conv01(const void* x, const void* w0, const void* scale, const void* shift,
+// x (B, L) bf16; w0p (16, C) bf16, W0 with taps 10-15 zero; scale, shift
+// (B, C) f32; w1 (3, C, C) bf16; out (B, T1, C) bf16.  C is 512 or 256.
+extern "C" int w2v2_conv01(const void* x, const void* w0p, const void* scale, const void* shift,
                            const void* w1, void* out, int B, int L, int T1, int C,
                            void* stream) {
-  cudaError_t err = w2v2::allow_smem(conv01_kernel, kSmemConv01);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T1 + kTM - 1) / kTM, C / kTN, B);
-  conv01_kernel<<<grid, kThreads, kSmemConv01, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w0, (const float*)scale,
-      (const float*)shift, (const __nv_bfloat16*)w1, (__nv_bfloat16*)out, L, T1, C);
-  return (int)cudaGetLastError();
+  return (int)launch_conv01<false>(conv_args(x, w0p, scale, shift, out, B, L, T1, 0.f), w1, C,
+                                   (cudaStream_t)stream);
 }
 
-// x (B, L) bf16; w0 (10, C) bf16; w1 (3, C, C) bf16; p0, p1 (3, C) f32, rows
-// [bias, gamma, beta] of conv0 / conv1; out (B, T1, C) bf16.  C is 512 (the
-// robust/large family) or 256 (the narrow geometry of the tests).
-extern "C" int w2v2_conv01_robust(const void* x, const void* w0, const void* p0, const void* w1,
+// x (B, L) bf16; w0p (16, C) as above; w1 (3, C, C) bf16; p0, p1 (3, C) f32,
+// rows [bias, gamma, beta] of conv0 / conv1; out (B, T1, C) bf16.  C is 512
+// (the robust/large family) or 256 (the narrow geometry of the tests).
+extern "C" int w2v2_conv01_robust(const void* x, const void* w0p, const void* p0, const void* w1,
                                   const void* p1, void* out, int B, int L, int T1, int C,
                                   float eps, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 256: return (int)launch_robust<256>(x, w0, p0, w1, p1, out, B, L, T1, eps, s);
-    case 512: return (int)launch_robust<512>(x, w0, p0, w1, p1, out, B, L, T1, eps, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_conv01<true>(conv_args(x, w0p, p0, p1, out, B, L, T1, eps), w1, C,
+                                  (cudaStream_t)stream);
 }
 
 extern "C" const char* w2v2_error_string(int err) {

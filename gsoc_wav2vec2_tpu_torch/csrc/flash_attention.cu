@@ -153,20 +153,6 @@ __device__ __forceinline__ void store_rows(const CUtensorMap* map, bool heads_in
   w2v2::tma_store_4d(map, src, 0, heads_inner ? h : row, heads_inner ? row : h, b);
 }
 
-// the dynamic shared memory as an `S` on a 1024-byte boundary (the 128-byte
-// swizzle's atom); launches ask for sizeof(S) + 1024 bytes
-template <typename S>
-__device__ __forceinline__ S& block_smem() {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t pad = (1024u - (w2v2::smem_addr(smem_raw) & 1023u)) & 1023u;
-  return *reinterpret_cast<S*>(smem_raw + pad);
-}
-
-template <typename S>
-constexpr int smem_bytes() {
-  return static_cast<int>(sizeof(S)) + 1024;
-}
-
 // A consumer warpgroup's 64 x 64 f32 accumulator (rows scaled by scale[0]
 // for rows g, scale[1] for rows g + 8) as bf16 into a swizzled 64-row tile
 __device__ __forceinline__ void acc_to_tile(unsigned char* tile, const float acc[32],
@@ -247,7 +233,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
                  const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
                  const float* __restrict__ bias, float* __restrict__ lse, int H, int L, int order,
                  int seed, uint32_t threshold, uint32_t stride, float inv_keep) {
-  FwdSmem& sm = block_smem<FwdSmem>();
+  FwdSmem& sm = w2v2::block_smem<FwdSmem>();
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
   const int q0 = blockIdx.x * kFwdRows;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -448,7 +434,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
                       const float* __restrict__ bias, const float* __restrict__ lse,
                       const float* __restrict__ delta, int H, int L, int order, int seed,
                       uint32_t threshold, uint32_t stride, float inv_keep) {
-  DkdvSmem& sm = block_smem<DkdvSmem>();
+  DkdvSmem& sm = w2v2::block_smem<DkdvSmem>();
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
   const int k0 = blockIdx.x * kBlockRows;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -604,7 +590,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
                     const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ bias,
                     const float* __restrict__ lse, const float* __restrict__ delta, int H, int L,
                     int order, int seed, uint32_t threshold, uint32_t stride, float inv_keep) {
-  DqSmem& sm = block_smem<DqSmem>();
+  DqSmem& sm = w2v2::block_smem<DqSmem>();
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
   const int q0 = blockIdx.x * kBlockRows;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -727,30 +713,6 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
 
 // -- host side -----------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point lookup (no link
-// against libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                    cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The tensor map of a (B, H, L, 64) bf16 tensor whose element (b, h, l, d)
 // sits at base + b sb + h sh + l sl + d (elements): 4-D (64, n1, n2, B) with
 // (n1, n2) = (H, L) when sh < sl (the heads of a row side by side:
@@ -761,7 +723,7 @@ EncodeTiled encode_tiled() {
 // computes the same dims and strides and refuses what TMA would.
 cudaError_t encode_bhld(CUtensorMap* map, const void* base, int B, int H, int L, long long sb,
                         long long sh, long long sl, bool* heads_inner) {
-  const EncodeTiled encode = encode_tiled();
+  const w2v2::EncodeTiled encode = w2v2::encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   const bool hi = sh < sl;
   cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)(hi ? H : L), (cuuint64_t)(hi ? L : H),
@@ -788,12 +750,6 @@ cudaError_t encode_out(CUtensorMap* map, const void* base, int B, int H, int L, 
   return encode_bhld(map, base, B, H, L, (long long)L * H * kD, kD, (long long)H * kD, heads_inner);
 }
 
-#define W2V2_TRY(expr)                   \
-  do {                                   \
-    const cudaError_t err_ = (expr);     \
-    if (err_ != cudaSuccess) return err_; \
-  } while (0)
-
 template <bool kDrop>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
                        void* lse, int BH, int H, int L, long long sb, long long sh, long long sl,
@@ -806,7 +762,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   W2V2_TRY(encode_bhld(&km, k, B, H, L, sb, sh, sl, &hi_in));
   W2V2_TRY(encode_bhld(&vm, v, B, H, L, sb, sh, sl, &hi_in));
   W2V2_TRY(encode_out(&om, out, B, H, L, &hi_out));
-  constexpr int smem = smem_bytes<FwdSmem>();
+  constexpr int smem = w2v2::smem_bytes<FwdSmem>();
   W2V2_TRY(w2v2::allow_smem(flash_fwd_kernel<kDrop>, smem));
   const dim3 grid((L + kFwdRows - 1) / kFwdRows, BH);
   flash_fwd_kernel<kDrop><<<grid, kFwdThreads, smem, s>>>(
@@ -839,7 +795,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
       (const __nv_bfloat16*)dout, (const __nv_bfloat16*)out, (float*)delta, H, L, rows, dsb, dsh,
       dsl, osb, osh, osl);
   W2V2_TRY(cudaGetLastError());
-  constexpr int smem_dkdv = smem_bytes<DkdvSmem>(), smem_dq = smem_bytes<DqSmem>();
+  constexpr int smem_dkdv = w2v2::smem_bytes<DkdvSmem>(), smem_dq = w2v2::smem_bytes<DqSmem>();
   W2V2_TRY(w2v2::allow_smem(flash_bwd_dkdv_kernel<kDrop>, smem_dkdv));
   W2V2_TRY(w2v2::allow_smem(flash_bwd_dq_kernel<kDrop>, smem_dq));
   const dim3 grid((L + kBlockRows - 1) / kBlockRows, BH);

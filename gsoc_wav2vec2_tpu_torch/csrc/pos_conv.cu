@@ -315,7 +315,8 @@ extern "C" int w2v2_pos_conv_dx(const void* dpre, const void* w, void* dx, int B
 }
 
 // dw (K, CG, C) f32 from x and dpre (B, T, C) bf16; part is f32 scratch of
-// splits * G * K * CG * CG; K must be a multiple of 8
+// splits * G * K * CG * CG; K must be a multiple of the instance's taps a
+// block (8; 4 at C/G = 64: pos_conv.DW_TAP_BLOCK)
 extern "C" int w2v2_pos_conv_dw(const void* x, const void* dpre, void* part, void* dw, int B,
                                 int T, int C, int G, int K, int splits, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;

@@ -194,17 +194,15 @@ def feature_encoder_forward(
     """(B, L_samples) -> (B, L_frames, C).  In bf16 the first two layers run
     fused (`ops/kernels/conv_frontend.py`: `fused_conv01` for the base
     family, `fused_conv01_robust` for the robust/large one): the kernels on
-    the card, their plain versions on the CPU.  The fused kernels have no
-    backward, so where a gradient can reach conv0/conv1 all seven layers run
-    the plain loop and autograd gives the backward."""
+    the card where their instances cover the config (`supports`), their
+    plain versions on the CPU (`fusable`).  Elsewhere (f32, another width
+    on the card) all seven layers run the plain loop, as the JAX package
+    falls back to XLA.  The fused kernels have no backward, so where a
+    gradient can reach conv0/conv1 the plain loop runs too and autograd
+    gives the backward."""
     layers = params.conv_layers
-    fusable = compute_dtype == torch.bfloat16 and conv_frontend.supports(config)
-    if waveform.is_cuda and not fusable:
-        raise NotImplementedError(
-            "on CUDA the conv front end runs only in bf16, with conv0 k10 s5 and conv1 k3 s2 of "
-            "equal width: GroupNorm on layer 0 and no bias (base), or LayerNorm on every layer "
-            "(robust/large)"
-        )
+    fusable = compute_dtype == torch.bfloat16 and (
+        conv_frontend.supports(config) if waveform.is_cuda else conv_frontend.fusable(config))
     p0, p1 = layers[0], layers[1]
     trains = torch.is_grad_enabled() and any(
         p.requires_grad for p in (*p0.parameters(), *p1.parameters()))
@@ -329,9 +327,11 @@ def wav2vec2_forward(
 ) -> torch.Tensor:
     """(B, L_samples) normalised waveform [+ 0/1 sample mask] ->
     (B, L_frames, hidden_size) hidden states.  `training` and `generator`
-    as in the module docstring."""
-    if batch.is_cuda and compute_dtype != torch.bfloat16:
-        raise ValueError(f"on CUDA the compute dtype is bf16 (its kernels' only dtype), got {compute_dtype}")
+    as in the module docstring.  The kernels run in bf16 only; in f32 on
+    the card every site takes its plain torch op, in full f32 when the
+    caller sets `torch.backends.cuda.matmul.allow_tf32 = False` and
+    `torch.backends.cudnn.allow_tf32 = False` (cuDNN's convolutions
+    default to TF32)."""
     _check_training(training, generator)
     x = feature_encoder_forward(params.feature_extractor, config, batch, compute_dtype)
     fp = params.feature_projection

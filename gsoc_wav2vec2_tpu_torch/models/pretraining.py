@@ -200,8 +200,6 @@ def wav2vec2_for_pretraining_forward(
     `return_code_ids`.  `mask_time_indices` is an input, so that the loss,
     the negative sampler and the forward see the same mask.
     """
-    if batch.is_cuda and compute_dtype != torch.bfloat16:
-        raise ValueError(f"on CUDA the compute dtype is bf16 (its kernels' only dtype), got {compute_dtype}")
     _check_training(training, generator)
     w = params.wav2vec2
     x = feature_encoder_forward(w.feature_extractor, config, batch, compute_dtype)

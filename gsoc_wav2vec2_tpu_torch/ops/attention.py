@@ -72,7 +72,9 @@ def mha(
     prob dropout at `dropout_rate` runs inside the kernel from `seed`
     (`attention_seed`).  When the projections need gradients the call goes
     through the `FlashAttention` autograd function (kernel backward);
-    otherwise through the forward kernel alone."""
+    otherwise through the forward kernel alone.  On the card, where the
+    kernels do not take the head dim or dtype (`flash.supports`), it is the
+    kernel's plain version through autograd: the same hash dropout bits."""
     q, k, v = _project_qkv(x, params, num_heads)
     bias = None
     if mask_bias is not None:
@@ -82,7 +84,9 @@ def mha(
     if rate > 0.0 and seed is None:
         raise ValueError("attention dropout in training requires a seed")
     seed = 0 if seed is None else seed
-    if q.requires_grad:
+    if q.is_cuda and not flash.supports(q.shape[-1], q.dtype):
+        context, _ = flash.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=rate, seed=seed)
+    elif q.requires_grad:
         context = flash.flash_attention(q, k, v, bias, dropout_rate=rate, seed=seed)
     else:
         context, _ = flash.flash_attention_fwd(q, k, v, bias, dropout_rate=rate, seed=seed)

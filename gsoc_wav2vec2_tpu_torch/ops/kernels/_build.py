@@ -43,11 +43,11 @@ F = ctypes.c_float
 LL = ctypes.c_longlong
 # entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
-    # x, out, B, L, na, nb, stream
-    "w2v2_window_stats": [P, P, I, I, I, I, P],
-    # x, w0, scale, shift, w1, out, B, L, T1, C, stream
+    # x, part, out, B, L, na, nb, blocks, stream
+    "w2v2_window_stats": [P, P, P, I, I, I, I, I, P],
+    # x, w0 (16 taps), scale, shift, w1, out, B, L, T1, C, stream
     "w2v2_conv01": [P, P, P, P, P, P, I, I, I, I, P],
-    # x, w0, p0 [bias, gamma, beta], w1, p1, out, B, L, T1, C, eps, stream
+    # x, w0 (16 taps), p0 [bias, gamma, beta], w1, p1, out, B, L, T1, C, eps, stream
     "w2v2_conv01_robust": [P, P, P, P, P, P, I, I, I, I, F, P],
     # x, w, bias, out, B, T, C, G, K, stream
     "w2v2_pos_conv": [P, P, P, P, I, I, I, I, I, P],
@@ -162,11 +162,12 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def ptxas_report() -> str:
-    """Registers, spills and shared memory of every kernel, from a
-    `-Xptxas -v` compile of each source (objects discarded)."""
+    """Registers, spills, shared memory and warnings (C7514: wgmma
+    serialized) of every kernel, from a `-Xptxas -v` compile of each source
+    (objects discarded)."""
     lines = []
     for src, out in _compile_all(lambda src: os.devnull, ("-Xptxas", "-v")):
         lines.append(f"== {src.name}")
         lines += [ln for ln in out.splitlines()
-                  if any(w in ln for w in ("Compiling entry", "registers", "spill"))]
+                  if any(w in ln for w in ("Compiling entry", "registers", "spill", "warning"))]
     return "\n".join(lines)

@@ -13,11 +13,17 @@ Three kernels (`csrc/conv_frontend.cu`):
 
 * `window_stats` replaces `_window_stats`: conv0's exact GroupNorm
   statistics from the 10x10 Gram matrix and row sum of its sample windows,
-  so conv0 never has to exist in device memory;
-* `conv01` replaces the body of `fused_conv01`: conv0 recomputed per tile,
+  so conv0 never has to exist in device memory (per-block partials summed
+  in a fixed order: deterministic);
+* `conv01` replaces the body of `fused_conv01`: conv0 once per tile,
   normalised with the folded scale/shift, GELU, conv1, GELU, bf16 out;
 * `conv01_robust` replaces the body of `fused_conv01_robust`: both
   LayerNorms per frame in f32 inside the kernel, no statistics pass.
+
+`conv01` and `conv01_robust` are one Hopper kernel templated on the norm
+(wgmma fed by TMA, W1 multicast across a cluster of CTAs, warp
+specialised); its instances take C of 512 or 256 (`KERNEL_WIDTHS`,
+`supports`).
 
 The scale/shift algebra between them (`groupnorm_scale_shift`) is plain
 torch on (B, C) tensors, as it is XLA code outside the Pallas calls in JAX.
@@ -57,9 +63,41 @@ def window_stats_plain(x: torch.Tensor, t0: int) -> Tuple[torch.Tensor, torch.Te
     return win.transpose(1, 2) @ win, win.sum(dim=1)
 
 
+STATS_THREADS = 256  # threads of a `window_stats` block, one window pair each per pass
+STATS_MAX_BLOCKS = 32
+
+
+def stats_blocks(t0: int) -> int:
+    """Blocks per batch row of the `window_stats` kernel: one per 256 window
+    pairs, at most 32 (each walks the rows with a grid stride)."""
+    rows = max(_phase_rows(t0))
+    return min(max(-(-rows // STATS_THREADS), 1), STATS_MAX_BLOCKS)
+
+
+def window_stats_partials(x: torch.Tensor, t0: int) -> torch.Tensor:
+    """(B, blocks, 65) f32: the kernel's per-block partial sums, in plain
+    torch.  Window pair r (A row r, B row r) belongs to block (r // 256) %
+    blocks, as the kernel's grid stride deals them; the 65 values are the
+    upper triangle of the 10x10 Gram matrix, row by row, then the 10 sums.
+    Summed over blocks in block order they are `window_stats`' result."""
+    na, nb = _phase_rows(t0)
+    blocks = stats_blocks(t0)
+    xf = x.float()
+    a = xf[:, : 10 * na].reshape(x.shape[0], na, 10)
+    bw = xf[:, 5: 5 + 10 * nb].reshape(x.shape[0], nb, 10)
+    j, k = torch.triu_indices(10, 10)
+    part = torch.zeros((x.shape[0], blocks, 65), dtype=torch.float32, device=x.device)
+    for win in (a, bw):
+        owner = (torch.arange(win.shape[1], device=x.device) // STATS_THREADS) % blocks
+        vals = torch.cat([win[..., j] * win[..., k], win], dim=-1)  # (B, rows, 65)
+        part.index_add_(1, owner, vals)
+    return part
+
+
 def window_stats(x: torch.Tensor, t0: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper of `window_stats_plain` (f32 atomics: the last bits
-    vary run to run on the card)."""
+    """Kernel wrapper of `window_stats_plain`: per-block partials into a
+    (B, blocks, 65) scratch, summed in a fixed order by a second kernel of
+    the same launch, so a relaunch gives the same bits."""
     if not x.is_cuda:
         return window_stats_plain(x, t0)
     if x.dtype != torch.bfloat16 or x.dim() != 2:
@@ -69,10 +107,12 @@ def window_stats(x: torch.Tensor, t0: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if t0 < 1 or conv0_length(l) < t0:
         raise ValueError(f"window_stats: {t0} conv0 rows do not fit {l} samples")
     na, nb = _phase_rows(t0)
-    out = torch.zeros((b, 110), dtype=torch.float32, device=x.device)
+    blocks = stats_blocks(t0)
+    part = torch.empty((b, blocks, 65), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, 110), dtype=torch.float32, device=x.device)
     lib = _build.library()
     _build.check("window_stats", lib.w2v2_window_stats(
-        x.data_ptr(), out.data_ptr(), b, l, na, nb, _build.stream_of(x)))
+        x.data_ptr(), part.data_ptr(), out.data_ptr(), b, l, na, nb, blocks, _build.stream_of(x)))
     window_stats.launches += 1
     return out[:, :100].reshape(b, 10, 10), out[:, 100:]
 
@@ -96,6 +136,19 @@ def groupnorm_scale_shift(
     scale = torch.rsqrt(var + eps) * gamma.float()[None, :]
     shift = beta.float()[None, :] - mean * scale
     return scale, shift
+
+
+# the widths C of the conv01 kernels' instances: the 512 of every published
+# configuration, and the narrow 256 of the card tests
+KERNEL_WIDTHS = (512, 256)
+
+
+def _taps16(w0: torch.Tensor, c: int) -> torch.Tensor:
+    """W0 (10, 1, C) as the kernels read it: (16, C) bf16, taps 10-15 zero
+    (conv0 is a k16 product on the tensor cores)."""
+    w = torch.zeros((16, c), dtype=torch.bfloat16, device=w0.device)
+    w[:10] = w0.reshape(10, c)
+    return w
 
 
 def conv01_plain(
@@ -131,16 +184,16 @@ def conv01(
         raise ValueError(f"conv01 takes a (B, L) bf16 waveform, got {x.dtype} {tuple(x.shape)}")
     if not gelu_approx:
         raise ValueError("conv01 computes tanh GELU only, the form every bf16 path takes")
-    if tuple(w0.shape) != (10, 1, c) or tuple(w1.shape) != (3, c, c) or c % 256:
+    if tuple(w0.shape) != (10, 1, c) or tuple(w1.shape) != (3, c, c) or c not in KERNEL_WIDTHS:
         raise ValueError(
-            f"conv01 takes w0 (10, 1, C), w1 (3, C, C) with C % 256 == 0, got "
+            f"conv01 takes w0 (10, 1, C), w1 (3, C, C) with C of 512 or 256, got "
             f"{tuple(w0.shape)}, {tuple(w1.shape)}"
         )
     b, l = x.shape
     if t1 < 1 or conv1_length(l) < t1:
         raise ValueError(f"conv01: {t1} output rows do not fit {l} samples")
     x = x.contiguous()
-    w0b = w0.reshape(10, c).to(torch.bfloat16).contiguous()
+    w0b = _taps16(w0, c)
     w1b = w1.to(torch.bfloat16).contiguous()
     scale = scale.float().contiguous()
     shift = shift.float().contiguous()
@@ -216,7 +269,7 @@ def conv01_robust(
             f"conv01_robust takes a (B, L) bf16 waveform, got {x.dtype} {tuple(x.shape)}")
     if not gelu_approx:
         raise ValueError("conv01_robust computes tanh GELU only, the form every bf16 path takes")
-    if tuple(w0.shape) != (10, 1, c) or tuple(w1.shape) != (3, c, c) or c not in (256, 512):
+    if tuple(w0.shape) != (10, 1, c) or tuple(w1.shape) != (3, c, c) or c not in KERNEL_WIDTHS:
         raise ValueError(
             f"conv01_robust takes w0 (10, 1, C), w1 (3, C, C) with C of 512 or 256, got "
             f"{tuple(w0.shape)}, {tuple(w1.shape)}"
@@ -225,7 +278,7 @@ def conv01_robust(
     if t1 < 1 or conv1_length(l) < t1:
         raise ValueError(f"conv01_robust: {t1} output rows do not fit {l} samples")
     x = x.contiguous()
-    w0b = w0.reshape(10, c).to(torch.bfloat16).contiguous()
+    w0b = _taps16(w0, c)
     w1b = w1.to(torch.bfloat16).contiguous()
     # rows [bias, gamma, beta] of each conv, f32
     p0 = torch.stack([b0, gamma0, beta0]).float().contiguous()
@@ -269,13 +322,21 @@ def _geometry_ok(config) -> bool:
     )
 
 
-def supports(config) -> bool:
+def fusable(config) -> bool:
     """Both conv-stack families: base (GroupNorm on layer 0, no bias:
     `fused_conv01`) and robust/large/XLSR (LayerNorm on every layer, biases:
     `fused_conv01_robust`), at conv0 k10 s5 and conv1 k3 s2 of equal
-    widths."""
+    widths, as the JAX package's `supports`.  The plain versions (a CPU
+    tensor) take any width."""
     if not _geometry_ok(config):
         return False
     if config.feature_extractor_norm_type == "group":
         return not config.conv_bias
     return config.feature_extractor_norm_type == "layer"
+
+
+def supports(config) -> bool:
+    """Whether the conv01 kernels' instances cover `config` on the card: a
+    `fusable` front end of width 512 or 256.  Elsewhere the card runs the
+    plain layer loop, as the JAX package runs XLA's convolutions."""
+    return fusable(config) and config.filter_sizes[0] in KERNEL_WIDTHS

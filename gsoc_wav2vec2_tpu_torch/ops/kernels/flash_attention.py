@@ -120,6 +120,13 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def supports(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the flash kernels take heads of `head_dim` in `dtype`: 64 and
+    bf16 (the JAX kernel takes multiples of 64).  Elsewhere the card runs
+    `flash_attention_fwd_plain` through autograd, with the same hash dropout."""
+    return head_dim == 64 and dtype == torch.bfloat16
+
+
 def _check(name, q, k, v, bias):
     b, h, l, d = q.shape
     if d != 64:

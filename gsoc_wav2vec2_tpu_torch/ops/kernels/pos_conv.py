@@ -34,6 +34,21 @@ from . import _build
 # C // groups the CUDA kernels are instantiated for: base, robust/large, and
 # the narrow geometry of the tests
 KERNEL_GROUP_WIDTHS = (48, 64, 16)
+# C // groups -> the taps a block of the dW kernel takes (`launch_dw`'s
+# instances): the tap count must be a multiple of it
+DW_TAP_BLOCK = {48: 8, 64: 4, 16: 8}
+
+
+def supports(c: int, groups: int, dtype: torch.dtype, kernel_size: int = 128) -> bool:
+    """Whether the pos-conv kernels' instances cover a (.., C) activation of
+    `dtype` convolved in `groups` groups with `kernel_size` taps: bf16, C //
+    groups in `KERNEL_GROUP_WIDTHS`, an even tap count that the dW kernel's
+    tap blocks divide (8; 4 at 64 channels a group).  Elsewhere the card runs
+    `pos_conv_plain` through autograd, as the JAX package runs XLA's conv."""
+    if dtype != torch.bfloat16 or groups < 1 or c % groups:
+        return False
+    cg = c // groups
+    return cg in KERNEL_GROUP_WIDTHS and kernel_size % DW_TAP_BLOCK[cg] == 0
 
 
 def _conv_plain(x: torch.Tensor, kernel: torch.Tensor, groups: int, pad_lo: int) -> torch.Tensor:
@@ -188,10 +203,10 @@ def pos_conv_dw(x: torch.Tensor, dpre: torch.Tensor, kernel_size: int, *,
     k, cg = kernel_size, c // groups
     if x.dtype != torch.bfloat16 or dpre.dtype != torch.bfloat16 or dpre.shape != x.shape:
         raise ValueError("pos_conv_dw takes bf16 x and dpre of one (B, T, C) shape")
-    if c % groups or cg not in KERNEL_GROUP_WIDTHS or k % 8:
+    if c % groups or cg not in KERNEL_GROUP_WIDTHS or k % DW_TAP_BLOCK[cg]:
         raise ValueError(
-            f"pos_conv_dw takes C // groups of 48 (base), 64 (robust/large) or 16 and a multiple of 8 taps, "
-            f"got {c} channels, {groups} groups, {k} taps"
+            f"pos_conv_dw takes C // groups of 48 (base), 64 (robust/large) or 16 and a multiple of "
+            f"{DW_TAP_BLOCK} taps, got {c} channels, {groups} groups, {k} taps"
         )
     x, dpre = x.contiguous(), dpre.contiguous()
     splits = min(b, 4)

@@ -5,6 +5,8 @@ has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import copy
+
 import pytest
 import torch
 
@@ -185,15 +187,14 @@ def test_robust_family_runs_on_card(cuda):
     assert (logits.cpu() - ref).abs().max().item() < 0.1 * (1 + ref.abs().max().item())
 
 
-@pytest.mark.cuda
-def test_small_robust_train_step_goes_through_the_kernels(cuda):
-    """The narrow robust model's stage-2 step (mask, length-aware CTC)
-    launches each kernel once per site and its loss goes down."""
+def _robust_steps_go_through_the_kernels(cuda, **overrides):
+    """Six stage-2 steps (mask, length-aware CTC) of the narrow robust model:
+    each launches each kernel once per site, and the loss goes down."""
     from gsoc_wav2vec2_tpu_torch.models.config import RobustWav2Vec2Config
     from gsoc_wav2vec2_tpu_torch.training import (
         create_optimizer, create_train_state, make_train_step, set_trainable)
 
-    cfg = RobustWav2Vec2Config(**ROBUST_SMALL)
+    cfg = RobustWav2Vec2Config(**{**ROBUST_SMALL, **overrides})
     model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
     labels = torch.randint(1, cfg.vocab_size, (2, 12), generator=g)
@@ -221,6 +222,23 @@ def test_small_robust_train_step_goes_through_the_kernels(cuda):
             "pos_conv_dw": 1, "flash_attention_fwd": 2, "flash_attention_bwd": 2}
     assert all(torch.isfinite(torch.tensor(losses)))
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_small_robust_train_step_goes_through_the_kernels(cuda):
+    """The narrow robust model's stage-2 step launches each kernel once per
+    site and its loss goes down."""
+    _robust_steps_go_through_the_kernels(cuda)
+
+
+@pytest.mark.cuda
+def test_robust_step_at_36_pos_conv_taps_goes_through_the_kernels(cuda):
+    """36 taps at 64 channels a group: `pos_conv.supports` admits it (the dW
+    kernel takes 4 taps a block there), so the step takes `PosConvTrain`,
+    and every pos-conv wrapper, the dW one included, launches its kernel."""
+    assert pos_conv.supports(ROBUST_SMALL["hidden_size"], ROBUST_SMALL["num_conv_pos_embedding_groups"],
+                             torch.bfloat16, 36)
+    _robust_steps_go_through_the_kernels(cuda, num_conv_pos_embeddings=36)
 
 
 @pytest.mark.cuda
@@ -608,3 +626,181 @@ def test_flash_misaligned_views_are_copied_on_card(cuda):
         grads = flash_attention.flash_attention_bwd(qq, kk, vv, None, make(pout), plse, dd)
         for got, want in zip(grads, pgrads):
             assert (got.float() - want.float()).abs().max().item() <= 0.01 * want.float().abs().max().item()
+
+
+# -- the conv front-end kernels (wgmma + TMA multicast) and the F1 dispatch --
+
+def _conv_inputs(robust, c, b, t1, g, cuda, extra=7):
+    """A waveform whose conv1 output has exactly t1 rows (extra < 10 samples
+    past the last window), and each family's parameters at width c."""
+    length = 10 * t1 + 10 + extra
+    assert conv_frontend.conv1_length(length) == t1
+    wave = torch.randn(b, length, generator=g).to(cuda, torch.bfloat16)
+    if robust:
+        return wave, _robust_frontend_inputs(c, length, g, cuda, b)[1]
+    w0 = (torch.randn(10, 1, c, generator=g) * 0.3).to(cuda)
+    w1 = (torch.randn(3, c, c, generator=g) * (1.5 / c ** 0.5)).to(cuda)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda)
+    beta = (0.1 * torch.randn(c, generator=g)).to(cuda)
+    t0 = conv_frontend.conv0_length(length)
+    gram, rsum = conv_frontend.window_stats_plain(wave, t0)
+    scale, shift = conv_frontend.groupnorm_scale_shift(gram, rsum, w0, gamma, beta, t0, 1e-5)
+    return wave, (w0, scale, shift, w1)
+
+
+def _conv_pair(robust, wave, params, t1):
+    if robust:
+        return (lambda: conv_frontend.conv01_robust(wave, *params, t1, 1e-5, True),
+                lambda: conv_frontend.conv01_robust_plain(wave, *params, t1, 1e-5, True))
+    w0, scale, shift, w1 = params
+    return (lambda: conv_frontend.conv01(wave, w0, scale, shift, w1, t1, True),
+            lambda: conv_frontend.conv01_plain(wave, w0, scale, shift, w1, t1, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t1,b", [(1, 1), (63, 1), (64, 1), (65, 1), (127, 1), (128, 1),
+                                  (129, 1), (65, 3), (24599, 2)])
+@pytest.mark.parametrize("c", [512, 256])
+@pytest.mark.parametrize("robust", [False, True])
+def test_conv01_kernels_match_plain_at_tile_edges(cuda, robust, c, t1, b):
+    """Both conv front-end kernels against their plain versions at every
+    tile edge (64 rows a tile), odd tile counts (a cluster partner past the
+    last tile), and the main path's 24599 rows."""
+    g = torch.Generator().manual_seed(c + t1 + b)
+    wave, params = _conv_inputs(robust, c, b, t1, g, cuda)
+    kernel, plain = _conv_pair(robust, wave, params, t1)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, t1, c) and got.dtype == torch.bfloat16
+    d = (got.float() - want.float()).abs()
+    # bf16 outputs (ulp 2^-6 at |y| in [2, 4)) over f32 sums in another order
+    assert d.max().item() < 0.05 and d.mean().item() < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", [False, True])
+def test_conv01_launches_are_bit_equal_on_card(cuda, robust):
+    """Every output element comes from one CTA in a fixed k order: two
+    launches give equal bits."""
+    g = torch.Generator().manual_seed(21)
+    wave, params = _conv_inputs(robust, 512, 2, 3001, g, cuda)
+    kernel, _ = _conv_pair(robust, wave, params, 3001)
+    first = kernel()
+    assert torch.equal(kernel(), first)
+
+
+@pytest.mark.cuda
+def test_window_stats_is_deterministic_on_card(cuda):
+    """No float atomics: two launches give equal bits, and they match the
+    plain sums and the per-block partials summed in block order."""
+    g = torch.Generator().manual_seed(22)
+    x = torch.randn(3, 246000, generator=g).to(cuda, torch.bfloat16)
+    t0 = conv_frontend.conv0_length(246000)
+    a, b = conv_frontend.window_stats(x, t0), conv_frontend.window_stats(x, t0)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    pgram, psum = conv_frontend.window_stats_plain(x, t0)
+    tol = 1e-5 * pgram.abs().max().item()
+    assert (a[0] - pgram).abs().max().item() <= tol and (a[1] - psum).abs().max().item() <= tol
+    part = conv_frontend.window_stats_partials(x, t0).sum(dim=1)
+    assert (part[:, 55:] - a[1]).abs().max().item() <= tol
+
+
+SMALL_BASE = dict(hidden_size=128, num_heads=2, num_layers=2, intermediate_size=256,
+                  filter_sizes=[256] * 7, num_conv_pos_embedding_groups=8,
+                  dropout=0.0, apply_spec_augment=False)
+
+
+@pytest.mark.cuda
+def test_base_forward_is_bit_reproducible_on_card(cuda):
+    """Two base forwards of one batch through the kernels give equal bits."""
+    cfg = Wav2Vec2Config(**SMALL_BASE)
+    model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(4))
+    x = torch.randn(2, 64000, generator=torch.Generator().manual_seed(5)).to(cuda)
+    conv_frontend.window_stats.launches = 0
+    with torch.inference_mode():
+        first, second = model(x), model(x)
+    assert conv_frontend.window_stats.launches == 2
+    assert torch.equal(first, second)
+
+
+# the JAX tests' tiny_config (tests/utils.py): hidden 64 with 4 heads (D = 16),
+# conv width 32, pos conv 16 groups (C/G = 4): no kernel instance covers it
+TINY = dict(vocab_size=32, hidden_size=64, num_heads=4, num_layers=2, intermediate_size=128,
+            filter_sizes=[32] * 7, kernal_sizes=[10, 3, 3, 3, 3, 2, 2],
+            strides=[5, 2, 2, 2, 2, 2, 2], num_conv_pos_embeddings=128,
+            num_conv_pos_embedding_groups=16, dropout=0.0, apply_spec_augment=False)
+
+ALL_KERNELS = {"window_stats": conv_frontend.window_stats, "conv01": conv_frontend.conv01,
+               "conv01_robust": conv_frontend.conv01_robust, "pos_conv": pos_conv.pos_conv,
+               "pos_conv_train_fwd": pos_conv.pos_conv_train_fwd,
+               "pos_conv_dx": pos_conv.pos_conv_dx, "pos_conv_dw": pos_conv.pos_conv_dw,
+               "flash_attention_fwd": flash_attention.flash_attention_fwd,
+               "flash_attention_bwd": flash_attention.flash_attention_bwd}
+
+
+def _launches_since_zero():
+    return {k: fn.launches for k, fn in ALL_KERNELS.items()}
+
+
+def _zero_launches():
+    for fn in ALL_KERNELS.values():
+        fn.launches = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", [False, True])
+def test_tiny_config_forward_and_step_run_on_card(cuda, robust):
+    """Where no kernel instance covers the config, every site takes its plain
+    op on the card, as the JAX package takes XLA's: a bf16 forward and a
+    stage-2 step run with every kernel count 0, and the forward tracks the
+    f32 CPU copy."""
+    from gsoc_wav2vec2_tpu_torch.models.config import RobustWav2Vec2Config
+    from gsoc_wav2vec2_tpu_torch.training import (
+        create_optimizer, create_train_state, make_train_step, set_trainable)
+
+    cfg = (RobustWav2Vec2Config if robust else Wav2Vec2Config)(**TINY)
+    model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 16000, generator=g)
+    _zero_launches()
+    with torch.inference_mode():
+        logits = model(x.to(cuda))
+        torch.cuda.synchronize()
+    assert all(n == 0 for n in _launches_since_zero().values())
+    assert torch.isfinite(logits).all()
+    cpu = copy.deepcopy(model).to("cpu")  # before the steps change the weights
+    with torch.inference_mode():
+        ref = wav2vec2_for_ctc_forward(cpu, cfg, x)
+    assert (logits.float().cpu() - ref).abs().max().item() < 0.1 * (1 + ref.abs().max().item())
+    labels = torch.randint(1, cfg.vocab_size, (2, 8), generator=g)
+    batch = {"speech": x, "labels": labels}
+    set_trainable(model, ("feature_extractor",))
+    state = create_train_state(model, create_optimizer(model, 1e-3))
+    step = make_train_step(cfg, division_factor=2)
+    losses = []
+    for i in range(3):
+        state, metrics = step(state, batch, torch.Generator().manual_seed(i))
+        losses.append(metrics["loss"].item())
+    assert all(n == 0 for n in _launches_since_zero().values())
+    assert all(torch.isfinite(torch.tensor(losses)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", ["tiny", "kernel_widths"])
+def test_f32_forward_on_card_matches_cpu(cuda, small):
+    """An f32 forward on the card (TF32 off, as the fixture sets it) takes
+    the plain op at every site, also at widths the kernels cover, and
+    matches the f32 CPU copy at the JAX parity tests' logits tolerance."""
+    cfg = Wav2Vec2Config(**(TINY if small == "tiny" else SMALL_BASE))
+    model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(2))
+    x = torch.randn(2, 16000, generator=torch.Generator().manual_seed(3))
+    _zero_launches()
+    with torch.inference_mode():
+        logits = wav2vec2_for_ctc_forward(model, cfg, x.to(cuda), compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+    assert all(n == 0 for n in _launches_since_zero().values())
+    assert logits.dtype == torch.float32
+    cpu = model.to("cpu")
+    with torch.inference_mode():
+        ref = wav2vec2_for_ctc_forward(cpu, cfg, x, compute_dtype=torch.float32)
+    assert (logits.cpu() - ref).abs().max().item() < 4e-3

@@ -1,0 +1,170 @@
+"""The port's kernel dispatch, on the CPU.
+
+Where a config falls outside a kernel's instances the card takes the plain
+torch op, as the JAX package takes XLA's (`supports` at each site); the
+plain ops taken there must be the same functions, with the same gradients,
+as the kernels' definitions.  Also the host-side mirror of the conv
+front-end kernels: the fixed-order partial sums of `window_stats`.
+"""
+
+import dataclasses
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from tests.utils import tiny_config
+
+from gsoc_wav2vec2_tpu_torch.models import config as port_config
+from gsoc_wav2vec2_tpu_torch.ops.kernels import conv_frontend, flash_attention, pos_conv
+
+torch.set_num_threads(2)
+
+
+def _port(robust=False, **kw):
+    cls = port_config.RobustWav2Vec2Config if robust else port_config.Wav2Vec2Config
+    return cls(**{**dataclasses.asdict(tiny_config(robust=robust)), **kw})
+
+
+# (name, config): tiny_config is the JAX tests' geometry; "huge" is hidden
+# 1280 with 16 heads and 16 pos-conv groups (D = 80, C/G = 80)
+CONFIGS = {
+    "tiny": lambda: _port(),
+    "tiny_robust": lambda: _port(robust=True),
+    "base": lambda: port_config.Wav2Vec2Config(),
+    "robust": lambda: port_config.RobustWav2Vec2Config(),
+    "huge": lambda: port_config.RobustWav2Vec2Config(hidden_size=1280, num_heads=16,
+                                                     intermediate_size=5120),
+    "base_384": lambda: port_config.Wav2Vec2Config(filter_sizes=[384] * 7),
+}
+
+# per config: (conv front end, pos conv in bf16, flash in bf16)
+COVERED = {
+    "tiny": (False, False, False),
+    "tiny_robust": (False, False, False),
+    "base": (True, True, True),
+    "robust": (True, True, True),
+    "huge": (True, False, False),
+    "base_384": (False, True, True),
+}
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_each_site_supports_exactly_the_kernel_instances(name):
+    cfg = CONFIGS[name]()
+    conv, pos, attn = COVERED[name]
+    h, g = cfg.hidden_size, cfg.num_conv_pos_embedding_groups
+    assert conv_frontend.supports(cfg) is conv
+    # the plain versions of the fused pair (the CPU) take any width
+    assert conv_frontend.fusable(cfg)
+    assert pos_conv.supports(h, g, torch.bfloat16, cfg.num_conv_pos_embeddings) is pos
+    assert flash_attention.supports(h // cfg.num_heads, torch.bfloat16) is attn
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_f32_takes_no_kernel(name):
+    """The kernels are bf16 only: in f32 every site takes its plain op."""
+    cfg = CONFIGS[name]()
+    h, g = cfg.hidden_size, cfg.num_conv_pos_embedding_groups
+    assert not pos_conv.supports(h, g, torch.float32, cfg.num_conv_pos_embeddings)
+    assert not flash_attention.supports(h // cfg.num_heads, torch.float32)
+
+
+@pytest.mark.parametrize("c,groups,k,ok", [(768, 16, 128, True), (1024, 16, 128, True),
+                                           (256, 16, 128, True), (1024, 16, 36, True),
+                                           (768, 16, 36, False), (768, 16, 127, False),
+                                           (768, 8, 128, False), (770, 16, 128, False)])
+def test_pos_conv_supports_taps_and_groups(c, groups, k, ok):
+    """C/G in the instances (48, 64, 16), and a tap count the dW kernel's
+    tap blocks divide (8, or 4 at 64 channels a group)."""
+    assert pos_conv.supports(c, groups, torch.bfloat16, k) is ok
+
+
+def _dw_instances():
+    """C/G -> taps a block of each `launch_dw<NT, taps>` instance that
+    `w2v2_pos_conv_dw` in `csrc/pos_conv.cu` dispatches to."""
+    src = (pathlib.Path(pos_conv.__file__).parents[2] / "csrc" / "pos_conv.cu").read_text()
+    entry = src[src.index('extern "C" int w2v2_pos_conv_dw'):]
+    entry = entry[:entry.index("\n}\n")]
+    return {int(cg): int(taps)
+            for cg, taps in re.findall(r"case (\d+): return \(int\)launch_dw<\d+, (\d+)>", entry)}
+
+
+def test_dw_tap_rule_is_the_cuda_instances():
+    """`pos_conv.supports` and `pos_conv_dw` share one tap rule, and it is the
+    C entry's: the same C/G widths, the same taps a block."""
+    assert _dw_instances() == pos_conv.DW_TAP_BLOCK
+    assert set(pos_conv.DW_TAP_BLOCK) == set(pos_conv.KERNEL_GROUP_WIDTHS)
+
+
+@pytest.mark.parametrize("cg", sorted(pos_conv.DW_TAP_BLOCK))
+@pytest.mark.parametrize("k", [4, 8, 12, 36, 128])
+def test_pos_conv_supports_exactly_the_taps_the_dw_kernel_takes(cg, k):
+    """A tap count passes `supports` at C/G = cg exactly when the dW
+    instance's tap blocks divide it, so no admitted config reaches a
+    wrapper that refuses it."""
+    taps = _dw_instances()[cg]
+    assert pos_conv.supports(4 * cg, 4, torch.bfloat16, k) is (k % taps == 0)
+
+
+@pytest.mark.parametrize("length", [24000, 246000, 1_920_000, 24007])
+def test_window_stats_partials_sum_in_block_order_to_the_plain_sums(length):
+    """The kernel's row partition (pair r to block (r // 256) % blocks) and
+    its fixed-order reduction give `window_stats_plain`: every window is
+    counted once, over at most 32 blocks."""
+    rng = np.random.default_rng(length)
+    x = torch.from_numpy(rng.standard_normal((2, length)).astype(np.float32)).to(torch.bfloat16)
+    t0 = conv_frontend.conv0_length(length)
+    part = conv_frontend.window_stats_partials(x, t0)
+    blocks = conv_frontend.stats_blocks(t0)
+    assert part.shape == (2, blocks, 65) and 1 <= blocks <= 32
+    total = part[:, 0]
+    for k in range(1, blocks):
+        total = total + part[:, k]
+    gram, row_sum = conv_frontend.window_stats_plain(x, t0)
+    j, k = torch.triu_indices(10, 10)
+    scale = gram.abs().max().item()
+    assert (total[:, :55] - gram[:, j, k]).abs().max().item() <= 1e-5 * scale
+    assert (total[:, 55:] - row_sum).abs().max().item() <= 1e-5 * scale
+    # every window once: all-ones samples count t0 windows in each sum
+    ones = conv_frontend.window_stats_partials(torch.ones_like(x), t0).sum(dim=1)
+    assert torch.equal(ones, torch.full_like(ones, float(t0)))
+
+
+def test_pos_conv_plain_fallback_has_the_kernels_gradients():
+    """The plain pos conv that the card takes outside the instances, through
+    autograd, gives the `PosConvTrain` function's output and gradients."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 40, 64, generator=g, requires_grad=True)
+    kernel = (0.1 * torch.randn(16, 4, 64, generator=g)).requires_grad_()
+    bias = torch.randn(64, generator=g, requires_grad=True)
+    dy = torch.randn(2, 40, 64, generator=g)
+    grads = []
+    for fn in (lambda: pos_conv.pos_conv_plain(x, kernel, bias, groups=16, gelu_approx=False),
+               lambda: pos_conv.PosConvTrain.apply(x, kernel, bias, 16, False)):
+        y = fn()
+        grads.append((y.detach(),) + torch.autograd.grad(y, (x, kernel, bias), dy))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_plain_fallback_has_the_kernels_gradients(rate):
+    """The plain attention that the card takes outside the instances, through
+    autograd, gives `FlashAttention`'s output and gradients, hash dropout
+    bits included."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(2, 4, 50, 16, generator=g, requires_grad=True) for _ in range(3))
+    bias = torch.zeros(2, 50)
+    bias[1, 37:] = -10000.0
+    dout = torch.randn(2, 4, 50, 16, generator=g)
+    grads = []
+    for fn in (lambda: flash_attention.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=rate,
+                                                                 seed=7)[0],
+               lambda: flash_attention.flash_attention(q, k, v, bias, dropout_rate=rate, seed=7)):
+        out = fn()
+        grads.append((out.detach(),) + torch.autograd.grad(out, (q, k, v), dout))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

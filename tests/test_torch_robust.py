@@ -72,10 +72,14 @@ def test_supports_is_family_aware(norm, bias, ok):
     from gsoc_wav2vec2_tpu.models.config import Wav2Vec2Config as JaxConfig
 
     kw = dict(feature_extractor_norm_type=norm, conv_bias=bias, filter_sizes=[128] * 7)
-    assert conv_frontend.supports(port_config.Wav2Vec2Config(**kw)) is ok
+    assert conv_frontend.fusable(port_config.Wav2Vec2Config(**kw)) is ok
     assert jax_cf.supports(JaxConfig(**kw), training=False) is ok
-    odd = port_config.Wav2Vec2Config(**{**kw, "strides": [4, 2, 2, 2, 2, 2, 2]})
-    assert not conv_frontend.supports(odd)
+    # the card's kernels: the same families, at the widths of their instances
+    wide = {**kw, "filter_sizes": [512] * 7}
+    assert conv_frontend.supports(port_config.Wav2Vec2Config(**wide)) is ok
+    assert not conv_frontend.supports(port_config.Wav2Vec2Config(**kw))
+    odd = port_config.Wav2Vec2Config(**{**wide, "strides": [4, 2, 2, 2, 2, 2, 2]})
+    assert not conv_frontend.fusable(odd) and not conv_frontend.supports(odd)
 
 
 def _pos_conv_inputs(t, c=256, g=4, k=128, seed=2):
