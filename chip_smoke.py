@@ -279,6 +279,8 @@ def pos_conv_eval_record(kernel, bias, b, t, name, paths, gen):
     for tt in (3000, t):
         xs = torch.randn(b if tt == t else 2, tt, h, generator=gen).to(dev, torch.bfloat16)
         got = pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True)
+        require(torch.equal(got, pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True)),
+                f"{name} T={tt}: two launches differ")
         want = pc.pos_conv_plain(xs, kernel, bias, groups=groups, gelu_approx=True)
         torch.cuda.synchronize()
         err, mean_err = errors(got, want)
@@ -297,7 +299,7 @@ def pos_conv_eval_record(kernel, bias, b, t, name, paths, gen):
     return dict(
         name=name, counter="pos_conv", paths=paths, route="cuda", source=CSRC + "pos_conv.cu",
         replaces=PALLAS + "pos_conv.py:250", shape=[b, t, h], channels_per_group=cg,
-        max_abs_err=err, mean_abs_err=mean_err, tol=tol,
+        max_abs_err=err, mean_abs_err=mean_err, tol=tol, relaunch_bit_equal=True,
         ms=time_ms(lambda: pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True), 20),
         plain_ms=time_ms(lambda: pc.pos_conv_plain(xs, kernel, bias, groups=groups, gelu_approx=True), 5),
         bound_ms=bms, bound_by=by, library_ms=time_ms(library_pos_conv, 20),
@@ -437,6 +439,14 @@ def pos_conv_train_records(kernel, bias, b, t, suffix, paths, gen):
         pdx = pc.pos_conv_dx_plain(dpre, kernel, groups=groups)
         dw = pc.pos_conv_dw(x, dpre, k, groups=groups)
         pdw = pc.pos_conv_dw_plain(x, dpre, k, groups=groups)
+        again = pc.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True)
+        require(torch.equal(y, again[0]) and torch.equal(pre, again[1]),
+                f"pos_conv_train_fwd{suffix} T={tt}: two launches differ")
+        require(torch.equal(dx, pc.pos_conv_dx(dpre, kernel, groups=groups)),
+                f"pos_conv_dx{suffix} T={tt}: two launches differ")
+        require(torch.equal(dw, pc.pos_conv_dw(x, dpre, k, groups=groups)),
+                f"pos_conv_dw{suffix} T={tt}: two launches differ")
+        del again
         torch.cuda.synchronize()
         checks = {"pos_conv_train_fwd": errors(y, py), "pre": errors(pre, ppre),
                   "pos_conv_dx": errors(dx, pdx), "pos_conv_dw": errors(dw, pdw)}
@@ -500,7 +510,7 @@ def pos_conv_train_records(kernel, bias, b, t, suffix, paths, gen):
         records.append(dict(
             name=name + suffix, counter=name, paths=paths, route="cuda",
             source=CSRC + "pos_conv.cu", replaces=replaces, shape=[b, t, h], channels_per_group=cg,
-            max_abs_err=err, mean_abs_err=mean_err, tol=tols[name],
+            max_abs_err=err, mean_abs_err=mean_err, tol=tols[name], relaunch_bit_equal=True,
             ms=time_ms(kern_fn, 20), plain_ms=time_ms(plain_fn, 3, 1),
             bound_ms=bms, bound_by=by, library_ms=time_ms(lib_fn, 20),
         ))

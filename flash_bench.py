@@ -1,6 +1,6 @@
 """Times the port's hand-written kernels on one NVIDIA GPU.
 
-    python3 flash_bench.py [--family flash|conv] [--root DIR] [--label NAME]
+    python3 flash_bench.py [--family flash|conv|pos_conv] [--root DIR] [--label NAME]
 
 `--family flash` (the default): at each shape of the main paths (base
 inference, base training, robust, long), the forward and the backward
@@ -14,10 +14,16 @@ shapes (x 246000 samples): `window_stats` and `conv01` (the base family,
 GroupNorm folded into scale/shift) at B=16 (inference) and B=32 (training),
 `conv01_robust` at B=8.
 
+`--family pos_conv`: the four wrappers of
+`gsoc_wav2vec2_tpu_torch.ops.kernels.pos_conv` at T = 768 frames (246000
+samples) and K = 128 taps: base (C = 768, 16 groups) `pos_conv` at B=16 and
+`pos_conv_train_fwd`, `pos_conv_dx`, `pos_conv_dw` at B=32; robust/large
+(C = 1024, C/G = 64) all four at B=8.
+
 Each time is device ms a call by CUDA events around a back-to-back run after
 warm-up (a device sleep ahead of it keeps the host's wrapper work out), and
-by the profiler (flash: every kernel of the call; conv: the call's largest
-kernel, named).  `--root` imports the package from another checkout, so
+by the profiler (flash: every kernel of the call; conv, pos_conv: the
+call's largest kernel, named, and every kernel of the call).  `--root` imports the package from another checkout, so
 that two trees are compared on one card in one run (parent, change, change,
 parent).  Prints one JSON line per shape, then the card's name and power
 limit.
@@ -145,9 +151,38 @@ def bench_conv(torch, label):
         torch.cuda.empty_cache()
 
 
+def bench_pos_conv(torch, label):
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import pos_conv as pc
+
+    gen = torch.Generator().manual_seed(0)
+    t, k = 768, 128
+    for c, cg, cases in ((768, 48, (("pos_conv", 16), ("pos_conv_train_fwd", 32), ("pos_conv_dx", 32),
+                                    ("pos_conv_dw", 32))),
+                         (1024, 64, (("pos_conv", 8), ("pos_conv_train_fwd", 8), ("pos_conv_dx", 8),
+                                     ("pos_conv_dw", 8)))):
+        groups = c // cg
+        kernel = (torch.randn(k, cg, c, generator=gen) * (1.5 / (k * cg) ** 0.5)).cuda()
+        bias = (0.1 * torch.randn(c, generator=gen)).cuda()
+        for name, b in cases:
+            x, dpre = (torch.randn(b, t, c, generator=gen).cuda().to(torch.bfloat16) for _ in range(2))
+            fn = {
+                "pos_conv": lambda: pc.pos_conv(x, kernel, bias, groups=groups, gelu_approx=True),
+                "pos_conv_train_fwd": lambda: pc.pos_conv_train_fwd(x, kernel, bias, groups=groups,
+                                                                    gelu_approx=True),
+                "pos_conv_dx": lambda: pc.pos_conv_dx(dpre, kernel, groups=groups),
+                "pos_conv_dw": lambda: pc.pos_conv_dw(x, dpre, k, groups=groups),
+            }[name]
+            row = {"label": label, "kernel": name, "shape": [b, t, c], "channels_per_group": cg,
+                   "ms": events_ms(torch, fn, 20)}
+            row["call_device_ms"], row["device_ms"], row["device_kernel"] = profiled_ms(torch, fn, 5)
+            print(json.dumps(row), flush=True)
+            del x, dpre
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--family", choices=("flash", "conv"), default="flash")
+    ap.add_argument("--family", choices=("flash", "conv", "pos_conv"), default="flash")
     ap.add_argument("--root", default=".", help="checkout to import the package from")
     ap.add_argument("--label", default="this tree")
     args = ap.parse_args()
@@ -159,7 +194,7 @@ def main() -> int:
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    (bench_flash if args.family == "flash" else bench_conv)(torch, args.label)
+    {"flash": bench_flash, "conv": bench_conv, "pos_conv": bench_pos_conv}[args.family](torch, args.label)
     print(smi, flush=True)
     return 0
 

@@ -257,7 +257,7 @@ __device__ __forceinline__ void issue_slab(float (&acc)[C / 128][32], const uint
   w2v2::wgmma_fence();
 #pragma unroll
   for (int at = 0; at < kAtoms; ++at)
-    w2v2::wgmma_rs_n64_mn(acc[at], a, w2v2::wgmma_desc(slab + (wg * kAtoms + at) * kAtomBytes));
+    w2v2::wgmma_rs_mn(acc[at], a, w2v2::wgmma_desc(slab + (wg * kAtoms + at) * kAtomBytes));
   w2v2::wgmma_commit();
 }
 

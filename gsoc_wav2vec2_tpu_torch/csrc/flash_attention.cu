@@ -330,7 +330,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
     w2v2::fence_operands(o);
     w2v2::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::wgmma_rs_n64_mn(o, pa[kc], vdesc + kc * kMnStep);
+    for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::wgmma_rs_mn(o, pa[kc], vdesc + kc * kMnStep);
     w2v2::wgmma_commit();
     w2v2::wgmma_wait<1>();  // S is in; P V may still run
     w2v2::fence_operands(sc);
@@ -359,7 +359,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
     w2v2::fence_operands(o);
     w2v2::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::wgmma_rs_n64_mn(o, pa[kc], vdesc + kc * kMnStep);
+    for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::wgmma_rs_mn(o, pa[kc], vdesc + kc * kMnStep);
     w2v2::wgmma_commit();
     w2v2::wgmma_wait<0>();
     w2v2::fence_operands(o);
@@ -549,9 +549,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
     w2v2::fence_operands(dk);
     w2v2::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_n64_mn(dv, ra[kc], ddesc + kc * kMnStep);
+    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dv, ra[kc], ddesc + kc * kMnStep);
 #pragma unroll
-    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_n64_mn(dk, da[kc], qdesc + kc * kMnStep);
+    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dk, da[kc], qdesc + kc * kMnStep);
     w2v2::wgmma_commit();
     w2v2::wgmma_wait<0>();
     w2v2::fence_operands(dv);
@@ -693,7 +693,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
     w2v2::fence_operands(dq);
     w2v2::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_n64_mn(dq, da[kc], kdesc + kc * kMnStep);
+    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dq, da[kc], kdesc + kc * kMnStep);
     w2v2::wgmma_commit();
     w2v2::wgmma_wait<0>();
     w2v2::fence_operands(dq);

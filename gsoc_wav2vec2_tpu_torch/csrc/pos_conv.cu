@@ -2,11 +2,11 @@
 // 16 groups): the inference forward, the training forward and both halves
 // of its backward.
 //
-// pos_conv_kernel<NT, Mode> replaces three Pallas kernels of
+// pos_conv_kernel<CG, Mode> replaces three Pallas kernels of
 // gsoc_wav2vec2_tpu/ops/pallas/pos_conv.py, one per epilogue:
 //   kEval  pos_conv_fused (_kernel):
 //            out[b, t, g*CG + o] = GELU(bias[g*CG + o]
-//                + sum_{k < K, i < CG} x[b, t + k - pad, g*CG + i] * W[g][k*CG + i][o])
+//                + sum_{k < K, i < CG} x[b, t + k - pad, g*CG + i] * W[k, i, g*CG + o])
 //   kTrain _fwd_train_call (_fwd_train_kernel): the same bf16 output and the
 //            f32 pre-activation (the sum + bias, before GELU) for GELU';
 //   kDx    _dx_call (_linear_kernel): the sum alone, bf16, for
@@ -14,143 +14,266 @@
 //            kernel, pad = K/2 - 1 (the caller passes the flipped weights).
 // Input rows outside [0, T) are zero; pad is K/2 for the forwards, which
 // crops the trailing frame of the even-K conv (output rows [0, T) of T + 1).
-// W is regrouped to (G, K*CG, CG), rows ordered (tap, input channel).
 //
 // Bound on the H100: operations (2*B*T*K*CG*C ~ 1.16e11 FLOP at B=16, T=768,
 // base: ~0.12 ms at 989 TFLOP/s; the bytes, ~38 MB, take ~0.01 ms).
-// Design: one block per (128 output rows, group, batch row).  The block
-// stages its input window (128 + K - 1 rows x CG channels, zero-filled at the
-// sequence edges) once in shared memory and streams the group's weights
-// through shared memory 8 taps at a time, both by cp.async.  The
-// implicit-GEMM operand for tap k is the window shifted by k rows: a row
-// offset of the ldmatrix addresses, no im2col copy.  Products are mma.sync
-// m16n8k16 bf16 with f32 accumulators in registers (each warp 16 rows x CG),
-// the epilogue applied straight from them.  Unlike the TPU kernels (whole
-// sequence per block, MAX_T 2048, `pos_conv_blocked` beyond) the block tiles
-// time itself, so any T works.
+// Design (sm_90a: wgmma, TMA, warp specialisation): an implicit GEMM per
+// group, M = time rows, N = CG, contraction = (tap, input channel).
+//   * A CTA owns 256 output rows of one (group, batch row): two consumer
+//     warpgroups of two m64 tiles each (SS wgmma m64nCGk16, f32 accumulators
+//     in registers: CG a thread), and one producer warp.
+//   * B, the weights, stream through a 4-slot ring by TMA, one tap a slot,
+//     straight from the kernel in its (K, CG, C) layout: a box of CG rows x
+//     64 columns from the group's first, 128-byte swizzle.  The forward
+//     reads it MN-major (rows = input channels = contraction, N = CG of the
+//     64 columns; a k step is 16 rows down); dx reads the box of tap K-1-s
+//     K-major (rows = its output channels, contraction = the forward's
+//     output channels; a k step is 32 bytes along), which is the flipped,
+//     in/out-swapped kernel without a copy of it.  Full / empty mbarriers
+//     per slot; the consumers never wait on each other inside the k loop.
+//   * A is the input window shifted by the tap: a shift by any number of
+//     rows, which no swizzled descriptor addresses (its 8-row atoms must be
+//     aligned).  The consumers stage the window once per CTA (256 + K - 1
+//     rows x CG by cp.async, zero-filled outside [0, T)) as CG/8 column
+//     chunks of 16-byte rows: the no-swizzle K-major layout, whose core
+//     matrices are 8 consecutive rows, so the tap's shift is a start address
+//     16 bytes a row further (`wgmma_desc_rows`).  A and B both come from
+//     shared memory: no A registers to keep out of a product in flight.
+//   * 288 threads and 2 CTAs an SM (<= 112 registers a thread): one CTA's
+//     window load and epilogue overlap the other's products.
+//   * The epilogues run straight from the accumulators: kEval + bias, GELU,
+//     bf16; kTrain the same plus the f32 pre-activation; kDx the sum, bf16.
 //
-// pos_conv_dw_kernel<NT> replaces _dw_call (_dw_kernel):
+// pos_conv_dw_kernel<CG, kTaps> replaces _dw_call (_dw_kernel):
 //   dW[k, i, g*CG + o] = sum_{b, t} x[b, t + k - K/2, g*CG + i] * dpre[b, t, g*CG + o]
-// a contraction of M = K*CG rows (tap, input channel) by N = CG over depth
-// B*T, f32.  The TPU kernel accumulates it over a sequential batch axis; here
-// one block per (8 taps, group, batch split) owns an (8*CG) x CG f32 tile in
-// registers and walks the time tiles of its batch rows (x window and dpre
-// tile staged per 64 rows; A = the window read transposed by ldmatrix.trans,
-// shifted by the tap, B = dpre), and a second small kernel sums the splits in
-// a fixed order into the (K, CG, C) kernel layout: no atomics, deterministic.
+// M = (tap, input channel), N = CG, contraction = B*T, f32.
+//   * A CTA owns kTaps taps of one group (M = kTaps*CG rows: 768 at CG = 48,
+//     512 at 64 and 16; 6 / 4 / 4 m64 tiles a consumer warpgroup, up to 144
+//     accumulators a thread at `setmaxnreg` 232) and walks the contraction
+//     in 64-step time tiles.  At base (K = 128, G = 16) that is 128 CTAs,
+//     one wave, with no split of the batch: no partials.
+//   * Both operands of a time tile stream through a 4-stage TMA ring (a
+//     producer warpgroup at `setmaxnreg` 40), as 64-channel boxes with the
+//     128-byte swizzle (16 unused channels at CG = 48); TMA's zero fill
+//     stands in for every check at the sequence edges.
+//   * A = the x window (64 + kTaps rows) read transposed by ldmatrix.trans at
+//     the tap's row (each warp's 16 rows lie within one tap), its addresses
+//     swizzled by hand: RS wgmma.  An m64 tile of (tap, channel) rows spans
+//     two taps at CG = 48, which no descriptor describes.
+//   * B = the dpre tile read MN-major (64 time steps x 64 channels, N = CG of
+//     them; a k step is 16 rows down).
+//   * Where the CTAs cannot fill the card (small B*T or few groups), the
+//     wrapper splits the time tiles over `splits` CTAs per tile block
+//     (`pos_conv.dw_splits`); each writes an f32 partial and
+//     pos_conv_dw_reduce_kernel sums them in split order.  Otherwise the
+//     kernel writes dW itself.
 // Bound: operations, the same 2*B*T*K*CG*C as the forward.
+//
+// Every output element is written by one CTA from sums in a fixed order (the
+// splits reduced in a fixed order), so a relaunch is bit-equal.
+// Traps, as met in this design:
+//   * no __syncthreads after the roles split: the consumers' barrier over
+//     the staged window is named barrier 1 over their 256 threads;
+//   * no cluster, so a producer that finishes early may exit: the CTA lives
+//     on with its consumers, and no remote arrival can reach it;
+//   * the window's cp.async writes are generic-proxy: fence.proxy.async
+//     before the barrier that hands them to wgmma;
+//   * ptxas serialises wgmma (C7514) unless every product of the loop has one
+//     shape and the accumulators are zeroed in registers before it;
+//   * the A registers of an RS product in flight are not rewritten: two
+//     sets, alternating by k step, with wgmma_wait<1> after each commit.
+//     ptxas still serialised dW's products (C7513: "non wgmma instructions
+//     defining input registers") until an mbarrier wait (already complete)
+//     stood between each step's ldmatrix and its wgmma.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTT = 128;       // output rows per block
-constexpr int kTaps = 8;       // taps of weights staged per step
-constexpr int kThreads = 256;  // 8 warps x 16 rows
-
 enum Mode { kEval, kTrain, kDx };
 
-// shared-memory rows are padded by 8 elements: the 8 rows an ldmatrix reads
-// then fall in distinct banks
-__host__ __device__ inline int pos_conv_smem_bytes(int CG, int K) {
-  return ((kTT + K) * (CG + 8) + kTaps * CG * (CG + 8)) * 2;
+constexpr int kBox = 64;          // columns of a TMA box (128 bytes: one swizzle row)
+constexpr int kStages = 4;        // ring slots
+constexpr int kConsumerThreads = 256;
+constexpr int kConsumerBarrier = 1;
+
+// --- forward / dx -------------------------------------------------------------
+
+constexpr int kRows = 256;                       // output rows a CTA
+constexpr int kFwdMt = kRows / 128;              // m64 tiles a consumer warpgroup
+constexpr int kFwdThreads = kConsumerThreads + 32;  // + one producer warp
+
+template <int CG>
+struct FwdLayout {
+  static constexpr int kSlot = CG * 128;  // one tap's box: CG rows x 64 bf16, swizzled
+  static constexpr int kBars = 2 * kStages * 8;
+  // bytes of dynamic shared memory: alignment slack, ring, barriers, window
+  static int bytes(int K) { return 1024 + kStages * kSlot + kBars + (kRows + K) * CG * 2; }
+};
+
+__device__ __forceinline__ unsigned char* aligned_smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return smem_raw + ((1024u - (w2v2::smem_addr(smem_raw) & 1023u)) & 1023u);
 }
 
-template <int NT, int kMode>  // NT = CG / 8 output-column tiles of 8 per warp
-__global__ void __launch_bounds__(kThreads)
-pos_conv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+// consumer warp's release of a ring slot
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) w2v2::mbar_arrive(empty);
+}
+
+template <int CG, int kMode>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* __restrict__ x,
                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
                 float* __restrict__ pre, int T, int C, int K, int pad) {
-  constexpr int CG = NT * 8;
-  constexpr int kLd = CG + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = xs + (kTT + K) * kLd;
+  using L = FwdLayout<CG>;
+  constexpr int kNa = CG / 2;  // accumulators of an m64 tile a thread
+  unsigned char* ring = aligned_smem();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * L::kSlot);
+  uint64_t* empty = full + kStages;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(empty + kStages);
 
-  const int t0 = blockIdx.x * kTT;
-  const int grp = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int t0 = blockIdx.x * kRows, grp = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      w2v2::mbar_init(&full[s], 1);
+      w2v2::mbar_init(&empty[s], kConsumerThreads / 32);
+    }
+    w2v2::mbar_init_fence();
+  }
+  __syncthreads();
 
-  // input window rows t0 - pad .. t0 + kTT + K - 2 - pad, zero outside [0, T)
+  if (tid >= kConsumerThreads) {
+    // the producer warp: one thread issues the group's box of every tap, in
+    // the order the consumers take them (dx: the taps flipped)
+    if (tid == kConsumerThreads) {
+      int st = 0;
+      uint32_t round = 0;
+      for (int s = 0; s < K; ++s) {
+        if (round > 0) w2v2::mbar_wait(&empty[st], (round - 1) & 1);
+        w2v2::mbar_arrive_expect_tx(&full[st], L::kSlot);
+        w2v2::tma_load_3d(ring + st * L::kSlot, &w_map, &full[st], grp * CG, 0,
+                          kMode == kDx ? K - 1 - s : s);
+        if (++st == kStages) st = 0, ++round;
+      }
+    }
+    return;
+  }
+
+  // the window: input rows t0 - pad .. t0 + kRows + K - 2 - pad, zero outside
+  // [0, T), as CG / 8 column chunks of kRows + K rows of 16 bytes each
   constexpr int kVecRow = CG / 8;
-  const int win_rows = kTT + K - 1;
-  for (int i = tid; i < win_rows * kVecRow; i += kThreads) {
+  const int rows = kRows + K, win_rows = rows - 1;
+  for (int i = tid; i < win_rows * kVecRow; i += kConsumerThreads) {
     const int row = i / kVecRow, v = i % kVecRow;
     const int tr = t0 - pad + row;
     const bool valid = tr >= 0 && tr < T;
-    w2v2::cp_async16(xs + row * kLd + v * 8,
+    w2v2::cp_async16(xs + ((size_t)v * rows + row) * 8,
                      x + ((size_t)b * T + (valid ? tr : 0)) * C + grp * CG + v * 8, valid);
   }
   w2v2::cp_async_commit();
+  w2v2::cp_async_wait<0>();
+  w2v2::fence_proxy_async();  // the window's generic-proxy writes, before wgmma reads them
+  w2v2::named_barrier_sync(kConsumerBarrier, kConsumerThreads);
 
-  float acc[NT][4];
+  const int wg = tid / 128, w = (tid % 128) / 32, g = lane >> 2, tq = lane & 3;
+  float acc[kFwdMt][kNa];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const __nv_bfloat16* wg = w + (size_t)grp * K * CG * CG;
-  for (int k0 = 0; k0 < K; k0 += kTaps) {
-    const int taps = min(kTaps, K - k0);
-    __syncthreads();  // the previous weight slab is no longer read
-    for (int i = tid; i < taps * CG * kVecRow; i += kThreads) {
-      const int row = i / kVecRow, v = i % kVecRow;  // row = tap * CG + in-channel
-      w2v2::cp_async16(ws + row * kLd + v * 8, wg + ((size_t)k0 * CG + row) * CG + v * 8, true);
+  for (int m = 0; m < kFwdMt; ++m)
+#pragma unroll
+    for (int i = 0; i < kNa; ++i) acc[m][i] = 0.f;
+  const uint32_t chunk_bytes = rows * 16;
+  // this warpgroup's first row of the window (tile 0, tap 0)
+  const unsigned char* arow = reinterpret_cast<const unsigned char*>(xs) + wg * 128 * 16;
+  int st = 0, prev = 0;
+  uint32_t ph = 0;
+#pragma unroll 1
+  for (int s = 0; s < K; ++s) {  // tap s: window rows shifted by s
+    const unsigned char* slot = ring + st * L::kSlot;
+    w2v2::mbar_wait(&full[st], ph);
+#pragma unroll
+    for (int m = 0; m < kFwdMt; ++m) w2v2::fence_operands(acc[m]);
+    w2v2::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < CG / 16; ++j) {
+      // A of tile m: window rows m * 64 + s .., channels 16j .. 16j + 15
+      const unsigned char* a0 = arow + 2 * j * chunk_bytes + s * 16;
+      // B: the forward's box is (input channel, output channel), MN-major, a
+      // k step 16 rows down; dx's is (its output channel, contraction),
+      // K-major, a k step 32 bytes along
+      const uint64_t db = w2v2::wgmma_desc(slot + (kMode == kDx ? 32 * j : 2048 * j));
+#pragma unroll
+      for (int m = 0; m < kFwdMt; ++m)
+        w2v2::wgmma_ss<kMode == kDx ? 0 : 1>(acc[m], w2v2::wgmma_desc_rows(a0 + m * 64 * 16, chunk_bytes), db);
     }
-    w2v2::cp_async_commit();
-    w2v2::cp_async_wait<0>();
-    __syncthreads();
-    for (int tt = 0; tt < taps; ++tt) {
-      const int k = k0 + tt;
+    w2v2::wgmma_commit();
+    w2v2::wgmma_wait<1>();  // the tap before is read: its slot goes back
 #pragma unroll
-      for (int cc = 0; cc < CG / 16; ++cc) {
-        // the window shifted by k rows is the im2col operand of tap k
-        uint32_t a[4];
-        w2v2::ldmatrix_x4(a, xs + (warp * 16 + k + (lane & 15)) * kLd + cc * 16 + (lane >> 4) * 8);
+    for (int m = 0; m < kFwdMt; ++m) w2v2::fence_operands(acc[m]);
+    if (s > 0) release(&empty[prev], lane);
+    prev = st;
+    if (++st == kStages) st = 0, ph ^= 1;
+  }
+  w2v2::wgmma_wait<0>();
 #pragma unroll
-        for (int nj = 0; nj < NT; nj += 2) {
-          uint32_t bw[4];  // b0, b1 of column tile nj, then of nj + 1
-          w2v2::ldmatrix_x4_trans(
-              bw, ws + (tt * CG + cc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + nj * 8 +
-                      (lane >> 4) * 8);
-          w2v2::mma_bf16_16816(acc[nj], a, bw[0], bw[1]);
-          w2v2::mma_bf16_16816(acc[nj + 1], a, bw[2], bw[3]);
+  for (int m = 0; m < kFwdMt; ++m) w2v2::fence_operands(acc[m]);
+
+  // epilogue straight from the accumulators: acc[m][4j + e] is row
+  // 16w + g + 8 (e / 2) of tile m, column 8j + 2tq + e % 2
+#pragma unroll
+  for (int m = 0; m < kFwdMt; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tr = t0 + wg * 128 + m * 64 + 16 * w + g + 8 * h;
+      if (tr >= T) continue;
+      const size_t off = ((size_t)b * T + tr) * C + grp * CG + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < CG / 8; ++j) {
+        float y0 = acc[m][4 * j + 2 * h], y1 = acc[m][4 * j + 2 * h + 1];
+        if (kMode != kDx) {
+          y0 += bias[grp * CG + 2 * tq + j * 8];
+          y1 += bias[grp * CG + 2 * tq + j * 8 + 1];
+          if (kMode == kTrain) *reinterpret_cast<float2*>(pre + off + j * 8) = make_float2(y0, y1);
+          y0 = w2v2::gelu_tanh(y0);
+          y1 = w2v2::gelu_tanh(y1);
         }
+        *reinterpret_cast<__nv_bfloat162*>(out + off + j * 8) = __floats2bfloat162_rn(y0, y1);
       }
     }
-  }
-
-  // epilogue straight from the accumulators
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int tr = t0 + warp * 16 + g + 8 * h;
-    if (tr >= T) continue;
-    const size_t off = ((size_t)b * T + tr) * C + grp * CG + 2 * t;
-#pragma unroll
-    for (int nj = 0; nj < NT; ++nj) {
-      float y0 = acc[nj][2 * h], y1 = acc[nj][2 * h + 1];
-      if (kMode != kDx) {
-        y0 += bias[grp * CG + 2 * t + nj * 8];
-        y1 += bias[grp * CG + 2 * t + nj * 8 + 1];
-        if (kMode == kTrain) *reinterpret_cast<float2*>(pre + off + nj * 8) = make_float2(y0, y1);
-        y0 = w2v2::gelu_tanh(y0);
-        y1 = w2v2::gelu_tanh(y1);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(out + off + nj * 8) = __floats2bfloat162_rn(y0, y1);
-    }
-  }
 }
 
-template <int NT, int kMode>
+// a tensor map of `rank` dims (innermost first; byte strides of dims 1..)
+// with the 128-byte swizzle and zero fill out of bounds
+cudaError_t encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                   const cuuint64_t* strides, const cuuint32_t* box) {
+  const w2v2::EncodeTiled fn = w2v2::encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int CG, int kMode>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out, void* pre, int B,
                    int T, int C, int G, int K, int pad, cudaStream_t stream) {
-  const int smem = pos_conv_smem_bytes(NT * 8, K);
-  cudaError_t err = w2v2::allow_smem(pos_conv_kernel<NT, kMode>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kTT - 1) / kTT, G, B);
-  pos_conv_kernel<NT, kMode><<<grid, kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const float*)bias,
-      (__nv_bfloat16*)out, (float*)pre, T, C, K, pad);
+  // w: the kernel (K, CG, C) bf16; one box a tap: CG rows (its second axis)
+  // x 64 columns from the group's first (16 past the group at CG = 48, read
+  // as zero past C)
+  CUtensorMap w_map;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)CG, (cuuint64_t)K};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)CG * C * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)CG, 1};
+  W2V2_TRY(encode(&w_map, w, 3, dims, strides, box));
+  const int smem = FwdLayout<CG>::bytes(K);
+  W2V2_TRY(w2v2::allow_smem(pos_conv_kernel<CG, kMode>, smem));
+  const dim3 grid((T + kRows - 1) / kRows, G, B);
+  pos_conv_kernel<CG, kMode><<<grid, kFwdThreads, smem, stream>>>(
+      w_map, (const __nv_bfloat16*)x, (const float*)bias, (__nv_bfloat16*)out, (float*)pre, T, C,
+      K, pad);
   return cudaGetLastError();
 }
 
@@ -160,104 +283,145 @@ int dispatch(const void* x, const void* w, const void* bias, void* out, void* pr
   // C / G is 48 in the base family and 64 in the robust/large one; 16 is the
   // narrow geometry of the tests
   switch (C / G) {
-    case 16: return (int)launch<2, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
-    case 48: return (int)launch<6, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
-    case 64: return (int)launch<8, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
+    case 16: return (int)launch<16, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
+    case 48: return (int)launch<48, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
+    case 64: return (int)launch<64, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// --- dW ---------------------------------------------------------------------
+// --- dW -------------------------------------------------------------------------
 
-constexpr int kDwT = 64;     // time rows per staged tile
+constexpr int kDwT = 64;                                  // time steps a stage
+constexpr int kDwThreads = kConsumerThreads + 128;        // + a producer warpgroup
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 
-template <int NT, int kDwTaps>  // kDwTaps taps per block: M = kDwTaps * CG rows
-__global__ void __launch_bounds__(kThreads)
-pos_conv_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dpre,
-                   float* __restrict__ part, int B, int T, int C, int K, int splits) {
-  constexpr int CG = NT * 8;
-  constexpr int kLd = CG + 8;
-  constexpr int kVecRow = CG / 8;
-  constexpr int MT = kDwTaps * CG / 128;  // 16-row m-tiles per warp (8 warps x MT = kDwTaps*CG/16)
-  constexpr int kWinRows = kDwT + kDwTaps;  // window rows staged (one spare)
-  __shared__ __align__(128) __nv_bfloat16 xs[kWinRows * kLd];
-  __shared__ __align__(128) __nv_bfloat16 ds[kDwT * kLd];
+template <int CG, int kTaps>
+struct DwLayout {
+  static constexpr int kM = kTaps * CG;         // dW rows a CTA
+  static constexpr int kMt = kM / 128;           // m64 tiles a consumer warpgroup
+  static constexpr int kXRows = kDwT + kTaps;    // window rows a stage (one spare)
+  static constexpr int kXBytes = kXRows * 128;   // 64 channels, swizzled
+  static constexpr int kDBytes = kDwT * 128;     // 64 time steps x 64 channels, swizzled
+  static constexpr int kStage = kXBytes + kDBytes;
+  static constexpr int kBytes = 1024 + kStages * kStage + 2 * kStages * 8;
+  static_assert(kM % 128 == 0 && kXBytes % 1024 == 0 && kDBytes % 1024 == 0, "tile layout");
+};
 
-  const int tap0 = blockIdx.x * kDwTaps;
-  const int grp = blockIdx.y;
-  const int split = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int half = K / 2;
+// This CTA's sums over the time tiles [n0, n1) of its split, tile n = (batch
+// row n / tpr, t0 = 64 (n % tpr)): into dW (K, CG, C) itself when splits is
+// 1, else into part (splits, G, K*CG, CG).  Rows of taps past K are not
+// stored.
+template <int CG, int kTaps>
+__global__ void __launch_bounds__(kDwThreads, 1)
+pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap d_map,
+                   float* __restrict__ dw, float* __restrict__ part, int B, int T, int C, int K,
+                   int splits) {
+  using L = DwLayout<CG, kTaps>;
+  constexpr int kNa = CG / 2;
+  constexpr int kMt = L::kMt;
+  unsigned char* ring = aligned_smem();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * L::kStage);
+  uint64_t* empty = full + kStages;
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
-
-  for (int b = split; b < B; b += splits) {
-    for (int t0 = 0; t0 < T; t0 += kDwT) {
-      __syncthreads();  // the previous tiles are no longer read
-      // x rows t0 + tap0 - K/2 + r (the window of taps tap0 .. tap0 + kDwTaps - 1)
-      for (int i = tid; i < kWinRows * kVecRow; i += kThreads) {
-        const int row = i / kVecRow, v = i % kVecRow;
-        const int tr = t0 + tap0 - half + row;
-        const bool valid = tr >= 0 && tr < T;
-        w2v2::cp_async16(xs + row * kLd + v * 8,
-                         x + ((size_t)b * T + (valid ? tr : 0)) * C + grp * CG + v * 8, valid);
-      }
-      // dpre rows t0 .. t0 + 63, zero past T
-      for (int i = tid; i < kDwT * kVecRow; i += kThreads) {
-        const int row = i / kVecRow, v = i % kVecRow;
-        const bool valid = t0 + row < T;
-        w2v2::cp_async16(ds + row * kLd + v * 8,
-                         dpre + ((size_t)b * T + (valid ? t0 + row : 0)) * C + grp * CG + v * 8,
-                         valid);
-      }
-      w2v2::cp_async_commit();
-      w2v2::cp_async_wait<0>();
-      __syncthreads();
-#pragma unroll
-      for (int kc = 0; kc < kDwT / 16; ++kc) {
-        uint32_t bw[NT / 2][4];  // dpre rows kc*16 .. +15 as the B operand (k = time)
-#pragma unroll
-        for (int nj = 0; nj < NT; nj += 2)
-          w2v2::ldmatrix_x4_trans(
-              bw[nj / 2], ds + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + nj * 8 +
-                              (lane >> 4) * 8);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          // m-tile rows (tap, i0 .. i0 + 15) of this block's kDwTaps*CG
-          const int mrow = (warp * MT + m) * 16;
-          const int tap = mrow / CG, i0 = mrow % CG;
-          // A[i][t] = window[t + tap][i]: the window read transposed
-          uint32_t a[4];
-          const int j = lane >> 3;
-          w2v2::ldmatrix_x4_trans(
-              a, xs + (tap + kc * 16 + (lane & 7) + (j >> 1) * 8) * kLd + i0 + (j & 1) * 8);
-#pragma unroll
-          for (int nj = 0; nj < NT; nj += 2) {
-            w2v2::mma_bf16_16816(acc[m][nj], a, bw[nj / 2][0], bw[nj / 2][1]);
-            w2v2::mma_bf16_16816(acc[m][nj + 1], a, bw[nj / 2][2], bw[nj / 2][3]);
-          }
-        }
-      }
+  const int tap0 = blockIdx.x * kTaps, grp = blockIdx.y, split = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tpr = (T + kDwT - 1) / kDwT;
+  const long long n_all = (long long)B * tpr;
+  const int n0 = (int)(n_all * split / splits), n1 = (int)(n_all * (split + 1) / splits);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      w2v2::mbar_init(&full[s], 1);
+      w2v2::mbar_init(&empty[s], kConsumerThreads / 32);
     }
+    w2v2::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumerThreads) {
+    w2v2::setmaxnreg_dec<kProducerRegs>();
+    if (tid != kConsumerThreads) return;
+    // the copy thread: per time tile, the x window of this CTA's taps (rows
+    // t0 + tap0 - K/2 ..) and the dpre tile, zero-filled out of bounds
+    int st = 0;
+    uint32_t round = 0;
+    for (int n = n0; n < n1; ++n) {
+      const int b = n / tpr, t0 = (n % tpr) * kDwT;
+      if (round > 0) w2v2::mbar_wait(&empty[st], (round - 1) & 1);
+      unsigned char* stage = ring + st * L::kStage;
+      w2v2::mbar_arrive_expect_tx(&full[st], L::kStage);
+      w2v2::tma_load_3d(stage, &x_map, &full[st], grp * CG, t0 + tap0 - K / 2, b);
+      w2v2::tma_load_3d(stage + L::kXBytes, &d_map, &full[st], grp * CG, t0, b);
+      if (++st == kStages) st = 0, ++round;
+    }
+    return;
   }
 
-  // this split's partial tile: part[split][grp][tap0*CG + row][o]
-  float* dst = part + (((size_t)split * (C / CG) + grp) * K + tap0) * CG * CG;
+  w2v2::setmaxnreg_inc<kConsumerRegs>();
+  const int wg = tid / 128, w = (tid % 128) / 32, g = lane >> 2, tq = lane & 3;
+  float acc[kMt][kNa];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const int mrow = (warp * MT + m) * 16;
+  for (int m = 0; m < kMt; ++m)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int i = 0; i < kNa; ++i) acc[m][i] = 0.f;
+  // A[m][t] = window[t + tap][i] of tile m's 16 rows (tap, i0 ..) of this
+  // warp, by ldmatrix.trans: matrix lane / 8 covers channels i0 + 8 (q & 1),
+  // time steps 8 (q >> 1); the swizzle term (chunk ^ row % 8) does not change
+  // along k steps of 16 rows, so each tile keeps one offset
+  uint32_t off[kMt];
 #pragma unroll
-      for (int nj = 0; nj < NT; ++nj)
-        *reinterpret_cast<float2*>(dst + (size_t)(mrow + g + 8 * h) * CG + nj * 8 + 2 * t) =
-            make_float2(acc[m][nj][2 * h], acc[m][nj][2 * h + 1]);
+  for (int m = 0; m < kMt; ++m) {
+    const int mrow = wg * (L::kM / 2) + m * 64 + 16 * w;
+    const int r = mrow / CG + (lane & 7) + ((lane >> 4) & 1) * 8;
+    const int c = (mrow % CG) / 8 + ((lane >> 3) & 1);
+    off[m] = r * 128 + (((c ^ r) & 7) << 4);
   }
+  uint32_t a[2][kMt][4];
+  int st = 0, prev = 0;
+  uint32_t ph = 0;
+#pragma unroll 1
+  for (int n = n0; n < n1; ++n) {
+    const unsigned char* stage = ring + st * L::kStage;
+    w2v2::mbar_wait(&full[st], ph);
+#pragma unroll
+    for (int j = 0; j < kDwT / 16; ++j) {
+#pragma unroll
+      for (int m = 0; m < kMt; ++m) w2v2::ldmatrix_x4_trans(a[j & 1][m], stage + off[m] + j * 16 * 128);
+      w2v2::mbar_wait(&full[st], ph);  // (complete already) keeps ptxas from serialising the wgmma
+#pragma unroll
+      for (int m = 0; m < kMt; ++m) w2v2::fence_operands(acc[m]);
+      w2v2::wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < kMt; ++m)
+        w2v2::wgmma_rs_mn(acc[m], a[j & 1][m], w2v2::wgmma_desc(stage + L::kXBytes + 2048 * j));
+      w2v2::wgmma_commit();
+      w2v2::wgmma_wait<1>();  // the step before is done: its A registers and stage are free
+#pragma unroll
+      for (int m = 0; m < kMt; ++m) w2v2::fence_operands(acc[m]);
+      if (j == 0 && n > n0) release(&empty[prev], lane);
+    }
+    prev = st;
+    if (++st == kStages) st = 0, ph ^= 1;
+  }
+  w2v2::wgmma_wait<0>();
+#pragma unroll
+  for (int m = 0; m < kMt; ++m) w2v2::fence_operands(acc[m]);
+
+  const int G = gridDim.y;
+  float* dst = splits == 1 ? dw + grp * CG : part + ((size_t)split * G + grp) * K * CG * CG;
+  const int ld = splits == 1 ? C : CG;
+#pragma unroll
+  for (int m = 0; m < kMt; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = tap0 * CG + wg * (L::kM / 2) + m * 64 + 16 * w + g + 8 * h;  // tap * CG + i
+      if (row >= K * CG) continue;
+#pragma unroll
+      for (int j = 0; j < CG / 8; ++j)
+        *reinterpret_cast<float2*>(dst + (size_t)row * ld + 8 * j + 2 * tq) =
+            make_float2(acc[m][4 * j + 2 * h], acc[m][4 * j + 2 * h + 1]);
+    }
 }
 
 // dw[k, i, g*CG + o] = sum over splits of part[s][g][k*CG + i][o], in split order
@@ -277,23 +441,43 @@ pos_conv_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw
   dw[idx] = sum;
 }
 
-template <int NT, int kDwTaps>
+// kTapStep: the tap counts the instance takes are its multiples
+// (pos_conv.DW_TAP_BLOCK); kTaps: taps a CTA (pos_conv.DW_CTA_TAPS)
+template <int CG, int kTapStep, int kTaps>
 cudaError_t launch_dw(const void* x, const void* dpre, void* part, void* dw, int B, int T, int C,
                       int G, int K, int splits, cudaStream_t s) {
-  if (K % kDwTaps) return cudaErrorInvalidValue;
-  const dim3 grid(K / kDwTaps, G, splits);
-  pos_conv_dw_kernel<NT, kDwTaps><<<grid, kThreads, 0, s>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)dpre, (float*)part, B, T, C, K, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t n = (size_t)K * (C / G) * C;
+  using L = DwLayout<CG, kTaps>;
+  if (K % kTapStep || splits < 1 || (splits > 1 && !part)) return cudaErrorInvalidValue;
+  CUtensorMap x_map, d_map;
+  {  // x (B, T, C): boxes of 64 channels x kXRows rows of one batch row
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)L::kXRows, 1};
+    W2V2_TRY(encode(&x_map, x, 3, dims, strides, box));
+  }
+  {  // dpre (B, T, C): boxes of 64 channels x 64 time steps (B MN-major, N = CG of them)
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)kDwT, 1};
+    W2V2_TRY(encode(&d_map, dpre, 3, dims, strides, box));
+  }
+  const auto kernel = pos_conv_dw_kernel<CG, kTaps>;
+  W2V2_TRY(w2v2::allow_smem(kernel, L::kBytes));
+  const dim3 grid((K + kTaps - 1) / kTaps, G, splits);
+  kernel<<<grid, kDwThreads, L::kBytes, s>>>(x_map, d_map, (float*)dw, (float*)part, B, T, C, K,
+                                              splits);
+  W2V2_TRY(cudaGetLastError());
+  if (splits == 1) return cudaSuccess;
+  const size_t n = (size_t)K * CG * C;
   pos_conv_dw_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      (const float*)part, (float*)dw, K, C / G, C, splits);
+      (const float*)part, (float*)dw, K, CG, C, splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// x (B, T, C) bf16; w the kernel (K, CG, C) bf16 in the JAX layout; bias
+// (C) f32; out (B, T, C) bf16
 extern "C" int w2v2_pos_conv(const void* x, const void* w, const void* bias, void* out, int B,
                              int T, int C, int G, int K, void* stream) {
   return dispatch<kEval>(x, w, bias, out, nullptr, B, T, C, G, K, K / 2, (cudaStream_t)stream);
@@ -306,8 +490,9 @@ extern "C" int w2v2_pos_conv_train_fwd(const void* x, const void* w, const void*
   return dispatch<kTrain>(x, w, bias, out, pre, B, T, C, G, K, K / 2, (cudaStream_t)stream);
 }
 
-// dx (B, T, C) bf16 from dpre (B, T, C) bf16 and the flipped, swapped
-// weights (G, K*CG, CG), rows ordered (tap, output channel of the forward)
+// dx (B, T, C) bf16 from dpre (B, T, C) bf16 and the forward's kernel w (K,
+// CG, C) bf16: the kernel reads it with the taps flipped and the channels
+// swapped (`pos_conv.dx_kernel`'s weights)
 extern "C" int w2v2_pos_conv_dx(const void* dpre, const void* w, void* dx, int B, int T, int C,
                                 int G, int K, void* stream) {
   return dispatch<kDx>(dpre, w, nullptr, dx, nullptr, B, T, C, G, K, K / 2 - 1,
@@ -315,15 +500,14 @@ extern "C" int w2v2_pos_conv_dx(const void* dpre, const void* w, void* dx, int B
 }
 
 // dw (K, CG, C) f32 from x and dpre (B, T, C) bf16; part is f32 scratch of
-// splits * G * K * CG * CG; K must be a multiple of the instance's taps a
-// block (8; 4 at C/G = 64: pos_conv.DW_TAP_BLOCK)
+// splits * G * K * CG * CG (null when splits is 1)
 extern "C" int w2v2_pos_conv_dw(const void* x, const void* dpre, void* part, void* dw, int B,
                                 int T, int C, int G, int K, int splits, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   switch (C / G) {
-    case 16: return (int)launch_dw<2, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
-    case 48: return (int)launch_dw<6, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
-    case 64: return (int)launch_dw<8, 4>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 16: return (int)launch_dw<16, 8, 32>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 48: return (int)launch_dw<48, 8, 16>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 64: return (int)launch_dw<64, 4, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

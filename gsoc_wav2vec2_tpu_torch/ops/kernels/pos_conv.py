@@ -16,8 +16,10 @@ Counterpart of `gsoc_wav2vec2_tpu/ops/pallas/pos_conv.py`:
   kernels, as they are XLA code in JAX.
 
 The kernel is already weight-norm recomposed, in the JAX layout
-(K, C // groups, C).  The CUDA kernels tile time themselves, so they take
-any T (the TPU kernels stopped at MAX_T = 2048 and needed the halo-tiled
+(K, C // groups, C); the CUDA kernels take it in that layout, cast to bf16
+(dx reads it with the taps flipped and the channels swapped, without a
+copy).  The CUDA kernels tile time themselves, so they take any T (the TPU
+kernels stopped at MAX_T = 2048 and needed the halo-tiled
 `pos_conv_blocked` beyond).  The pre-activation and dpre are (B, T, C) here
 (JAX keeps them grouped, (B, G, T, C // G)).
 """
@@ -34,16 +36,19 @@ from . import _build
 # C // groups the CUDA kernels are instantiated for: base, robust/large, and
 # the narrow geometry of the tests
 KERNEL_GROUP_WIDTHS = (48, 64, 16)
-# C // groups -> the taps a block of the dW kernel takes (`launch_dw`'s
-# instances): the tap count must be a multiple of it
+# C // groups -> the tap counts the kernels take are its multiples
+# (`launch_dw<CG, kTapStep, kTaps>`'s kTapStep)
 DW_TAP_BLOCK = {48: 8, 64: 4, 16: 8}
+# C // groups -> taps a CTA of the dW kernel (kTaps): M = taps * C // groups rows
+DW_CTA_TAPS = {48: 16, 64: 8, 16: 32}
+DW_TIME_TILE = 64  # time steps a stage of the dW kernel
 
 
 def supports(c: int, groups: int, dtype: torch.dtype, kernel_size: int = 128) -> bool:
     """Whether the pos-conv kernels' instances cover a (.., C) activation of
     `dtype` convolved in `groups` groups with `kernel_size` taps: bf16, C //
-    groups in `KERNEL_GROUP_WIDTHS`, an even tap count that the dW kernel's
-    tap blocks divide (8; 4 at 64 channels a group).  Elsewhere the card runs
+    groups in `KERNEL_GROUP_WIDTHS`, a tap count that is a multiple of
+    `DW_TAP_BLOCK` (8; 4 at 64 channels a group).  Elsewhere the card runs
     `pos_conv_plain` through autograd, as the JAX package runs XLA's conv."""
     if dtype != torch.bfloat16 or groups < 1 or c % groups:
         return False
@@ -83,11 +88,13 @@ def _check(name, x, kernel, groups):
     return b, t, c, k, cg
 
 
-def _grouped(kernel: torch.Tensor, groups: int) -> torch.Tensor:
-    """(K, CG, C) -> (G, K * CG, CG) bf16: group g's block, rows (tap, in-channel)."""
-    k, cg, _ = kernel.shape
-    return (kernel.reshape(k, cg, groups, cg).permute(2, 0, 1, 3)
-            .reshape(groups, k * cg, cg).to(torch.bfloat16).contiguous())
+def dw_splits(kernel_size: int, cg: int, groups: int, b: int, t: int, sms: int) -> int:
+    """How many CTAs share each dW tile block's time tiles: 1 where the tile
+    blocks (ceil(K / taps) per group) fill the `sms` SMs, else as many as
+    fit, at most one per time tile."""
+    blocks = -(-kernel_size // DW_CTA_TAPS[cg]) * groups
+    tiles = b * -(-t // DW_TIME_TILE)
+    return max(1, min(sms // blocks, tiles))
 
 
 def pos_conv(
@@ -101,12 +108,12 @@ def pos_conv(
     if not gelu_approx:
         raise ValueError("pos_conv computes tanh GELU only, the form every bf16 path takes")
     x = x.contiguous()
-    wg = _grouped(kernel, groups)
+    w = kernel.to(torch.bfloat16).contiguous()
     bias = bias.float().contiguous()
     out = torch.empty_like(x)
     lib = _build.library()
     _build.check("pos_conv", lib.w2v2_pos_conv(
-        x.data_ptr(), wg.data_ptr(), bias.data_ptr(), out.data_ptr(), b, t, c, groups, k,
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b, t, c, groups, k,
         _build.stream_of(x)))
     pos_conv.launches += 1
     return out
@@ -129,13 +136,13 @@ def pos_conv_train_fwd(x, kernel, bias, *, groups: int, gelu_approx: bool):
     if not gelu_approx:
         raise ValueError("pos_conv_train_fwd computes tanh GELU only, the form every bf16 path takes")
     x = x.contiguous()
-    wg = _grouped(kernel, groups)
+    w = kernel.to(torch.bfloat16).contiguous()
     bias = bias.float().contiguous()
     out = torch.empty_like(x)
     pre = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     lib = _build.library()
     _build.check("pos_conv_train_fwd", lib.w2v2_pos_conv_train_fwd(
-        x.data_ptr(), wg.data_ptr(), bias.data_ptr(), out.data_ptr(), pre.data_ptr(),
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), pre.data_ptr(),
         b, t, c, groups, k, _build.stream_of(x)))
     pos_conv_train_fwd.launches += 1
     return out, pre
@@ -165,11 +172,11 @@ def pos_conv_dx(dpre: torch.Tensor, kernel: torch.Tensor, *, groups: int) -> tor
         return pos_conv_dx_plain(dpre, kernel, groups=groups)
     b, t, c, k, _ = _check("pos_conv_dx", dpre, kernel, groups)
     dpre = dpre.contiguous()
-    wk = _grouped(dx_kernel(kernel, groups), groups)
+    w = kernel.to(torch.bfloat16).contiguous()  # flipped and swapped by the kernel
     dx = torch.empty_like(dpre)
     lib = _build.library()
     _build.check("pos_conv_dx", lib.w2v2_pos_conv_dx(
-        dpre.data_ptr(), wk.data_ptr(), dx.data_ptr(), b, t, c, groups, k, _build.stream_of(dpre)))
+        dpre.data_ptr(), w.data_ptr(), dx.data_ptr(), b, t, c, groups, k, _build.stream_of(dpre)))
     pos_conv_dx.launches += 1
     return dx
 
@@ -195,8 +202,9 @@ def pos_conv_dw_plain(x: torch.Tensor, dpre: torch.Tensor, kernel_size: int, *,
 
 def pos_conv_dw(x: torch.Tensor, dpre: torch.Tensor, kernel_size: int, *,
                 groups: int) -> torch.Tensor:
-    """Kernel wrapper of `pos_conv_dw_plain` (x and dpre bf16 on the card):
-    the batch is split over up to 4 partial tiles, summed in a fixed order."""
+    """Kernel wrapper of `pos_conv_dw_plain` (x and dpre bf16 on the card).
+    Where the tile blocks do not fill the card, `dw_splits` CTAs share each
+    block's time tiles, and their partials are summed in a fixed order."""
     if not x.is_cuda:
         return pos_conv_dw_plain(x, dpre, kernel_size, groups=groups)
     b, t, c = x.shape
@@ -209,13 +217,15 @@ def pos_conv_dw(x: torch.Tensor, dpre: torch.Tensor, kernel_size: int, *,
             f"{DW_TAP_BLOCK} taps, got {c} channels, {groups} groups, {k} taps"
         )
     x, dpre = x.contiguous(), dpre.contiguous()
-    splits = min(b, 4)
-    part = torch.empty((splits, groups, k * cg, cg), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = dw_splits(k, cg, groups, b, t, sms)
+    part = (torch.empty((splits, groups, k * cg, cg), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
     dw = torch.empty((k, cg, c), dtype=torch.float32, device=x.device)
     lib = _build.library()
     _build.check("pos_conv_dw", lib.w2v2_pos_conv_dw(
-        x.data_ptr(), dpre.data_ptr(), part.data_ptr(), dw.data_ptr(), b, t, c, groups, k,
-        splits, _build.stream_of(x)))
+        x.data_ptr(), dpre.data_ptr(), None if part is None else part.data_ptr(), dw.data_ptr(),
+        b, t, c, groups, k, splits, _build.stream_of(x)))
     pos_conv_dw.launches += 1
     return dw
 

@@ -325,6 +325,74 @@ def test_pos_conv_train_kernels_match_plain_on_card(cuda, c):
     torch.testing.assert_close(dw, pdw, rtol=0, atol=1e-4 * pdw.abs().max().item())
 
 
+POS_CONV_C = {48: 768, 64: 1024, 16: 256}  # C at 16 groups for each C/G instance
+
+
+def _pos_conv_case(cuda, cg, k, b, t, seed):
+    """bf16 x, dpre, f32 kernel and bias of one pos-conv shape on the card."""
+    c = POS_CONV_C[cg]
+    g = torch.Generator().manual_seed(seed)
+    x, dpre = (torch.randn(b, t, c, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    kernel = (torch.randn(k, cg, c, generator=g) * (1.5 / (k * cg) ** 0.5)).to(cuda)
+    bias = (0.1 * torch.randn(c, generator=g)).to(cuda)
+    return x, dpre, kernel, bias, c // cg
+
+
+def _check_pos_conv_wrappers(cuda, cg, k, b, t, seed=0):
+    """The four pos-conv wrappers against their plain versions: bf16 outputs
+    within 0.05 (mean 5e-3), dx within 1.5% of its scale, the f32
+    pre-activation and dW within 1e-4 of their scales."""
+    x, dpre, kernel, bias, groups = _pos_conv_case(cuda, cg, k, b, t, seed)
+    y, pre = pos_conv.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True)
+    py, ppre = pos_conv.pos_conv_train_fwd_plain(x, kernel, bias, groups=groups, gelu_approx=True)
+    ye = pos_conv.pos_conv(x, kernel, bias, groups=groups, gelu_approx=True)
+    for got in (y, ye):
+        d = (got.float() - py.float()).abs()
+        assert d.max().item() <= 0.05 and d.mean().item() <= 5e-3
+    torch.testing.assert_close(pre, ppre, rtol=0, atol=1e-4 * ppre.abs().max().item())
+    dx = pos_conv.pos_conv_dx(dpre, kernel, groups=groups).float()
+    pdx = pos_conv.pos_conv_dx_plain(dpre, kernel, groups=groups).float()
+    assert (dx - pdx).abs().max().item() <= 0.015 * pdx.abs().max().item()
+    dw = pos_conv.pos_conv_dw(x, dpre, k, groups=groups)
+    pdw = pos_conv.pos_conv_dw_plain(x, dpre, k, groups=groups)
+    torch.testing.assert_close(dw, pdw, rtol=0, atol=1e-4 * pdw.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cg", [48, 64, 16])
+@pytest.mark.parametrize("b,t", [(b, t) for t in (1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 768)
+                                 for b in (1, 3)] + [(1, 5999)])
+def test_pos_conv_kernels_match_plain_at_tile_edges(cuda, cg, b, t):
+    """Every pos-conv wrapper at T on each side of the forward's 256-row and
+    the dW kernel's 64-step tiles, one and three batch rows (ragged splits
+    of the dW time tiles), and the long path's 5999 frames."""
+    _check_pos_conv_wrappers(cuda, cg, 128, b, t, seed=t + 7 * b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cg,k", [(64, 36), (64, 4), (48, 8), (48, 24), (16, 8), (16, 40)])
+def test_pos_conv_kernels_match_plain_at_small_tap_counts(cuda, cg, k):
+    """36 taps at 64 channels a group, the smallest tap count each instance
+    takes, and counts that end inside a dW CTA's tap block."""
+    assert pos_conv.supports(POS_CONV_C[cg], 16, torch.bfloat16, k)
+    _check_pos_conv_wrappers(cuda, cg, k, 3, 129, seed=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cg,k,b,t", [(48, 128, 2, 300), (64, 36, 3, 129), (16, 128, 2, 300)])
+def test_pos_conv_launches_are_bit_equal_on_card(cuda, cg, k, b, t):
+    """Two launches of each pos-conv wrapper on the same inputs are
+    bit-equal, a dW that splits its time tiles (C/G = 16: 64 tile blocks)
+    included."""
+    x, dpre, kernel, bias, groups = _pos_conv_case(cuda, cg, k, b, t, 5)
+    runs = [(pos_conv.pos_conv(x, kernel, bias, groups=groups, gelu_approx=True),
+             *pos_conv.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True),
+             pos_conv.pos_conv_dx(dpre, kernel, groups=groups),
+             pos_conv.pos_conv_dw(x, dpre, k, groups=groups)) for _ in range(2)]
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 def test_train_kernel_wrappers_raise_on_wrong_dtype(cuda):
     x = torch.randn(2, 64, 768, device=cuda)

@@ -82,14 +82,20 @@ def test_pos_conv_supports_taps_and_groups(c, groups, k, ok):
     assert pos_conv.supports(c, groups, torch.bfloat16, k) is ok
 
 
-def _dw_instances():
-    """C/G -> taps a block of each `launch_dw<NT, taps>` instance that
-    `w2v2_pos_conv_dw` in `csrc/pos_conv.cu` dispatches to."""
+def _dw_launches():
+    """C/G -> (kTapStep, kTaps) of each `launch_dw<CG, kTapStep, kTaps>` instance
+    that `w2v2_pos_conv_dw` in `csrc/pos_conv.cu` dispatches to."""
     src = (pathlib.Path(pos_conv.__file__).parents[2] / "csrc" / "pos_conv.cu").read_text()
     entry = src[src.index('extern "C" int w2v2_pos_conv_dw'):]
     entry = entry[:entry.index("\n}\n")]
-    return {int(cg): int(taps)
-            for cg, taps in re.findall(r"case (\d+): return \(int\)launch_dw<\d+, (\d+)>", entry)}
+    found = re.findall(r"case (\d+): return \(int\)launch_dw<(\d+), (\d+), (\d+)>", entry)
+    assert all(case == cg for case, cg, _, _ in found)
+    return {int(cg): (int(step), int(taps)) for _, cg, step, taps in found}
+
+
+def _dw_instances():
+    """C/G -> the tap counts each dW instance takes are multiples of (its kTapStep)."""
+    return {cg: step for cg, (step, _) in _dw_launches().items()}
 
 
 def test_dw_tap_rule_is_the_cuda_instances():
@@ -97,6 +103,13 @@ def test_dw_tap_rule_is_the_cuda_instances():
     C entry's: the same C/G widths, the same taps a block."""
     assert _dw_instances() == pos_conv.DW_TAP_BLOCK
     assert set(pos_conv.DW_TAP_BLOCK) == set(pos_conv.KERNEL_GROUP_WIDTHS)
+
+
+def test_dw_cta_taps_are_the_cuda_instances():
+    """`dw_splits` counts the dW kernel's tap blocks with the C entry's taps a
+    CTA (kTaps), and each is a whole number of 128-row warpgroup halves."""
+    assert {cg: taps for cg, (_, taps) in _dw_launches().items()} == pos_conv.DW_CTA_TAPS
+    assert all(taps * cg % 128 == 0 for cg, taps in pos_conv.DW_CTA_TAPS.items())
 
 
 @pytest.mark.parametrize("cg", sorted(pos_conv.DW_TAP_BLOCK))

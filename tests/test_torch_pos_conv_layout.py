@@ -1,0 +1,155 @@
+"""The pos-conv kernels' walk over their operands, on the CPU.
+
+The CUDA kernels (`gsoc_wav2vec2_tpu_torch/csrc/pos_conv.cu`) cannot run
+here; these tests take the operands as the wrappers hand them over (the
+kernel in its JAX layout (K, C // groups, C), cast to bf16; x and dpre as
+(B, T, C)), cut them into the boxes the kernels load, contract them in the
+kernels' order (forward and dx: one tap a ring slot, 16 channels a k step;
+dW: a CTA's block of taps over 64-step time tiles, split as `dw_splits`
+says), and hold the result to the plain versions.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from gsoc_wav2vec2_tpu_torch.ops.kernels import pos_conv
+
+torch.set_num_threads(2)
+
+BOX = 64  # columns of a TMA box (128 bytes of bf16)
+
+
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    """f32 values that bf16 holds exactly: the plain versions then compute in
+    f32 what the kernels compute from bf16 operands."""
+    return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).float()
+
+
+def _case(cg, k, b, t, seed):
+    groups = 4
+    c = groups * cg
+    rng = np.random.default_rng(seed)
+    x = _bf16(rng.standard_normal((b, t, c)))
+    dpre = _bf16(rng.standard_normal((b, t, c)))
+    kernel = _bf16(rng.standard_normal((k, cg, c)) * (1.5 / math.sqrt(k * cg)))
+    bias = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32))
+    return x, dpre, kernel, bias, groups
+
+
+def _tap_box(w, tap, g, cg):
+    """The TMA box of one tap and group: CG rows (the kernel's second axis) x
+    64 columns from the group's first, zero past C."""
+    return F.pad(w[tap], (0, BOX))[:, g * cg:g * cg + BOX]
+
+
+def _walk_forward(x, w, groups, pad, dx):
+    """sum over taps s (ring slots) and k steps j of window[t + s] (channels
+    16j ..) times the slot's box: the forward reads it MN-major (rows are
+    the contraction), dx reads tap K-1-s K-major (rows are its outputs)."""
+    b, t, c = x.shape
+    k, cg, _ = w.shape
+    win = F.pad(x, (0, 0, pad, k - 1 - pad))  # rows t0 - pad .., zero outside [0, T)
+    out = torch.zeros(b, t, c, dtype=torch.float64)
+    for g in range(groups):
+        acc = torch.zeros(b, t, cg, dtype=torch.float64)
+        for s in range(k):
+            box = _tap_box(w, k - 1 - s if dx else s, g, cg).double()
+            for j in range(cg // 16):
+                a = win[:, s:s + t, g * cg + 16 * j:g * cg + 16 * j + 16].double()
+                bmat = box[:, 16 * j:16 * j + 16].T if dx else box[16 * j:16 * j + 16, :cg]
+                acc += a @ bmat
+        out[:, :, g * cg:(g + 1) * cg] = acc
+    return out
+
+
+@pytest.mark.parametrize("cg,k,t", [(48, 128, 37), (64, 36, 50), (16, 8, 21), (48, 8, 5)])
+def test_forward_walk_over_tap_boxes_is_the_plain_forward(cg, k, t):
+    x, _, kernel, bias, groups = _case(cg, k, 2, t, cg + k)
+    w = kernel.to(torch.bfloat16)  # what the wrappers pass
+    pre = _walk_forward(x, w.float(), groups, k // 2, dx=False) + bias.double()
+    _, want_pre = pos_conv.pos_conv_train_fwd_plain(x, kernel, bias, groups=groups,
+                                                    gelu_approx=True)
+    scale = want_pre.abs().max().item()
+    assert (pre.float() - want_pre).abs().max().item() <= 1e-5 * scale
+    y = torch.nn.functional.gelu(pre.float(), approximate="tanh")
+    want = pos_conv.pos_conv_plain(x, kernel, bias, groups=groups, gelu_approx=True)
+    assert (y - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("cg,k,t", [(48, 128, 37), (64, 36, 50), (16, 8, 21), (64, 4, 3)])
+def test_dx_walk_over_flipped_tap_boxes_is_the_plain_dx(cg, k, t):
+    """dx reads the forward's kernel with the taps flipped and each box read
+    K-major: that is `dx_kernel`'s flipped, in/out-swapped kernel."""
+    _, dpre, kernel, _, groups = _case(cg, k, 2, t, 3 * cg + k)
+    w = kernel.to(torch.bfloat16)
+    got = _walk_forward(dpre, w.float(), groups, k // 2 - 1, dx=True)
+    want = pos_conv.pos_conv_dx_plain(dpre, kernel, groups=groups)
+    assert (got.float() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def _walk_dw(x, dpre, k, groups, splits):
+    """dW as the kernel's CTAs sum it: a block of DW_CTA_TAPS taps (the last
+    one ragged) over the 64-step time tiles n = (b, t0) of its split,
+    [n_all s / S, n_all (s + 1) / S), the splits added in order."""
+    b, t, c = x.shape
+    cg = c // groups
+    taps, tt = pos_conv.DW_CTA_TAPS[cg], pos_conv.DW_TIME_TILE
+    tpr = -(-t // tt)
+    n_all = b * tpr
+    rows = tt + taps
+    # x rows t0 + tap0 - K/2 .. (the box), dpre rows t0 .. t0 + 63; zero outside
+    xp = F.pad(x, (0, 0, k // 2 + tt, k + 2 * tt)).double()
+    dp = F.pad(dpre, (0, 0, 0, tt)).double()
+    dw = torch.zeros(k, cg, c, dtype=torch.float64)
+    for tap0 in range(0, k, taps):
+        for g in range(groups):
+            parts = []
+            for s in range(splits):
+                acc = torch.zeros(taps * cg, cg, dtype=torch.float64)
+                for n in range(n_all * s // splits, n_all * (s + 1) // splits):
+                    bi, t0 = n // tpr, (n % tpr) * tt
+                    lo = t0 + tap0 + tt  # x row t0 + tap0 - K/2 in xp
+                    win = xp[bi, lo:lo + rows, g * cg:(g + 1) * cg]
+                    d = dp[bi, t0:t0 + tt, g * cg:(g + 1) * cg]
+                    for tl in range(taps):
+                        acc[tl * cg:(tl + 1) * cg] += win[tl:tl + tt].T @ d
+                parts.append(acc)
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            n_taps = min(taps, k - tap0)
+            dw[tap0:tap0 + n_taps, :, g * cg:(g + 1) * cg] = total[:n_taps * cg].reshape(n_taps, cg, cg)
+    return dw
+
+
+@pytest.mark.parametrize("cg,k,b,t,splits", [(48, 24, 3, 130, 1), (64, 36, 2, 65, 3),
+                                             (16, 40, 1, 200, 2), (48, 8, 2, 1, 1)])
+def test_dw_walk_over_time_tiles_is_the_plain_dw(cg, k, b, t, splits):
+    """Every (b, t) is in one time tile of one split, the x box starts at the
+    tap block's shift, and ragged tap blocks and splits drop nothing."""
+    x, dpre, _, _, groups = _case(cg, k, b, t, 5 * cg + t)
+    got = _walk_dw(x, dpre, k, groups, splits)
+    want = pos_conv.pos_conv_dw_plain(x, dpre, k, groups=groups)
+    assert (got.float() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("k,cg,groups,b,t,want", [
+    (128, 48, 16, 32, 768, 1),   # base training: 8 tap blocks x 16 groups fill 128 of 132 SMs
+    (128, 64, 16, 8, 768, 1),    # robust/large: 256 blocks
+    (128, 16, 16, 2, 300, 2),    # the narrow test geometry: 64 blocks
+    (36, 64, 4, 2, 65, 4),       # 20 blocks (6 would fit), 4 time tiles
+    (36, 64, 4, 1, 64, 1),       # one time tile: nothing to split
+    (8, 48, 1, 3, 1000, 48),     # one block, 48 time tiles: one split a tile, up to 132
+])
+def test_dw_splits_fill_the_card_and_no_more(k, cg, groups, b, t, want):
+    """`dw_splits` as `pos_conv_dw` calls it: 1 where the tap blocks fill the
+    SMs, else as many splits as fit, never more than the time tiles."""
+    got = pos_conv.dw_splits(k, cg, groups, b, t, 132)
+    assert got == want
+    blocks = -(-k // pos_conv.DW_CTA_TAPS[cg]) * groups
+    tiles = b * -(-t // pos_conv.DW_TIME_TILE)
+    assert 1 <= got <= max(1, tiles) and (got == 1 or blocks * got <= 132)
