@@ -49,7 +49,7 @@ Phases, each printing one JSON line:
                 0.1, each held against the same path through the plain
                 versions on the card;
   9. pretrain -- `scatter_rows_add` against its plain version at
-                (8, 76800, 256) and (8, 76800, 768) -> 768 rows, f32, on
+                (8, 76800, 256) and (8, 76800, 768) -> 768 rows, f32 and bf16, on
                 indices from `sample_negative_indices` over a `batch_masks`
                 mask of a ragged batch (so row 0 is hot), bit-equal over two
                 launches; then the full base `Wav2Vec2ForPreTraining` (768-d,
@@ -132,7 +132,7 @@ PALLAS = "gsoc_wav2vec2_tpu/ops/pallas/"
 
 # every kernel wrapper that counts its launches
 KERNELS = {
-    "window_stats": cf.window_stats, "fused_conv01": cf.conv01,
+    "groupnorm_stats": cf.groupnorm_stats, "fused_conv01": cf.conv01,
     "conv01_robust": cf.conv01_robust, "pos_conv": pc.pos_conv,
     "pos_conv_train_fwd": pc.pos_conv_train_fwd, "pos_conv_dx": pc.pos_conv_dx,
     "pos_conv_dw": pc.pos_conv_dw, "flash_attention_fwd": fa.flash_attention_fwd,
@@ -169,7 +169,7 @@ def expect_counts(what: str, got: dict, want: dict) -> None:
 def plain_kernels():
     """Route every kernel wrapper to its plain version (on the card), to hold
     a whole path through the kernels against the same path without them."""
-    swaps = [(cf, "window_stats", cf.window_stats_plain), (cf, "conv01", cf.conv01_plain),
+    swaps = [(cf, "groupnorm_stats", cf.groupnorm_stats_plain), (cf, "conv01", cf.conv01_plain),
              (cf, "conv01_robust", cf.conv01_robust_plain), (pc, "pos_conv", pc.pos_conv_plain),
              (pc, "pos_conv_train_fwd", pc.pos_conv_train_fwd_plain),
              (pc, "pos_conv_dx", pc.pos_conv_dx_plain), (pc, "pos_conv_dw", pc.pos_conv_dw_plain),
@@ -256,6 +256,7 @@ def profile_device(fn, reps: int, unit: str, top: int = 15):
     busy = sum(r[1] for r in rows)
     return {
         f"wall_ms_per_{unit}": wall_ms, f"device_busy_ms_per_{unit}": busy,
+        f"kernel_launches_per_{unit}": sum(r[2] for r in rows),
         "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
         "top": [{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:top]],
     }
@@ -316,34 +317,39 @@ def check_kernels(model):
     c = w0.shape[-1]
     records = []
 
-    # -- window_stats + fused_conv01 at (16, 246000) --------------------------
+    # -- groupnorm_stats + fused_conv01 at (16, 246000) -----------------------
     x = torch.randn(B, SAMPLES, generator=gen).to(dev, torch.bfloat16)
     t0, t1 = cf.conv0_length(SAMPLES), cf.conv1_length(SAMPLES)
-    gram, rsum = cf.window_stats(x, t0)
-    again = cf.window_stats(x, t0)
-    require(torch.equal(gram, again[0]) and torch.equal(rsum, again[1]),
-            "window_stats: two launches differ")
-    pgram, prsum = cf.window_stats_plain(x, t0)
+    got = cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
+    again = cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
+    require(all(torch.equal(u, v) for u, v in zip(got, again)), "groupnorm_stats: two launches differ")
+    want = cf.groupnorm_stats_plain(x, t0, w0, gamma, beta, 1e-5)
     torch.cuda.synchronize()
-    # f32 sums in another order (per-block partials): 1e-5 of each matrix's scale
-    tol = 1e-5 * max(pgram.abs().max().item(), prsum.abs().max().item())
-    err, mean_err = max(errors(gram, pgram), errors(rsum, prsum))
-    require(err <= tol, f"window_stats: max abs err {err} > {tol}")
-    nbytes = x.numel() * 2 + B * 110 * 4
+    # f32 sums in another order (per-CTA partials, then the cluster in rank
+    # order): 1e-5 of each output's scale
+    tol = 1e-5 * max(want[0].abs().max().item(), want[1].abs().max().item())
+    err, mean_err = max(errors(got[0], want[0]), errors(got[1], want[1]))
+    require(err <= tol, f"groupnorm_stats: max abs err {err} > {tol}")
+    nbytes = x.numel() * 2 + (10 + 2) * c * 4 + 2 * B * c * 4
     # what the function needs per window: the 55 distinct Gram products (the
-    # matrix is symmetric) and 10 sums; bf16 operands, f32 accumulation
-    flops = B * t0 * (2 * 55 + 10)
+    # matrix is symmetric) and 10 sums; then per (row, channel) the folded
+    # affine map (a 10-vector dot and a 10x10 quadratic form)
+    flops = B * t0 * (2 * 55 + 10) + B * c * (2 * 10 + 2 * 110)
     bms, by = bound(nbytes, flops, PEAK_BF16)
+    gram, rsum = cf.window_stats_plain(x, t0)
     records.append(dict(
-        name="window_stats", counter="window_stats", paths=BASE_PATHS, route="cuda",
+        name="groupnorm_stats", counter="groupnorm_stats", paths=BASE_PATHS, route="cuda",
         source=CSRC + "conv_frontend.cu", replaces=PALLAS + "conv_frontend.py:87",
+        also_replaces=[PALLAS + "conv_frontend.py:239-249 (the XLA tail)"],
         max_abs_err=err, mean_abs_err=mean_err, tol=tol, relaunch_bit_equal=True,
-        ms=time_ms(lambda: cf.window_stats(x, t0), 20),
-        plain_ms=time_ms(lambda: cf.window_stats_plain(x, t0), 5),
+        ms=time_ms(lambda: cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5), 50),
+        plain_ms=time_ms(lambda: cf.groupnorm_stats_plain(x, t0, w0, gamma, beta, 1e-5), 5),
+        # the torch glue the kernel folded in, alone on the card
+        glue_ms=time_ms(lambda: cf.groupnorm_scale_shift(gram, rsum, w0, gamma, beta, t0, 1e-5), 50),
         bound_ms=bms, bound_by=by, library_ms=None,
     ))
 
-    scale, shift = cf.groupnorm_scale_shift(pgram, prsum, w0, gamma, beta, t0, 1e-5)
+    scale, shift = want
     got = cf.conv01(x, w0, scale, shift, w1, t1, True)
     require(torch.equal(got, cf.conv01(x, w0, scale, shift, w1, t1, True)), "conv01: two launches differ")
     want = cf.conv01_plain(x, w0, scale, shift, w1, t1, True)
@@ -810,15 +816,16 @@ def check_long_kernels(model, records):
     w0, w1 = fe[0].conv.kernel, fe[1].conv.kernel
     x = torch.randn(1, LONG_SAMPLES, generator=gen).to(dev, torch.bfloat16)
     t0, t1 = cf.conv0_length(LONG_SAMPLES), cf.conv1_length(LONG_SAMPLES)
-    gram, rsum = cf.window_stats(x, t0)
-    pgram, prsum = cf.window_stats_plain(x, t0)
+    gamma, beta = fe[0].layer_norm.gamma, fe[0].layer_norm.beta
+    got = cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
+    scale, shift = cf.groupnorm_stats_plain(x, t0, w0, gamma, beta, 1e-5)
     torch.cuda.synchronize()
-    tol = 1e-5 * max(pgram.abs().max().item(), prsum.abs().max().item())
-    err, _ = max(errors(gram, pgram), errors(rsum, prsum))
-    require(err <= tol, f"window_stats at {LONG_SAMPLES} samples: {err} > {tol}")
-    by_name["window_stats"]["long"] = dict(shape=[1, LONG_SAMPLES], max_abs_err=err, tol=tol)
-    scale, shift = cf.groupnorm_scale_shift(pgram, prsum, w0, fe[0].layer_norm.gamma,
-                                            fe[0].layer_norm.beta, t0, 1e-5)
+    tol = 1e-5 * max(scale.abs().max().item(), shift.abs().max().item())
+    err, _ = max(errors(got[0], scale), errors(got[1], shift))
+    require(err <= tol, f"groupnorm_stats at {LONG_SAMPLES} samples: {err} > {tol}")
+    by_name["groupnorm_stats"]["long"] = dict(
+        shape=[1, LONG_SAMPLES], max_abs_err=err, tol=tol,
+        ms=time_ms(lambda: cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5), 20))
     err, mean_err = errors(cf.conv01(x, w0, scale, shift, w1, t1, True),
                            cf.conv01_plain(x, w0, scale, shift, w1, t1, True))
     require(err <= 0.05 and mean_err <= 5e-3, f"fused_conv01 at {LONG_SAMPLES} samples: {err}")
@@ -927,7 +934,7 @@ def base_train_phase(smi: str):
     rng = np.random.default_rng(0)
     batch = {"speech": rng.standard_normal((TRAIN_B, SAMPLES)).astype(np.float32),
              "labels": _labels(rng, TRAIN_B, config.vocab_size)}
-    per_step = {"window_stats": 1, "fused_conv01": 1,
+    per_step = {"groupnorm_stats": 1, "fused_conv01": 1,
                 "pos_conv_train_fwd": 1, "pos_conv_dx": 1, "pos_conv_dw": 1,
                 "flash_attention_fwd": config.num_layers, "flash_attention_bwd": config.num_layers}
     launches = train_phase("train", "base (768-d, 12 layers) dropout 0.1, SpecAugment, seed 0",
@@ -1077,7 +1084,7 @@ def long_phases(smi: str):
     frames = config.conv_output_length(LONG_SAMPLES)
     rng = np.random.default_rng(11)
     clip = rng.standard_normal((1, LONG_SAMPLES)).astype(np.float32)
-    per_forward = {"window_stats": 1, "fused_conv01": 1, "pos_conv": 1,
+    per_forward = {"groupnorm_stats": 1, "fused_conv01": 1, "pos_conv": 1,
                    "flash_attention_fwd": LONG_LAYERS}
     evaluator = GreedyCTCEvaluator(model)
     reset_counts()
@@ -1154,7 +1161,7 @@ def long_phases(smi: str):
     del card_grads, plain_grads
     torch.cuda.empty_cache()
 
-    per_step = {"window_stats": 1, "fused_conv01": 1, "pos_conv_train_fwd": 1, "pos_conv_dx": 1,
+    per_step = {"groupnorm_stats": 1, "fused_conv01": 1, "pos_conv_train_fwd": 1, "pos_conv_dx": 1,
                 "pos_conv_dw": 1, "flash_attention_fwd": LONG_LAYERS,
                 "flash_attention_bwd": LONG_LAYERS}
     st = create_train_state(model, create_optimizer(model, 1e-4))
@@ -1212,8 +1219,10 @@ def _pretrain_batch(config, args, seed: int, b: int = PRETRAIN_B):
 def check_scatter_kernels(records, smi: str):
     """Phase 9, first part: `scatter_rows_add` at the pretraining recipe's
     shapes (B=8, N = 768 frames x 100 negatives, D = 256 base / 768 large),
-    f32 cotangents, on the indices the port's own sampler gives a ragged
-    batch: every unmasked frame sends its 100 copies to row 0."""
+    f32 and bf16 cotangents, on the indices the port's own sampler gives a
+    ragged batch: every unmasked frame sends its 100 copies to row 0; each
+    also timed at uniform indices, and its three kernels (plan, sum, fixup)
+    by the profiler."""
     dev = torch.device("cuda")
     config, args = Wav2Vec2PretrainingConfig(), PretrainingArgs()
     batch, _ = _pretrain_batch(config, args, seed=31)
@@ -1243,8 +1252,12 @@ def check_scatter_kernels(records, smi: str):
         require(err <= 1e-5 * want.abs().max().item() and torch.equal(
             got, sa.scatter_rows_add(x, sidx, l_rows=64)), f"scatter_rows_add small {x.dtype}: {err}")
 
-    for d, name in ((config.proj_codevector_dim, "scatter_rows_add"), (768, "scatter_rows_add_d768")):
-        dneg = torch.randn(b, l * k, d, generator=gen).to(dev)
+    cases = ((config.proj_codevector_dim, torch.float32, "scatter_rows_add"),
+             (768, torch.float32, "scatter_rows_add_d768"),
+             (config.proj_codevector_dim, torch.bfloat16, "scatter_rows_add_bf16"),
+             (768, torch.bfloat16, "scatter_rows_add_bf16_d768"))
+    for d, dtype, name in cases:
+        dneg = torch.randn(b, l * k, d, generator=gen).to(dev, dtype)
         got = sa.scatter_rows_add(dneg, local, l_rows=l)
         again = sa.scatter_rows_add(dneg, local, l_rows=l)
         want = sa.scatter_rows_add_plain(dneg, local, l_rows=l)
@@ -1254,6 +1267,9 @@ def check_scatter_kernels(records, smi: str):
         require(got.shape == (b, l, d) and got.dtype == torch.float32, f"{name}: {tuple(got.shape)}")
         bit_equal = torch.equal(got, again)
         require(bit_equal, f"{name}: two launches on the same inputs differ")
+        empty = torch.ones(b, l, dtype=torch.bool, device=dev)
+        empty.scatter_(1, local.long(), False)
+        require(bool(empty.any()) and not bool(got[empty].any()), f"{name}: a row without a source is not 0")
         scale = exact.abs().max().item()
         err64 = (got.double() - exact).abs().max().item()
         plain64 = (want.double() - exact).abs().max().item()
@@ -1263,31 +1279,39 @@ def check_scatter_kernels(records, smi: str):
         # the two, 1e-5 against the f64 sum
         tol = 2e-5 * scale
         require(err <= tol and err64 <= 1e-5 * scale, f"{name}: err {err} (f64 {err64}, scale {scale})")
-        del want, exact, again
-        nbytes = dneg.numel() * 4 + local.numel() * 4 + got.numel() * 4
+        del want, exact, again, empty
+        nbytes = dneg.numel() * dneg.element_size() + local.numel() * 4 + got.numel() * 4
         bms, by = bound(nbytes, float(dneg.numel()), PEAK_F32)
         table = torch.zeros(b * l, d, device=dev)
         flat = dneg.reshape(-1, d)
+        prof = profile_device(lambda: sa.scatter_rows_add(dneg, local, l_rows=l), 5, "call", top=8)
+        by_kernel = {part: sum(t["ms"] for t in prof["top"] if part in t["kernel"])
+                     for part in ("scatter_plan_kernel", "scatter_sum_kernel", "scatter_fixup_kernel")}
         records.append(dict(
             name=name, counter="scatter_rows_add", paths=("pretrain_gather",), route="cuda",
             source=CSRC + "scatter_add.cu", replaces=PALLAS + "scatter_add.py:87",
-            shape=[b, l * k, d], l_rows=l, dtype="float32", addends="f32, exact",
-            sources_on_row_0=hot_share, segment=sa.SEGMENT,
+            shape=[b, l * k, d], l_rows=l, dtype=str(dtype).replace("torch.", ""),
+            addends="f32, exact", sources_on_row_0=hot_share,
             max_abs_err=err, mean_abs_err=mean_err, tol=tol, output_scale=scale,
             max_abs_err_vs_f64=err64, plain_max_abs_err_vs_f64=plain64, bit_equal_relaunch=bit_equal,
             ms=time_ms(lambda: sa.scatter_rows_add(dneg, local, l_rows=l), 20),
             plain_ms=time_ms(lambda: sa.scatter_rows_add_plain(dneg, local, l_rows=l), 5, 1),
             bound_ms=bms, bound_by=by,
-            library_ms=time_ms(lambda: table.zero_().index_add_(0, rows, flat), 5, 1),
+            # one `index_add_` into an f32 table; none takes bf16 rows into f32 sums
+            library_ms=(time_ms(lambda: table.zero_().index_add_(0, rows, flat), 5, 1)
+                        if dtype == torch.float32 else None),
+            # the profiler's device ms a call of the three kernels
+            plan_ms=by_kernel["scatter_plan_kernel"], sum_ms=by_kernel["scatter_sum_kernel"],
+            fixup_ms=by_kernel["scatter_fixup_kernel"],
         ))
         # the same rows at uniform indices: what the skew costs
         uniform = torch.randint(0, l, (b, l * k), generator=gen).to(torch.int32).to(dev)
         records[-1]["ms_uniform_indices"] = time_ms(
-            lambda: sa.scatter_rows_add(dneg, uniform, l_rows=l), 10)
+            lambda: sa.scatter_rows_add(dneg, uniform, l_rows=l), 20)
         del dneg, got, table, flat, uniform
         torch.cuda.empty_cache()
-    emit({"phase": "pretrain_kernels", "checked": [r["name"] for r in records[-2:]],
-          "records": records[-2:], "card": smi})
+    emit({"phase": "pretrain_kernels", "checked": [r["name"] for r in records[-len(cases):]],
+          "records": records[-len(cases):], "card": smi})
 
 
 def pretrain_phases(smi: str):
@@ -1658,7 +1682,7 @@ def main() -> int:
     emit({"phase": "kernels", "checked": [r["name"] for r in records], "card": smi})
 
     # 4. main path
-    per_forward = {"window_stats": 1, "fused_conv01": 1, "pos_conv": 1,
+    per_forward = {"groupnorm_stats": 1, "fused_conv01": 1, "pos_conv": 1,
                    "flash_attention_fwd": config.num_layers}
     evaluator = GreedyCTCEvaluator(model)
     require(evaluator.compute_dtype == torch.bfloat16, "the card path must run in bf16")
@@ -1698,7 +1722,7 @@ def main() -> int:
         logits = wav2vec2_for_ctc_forward(model, config, x, compute_dtype=torch.bfloat16)
         again = wav2vec2_for_ctc_forward(model, config, x, compute_dtype=torch.bfloat16)
         torch.cuda.synchronize()
-        # no float atomics on the path (window_stats sums its partials in a
+        # no float atomics on the path (groupnorm_stats sums its partials in a
         # fixed order): a second forward of the batch gives the same bits
         require(torch.equal(logits, again), "two forwards of one batch differ on the card")
         del again

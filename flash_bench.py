@@ -1,6 +1,6 @@
 """Times the port's hand-written kernels on one NVIDIA GPU.
 
-    python3 flash_bench.py [--family flash|conv|pos_conv] [--root DIR] [--label NAME]
+    python3 flash_bench.py [--family flash|conv|pos_conv|scatter|forward] [--root DIR] [--label NAME]
 
 `--family flash` (the default): at each shape of the main paths (base
 inference, base training, robust, long), the forward and the backward
@@ -10,8 +10,10 @@ wrappers' host time a call at a tiny shape.
 
 `--family conv`: the conv front-end kernels of
 `gsoc_wav2vec2_tpu_torch.ops.kernels.conv_frontend` at the main paths'
-shapes (x 246000 samples): `window_stats` and `conv01` (the base family,
-GroupNorm folded into scale/shift) at B=16 (inference) and B=32 (training),
+shapes (x 246000 samples): GroupNorm's scale and shift at B=16 and at 1 x
+1,920,000 (`groupnorm_stats`; in a tree that predates it, `window_stats`
+followed by the torch glue `groupnorm_scale_shift`, which it replaced),
+`conv01` (the base family) at B=16 (inference) and B=32 (training),
 `conv01_robust` at B=8.
 
 `--family pos_conv`: the four wrappers of
@@ -20,10 +22,21 @@ samples) and K = 128 taps: base (C = 768, 16 groups) `pos_conv` at B=16 and
 `pos_conv_train_fwd`, `pos_conv_dx`, `pos_conv_dw` at B=32; robust/large
 (C = 1024, C/G = 64) all four at B=8.
 
+`--family scatter`: `scatter_rows_add` of
+`gsoc_wav2vec2_tpu_torch.ops.kernels.scatter_add` at the pretraining
+recipe's (8, 768 x 100, D) -> 768 rows, D = 256 and 768, f32 and bf16, on
+the indices the package's negative sampler gives a ragged masked batch (row
+0 hot) and on uniform indices, with the device ms of each kernel of the call.
+
+`--family forward`: the base model's bf16 forward (`Wav2Vec2Config()`, seeded
+weights) at B=16 x 246000: ms per forward (host clock around a forward that
+ends in a synchronize, median of 20), and by the profiler over 3 forwards the
+kernel launches and device busy ms per forward.
+
 Each time is device ms a call by CUDA events around a back-to-back run after
 warm-up (a device sleep ahead of it keeps the host's wrapper work out), and
-by the profiler (flash: every kernel of the call; conv, pos_conv: the
-call's largest kernel, named, and every kernel of the call).  `--root` imports the package from another checkout, so
+by the profiler (flash: every kernel of the call; conv, pos_conv, scatter:
+the call's largest kernel, named, and every kernel of the call).  `--root` imports the package from another checkout, so
 that two trees are compared on one card in one run (parent, change, change,
 parent).  Prints one JSON line per shape, then the card's name and power
 limit.
@@ -55,9 +68,8 @@ def events_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(torch, fn, reps):
-    """(device ms a call of every kernel, of the largest kernel, its name)
-    by the profiler over `reps` calls."""
+def profiled_rows(torch, fn, reps):
+    """The profiler's device events by kernel over `reps` calls of `fn`."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -66,8 +78,14 @@ def profiled_ms(torch, fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
+
+
+def profiled_ms(torch, fn, reps):
+    """(device ms a call of every kernel, of the largest kernel, its name)
+    by the profiler over `reps` calls."""
+    rows = profiled_rows(torch, fn, reps)
     top = max(rows, key=lambda e: e.self_device_time_total)
     return (sum(e.self_device_time_total for e in rows) / 1e3 / reps,
             top.self_device_time_total / 1e3 / reps, top.key[:80])
@@ -126,26 +144,31 @@ def bench_conv(torch, label):
     from gsoc_wav2vec2_tpu_torch.ops.kernels import conv_frontend as cf
 
     gen = torch.Generator().manual_seed(0)
-    samples, c = 246000, 512
-    t0, t1 = cf.conv0_length(samples), cf.conv1_length(samples)
+    c = 512
     w0 = (torch.randn(10, 1, c, generator=gen) * 0.3).cuda()
     w1 = (torch.randn(3, c, c, generator=gen) * (1.5 / c ** 0.5)).cuda()
     vec = lambda scale, offset: (offset + scale * torch.randn(c, generator=gen)).cuda()
     gamma, beta = vec(0.1, 1.0), vec(0.1, 0.0)
     robust = (w0, vec(0.1, 0.0), vec(0.1, 1.0), vec(0.1, 0.0), w1, vec(0.1, 0.0), vec(0.1, 1.0),
               vec(0.1, 0.0))
-    for name, b in (("window_stats", 16), ("conv01", 16), ("conv01", 32), ("conv01_robust", 8)):
+    for name, b, samples in (("stats", 16, 246000), ("stats", 1, 1_920_000), ("conv01", 16, 246000),
+                             ("conv01", 32, 246000), ("conv01_robust", 8, 246000)):
         x = torch.randn(b, samples, generator=gen).cuda().to(torch.bfloat16)
-        if name == "window_stats":
-            fn = lambda: cf.window_stats(x, t0)
+        t0, t1 = cf.conv0_length(samples), cf.conv1_length(samples)
+        if name == "stats" and hasattr(cf, "groupnorm_stats"):
+            name = "groupnorm_stats"
+            fn = lambda: cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
+        elif name == "stats":  # the two-launch kernel and the glue it fed
+            name = "window_stats+groupnorm_scale_shift"
+            fn = lambda: cf.groupnorm_scale_shift(*cf.window_stats(x, t0), w0, gamma, beta, t0, 1e-5)
         elif name == "conv01":
             gram, rsum = cf.window_stats_plain(x, t0)
             scale, shift = cf.groupnorm_scale_shift(gram, rsum, w0, gamma, beta, t0, 1e-5)
             fn = lambda: cf.conv01(x, w0, scale, shift, w1, t1, True)
         else:
             fn = lambda: cf.conv01_robust(x, *robust, t1, 1e-5, True)
-        row = {"label": label, "kernel": name, "shape": [b, samples], "ms": events_ms(torch, fn, 20)}
-        _, row["device_ms"], row["device_kernel"] = profiled_ms(torch, fn, 5)
+        row = {"label": label, "kernel": name, "shape": [b, samples], "ms": events_ms(torch, fn, 50)}
+        row["call_device_ms"], row["device_ms"], row["device_kernel"] = profiled_ms(torch, fn, 5)
         print(json.dumps(row), flush=True)
         del x
         torch.cuda.empty_cache()
@@ -180,9 +203,71 @@ def bench_pos_conv(torch, label):
             torch.cuda.empty_cache()
 
 
+def bench_scatter(torch, label):
+    from gsoc_wav2vec2_tpu_torch.models import pretraining
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import scatter_add as sa
+
+    gen = torch.Generator().manual_seed(0)
+    b, l, k = 8, 768, 100
+    lengths = torch.randint(l // 3, l + 1, (b,), generator=gen)
+    lengths[0] = l
+    mti = (torch.rand(b, l, generator=gen) < 0.65) & (torch.arange(l)[None, :] < lengths[:, None])
+    negs = pretraining.sample_negative_indices(gen, mti, k)
+    sampler = (negs - (torch.arange(b) * l)[:, None, None].to(torch.int32)).reshape(b, l * k).cuda()
+    uniform = torch.randint(0, l, (b, l * k), generator=gen).to(torch.int32).cuda()
+    for d in (256, 768):
+        for dtype in (torch.float32, torch.bfloat16):
+            dneg = torch.randn(b, l * k, d, generator=gen).cuda().to(dtype)
+            for kind, idx in (("sampler", sampler), ("uniform", uniform)):
+                fn = lambda: sa.scatter_rows_add(dneg, idx, l_rows=l)
+                row = {"label": label, "kernel": "scatter_rows_add", "shape": [b, l * k, d],
+                       "dtype": str(dtype).replace("torch.", ""), "indices": kind,
+                       "sources_on_row_0": (idx == 0).float().mean().item(),
+                       "ms": events_ms(torch, fn, 20)}
+                rows = profiled_rows(torch, fn, 5)
+                row["call_device_ms"] = sum(e.self_device_time_total for e in rows) / 5e3
+                row["kernels"] = {e.key[:48]: e.self_device_time_total / 5e3 for e in rows}
+                print(json.dumps(row), flush=True)
+            del dneg
+            torch.cuda.empty_cache()
+
+
+def bench_forward(torch, label):
+    import statistics
+
+    from gsoc_wav2vec2_tpu_torch import Wav2Vec2Config, Wav2Vec2ForCTC
+    from gsoc_wav2vec2_tpu_torch.models.modeling import wav2vec2_for_ctc_forward
+
+    config = Wav2Vec2Config(dropout=0.0, apply_spec_augment=False)
+    model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(0))
+    x = torch.randn(16, 246000, generator=torch.Generator().manual_seed(1)).cuda()
+
+    def forward():
+        with torch.inference_mode():
+            wav2vec2_for_ctc_forward(model, config, x, compute_dtype=torch.bfloat16)
+
+    for _ in range(3):
+        forward()
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(20):
+        t = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t) * 1e3)
+    rows = profiled_rows(torch, forward, 3)
+    print(json.dumps({
+        "label": label, "kernel": "base forward", "shape": [16, 246000],
+        "ms_per_forward": statistics.median(reps), "ms_min_max": [min(reps), max(reps)],
+        "launches_per_forward": sum(e.count for e in rows) / 3,
+        "device_busy_ms_per_forward": sum(e.self_device_time_total for e in rows) / 3e3,
+    }), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--family", choices=("flash", "conv", "pos_conv"), default="flash")
+    ap.add_argument("--family", choices=("flash", "conv", "pos_conv", "scatter", "forward"),
+                    default="flash")
     ap.add_argument("--root", default=".", help="checkout to import the package from")
     ap.add_argument("--label", default="this tree")
     args = ap.parse_args()
@@ -194,7 +279,8 @@ def main() -> int:
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    {"flash": bench_flash, "conv": bench_conv, "pos_conv": bench_pos_conv}[args.family](torch, args.label)
+    {"flash": bench_flash, "conv": bench_conv, "pos_conv": bench_pos_conv,
+     "scatter": bench_scatter, "forward": bench_forward}[args.family](torch, args.label)
     print(smi, flush=True)
     return 0
 

@@ -156,7 +156,39 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// 1-D bulk async copy: `bytes` (a multiple of 16) from device memory at `src`
+// into this block's shared memory at `dst` (both 16-byte aligned), completing
+// its bytes on `bar`; no tensor map, so any row of any tensor is a source
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // --- thread block clusters -----------------------------------------------------
+
+// the value at the offset of `p` in the shared memory of block `cta` of the
+// cluster (distributed shared memory)
+__device__ __forceinline__ float ld_shared_cluster(const float* p, uint32_t cta) {
+  float v;
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %1, %2;\n"
+      "ld.shared::cluster.f32 %0, [remote];\n}\n"
+      : "=f"(v) : "r"(smem_addr(p)), "r"(cta) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int ld_shared_cluster(const int* p, uint32_t cta) {
+  int v;
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %1, %2;\n"
+      "ld.shared::cluster.s32 %0, [remote];\n}\n"
+      : "=r"(v) : "r"(smem_addr(p)), "r"(cta) : "memory");
+  return v;
+}
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;

@@ -2,20 +2,31 @@
 // families.
 //
 // Replaces the three Pallas kernels of gsoc_wav2vec2_tpu/ops/pallas/conv_frontend.py:
-//   * _window_stats       (_stats_kernel)   -> window_stats_kernel + window_stats_reduce_kernel
+//   * _window_stats       (_stats_kernel)   -> groupnorm_stats_kernel (+ the
+//                                               XLA tail of fused_conv01)
 //   * fused_conv01        (_kernel)         -> conv01_kernel<C, false>
 //   * fused_conv01_robust (_kernel_robust)  -> conv01_kernel<C, true>
 //
-// window_stats: the exact GroupNorm statistics of conv0 without conv0.  Per
-// batch row it sums the 10x10 Gram matrix and the 10-vector row sum of conv0's
-// sample windows, read straight from the bf16 waveform at their phase offsets
-// (A row r = x[10r:10r+10], B row r = x[10r+5:10r+15]; rows past na / nb are
-// masked).  Bound on the H100: bytes (one pass over the waveform, ~7.9 MB at
-// B=16 x 246000: ~2.4 us), in practice launch latency.  Deterministic: each
-// thread keeps 55 Gram + 10 sum partials in registers; a warp shuffle tree,
-// then per-warp slots in shared memory summed in warp order give one partial
-// row per block, written to a (B, blocks, 65) scratch; a second one-block-a-row
-// kernel sums those in block order.  No atomics, so a relaunch is bit-equal.
+// groupnorm_stats_kernel: conv0's GroupNorm folded into the per-channel
+// scale and shift that conv01 applies, from the exact statistics of conv0
+// without conv0: per batch row the 10x10 Gram matrix and the 10-vector row
+// sum of conv0's sample windows (A row r = x[10r:10r+10], B row r =
+// x[10r+5:10r+15]; rows past na / nb are masked), then mean = row_sum W0 /
+// t0, E[y^2] = diag(W0^T G W0) / t0, var clamped at 0, scale = rsqrt(var +
+// eps) gamma, shift = beta - mean scale (the JAX package's XLA tail,
+// gsoc_wav2vec2_tpu/ops/pallas/conv_frontend.py:239-249).  Bound on the H100:
+// bytes (one pass over the waveform, ~7.9 MB at B=16 x 246000: ~2.4 us); a
+// launch and its latency in practice.  Design: one launch, a cluster of 8
+// CTAs per batch row.  Each CTA takes a contiguous span of window pairs
+// (starting at a multiple of 8 pairs = 80 samples, 160 bytes), staged in
+// shared memory by 1-D bulk async copies into a two-slot ring (a chunk
+// carries the 5-sample halo its last B window reads), and sums its 65
+// partials from shared memory (each thread its rows, then a warp shuffle
+// tree, then the warps in order).  After a cluster
+// barrier every CTA reads the 8 partial vectors over distributed shared
+// memory and adds them in rank order, so all hold the same bits, and
+// computes C/8 channels' scale and shift.  No
+// scratch, no atomics: a relaunch is bit-equal.
 //
 // conv01_kernel: both families in one skeleton, templated on the norm.
 //   base:   conv0 (k10 s5, 1->C) -> scale/shift (GroupNorm folded) -> GELU
@@ -100,75 +111,158 @@
 
 namespace {
 
-// -- window_stats ------------------------------------------------------------
+// -- groupnorm_stats -------------------------------------------------------------
 
+constexpr int kStatsCluster = 8;      // CTAs of a batch row, the portable cluster size
 constexpr int kStatsThreads = 256;
 constexpr int kStatsWarps = kStatsThreads / 32;
-constexpr int kStatsValues = 65;  // 55 upper-triangle Gram entries + 10 sums
+constexpr int kStatsValues = 65;      // 55 upper-triangle Gram entries + 10 sums
+constexpr int kRowAlign = 8;          // a CTA's and a chunk's first window pair: a multiple of 8 (80 samples, 160 bytes)
+constexpr int kChunkRows = 1600;      // window pairs a staged chunk holds, at most
+constexpr int kChunkSamples = 10 * kChunkRows + 8;  // + the 5-sample halo of B windows, to 16 bytes
 
-__device__ __forceinline__ void accumulate_row(const __nv_bfloat16* p, float acc[kStatsValues]) {
-  float v[10];
-#pragma unroll
-  for (int j = 0; j < 10; ++j) v[j] = __bfloat162float(p[j]);
-  int idx = 0;
+struct StatsSmem {
+  __nv_bfloat16 x[2][kChunkSamples];  // a two-slot ring of chunks
+  float red[kStatsWarps][kStatsValues];
+  float part[kStatsValues];   // this CTA's partials, read by the whole cluster
+  float total[kStatsValues];  // the cluster's sums, partials added in rank order
+  uint64_t full[2];
+};
+
+__device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+__device__ __forceinline__ void accumulate_window(const float (&v)[10], float (&acc)[kStatsValues]) {
+  int i = 0;
 #pragma unroll
   for (int j = 0; j < 10; ++j) {
 #pragma unroll
-    for (int k = j; k < 10; ++k) acc[idx++] += v[j] * v[k];
+    for (int k = j; k < 10; ++k) acc[i++] += v[j] * v[k];
   }
 #pragma unroll
   for (int j = 0; j < 10; ++j) acc[55 + j] += v[j];
 }
 
-// part[b, block, :] = this block's 65 partial sums
-__global__ void __launch_bounds__(kStatsThreads)
-window_stats_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ part, int L, int na,
-                    int nb) {
-  __shared__ float red[kStatsWarps][kStatsValues];
-  const int b = blockIdx.y;
-  const __nv_bfloat16* xb = x + (size_t)b * L;
+// the upper-triangle slot of Gram entry (j, k), j <= k
+__device__ __forceinline__ int tri(int j, int k) { return j * 10 - j * (j - 1) / 2 + (k - j); }
+
+struct StatsArgs {
+  const __nv_bfloat16* x;  // (B, ld), L valid samples a row
+  const float* w0;         // (10, C)
+  const float* gamma;      // (C)
+  const float* beta;       // (C)
+  float* scale;            // (B, C)
+  float* shift;            // (B, C)
+  int L, ld, t0, C;
+  float eps;
+};
+
+// one cluster of kStatsCluster CTAs per batch row (grid B * kStatsCluster)
+__global__ void __cluster_dims__(kStatsCluster, 1, 1) __launch_bounds__(kStatsThreads)
+groupnorm_stats_kernel(const StatsArgs a) {
+  StatsSmem& sm = w2v2::block_smem<StatsSmem>();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / kStatsCluster;
+  const uint32_t rank = w2v2::cluster_rank();
+  const int na = (a.t0 + 1) / 2, nb = a.t0 / 2;  // A rows x[10r:10r+10], B rows x[10r+5:10r+15]
+  const int per_cta = round_up((na + kStatsCluster - 1) / kStatsCluster, kRowAlign);
+  const int r_begin = min(na, (int)rank * per_cta), r_end = min(na, r_begin + per_cta);
+  const int chunks = (r_end - r_begin + kChunkRows - 1) / kChunkRows;
+  const int chunk_rows = chunks ? round_up((r_end - r_begin + chunks - 1) / chunks, kRowAlign) : 0;
+  const __nv_bfloat16* xb = a.x + (size_t)b * a.ld;
+  // chunk i: rows [r0, r0 + rows) and samples [10 r0, 10 r0 + 10 rows + 5)
+  // rounded up to 8 samples, cut at the row stride
+  auto issue = [&](int i) {
+    const int r0 = r_begin + i * chunk_rows, rows = min(chunk_rows, r_end - r0);
+    const int s0 = 10 * r0;
+    const int n = min(round_up(10 * rows + 5, 8), a.ld - s0);
+    w2v2::mbar_arrive_expect_tx(&sm.full[i & 1], (uint32_t)n * 2);
+    w2v2::bulk_load(sm.x[i & 1], xb + s0, (uint32_t)n * 2, &sm.full[i & 1]);
+  };
+  if (tid == 0) {
+    w2v2::mbar_init(&sm.full[0], 1);
+    w2v2::mbar_init(&sm.full[1], 1);
+    w2v2::mbar_init_fence();
+    for (int i = 0; i < min(2, chunks); ++i) issue(i);
+  }
+  __syncthreads();
+
   float acc[kStatsValues];
 #pragma unroll
   for (int i = 0; i < kStatsValues; ++i) acc[i] = 0.f;
-  const int rows = max(na, nb);
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += gridDim.x * blockDim.x) {
-    if (r < na) accumulate_row(xb + 10 * (size_t)r, acc);
-    if (r < nb) accumulate_row(xb + 10 * (size_t)r + 5, acc);
+  for (int c = 0; c < chunks; ++c) {
+    const int r0 = r_begin + c * chunk_rows, rows = min(chunk_rows, r_end - r0);
+    w2v2::mbar_wait(&sm.full[c & 1], (c >> 1) & 1);
+    const uint32_t* xw = reinterpret_cast<const uint32_t*>(sm.x[c & 1]);
+    for (int i = tid; i < rows; i += kStatsThreads) {
+      // samples 10 i .. 10 i + 15 of the chunk: 8 words from word 5 i (a lane
+      // stride of 5 words: no bank conflict)
+      uint32_t w[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) w[q] = xw[5 * i + q];
+      float v[10];
+#pragma unroll
+      for (int j = 0; j < 10; ++j) v[j] = __uint_as_float((w[j >> 1] >> (16 * (j & 1))) << 16);
+      accumulate_window(v, acc);
+      if (r0 + i < nb) {
+#pragma unroll
+        for (int j = 0; j < 10; ++j)
+          v[j] = __uint_as_float((w[(j + 5) >> 1] >> (16 * ((j + 5) & 1))) << 16);
+        accumulate_window(v, acc);
+      }
+    }
+    __syncthreads();  // the slot is read: chunk c + 2 may land in it
+    if (tid == 0 && c + 2 < chunks) issue(c + 2);
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // the CTA's partials: warp sums (a shuffle tree per value), then the
+  // warps in order.  (A halving butterfly, 62 shuffles a lane in place of
+  // 325, measured slower on the H100: PERF.md §6.)
 #pragma unroll
   for (int i = 0; i < kStatsValues; ++i) {
     const float s = w2v2::warp_sum(acc[i]);
-    if (lane == 0) red[warp][i] = s;
+    if (lane == 0) sm.red[warp][i] = s;
   }
   __syncthreads();
-  if (threadIdx.x < kStatsValues) {
+  if (tid < kStatsValues) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kStatsWarps; ++w) s += red[w][threadIdx.x];
-    part[((size_t)b * gridDim.x + blockIdx.x) * kStatsValues + threadIdx.x] = s;
+    for (int q = 0; q < kStatsWarps; ++q) s += sm.red[q][tid];
+    sm.part[tid] = s;
   }
-}
+  // the cluster's partials in rank order, over distributed shared memory:
+  // every CTA gets the same bits
+  w2v2::cluster_sync();
+  if (tid < kStatsValues) {
+    float s = 0.f;
+    for (int q = 0; q < kStatsCluster; ++q) s += w2v2::ld_shared_cluster(&sm.part[tid], q);
+    sm.total[tid] = s;
+  }
+  w2v2::cluster_sync();  // no CTA leaves while another reads it; `total` is whole
 
-// out row b: [gram (10x10, row-major) | row_sum (10)], the blocks' partials
-// summed in block order
-__global__ void window_stats_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                           int blocks) {
-  const int b = blockIdx.x, i = threadIdx.x;
-  if (i >= kStatsValues) return;
-  const float* pb = part + (size_t)b * blocks * kStatsValues + i;
-  float s = 0.f;
-  for (int k = 0; k < blocks; ++k) s += pb[(size_t)k * kStatsValues];
-  float* ob = out + (size_t)b * 110;
-  if (i >= 55) {
-    ob[100 + (i - 55)] = s;
-    return;
+  // GroupNorm of conv0 folded into scale / shift, for this CTA's channels:
+  // mean = row_sum . W0[:, c] / t0, E[y^2] = W0[:, c]^T G W0[:, c] / t0
+  const int per_ch = (a.C + kStatsCluster - 1) / kStatsCluster;
+  const int c1 = min(a.C, ((int)rank + 1) * per_ch);
+  const float inv_t0 = 1.f / (float)a.t0;
+  for (int ch = (int)rank * per_ch + tid; ch < c1; ch += kStatsThreads) {
+    float wc[10];
+#pragma unroll
+    for (int j = 0; j < 10; ++j) wc[j] = a.w0[j * a.C + ch];
+    float mean = 0.f, sumsq = 0.f;
+#pragma unroll
+    for (int j = 0; j < 10; ++j) {
+      mean += sm.total[55 + j] * wc[j];
+      float inner = 0.f;
+#pragma unroll
+      for (int k = 0; k < 10; ++k) inner += sm.total[j <= k ? tri(j, k) : tri(k, j)] * wc[k];
+      sumsq += wc[j] * inner;
+    }
+    mean *= inv_t0;
+    const float var = fmaxf(sumsq * inv_t0 - mean * mean, 0.f);
+    const float sc = rsqrtf(var + a.eps) * a.gamma[ch];
+    a.scale[(size_t)b * a.C + ch] = sc;
+    a.shift[(size_t)b * a.C + ch] = a.beta[ch] - mean * sc;
   }
-  int j = 0, rem = i;
-  while (rem >= 10 - j) { rem -= 10 - j; ++j; }
-  const int k = j + rem;
-  ob[j * 10 + k] = s;
-  ob[k * 10 + j] = s;
 }
 
 // -- conv01 (both families) ----------------------------------------------------
@@ -674,17 +768,21 @@ ConvArgs conv_args(const void* x, const void* w0p, const void* p0, const void* p
 
 }  // namespace
 
-// x (B, L) bf16 -> out (B, 110) f32 [gram | row_sum]; part is (B, blocks, 65)
-// f32 scratch, blocks in [1, 32]
-extern "C" int w2v2_window_stats(const void* x, void* part, void* out, int B, int L, int na,
-                                 int nb, int blocks, void* stream) {
-  if (blocks < 1 || blocks > 32) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  window_stats_kernel<<<dim3(blocks, B), kStatsThreads, 0, s>>>(
-      (const __nv_bfloat16*)x, (float*)part, L, na, nb);
-  const cudaError_t err = cudaGetLastError();
+// x (B, ld) bf16, L valid samples a row (ld a multiple of 8, x 16-byte
+// aligned); w0 (10, C), gamma, beta (C) f32 -> scale, shift (B, C) f32: the
+// GroupNorm of conv0's t0 rows folded into a per-channel affine map
+extern "C" int w2v2_groupnorm_stats(const void* x, const void* w0, const void* gamma,
+                                    const void* beta, void* scale, void* shift, int B, int L,
+                                    int ld, int t0, int C, float eps, void* stream) {
+  if (B < 1 || C < 1 || t0 < 1 || ld < L || ld % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      5LL * (t0 - 1) + 10 > L)
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = w2v2::smem_bytes<StatsSmem>();
+  const cudaError_t err = w2v2::allow_smem(groupnorm_stats_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  window_stats_reduce_kernel<<<B, 96, 0, s>>>((const float*)part, (float*)out, blocks);
+  const StatsArgs args{(const __nv_bfloat16*)x, (const float*)w0, (const float*)gamma,
+                       (const float*)beta, (float*)scale, (float*)shift, L, ld, t0, C, eps};
+  groupnorm_stats_kernel<<<B * kStatsCluster, kStatsThreads, smem, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 

@@ -43,8 +43,8 @@ F = ctypes.c_float
 LL = ctypes.c_longlong
 # entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
-    # x, part, out, B, L, na, nb, blocks, stream
-    "w2v2_window_stats": [P, P, P, I, I, I, I, I, P],
+    # x, w0 (10, C) f32, gamma, beta, scale, shift, B, L, ld, t0, C, eps, stream
+    "w2v2_groupnorm_stats": [P, P, P, P, P, P, I, I, I, I, I, F, P],
     # x, w0 (16 taps), scale, shift, w1, out, B, L, T1, C, stream
     "w2v2_conv01": [P, P, P, P, P, P, I, I, I, I, P],
     # x, w0 (16 taps), p0 [bias, gamma, beta], w1, p1, out, B, L, T1, C, eps, stream
@@ -65,8 +65,9 @@ SIGNATURES = {
     # seed, threshold, hash_stride, inv_keep, dropout, stream
     "w2v2_flash_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
                        LL, LL, LL, LL, LL, LL, LL, LL, LL, I, U, U, F, I, P],
-    # dneg, idx, part, out, B, N, D, L, seg_len, bf16, stream
-    "w2v2_scatter_rows_add": [P, P, P, P, I, I, I, I, I, I, P],
+    # dneg, idx, order, start, off, ticket, work, part, meta, out,
+    # B, N, D, ld, L, shares, bf16, stream
+    "w2v2_scatter_rows_add": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 }
 
 

@@ -11,10 +11,12 @@ Robust/large/XLSR family (`fused_conv01_robust`):
 
 Three kernels (`csrc/conv_frontend.cu`):
 
-* `window_stats` replaces `_window_stats`: conv0's exact GroupNorm
-  statistics from the 10x10 Gram matrix and row sum of its sample windows,
-  so conv0 never has to exist in device memory (per-block partials summed
-  in a fixed order: deterministic);
+* `groupnorm_stats` replaces `_window_stats` and the XLA tail of
+  `fused_conv01` around it: conv0's exact GroupNorm statistics from the
+  10x10 Gram matrix and row sum of its sample windows (so conv0 never has to
+  exist in device memory), folded into the (B, C) scale and shift that
+  `conv01` applies, in one launch (a cluster per batch row whose partials
+  are added in rank order: deterministic);
 * `conv01` replaces the body of `fused_conv01`: conv0 once per tile,
   normalised with the folded scale/shift, GELU, conv1, GELU, bf16 out;
 * `conv01_robust` replaces the body of `fused_conv01_robust`: both
@@ -25,9 +27,8 @@ Three kernels (`csrc/conv_frontend.cu`):
 specialised); its instances take C of 512 or 256 (`KERNEL_WIDTHS`,
 `supports`).
 
-The scale/shift algebra between them (`groupnorm_scale_shift`) is plain
-torch on (B, C) tensors, as it is XLA code outside the Pallas calls in JAX.
-Each kernel has its plain version here; a wrapper runs the plain version for
+`groupnorm_stats_plain` is `window_stats_plain` (the Pallas call's
+function) followed by `groupnorm_scale_shift` (the XLA tail).  Each kernel has its plain version here; a wrapper runs the plain version for
 a CPU tensor and the kernel (or an error) for a CUDA tensor.
 """
 
@@ -63,61 +64,61 @@ def window_stats_plain(x: torch.Tensor, t0: int) -> Tuple[torch.Tensor, torch.Te
     return win.transpose(1, 2) @ win, win.sum(dim=1)
 
 
-STATS_THREADS = 256  # threads of a `window_stats` block, one window pair each per pass
-STATS_MAX_BLOCKS = 32
+STATS_CLUSTER = 8      # CTAs of a batch row in `groupnorm_stats_kernel`
+STATS_ROW_ALIGN = 8    # a CTA's and a chunk's first window pair: a multiple of 8 (80 samples)
+STATS_CHUNK_ROWS = 1600  # window pairs a staged chunk holds, at most
 
 
-def stats_blocks(t0: int) -> int:
-    """Blocks per batch row of the `window_stats` kernel: one per 256 window
-    pairs, at most 32 (each walks the rows with a grid stride)."""
-    rows = max(_phase_rows(t0))
-    return min(max(-(-rows // STATS_THREADS), 1), STATS_MAX_BLOCKS)
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
-def window_stats_partials(x: torch.Tensor, t0: int) -> torch.Tensor:
-    """(B, blocks, 65) f32: the kernel's per-block partial sums, in plain
-    torch.  Window pair r (A row r, B row r) belongs to block (r // 256) %
-    blocks, as the kernel's grid stride deals them; the 65 values are the
-    upper triangle of the 10x10 Gram matrix, row by row, then the 10 sums.
-    Summed over blocks in block order they are `window_stats`' result."""
-    na, nb = _phase_rows(t0)
-    blocks = stats_blocks(t0)
-    xf = x.float()
-    a = xf[:, : 10 * na].reshape(x.shape[0], na, 10)
-    bw = xf[:, 5: 5 + 10 * nb].reshape(x.shape[0], nb, 10)
-    j, k = torch.triu_indices(10, 10)
-    part = torch.zeros((x.shape[0], blocks, 65), dtype=torch.float32, device=x.device)
-    for win in (a, bw):
-        owner = (torch.arange(win.shape[1], device=x.device) // STATS_THREADS) % blocks
-        vals = torch.cat([win[..., j] * win[..., k], win], dim=-1)  # (B, rows, 65)
-        part.index_add_(1, owner, vals)
-    return part
+def stats_partition(t0: int, ld: int) -> list:
+    """The window pairs (A row r, B row r) of `groupnorm_stats_kernel`, as
+    its cluster cuts them: for each CTA rank, its chunks as (first pair,
+    pairs, first sample, samples staged); `ld` is the row stride in samples
+    (a multiple of 8).  A CTA's pairs start at a multiple of 8; a chunk stages
+    its windows' samples and the 5-sample halo of its last B window,
+    rounded up to 8 samples (16 bytes) and cut at the row stride."""
+    na = _phase_rows(t0)[0]
+    per_cta = _round_up(-(-na // STATS_CLUSTER), STATS_ROW_ALIGN)
+    out = []
+    for rank in range(STATS_CLUSTER):
+        r_begin = min(na, rank * per_cta)
+        r_end = min(na, r_begin + per_cta)
+        chunks = -(-(r_end - r_begin) // STATS_CHUNK_ROWS)
+        rows = _round_up(-(-(r_end - r_begin) // chunks), STATS_ROW_ALIGN) if chunks else 0
+        cuts = []
+        for i in range(chunks):
+            r0 = r_begin + i * rows
+            n = min(rows, r_end - r0)
+            cuts.append((r0, n, 10 * r0, min(_round_up(10 * n + 5, 8), ld - 10 * r0)))
+        out.append(cuts)
+    return out
 
 
-def window_stats(x: torch.Tensor, t0: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper of `window_stats_plain`: per-block partials into a
-    (B, blocks, 65) scratch, summed in a fixed order by a second kernel of
-    the same launch, so a relaunch gives the same bits."""
-    if not x.is_cuda:
-        return window_stats_plain(x, t0)
-    if x.dtype != torch.bfloat16 or x.dim() != 2:
-        raise ValueError(f"window_stats takes a (B, L) bf16 waveform, got {x.dtype} {tuple(x.shape)}")
-    x = x.contiguous()
+def groupnorm_stats_partials(x: torch.Tensor, t0: int) -> torch.Tensor:
+    """(B, 8, 65) f32: the partial sums of each CTA of the kernel's cluster,
+    in plain torch, computed from the chunks it stages (samples past the
+    staged ones read as NaN, so a window that reached them would show).  The
+    65 values are the upper triangle of the 10x10 Gram matrix, row by row,
+    then the 10 sums; summed over the ranks they are `window_stats_plain`."""
     b, l = x.shape
-    if t0 < 1 or conv0_length(l) < t0:
-        raise ValueError(f"window_stats: {t0} conv0 rows do not fit {l} samples")
+    ld = _round_up(l, 8)
     na, nb = _phase_rows(t0)
-    blocks = stats_blocks(t0)
-    part = torch.empty((b, blocks, 65), dtype=torch.float32, device=x.device)
-    out = torch.empty((b, 110), dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    _build.check("window_stats", lib.w2v2_window_stats(
-        x.data_ptr(), part.data_ptr(), out.data_ptr(), b, l, na, nb, blocks, _build.stream_of(x)))
-    window_stats.launches += 1
-    return out[:, :100].reshape(b, 10, 10), out[:, 100:]
-
-
-window_stats.launches = 0
+    xf = F.pad(x.float(), (0, ld - l))
+    j, k = torch.triu_indices(10, 10)
+    part = torch.zeros((b, STATS_CLUSTER, 65), dtype=torch.float32, device=x.device)
+    for rank, cuts in enumerate(stats_partition(t0, ld)):
+        for r0, n, s0, staged in cuts:
+            chunk = torch.full((b, 10 * n + 16), float("nan"), device=x.device)
+            chunk[:, :staged] = xf[:, s0: s0 + staged]
+            wins = [chunk[:, : 10 * n].reshape(b, n, 10)]
+            nb_here = min(n, max(0, nb - r0))  # B rows past nb are masked
+            wins.append(chunk[:, 5: 5 + 10 * nb_here].reshape(b, nb_here, 10))
+            for win in wins:
+                part[:, rank] += torch.cat([win[..., j] * win[..., k], win], dim=-1).sum(dim=1)
+    return part
 
 
 def groupnorm_scale_shift(
@@ -136,6 +137,54 @@ def groupnorm_scale_shift(
     scale = torch.rsqrt(var + eps) * gamma.float()[None, :]
     shift = beta.float()[None, :] - mean * scale
     return scale, shift
+
+
+def groupnorm_stats_plain(
+    x: torch.Tensor, t0: int, w0: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+    eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, L) waveform -> (scale, shift), (B, C) f32: conv0's GroupNorm
+    over its t0 rows folded into a per-channel affine map."""
+    gram, row_sum = window_stats_plain(x, t0)
+    return groupnorm_scale_shift(gram, row_sum, w0, gamma, beta, t0, eps)
+
+
+def groupnorm_stats(
+    x: torch.Tensor, t0: int, w0: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+    eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of `groupnorm_stats_plain` (replaces Pallas
+    `_window_stats` and the XLA tail of `fused_conv01`): one launch, a
+    cluster per batch row; the same bits on a relaunch."""
+    if not x.is_cuda:
+        return groupnorm_stats_plain(x, t0, w0, gamma, beta, eps)
+    if x.dtype != torch.bfloat16 or x.dim() != 2:
+        raise ValueError(
+            f"groupnorm_stats takes a (B, L) bf16 waveform, got {x.dtype} {tuple(x.shape)}")
+    b, l = x.shape
+    c = w0.shape[-1]
+    if t0 < 1 or conv0_length(l) < t0:
+        raise ValueError(f"groupnorm_stats: {t0} conv0 rows do not fit {l} samples")
+    if tuple(w0.shape) != (10, 1, c) or gamma.shape != (c,) or beta.shape != (c,):
+        raise ValueError("groupnorm_stats takes w0 (10, 1, C) and (C,) gamma, beta")
+    # the bulk copies take 16-byte rows on 16-byte addresses
+    ld = _round_up(l, 8)
+    x = x.contiguous() if ld == l else F.pad(x, (0, ld - l))
+    if x.data_ptr() % 16:
+        x = x.clone()
+    w0f = w0.reshape(10, c).float().contiguous()
+    g, bt = gamma.float().contiguous(), beta.float().contiguous()
+    scale = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    shift = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    _build.check("groupnorm_stats", lib.w2v2_groupnorm_stats(
+        x.data_ptr(), w0f.data_ptr(), g.data_ptr(), bt.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), b, l, ld, t0, c, eps, _build.stream_of(x)))
+    groupnorm_stats.launches += 1
+    return scale, shift
+
+
+groupnorm_stats.launches = 0
 
 
 # the widths C of the conv01 kernels' instances: the 512 of every published
@@ -223,8 +272,7 @@ def fused_conv01(
     x = waveform.to(torch.bfloat16)
     t0 = conv0_length(x.shape[-1])
     t1 = conv1_length(x.shape[-1])
-    gram, row_sum = window_stats(x, t0)
-    scale, shift = groupnorm_scale_shift(gram, row_sum, w0, gamma, beta, t0, eps)
+    scale, shift = groupnorm_stats(x, t0, w0, gamma, beta, eps)
     return conv01(x, w0, scale, shift, w1, t1, gelu_approx)
 
 

@@ -31,8 +31,9 @@ def test_kernel_wrappers_raise_on_wrong_dtype(cuda):
     """A CUDA tensor of a dtype a kernel does not take raises; nothing falls
     back to the plain version."""
     x = torch.randn(2, 24000, device=cuda)
+    w0, gb = torch.randn(10, 1, 512, device=cuda), torch.ones(512, device=cuda)
     with pytest.raises(ValueError):
-        conv_frontend.window_stats(x, conv_frontend.conv0_length(24000))
+        conv_frontend.groupnorm_stats(x, conv_frontend.conv0_length(24000), w0, gb, gb, 1e-5)
     xs = torch.randn(2, 64, 768, device=cuda)
     kernel = torch.randn(128, 48, 768, device=cuda)
     with pytest.raises(ValueError):
@@ -62,12 +63,11 @@ def test_kernels_match_plain_on_card(cuda):
     beta = (0.1 * torch.randn(512, generator=g)).to(cuda)
     x = wave.to(torch.bfloat16)
     t0 = conv_frontend.conv0_length(x.shape[1])
-    gram, rsum = conv_frontend.window_stats(x, t0)
-    pgram, prsum = conv_frontend.window_stats_plain(x, t0)
-    # f32 sums in another order (atomics): 1e-5 of each matrix's scale
-    torch.testing.assert_close(gram, pgram, rtol=1e-5, atol=1e-5 * pgram.abs().max().item())
-    torch.testing.assert_close(rsum, prsum, rtol=1e-5, atol=1e-5 * prsum.abs().max().item())
-    scale, shift = conv_frontend.groupnorm_scale_shift(pgram, prsum, w0, gamma, beta, t0, 1e-5)
+    scale, shift = conv_frontend.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
+    pscale, pshift = conv_frontend.groupnorm_stats_plain(x, t0, w0, gamma, beta, 1e-5)
+    # f32 sums in another order: 1e-5 of each output's scale
+    for got, want in ((scale, pscale), (shift, pshift)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
     t1 = 1 + (t0 - 3) // 2
     got = conv_frontend.conv01(x, w0, scale, shift, w1, t1, True).float()
     want = conv_frontend.conv01_plain(x, w0, scale, shift, w1, t1, True).float()
@@ -107,7 +107,7 @@ def test_small_model_goes_through_the_kernels(cuda):
                          dropout=0.0, apply_spec_augment=False)
     model = Wav2Vec2ForCTC(cfg, device=cuda)
     x = torch.randn(2, 16000, generator=torch.Generator().manual_seed(1))
-    kernels = (conv_frontend.window_stats, conv_frontend.conv01, pos_conv.pos_conv,
+    kernels = (conv_frontend.groupnorm_stats, conv_frontend.conv01, pos_conv.pos_conv,
                flash_attention.flash_attention_fwd)
     for k in kernels:
         k.launches = 0
@@ -172,7 +172,7 @@ def test_robust_family_runs_on_card(cuda):
     mask = torch.ones(2, 16000, dtype=torch.int64)
     mask[1, 9000:] = 0
     x[1, 9000:] = 0.0
-    kernels = (conv_frontend.window_stats, conv_frontend.conv01, conv_frontend.conv01_robust,
+    kernels = (conv_frontend.groupnorm_stats, conv_frontend.conv01, conv_frontend.conv01_robust,
                pos_conv.pos_conv, flash_attention.flash_attention_fwd)
     for k in kernels:
         k.launches = 0
@@ -206,7 +206,7 @@ def _robust_steps_go_through_the_kernels(cuda, **overrides):
     set_trainable(model, ("feature_extractor",))
     state = create_train_state(model, create_optimizer(model, 1e-3))
     step = make_train_step(cfg, division_factor=2, with_attention_mask=True, length_aware=True)
-    kernels = {"conv01_robust": conv_frontend.conv01_robust, "window_stats": conv_frontend.window_stats,
+    kernels = {"conv01_robust": conv_frontend.conv01_robust, "groupnorm_stats": conv_frontend.groupnorm_stats,
                "pos_conv_train_fwd": pos_conv.pos_conv_train_fwd,
                "pos_conv_dx": pos_conv.pos_conv_dx, "pos_conv_dw": pos_conv.pos_conv_dw,
                "flash_attention_fwd": flash_attention.flash_attention_fwd,
@@ -218,7 +218,7 @@ def _robust_steps_go_through_the_kernels(cuda, **overrides):
         state, metrics = step(state, batch, torch.Generator().manual_seed(i))
         losses.append(metrics["loss"].item())
         assert {k: fn.launches for k, fn in kernels.items()} == {
-            "conv01_robust": 1, "window_stats": 0, "pos_conv_train_fwd": 1, "pos_conv_dx": 1,
+            "conv01_robust": 1, "groupnorm_stats": 0, "pos_conv_train_fwd": 1, "pos_conv_dx": 1,
             "pos_conv_dw": 1, "flash_attention_fwd": 2, "flash_attention_bwd": 2}
     assert all(torch.isfinite(torch.tensor(losses)))
     assert losses[-1] < losses[0]
@@ -429,7 +429,7 @@ def test_small_model_train_step_goes_through_the_kernels(cuda):
     set_trainable(model, ("feature_extractor",))
     state = create_train_state(model, create_optimizer(model, 1e-3))
     step = make_train_step(cfg, division_factor=2)
-    kernels = {"window_stats": conv_frontend.window_stats, "conv01": conv_frontend.conv01,
+    kernels = {"groupnorm_stats": conv_frontend.groupnorm_stats, "conv01": conv_frontend.conv01,
                "pos_conv": pos_conv.pos_conv, "pos_conv_train_fwd": pos_conv.pos_conv_train_fwd,
                "pos_conv_dx": pos_conv.pos_conv_dx, "pos_conv_dw": pos_conv.pos_conv_dw,
                "flash_attention_fwd": flash_attention.flash_attention_fwd,
@@ -441,7 +441,7 @@ def test_small_model_train_step_goes_through_the_kernels(cuda):
         state, metrics = step(state, batch, torch.Generator().manual_seed(i))
         losses.append(metrics["loss"].item())
         assert {k: fn.launches for k, fn in kernels.items()} == {
-            "window_stats": 1, "conv01": 1, "pos_conv": 0, "pos_conv_train_fwd": 1,
+            "groupnorm_stats": 1, "conv01": 1, "pos_conv": 0, "pos_conv_train_fwd": 1,
             "pos_conv_dx": 1, "pos_conv_dw": 1, "flash_attention_fwd": 2,
             "flash_attention_bwd": 2}
     assert all(torch.isfinite(torch.tensor(losses)))
@@ -469,7 +469,7 @@ def test_trainable_front_end_trains_on_card(cuda, robust):
     batch = {"speech": torch.randn(2, 16000, generator=g),
              "labels": torch.randint(1, cfg.vocab_size, (2, 6), generator=g)}
     loss_fn = make_ctc_loss_fn(cfg, division_factor=2)
-    fused = (conv_frontend.window_stats, conv_frontend.conv01, conv_frontend.conv01_robust)
+    fused = (conv_frontend.groupnorm_stats, conv_frontend.conv01, conv_frontend.conv01_robust)
 
     def run():
         for fn in fused:
@@ -512,12 +512,14 @@ def _skewed_indices(b, n, l_rows, g, hot=0.6):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,l_rows", [(1000, 128, 64), (9000, 256, 768), (5000, 768, 200),
-                                         (300, 40, 24), (4500, 256, 1536)])
+                                         (300, 40, 24), (700, 37, 50), (4500, 256, 1536),
+                                         (3000, 64, 2000)])
 def test_scatter_rows_add_matches_plain_on_card(cuda, n, d, l_rows, dtype):
     """The scatter kernel against its plain version: N not a multiple of
-    anything, one and several segments, a hot row, a row tile that is not
-    full, a width that is not a multiple of 32, twice the recipe's rows; two
-    launches are bit-equal."""
+    anything, a hot row, a width that is not a multiple of 32 and one whose
+    rows are no multiple of 16 bytes (a padded copy), twice the recipe's
+    rows, rows past the plan's shared-memory histograms; two launches are
+    bit-equal."""
     g = torch.Generator().manual_seed(n + d)
     dneg = torch.randn(3, n, d, generator=g).to(cuda, dtype)
     idx = _skewed_indices(3, n, l_rows, g).to(cuda)
@@ -536,6 +538,55 @@ def test_scatter_rows_add_matches_plain_on_card(cuda, n, d, l_rows, dtype):
     tol = 1e-5 * max(1.0, exact.abs().max().item())
     assert (got.double() - exact).abs().max().item() <= tol
     assert (got - want).abs().max().item() <= 2 * tol
+
+
+def _sampler_indices(b, l, k, g):
+    """(B, L K) int32 row-local indices from the port's negative sampler over
+    a ragged span mask: every unmasked frame sends its K copies to row 0."""
+    from gsoc_wav2vec2_tpu_torch.models import pretraining
+
+    lengths = torch.randint(l // 3, l + 1, (b,), generator=g)
+    lengths[0] = l
+    mti = (torch.rand(b, l, generator=g) < 0.5) & (torch.arange(l)[None, :] < lengths[:, None])
+    negs = pretraining.sample_negative_indices(g, mti, k)
+    return (negs - (torch.arange(b) * l)[:, None, None].to(torch.int32)).reshape(b, l * k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 768])
+@pytest.mark.parametrize("kind", ["sampler", "uniform", "one_row"])
+def test_scatter_rows_add_main_shapes_on_card(cuda, kind, d, dtype):
+    """The sort + balanced sum at the recipe's row count (768 frames x 100
+    negatives, B=4): the sampler's skewed indices, uniform ones, and every
+    source on one row; within 2e-5 of the plain version's output scale and
+    1e-5 of the f64 sum, bit-equal on relaunch, rows without a source zero."""
+    b, l, k = 4, 768, 100
+    g = torch.Generator().manual_seed(d + len(kind))
+    if kind == "sampler":
+        idx = _sampler_indices(b, l, k, g)
+        assert (idx == 0).float().mean().item() >= 0.3
+    elif kind == "uniform":
+        idx = torch.randint(0, l, (b, l * k), generator=g, dtype=torch.int32)
+    else:
+        idx = torch.full((b, l * k), 5, dtype=torch.int32)
+    dneg = torch.randn(b, l * k, d, generator=g).to(cuda, dtype)
+    idx = idx.to(cuda)
+    got = scatter_add.scatter_rows_add(dneg, idx, l_rows=l)
+    again = scatter_add.scatter_rows_add(dneg, idx, l_rows=l)
+    want = scatter_add.scatter_rows_add_plain(dneg, idx, l_rows=l)
+    exact = torch.zeros(b * l, d, dtype=torch.float64, device=cuda).index_add_(
+        0, (idx.long() + torch.arange(b, device=cuda)[:, None] * l).flatten(),
+        dneg.double().reshape(-1, d)).reshape(b, l, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    scale = exact.abs().max().item()
+    assert (got - want).abs().max().item() <= 2e-5 * scale
+    assert (got.double() - exact).abs().max().item() <= 1e-5 * scale
+    empty = torch.ones(b, l, dtype=torch.bool, device=cuda)
+    empty.scatter_(1, idx.long(), False)
+    assert kind == "uniform" or empty.any()
+    assert not got[empty].any()
 
 
 @pytest.mark.cuda
@@ -758,19 +809,26 @@ def test_conv01_launches_are_bit_equal_on_card(cuda, robust):
 
 
 @pytest.mark.cuda
-def test_window_stats_is_deterministic_on_card(cuda):
-    """No float atomics: two launches give equal bits, and they match the
-    plain sums and the per-block partials summed in block order."""
-    g = torch.Generator().manual_seed(22)
-    x = torch.randn(3, 246000, generator=g).to(cuda, torch.bfloat16)
-    t0 = conv_frontend.conv0_length(246000)
-    a, b = conv_frontend.window_stats(x, t0), conv_frontend.window_stats(x, t0)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    pgram, psum = conv_frontend.window_stats_plain(x, t0)
-    tol = 1e-5 * pgram.abs().max().item()
-    assert (a[0] - pgram).abs().max().item() <= tol and (a[1] - psum).abs().max().item() <= tol
-    part = conv_frontend.window_stats_partials(x, t0).sum(dim=1)
-    assert (part[:, 55:] - a[1]).abs().max().item() <= tol
+@pytest.mark.parametrize("b,length", [(16, 246000), (1, 1_920_000), (3, 24007), (2, 16000)])
+def test_groupnorm_stats_matches_plain_on_card(cuda, b, length):
+    """The one-launch GroupNorm statistics against `groupnorm_stats_plain` at
+    the base batch, the long path's 120 s and a length that is no multiple
+    of 8 samples (a padded copy); no float atomics: two launches give equal
+    bits."""
+    g = torch.Generator().manual_seed(22 + b)
+    x = (torch.randn(b, length, generator=g) + 0.3).to(cuda, torch.bfloat16)
+    w0 = (torch.randn(10, 1, 512, generator=g) * 0.3).to(cuda)
+    gamma = (1 + 0.1 * torch.randn(512, generator=g)).to(cuda)
+    beta = (0.1 * torch.randn(512, generator=g)).to(cuda)
+    t0 = conv_frontend.conv0_length(length)
+    conv_frontend.groupnorm_stats.launches = 0
+    first = conv_frontend.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
+    second = conv_frontend.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
+    assert conv_frontend.groupnorm_stats.launches == 2
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+    for got, want in zip(first, conv_frontend.groupnorm_stats_plain(x, t0, w0, gamma, beta, 1e-5)):
+        assert got.shape == (b, 512) and got.dtype == torch.float32
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 SMALL_BASE = dict(hidden_size=128, num_heads=2, num_layers=2, intermediate_size=256,
@@ -784,10 +842,10 @@ def test_base_forward_is_bit_reproducible_on_card(cuda):
     cfg = Wav2Vec2Config(**SMALL_BASE)
     model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(4))
     x = torch.randn(2, 64000, generator=torch.Generator().manual_seed(5)).to(cuda)
-    conv_frontend.window_stats.launches = 0
+    conv_frontend.groupnorm_stats.launches = 0
     with torch.inference_mode():
         first, second = model(x), model(x)
-    assert conv_frontend.window_stats.launches == 2
+    assert conv_frontend.groupnorm_stats.launches == 2
     assert torch.equal(first, second)
 
 
@@ -798,7 +856,7 @@ TINY = dict(vocab_size=32, hidden_size=64, num_heads=4, num_layers=2, intermedia
             strides=[5, 2, 2, 2, 2, 2, 2], num_conv_pos_embeddings=128,
             num_conv_pos_embedding_groups=16, dropout=0.0, apply_spec_augment=False)
 
-ALL_KERNELS = {"window_stats": conv_frontend.window_stats, "conv01": conv_frontend.conv01,
+ALL_KERNELS = {"groupnorm_stats": conv_frontend.groupnorm_stats, "conv01": conv_frontend.conv01,
                "conv01_robust": conv_frontend.conv01_robust, "pos_conv": pos_conv.pos_conv,
                "pos_conv_train_fwd": pos_conv.pos_conv_train_fwd,
                "pos_conv_dx": pos_conv.pos_conv_dx, "pos_conv_dw": pos_conv.pos_conv_dw,

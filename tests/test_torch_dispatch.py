@@ -4,7 +4,8 @@ Where a config falls outside a kernel's instances the card takes the plain
 torch op, as the JAX package takes XLA's (`supports` at each site); the
 plain ops taken there must be the same functions, with the same gradients,
 as the kernels' definitions.  Also the host-side mirror of the conv
-front-end kernels: the fixed-order partial sums of `window_stats`.
+front-end kernels: the cluster partition of `groupnorm_stats`, and its plain
+version against conv0 in float64.
 """
 
 import dataclasses
@@ -124,17 +125,32 @@ def test_pos_conv_supports_exactly_the_taps_the_dw_kernel_takes(cg, k):
 
 @pytest.mark.parametrize("length", [24000, 246000, 1_920_000, 24007])
 def test_window_stats_partials_sum_in_block_order_to_the_plain_sums(length):
-    """The kernel's row partition (pair r to block (r // 256) % blocks) and
-    its fixed-order reduction give `window_stats_plain`: every window is
-    counted once, over at most 32 blocks."""
+    """The stats kernel's cluster partition (8 CTAs a batch row, chunks
+    staged at multiples of 80 samples with the B windows' 5-sample halo,
+    masked tails) and its rank-order sum give `window_stats_plain`: every
+    window is counted once, and no window reads a sample that was not
+    staged (those read as NaN in the model)."""
     rng = np.random.default_rng(length)
     x = torch.from_numpy(rng.standard_normal((2, length)).astype(np.float32)).to(torch.bfloat16)
     t0 = conv_frontend.conv0_length(length)
-    part = conv_frontend.window_stats_partials(x, t0)
-    blocks = conv_frontend.stats_blocks(t0)
-    assert part.shape == (2, blocks, 65) and 1 <= blocks <= 32
+    ld = -(-length // 8) * 8
+    cuts = conv_frontend.stats_partition(t0, ld)
+    assert len(cuts) == conv_frontend.STATS_CLUSTER
+    na, nb = (t0 + 1) // 2, t0 // 2
+    pairs = [r0 + i for rank in cuts for r0, n, _, _ in rank for i in range(n)]
+    assert pairs == list(range(na))  # every window pair once, in rank order
+    for rank in cuts:
+        for r0, n, s0, staged in rank:
+            assert r0 % 8 == 0 and s0 == 10 * r0 and s0 % 80 == 0
+            assert n <= conv_frontend.STATS_CHUNK_ROWS and staged % 8 == 0  # 16-byte copies
+            # the chunk holds its A windows and, where unmasked, its B windows' halo
+            assert staged >= min(10 * n, length - s0)
+            if r0 + n - 1 < nb:
+                assert staged >= 10 * n + 5
+    part = conv_frontend.groupnorm_stats_partials(x, t0)
+    assert part.shape == (2, conv_frontend.STATS_CLUSTER, 65) and torch.isfinite(part).all()
     total = part[:, 0]
-    for k in range(1, blocks):
+    for k in range(1, conv_frontend.STATS_CLUSTER):
         total = total + part[:, k]
     gram, row_sum = conv_frontend.window_stats_plain(x, t0)
     j, k = torch.triu_indices(10, 10)
@@ -142,8 +158,33 @@ def test_window_stats_partials_sum_in_block_order_to_the_plain_sums(length):
     assert (total[:, :55] - gram[:, j, k]).abs().max().item() <= 1e-5 * scale
     assert (total[:, 55:] - row_sum).abs().max().item() <= 1e-5 * scale
     # every window once: all-ones samples count t0 windows in each sum
-    ones = conv_frontend.window_stats_partials(torch.ones_like(x), t0).sum(dim=1)
+    ones = conv_frontend.groupnorm_stats_partials(torch.ones_like(x), t0).sum(dim=1)
     assert torch.equal(ones, torch.full_like(ones, float(t0)))
+
+
+@pytest.mark.parametrize("length", [16000, 24007])
+def test_groupnorm_stats_plain_matches_a_float64_conv0(length):
+    """`groupnorm_stats_plain` (window statistics, then the folded affine
+    map) against conv0 computed directly in float64 and its per-channel
+    mean and variance over time, at 1e-5 of each output's scale."""
+    rng = np.random.default_rng(length)
+    c, eps = 64, 1e-5
+    wave = (rng.standard_normal((2, length)) + 0.2).astype(np.float32)
+    w0 = (rng.standard_normal((10, 1, c)) * 0.3).astype(np.float32)
+    gamma = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    x = torch.from_numpy(wave).to(torch.bfloat16)
+    t0 = conv_frontend.conv0_length(length)
+    scale, shift = conv_frontend.groupnorm_stats_plain(
+        x, t0, torch.from_numpy(w0), torch.from_numpy(gamma), torch.from_numpy(beta), eps)
+    xd = x.double().numpy()
+    win = np.stack([xd[:, 5 * t: 5 * t + 10] for t in range(t0)], axis=1)  # (2, t0, 10)
+    y = win @ w0.reshape(10, c).astype(np.float64)  # conv0, (2, t0, C)
+    want_scale = gamma / np.sqrt(y.var(axis=1) + eps)
+    want_shift = beta - y.mean(axis=1) * want_scale
+    for got, want in ((scale, want_scale), (shift, want_shift)):
+        assert got.shape == (2, c) and got.dtype == torch.float32
+        assert np.abs(got.double().numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_pos_conv_plain_fallback_has_the_kernels_gradients():

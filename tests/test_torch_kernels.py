@@ -49,7 +49,7 @@ def test_window_stats_plain_matches_pallas(length):
     pb = xb[:, 5 : 5 + 10 * r].reshape(2, r, 10)
     want_gram, want_sum = jax_cf._window_stats(pa, pb, (t0 + 1) // 2, t0 // 2, True)
 
-    gram, row_sum = conv_frontend.window_stats(_t(wave).to(torch.bfloat16), t0)
+    gram, row_sum = conv_frontend.window_stats_plain(_t(wave).to(torch.bfloat16), t0)
     # rtol 1e-5 of each matrix's scale: both sides sum ~t0 products in f32,
     # in different orders, so entries near zero carry the large ones' noise
     for got, want in ((gram, want_gram), (row_sum, want_sum)):
