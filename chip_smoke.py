@@ -62,7 +62,30 @@ Phases, each printing one JSON line:
                 times (`gather` with the scatter kernel, `gather` with
                 autograd's index backward, `gram`), held against each other;
                 then one deterministic pretraining loss in bf16 on the card
-                against the f32 CPU copy.
+                against the f32 CPU copy;
+ 10. cli     -- the command-line path at full base width (768-d, 12 layers,
+                the recipe's dropout 0.1 and SpecAugment): (a) `save_pretrained`
+                of the seeded model, `from_pretrained` onto the card, bf16
+                logits of the B=16 batch bit-equal to the in-memory model's;
+                (b) a synthetic corpus of 96 utterances (160000-246000
+                samples, 50-200 label ids) written with the port's
+                `TFRecordWriter`, 64 to train and 32 to validate; (c)
+                `cli.train.main` with the recipe's batch of 32 x 246000: one
+                stage-1 epoch and two stage-2 epochs (2 updates an epoch), a
+                checkpoint and a validation loss every epoch, exact launch
+                counts per update and per validation pass, the loader's host
+                ms per batch against the update's ms, one stage-2 epoch under
+                the profiler, and whether two identical stage-2 updates give
+                bit-equal gradients; (d) the same recipe with one stage-2
+                epoch, its last checkpoint restored bit for bit, then
+                `--resume` to two epochs (exactly two stage-2 updates, logged
+                as steps 3 and 4), held against (c): bit-equal where two
+                identical updates and two straight runs are, else the median
+                update-relative L2 difference within `RESUME_MEDIAN_TOL`
+                (`F.ctc_loss`'s CUDA backward is not deterministic), and a
+                resume with a planted fault (a fresh generator) beyond it; (e)
+                `cli.evaluate` on (c)'s `final/` over the validation shard in
+                bucketed and single mode (32 samples, launch counts a forward).
 Then the `kernels` line (every kernel's record), the card line and, last,
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 non-zero without that line; without CUDA it exits at once.
@@ -70,11 +93,15 @@ non-zero without that line; without CUDA it exits at once.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -88,11 +115,17 @@ from gsoc_wav2vec2_tpu_torch import (
     Wav2Vec2ForPreTraining,
     Wav2Vec2PretrainingConfig,
 )
+from gsoc_wav2vec2_tpu_torch.cli import evaluate as evaluate_cli
+from gsoc_wav2vec2_tpu_torch.cli import train as train_cli
 from gsoc_wav2vec2_tpu_torch.cli.pretrain import PretrainingArgs, batch_masks, gumbel_temperature
+from gsoc_wav2vec2_tpu_torch.cli.train import TrainingArgs
+from gsoc_wav2vec2_tpu_torch.data import native_io
+from gsoc_wav2vec2_tpu_torch.data.processor import Wav2Vec2Processor
 from gsoc_wav2vec2_tpu_torch.evaluation import default_buckets, plan_chunks
 from gsoc_wav2vec2_tpu_torch.models import pretraining as pt
 from gsoc_wav2vec2_tpu_torch.models.modeling import wav2vec2_for_ctc_forward
 from gsoc_wav2vec2_tpu_torch.ops import conv as conv_ops
+from gsoc_wav2vec2_tpu_torch.ops.ctc import ctc_loss_fn
 from gsoc_wav2vec2_tpu_torch.ops.kernels import _build
 from gsoc_wav2vec2_tpu_torch.ops.kernels import conv_frontend as cf
 from gsoc_wav2vec2_tpu_torch.ops.kernels import flash_attention as fa
@@ -108,6 +141,8 @@ from gsoc_wav2vec2_tpu_torch.training import (
     set_learning_rate,
     set_trainable,
 )
+from gsoc_wav2vec2_tpu_torch.training.checkpoint import CheckpointManager
+from gsoc_wav2vec2_tpu_torch.utils.logging import MetricLogger
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, HBM3.
 PEAK_BF16 = 989e12
@@ -139,9 +174,9 @@ KERNELS = {
     "flash_attention_bwd": fa.flash_attention_bwd, "scatter_rows_add": sa.scatter_rows_add,
 }
 # the paths whose launches count for each family of records
-BASE_PATHS = ("inference", "train", "long_inference", "long_train")
+BASE_PATHS = ("inference", "train", "long_inference", "long_train", "cli")
 ROBUST_PATHS = ("robust_inference", "robust_train")
-SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gather")
+SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gather", "cli")
 LONG_PATHS = ("long_inference", "long_train")
 
 
@@ -184,6 +219,18 @@ def plain_kernels():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def base_forward_counts(layers: int) -> dict:
+    """Launches of one base-family bf16 forward (eval, or stage 1's training
+    forward: no gradient reaches the backbone)."""
+    return {"groupnorm_stats": 1, "fused_conv01": 1, "pos_conv": 1, "flash_attention_fwd": layers}
+
+
+def base_step_counts(layers: int) -> dict:
+    """Launches of one base-family stage-2 step (front end frozen)."""
+    return {"groupnorm_stats": 1, "fused_conv01": 1, "pos_conv_train_fwd": 1, "pos_conv_dx": 1,
+            "pos_conv_dw": 1, "flash_attention_fwd": layers, "flash_attention_bwd": layers}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -271,22 +318,32 @@ def profile_forward(model, config, x, reps: int = 3):
     return profile_device(forward, reps, "forward")
 
 
-def pos_conv_eval_record(kernel, bias, b, t, name, paths, gen):
-    """The inference pos conv against its plain version at (b, t, C) and at
-    T = 3000 (2 rows); returns its record, timed at (b, t, C)."""
+def pos_conv_eval_check(kernel, bias, shapes, name, gen):
+    """The inference pos conv against its plain version at each (rows, T) of
+    `shapes`, launched twice (bit-equal).  Returns (max err, mean err, tol,
+    the last input)."""
     dev = torch.device("cuda")
     k, cg, h = kernel.shape
     groups = h // cg
-    for tt in (3000, t):
-        xs = torch.randn(b if tt == t else 2, tt, h, generator=gen).to(dev, torch.bfloat16)
+    for rows, tt in shapes:
+        xs = torch.randn(rows, tt, h, generator=gen).to(dev, torch.bfloat16)
         got = pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True)
         require(torch.equal(got, pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True)),
-                f"{name} T={tt}: two launches differ")
+                f"{name} {rows} x T={tt}: two launches differ")
         want = pc.pos_conv_plain(xs, kernel, bias, groups=groups, gelu_approx=True)
         torch.cuda.synchronize()
         err, mean_err = errors(got, want)
         tol = 0.05
-        require(err <= tol and mean_err <= 5e-3, f"{name} T={tt}: err {err} / mean {mean_err}")
+        require(err <= tol and mean_err <= 5e-3, f"{name} {rows} x T={tt}: err {err} / mean {mean_err}")
+    return err, mean_err, tol, xs
+
+
+def pos_conv_eval_record(kernel, bias, b, t, name, paths, gen):
+    """The inference pos conv against its plain version at (b, t, C) and at
+    T = 3000 (2 rows); returns its record, timed at (b, t, C)."""
+    k, cg, h = kernel.shape
+    groups = h // cg
+    err, mean_err, tol, xs = pos_conv_eval_check(kernel, bias, ((2, 3000), (b, t)), name, gen)
     nbytes = xs.numel() * 2 * 2 + kernel.numel() * 2 + h * 4
     flops = 2 * b * t * k * cg * h
     bms, by = bound(nbytes, flops, PEAK_BF16)
@@ -307,6 +364,66 @@ def pos_conv_eval_record(kernel, bias, b, t, name, paths, gen):
     )
 
 
+def frontend_checks(x, w0, gamma, beta, w1):
+    """groupnorm_stats, then fused_conv01 on its scale and shift, on `x`
+    (rows, samples) against their plain versions, each launched twice
+    (bit-equal).  Returns the two checks ({max_abs_err, mean_abs_err, tol})
+    and the plain (scale, shift)."""
+    b, n = x.shape
+    c = w0.shape[-1]
+    t0, t1 = cf.conv0_length(n), cf.conv1_length(n)
+    got = cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
+    again = cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
+    require(all(torch.equal(u, v) for u, v in zip(got, again)),
+            f"groupnorm_stats {b} x {n}: two launches differ")
+    want = cf.groupnorm_stats_plain(x, t0, w0, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    # f32 sums in another order (per-CTA partials, then the cluster in rank
+    # order): 1e-5 of each output's scale
+    tol = 1e-5 * max(want[0].abs().max().item(), want[1].abs().max().item())
+    err, mean_err = max(errors(got[0], want[0]), errors(got[1], want[1]))
+    require(err <= tol, f"groupnorm_stats {b} x {n}: max abs err {err} > {tol}")
+    gn = dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol)
+
+    scale, shift = want
+    got = cf.conv01(x, w0, scale, shift, w1, t1, True)
+    require(torch.equal(got, cf.conv01(x, w0, scale, shift, w1, t1, True)),
+            f"conv01 {b} x {n}: two launches differ")
+    want = cf.conv01_plain(x, w0, scale, shift, w1, t1, True)
+    torch.cuda.synchronize()
+    require(got.shape == (b, t1, c), f"conv01 shape {tuple(got.shape)}")
+    err, mean_err = errors(got, want)
+    del got, want
+    tol = 0.05  # bf16 output (ulp 2^-6 at |y| in [2, 4)) over f32 sums in another order
+    require(err <= tol and mean_err <= 5e-3, f"fused_conv01 {b} x {n}: err {err} / mean {mean_err}")
+    return gn, dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol), (scale, shift)
+
+
+def check_eval_kernels_at(model, records, b):
+    """groupnorm_stats, fused_conv01 and the inference pos conv against their
+    plain versions at b x 246000 (the cli phase runs them there: stage 1's
+    forward and the validation batch), launched twice (bit-equal), at phase
+    3's tolerances; each check is added to its record under `checked_at`."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4321)
+    fe = model.wav2vec2.feature_extractor.conv_layers
+    x = torch.randn(b, SAMPLES, generator=gen).to(dev, torch.bfloat16)
+    gn, c01, _ = frontend_checks(x, fe[0].conv.kernel, fe[0].layer_norm.gamma,
+                                 fe[0].layer_norm.beta, fe[1].conv.kernel)
+    del x
+    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
+    kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
+    bias = (0.1 * torch.randn(kernel.shape[-1], generator=gen)).to(dev)
+    t = model.config.conv_output_length(SAMPLES)
+    err, mean_err, tol, _ = pos_conv_eval_check(kernel, bias, ((b, t),), "pos_conv", gen)
+    by_name = {r["name"]: r for r in records}
+    for name, check in (("groupnorm_stats", gn), ("fused_conv01", c01),
+                        ("pos_conv", dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol))):
+        by_name[name].setdefault("checked_at", []).append(
+            {"shape": [b, SAMPLES], **check, "relaunch_bit_equal": True})
+    torch.cuda.empty_cache()
+
+
 def check_kernels(model):
     """Phase 3.  Returns the kernel records (launches filled in later)."""
     dev = torch.device("cuda")
@@ -320,16 +437,8 @@ def check_kernels(model):
     # -- groupnorm_stats + fused_conv01 at (16, 246000) -----------------------
     x = torch.randn(B, SAMPLES, generator=gen).to(dev, torch.bfloat16)
     t0, t1 = cf.conv0_length(SAMPLES), cf.conv1_length(SAMPLES)
-    got = cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
-    again = cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
-    require(all(torch.equal(u, v) for u, v in zip(got, again)), "groupnorm_stats: two launches differ")
-    want = cf.groupnorm_stats_plain(x, t0, w0, gamma, beta, 1e-5)
-    torch.cuda.synchronize()
-    # f32 sums in another order (per-CTA partials, then the cluster in rank
-    # order): 1e-5 of each output's scale
-    tol = 1e-5 * max(want[0].abs().max().item(), want[1].abs().max().item())
-    err, mean_err = max(errors(got[0], want[0]), errors(got[1], want[1]))
-    require(err <= tol, f"groupnorm_stats: max abs err {err} > {tol}")
+    gn, c01, (scale, shift) = frontend_checks(x, w0, gamma, beta, w1)
+    err, mean_err, tol = gn["max_abs_err"], gn["mean_abs_err"], gn["tol"]
     nbytes = x.numel() * 2 + (10 + 2) * c * 4 + 2 * B * c * 4
     # what the function needs per window: the 55 distinct Gram products (the
     # matrix is symmetric) and 10 sums; then per (row, channel) the folded
@@ -349,16 +458,7 @@ def check_kernels(model):
         bound_ms=bms, bound_by=by, library_ms=None,
     ))
 
-    scale, shift = want
-    got = cf.conv01(x, w0, scale, shift, w1, t1, True)
-    require(torch.equal(got, cf.conv01(x, w0, scale, shift, w1, t1, True)), "conv01: two launches differ")
-    want = cf.conv01_plain(x, w0, scale, shift, w1, t1, True)
-    torch.cuda.synchronize()
-    require(got.shape == (B, t1, c), f"conv01 shape {tuple(got.shape)}")
-    err, mean_err = errors(got, want)
-    del want
-    tol = 0.05  # bf16 output (ulp 2^-6 at |y| in [2, 4)) over f32 sums in another order
-    require(err <= tol and mean_err <= 5e-3, f"fused_conv01: err {err} / mean {mean_err}")
+    err, mean_err, tol = c01["max_abs_err"], c01["mean_abs_err"], c01["tol"]
     nbytes = x.numel() * 2 + (10 * c + 3 * c * c) * 2 + 2 * B * c * 4 + B * t1 * c * 2
     flops = 2 * B * t1 * (2 * 10 * c + 3 * c * c)
     bms, by = bound(nbytes, flops, PEAK_BF16)
@@ -380,7 +480,7 @@ def check_kernels(model):
         plain_ms=time_ms(lambda: cf.conv01_plain(x, w0, scale, shift, w1, t1, True), 3, 1),
         bound_ms=bms, bound_by=by, library_ms=time_ms(library_conv01, 10),
     ))
-    del x, got
+    del x
 
     # -- pos_conv at (16, 768, 768), also checked at T = 3000 -----------------
     pcv = model.wav2vec2.encoder.pos_conv_embed.conv
@@ -388,7 +488,7 @@ def check_kernels(model):
     h = kernel.shape[-1]
     bias = (0.1 * torch.randn(h, generator=gen)).to(dev)
     t = model.config.conv_output_length(SAMPLES)  # 768 frames
-    records.append(pos_conv_eval_record(kernel, bias, B, t, "pos_conv", ("inference", "train", "long_inference"), gen))
+    records.append(pos_conv_eval_record(kernel, bias, B, t, "pos_conv", ("inference", "train", "long_inference", "cli"), gen))
 
     # -- flash attention at (16, 12, 768, 64); ragged masks and L = 1249 -------
     heads = model.config.num_heads
@@ -645,7 +745,7 @@ def check_train_kernels(model, records):
     fwd["train"] = dict(max_abs_err=fwd_err[0], mean_abs_err=fwd_err[1], tol=0.04, **fwd_rec)
     records.append(dict(
         name="flash_attention_bwd", counter="flash_attention_bwd",
-        paths=("train", "robust_train", "pretrain", "pretrain_gather"),
+        paths=("train", "robust_train", "pretrain", "pretrain_gather", "cli"),
         route="cuda", source=CSRC + "flash_attention.cu", replaces=PALLAS + "flash_attention.py:285",
         max_abs_err=bwd_abs, mean_abs_err=bwd_mean, max_rel_err_by_grad=bwd_errs,
         tol="0.01 x each gradient's max |value|", **bwd_rec,
@@ -658,7 +758,8 @@ def check_train_kernels(model, records):
     kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
     bias = (0.1 * torch.randn(h, generator=gen)).to(dev)
     records.extend(pos_conv_train_records(
-        kernel, bias, TRAIN_B, t, "", ("train", "long_train", "pretrain", "pretrain_gather"), gen))
+        kernel, bias, TRAIN_B, t, "", ("train", "long_train", "pretrain", "pretrain_gather", "cli"),
+        gen))
 
 
 def check_robust_kernels(model, records):
@@ -934,9 +1035,7 @@ def base_train_phase(smi: str):
     rng = np.random.default_rng(0)
     batch = {"speech": rng.standard_normal((TRAIN_B, SAMPLES)).astype(np.float32),
              "labels": _labels(rng, TRAIN_B, config.vocab_size)}
-    per_step = {"groupnorm_stats": 1, "fused_conv01": 1,
-                "pos_conv_train_fwd": 1, "pos_conv_dx": 1, "pos_conv_dw": 1,
-                "flash_attention_fwd": config.num_layers, "flash_attention_bwd": config.num_layers}
+    per_step = base_step_counts(config.num_layers)
     launches = train_phase("train", "base (768-d, 12 layers) dropout 0.1, SpecAugment, seed 0",
                            model, config, batch, per_step, STAGE2_STEPS, smi)
     del model
@@ -1648,6 +1747,396 @@ def card_vs_cpu(base_config):
     require(rel <= 0.015 and cos >= 0.999, f"card vs CPU: loss rel {rel}, grad cosine {cos}")
 
 
+# the synthetic corpus of the cli phase: utterances and their lengths in samples
+CLI_TRAIN, CLI_VAL = 64, 32
+CLI_SHORTEST, CLI_LONGEST = 160000, 246000
+CLI_LABELS = (50, 200)  # ids a transcript
+_CKPT = train_cli._CKPT_STRIDE  # the checkpoint key of one completed epoch
+# the resumed run against the straight one where the card's CTC backward is
+# not deterministic: the median over the tensors the updates moved of
+# ||straight - resumed|| / ||straight - resume point|| (`_update_rel_l2`).
+# Measured (H100, 700 W): a sound resume 0.0128, two straight runs 0.0006; a
+# resume with a fresh generator 0.113
+RESUME_MEDIAN_TOL = 0.04
+
+
+def write_corpus(root: str, vocab: int, seed: int = 0):
+    """Phase 10 (b): 96 seeded utterances (a sine at a random pitch plus
+    noise, normalised as the loaders normalise, 160000-246000 samples; 50-200
+    random ids of the vocabulary each) written with the port's
+    `TFRecordWriter`: two training shards of 32 and one validation shard of
+    32.  Returns (training shard paths, validation shard path, seconds, the
+    training utterances' audio in seconds)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    processor = Wav2Vec2Processor(is_tokenizer=False)
+    paths = [os.path.join(root, name) for name in
+             ("train-0.tfrecord", "train-1.tfrecord", "val-0.tfrecord")]
+    train_samples = 0
+    for i, path in enumerate(paths):
+        with native_io.TFRecordWriter(path) as w:
+            for _ in range(32):
+                n = int(rng.integers(CLI_SHORTEST, CLI_LONGEST + 1))
+                train_samples += n if i < 2 else 0
+                pitch = rng.uniform(100.0, 400.0)
+                sig = (0.5 * np.sin(2 * np.pi * pitch * np.arange(n) / 16000)
+                       + 0.1 * rng.standard_normal(n))
+                label = rng.integers(1, vocab, size=int(rng.integers(CLI_LABELS[0], CLI_LABELS[1] + 1)))
+                w.write(np.asarray(processor(sig), np.float32), label.astype(np.int32))
+    return paths[:2], paths[2], time.perf_counter() - t0, train_samples / 16000
+
+
+class _Counted:
+    """Wrap `cli.train`'s step builder and its validation loss so that each
+    update's and each validation pass's launches (and the update's host time,
+    ending in a readback) are recorded."""
+
+    def __init__(self):
+        self.updates, self.vals = [], []
+
+    def __enter__(self):
+        self._make, self._val = train_cli.make_train_step, train_cli.evaluate_loss
+
+        def make_step(*a, **kw):
+            step = self._make(*a, **kw)
+
+            def counted(state, batch, gen):
+                before = read_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, metrics = step(state, batch, gen)
+                metrics["loss"].item()
+                self.updates.append((counts_since(before), (time.perf_counter() - t) * 1e3))
+                return state, metrics
+
+            return counted
+
+        def val(*a, **kw):
+            before = read_counts()
+            out = self._val(*a, **kw)
+            self.vals.append(counts_since(before))
+            return out
+
+        train_cli.make_train_step, train_cli.evaluate_loss = make_step, val
+        return self
+
+    def __exit__(self, *exc):
+        train_cli.make_train_step, train_cli.evaluate_loss = self._make, self._val
+
+
+def _state_dicts_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def _rel_diffs(a: dict, b: dict) -> dict:
+    """Per tensor: max |a - b| over max |a| (the relative max-abs difference)."""
+    return {n: ((a[n].float() - b[n].float()).abs().max() / a[n].float().abs().max().clamp_min(1e-30)).item()
+            for n in a}
+
+
+def _update_rel_l2(a: dict, b: dict, start: dict) -> dict:
+    """Per tensor that the updates moved: ||a - b|| over ||a - start||, two
+    runs' difference against the change their updates made from `start`."""
+    out = {}
+    for n in a:
+        moved = (a[n].float() - start[n].float()).norm()
+        if moved > 0:
+            out[n] = ((a[n].float() - b[n].float()).norm() / moved).item()
+    return out
+
+
+def _l2_summary(rel: dict) -> dict:
+    worst = sorted(rel, key=rel.get, reverse=True)[:4]
+    return {"tensors": len(rel), "median": statistics.median(rel.values()),
+            "max": max(rel.values()), "worst": {n: rel[n] for n in worst}}
+
+
+@contextlib.contextmanager
+def _fresh_generator_on_restore(seed: int):
+    """A planted fault: `CheckpointManager.restore` restores all but the
+    step's generator, which starts again from `seed` (the stage's own)."""
+    restore = CheckpointManager.restore
+
+    def faulty(self, state_like, step=None):
+        out = restore(self, state_like, step)
+        state_like.generator.manual_seed(seed)
+        return out
+
+    CheckpointManager.restore = faulty
+    try:
+        yield
+    finally:
+        CheckpointManager.restore = restore
+
+
+def _diff_summary(rel: dict) -> dict:
+    worst = sorted(rel, key=rel.get, reverse=True)[:6]
+    rest = {n: v for n, v in rel.items() if not n.endswith("k_proj.bias")}
+    worst_rest = max(rest, key=rest.get)
+    return {"tensors": len(rel), "differing": sum(v > 0 for v in rel.values()),
+            "median_rel": statistics.median(rel.values()), "worst": {n: rel[n] for n in worst},
+            "worst_but_k_proj_bias": {worst_rest: rest[worst_rest]},
+            "k_proj_bias_max": max((v for n, v in rel.items() if n.endswith("k_proj.bias")), default=0.0)}
+
+
+def _repeat_grads(model, config, batch, reps: int = 8) -> dict:
+    """`reps` stage-2 losses and gradients of one batch from one seed, each
+    against the first; and the CTC loss alone backed `reps` times from one
+    set of logits."""
+    loss_fn = make_ctc_loss_fn(config, division_factor=TRAIN_B)
+    grads = []
+    for _ in range(reps):
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, batch, torch.Generator().manual_seed(7)).backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None})
+    model.zero_grad(set_to_none=True)
+    rel = [_rel_diffs(grads[0], g) for g in grads[1:]]
+    dev = model.device
+    with torch.no_grad():
+        logits = wav2vec2_for_ctc_forward(model, config, torch.as_tensor(batch["speech"]).to(dev),
+                                          compute_dtype=torch.bfloat16)
+    ctc = []
+    for _ in range(reps):
+        x = logits.detach().clone().requires_grad_(True)
+        lengths = torch.full((x.shape[0],), x.shape[1])
+        ctc_loss_fn(x, torch.as_tensor(batch["labels"]).to(dev), lengths, config.pad_id).sum().backward()
+        ctc.append(x.grad)
+    return {"reps": reps,
+            "grads_bit_equal": all(_state_dicts_equal(grads[0], g) for g in grads[1:]),
+            "grads_max_rel_diff": max(max(r.values()) for r in rel),
+            "ctc_grad_bit_equal": all(torch.equal(ctc[0], c) for c in ctc[1:]),
+            "ctc_grad_max_abs_diff": max((ctc[0] - c).abs().max().item() for c in ctc[1:]),
+            "ctc_grad_differing_elements": max(int((ctc[0] != c).sum()) for c in ctc[1:]),
+            "ctc_grad_elements": ctc[0].numel(),
+            # what reaches the bf16 backward: the loss is the SUM / batch
+            "ctc_grad_bf16_flips": [int(((ctc[0] / TRAIN_B).bfloat16() != (c / TRAIN_B).bfloat16()).sum())
+                                    for c in ctc[1:]]}
+
+
+def cli_phase(smi: str):
+    """Phase 10: the command-line path a user runs, at full base width.
+    Returns the launch counts of the two-stage run (c)."""
+    config = Wav2Vec2Config()  # base, the recipe's dropout 0.1 and SpecAugment
+    per_forward = base_forward_counts(config.num_layers)
+    per_step = base_step_counts(config.num_layers)
+    with tempfile.TemporaryDirectory(prefix="w2v2_cli_") as root:
+        # (a) weight round trip: save_pretrained, then from_pretrained onto the card
+        model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(0))
+        model_dir = os.path.join(root, "model")
+        t = time.perf_counter()
+        model.save_pretrained(model_dir)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = Wav2Vec2ForCTC.from_pretrained(model_dir)
+        load_s = time.perf_counter() - t
+        require(loaded.device.type == "cuda", "from_pretrained did not land on the card")
+        require(_state_dicts_equal(model.state_dict(), loaded.state_dict()),
+                "the weights changed through save_pretrained / from_pretrained")
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal((B, SAMPLES)).astype(
+            np.float32)).cuda()
+        with torch.inference_mode():
+            want = wav2vec2_for_ctc_forward(model, config, x, compute_dtype=torch.bfloat16)
+            got = wav2vec2_for_ctc_forward(loaded, config, x, compute_dtype=torch.bfloat16)
+        require(torch.equal(got, want) and bool(torch.isfinite(got).all()),
+                "bf16 logits after the weight round trip differ from the in-memory model's")
+        emit({"phase": "cli_weights", "batch": [B, SAMPLES], "logits_bit_equal": True,
+              "msgpack_mb": os.path.getsize(os.path.join(model_dir, "jax_model.msgpack")) / 1e6,
+              "save_s": save_s, "load_s": load_s, "card": smi})
+        del model, loaded, x, want, got
+        torch.cuda.empty_cache()
+
+        # (b) the corpus
+        train_shards, val_shard, corpus_s, train_audio_s = write_corpus(root, config.vocab_size)
+
+        def args(tag, **kw):
+            base = dict(model_id=model_dir, train_tfrecords=train_shards,
+                        val_tfrecords=[val_shard], stage1_epochs=1, stage2_epochs=2,
+                        batch_size_per_device=TRAIN_B, audio_maxlen=SAMPLES, logging_steps=1,
+                        ckpt_dir=os.path.join(root, f"ckpt_{tag}"),
+                        log_dir=os.path.join(root, f"logs_{tag}"))
+            base.update(kw)
+            return TrainingArgs(**base)
+
+        # the loader alone: host ms to produce one batch of the training stream
+        loader = train_cli._loader(args("loader"), train_shards, None)
+        t = time.perf_counter()
+        batches = list(loader(seed=0, drop_remainder=True))
+        loader_ms = (time.perf_counter() - t) * 1e3 / len(batches)
+        require(len(batches) == CLI_TRAIN // TRAIN_B and
+                batches[0]["speech"].shape == (TRAIN_B, SAMPLES), "the loader's batches")
+
+        # (c) two stages through cli.train.main, every launch accounted for
+        straight = args("straight")
+        reset_counts()
+        t = time.perf_counter()
+        with _Counted() as counted:
+            train_cli.main(straight)
+        run_s = time.perf_counter() - t
+        launches = read_counts()
+        stage1, stage2 = counted.updates[:2], counted.updates[2:]
+        require(len(stage1) == 2 and len(stage2) == 4, f"{len(counted.updates)} updates")
+        for i, (c, _) in enumerate(stage1):
+            expect_counts(f"cli stage-1 update {i}", c, per_forward)
+        for i, (c, _) in enumerate(stage2):
+            expect_counts(f"cli stage-2 update {i}", c, per_step)
+        require(len(counted.vals) == 3, f"{len(counted.vals)} validation passes")
+        for c in counted.vals:
+            expect_counts("cli validation pass (one batch of 32)", c, per_forward)
+        total = {k: sum(c[k] for c, _ in counted.updates) + sum(c[k] for c in counted.vals)
+                 for k in KERNELS}
+        expect_counts("the whole cli run", launches, total)
+        metrics = [json.loads(l) for l in open(os.path.join(straight.log_dir, "metrics.jsonl"))]
+        losses = [m[k] for m in metrics for k in ("stage1/loss", "stage2/loss") if k in m]
+        val_losses = [m[k] for m in metrics for k in ("stage1/val_loss", "stage2/val_loss") if k in m]
+        waits = [m["stage2/data_wait_s"] / m["stage2/batches"] for m in metrics
+                 if "stage2/data_wait_s" in m]
+        require(len(losses) == 6 and len(val_losses) == 3 and np.all(np.isfinite(losses + val_losses)),
+                f"losses {losses}, validation {val_losses}")
+        # each stage as a user of cli.train sees it: all its updates (and the
+        # audio they trained on) over its epochs' wall time, loader waits,
+        # validation passes and checkpoints included
+        rates = {}
+        for stage, updates, epochs in ((1, stage1, straight.stage1_epochs),
+                                       (2, stage2, straight.stage2_epochs)):
+            wall = sum(m[f"stage{stage}/epoch_time"] for m in metrics if f"stage{stage}/epoch_time" in m)
+            rates[f"stage{stage}"] = {"wall_s": wall, "updates": len(updates),
+                                      "updates_per_s": len(updates) / wall,
+                                      "audio_s_trained_per_s": epochs * train_audio_s / wall,
+                                      "update_ms_median": statistics.median(ms for _, ms in updates)}
+        step2_ms = rates["stage2"]["update_ms_median"]
+        final_c = os.path.join(straight.ckpt_dir, "final")
+        stage2_start = CheckpointManager(os.path.join(straight.ckpt_dir, "stage1")).restore_raw()["model"]
+        shutil.rmtree(os.path.join(straight.ckpt_dir, "stage1"))
+
+        # one stage-2 epoch under the profiler: the device's idle share
+        model = Wav2Vec2ForCTC.from_pretrained(final_c)
+        prof_args = args("profile")
+        logger = MetricLogger(prof_args.log_dir)
+        prof = profile_device(lambda: train_cli.run_stage(
+            stage=2, args=prof_args, config=config, model=model, train_loader=loader,
+            val_loader=None, logger=logger, epochs=1), 1, "epoch", top=8)
+        logger.finish()
+        shutil.rmtree(prof_args.ckpt_dir)
+
+        # are two identical stage-2 updates' gradients bit-equal on the card?
+        set_trainable(model, STAGE2)
+        determinism = _repeat_grads(model, config, batches[0])
+        del model, batches
+        torch.cuda.empty_cache()
+        emit({"phase": "cli", "batch": [TRAIN_B, SAMPLES], "corpus_utterances": [CLI_TRAIN, CLI_VAL],
+              "corpus_write_s": corpus_s, "updates": [len(stage1), len(stage2)],
+              "launches_per_stage1_update": per_forward, "launches_per_stage2_update": per_step,
+              "launches_per_validation_batch": per_forward, "launches": launches,
+              "run_s": run_s, "updates_per_s_whole_run": len(counted.updates) / run_s,
+              "train_audio_s_an_epoch": train_audio_s, "rates": rates,
+              "stage1_update_ms": [ms for _, ms in stage1], "stage2_update_ms": [ms for _, ms in stage2],
+              # one stage-2 update alone (a per-layer number): its padded audio over its time
+              "padded_audio_s_per_s_of_one_update": TRAIN_B * SAMPLES / 16000 / (step2_ms / 1e3),
+              "loader_ms_per_batch": loader_ms, "data_wait_ms_per_batch": [w * 1e3 for w in waits],
+              "losses": losses, "val_losses": val_losses,
+              "epoch_profile": {k: prof[k] for k in ("wall_ms_per_epoch", "device_busy_ms_per_epoch",
+                                                     "device_idle_share", "top")},
+              "determinism": determinism, "card": smi})
+
+        # (d) 1 stage-2 epoch, then --resume to 2; and that resume with a planted
+        # fault, which the check must tell from the sound one
+        first = args("resume", stage2_epochs=1)
+        train_cli.main(first)
+        run_d = first.ckpt_dir
+        mgr = CheckpointManager(os.path.join(run_d, "stage2"))
+        raw = mgr.restore_raw()
+        model = Wav2Vec2ForCTC.from_pretrained(model_dir)
+        set_trainable(model, STAGE2)
+        state = create_train_state(model, create_optimizer(model, 1e-4),
+                                   generator=torch.Generator().manual_seed(123))
+        mgr.restore(state)
+        saved_opt, opt = raw["optimizer"], state.optimizer.state_dict()
+        require(state.step == raw["step"] == 2 and mgr.latest_step() == _CKPT,
+                f"restored step {state.step}")
+        require(_state_dicts_equal(model.state_dict(), raw["model"]), "restored weights differ")
+        require(all(_state_dicts_equal(opt["state"][i], saved_opt["state"][i]) for i in saved_opt["state"])
+                and opt["state"].keys() == saved_opt["state"].keys(), "restored Adam state differs")
+        require(torch.equal(state.generator.get_state(), raw["generator"]), "restored generator differs")
+        require(_state_dicts_equal(Wav2Vec2ForCTC.from_pretrained(
+            os.path.join(run_d, "final")).state_dict(), raw["model"]),
+            "the final directory differs from the last checkpoint's weights")
+        resume_point = raw["model"]
+        # the same computation twice: (c) and this run at their first stage-2 checkpoint
+        straight_first = CheckpointManager(os.path.join(straight.ckpt_dir, "stage2")).restore_raw(_CKPT)["model"]
+        control = _rel_diffs(straight_first, resume_point)
+        control_l2 = _update_rel_l2(straight_first, resume_point, stage2_start)
+        del model, state, raw, opt, saved_opt, straight_first, stage2_start
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(straight.ckpt_dir, "stage2"))
+        fault_d = os.path.join(root, "ckpt_fault")
+        for stage in ("stage1", "stage2"):  # checkpoints are never rewritten: links will do
+            shutil.copytree(os.path.join(run_d, stage), os.path.join(fault_d, stage),
+                            copy_function=os.link)
+        resumed = args("resume2", resume=run_d)
+        with _Counted() as counted:
+            train_cli.main(resumed)
+        # it resumed: two stage-2 updates (a stage-1 update launches no backward
+        # kernel) and one validation pass, logged as steps 3 and 4 of stage 2
+        require(len(counted.updates) == 2 and len(counted.vals) == 1,
+                f"the resumed run made {len(counted.updates)} updates, {len(counted.vals)} validations")
+        for i, (c, _) in enumerate(counted.updates):
+            expect_counts(f"resumed update {i}", c, per_step)
+        metrics = [json.loads(l) for l in open(os.path.join(resumed.log_dir, "metrics.jsonl"))]
+        logged = [(k, m["step"]) for m in metrics for k in ("stage1/loss", "stage2/loss") if k in m]
+        require(logged == [("stage2/loss", 3), ("stage2/loss", 4)], f"the resumed run logged {logged}")
+        fault = args("fault", resume=fault_d)
+        with _fresh_generator_on_restore(fault.seed + 2):
+            train_cli.main(fault)
+        a = Wav2Vec2ForCTC.from_pretrained(final_c, device="cpu").state_dict()
+        b = Wav2Vec2ForCTC.from_pretrained(os.path.join(run_d, "final"), device="cpu").state_dict()
+        f = Wav2Vec2ForCTC.from_pretrained(os.path.join(fault_d, "final"), device="cpu").state_dict()
+        rel, l2, fault_l2 = _rel_diffs(a, b), _update_rel_l2(a, b, resume_point), _update_rel_l2(a, f, resume_point)
+        resume_equal = _state_dicts_equal(a, b)
+        emit({"phase": "cli_resume", "restored_state_bit_equal": True,
+              "resumed_updates": 2, "resumed_logged": logged,
+              "resumed_vs_straight_bit_equal": resume_equal,
+              "tolerance": {"update_rel_l2_median": RESUME_MEDIAN_TOL},
+              "resumed_vs_straight": {**_diff_summary(rel), "update_rel_l2": _l2_summary(l2)},
+              "fresh_generator_fault_vs_straight": {**_diff_summary(_rel_diffs(a, f)),
+                                                    "update_rel_l2": _l2_summary(fault_l2)},
+              "straight_vs_straight_first_stage2_checkpoint": {
+                  **_diff_summary(control), "update_rel_l2": _l2_summary(control_l2)},
+              "card": smi})
+        if (determinism["grads_bit_equal"] and determinism["ctc_grad_bit_equal"]
+                and max(control.values()) == 0):
+            require(resume_equal, f"resumed run differs from the straight run: {_diff_summary(rel)}")
+        else:
+            # F.ctc_loss's CUDA backward is not deterministic, and a flip of one bf16
+            # rounding in the logits' gradient reaches every weight: two straight runs
+            # already differ.  Per-tensor max-abs differences cannot tell that from a
+            # fault (Adam turns noise in a near-zero gradient, as in an attention
+            # k_proj bias, into lr-sized steps of either sign); the L2 of the
+            # difference against the update's own size can (values in PERF.md)
+            require(statistics.median(l2.values()) <= RESUME_MEDIAN_TOL,
+                    f"resumed run beyond the card's run-to-run spread: {_l2_summary(l2)}")
+        require(statistics.median(fault_l2.values()) > RESUME_MEDIAN_TOL,
+                f"a resume with a fresh generator passes the check: {_l2_summary(fault_l2)}")
+        shutil.rmtree(os.path.join(run_d, "stage2"))
+        shutil.rmtree(fault_d)
+
+        # (e) cli.evaluate on final/ over the validation shard
+        reports = {}
+        for mode in ("bucketed", "single"):
+            reset_counts()
+            reports[mode] = evaluate_cli.main(["--model_dir", final_c, "--tfrecords", val_shard,
+                                               "--mode", mode])
+            got = read_counts()
+            forwards = got["fused_conv01"]
+            expect_counts(f"cli.evaluate --mode {mode}", got,
+                          {k: v * forwards for k, v in per_forward.items()})
+            require(reports[mode]["num_samples"] == CLI_VAL, f"{mode}: {reports[mode]}")
+            require(mode != "single" or forwards == CLI_VAL, f"single mode ran {forwards} forwards")
+            reports[mode]["forwards"] = forwards
+        emit({"phase": "cli_evaluate", "reports": reports, "launches_per_forward": per_forward,
+              "card": smi})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs the card",
@@ -1666,10 +2155,14 @@ def main() -> int:
     emit({"phase": "card", "name": name, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # 2. build
+    # 2. build: the CUDA kernels and, beside them, the data plane's codec (g++)
     t_build = time.perf_counter()
-    _build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t_build})
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        codec = pool.submit(native_io.build)
+        _build.library()
+        kernels_s = time.perf_counter() - t_build
+        codec.result()
+    emit({"phase": "build", "seconds": time.perf_counter() - t_build, "kernels_s": kernels_s})
 
     # the model of phase 4 (its weights also feed phase 3)
     config = Wav2Vec2Config(dropout=0.0, apply_spec_augment=False)  # base: 768-d, 12 layers
@@ -1679,11 +2172,11 @@ def main() -> int:
     records = check_kernels(model)
     check_train_kernels(model, records)
     check_long_kernels(model, records)
+    check_eval_kernels_at(model, records, TRAIN_B)  # the cli phase's batch
     emit({"phase": "kernels", "checked": [r["name"] for r in records], "card": smi})
 
     # 4. main path
-    per_forward = {"groupnorm_stats": 1, "fused_conv01": 1, "pos_conv": 1,
-                   "flash_attention_fwd": config.num_layers}
+    per_forward = base_forward_counts(config.num_layers)
     evaluator = GreedyCTCEvaluator(model)
     require(evaluator.compute_dtype == torch.bfloat16, "the card path must run in bf16")
     rng = np.random.default_rng(0)
@@ -1781,6 +2274,8 @@ def main() -> int:
     # 9. pretraining: the scatter kernel at the recipe's shapes, then the paths
     check_scatter_kernels(records, smi)
     by_path.update(pretrain_phases(smi))
+    # 10. the command-line path: weight files, the data plane, both stages, resume, evaluate
+    by_path["cli"] = cli_phase(smi)
     for r in records:
         counter, paths = r.pop("counter"), r.pop("paths")
         r["launches_by_path"] = {p: by_path[p][counter] for p in paths}

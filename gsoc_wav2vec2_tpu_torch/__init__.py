@@ -3,11 +3,16 @@
 The JAX package `gsoc_wav2vec2_tpu` stays the reference; this package
 imports none of it.  It covers batched bf16 inference of `Wav2Vec2ForCTC`
 in both families (base and robust/large/XLSR) with greedy CTC decoding and
-padded or bucketed WER evaluation, at any sequence length, and the CTC
-fine-tuning step (`training/`, stages 1 and 2 of the recipe), and
-self-supervised pretraining (`models/pretraining.py`: Gumbel quantizer,
-contrastive + diversity loss, the pretraining step); the TPU kernels of
-these paths are hand-written CUDA kernels under `csrc/`.
+padded or bucketed WER evaluation, at any sequence length, the CTC
+fine-tuning step (`training/`, stages 1 and 2 of the recipe) with its
+command-line driver (`cli/train.py`, full-state checkpoints in
+`training/checkpoint.py`, `cli/evaluate.py`, `cli/average.py`), weight files
+in the JAX package's format (`save_pretrained` / `from_pretrained`), the data
+plane (`data/`: TFRecord, WAV and FLAC through the port's own native codec,
+the LibriSpeech and TIMIT loaders), and self-supervised pretraining
+(`models/pretraining.py`: Gumbel quantizer, contrastive + diversity loss, the
+pretraining step); the TPU kernels of these paths are hand-written CUDA
+kernels under `csrc/`.
 """
 
 from .data.processor import Wav2Vec2Processor

@@ -1,11 +1,11 @@
-"""CLI: greedy-CTC transcription of WAV files with the PyTorch port.
+"""CLI: greedy-CTC transcription of WAV and FLAC files with the PyTorch port.
 
-wav -> normalize -> model -> argmax -> greedy-CTC decode, one JSON line per
-file, as `gsoc_wav2vec2_tpu.cli.transcribe` prints them.  The model directory
-holds `config.json` and an HF `pytorch_model.bin`.
+wav / flac -> normalize -> model -> argmax -> greedy-CTC decode, one JSON
+line per file, as `gsoc_wav2vec2_tpu.cli.transcribe` prints them.  The model
+directory is anything `Wav2Vec2ForCTC.from_pretrained` reads.
 
 Usage:
-    python -m gsoc_wav2vec2_tpu_torch.cli.transcribe --model_dir <dir> [--device cuda] f.wav
+    python -m gsoc_wav2vec2_tpu_torch.cli.transcribe --model_dir <dir> [--device cuda] f.wav g.flac
 """
 
 from __future__ import annotations

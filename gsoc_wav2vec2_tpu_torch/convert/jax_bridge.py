@@ -7,7 +7,8 @@ layers in a tuple where the port has `conv_layers.{i}`.  Every state-dict
 name is the JAX key path joined with dots.  The pos-conv weight-norm pair
 stays (g, v): the recomposition is the port's own code.  The JAX side here
 is nested dicts/tuples of numpy arrays (`np.asarray` of a JAX tree's
-leaves); this module imports no JAX.
+leaves), or the tree `convert/flax_msgpack.py` decodes (tuples as maps keyed
+"0", "1", ..., bfloat16 leaves as torch tensors); this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -26,13 +27,17 @@ def _flatten(node, prefix: str, out: Dict[str, np.ndarray]) -> None:
         for i, v in enumerate(node):
             _flatten(v, f"{prefix}{i}.", out)
     else:
-        out[prefix[:-1]] = np.asarray(node)
+        out[prefix[:-1]] = node if isinstance(node, torch.Tensor) else np.asarray(node)
+
+
+def _tensor(arr) -> torch.Tensor:
+    return arr.clone() if isinstance(arr, torch.Tensor) else torch.tensor(arr)
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """JAX parameter tree -> state dict (copies; dtypes kept).  Leaves that
     are empty tuples (optax's `MaskedNode` of a masked-out leaf) are absent."""
-    flat: Dict[str, np.ndarray] = {}
+    flat: Dict[str, object] = {}
     _flatten(tree, "", flat)
     out = {}
     for name, arr in flat.items():
@@ -40,15 +45,17 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
         if sep and not head.endswith("conv_"):
             # stacked encoder layers: one entry per leading index
             for i in range(arr.shape[0]):
-                out[f"{head}layers.{i}.{rest}"] = torch.tensor(arr[i])
+                out[f"{head}layers.{i}.{rest}"] = _tensor(arr[i])
         else:
-            out[name] = torch.tensor(arr)
+            out[name] = _tensor(arr)
     return out
 
 
 def _stack(items):
     if isinstance(items[0], dict):
         return {k: _stack([it[k] for it in items]) for k in items[0]}
+    if isinstance(items[0], torch.Tensor):
+        return torch.stack(items, dim=0)
     return np.stack(items, axis=0)
 
 
@@ -109,12 +116,14 @@ def adam_state_from_jax(opt_state, model: torch.nn.Module) -> Dict[torch.nn.Para
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> dict:
     """State dict -> JAX parameter tree of numpy arrays (encoder layers
-    stacked, conv layers a tuple)."""
+    stacked, conv layers a tuple); bfloat16 leaves, which numpy lacks, stay
+    CPU torch tensors."""
     tree: dict = {}
     for name, t in state_dict.items():
         parts = name.split(".")
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        node[parts[-1]] = t if t.dtype == torch.bfloat16 else t.numpy()
     return _fold(tree)

@@ -206,6 +206,17 @@ def config_from_hf_dict(d: dict):
     )
 
 
+def config_from_dict(d: dict) -> Wav2Vec2Config:
+    """The config of a `config.json` payload: this framework's schema (the
+    robust class where `is_robust`) or HF's."""
+    if is_hf_config_dict(d):
+        return config_from_hf_dict(d)
+    config = Wav2Vec2Config(**d)
+    if config.is_robust:
+        config = RobustWav2Vec2Config(**config.__dict__)
+    return config
+
+
 @dataclass
 class Wav2Vec2PretrainingConfig(Wav2Vec2Config):
     """Self-supervised pretraining hyper-parameters (wav2vec2 paper §3.2).

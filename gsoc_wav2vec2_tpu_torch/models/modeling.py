@@ -45,15 +45,21 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from ..convert import flax_msgpack, safetensors_io
 from ..convert.hf_torch import state_dict_from_hf
+from ..convert.jax_bridge import params_from_jax, params_to_jax
+from ..data import remote
 from ..ops.attention import attention_seed, mask_to_bias, mha
 from ..ops.basic import dense, dropout, gelu, group_norm, layer_norm, seed_words, stochastic_depth
 from ..ops.conv import conv1d, init_weight_g, pos_conv_embed
 from ..ops.kernels import conv_frontend
 from ..ops.specaugment import apply_feature_masking, apply_spec_augmentation
 from ..utils.devices import resolve_device
-from .config import RobustWav2Vec2Config, Wav2Vec2Config, config_from_hf_dict, is_hf_config_dict
+from .config import Wav2Vec2Config, config_from_dict, is_hf_config_dict
 
+JAX_WEIGHTS_NAME = "jax_model.msgpack"
+H5_WEIGHTS_NAME = "tf_model.h5"
+SAFETENSORS_NAME = "model.safetensors"
 HF_WEIGHTS_NAME = "pytorch_model.bin"
 
 
@@ -379,28 +385,22 @@ def wav2vec2_for_ctc_forward(
 # ---------------------------------------------------------------------------
 
 
+def _join(base: str, name: str) -> str:
+    return f"{base.rstrip('/')}/{name}" if remote.is_remote_path(base) else os.path.join(base, name)
+
+
 def _read_config_json(save_dir: str) -> dict:
-    with open(os.path.join(save_dir, "config.json")) as f:
-        return json.load(f)
-
-
-def _load_config(save_dir: str) -> Wav2Vec2Config:
-    d = _read_config_json(save_dir)
-    if is_hf_config_dict(d):
-        return config_from_hf_dict(d)
-    config = Wav2Vec2Config(**d)
-    if config.is_robust:
-        config = RobustWav2Vec2Config(**config.__dict__)
-    return config
+    return json.loads(remote.fetch_bytes(_join(save_dir, "config.json")))
 
 
 class _Pretrained(nn.Module):
-    """Shared construction and `from_pretrained` of the models."""
+    """Shared construction, `save_pretrained` and `from_pretrained` of the
+    models."""
 
     _with_lm_head = False
     _pretraining_heads = False
     _forward = None
-    _load_config = staticmethod(_load_config)
+    _config_from_dict = staticmethod(config_from_dict)
 
     def _setup(self, config, device, generator):
         if not isinstance(config, Wav2Vec2Config):
@@ -425,25 +425,64 @@ class _Pretrained(nn.Module):
             compute_dtype=default_compute_dtype(batch.device),
         )
 
+    def save_pretrained(self, save_dir: str) -> None:
+        """Write `config.json` and `jax_model.msgpack`, the parameter tree in
+        the layout of `flax.serialization.to_bytes` (encoder layers stacked,
+        conv layers keyed "0".."6"), which the JAX package's `from_pretrained`
+        reads.  A `scheme://` directory is written through fsspec."""
+        self.config.save_pretrained(save_dir)
+        blob = flax_msgpack.serialize(params_to_jax(self.state_dict()))
+        path = _join(save_dir, JAX_WEIGHTS_NAME)
+        if remote.is_remote_path(save_dir):
+            remote.write_bytes(path, blob)
+        else:
+            with open(path, "wb") as f:
+                f.write(blob)
+
     @classmethod
-    def from_pretrained(cls, save_dir: str, *, device=None):
-        """Load `config.json` (this framework's or the HF schema) and an HF
-        `pytorch_model.bin` (read with `torch.load(weights_only=True)`,
-        both weight-norm namings)."""
-        dev = resolve_device(device)
-        config = cls._load_config(save_dir)
-        path = os.path.join(save_dir, HF_WEIGHTS_NAME)
-        if not os.path.isfile(path):
-            raise FileNotFoundError(
-                f"no {HF_WEIGHTS_NAME} in {save_dir} (msgpack, h5 and safetensors "
-                "loading are not ported yet)"
+    def _state_dict_from(cls, save_dir: str, config, hf_snapshot: bool) -> dict:
+        """The state dict of the first weight file found, in the JAX
+        package's order: `jax_model.msgpack`, `tf_model.h5` (not read yet),
+        `model.safetensors`, `pytorch_model.bin`.  A `scheme://` directory
+        holds the msgpack only, as in the JAX package."""
+        path = _join(save_dir, JAX_WEIGHTS_NAME)
+        if remote.is_remote_path(save_dir) or os.path.isfile(path):
+            return params_from_jax(flax_msgpack.restore(remote.fetch_bytes(path)))
+        # an HF snapshot's tf_model.h5 is the TF `transformers` layout, never read
+        if not hf_snapshot and os.path.isfile(os.path.join(save_dir, H5_WEIGHTS_NAME)):
+            raise NotImplementedError(
+                f"{save_dir}: reading {H5_WEIGHTS_NAME} is not ported yet (ROADMAP.md "
+                "section 1 item 8); load it with the JAX package's `from_pretrained` and "
+                "write jax_model.msgpack with its `save_pretrained`"
             )
+        st_path = os.path.join(save_dir, SAFETENSORS_NAME)
+        bin_path = os.path.join(save_dir, HF_WEIGHTS_NAME)
+        if os.path.isfile(st_path):
+            sd = safetensors_io.load_file(st_path)
+        elif os.path.isfile(bin_path):
+            sd = torch.load(bin_path, map_location="cpu", weights_only=True)
+        else:
+            raise FileNotFoundError(
+                f"No weights found in {save_dir} (looked for {JAX_WEIGHTS_NAME}, "
+                f"{H5_WEIGHTS_NAME}, {SAFETENSORS_NAME}, {HF_WEIGHTS_NAME})"
+            )
+        return state_dict_from_hf(sd, config, with_lm_head=cls._with_lm_head,
+                                  pretraining=cls._pretraining_heads)
+
+    @classmethod
+    def from_pretrained(cls, save_dir: str, *, device=None, **config_kwargs):
+        """Load `config.json` (this framework's or the HF schema) and the
+        weights (`_state_dict_from`).  Extra keyword arguments are
+        `replace()`d into the config, as in the JAX package; `input_shape`
+        is accepted and ignored.  A `scheme://` directory is read through
+        fsspec."""
+        dev = resolve_device(device)
+        config_kwargs.pop("input_shape", None)
+        d = _read_config_json(save_dir)
+        config = cls._config_from_dict(d).replace(**config_kwargs)
         model = cls(config, device="cpu")
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        model.load_state_dict(
-            state_dict_from_hf(sd, config, with_lm_head=cls._with_lm_head,
-                               pretraining=cls._pretraining_heads), strict=True
-        )
+        model.load_state_dict(cls._state_dict_from(save_dir, config, is_hf_config_dict(d)),
+                              strict=True)
         return model.to(dev)
 
 

@@ -53,7 +53,6 @@ from .modeling import (
     Wav2Vec2Model,
     _check_training,
     _Pretrained,
-    _read_config_json,
     default_compute_dtype,
     encoder_forward,
     feature_encoder_forward,
@@ -82,10 +81,9 @@ _HF_PRETRAINING_FIELDS = (
 )
 
 
-def _load_pretraining_config(save_dir: str) -> Wav2Vec2PretrainingConfig:
-    """`config.json` in this framework's schema or HF's (whose pretraining
-    fields have the same names)."""
-    d = _read_config_json(save_dir)
+def _pretraining_config_from_dict(d: dict) -> Wav2Vec2PretrainingConfig:
+    """A `config.json` payload in this framework's schema or HF's (whose
+    pretraining fields have the same names)."""
     if is_hf_config_dict(d):
         fields = dict(config_from_hf_dict(d).__dict__)
         fields.update({k: d[k] for k in _HF_PRETRAINING_FIELDS if k in d})
@@ -97,10 +95,12 @@ def _load_pretraining_config(save_dir: str) -> Wav2Vec2PretrainingConfig:
 
 class Wav2Vec2ForPreTraining(_Pretrained):
     """Backbone + quantizer + the two projection heads (glorot-uniform);
-    `from_pretrained` reads an HF `Wav2Vec2ForPreTraining` `pytorch_model.bin`."""
+    `save_pretrained` / `from_pretrained` as the CTC model (msgpack of the
+    JAX pretraining tree; HF `Wav2Vec2ForPreTraining` safetensors or
+    `pytorch_model.bin`)."""
 
     _pretraining_heads = True
-    _load_config = staticmethod(_load_pretraining_config)
+    _config_from_dict = staticmethod(_pretraining_config_from_dict)
 
     def __init__(
         self, config: Wav2Vec2PretrainingConfig, *, device=None,

@@ -30,12 +30,15 @@ from torch import nn
 @dataclass
 class TrainState:
     """The model (its parameters updated in place by the step), its Adam,
-    the step count, and the optional EMA shadow weights (name -> tensor)."""
+    the step count, the optional EMA shadow weights (name -> tensor) and the
+    generator the step draws its randomness from (kept here so that a
+    checkpoint carries its state)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    generator: Optional[torch.Generator] = None
 
 
 def trainable_mask(model: nn.Module, frozen_subtrees=()) -> Dict[str, bool]:
@@ -116,10 +119,12 @@ def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
 
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
-                       ema: bool = False) -> TrainState:
+                       ema: bool = False,
+                       generator: Optional[torch.Generator] = None) -> TrainState:
     """A state at step 0; `ema=True` starts the shadow weights at a copy of
     the current parameters."""
     ema_params = None
     if ema:
         ema_params = {n: p.detach().clone() for n, p in model.named_parameters()}
-    return TrainState(model=model, optimizer=optimizer, ema_params=ema_params)
+    return TrainState(model=model, optimizer=optimizer, ema_params=ema_params,
+                      generator=generator)

@@ -1,6 +1,8 @@
 """The port stands alone: no JAX and nothing of the JAX package in its
-sources or in `chip_smoke.py`, and none of the library kernels the port
-must not call."""
+sources or in `chip_smoke.py`, none of the packages the card's machine lacks
+(msgpack, safetensors, orbax, soundfile; fsspec and wandb only inside the
+function that needs them), and none of the library kernels the port must
+not call."""
 
 import re
 import subprocess
@@ -18,7 +20,13 @@ FORBIDDEN_IMPORTS = [
     re.compile(r"\bfrom\s+gsoc_wav2vec2_tpu\."),
     re.compile(r"\bfrom\s+gsoc_wav2vec2_tpu\s+import\b"),
     re.compile(r"^\s*import\s+(flax|optax)\b|^\s*from\s+(flax|optax)\b", re.M),
+    re.compile(r"^\s*(import|from)\s+(msgpack|safetensors|orbax|soundfile)\b", re.M),
+    # at module scope (no indentation): fsspec and wandb load only where used
+    re.compile(r"^(import|from)\s+(fsspec|wandb)\b", re.M),
 ]
+# what a fresh interpreter may not hold after importing every module of the port
+ABSENT_AFTER_IMPORT = ("jax", "gsoc_wav2vec2_tpu", "flax", "msgpack", "safetensors", "orbax",
+                       "soundfile", "fsspec", "wandb")
 
 
 def _sources():
@@ -37,12 +45,16 @@ def test_port_imports_no_jax(pattern):
 def test_sources_cover_training():
     names = {str(f.relative_to(PORT)) for f in _sources() if PORT in f.parents}
     assert {"training/__init__.py", "training/state.py", "training/trainer.py",
-            "models/pretraining.py", "ops/kernels/scatter_add.py", "cli/pretrain.py"} <= names
+            "models/pretraining.py", "ops/kernels/scatter_add.py", "cli/pretrain.py",
+            "training/checkpoint.py", "cli/train.py", "cli/evaluate.py", "cli/average.py",
+            "cli/make_tfrecords.py", "data/loaders.py", "data/native_io.py", "data/remote.py",
+            "convert/flax_msgpack.py", "convert/safetensors_io.py", "utils/logging.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
     """A fresh interpreter that imports every module of the port, training/*
-    included, has neither `jax` nor the JAX package in `sys.modules`."""
+    and the CLIs included, has none of `ABSENT_AFTER_IMPORT` in `sys.modules`
+    (and builds nothing: no compiler runs at import)."""
     mods = sorted(
         ".".join(("gsoc_wav2vec2_tpu_torch",) + f.relative_to(PORT).with_suffix("").parts)
         .removesuffix(".__init__")
@@ -51,7 +63,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'gsoc_wav2vec2_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {ABSENT_AFTER_IMPORT!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -60,7 +72,8 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert {"gsoc_wav2vec2_tpu_torch.training.trainer", "gsoc_wav2vec2_tpu_torch.models.pretraining",
             "gsoc_wav2vec2_tpu_torch.ops.kernels.scatter_add",
-            "gsoc_wav2vec2_tpu_torch.cli.pretrain"} <= set(mods)
+            "gsoc_wav2vec2_tpu_torch.cli.pretrain", "gsoc_wav2vec2_tpu_torch.cli.train",
+            "gsoc_wav2vec2_tpu_torch.data.native_io"} <= set(mods)
 
 
 def test_port_calls_no_library_kernels():

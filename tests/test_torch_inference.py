@@ -132,10 +132,23 @@ def test_cli_transcript_matches_jax_evaluator(tmp_path, monkeypatch, capsys):
 
 
 def test_read_sound_refuses_flac(tmp_path):
+    """A FLAC that is not one is refused; a real one decodes through the
+    port's codec to the JAX package's samples."""
+    from flac_encoder import encode_flac
+    from gsoc_wav2vec2_tpu.data.native_io import read_sound as jax_read_sound
     from gsoc_wav2vec2_tpu_torch.data.audio import read_sound
 
-    with pytest.raises(NotImplementedError, match="data-plane"):
-        read_sound(str(tmp_path / "x.flac"))
+    bad = tmp_path / "x.flac"
+    bad.write_bytes(b"not a flac stream")
+    with pytest.raises(OSError):
+        read_sound(str(bad))
+    good = tmp_path / "y.flac"
+    sig = np.round(np.sin(np.arange(5000) / 7.0) * 3000).astype(np.int64)
+    good.write_bytes(encode_flac(sig, subframe_kind="fixed", order=2, rice_param=7))
+    got, rate = read_sound(str(good))
+    want, want_rate = jax_read_sound(str(good))
+    assert rate == want_rate == 16000
+    np.testing.assert_array_equal(got, want)
 
 
 def test_read_wav_matches_native_reader(tmp_path):
