@@ -86,6 +86,33 @@ Phases, each printing one JSON line:
                 resume with a planted fault (a fresh generator) beyond it; (e)
                 `cli.evaluate` on (c)'s `final/` over the validation shard in
                 bucketed and single mode (32 samples, launch counts a forward).
+ 11. serve   -- the HTTP server at full base width (768-d, 12 layers, random
+                seed 0): `save_pretrained`, then `cli.serve`'s own argument
+                parsing and loading onto the card; a `DynamicBatcher` with
+                the defaults (buckets 32000 / 64000 / 123000 / 246000,
+                max_batch 8, 20 ms window), its warmup (each bucket's first
+                forward timed), `make_handler` on a `ThreadingHTTPServer` at
+                127.0.0.1:0 in a thread of this process; the four kernels
+                against their plain versions at each bucket's batch shape;
+                `serve_bench.run_load` with 8 clients and 64 requests of WAV
+                bytes cycling serve_bench's four lengths, then the 1-client
+                baseline: latency percentiles (client and server), requests
+                and audio-seconds a second, mean `batched_with`, per layer the
+                device ms of a forward at each bucket and the host ms of
+                parsing, padding and decoding a dispatch, and exactly one
+                forward's launches a dispatch.  Checks: (a) each served
+                transcript equals the in-process decode of its audio alone in
+                a (max_batch, bucket) batch, and a row moved with its
+                neighbours changed gives bit-equal ids; (b) the "scored" and
+                "logprobs" step modes give the "argmax" ids on the B=16 x
+                246000 batch; (c) `?timestamps=1`: words joined equal the
+                transcript, times monotonic and inside the audio; (d) a
+                `/v1/stream` session (normalize "none") fed 40 s in 2 s pieces
+                finishes with `transcribe_long`'s transcript; (e) `/v1/align`
+                of a served transcript: one segment per word, inside the audio;
+                (f) beam search (width 8, a char 4-gram LM fit on random ids)
+                over the B=16 batch's log-probs, its host ms against the
+                forward's.
 Then the `kernels` line (every kernel's record), the card line and, last,
 {"ok": true, "device": {...}}.  Any failure raises and the script exits
 non-zero without that line; without CUDA it exits at once.
@@ -101,8 +128,13 @@ import shutil
 import statistics
 import subprocess
 import sys
+import re
 import tempfile
+import threading
 import time
+import urllib.parse
+import urllib.request
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -116,11 +148,13 @@ from gsoc_wav2vec2_tpu_torch import (
     Wav2Vec2PretrainingConfig,
 )
 from gsoc_wav2vec2_tpu_torch.cli import evaluate as evaluate_cli
+from gsoc_wav2vec2_tpu_torch.cli import serve, serve_bench
 from gsoc_wav2vec2_tpu_torch.cli import train as train_cli
 from gsoc_wav2vec2_tpu_torch.cli.pretrain import PretrainingArgs, batch_masks, gumbel_temperature
 from gsoc_wav2vec2_tpu_torch.cli.train import TrainingArgs
 from gsoc_wav2vec2_tpu_torch.data import native_io
 from gsoc_wav2vec2_tpu_torch.data.processor import Wav2Vec2Processor
+from gsoc_wav2vec2_tpu_torch.decoding import CharNGramLM, ctc_prefix_beam_search
 from gsoc_wav2vec2_tpu_torch.evaluation import default_buckets, plan_chunks
 from gsoc_wav2vec2_tpu_torch.models import pretraining as pt
 from gsoc_wav2vec2_tpu_torch.models.modeling import wav2vec2_for_ctc_forward
@@ -174,9 +208,9 @@ KERNELS = {
     "flash_attention_bwd": fa.flash_attention_bwd, "scatter_rows_add": sa.scatter_rows_add,
 }
 # the paths whose launches count for each family of records
-BASE_PATHS = ("inference", "train", "long_inference", "long_train", "cli")
+BASE_PATHS = ("inference", "train", "long_inference", "long_train", "cli", "serve")
 ROBUST_PATHS = ("robust_inference", "robust_train")
-SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gather", "cli")
+SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gather", "cli", "serve")
 LONG_PATHS = ("long_inference", "long_train")
 
 
@@ -488,7 +522,8 @@ def check_kernels(model):
     h = kernel.shape[-1]
     bias = (0.1 * torch.randn(h, generator=gen)).to(dev)
     t = model.config.conv_output_length(SAMPLES)  # 768 frames
-    records.append(pos_conv_eval_record(kernel, bias, B, t, "pos_conv", ("inference", "train", "long_inference", "cli"), gen))
+    records.append(pos_conv_eval_record(kernel, bias, B, t, "pos_conv",
+                                        ("inference", "train", "long_inference", "cli", "serve"), gen))
 
     # -- flash attention at (16, 12, 768, 64); ragged masks and L = 1249 -------
     heads = model.config.num_heads
@@ -2137,6 +2172,388 @@ def cli_phase(smi: str):
     return launches
 
 
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 64  # serve_bench's defaults
+SERVE_STREAM_S, SERVE_PIECE_S = 40, 2
+SERVE_BEAM_WIDTH = 8
+
+
+def check_serve_kernels(model, records, max_batch: int, buckets):
+    """groupnorm_stats, fused_conv01, the inference pos conv and the flash
+    forward against their plain versions at the server's batch shapes
+    (max_batch x each bucket; no mask, as the base family serves), each
+    launched twice (bit-equal), at phase 3's tolerances; each check is added
+    to its record under `checked_at`."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5678)
+    fe = model.wav2vec2.feature_extractor.conv_layers
+    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
+    kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
+    bias = (0.1 * torch.randn(kernel.shape[-1], generator=gen)).to(dev)
+    heads = model.config.num_heads
+    d = kernel.shape[-1] // heads
+    by_name = {r["name"]: r for r in records}
+    for bucket in buckets:
+        x = torch.randn(max_batch, bucket, generator=gen).to(dev, torch.bfloat16)
+        gn, c01, _ = frontend_checks(x, fe[0].conv.kernel, fe[0].layer_norm.gamma,
+                                     fe[0].layer_norm.beta, fe[1].conv.kernel)
+        del x
+        t = model.config.conv_output_length(bucket)
+        err, mean_err, tol, _ = pos_conv_eval_check(kernel, bias, ((max_batch, t),), "pos_conv", gen)
+        q, kk, v = (torch.randn(max_batch, heads, t, d, generator=gen).to(dev, torch.bfloat16)
+                    for _ in range(3))
+        q = q * (2.0 * d ** -0.5)
+        out, lse = fa.flash_attention_fwd(q, kk, v)
+        again, _ = fa.flash_attention_fwd(q, kk, v)
+        pout, plse = fa.flash_attention_fwd_plain(q, kk, v)
+        torch.cuda.synchronize()
+        require(torch.equal(out, again), f"flash {max_batch} x L={t}: two launches differ")
+        ferr, fmean = errors(out, pout)
+        lse_err, _ = errors(lse, plse)
+        require(ferr <= 0.02 and lse_err <= 1e-3, f"flash {max_batch} x L={t}: {ferr} / lse {lse_err}")
+        for name, check in (("groupnorm_stats", gn), ("fused_conv01", c01),
+                            ("pos_conv", dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol)),
+                            ("flash_attention_fwd", dict(max_abs_err=ferr, mean_abs_err=fmean,
+                                                         tol=0.02, lse_max_abs_err=lse_err))):
+            shape = [max_batch, heads, t, d] if name == "flash_attention_fwd" else [max_batch, bucket]
+            by_name[name].setdefault("checked_at", []).append(
+                {"shape": shape, "path": "serve", **check, "relaunch_bit_equal": True})
+        del q, kk, v, out, again, pout
+    torch.cuda.empty_cache()
+
+
+class _ServeProbe:
+    """Phase 11's instruments on the serving path, installed for a `with`
+    block: each evaluator `_step` (one forward: its batch shape and mode, host
+    ms up to the copy to the host, and the launches inside it; the last
+    full-bucket batch and its outputs are kept), the batcher's padding, each
+    `predict_segments` (a dispatch: forward plus host decode), the handler's
+    body parsing and normalisation, and each client request
+    (`serve_bench._post`: client ms, body and reply)."""
+
+    def __init__(self, evaluator, batcher, processor):
+        self.ev, self.batcher, self.processor = evaluator, batcher, processor
+        self.steps, self.pads, self.dispatches, self.parses, self.posts = [], [], [], [], []
+        self.last_full = None
+
+    def __enter__(self):
+        ev, batcher = self.ev, self.batcher
+        step, pad, segments = ev._step, batcher._pad, ev.predict_segments
+        self._parse, self._post = parse, post = serve._parse_audio, serve_bench._post
+        full = max(batcher.buckets)
+
+        def timed_step(speech, mask, mode=None):
+            before = read_counts()
+            t = time.perf_counter()
+            out = step(speech, mask, mode)
+            self.steps.append({"shape": list(speech.shape), "mode": mode,
+                               "ms": (time.perf_counter() - t) * 1e3, "launches": counts_since(before)})
+            if speech.shape[1] == full and mode == "scored":
+                self.last_full = (speech.copy(), out)
+            return out
+
+        def timed_pad(reqs, bucket):
+            t = time.perf_counter()
+            out = pad(reqs, bucket)
+            self.pads.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def timed_segments(speech, lengths=None):
+            n = len(self.steps)
+            t = time.perf_counter()
+            out = segments(speech, lengths)
+            ms = (time.perf_counter() - t) * 1e3
+            self.dispatches.append({"bucket": speech.shape[1], "ms": ms,
+                                    "decode_ms": ms - sum(s["ms"] for s in self.steps[n:]),
+                                    "rows": int(np.count_nonzero(lengths))})
+            return out
+
+        def timed_parse(body, content_type):
+            t = time.perf_counter()
+            audio, want_ts = parse(body, content_type)
+            self.processor(audio)  # the handler's normalisation, timed beside the decode
+            self.parses.append((time.perf_counter() - t) * 1e3)
+            return audio, want_ts
+
+        def timed_post(url, body, timeout_s):
+            t = time.perf_counter()
+            reply = post(url, body, timeout_s)
+            end = time.perf_counter()
+            self.posts.append({"client_ms": (end - t) * 1e3, "start": t, "end": end, "body": body,
+                               **reply})
+            return reply
+
+        ev._step, batcher._pad, ev.predict_segments = timed_step, timed_pad, timed_segments
+        serve._parse_audio, serve_bench._post = timed_parse, timed_post
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name in ((self.ev, "_step"), (self.batcher, "_pad"), (self.ev, "predict_segments")):
+            delattr(obj, name)
+        serve._parse_audio, serve_bench._post = self._parse, self._post
+
+    def take_posts(self):
+        posts, self.posts = self.posts, []
+        return posts
+
+
+def _latency(posts) -> dict:
+    """Phase 11's end-to-end numbers of one load pass: its requests' latency
+    percentiles, and requests and audio-seconds over the wall time from the
+    first request's start to the last one's end."""
+    wall = max(p["end"] for p in posts) - min(p["start"] for p in posts)
+    client = [p["client_ms"] for p in posts]
+    server = [p["latency_ms"] for p in posts]
+    pct = serve_bench.percentile
+    return {"requests": len(posts), "wall_s": wall,
+            "client_ms": {"p50": pct(client, 50), "p95": pct(client, 95), "p99": pct(client, 99),
+                          "max": max(client)},
+            "server_latency_ms": {"p50": pct(server, 50), "p95": pct(server, 95),
+                                  "p99": pct(server, 99)},
+            "req_per_s": len(posts) / wall,
+            "audio_s_per_s": sum(p["audio_seconds"] for p in posts) / wall,
+            "mean_batched_with": statistics.mean(p["batched_with"] for p in posts)}
+
+
+def _http(base: str, path: str, body: bytes, content_type: str) -> dict:
+    req = urllib.request.Request(base + path, data=body, headers={"Content-Type": content_type})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def serve_phase(smi: str, records) -> dict:
+    """Phase 11: the HTTP server at full base width (768-d, 12 layers,
+    random seed 0), in a thread of this process so that launches can be
+    read.  Returns the launch counts of its two load passes."""
+    config = Wav2Vec2Config(dropout=0.0, apply_spec_augment=False)
+    per_forward = base_forward_counts(config.num_layers)
+    processor = Wav2Vec2Processor(is_tokenizer=False)
+    with tempfile.TemporaryDirectory(prefix="w2v2_serve_") as root:
+        model_dir = os.path.join(root, "model")
+        Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(0)
+                       ).save_pretrained(model_dir)
+        torch.cuda.empty_cache()
+        # cli.serve's own loading path, its default buckets, batch and window
+        args = serve.parse_args(["--model_dir", model_dir])
+        t = time.perf_counter()
+        evaluator = serve.load_evaluator(args)
+        load_s = time.perf_counter() - t
+        model = evaluator.model
+        require(model.device.type == "cuda" and evaluator.compute_dtype == torch.bfloat16,
+                "the server must run on the card in bf16")
+        buckets = [int(b) for b in args.buckets.split(",")]
+        require(tuple(buckets) == serve.DEFAULT_BUCKETS and args.max_batch == 8
+                and args.batch_window_ms == 20.0, f"serve defaults {args}")
+        batcher = serve.DynamicBatcher(evaluator, buckets=buckets, max_batch=args.max_batch,
+                                       window_ms=args.batch_window_ms)
+        stats = {"model": model_dir, "buckets": buckets, "max_batch": args.max_batch,
+                 "beam_width": 0, "requests": 0, "streams": 0, "aligns": 0}
+        streams = serve.StreamSessions(evaluator, device_lock=batcher.device_lock)
+        server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(
+            batcher, processor, stats, streams=streams))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            with _ServeProbe(evaluator, batcher, processor) as probe:
+                t = time.perf_counter()
+                batcher.warmup()
+                warmup_s = time.perf_counter() - t
+                warm = probe.steps[:]
+                require([s["shape"] for s in warm] == [[args.max_batch, b] for b in buckets],
+                         f"warmup forwards {[s['shape'] for s in warm]}")
+                batcher.start()
+                thread.start()
+                check_serve_kernels(model, records, args.max_batch, buckets)
+                payloads = serve_bench.make_payloads(serve_bench.DEFAULT_LENGTHS)
+                probe.steps, probe.pads, probe.dispatches, probe.parses = [], [], [], []
+                reset_counts()
+                load = serve_bench.run_load(base, payloads, SERVE_CLIENTS, SERVE_REQUESTS)
+                load_posts = probe.take_posts()
+                baseline = serve_bench.run_load(base, payloads, 1,
+                                                max(SERVE_REQUESTS // 4, len(payloads)), warmup=False)
+                base_posts = probe.take_posts()
+                torch.cuda.synchronize()
+                launches = read_counts()
+                steps, dispatches, pads, parses = probe.steps, probe.dispatches, probe.pads, probe.parses
+                last_full = probe.last_full
+            # the device's busy share under the 8 clients: one more pass, profiled
+            load_profile = profile_device(lambda: serve_bench.run_load(
+                base, payloads, SERVE_CLIENTS, SERVE_REQUESTS // 2, warmup=False), 1, "pass", top=6)
+            require(load["errors"] == 0 and baseline["errors"] == 0, f"load errors: {load} {baseline}")
+            require(len(load_posts) == SERVE_REQUESTS + len(payloads)
+                    and len(base_posts) == max(SERVE_REQUESTS // 4, len(payloads)),
+                    f"{len(load_posts)} / {len(base_posts)} replies")
+            # every dispatch is one forward at (max_batch, bucket) with the exact launches
+            require(len(steps) == len(dispatches) == len(pads) > 0, "dispatches and forwards")
+            for i, s in enumerate(steps):
+                require(s["mode"] == "scored" and s["shape"][0] == args.max_batch
+                        and s["shape"][1] in buckets, f"serve dispatch {i}: {s}")
+                expect_counts(f"serve dispatch {i}", s["launches"], per_forward)
+            expect_counts("the serve load", launches,
+                          {k: v * len(steps) for k, v in per_forward.items()})
+
+            # (a) a body's transcript does not depend on its batch, and equals the
+            # in-process decode of its audio alone in a (max_batch, bucket) batch
+            served = {}
+            for p in load_posts + base_posts:
+                served.setdefault(p["body"], set()).add(p["transcription"])
+            require(len(served) == len(payloads) and all(len(v) == 1 for v in served.values()),
+                    "one body served two transcripts")
+            served = {body: texts.pop() for body, texts in served.items()}
+            for _, body in payloads:
+                speech = np.asarray(processor(native_io.decode_wav_bytes(body)[0]), np.float32)
+                bucket = batcher._bucket_for(len(speech))
+                batch, lengths = batcher._pad([serve._Request(speech)], bucket)
+                with batcher.device_lock:
+                    want = evaluator.predict_segments(batch, lengths)[0][0]
+                require(served[body] == want, f"served {served[body]!r} != in-process {want!r}")
+            # the same row moved and its neighbours changed: bit-equal ids and log-probs
+            speech, ((ids, maxlogp), _) = last_full
+            moved = np.random.default_rng(3).standard_normal(speech.shape).astype(np.float32)
+            moved[-1] = speech[0]
+            with batcher.device_lock:
+                (ids2, maxlogp2), _ = evaluator._step(moved, None, "scored")
+            require(np.array_equal(ids2[-1], ids[0]), "a row's ids depend on its batch")
+            row_logp_bit_equal = bool(np.array_equal(maxlogp2[-1], maxlogp[0]))
+
+            # (b) the three step modes on the main batch of phase 4
+            main_batch = np.random.default_rng(0).standard_normal((B, SAMPLES)).astype(np.float32)
+            with batcher.device_lock:
+                t = time.perf_counter()
+                argmax_ids, _ = evaluator._step(main_batch, None, "argmax")
+                argmax_ms = (time.perf_counter() - t) * 1e3
+                (scored_ids, scored_max), _ = evaluator._step(main_batch, None, "scored")
+                t = time.perf_counter()
+                logprobs, _ = evaluator._step(main_batch, None, "logprobs")
+                logprobs_ms = (time.perf_counter() - t) * 1e3
+            top2 = np.sort(logprobs, axis=-1)[..., -2:]
+            unique = top2[..., 1] > top2[..., 0]  # rounding can tie, never reorder
+            require(np.array_equal(scored_ids, argmax_ids) and np.array_equal(
+                logprobs.argmax(-1)[unique], argmax_ids[unique])
+                and np.array_equal(logprobs.max(-1), scored_max), "the step modes disagree")
+
+            # (c) word timestamps on a served request
+            audio_s, body = payloads[2]
+            ts = _http(base, "/v1/transcribe?timestamps=1", body, "audio/wav")
+            words = ts["words"]
+            require(ts["transcription"] == served[body]
+                    and [w["word"] for w in words] == ts["transcription"].split()
+                    and all(0 <= w["start"] < w["end"] <= ts["audio_seconds"] for w in words)
+                    and all(a["end"] <= b["start"] for a, b in zip(words, words[1:])),
+                    f"timestamps: {ts}")
+
+            # (d) a stream of 2 s pieces, normalize "none": the offline transcript
+            clip = np.random.default_rng(2).standard_normal(SERVE_STREAM_S * 16000).astype(np.float32)
+            t = time.perf_counter()
+            sid = _http(base, "/v1/stream", json.dumps({"normalize": "none"}).encode(),
+                        "application/json")["session"]
+            piece, partials = SERVE_PIECE_S * 16000, []
+            for lo in range(0, len(clip), piece):
+                partials.append(_http(base, f"/v1/stream/{sid}", clip[lo : lo + piece].tobytes(),
+                                      "application/octet-stream")["partial"])
+            final = _http(base, f"/v1/stream/{sid}/finish", b"", "application/json")
+            stream_s = time.perf_counter() - t
+            with batcher.device_lock:
+                offline = evaluator.transcribe_long(clip)
+            require(final["transcription"] == offline and offline
+                    and all(b.startswith(a) for a, b in zip(partials, partials[1:] + [offline])),
+                    "the stream's transcript differs from transcribe_long's")
+
+            # (e) forced alignment of a served transcript (special tokens dropped:
+            # the tokenizer has no spelling of them)
+            body = max(served, key=lambda b: len(served[b].split()))
+            text = " ".join(re.sub(r"</?s>|<unk>", " ", served[body]).split())
+            aligned = _http(base, "/v1/align?transcript=" + urllib.parse.quote(text), body,
+                            "audio/wav")
+            words = aligned["words"]
+            require(text and [w["word"] for w in words] == aligned["transcription"].split()
+                    and len(words) == len(text.split())
+                    and all(0 <= w["start"] < w["end"] <= aligned["audio_seconds"] for w in words)
+                    and all(a["end_frame"] <= b["start_frame"] for a, b in zip(words, words[1:])),
+                    f"alignment: {aligned}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            batcher.stop()
+        require(stats["requests"] == len(load_posts) + len(base_posts) + SERVE_REQUESTS // 2 + 1
+                and stats["aligns"] == 1
+                and stats["streams"] == 1, f"server stats {stats}")
+
+        # (f) beam search with an LM on the card's log-probs of the main batch
+        rng = np.random.default_rng(1)
+        lm = CharNGramLM(4, config.vocab_size).fit(
+            [[int(i) for i in rng.integers(4, config.vocab_size, size=int(rng.integers(20, 200)))]
+             for _ in range(200)])
+        beam = GreedyCTCEvaluator(model, beam_width=SERVE_BEAM_WIDTH, lm=lm, lm_weight=0.5)
+        beam_steps = []
+        beam_step = beam._step
+
+        def timed_beam_step(*a):
+            t = time.perf_counter()
+            out = beam_step(*a)
+            beam_steps.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        beam._step = timed_beam_step
+        t = time.perf_counter()
+        beam_texts = beam.predict_batch(main_batch)
+        beam_ms = (time.perf_counter() - t) * 1e3
+        require(len(beam_texts) == B and len(beam_steps) == 1, "beam decode of the main batch")
+        for i in range(2):  # the same search over phase (b)'s log-probs, on the host
+            seq = ctc_prefix_beam_search(logprobs[i], SERVE_BEAM_WIDTH, config.pad_id, lm=lm,
+                                         lm_weight=0.5)
+            require(beam_texts[i] == evaluator.tokenizer.decode(np.asarray(seq), group_tokens=False),
+                    f"beam row {i}")
+
+        # per layer: one forward at each bucket's batch shape, back to back (events)
+        # and its device time alone (the profiler)
+        bucket_ms, bucket_device_ms = {}, {}
+        with torch.inference_mode():
+            for bucket in buckets:
+                x = torch.zeros(args.max_batch, bucket, device=model.device)
+                forward = lambda: wav2vec2_for_ctc_forward(model, config, x,
+                                                           compute_dtype=torch.bfloat16)
+                bucket_ms[bucket] = time_ms(forward, 10)
+                bucket_device_ms[bucket] = profile_device(forward, 3, "forward")["device_busy_ms_per_forward"]
+        del model, evaluator, beam, x
+        torch.cuda.empty_cache()
+
+    by_bucket = {b: [s["ms"] for s in steps if s["shape"][1] == b] for b in buckets}
+    emit({"phase": "serve", "config": "base (768-d, 12 layers) random seed 0",
+          "buckets": buckets, "max_batch": args.max_batch, "window_ms": args.batch_window_ms,
+          "model_load_s": load_s, "warmup_s": warmup_s,
+          "warmup_first_forward_ms": {b: s["ms"] for b, s in zip(buckets, warm)},
+          # run_load's first len(payloads) requests are its sequential warmup
+          "load": {**_latency(load_posts[len(payloads):]), "clients": SERVE_CLIENTS,
+                   "serve_bench": load},
+          "baseline": {**_latency(base_posts), "clients": 1, "serve_bench": baseline},
+          "load_profile": {"requests": SERVE_REQUESTS // 2, "clients": SERVE_CLIENTS,
+                           **{k: load_profile[k] for k in ("wall_ms_per_pass", "device_busy_ms_per_pass",
+                                                           "device_idle_share", "top")}},
+          "dispatches": len(steps), "launches_per_dispatch": per_forward, "launches": launches,
+          "dispatches_by_bucket": {b: len(v) for b, v in by_bucket.items()},
+          "rows_per_dispatch_mean": statistics.mean(d["rows"] for d in dispatches),
+          "per_layer_ms": {
+              "forward_ms_by_bucket": bucket_ms, "forward_device_ms_by_bucket": bucket_device_ms,
+              "step_host_ms_median_by_bucket": {b: statistics.median(v) for b, v in by_bucket.items() if v},
+              "pad_host_ms_median": statistics.median(pads),
+              "decode_host_ms_median": statistics.median(d["decode_ms"] for d in dispatches),
+              "parse_and_normalise_host_ms_median": statistics.median(parses)},
+          "card": smi})
+    emit({"phase": "serve_checks", "transcripts_equal_in_process": True, "row_moved_ids_bit_equal": True,
+          "row_moved_max_logprob_bit_equal": row_logp_bit_equal,
+          "modes_agree_on": [B, SAMPLES], "logprobs_argmax_ties": int((~unique).sum()),
+          "argmax_step_ms": argmax_ms, "logprobs_step_ms": logprobs_ms,
+          "timestamps_words": len(ts["words"]), "stream": {"seconds_of_audio": SERVE_STREAM_S,
+                                                           "piece_s": SERVE_PIECE_S,
+                                                           "wall_s": stream_s, "equal_offline": True},
+          "aligned_words": len(aligned["words"]),
+          "beam": {"width": SERVE_BEAM_WIDTH, "lm_order": 4, "batch": [B, SAMPLES],
+                   "forward_host_ms": beam_steps[0], "decode_host_ms": beam_ms - beam_steps[0],
+                   "logprobs_copy_included": True},
+          "card": smi})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs the card",
@@ -2276,6 +2693,8 @@ def main() -> int:
     by_path.update(pretrain_phases(smi))
     # 10. the command-line path: weight files, the data plane, both stages, resume, evaluate
     by_path["cli"] = cli_phase(smi)
+    # 11. the HTTP server: batching, timestamps, a stream, alignment, beam search
+    by_path["serve"] = serve_phase(smi, records)
     for r in records:
         counter, paths = r.pop("counter"), r.pop("paths")
         r["launches_by_path"] = {p: by_path[p][counter] for p in paths}

@@ -2,8 +2,11 @@
 
 The JAX package `gsoc_wav2vec2_tpu` stays the reference; this package
 imports none of it.  It covers batched bf16 inference of `Wav2Vec2ForCTC`
-in both families (base and robust/large/XLSR) with greedy CTC decoding and
-padded or bucketed WER evaluation, at any sequence length, the CTC
+in both families (base and robust/large/XLSR) with greedy CTC decoding or
+prefix beam search with LM fusion (`decoding.py`), word timestamps, forced
+alignment and padded or bucketed WER evaluation, at any sequence length,
+streaming transcription (`streaming.py`), the HTTP server and its load tool
+(`cli/serve.py`, `cli/serve_bench.py`), the CTC
 fine-tuning step (`training/`, stages 1 and 2 of the recipe) with its
 command-line driver (`cli/train.py`, full-state checkpoints in
 `training/checkpoint.py`, `cli/evaluate.py`, `cli/average.py`), weight files

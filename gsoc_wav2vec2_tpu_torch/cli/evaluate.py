@@ -1,5 +1,5 @@
-"""CLI: greedy-CTC WER evaluation of a model directory on LibriSpeech-style
-data (counterpart of `gsoc_wav2vec2_tpu/cli/evaluate.py`, greedy only).
+"""CLI: CTC WER evaluation of a model directory on LibriSpeech-style data
+(counterpart of `gsoc_wav2vec2_tpu/cli/evaluate.py`).
 
 Three modes over the port's `GreedyCTCEvaluator`: `padded` (every batch
 padded to `--pad_to`, the reference's fast path), `bucketed` (a handful of
@@ -7,11 +7,12 @@ batch shapes, little padding) and `single` (one utterance a forward, the
 reference's WER_3 notebook).  `single` rounds each length up to the next
 `--round_to` samples; a base-family model takes no attention mask, so that
 padding enters attention: `--round_to 1` gives the reference's no-padding
-numbers.  The last line printed is one JSON object (`wer`, `num_samples`,
-`mode`, `seconds`, and `round_to` in single mode).
-
-Beam search and LM fusion (`--beam_width > 0`, `--lm_path`) are not ported
-yet (ROADMAP item 6) and raise.
+numbers.  `--beam_width > 0` decodes by prefix beam search, with shallow
+fusion of a char n-gram LM read from `--lm_path` or fitted on a corpus's
+transcripts (`--lm_fit_dir`).  The last line printed is one JSON object
+(`wer`, `num_samples`, `mode`, `seconds`; `round_to` in single mode,
+`beam_width` and `lm` where set).  `--sharded` raises: multi-card
+evaluation is ROADMAP item 7.
 
 Usage:
     python -m gsoc_wav2vec2_tpu_torch.cli.evaluate --model_dir <dir> \\
@@ -29,6 +30,7 @@ import numpy as np
 
 from ..data.loaders import LibriSpeechDataLoader, LibriSpeechDataLoaderArgs
 from ..data.remote import expand_patterns
+from ..decoding import CharNGramLM
 from ..evaluation import GreedyCTCEvaluator
 from ..models.modeling import Wav2Vec2ForCTC
 from ..utils.metrics import wer
@@ -45,17 +47,31 @@ def _samples(loader: LibriSpeechDataLoader):
 
 
 def main(argv=None) -> dict:
-    parser = argparse.ArgumentParser("Greedy-CTC WER evaluation (PyTorch port)")
+    parser = argparse.ArgumentParser("CTC WER evaluation (PyTorch port)")
     parser.add_argument("--model_dir", required=True, type=str)
     parser.add_argument("--data_dir", type=str, default=None)
     parser.add_argument("--tfrecords", nargs="*", default=[],
                         help="evaluate tfrecord shards instead of a raw corpus dir "
                              "(glob patterns; local or scheme://)")
     parser.add_argument("--mode", choices=["padded", "bucketed", "single"], default="bucketed")
+    parser.add_argument("--sharded", action="store_true",
+                        help="shard eval batches over every card: not ported yet "
+                             "(ROADMAP item 7); raises")
     parser.add_argument("--beam_width", type=int, default=0,
-                        help="prefix beam search: not ported yet (ROADMAP item 6); only 0")
+                        help="CTC prefix beam search width (0 = greedy, the reference's decode)")
     parser.add_argument("--lm_path", type=str, default=None,
-                        help="LM fusion: not ported yet (ROADMAP item 6)")
+                        help="CharNGramLM JSON for shallow fusion (see --lm_fit_dir); "
+                             "requires --beam_width > 0")
+    parser.add_argument("--lm_fit_dir", type=str, default=None,
+                        help="fit a char n-gram LM on this corpus's *.trans.txt transcripts "
+                             "(saved to --lm_path if given, else used in memory)")
+    parser.add_argument("--lm_order", type=int, default=4)
+    # None sentinels: both knobs only act inside the LM-fusion decode, so
+    # passing them without an LM is an error, not a silent no-op
+    parser.add_argument("--lm_weight", type=float, default=None,
+                        help="fusion weight (default 0.5; requires an LM)")
+    parser.add_argument("--token_bonus", type=float, default=None,
+                        help="per-token insertion bonus under LM fusion (requires an LM)")
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--pad_to", type=int, default=246000)
     parser.add_argument("--limit", type=int, default=0, help="cap sample count")
@@ -68,13 +84,27 @@ def main(argv=None) -> dict:
 
     if bool(args.data_dir) == bool(args.tfrecords):
         parser.error("pass exactly one of --data_dir / --tfrecords")
-    if args.beam_width > 0 or args.lm_path:
+    if args.sharded:
         raise NotImplementedError(
-            "--beam_width / --lm_path: beam search and LM fusion are not ported yet "
-            "(ROADMAP.md section 1 item 6); the port decodes greedily")
+            "--sharded: multi-card evaluation is not ported yet (ROADMAP.md section 1 item 7)")
 
+    lm = None
+    if args.lm_fit_dir:
+        lm = CharNGramLM.fit_from_librispeech(args.lm_fit_dir, args.lm_order)
+        if args.lm_path:
+            lm.save(args.lm_path)
+    elif args.lm_path:
+        lm = CharNGramLM.load(args.lm_path)
+    if lm is not None and args.beam_width <= 0:
+        parser.error("--lm_path/--lm_fit_dir require --beam_width > 0")
+    if lm is None and (args.lm_weight is not None or args.token_bonus is not None):
+        parser.error("--lm_weight/--token_bonus only act with --lm_path/--lm_fit_dir")
     model = Wav2Vec2ForCTC.from_pretrained(args.model_dir, device=args.device)
-    evaluator = GreedyCTCEvaluator(model)
+    evaluator = GreedyCTCEvaluator(
+        model, beam_width=args.beam_width, lm=lm,
+        lm_weight=0.5 if args.lm_weight is None else args.lm_weight,
+        token_bonus=0.0 if args.token_bonus is None else args.token_bonus,
+    )
     if args.tfrecords:
         largs = LibriSpeechDataLoaderArgs(from_tfrecords=True,
                                           tfrecords=expand_patterns(args.tfrecords))
@@ -111,6 +141,11 @@ def main(argv=None) -> dict:
               "seconds": round(time.time() - start, 2)}
     if args.mode == "single":
         report["round_to"] = args.round_to
+    if args.beam_width:
+        report["beam_width"] = args.beam_width
+    if lm is not None:
+        report["lm"] = {"order": lm.order, "weight": args.lm_weight,
+                        "token_bonus": args.token_bonus}
     print(json.dumps(report))
     return report
 

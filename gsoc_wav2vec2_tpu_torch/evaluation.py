@@ -1,11 +1,13 @@
-"""Greedy-CTC inference and WER evaluation (the single-process half of
+"""CTC inference and WER evaluation (the single-process half of
 `gsoc_wav2vec2_tpu/evaluation.py::GreedyCTCEvaluator`).
 
-Device side: forward + argmax.  Host side: CTC collapse + string join
-(`Wav2Vec2Processor.decode`).  `evaluate_padded` is the reference's
+Device side: the forward and the step mode's reduction (argmax ids,
+log-probs, or ids with their log-probs).  Host side: the greedy CTC
+collapse or prefix beam search with optional LM fusion (`decoding.py`),
+word timestamps and forced alignment.  `evaluate_padded` is the reference's
 constant-pad mode, `evaluate_bucketed` groups samples into a handful of
-length buckets so that padding within a batch stays bounded.  No mesh, no
-multi-host lockstep, no beam search, no timestamps and no streaming yet.
+length buckets so that padding within a batch stays bounded.  No mesh and
+no multi-host lockstep (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from .data.processor import Wav2Vec2Processor
+from .decoding import ctc_forced_align, ctc_prefix_beam_search, ctc_word_segments
 from .models.modeling import default_compute_dtype, wav2vec2_for_ctc_forward
 from .utils.metrics import wer
 
@@ -81,60 +84,256 @@ def plan_chunks(
 
 
 class GreedyCTCEvaluator:
-    """Greedy-decode inference for a `Wav2Vec2ForCTC` module, in its
-    device's compute dtype (bf16 on the card, f32 on the CPU).  The robust
-    family gets a sample mask; base checkpoints were trained without one."""
+    """CTC inference for a `Wav2Vec2ForCTC` module, in its device's compute
+    dtype (bf16 on the card, f32 on the CPU).  The robust family gets a
+    sample mask; base checkpoints were trained without one.
 
-    def __init__(self, model):
+    Device side: the forward, then the step mode's reduction of the f32
+    logits (`_step`).  Host side: the CTC collapse (`Wav2Vec2Processor.decode`)
+    or, with `beam_width > 0`, prefix beam search over the log-probs with
+    optional shallow fusion of a `decoding.CharNGramLM` (`lm`, `lm_weight`,
+    `token_bonus`); word timestamps and forced alignment from the frame path.
+    """
+
+    def __init__(
+        self,
+        model,
+        *,
+        beam_width: int = 0,
+        lm=None,
+        lm_weight: float = 0.5,
+        token_bonus: float = 0.0,
+    ):
         self.model = model
         self.config = model.config
         self.device = model.device
         self.compute_dtype = default_compute_dtype(self.device)
         self.tokenizer = Wav2Vec2Processor(is_tokenizer=True)
         self.use_attention_mask = self.config.is_robust
+        self.beam_width = beam_width
+        self.lm = lm
+        self.lm_weight = lm_weight
+        self.token_bonus = token_bonus
 
-    def _step(self, speech: np.ndarray, mask: Optional[np.ndarray]):
-        """Forward + argmax on the model's device; returns host numpy
-        (ids (B, frames) int32, frame lengths (B,) or None without a mask)."""
+    def _step(self, speech: np.ndarray, mask: Optional[np.ndarray], mode: Optional[str] = None):
+        """One forward on the model's device and one copy to the host.
+        `mode`, computed on the device from the f32 logits:
+          * "argmax"   — per-frame argmax ids (B, frames) int32 (greedy decode),
+          * "logprobs" — the per-frame log-softmax (B, frames, vocab) f32
+            (beam search, forced alignment),
+          * "scored"   — (argmax ids, each frame's max log-prob (B, frames)
+            f32): greedy decode with word timestamps and confidences.
+        The default follows `beam_width`.  Returns host numpy (outs, frame
+        lengths (B,) from the mask, or None without one)."""
+        if mode is None:
+            mode = "logprobs" if self.beam_width > 0 else "argmax"
+        if mode not in ("argmax", "logprobs", "scored"):
+            raise ValueError(f"unknown step mode {mode!r}")
         with torch.inference_mode():
             x = torch.from_numpy(speech).to(self.device)
             m = None if mask is None else torch.from_numpy(mask).to(self.device)
             logits = wav2vec2_for_ctc_forward(
                 self.model, self.config, x, m, compute_dtype=self.compute_dtype
             )
-            ids = torch.argmax(logits, dim=-1).to(torch.int32)
+            if mode == "logprobs":
+                outs = (torch.log_softmax(logits, dim=-1),)
+            else:
+                outs = (torch.argmax(logits, dim=-1).to(torch.int32),)
+                if mode == "scored":
+                    outs += (torch.log_softmax(logits, dim=-1).amax(dim=-1),)
             lengths = None
             if m is not None:
-                lengths = self.config.conv_output_length(m.to(torch.int64).sum(dim=-1))
-            ids = ids.cpu().numpy()
-            return ids, None if lengths is None else lengths.cpu().numpy()
+                lengths = self.config.conv_output_length(m.to(torch.int64).sum(dim=-1)).cpu().numpy()
+            outs = tuple(o.cpu().numpy() for o in outs)
+        return (outs if mode == "scored" else outs[0]), lengths
 
-    def _device_outputs(self, speech: np.ndarray, sample_lengths: np.ndarray):
-        """(ids, frame lengths clipped to [0, frames]): conv_output_length
-        goes negative below ~25 samples on the 7-layer stack, and a
-        negative slice bound would decode almost a full row."""
+    def _device_outputs(self, speech: np.ndarray, sample_lengths: np.ndarray, mode=None):
+        """(outs, frame lengths clipped to [0, frames]) of `_step`:
+        conv_output_length goes negative below ~25 samples on the 7-layer
+        stack, and a negative slice bound would decode almost a full row."""
         l = speech.shape[1]
         mask = None
         if self.use_attention_mask:
             mask = (np.arange(l)[None, :] < sample_lengths[:, None]).astype(np.float32)
-        ids, frame_lengths = self._step(speech, mask)
+        outs, frame_lengths = self._step(speech, mask, mode)
+        frames = (outs[0] if isinstance(outs, tuple) else outs).shape[1]
         if frame_lengths is None:
             # drop frames produced purely by padding
             frame_lengths = self.config.conv_output_length(sample_lengths)
-        return ids, np.clip(np.asarray(frame_lengths), 0, ids.shape[1])
+        return outs, np.clip(np.asarray(frame_lengths), 0, frames)
+
+    @staticmethod
+    def _rows(speech: np.ndarray, sample_lengths: Optional[np.ndarray]):
+        speech = np.ascontiguousarray(speech, np.float32)
+        if sample_lengths is None:
+            sample_lengths = np.full((speech.shape[0],), speech.shape[1], np.int64)
+        return speech, np.asarray(sample_lengths, np.int64)
+
+    def _beam_text(self, log_probs: np.ndarray) -> str:
+        seq = ctc_prefix_beam_search(
+            log_probs, self.beam_width, self.config.pad_id, lm=self.lm,
+            lm_weight=self.lm_weight, token_bonus=self.token_bonus,
+        )
+        return self.tokenizer.decode(np.asarray(seq, np.int32), group_tokens=False)
+
+    def _word_segments(self, ids, frame_probs):
+        return ctc_word_segments(
+            ids, frame_probs=frame_probs, pad_id=self.config.pad_id,
+            delimiter_id=self.tokenizer.delimiter_id,
+            id_to_token=self.tokenizer.id_to_token_mapping,
+            frame_seconds=self.frame_seconds,
+        )
+
+    def _require_greedy(self) -> None:
+        if self.beam_width > 0:
+            raise ValueError(
+                "word timestamps require greedy decoding (beam_width=0): "
+                "beam search sums over alignments and keeps no frame path"
+            )
 
     def predict_batch(
         self, speech: np.ndarray, sample_lengths: Optional[np.ndarray] = None
     ) -> List[str]:
         """speech: (B, L) normalised waveforms; sample_lengths: true lengths
-        (defaults to L for all rows)."""
-        speech = np.ascontiguousarray(speech, np.float32)
-        b, l = speech.shape
-        if sample_lengths is None:
-            sample_lengths = np.full((b,), l, np.int64)
-        sample_lengths = np.asarray(sample_lengths, np.int64)
-        ids, frame_lengths = self._device_outputs(speech, sample_lengths)
-        return [self.tokenizer.decode(ids[i, : frame_lengths[i]]) for i in range(b)]
+        (defaults to L for all rows).  Greedy, or prefix beam search when
+        `beam_width > 0`."""
+        speech, sample_lengths = self._rows(speech, sample_lengths)
+        outs, frame_lengths = self._device_outputs(speech, sample_lengths)
+        if self.beam_width > 0:
+            return [self._beam_text(outs[i, : frame_lengths[i]]) for i in range(len(outs))]
+        return [self.tokenizer.decode(outs[i, : frame_lengths[i]]) for i in range(len(outs))]
+
+    @property
+    def frame_seconds(self) -> float:
+        """Wall-clock seconds per encoder frame: the conv stack's total
+        stride over the 16 kHz sample rate (20 ms for the standard
+        [5,2,2,2,2,2,2] strides)."""
+        return float(np.prod(self.config.strides)) / 16000.0
+
+    def predict_segments(
+        self, speech: np.ndarray, sample_lengths: Optional[np.ndarray] = None
+    ):
+        """Greedy decode with word-level timestamps and confidences: one
+        `(text, words)` pair per row, `words` as `decoding.ctc_word_segments`
+        gives them (start/end in seconds and frames, the mean per-frame
+        probability of the argmax characters as a confidence; HuggingFace's
+        `output_word_offsets` convention).  Greedy only."""
+        self._require_greedy()
+        speech, sample_lengths = self._rows(speech, sample_lengths)
+        (ids, maxlogp), frame_lengths = self._device_outputs(speech, sample_lengths, "scored")
+        return [
+            self._word_segments(ids[i, : frame_lengths[i]], np.exp(maxlogp[i, : frame_lengths[i]]))
+            for i in range(len(ids))
+        ]
+
+    def _windows(self, audio: np.ndarray, chunk_samples: int, context_samples: int, mode: str):
+        """`_step` over the `plan_chunks` windows of `audio` (each padded to
+        `chunk_samples`, masked for the robust family): the kept frames of
+        each window, in order; they tile the utterance from frame 0."""
+        plan = plan_chunks(
+            len(audio), chunk_samples, context_samples,
+            self.config.conv_output_length,
+            total_stride=int(np.prod(self.config.strides)),
+        )
+        kept = []
+        for start, keep_lo, keep_hi in plan:
+            chunk = audio[start : start + chunk_samples]
+            true_len = len(chunk)
+            if true_len < chunk_samples:
+                chunk = np.pad(chunk, (0, chunk_samples - true_len))
+            mask = None
+            if self.use_attention_mask:
+                mask = (np.arange(chunk_samples) < true_len).astype(np.float32)[None, :]
+            outs, _ = self._step(np.ascontiguousarray(chunk[None, :]), mask, mode)
+            if isinstance(outs, tuple):
+                kept.append(tuple(o[0, keep_lo:keep_hi] for o in outs))
+            else:
+                kept.append(outs[0, keep_lo:keep_hi])
+        return kept
+
+    def transcribe_long(
+        self,
+        audio: np.ndarray,
+        chunk_samples: int = 246000,
+        context_samples: int = 16000,
+    ) -> str:
+        """Transcribe audio of any length: windows of `chunk_samples` that
+        overlap by `context_samples` on each side, each window's center
+        frames kept (`plan_chunks`), one greedy collapse over the joined
+        frame ids.  With `beam_width > 0`: one prefix beam search over the
+        joined log-probs of the whole utterance."""
+        audio = np.asarray(audio, np.float32)
+        if len(audio) <= chunk_samples:
+            return self.predict_batch(audio[None, :])[0]
+        kept = np.concatenate(self._windows(audio, chunk_samples, context_samples, None), axis=0)
+        if self.beam_width > 0:
+            return self._beam_text(kept)
+        return self.tokenizer.decode(kept)
+
+    def transcribe_long_segments(
+        self,
+        audio: np.ndarray,
+        chunk_samples: int = 246000,
+        context_samples: int = 16000,
+    ):
+        """Long-form `predict_segments`: the windows of `transcribe_long`;
+        the kept frames tile the utterance from frame 0, so word times stay
+        global across window junctions."""
+        self._require_greedy()
+        audio = np.asarray(audio, np.float32)
+        if len(audio) <= chunk_samples:
+            return self.predict_segments(audio[None, :])[0]
+        kept = self._windows(audio, chunk_samples, context_samples, "scored")
+        return self._word_segments(
+            np.concatenate([ids for ids, _ in kept]),
+            np.exp(np.concatenate([logp for _, logp in kept])),
+        )
+
+    def align_segments(
+        self,
+        audio: np.ndarray,
+        transcript: str,
+        chunk_samples: int = 246000,
+        context_samples: int = 16000,
+        pad_to: Optional[int] = None,
+    ):
+        """Forced alignment: word timestamps for a known transcript.  The
+        per-frame log-softmax comes from the device (long audio through the
+        windows of `transcribe_long`, so frame indices are global), then
+        `decoding.ctc_forced_align` finds the best CTC path that collapses
+        to the transcript, segmented as `predict_segments` segments.
+
+        Returns `(text, words)`: the normalised transcript and its words with
+        start/end seconds, frames and a confidence (the mean per-frame
+        probability of the aligned characters).  Raises ValueError if the
+        transcript needs more frames than the audio has.
+
+        `pad_to`: a single window is padded to this many samples first, so
+        that a server aligns at its bucket shapes; the padding frames are
+        cut before the trellis.  The robust family (masked) gives the
+        unpadded result; for the base family the conv stack's GroupNorm
+        sees the padding, so near-tie boundaries can move by a frame, as in
+        the server's padded transcribe path."""
+        label_ids = self.tokenizer(" ".join(transcript.split()))
+        audio = np.asarray(audio, np.float32)
+        if audio.ndim != 1:
+            raise ValueError(f"align_segments takes one utterance, got {audio.shape}")
+        if len(audio) <= chunk_samples:
+            true_len = len(audio)
+            padded = audio
+            if pad_to is not None and pad_to > true_len:
+                padded = np.pad(audio, (0, pad_to - true_len))
+            out, frame_lengths = self._device_outputs(
+                np.ascontiguousarray(padded[None, :]), np.asarray([true_len], np.int64), "logprobs"
+            )
+            log_probs = out[0, : frame_lengths[0]]
+        else:
+            log_probs = np.concatenate(
+                self._windows(audio, chunk_samples, context_samples, "logprobs"), axis=0
+            )
+        path, _ = ctc_forced_align(log_probs, label_ids, blank_id=self.config.pad_id)
+        frame_probs = np.exp(log_probs[np.arange(len(path)), path].astype(np.float64))
+        return self._word_segments(path, frame_probs)
 
     def evaluate_padded(
         self,
@@ -180,34 +379,3 @@ class GreedyCTCEvaluator:
         for bucket in sorted(pending):  # each holds fewer than batch_size
             flush(pending[bucket], bucket)
         return wer(refs, hyps), len(refs)
-
-    def transcribe_long(
-        self,
-        audio: np.ndarray,
-        chunk_samples: int = 246000,
-        context_samples: int = 16000,
-    ) -> str:
-        """Transcribe audio of any length: windows of `chunk_samples` that
-        overlap by `context_samples` on each side, each window's center
-        frames kept (`plan_chunks`), one greedy collapse over the joined
-        frame ids."""
-        audio = np.asarray(audio, np.float32)
-        if len(audio) <= chunk_samples:
-            return self.predict_batch(audio[None, :])[0]
-        plan = plan_chunks(
-            len(audio), chunk_samples, context_samples,
-            self.config.conv_output_length,
-            total_stride=int(np.prod(self.config.strides)),
-        )
-        ids: List[np.ndarray] = []
-        for start, keep_lo, keep_hi in plan:
-            chunk = audio[start : start + chunk_samples]
-            true_len = len(chunk)
-            if true_len < chunk_samples:
-                chunk = np.pad(chunk, (0, chunk_samples - true_len))
-            mask = None
-            if self.use_attention_mask:
-                mask = (np.arange(chunk_samples) < true_len).astype(np.float32)[None, :]
-            preds, _ = self._step(np.ascontiguousarray(chunk[None, :]), mask)
-            ids.append(preds[0, keep_lo:keep_hi])
-        return self.tokenizer.decode(np.concatenate(ids))

@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -35,6 +36,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 ]
+# held through `build`: threads of one process share its object directory
+_BUILD_LOCK = threading.Lock()
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -115,11 +118,18 @@ def _digest() -> str:
 def build() -> Path:
     """Compile every source (in parallel) and link the shared library;
     returns its path.  Raises `RuntimeError` with the compiler's output
-    when any step fails."""
+    when any step fails.  Thread-safe: a second caller waits for the first
+    build and reuses its library."""
+    with _BUILD_LOCK:
+        return _build_locked()
+
+
+def _build_locked() -> Path:
     lib_path = BUILD_DIR / f"libw2v2_kernels_{_digest()}.so"
     if lib_path.is_file():
         return lib_path
-    # objects per process, so that concurrent first uses cannot clobber each other
+    # objects per process, so that concurrent first uses in two processes
+    # cannot clobber each other (threads of one process wait on _BUILD_LOCK)
     obj_dir = BUILD_DIR / f"obj-{os.getpid()}"
     obj_dir.mkdir(parents=True, exist_ok=True)
     objs = [obj_dir / f"{src.stem}.o" for src in _sources()]
@@ -139,7 +149,9 @@ def build() -> Path:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use, with `argtypes` and
-    `restype` set for every entry point."""
+    `restype` set for every entry point.  Two threads that reach the first
+    use together both wait on `build`'s lock, and the second loads the
+    first one's library."""
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -930,3 +930,82 @@ def test_f32_forward_on_card_matches_cpu(cuda, small):
     with torch.inference_mode():
         ref = wav2vec2_for_ctc_forward(cpu, cfg, x, compute_dtype=torch.float32)
     assert (logits.cpu() - ref).abs().max().item() < 4e-3
+
+
+@pytest.mark.cuda
+def test_server_answers_on_card(cuda):
+    """A small base server on the card (`cli.serve`'s batcher and handler on
+    a thread of this process) answers a pair of concurrent requests in one
+    batch through the kernels, with the transcripts the same evaluator gives
+    in process for each request's padded (max_batch, bucket) batch."""
+    import io
+    import json
+    import threading
+    import urllib.request
+    import wave
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from gsoc_wav2vec2_tpu_torch.cli import serve
+    from gsoc_wav2vec2_tpu_torch.data.processor import Wav2Vec2Processor
+    from gsoc_wav2vec2_tpu_torch.evaluation import GreedyCTCEvaluator
+
+    model = Wav2Vec2ForCTC(Wav2Vec2Config(**SMALL_BASE), device=cuda,
+                           generator=torch.Generator().manual_seed(6))
+    evaluator = GreedyCTCEvaluator(model)
+    batcher = serve.DynamicBatcher(evaluator, buckets=(16000, 32000), max_batch=4, window_ms=300.0)
+    batcher.warmup()
+    batcher.start()
+    processor = Wav2Vec2Processor(is_tokenizer=False)
+    stats = {"requests": 0, "streams": 0, "aligns": 0}
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(batcher, processor, stats))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(7)
+    audios = [(0.3 * rng.standard_normal(n)).astype(np.float32) for n in (18000, 26000)]
+
+    def wav(audio):
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes())
+        return buf.getvalue()
+
+    results = [None, None]
+
+    def post(i):
+        req = urllib.request.Request(base + "/v1/transcribe", data=wav(audios[i]),
+                                     headers={"Content-Type": "audio/wav"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            results[i] = json.loads(resp.read())
+
+    _zero_launches()
+    try:
+        clients = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        torch.cuda.synchronize()
+        launches = _launches_since_zero()
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+    # the pair lands in the 32000 bucket together: one forward through the kernels
+    assert [r["batched_with"] for r in results] == [2, 2]
+    assert launches["groupnorm_stats"] == launches["conv01"] == launches["pos_conv"] == 1
+    assert launches["flash_attention_fwd"] == SMALL_BASE["num_layers"]
+    from gsoc_wav2vec2_tpu_torch.data.native_io import decode_wav_bytes
+
+    for audio, got in zip(audios, results):
+        speech = np.asarray(processor(decode_wav_bytes(wav(audio))[0]), np.float32)
+        batch = np.zeros((4, 32000), np.float32)
+        batch[0, : len(speech)] = speech
+        want = evaluator.predict_segments(batch, np.array([len(speech), 0, 0, 0]))[0][0]
+        assert got["transcription"] == want

@@ -48,7 +48,9 @@ def test_sources_cover_training():
             "models/pretraining.py", "ops/kernels/scatter_add.py", "cli/pretrain.py",
             "training/checkpoint.py", "cli/train.py", "cli/evaluate.py", "cli/average.py",
             "cli/make_tfrecords.py", "data/loaders.py", "data/native_io.py", "data/remote.py",
-            "convert/flax_msgpack.py", "convert/safetensors_io.py", "utils/logging.py"} <= names
+            "convert/flax_msgpack.py", "convert/safetensors_io.py", "utils/logging.py",
+            "decoding.py", "streaming.py", "cli/align.py", "cli/serve.py",
+            "cli/serve_bench.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -73,7 +75,9 @@ def test_importing_the_port_loads_no_jax():
     assert {"gsoc_wav2vec2_tpu_torch.training.trainer", "gsoc_wav2vec2_tpu_torch.models.pretraining",
             "gsoc_wav2vec2_tpu_torch.ops.kernels.scatter_add",
             "gsoc_wav2vec2_tpu_torch.cli.pretrain", "gsoc_wav2vec2_tpu_torch.cli.train",
-            "gsoc_wav2vec2_tpu_torch.data.native_io"} <= set(mods)
+            "gsoc_wav2vec2_tpu_torch.data.native_io", "gsoc_wav2vec2_tpu_torch.decoding",
+            "gsoc_wav2vec2_tpu_torch.streaming", "gsoc_wav2vec2_tpu_torch.cli.align",
+            "gsoc_wav2vec2_tpu_torch.cli.serve", "gsoc_wav2vec2_tpu_torch.cli.serve_bench"} <= set(mods)
 
 
 def test_port_calls_no_library_kernels():

@@ -321,8 +321,41 @@ def test_evaluate_cli_matches_the_jax_evaluator(corpus, tiny_model_dir, tmp_path
     assert report["mode"] == mode and ("round_to" in report) == (mode == "single")
 
 
-def test_evaluate_cli_refuses_beam_search_and_lm(corpus, tiny_model_dir):
-    for extra in (["--beam_width", "8"], ["--lm_path", "lm.json"]):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            evaluate.main(["--model_dir", tiny_model_dir, "--data_dir", corpus,
-                           "--device", "cpu", *extra])
+def test_evaluate_cli_refuses_beam_search_and_lm(corpus, tiny_model_dir, tmp_path, capsys,
+                                                 monkeypatch):
+    """Beam search and LM fusion, once refused, now run: `cli.evaluate
+    --beam_width 4 --lm_path ...` gives the JAX CLI's hypotheses utterance by
+    utterance (the JAX CLI's evaluator held at f32) and its report."""
+    import functools
+    import sys
+
+    from gsoc_wav2vec2_tpu.cli import evaluate as jax_evaluate
+    from gsoc_wav2vec2_tpu.decoding import CharNGramLM
+    from gsoc_wav2vec2_tpu_torch.evaluation import GreedyCTCEvaluator
+
+    lm_path = str(tmp_path / "lm.json")
+    CharNGramLM.fit_from_librispeech(corpus, order=3).save(lm_path)
+    hyps = {"port": [], "jax": []}
+    for cls, key in ((GreedyCTCEvaluator, "port"), (JaxEvaluator, "jax")):
+        predict = cls.predict_batch
+
+        def recorded(self, speech, sample_lengths=None, _predict=predict, _key=key):
+            out = _predict(self, speech, sample_lengths)
+            hyps[_key].extend(out)
+            return out
+
+        monkeypatch.setattr(cls, "predict_batch", recorded)
+    monkeypatch.setattr(jax_evaluate, "GreedyCTCEvaluator",
+                        functools.partial(JaxEvaluator, compute_dtype=jnp.float32))
+    argv = ["--model_dir", tiny_model_dir, "--data_dir", corpus, "--mode", "padded",
+            "--pad_to", "6000", "--batch_size", "3", "--beam_width", "4", "--lm_path", lm_path,
+            "--lm_weight", "0.3"]
+    report = evaluate.main(argv + ["--device", "cpu"])
+    capsys.readouterr()
+    monkeypatch.setattr(sys, "argv", ["evaluate", *argv])
+    jax_evaluate.main()
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(hyps["port"]) == len(TEXTS) and hyps["port"] == hyps["jax"]
+    assert any(hyps["port"])
+    report.pop("seconds"), want.pop("seconds")
+    assert report == want and report["beam_width"] == 4 and report["lm"]["weight"] == 0.3
