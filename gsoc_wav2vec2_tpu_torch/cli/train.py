@@ -15,9 +15,10 @@ that epoch's `seed + epoch` batch stream, so a resumed run is the straight
 run bit for bit (the step's generator is part of the checkpoint).
 
 On one card, through the port's kernels in bf16 (`--compute_dtype float32`
-runs every site plain).  Against the JAX driver: `--model_axis` above 1
-(tensor parallelism, ROADMAP item 7) and `--remat` (ROADMAP item 5) raise;
-preemption is single-process.
+runs every site plain), with JAX's `--remat --remat_policy dots` by default
+(each encoder layer recomputed in the backward, its matrix products kept).
+Against the JAX CLI: `--model_axis` above 1 (tensor parallelism, ROADMAP
+item 7) raises; preemption is single-process.
 
 Usage:
     python -m gsoc_wav2vec2_tpu_torch.cli.train --model_id <dir> \\
@@ -33,7 +34,7 @@ import os
 import signal
 import time
 from dataclasses import asdict, dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -61,7 +62,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 @dataclass
 class TrainingArgs:
     """The JAX driver's fields, defaults and env vars (reference
-    `main.py:30-125`), plus `device`; `remat` defaults to False here."""
+    `main.py:30-125`), plus `device`."""
 
     # stage 1 trains only the LM head; stage 2 unfreezes all but the convs
     stage1_epochs: int = 15
@@ -98,8 +99,9 @@ class TrainingArgs:
     bucket_boundaries: List[int] = field(default_factory=list)
     compute_dtype: str = "bfloat16"
     length_aware_loss: bool = False
-    # rematerialisation is not ported yet (ROADMAP item 5); True raises
-    remat: bool = False
+    # per-layer rematerialisation: "dots" keeps the matrix products, "full"
+    # recomputes the whole layer
+    remat: bool = True
     remat_policy: str = "dots"
 
     train_tfrecords: List[str] = field(default_factory=list)
@@ -159,6 +161,16 @@ def _preempt_consensus(update_idx: int, sync_every: int) -> bool:
     multi-process training, ROADMAP item 7)."""
     del update_idx, sync_every
     return _PREEMPT_REQUESTED
+
+
+def remat_value(args) -> Union[bool, str]:
+    """`--remat` / `--remat_policy` as the step builders' `remat` (JAX's
+    mapping: "full" is True)."""
+    if args.remat_policy not in ("full", "dots"):
+        raise ValueError(f"--remat_policy must be 'full' or 'dots', got {args.remat_policy!r}")
+    if not args.remat:
+        return False
+    return True if args.remat_policy == "full" else args.remat_policy
 
 
 def _compute_dtype(args: TrainingArgs) -> torch.dtype:
@@ -282,6 +294,7 @@ def run_stage(*, stage: int, args: TrainingArgs, config: Wav2Vec2Config, model,
         length_aware=args.length_aware_loss or bucketed,
         compute_dtype=_compute_dtype(args),
         ema_decay=args.ema_decay if args.ema_decay > 0 else None,
+        remat=remat_value(args),
     )
     if accum == 1:
         step_fn = make_train_step(config, **step_kwargs)
@@ -399,10 +412,7 @@ def main(args: TrainingArgs) -> None:
         raise NotImplementedError(
             f"--model_axis {args.model_axis}: tensor parallelism is not ported yet "
             "(ROADMAP.md section 1 item 7); the port trains on one card")
-    if args.remat:
-        raise NotImplementedError(
-            "--remat: rematerialisation is not ported yet (ROADMAP.md section 1 item 5); "
-            "it changes memory, not numbers, and the base step fits without it")
+    remat_value(args)
     _compute_dtype(args)
 
     model = _build_model(args)
@@ -464,8 +474,8 @@ def parse_args(argv=None) -> TrainingArgs:
     parser.add_argument("--model_id", type=str, default=None)
     parser.add_argument("--compute_dtype", type=str, default="bfloat16", choices=sorted(_DTYPES))
     parser.add_argument("--length_aware_loss", action="store_true")
-    parser.add_argument("--remat", action=argparse.BooleanOptionalAction, default=False,
-                        help="not ported yet (ROADMAP item 5): --remat raises")
+    parser.add_argument("--remat", action=argparse.BooleanOptionalAction, default=True,
+                        help="recompute each encoder layer in the backward")
     parser.add_argument("--remat_policy", type=str, default="dots", choices=["full", "dots"])
     parser.add_argument("--bucket_boundaries", nargs="*", type=int, default=[],
                         help="bucketed training: sorted audio lengths (samples); each batch "

@@ -22,8 +22,11 @@ positional conv through their autograd functions (kernel backwards).  The
 randomness comes from one `torch.Generator`, drawn in JAX's key-stream
 order: the head's dropout, then the body (projection dropout, SpecAugment,
 the encoder's dropout, then 4 draws per layer: attention seed, post-attention
-dropout, FFN dropout, stochastic depth).  Every site draws whether or not
-its rate is 0, so the stream does not depend on the rates.  What is frozen
+dropout, FFN dropout, stochastic depth, all layers' drawn before the first
+runs).  `remat` (False, True / "full", "dots": JAX's values) recomputes each
+layer's activations in the backward (`torch.utils.checkpoint`).  Every site
+draws whether or not its rate is 0, so the stream does not depend on the
+rates.  What is frozen
 is what has `requires_grad` off: the models are built so, and
 `training.set_trainable` turns on the trainable leaves.  Autograd then
 builds no backward for a frozen region (JAX's `stop_gradient` at the same
@@ -37,13 +40,20 @@ is the JAX package's own dispatch (`conv_frontend.supports`).
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..convert import flax_msgpack, safetensors_io
 from ..convert.hf_torch import state_dict_from_hf
@@ -252,21 +262,28 @@ def _check_training(training: bool, generator: Optional[torch.Generator]) -> Non
         raise ValueError("the training forward draws its randomness from a torch.Generator")
 
 
+LayerDraws = Tuple[int, Tuple[int, int], Tuple[int, int], bool]
+
+
+def layer_draws(generator: torch.Generator, config: Wav2Vec2Config) -> LayerDraws:
+    """One training layer's randomness, drawn in JAX's order: the attention
+    seed, the post-attention and FFN dropout seeds, the stochastic-depth
+    Bernoulli."""
+    return (attention_seed(generator), seed_words(generator), seed_words(generator),
+            bool(torch.rand((), generator=generator) < config.survival_prob))
+
+
 def transformer_layer_forward(
     x: torch.Tensor, p: TransformerLayer, config: Wav2Vec2Config,
     mask_bias: Optional[torch.Tensor], *, training: bool = False,
-    generator: Optional[torch.Generator] = None,
+    draws: Optional[LayerDraws] = None,
 ) -> torch.Tensor:
     """One encoder layer (reference `encoder.py:111-134`); in training it
-    draws, in order, the attention seed, the post-attention and FFN dropout
-    seeds and the stochastic-depth Bernoulli."""
-    _check_training(training, generator)
-    if training:
-        attn_seed = attention_seed(generator)
-        attn_drop, ffn_drop = seed_words(generator), seed_words(generator)
-        keep_ffn = bool(torch.rand((), generator=generator) < config.survival_prob)
-    else:
-        attn_seed = attn_drop = ffn_drop = keep_ffn = None
+    takes its randomness as `draws` (`layer_draws`), drawn before the layer
+    runs, so that a rematerialised layer recomputes the same bits."""
+    if training and draws is None:
+        raise ValueError("the training layer takes its draws (layer_draws) from the caller")
+    attn_seed, attn_drop, ffn_drop, keep_ffn = draws if training else (None,) * 4
     eps, rate = config.layer_norm_eps, config.dropout
     prenorm = config.attention_norm_type == "prenorm"
     residual = x
@@ -295,14 +312,45 @@ def transformer_layer_forward(
     return x
 
 
+# the matrix products that `remat="dots"` keeps (jax.checkpoint_policies.dots_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(remat: Union[bool, str]):
+    """None (no rematerialisation) or the `checkpoint` context function of a
+    JAX `remat` value: True / "full" saves nothing inside a layer, "dots"
+    saves the matrix products' outputs and recomputes the rest (norms,
+    activations, dropout masks, the attention kernel, as a Pallas call is
+    recomputed under `dots_saveable`)."""
+    if remat is False or remat is None:
+        return None
+    if remat is True or remat == "full":
+        return noop_context_fn
+    if remat == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    raise ValueError(f"remat must be False, True, 'full' or 'dots', got {remat!r}")
+
+
 def encoder_forward(
     params: Encoder, config: Wav2Vec2Config, x: torch.Tensor,
     frame_mask: Optional[torch.Tensor], *, training: bool = False,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, remat: Union[bool, str] = False,
 ) -> torch.Tensor:
     """Positional conv embed + N transformer layers (a loop over the
-    `ModuleList` where JAX scans)."""
+    `ModuleList` where JAX scans).  In training every layer's draws come
+    from `generator` before the first layer runs (JAX splits the layers'
+    keys before its scan; nothing draws between layers, so the bits are
+    those of drawing inside each layer).  `remat` (JAX's values, see
+    `remat_policy`) wraps each layer in `torch.utils.checkpoint` where a
+    gradient is being recorded: its activations are recomputed in the
+    backward, from the same draws."""
     _check_training(training, generator)
+    context_fn = remat_policy(remat)
     mask_bias = None
     if frame_mask is not None:
         x = torch.where(frame_mask[:, :, None], x, torch.zeros_like(x))
@@ -317,9 +365,15 @@ def encoder_forward(
     if not prenorm:
         x = layer_norm(x, ln.gamma, ln.beta, config.layer_norm_eps)
     x = dropout(x, config.dropout, seed_words(generator) if training else None, not training)
-    for layer in params.layers:
-        x = transformer_layer_forward(x, layer, config, mask_bias, training=training,
-                                      generator=generator)
+    draws = [layer_draws(generator, config) if training else None for _ in params.layers]
+    for layer, d in zip(params.layers, draws):
+        if context_fn is not None and torch.is_grad_enabled():
+            x = checkpoint(transformer_layer_forward, x, layer, config, mask_bias,
+                           training=training, draws=d, use_reentrant=False,
+                           context_fn=context_fn)
+        else:
+            x = transformer_layer_forward(x, layer, config, mask_bias, training=training,
+                                          draws=d)
     if prenorm:
         x = layer_norm(x, ln.gamma, ln.beta, config.layer_norm_eps)
     return x
@@ -329,12 +383,13 @@ def wav2vec2_forward(
     params: "Wav2Vec2Model", config: Wav2Vec2Config, batch: torch.Tensor,
     attention_mask: Optional[torch.Tensor] = None, *,
     compute_dtype: torch.dtype = torch.float32, training: bool = False,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, remat: Union[bool, str] = False,
 ) -> torch.Tensor:
     """(B, L_samples) normalised waveform [+ 0/1 sample mask] ->
     (B, L_frames, hidden_size) hidden states.  `training` and `generator`
-    as in the module docstring.  The kernels run in bf16 only; in f32 on
-    the card every site takes its plain torch op, in full f32 when the
+    as in the module docstring, `remat` as in `encoder_forward`.  The
+    kernels run in bf16 only; in f32 on the card every site takes its plain
+    torch op, in full f32 when the
     caller sets `torch.backends.cuda.matmul.allow_tf32 = False` and
     `torch.backends.cudnn.allow_tf32 = False` (cuDNN's convolutions
     default to TF32)."""
@@ -359,14 +414,14 @@ def wav2vec2_forward(
         frame_length = config.conv_output_length(input_length)
         frame_mask = torch.arange(x.shape[1], device=x.device)[None, :] < frame_length[:, None]
     return encoder_forward(params.encoder, config, x, frame_mask, training=training,
-                           generator=generator)
+                           generator=generator, remat=remat)
 
 
 def wav2vec2_for_ctc_forward(
     params: "Wav2Vec2ForCTC", config: Wav2Vec2Config, batch: torch.Tensor,
     attention_mask: Optional[torch.Tensor] = None, *,
     compute_dtype: torch.dtype = torch.float32, training: bool = False,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, remat: Union[bool, str] = False,
 ) -> torch.Tensor:
     """Base model -> dropout -> LM head; (B, L_frames, vocab) logits in
     f32."""
@@ -374,7 +429,7 @@ def wav2vec2_for_ctc_forward(
     head_seed = seed_words(generator) if training else None
     x = wav2vec2_forward(
         params.wav2vec2, config, batch, attention_mask, compute_dtype=compute_dtype,
-        training=training, generator=generator,
+        training=training, generator=generator, remat=remat,
     )
     x = dropout(x, config.dropout, head_seed, not training)
     return dense(x, params.lm_head.kernel, params.lm_head.bias).float()

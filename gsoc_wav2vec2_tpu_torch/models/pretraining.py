@@ -24,15 +24,15 @@ order: projection dropout, the encoder's draws, quantizer dropout, Gumbel
 noise; the step then draws the negatives.  The two draws that are not seed
 words live in `_gumbel_noise` and `_uniform_below`.
 
-Against the JAX module: `mesh`, `remat`, `attention_impl` and `use_pallas`
-have no counterpart yet (one card, no rematerialisation); the step takes the
+Against the JAX module: `mesh`, `attention_impl` and `use_pallas` have no
+counterpart yet (one card); `remat` takes JAX's values; the step takes the
 optimizer from the port's `TrainState` where JAX takes an optax `tx`; and
 `pretraining_loss`'s `pallas_scatter` is `scatter_kernel` here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -191,14 +191,15 @@ def wav2vec2_for_pretraining_forward(
     mask_time_indices: torch.Tensor, attention_mask: Optional[torch.Tensor] = None, *,
     training: bool = False, generator: Optional[torch.Generator] = None,
     gumbel_temperature=2.0, compute_dtype: torch.dtype = torch.float32,
-    return_code_ids: bool = False,
+    return_code_ids: bool = False, remat: Union[bool, str] = False,
 ):
     """Masked-prediction forward (`transformers.Wav2Vec2ForPreTraining.forward`).
 
     Returns (projected_states (B, L, P), projected_quantized (B, L, P),
     perplexity), all f32, plus the (B, L, G) codeword ids when
     `return_code_ids`.  `mask_time_indices` is an input, so that the loss,
-    the negative sampler and the forward see the same mask.
+    the negative sampler and the forward see the same mask.  `remat` as
+    `modeling.encoder_forward`'s.
     """
     _check_training(training, generator)
     w = params.wav2vec2
@@ -220,7 +221,7 @@ def wav2vec2_for_pretraining_forward(
         frame_mask = torch.arange(h.shape[1], device=h.device)[None, :] < frame_length[:, None]
 
     hidden = encoder_forward(w.encoder, config, h, frame_mask, training=training,
-                             generator=generator)
+                             generator=generator, remat=remat)
     projected_states = dense(hidden, params.project_hid.kernel, params.project_hid.bias).float()
 
     feats = dropout(extract_features, config.feat_quantizer_dropout,
@@ -307,7 +308,7 @@ def pretraining_loss(
     `contrastive_impl`:
 
     **"gram"**: per utterance the negative similarities are entries of the
-    (L, L) Gram matrix pred @ q^T, picked out by `torch.gather` along the key
+    (L, L) Gram matrix pred @ q^T, picked out by a gather along the key
     axis (the JAX package selects the same entries by a compare-select-reduce
     over a (B, L, K, L) iota, which eager PyTorch would materialise); no
     (B, L, K, D) tensor.  The Gram product runs in f64: it feeds exp()
@@ -378,19 +379,44 @@ def pretraining_loss(
     return _loss_tail(logit_pos, logit_neg, mask_time_indices, perplexity, config)
 
 
+class _TakeAlong(torch.autograd.Function):
+    """`x.gather(-1, idx)` whose backward adds without float atomics, so that
+    a step is bit-reproducible: `index_put_(accumulate=True)` on the card (a
+    sort, then each destination summed in order) and `scatter_add_` on the
+    CPU (serial along the gathered axis).  Autograd's own gather backward on
+    the card is a `scatter_add_` with float atomics."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return x.gather(-1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        out = g.new_zeros(ctx.shape)
+        if not g.is_cuda:
+            return out.scatter_add_(-1, idx, g), None
+        lead = torch.meshgrid(*(torch.arange(n, device=g.device) for n in idx.shape[:-1]),
+                              indexing="ij")
+        out.index_put_((*(a[..., None].expand_as(idx) for a in lead), idx), g, accumulate=True)
+        return out, None
+
+
 def _gram_negative_logits(pred, q, q_norm, pred_norm, sampled_negative_indices, inv_temp):
     """(B, L, K) negative cosine logits via the per-utterance Gram matrix:
     s[l, k] = G[l, idx[l, k]] with G = pred @ q^T, and the negatives' norms
-    q_norm[idx[l, k]].  Autograd's backward of the two gathers is a
-    scatter-add into the dense (B, L, L) cotangent and into (B, L); d_pred and
-    d_q are the Gram product's own backward."""
+    q_norm[idx[l, k]].  The two gathers' backward (`_TakeAlong`) adds into
+    the dense (B, L, L) cotangent and into (B, L); d_pred and d_q are the
+    Gram product's own backward."""
     b, l, _ = q.shape
     k = sampled_negative_indices.shape[-1]
     # negatives are drawn within one utterance, so the indices are row-local
     local = sampled_negative_indices.long() - (torch.arange(b, device=q.device) * l)[:, None, None]
     gram = (pred.double() @ q.double().transpose(1, 2)).float()  # (B, L, L)
-    s = gram.gather(2, local)
-    nn_ = q_norm.gather(1, local.reshape(b, l * k)).reshape(b, l, k).clamp_min(1e-8)
+    s = _TakeAlong.apply(gram, local)
+    nn_ = _TakeAlong.apply(q_norm, local.reshape(b, l * k)).reshape(b, l, k).clamp_min(1e-8)
     return (s / (pred_norm[:, :, None] * nn_)) * inv_temp
 
 
@@ -430,7 +456,8 @@ PART_NAMES = ("contrastive_loss", "diversity_loss", "codevector_perplexity")
 
 
 def _make_pretrain_loss_fn(config: Wav2Vec2PretrainingConfig, *, division_factor: float,
-                           with_attention_mask: bool, compute_dtype: Optional[torch.dtype]):
+                           with_attention_mask: bool, compute_dtype: Optional[torch.dtype],
+                           remat: Union[bool, str] = False):
     """`(model, batch, generator, temperature) -> (scalar, parts)`: the
     objective summed over the batch / `division_factor`, and its undivided
     parts.  Shared by the step and the accumulation steps."""
@@ -444,6 +471,7 @@ def _make_pretrain_loss_fn(config: Wav2Vec2PretrainingConfig, *, division_factor
             model, config, batch["speech"].float(), mti, mask, training=True,
             generator=generator, gumbel_temperature=temperature,
             compute_dtype=compute_dtype or default_compute_dtype(dev), return_code_ids=True,
+            remat=remat,
         )
         negs = sample_negative_indices(generator, mti, config.num_negatives)
         # auto resolves to the "gram" formulation (code_ids present)
@@ -457,17 +485,18 @@ def _make_pretrain_loss_fn(config: Wav2Vec2PretrainingConfig, *, division_factor
 def make_pretrain_step(config: Wav2Vec2PretrainingConfig, *, division_factor: float,
                        with_attention_mask: bool = False,
                        compute_dtype: Optional[torch.dtype] = None,
-                       ema_decay: Optional[float] = None):
+                       ema_decay: Optional[float] = None, remat: Union[bool, str] = True):
     """`(state, batch, generator, gumbel_temperature) -> (state, metrics)`:
     one forward, backward and optimizer update, in place.
 
     `batch` needs "speech" (B, L) and "mask_time_indices" (B, L_frames) bool,
     plus optionally "attention_mask"; the negatives are drawn inside the
     step.  The metrics carry the undivided loss parts, the optimized
-    (`division_factor`-normalised) "loss" and "grad_norm"."""
+    (`division_factor`-normalised) "loss" and "grad_norm".  `remat` as
+    `modeling.encoder_forward`'s (JAX's step builders default to True)."""
     loss_fn = _make_pretrain_loss_fn(config, division_factor=division_factor,
                                      with_attention_mask=with_attention_mask,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype, remat=remat)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator, temperature):
         state.optimizer.zero_grad(set_to_none=True)
@@ -482,7 +511,8 @@ def make_pretrain_step(config: Wav2Vec2PretrainingConfig, *, division_factor: fl
 def make_pretrain_accum_steps(config: Wav2Vec2PretrainingConfig, *, division_factor: float,
                               with_attention_mask: bool = False,
                               compute_dtype: Optional[torch.dtype] = None,
-                              ema_decay: Optional[float] = None):
+                              ema_decay: Optional[float] = None,
+                              remat: Union[bool, str] = True):
     """Gradient accumulation, `(init_fn, accum_fn, apply_fn)`: the objective
     decomposes per utterance (negatives come from the same utterance), so
     microbatch gradients summed in `.grad` optimize it at the effective batch
@@ -497,7 +527,7 @@ def make_pretrain_accum_steps(config: Wav2Vec2PretrainingConfig, *, division_fac
     "codevector_perplexity" comes back as a sum over microbatches."""
     loss_fn = _make_pretrain_loss_fn(config, division_factor=division_factor,
                                      with_attention_mask=with_attention_mask,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype, remat=remat)
 
     def init_fn(state: TrainState) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)

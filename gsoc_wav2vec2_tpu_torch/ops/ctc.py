@@ -1,9 +1,12 @@
 """CTC loss (counterpart of `gsoc_wav2vec2_tpu/ops/ctc.py`).
 
-`F.ctc_loss` over `log_softmax(logits)`, per sample (reduction "none"),
-blank = pad id.  JAX computes the same function with `optax.ctc_loss` (not a
-Pallas kernel), so the library call is the port too.  Both semantics of the
-JAX module are kept:
+`log_softmax(logits)` in f32, then `ops/kernels/ctc.py::ctc_loss`, per
+sample, blank = pad id: optax's recursion (`optax.ctc_loss`, which the JAX
+package calls), with its log 0 of -1e5, so a row whose labels cannot fit its
+frames has a large finite loss and gradient as in JAX.  On the card it runs
+the deterministic CUDA kernels (more than `MAX_LABELS` label positions a
+row raise there); on the CPU the plain loop.  Both semantics of the JAX
+module are kept:
 
 * the reference's constant logit length: the conv stack's output length of
   the padded input, padding frames included (`ops/ctc.py:10-12`);
@@ -18,7 +21,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
+
+from .kernels import ctc as ctc_kernel
 
 
 def ctc_loss_fn(
@@ -26,12 +30,10 @@ def ctc_loss_fn(
 ) -> torch.Tensor:
     """(B, T, V) unnormalised logits, (B, U) pad-padded labels, (B,) valid
     frame counts -> (B,) per-sample negative log-likelihood (f32)."""
-    log_probs = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)  # (T, B, V)
-    labels = labels.to(torch.int64)
-    label_lengths = (labels != pad_id).sum(dim=-1)
-    logit_lengths = torch.as_tensor(logit_lengths, dtype=torch.int64, device=logits.device)
-    return F.ctc_loss(log_probs, labels, logit_lengths, label_lengths, blank=pad_id,
-                      reduction="none", zero_infinity=False)
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    labels = torch.as_tensor(labels).to(logits.device)
+    logit_lengths = torch.as_tensor(logit_lengths, dtype=torch.int64).to(logits.device)
+    return ctc_kernel.ctc_loss(log_probs, labels, logit_lengths, pad_id)
 
 
 class CTCLoss:

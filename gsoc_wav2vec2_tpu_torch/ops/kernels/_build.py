@@ -71,6 +71,11 @@ SIGNATURES = {
     # dneg, idx, order, start, off, ticket, work, part, meta, out,
     # B, N, D, ld, L, shares, bf16, stream
     "w2v2_scatter_rows_add": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # log_probs, labels, lengths, states, loss, B, T, V, N, pad, stream
+    "w2v2_ctc_fwd": [P, P, P, P, P, I, I, I, I, I, P],
+    # log_probs, labels, lengths, states, gloss, dl, order, offsets, grad,
+    # B, T, V, N, pad, stream
+    "w2v2_ctc_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
 }
 
 

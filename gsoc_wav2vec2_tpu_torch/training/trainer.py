@@ -16,7 +16,7 @@ from the `torch.Generator` the caller passes to each step.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple, Union
 
 import torch
 
@@ -37,10 +37,12 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 
 def make_ctc_loss_fn(config: Wav2Vec2Config, *, division_factor: float,
                      with_attention_mask: bool = False, length_aware: bool = False,
-                     compute_dtype: Optional[torch.dtype] = None):
+                     compute_dtype: Optional[torch.dtype] = None,
+                     remat: Union[bool, str] = True):
     """`(model, batch, generator) -> scalar loss` of the training forward
     (JAX `_make_ctc_loss_fn`).  What is frozen is what has `requires_grad`
-    off (`set_trainable`)."""
+    off (`set_trainable`).  `remat` as `modeling.encoder_forward`'s (JAX's
+    step builders default to True)."""
 
     def loss_fn(model, batch: dict, generator: torch.Generator) -> torch.Tensor:
         dev = model.device
@@ -49,7 +51,7 @@ def make_ctc_loss_fn(config: Wav2Vec2Config, *, division_factor: float,
         logits = wav2vec2_for_ctc_forward(
             model, config, batch["speech"].float(), mask,
             compute_dtype=compute_dtype or default_compute_dtype(dev),
-            training=True, generator=generator,
+            training=True, generator=generator, remat=remat,
         )
         b, t = logits.shape[0], logits.shape[1]
         if length_aware and mask is not None:
@@ -89,14 +91,15 @@ def _apply(state: TrainState, loss: torch.Tensor, ema_decay: Optional[float]):
 def make_train_step(config: Wav2Vec2Config, *, division_factor: float,
                     with_attention_mask: bool = False, length_aware: bool = False,
                     compute_dtype: Optional[torch.dtype] = None,
-                    ema_decay: Optional[float] = None):
+                    ema_decay: Optional[float] = None, remat: Union[bool, str] = True):
     """`(state, batch, generator) -> (state, {"loss", "grad_norm"})`: one
     forward, backward and Adam update, in place, of the parameters that
     `set_trainable` left trainable.  With `ema_decay` the state must carry
-    `ema_params`."""
+    `ema_params`; `remat` as in `make_ctc_loss_fn`."""
     loss_fn = make_ctc_loss_fn(config, division_factor=division_factor,
                                with_attention_mask=with_attention_mask,
-                               length_aware=length_aware, compute_dtype=compute_dtype)
+                               length_aware=length_aware, compute_dtype=compute_dtype,
+                               remat=remat)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         state.optimizer.zero_grad(set_to_none=True)
@@ -110,7 +113,7 @@ def make_train_step(config: Wav2Vec2Config, *, division_factor: float,
 def make_grad_accum_steps(config: Wav2Vec2Config, *, division_factor: float,
                           with_attention_mask: bool = False, length_aware: bool = False,
                           compute_dtype: Optional[torch.dtype] = None,
-                          ema_decay: Optional[float] = None):
+                          ema_decay: Optional[float] = None, remat: Union[bool, str] = True):
     """Gradient accumulation, `(init_fn, accum_fn, apply_fn)`: microbatch
     gradients sum in the parameters' `.grad`, so with `division_factor` the
     effective batch size the update equals one step on the whole batch::
@@ -122,7 +125,8 @@ def make_grad_accum_steps(config: Wav2Vec2Config, *, division_factor: float,
     """
     loss_fn = make_ctc_loss_fn(config, division_factor=division_factor,
                                with_attention_mask=with_attention_mask,
-                               length_aware=length_aware, compute_dtype=compute_dtype)
+                               length_aware=length_aware, compute_dtype=compute_dtype,
+                               remat=remat)
 
     def init_fn(state: TrainState) -> torch.Tensor:
         state.optimizer.zero_grad(set_to_none=True)

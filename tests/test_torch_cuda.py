@@ -217,9 +217,11 @@ def _robust_steps_go_through_the_kernels(cuda, **overrides):
             fn.launches = 0
         state, metrics = step(state, batch, torch.Generator().manual_seed(i))
         losses.append(metrics["loss"].item())
+        # the step's default remat runs each layer's attention forward again
+        # in the backward: 2 layers, 4 forwards
         assert {k: fn.launches for k, fn in kernels.items()} == {
             "conv01_robust": 1, "groupnorm_stats": 0, "pos_conv_train_fwd": 1, "pos_conv_dx": 1,
-            "pos_conv_dw": 1, "flash_attention_fwd": 2, "flash_attention_bwd": 2}
+            "pos_conv_dw": 1, "flash_attention_fwd": 4, "flash_attention_bwd": 2}
     assert all(torch.isfinite(torch.tensor(losses)))
     assert losses[-1] < losses[0]
 
@@ -440,9 +442,11 @@ def test_small_model_train_step_goes_through_the_kernels(cuda):
             fn.launches = 0
         state, metrics = step(state, batch, torch.Generator().manual_seed(i))
         losses.append(metrics["loss"].item())
+        # the step's default remat runs each layer's attention forward again
+        # in the backward: 2 layers, 4 forwards
         assert {k: fn.launches for k, fn in kernels.items()} == {
             "groupnorm_stats": 1, "conv01": 1, "pos_conv": 0, "pos_conv_train_fwd": 1,
-            "pos_conv_dx": 1, "pos_conv_dw": 1, "flash_attention_fwd": 2,
+            "pos_conv_dx": 1, "pos_conv_dw": 1, "flash_attention_fwd": 4,
             "flash_attention_bwd": 2}
     assert all(torch.isfinite(torch.tensor(losses)))
     assert losses[-1] < losses[0]
@@ -1009,3 +1013,168 @@ def test_server_answers_on_card(cuda):
         batch[0, : len(speech)] = speech
         want = evaluator.predict_segments(batch, np.array([len(speech), 0, 0, 0]))[0][0]
         assert got["transcription"] == want
+
+
+def _ctc_case(cuda, b, t, v, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    log_probs = torch.log_softmax(2.0 * torch.randn(b, t, v, generator=g), -1).to(cuda)
+    labels = torch.zeros(b, n, dtype=torch.int64)
+    for i in range(b):
+        m = int(torch.randint(1, n + 1, (), generator=g))
+        labels[i, :m] = torch.randint(1, 4 if i % 2 else v, (m,), generator=g)  # odd rows repeat
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lengths[0] = t
+    labels[-1], lengths[-1] = 1, n  # n equal labels need 2n - 1 frames: infeasible
+    return log_probs, labels.to(cuda), lengths.to(cuda)
+
+
+def _ctc_run(fn, log_probs, labels, lengths):
+    x = log_probs.clone().requires_grad_(True)
+    loss = fn(x, labels, lengths)
+    loss.sum().backward()
+    torch.cuda.synchronize()
+    return loss.detach(), x.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,v,n", [(4, 120, 32, 30), (3, 777, 32, 200), (1, 2000, 8, 900),
+                                     (3, 90, 8192, 40)])
+def test_ctc_kernel_matches_plain_on_card(cuda, b, t, v, n):
+    """The CTC kernels against `ctc_loss_plain` on the card: loss rtol 1e-5,
+    gradient atol 1e-5; the infeasible row finite (loss >= 1e4), no gradient
+    past a row's logit length; a subword vocabulary (V = 8192) too."""
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import ctc
+
+    log_probs, labels, lengths = _ctc_case(cuda, b, t, v, n, seed=b + t)
+    ctc.ctc_loss_fwd.launches = ctc.ctc_loss_bwd.launches = 0
+    loss, grad = _ctc_run(ctc.ctc_loss, log_probs, labels, lengths)
+    assert (ctc.ctc_loss_fwd.launches, ctc.ctc_loss_bwd.launches) == (1, 1)
+    want, want_grad = _ctc_run(ctc.ctc_loss_plain, log_probs, labels, lengths)
+    assert torch.isfinite(loss).all() and torch.isfinite(grad).all()
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+    torch.testing.assert_close(grad, want_grad, rtol=0, atol=1e-5)
+    assert loss[-1].item() >= 1e4
+    past = torch.arange(t, device=cuda)[None, :] >= lengths[:, None]
+    assert not grad[past].any()
+
+
+@pytest.mark.cuda
+def test_ctc_infeasible_row_is_finite_on_card(cuda):
+    """The row whose 8 labels cannot fit 10 frames: optax's finite 100014.2
+    through the kernels, where `F.ctc_loss` gives inf."""
+    from gsoc_wav2vec2_tpu_torch.ops.ctc import ctc_loss_fn
+
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(2, 10, 8, generator=g).to(cuda)
+    labels = torch.tensor([[1, 2, 3, 0, 0, 0, 0, 0], [1, 1, 1, 1, 1, 1, 2, 2]], device=cuda)
+    x = logits.clone().requires_grad_(True)
+    loss = ctc_loss_fn(x, labels, torch.tensor([10, 10]), 0)
+    loss.sum().backward()
+    assert torch.isfinite(loss).all() and torch.isfinite(x.grad).all()
+    assert 1e5 < loss[1].item() < 1.01e5
+    y = logits.cpu().requires_grad_(True)
+    cpu = ctc_loss_fn(y, labels.cpu(), torch.tensor([10, 10]), 0)
+    cpu.sum().backward()
+    torch.testing.assert_close(loss.cpu(), cpu.detach(), rtol=1e-5, atol=0)
+    torch.testing.assert_close(x.grad.cpu(), y.grad, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ctc_wide_labels_raise_and_no_labels_run_on_card(cuda):
+    """More than `MAX_LABELS` label positions raise on the card (it has no
+    plain loop to fall back to); a label tensor of width 0 runs the kernels
+    and matches `ctc_loss_plain`."""
+    from gsoc_wav2vec2_tpu_torch.ops.ctc import ctc_loss_fn
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import ctc
+
+    g = torch.Generator().manual_seed(3)
+    log_probs = torch.log_softmax(torch.randn(2, 16, 8, generator=g), -1).to(cuda)
+    lengths = torch.tensor([16, 9], device=cuda)
+    wide = torch.ones(2, ctc.MAX_LABELS + 1, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="label positions"):
+        ctc_loss_fn(log_probs, wide, lengths, 0)
+    empty = torch.zeros(2, 0, dtype=torch.int64, device=cuda)
+    ctc.ctc_loss_fwd.launches = ctc.ctc_loss_bwd.launches = 0
+    loss, grad = _ctc_run(ctc.ctc_loss, log_probs, empty, lengths)
+    assert (ctc.ctc_loss_fwd.launches, ctc.ctc_loss_bwd.launches) == (1, 1)
+    want, want_grad = _ctc_run(ctc.ctc_loss_plain, log_probs, empty, lengths)
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+    torch.testing.assert_close(grad, want_grad, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 100, 768), (2, 50, 1024)])
+def test_layer_norm_fused_matches_plain_on_card(cuda, shape):
+    """The card's `layer_norm` (one fused `F.layer_norm`) against
+    `layer_norm_plain` (the JAX package's sequence, which the CPU runs and
+    the JAX-parity tests hold) on the card: output and input gradient atol
+    1e-5 in f32."""
+    from gsoc_wav2vec2_tpu_torch.ops.basic import layer_norm, layer_norm_plain
+
+    g = torch.Generator().manual_seed(shape[-1])
+    x = (3 * torch.randn(shape, generator=g) + 1).to(cuda).requires_grad_(True)
+    gamma = (1 + 0.1 * torch.randn(shape[-1], generator=g)).to(cuda)
+    beta = (0.1 * torch.randn(shape[-1], generator=g)).to(cuda)
+    dy = torch.randn(shape, generator=g).to(cuda)
+    outs = []
+    for fn in (layer_norm, layer_norm_plain):
+        y = fn(x, gamma, beta)
+        outs.append((y.detach(), torch.autograd.grad(y, x, dy)[0]))
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ctc_two_backwards_are_bit_equal_on_card(cuda):
+    """No float atomics: the same inputs give the same loss and gradient bits."""
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import ctc
+
+    log_probs, labels, lengths = _ctc_case(cuda, 32, 768, 32, 200, seed=5)
+    runs = [_ctc_run(ctc.ctc_loss, log_probs, labels, lengths) for _ in range(3)]
+    for loss, grad in runs[1:]:
+        assert torch.equal(loss, runs[0][0]) and torch.equal(grad, runs[0][1])
+
+
+@pytest.mark.cuda
+def test_remat_step_is_bit_equal_on_card(cuda):
+    """A stage-2 step with remat "dots" and "full" gives the gradients and
+    parameters of the step without remat, bit for bit, through the flash and
+    pos-conv autograd functions (dropout 0.1, SpecAugment: the layers' draws
+    are taken before the first layer); under remat the attention forward
+    runs twice a layer."""
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import ctc
+    from gsoc_wav2vec2_tpu_torch.training import (
+        create_optimizer, create_train_state, make_train_step, set_trainable)
+
+    cfg = Wav2Vec2Config(hidden_size=128, num_heads=2, num_layers=2, intermediate_size=256,
+                         filter_sizes=[256] * 7, num_conv_pos_embedding_groups=8,
+                         dropout=0.1, mask_time_length=4)
+    g = torch.Generator().manual_seed(1)
+    batch = {"speech": torch.randn(2, 32000, generator=g),
+             "labels": torch.randint(1, cfg.vocab_size, (2, 8), generator=g)}
+    kernels = {"flash_attention_fwd": flash_attention.flash_attention_fwd,
+               "flash_attention_bwd": flash_attention.flash_attention_bwd,
+               "pos_conv_train_fwd": pos_conv.pos_conv_train_fwd, "ctc_loss_bwd": ctc.ctc_loss_bwd}
+    results = {}
+    for remat in (False, "full", "dots"):
+        model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+        set_trainable(model, ("feature_extractor",))
+        state = create_train_state(model, create_optimizer(model, 1e-3))
+        for fn in kernels.values():
+            fn.launches = 0
+        state, metrics = make_train_step(cfg, division_factor=2, remat=remat)(
+            state, batch, torch.Generator().manual_seed(2))
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        assert launches == {"flash_attention_fwd": 2 * (2 if remat else 1),
+                            "flash_attention_bwd": 2, "pos_conv_train_fwd": 1, "ctc_loss_bwd": 1}
+        results[remat] = (metrics["loss"], {n: p.grad.clone() for n, p in model.named_parameters()
+                                            if p.grad is not None},
+                          {n: p.detach().clone() for n, p in model.named_parameters()})
+    loss0, grads0, params0 = results[False]
+    assert torch.isfinite(loss0)
+    for remat in ("full", "dots"):
+        loss, grads, params = results[remat]
+        assert torch.equal(loss, loss0)
+        assert grads.keys() == grads0.keys() and all(torch.equal(grads[k], grads0[k]) for k in grads)
+        assert all(torch.equal(params[k], params0[k]) for k in params)

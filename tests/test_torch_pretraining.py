@@ -665,8 +665,10 @@ def test_gumbel_temperature_matches_jax(step):
 
 def test_pretraining_args_keep_the_jax_defaults():
     want = dataclasses.asdict(jax_cli.PretrainingArgs())
-    for name, value in dataclasses.asdict(cli.PretrainingArgs()).items():
-        assert want[name] == value, name
+    ours = dataclasses.asdict(cli.PretrainingArgs())
+    assert set(ours) - set(want) == {"device"}
+    for name, value in want.items():
+        assert ours[name] == value, name
 
 
 def test_batch_masks_stay_inside_the_real_frames():

@@ -180,7 +180,7 @@ def test_train_cli_refuses_zero_update_epochs(corpus, tiny_model_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(model_axis=2), "item 7"), (dict(remat=True), "item 5"),
+    (dict(model_axis=2), "item 7"), (dict(remat_policy="offload"), "remat_policy"),
     (dict(compute_dtype="float16"), "compute_dtype"), (dict(grad_accum=0), "grad_accum"),
 ])
 def test_train_cli_refuses_what_is_not_ported(corpus, tiny_model_dir, tmp_path, flags, match):
@@ -197,9 +197,8 @@ def test_training_args_keep_the_jax_fields_env_vars_and_flags(monkeypatch, tmp_p
     theirs = {f.name: f for f in dataclasses.fields(jax_train.TrainingArgs)}
     assert set(ours) - set(theirs) == {"device"}
     for name, f in theirs.items():
-        if name != "remat":
-            assert ours[name].default == f.default, name
-    assert train.TrainingArgs().remat is False
+        assert ours[name].default == f.default, name
+    assert (train.TrainingArgs().remat, train.TrainingArgs().remat_policy) == (True, "dots")
     monkeypatch.setenv("CKPT_BUCKET_NAME", str(tmp_path / "bucket"))
     monkeypatch.setenv("DATA_BUCKET_NAME", str(tmp_path / "data"))
     args = train.TrainingArgs()
@@ -209,6 +208,18 @@ def test_training_args_keep_the_jax_fields_env_vars_and_flags(monkeypatch, tmp_p
                                "--device", "cpu", "--no-remat", "--ema_decay", "0.9"])
     assert (parsed.stage1_epochs, parsed.bucket_boundaries, parsed.device, parsed.ema_decay) == \
         (3, [2000, 3200], "cpu", 0.9)
+
+
+def test_train_cli_remat_equals_no_remat(corpus, tiny_model_dir, tmp_path):
+    """The default `--remat --remat_policy dots`, `--remat_policy full` and
+    `--no-remat` train to bit-equal weights (the recipe's dropout and
+    SpecAugment: the rematerialised layers redraw nothing)."""
+    runs = [_run(_args(tiny_model_dir, corpus, tmp_path, tag, stage1_epochs=0, **kw))
+            for tag, kw in (("dots", {}), ("full", dict(remat_policy="full")),
+                            ("off", dict(remat=False)))]
+    assert train.parse_args(["--remat_policy", "full"]).remat is True
+    for run_dir in runs[1:]:
+        _assert_same_weights(_final(runs[0]), _final(run_dir))
 
 
 def test_train_cli_bucketed_end_to_end(tmp_path):
