@@ -14,29 +14,36 @@ in the JAX package's format (`save_pretrained` / `from_pretrained`), the data
 plane (`data/`: TFRecord, WAV and FLAC through the port's own native codec,
 the LibriSpeech and TIMIT loaders), and self-supervised pretraining
 (`models/pretraining.py`: Gumbel quantizer, contrastive + diversity loss, the
-pretraining step); the TPU kernels of these paths are hand-written CUDA
-kernels under `csrc/`.
+pretraining step), `tf_model.h5` both ways, the convert CLI (HuBERT too),
+hub ids, export (`torch.export` with the kernels as `torch.library`
+operators, and ONNX) and profiling helpers; the TPU kernels of these paths
+are hand-written CUDA kernels under `csrc/`.
+
+The names below load on first use, so that importing a subpackage (as a
+process that runs an exported program imports `ops.kernels` alone) does not
+load the models.
 """
 
-from .data.processor import Wav2Vec2Processor
-from .evaluation import GreedyCTCEvaluator
-from .models.config import (
-    RobustWav2Vec2Config,
-    RobustWav2Vec2PretrainingConfig,
-    Wav2Vec2Config,
-    Wav2Vec2PretrainingConfig,
-)
-from .models.modeling import Wav2Vec2ForCTC, Wav2Vec2Model
-from .models.pretraining import Wav2Vec2ForPreTraining
+import importlib
 
-__all__ = [
-    "Wav2Vec2Config",
-    "RobustWav2Vec2Config",
-    "Wav2Vec2PretrainingConfig",
-    "RobustWav2Vec2PretrainingConfig",
-    "Wav2Vec2ForCTC",
-    "Wav2Vec2ForPreTraining",
-    "Wav2Vec2Model",
-    "Wav2Vec2Processor",
-    "GreedyCTCEvaluator",
-]
+_EXPORTS = {
+    "Wav2Vec2Processor": ".data.processor",
+    "GreedyCTCEvaluator": ".evaluation",
+    "Wav2Vec2Config": ".models.config",
+    "RobustWav2Vec2Config": ".models.config",
+    "Wav2Vec2PretrainingConfig": ".models.config",
+    "RobustWav2Vec2PretrainingConfig": ".models.config",
+    "Wav2Vec2ForCTC": ".models.modeling",
+    "Wav2Vec2Model": ".models.modeling",
+    "Wav2Vec2ForPreTraining": ".models.pretraining",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_EXPORTS[name], __name__), name)
+    globals()[name] = value
+    return value

@@ -19,6 +19,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import Iterator, List, Tuple
 
@@ -62,23 +63,29 @@ def library_path() -> Path:
     return BUILD_DIR / f"libw2v2io_{h.hexdigest()[:16]}.so"
 
 
+# held through `build`: the threads of one process (a server's handlers
+# decoding their first requests) share one temporary name
+_BUILD_LOCK = threading.Lock()
+
+
 def build() -> Path:
     """Compile the codec (once per source digest); returns the library's
     path.  Raises `RuntimeError` with the compiler's output on failure."""
-    lib_path = library_path()
-    if lib_path.is_file():
+    with _BUILD_LOCK:
+        lib_path = library_path()
+        if lib_path.is_file():
+            return lib_path
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # a name per process, renamed into place: concurrent first uses never
+        # load a half-written library
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cxx = os.environ.get("CXX", "g++")
+        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {SOURCE.name} with {cxx} failed:\n{proc.stdout}")
+        os.replace(tmp, lib_path)
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a name per process, renamed into place: concurrent first uses never
-    # load a half-written library
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cxx = os.environ.get("CXX", "g++")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {SOURCE.name} with {cxx} failed:\n{proc.stdout}")
-    os.replace(tmp, lib_path)
-    return lib_path
 
 
 @functools.cache

@@ -44,6 +44,7 @@ import functools
 import json
 import math
 import os
+import tempfile
 from typing import Optional, Tuple, Union
 
 import torch
@@ -57,7 +58,9 @@ from torch.utils.checkpoint import (
 
 from ..convert import flax_msgpack, safetensors_io
 from ..convert.hf_torch import state_dict_from_hf
+from ..convert.h5_to_torch import load_h5_params
 from ..convert.jax_bridge import params_from_jax, params_to_jax
+from ..convert.torch_to_h5 import save_h5_params
 from ..data import remote
 from ..ops.attention import attention_seed, mask_to_bias, mha
 from ..ops.basic import dense, dropout, gelu, group_norm, layer_norm, seed_words, stochastic_depth
@@ -209,7 +212,8 @@ def feature_encoder_forward(
 ) -> torch.Tensor:
     """(B, L_samples) -> (B, L_frames, C).  In bf16 the first two layers run
     fused (`ops/kernels/conv_frontend.py`: `fused_conv01` for the base
-    family, `fused_conv01_robust` for the robust/large one): the kernels on
+    family, `fused_conv01_robust` for the robust/large one, called as their
+    `torch.library` operators so that `torch.export` keeps them): the kernels on
     the card where their instances cover the config (`supports`), their
     plain versions on the CPU (`fusable`).  Elsewhere (f32, another width
     on the card) all seven layers run the plain loop, as the JAX package
@@ -225,19 +229,19 @@ def feature_encoder_forward(
     start = 0
     if fusable and not trains:
         if config.feature_extractor_norm_type == "group":
-            x = conv_frontend.fused_conv01(
+            x = conv_frontend.fused_conv01_op(
                 waveform, p0.conv.kernel, p0.layer_norm.gamma, p0.layer_norm.beta,
-                p1.conv.kernel, eps=1e-5, gelu_approx=True,
+                p1.conv.kernel, 1e-5, True,
             )
         else:  # robust/large family: LayerNorm (+ bias) on both layers
             zeros = torch.zeros_like(p0.layer_norm.gamma)
-            x = conv_frontend.fused_conv01_robust(
+            x = conv_frontend.fused_conv01_robust_op(
                 waveform,
                 p0.conv.kernel, zeros if p0.conv.bias is None else p0.conv.bias,
                 p0.layer_norm.gamma, p0.layer_norm.beta,
                 p1.conv.kernel, zeros if p1.conv.bias is None else p1.conv.bias,
                 p1.layer_norm.gamma, p1.layer_norm.beta,
-                eps=1e-5, gelu_approx=True,
+                1e-5, True,
             )
         start = 2
     else:
@@ -480,36 +484,62 @@ class _Pretrained(nn.Module):
             compute_dtype=default_compute_dtype(batch.device),
         )
 
-    def save_pretrained(self, save_dir: str) -> None:
+    def save_pretrained(self, save_dir: str, save_h5: bool = False) -> None:
         """Write `config.json` and `jax_model.msgpack`, the parameter tree in
         the layout of `flax.serialization.to_bytes` (encoder layers stacked,
         conv layers keyed "0".."6"), which the JAX package's `from_pretrained`
-        reads.  A `scheme://` directory is written through fsspec."""
+        reads.  `save_h5=True` also writes the reference's `tf_model.h5`
+        (`convert/torch_to_h5.py`), which the reference's Keras
+        `from_pretrained` and the JAX package read.  A `scheme://` directory
+        is written through fsspec."""
         self.config.save_pretrained(save_dir)
-        blob = flax_msgpack.serialize(params_to_jax(self.state_dict()))
+        params = params_to_jax(self.state_dict())
+        blob = flax_msgpack.serialize(params)
         path = _join(save_dir, JAX_WEIGHTS_NAME)
         if remote.is_remote_path(save_dir):
             remote.write_bytes(path, blob)
         else:
             with open(path, "wb") as f:
                 f.write(blob)
+        if save_h5:
+            h5_path = _join(save_dir, H5_WEIGHTS_NAME)
+            if remote.is_remote_path(save_dir):
+                with tempfile.TemporaryDirectory() as tmp:
+                    local = os.path.join(tmp, H5_WEIGHTS_NAME)
+                    save_h5_params(params, self.config, local, with_lm_head=self._with_lm_head)
+                    with open(local, "rb") as f:
+                        remote.write_bytes(h5_path, f.read())
+            else:
+                save_h5_params(params, self.config, h5_path, with_lm_head=self._with_lm_head)
 
-    @classmethod
-    def _state_dict_from(cls, save_dir: str, config, hf_snapshot: bool) -> dict:
+    def push_to_hub(self, directory: str, model_id: str):
+        """Create the hub repository `model_id` (if absent) and upload
+        `directory` (a `save_pretrained` output) to it; needs
+        `huggingface_hub`."""
+        try:
+            from huggingface_hub import HfApi
+        except ImportError as e:
+            raise ImportError("push_to_hub requires `huggingface_hub`") from e
+        api = HfApi()
+        api.create_repo(model_id, exist_ok=True)
+        return api.upload_folder(folder_path=directory, repo_id=model_id)
+
+    def _state_dict_from(self, save_dir: str, hf_snapshot: bool) -> dict:
         """The state dict of the first weight file found, in the JAX
-        package's order: `jax_model.msgpack`, `tf_model.h5` (not read yet),
-        `model.safetensors`, `pytorch_model.bin`.  A `scheme://` directory
-        holds the msgpack only, as in the JAX package."""
+        package's order: `jax_model.msgpack`, `tf_model.h5` (the reference's
+        layout, read into this model's tree), `model.safetensors`,
+        `pytorch_model.bin`.  A `scheme://` directory holds the msgpack only,
+        as in the JAX package."""
         path = _join(save_dir, JAX_WEIGHTS_NAME)
         if remote.is_remote_path(save_dir) or os.path.isfile(path):
             return params_from_jax(flax_msgpack.restore(remote.fetch_bytes(path)))
         # an HF snapshot's tf_model.h5 is the TF `transformers` layout, never read
-        if not hf_snapshot and os.path.isfile(os.path.join(save_dir, H5_WEIGHTS_NAME)):
-            raise NotImplementedError(
-                f"{save_dir}: reading {H5_WEIGHTS_NAME} is not ported yet (ROADMAP.md "
-                "section 1 item 8); load it with the JAX package's `from_pretrained` and "
-                "write jax_model.msgpack with its `save_pretrained`"
-            )
+        h5_path = os.path.join(save_dir, H5_WEIGHTS_NAME)
+        if not hf_snapshot and os.path.isfile(h5_path):
+            template = params_to_jax(self.state_dict())
+            return params_from_jax(load_h5_params(h5_path, template,
+                                                  with_lm_head=self._with_lm_head))
+        config = self.config
         st_path = os.path.join(save_dir, SAFETENSORS_NAME)
         bin_path = os.path.join(save_dir, HF_WEIGHTS_NAME)
         if os.path.isfile(st_path):
@@ -521,24 +551,43 @@ class _Pretrained(nn.Module):
                 f"No weights found in {save_dir} (looked for {JAX_WEIGHTS_NAME}, "
                 f"{H5_WEIGHTS_NAME}, {SAFETENSORS_NAME}, {HF_WEIGHTS_NAME})"
             )
-        return state_dict_from_hf(sd, config, with_lm_head=cls._with_lm_head,
-                                  pretraining=cls._pretraining_heads)
+        return state_dict_from_hf(sd, config, with_lm_head=self._with_lm_head,
+                                  pretraining=self._pretraining_heads)
 
     @classmethod
-    def from_pretrained(cls, save_dir: str, *, device=None, **config_kwargs):
+    def from_pretrained(cls, model_id: str, *, device=None, **config_kwargs):
         """Load `config.json` (this framework's or the HF schema) and the
-        weights (`_state_dict_from`).  Extra keyword arguments are
-        `replace()`d into the config, as in the JAX package; `input_shape`
-        is accepted and ignored.  A `scheme://` directory is read through
-        fsspec."""
+        weights (`_state_dict_from`) from a directory; a `model_id` that is
+        neither a local directory nor a `scheme://` one (read through
+        fsspec) is downloaded from the HuggingFace Hub first
+        (`_download_from_hub`).  Extra keyword arguments are `replace()`d
+        into the config, as in the JAX package; `input_shape` is accepted
+        and ignored."""
         dev = resolve_device(device)
+        save_dir = model_id
+        if not remote.is_remote_path(model_id) and not os.path.isdir(model_id):
+            save_dir = _download_from_hub(model_id)
         config_kwargs.pop("input_shape", None)
         d = _read_config_json(save_dir)
         config = cls._config_from_dict(d).replace(**config_kwargs)
         model = cls(config, device="cpu")
-        model.load_state_dict(cls._state_dict_from(save_dir, config, is_hf_config_dict(d)),
-                              strict=True)
+        model.load_state_dict(model._state_dict_from(save_dir, is_hf_config_dict(d)), strict=True)
         return model.to(dev)
+
+
+def _download_from_hub(model_id: str) -> str:
+    """The local snapshot directory of hub repository `model_id`
+    (`huggingface_hub.snapshot_download`, HF flax weights skipped: never
+    read here).  Raises `ValueError` naming the id when that fails."""
+    try:
+        from huggingface_hub import snapshot_download
+
+        return snapshot_download(model_id, ignore_patterns=["flax_model*"])
+    except Exception as e:  # any failure of the download: no network, no such repo, no package
+        raise ValueError(
+            f"`{model_id}` is not a local directory and downloading from the "
+            f"HuggingFace Hub failed ({e}). Pass a local path."
+        ) from e
 
 
 class Wav2Vec2Model(_Pretrained):

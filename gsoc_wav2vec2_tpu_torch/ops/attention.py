@@ -72,7 +72,8 @@ def mha(
     prob dropout at `dropout_rate` runs inside the kernel from `seed`
     (`attention_seed`).  When the projections need gradients the call goes
     through the `FlashAttention` autograd function (kernel backward);
-    otherwise through the forward kernel alone.  On the card, where the
+    otherwise through the forward kernel alone, called as its
+    `torch.library` operator (which `torch.export` keeps).  On the card, where the
     kernels do not take the head dim or dtype (`flash.supports`), it is the
     kernel's plain version through autograd: the same hash dropout bits."""
     q, k, v = _project_qkv(x, params, num_heads)
@@ -89,7 +90,7 @@ def mha(
     elif q.requires_grad:
         context = flash.flash_attention(q, k, v, bias, dropout_rate=rate, seed=seed)
     else:
-        context, _ = flash.flash_attention_fwd(q, k, v, bias, dropout_rate=rate, seed=seed)
+        context, _ = flash.flash_attention_fwd_op(q, k, v, bias, rate, seed)
     return dense(merge_heads(context), params.out_proj.kernel, params.out_proj.bias)
 
 

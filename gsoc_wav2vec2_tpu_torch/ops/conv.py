@@ -73,7 +73,8 @@ def pos_conv_embed(
     gradient it is the `PosConvTrain` autograd function (kernel forward and
     backward); the weight-norm recomposition stays plain torch,
     differentiated by autograd.  Otherwise (inference, a frozen backbone)
-    it is the forward kernel alone.  On the card, where the kernels'
+    it is the forward kernel alone, called as its `torch.library` operator
+    (which `torch.export` keeps).  On the card, where the kernels'
     instances do not cover C, `groups`, `kernel_size` or the dtype
     (`pos_conv.supports`), it is the plain version through autograd.
     """
@@ -83,6 +84,4 @@ def pos_conv_embed(
         return pos_conv_kernel.pos_conv_plain(x, kernel, bias, groups=groups, gelu_approx=gelu_approx)
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad or bias.requires_grad):
         return pos_conv_kernel.PosConvTrain.apply(x, kernel, bias, groups, gelu_approx)
-    return pos_conv_kernel.pos_conv(
-        x, kernel, bias, groups=groups, gelu_approx=gelu_approx
-    )
+    return pos_conv_kernel.pos_conv_op(x, kernel, bias, groups, gelu_approx)

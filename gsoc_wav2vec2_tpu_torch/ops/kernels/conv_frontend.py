@@ -359,6 +359,43 @@ def fused_conv01_robust(
                          conv1_length(x.shape[-1]), eps, gelu_approx)
 
 
+# The two front ends as `torch.library` operators: `torch.export` keeps them
+# in its graph as opaque calls, so an exported program launches the kernels
+# (export/torch_export.py).  Each runs the wrapper above (the kernels for
+# CUDA tensors, the plain versions for CPU ones); its fake gives the output's
+# shape and dtype to tracing.
+
+
+@torch.library.custom_op("w2v2::fused_conv01", mutates_args=())
+def fused_conv01_op(waveform: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, w1: torch.Tensor, eps: float,
+                    gelu_approx: bool) -> torch.Tensor:
+    """`fused_conv01` as an operator."""
+    return fused_conv01(waveform, w0, gamma, beta, w1, eps=eps, gelu_approx=gelu_approx)
+
+
+@fused_conv01_op.register_fake
+def _(waveform, w0, gamma, beta, w1, eps, gelu_approx):
+    t1 = conv1_length(waveform.shape[-1])
+    return waveform.new_empty((waveform.shape[0], t1, w0.shape[-1]), dtype=torch.bfloat16)
+
+
+@torch.library.custom_op("w2v2::fused_conv01_robust", mutates_args=())
+def fused_conv01_robust_op(waveform: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                           gamma0: torch.Tensor, beta0: torch.Tensor, w1: torch.Tensor,
+                           b1: torch.Tensor, gamma1: torch.Tensor, beta1: torch.Tensor,
+                           eps: float, gelu_approx: bool) -> torch.Tensor:
+    """`fused_conv01_robust` as an operator."""
+    return fused_conv01_robust(waveform, w0, b0, gamma0, beta0, w1, b1, gamma1, beta1,
+                               eps=eps, gelu_approx=gelu_approx)
+
+
+@fused_conv01_robust_op.register_fake
+def _(waveform, w0, b0, gamma0, beta0, w1, b1, gamma1, beta1, eps, gelu_approx):
+    t1 = conv1_length(waveform.shape[-1])
+    return waveform.new_empty((waveform.shape[0], t1, w0.shape[-1]), dtype=torch.bfloat16)
+
+
 def _geometry_ok(config) -> bool:
     return (
         len(config.kernal_sizes) >= 2

@@ -230,6 +230,25 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
+@torch.library.custom_op("w2v2::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: Optional[torch.Tensor], dropout_rate: float,
+                           seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention_fwd` as a `torch.library` operator, which
+    `torch.export` keeps in its graph (the kernel for CUDA tensors, the
+    plain version for CPU ones)."""
+    return flash_attention_fwd(q, k, v, bias, dropout_rate=dropout_rate, seed=seed)
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, bias, dropout_rate, seed):
+    b, h, l, d = q.shape
+    # the kernel writes (B, L, H, D) and returns its (B, H, L, D) view
+    out = (q.new_empty((b, l, h, d)).transpose(1, 2) if q.device.type == "cuda"
+           else q.new_empty((b, h, l, d)))
+    return out, q.new_empty((b, h, l), dtype=torch.float32)
+
+
 def flash_attention_bwd(
     q, k, v, bias, out, lse, dout, *, dropout_rate: float = 0.0, seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

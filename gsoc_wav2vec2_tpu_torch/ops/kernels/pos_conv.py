@@ -122,6 +122,22 @@ def pos_conv(
 pos_conv.launches = 0
 
 
+@torch.library.custom_op("w2v2::pos_conv", mutates_args=())
+def pos_conv_op(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, groups: int,
+                gelu_approx: bool) -> torch.Tensor:
+    """`pos_conv` as a `torch.library` operator, which `torch.export` keeps
+    in its graph (the kernel for a CUDA tensor, the plain version for a CPU
+    one)."""
+    return pos_conv(x, kernel, bias, groups=groups, gelu_approx=gelu_approx)
+
+
+@pos_conv_op.register_fake
+def _(x, kernel, bias, groups, gelu_approx):
+    b, t, c = x.shape
+    # the kernel writes (B, T, C); the plain version returns a (B, C, T) conv transposed
+    return x.new_empty((b, t, c)) if x.device.type == "cuda" else x.new_empty((b, c, t)).transpose(1, 2)
+
+
 def pos_conv_train_fwd_plain(x, kernel, bias, *, groups: int, gelu_approx: bool):
     """(GELU(pre) in x's dtype, pre (B, T, C) f32), pre = conv + bias."""
     pre = _conv_plain(x, kernel, groups, kernel.shape[0] // 2) + bias.float()

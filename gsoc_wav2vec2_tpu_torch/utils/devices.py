@@ -1,8 +1,12 @@
-"""Device resolution for the port.
+"""Device resolution and availability probes for the port.
 
 Entry points run on the card unless the caller asks for the CPU.  There is
 no silent fallback: a caller that did not ask for the CPU on a machine
 without CUDA gets an error, not a slow run on the host.
+
+`is_gpu_available` / `is_tpu_available` are the counterparts of the JAX
+package's probes (`gsoc_wav2vec2_tpu/utils/devices.py`), and like those they
+never raise.
 """
 
 from __future__ import annotations
@@ -22,3 +26,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run on the host"
         )
     return dev
+
+
+def is_gpu_available() -> bool:
+    """True when PyTorch sees at least one CUDA device."""
+    try:
+        return torch.cuda.is_available() and torch.cuda.device_count() > 0
+    except RuntimeError:
+        return False
+
+
+def is_tpu_available() -> bool:
+    """Always False: PyTorch here has no TPU backend (the port runs on CUDA
+    or the CPU; the JAX package is the one that runs on TPUs)."""
+    return False

@@ -1178,3 +1178,84 @@ def test_remat_step_is_bit_equal_on_card(cuda):
         assert torch.equal(loss, loss0)
         assert grads.keys() == grads0.keys() and all(torch.equal(grads[k], grads0[k]) for k in grads)
         assert all(torch.equal(params[k], params0[k]) for k in params)
+
+
+INFERENCE_KERNELS = ("groupnorm_stats", "conv01", "conv01_robust", "pos_conv", "flash_attention_fwd")
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_kernels_and_matches_live_on_card(cuda, tmp_path):
+    """A `torch.export` artifact made on the card keeps the kernels as
+    operators: one symbolic-batch program runs B=2 and B=3 with a live
+    forward's launches and the live module's bits; it refuses to load for
+    the CPU."""
+    from gsoc_wav2vec2_tpu_torch.export.torch_export import export_model, load_exported
+
+    cfg = Wav2Vec2Config(**SMALL_BASE)
+    model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(6))
+    export_model(model, str(tmp_path), seqlen=32000)
+    program, meta = load_exported(str(tmp_path))
+    assert meta["device"] == "cuda" and meta["batch_size"] is None
+    ops = {str(n.target) for n in program.graph.nodes if str(n.target).startswith("w2v2.")}
+    assert ops == {"w2v2.fused_conv01.default", "w2v2.pos_conv.default",
+                   "w2v2.flash_attention_fwd.default"}
+    run = program.module()
+    for b in (2, 3):
+        x = torch.randn(b, 32000, generator=torch.Generator().manual_seed(b)).to(cuda)
+        _zero_launches()
+        with torch.inference_mode():
+            got = run(x)
+            torch.cuda.synchronize()
+            counts = _launches_since_zero()
+            want = model(x)
+        assert counts == {**{k: 0 for k in ALL_KERNELS}, "groupnorm_stats": 1, "conv01": 1,
+                          "pos_conv": 1, "flash_attention_fwd": cfg.num_layers}
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="exported for cuda"):
+        load_exported(str(tmp_path), device="cpu")
+
+
+@pytest.mark.cuda
+def test_hubert_large_snapshot_runs_its_kernels_on_card(cuda, tmp_path):
+    """A raw HF HuBERT snapshot of the large family (stable layer norm,
+    LayerNorm conv stack with bias), narrowed to kernel-covered widths, loads
+    onto the card bit for bit and runs `conv01_robust`, the pos conv at 64
+    channels a group and the flash forward, masked, within the robust
+    bounds of the f32 CPU forward."""
+    import json
+
+    import numpy as np
+
+    from gsoc_wav2vec2_tpu_torch.convert.hf_torch import hf_name_map
+    from gsoc_wav2vec2_tpu_torch.models.config import config_from_hf_dict
+
+    hf = {"model_type": "hubert", "vocab_size": 32, "hidden_size": 128, "num_hidden_layers": 2,
+          "num_attention_heads": 2, "intermediate_size": 256, "conv_dim": [256] * 7,
+          "conv_kernel": [10, 3, 3, 3, 3, 2, 2], "conv_stride": [5, 2, 2, 2, 2, 2, 2],
+          "conv_bias": True, "feat_extract_norm": "layer", "do_stable_layer_norm": True,
+          "num_conv_pos_embeddings": 128, "num_conv_pos_embedding_groups": 2}
+    cfg = config_from_hf_dict(hf)
+    ref = Wav2Vec2ForCTC(cfg, device="cpu", generator=torch.Generator().manual_seed(7))
+    sd = ref.state_dict()
+    names = hf_name_map(cfg, with_lm_head=True, prefix="hubert.")
+    torch.save({theirs: fn(sd[ours]).contiguous() for ours, (theirs, fn) in names.items()
+                if ours in sd}, str(tmp_path / "pytorch_model.bin"))
+    (tmp_path / "config.json").write_text(json.dumps(hf))
+    model = Wav2Vec2ForCTC.from_pretrained(str(tmp_path))
+    assert all(torch.equal(v.cpu(), sd[k]) for k, v in model.state_dict().items())
+    x = torch.randn(2, 32000, generator=torch.Generator().manual_seed(8))
+    mask = torch.ones(2, 32000)
+    mask[1, 20000:] = 0.0
+    x[1, 20000:] = 0.0
+    _zero_launches()
+    with torch.inference_mode():
+        logits = model(x.to(cuda), mask.to(cuda)).float().cpu()
+        torch.cuda.synchronize()
+    assert _launches_since_zero() == {**{k: 0 for k in ALL_KERNELS}, "conv01_robust": 1,
+                                      "pos_conv": 1, "flash_attention_fwd": cfg.num_layers}
+    with torch.inference_mode():
+        want = wav2vec2_for_ctc_forward(ref, cfg, x, mask, compute_dtype=torch.float32)
+    scale = want.abs().max().item()
+    assert (logits[0] - want[0]).abs().max().item() <= 0.10 * scale
+    agree = (logits[0].argmax(-1) == want[0].argmax(-1)).float().mean().item()
+    assert agree >= 0.9 and np.isfinite(logits.numpy()).all()

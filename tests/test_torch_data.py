@@ -50,6 +50,35 @@ def test_library_builds_into_the_ports_build_directory():
     assert native_io.get_lib()._name == str(path)
 
 
+def test_concurrent_first_builds_in_one_process_all_succeed(tmp_path, monkeypatch):
+    """Threads of one process that reach a codec not yet built (a server's
+    handlers decoding their first requests at once) all get the library: the
+    build is serialised, so no thread renames another's half-written file or
+    finds its own temporary gone."""
+    import ctypes
+    import threading
+
+    monkeypatch.setattr(native_io, "BUILD_DIR", tmp_path / "_build")
+    results, errors = [], []
+
+    def first_use():
+        try:
+            results.append(native_io.build())
+        except Exception as e:  # noqa: BLE001 - every thread's failure is the finding
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_use) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert len(set(results)) == 1 and results[0].parent == tmp_path / "_build"
+    assert sorted(p.name for p in (tmp_path / "_build").iterdir()) == [results[0].name]
+    ctypes.CDLL(str(results[0]))
+
+
 # --- the codec -------------------------------------------------------------
 
 

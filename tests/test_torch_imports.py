@@ -1,7 +1,7 @@
 """The port stands alone: no JAX and nothing of the JAX package in its
 sources or in `chip_smoke.py`, none of the packages the card's machine lacks
-(msgpack, safetensors, orbax, soundfile; fsspec and wandb only inside the
-function that needs them), and none of the library kernels the port must
+(msgpack, safetensors, orbax, soundfile; fsspec, wandb, h5py, transformers
+and huggingface_hub only inside the function that needs them), and none of the library kernels the port must
 not call."""
 
 import re
@@ -21,12 +21,12 @@ FORBIDDEN_IMPORTS = [
     re.compile(r"\bfrom\s+gsoc_wav2vec2_tpu\s+import\b"),
     re.compile(r"^\s*import\s+(flax|optax)\b|^\s*from\s+(flax|optax)\b", re.M),
     re.compile(r"^\s*(import|from)\s+(msgpack|safetensors|orbax|soundfile)\b", re.M),
-    # at module scope (no indentation): fsspec and wandb load only where used
-    re.compile(r"^(import|from)\s+(fsspec|wandb)\b", re.M),
+    # at module scope (no indentation): these load only where used
+    re.compile(r"^(import|from)\s+(fsspec|wandb|h5py|transformers|huggingface_hub)\b", re.M),
 ]
 # what a fresh interpreter may not hold after importing every module of the port
 ABSENT_AFTER_IMPORT = ("jax", "gsoc_wav2vec2_tpu", "flax", "msgpack", "safetensors", "orbax",
-                       "soundfile", "fsspec", "wandb")
+                       "soundfile", "fsspec", "wandb", "h5py", "transformers", "huggingface_hub")
 
 
 def _sources():
@@ -50,7 +50,9 @@ def test_sources_cover_training():
             "cli/make_tfrecords.py", "data/loaders.py", "data/native_io.py", "data/remote.py",
             "convert/flax_msgpack.py", "convert/safetensors_io.py", "utils/logging.py",
             "decoding.py", "streaming.py", "cli/align.py", "cli/serve.py",
-            "cli/serve_bench.py"} <= names
+            "cli/serve_bench.py", "convert/h5_to_torch.py", "convert/torch_to_h5.py",
+            "cli/convert.py", "cli/export.py", "export/onnx_proto.py", "export/onnx_numpy.py",
+            "export/onnx_export.py", "export/torch_export.py", "utils/profiling.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -77,7 +79,13 @@ def test_importing_the_port_loads_no_jax():
             "gsoc_wav2vec2_tpu_torch.cli.pretrain", "gsoc_wav2vec2_tpu_torch.cli.train",
             "gsoc_wav2vec2_tpu_torch.data.native_io", "gsoc_wav2vec2_tpu_torch.decoding",
             "gsoc_wav2vec2_tpu_torch.streaming", "gsoc_wav2vec2_tpu_torch.cli.align",
-            "gsoc_wav2vec2_tpu_torch.cli.serve", "gsoc_wav2vec2_tpu_torch.cli.serve_bench"} <= set(mods)
+            "gsoc_wav2vec2_tpu_torch.cli.serve", "gsoc_wav2vec2_tpu_torch.cli.serve_bench",
+            "gsoc_wav2vec2_tpu_torch.cli.convert", "gsoc_wav2vec2_tpu_torch.cli.export",
+            "gsoc_wav2vec2_tpu_torch.convert.h5_to_torch",
+            "gsoc_wav2vec2_tpu_torch.convert.torch_to_h5",
+            "gsoc_wav2vec2_tpu_torch.export.onnx_export",
+            "gsoc_wav2vec2_tpu_torch.export.torch_export",
+            "gsoc_wav2vec2_tpu_torch.utils.profiling"} <= set(mods)
 
 
 def test_port_calls_no_library_kernels():

@@ -223,12 +223,23 @@ def test_msgpack_comes_before_torch_weights_and_config_kwargs_replace(tmp_path):
 
 
 def test_h5_and_missing_weights_are_refused(tmp_path):
+    """No weight file, or a tf_model.h5 that is not HDF5, raises."""
     port_config_of(tiny_config()).save_pretrained(str(tmp_path))
     with pytest.raises(FileNotFoundError, match="No weights found"):
         Wav2Vec2ForCTC.from_pretrained(str(tmp_path), device="cpu")
     (tmp_path / "tf_model.h5").write_bytes(b"\x89HDF\r\n")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(OSError, match="file signature not found"):
         Wav2Vec2ForCTC.from_pretrained(str(tmp_path), device="cpu")
+
+
+def test_h5_is_read(tmp_path):
+    """A directory with config.json and the JAX package's tf_model.h5 (no
+    msgpack) loads bit for bit."""
+    jax_model = JaxWav2Vec2ForCTC(tiny_config(), seed=12)
+    jax_model.save_pretrained(str(tmp_path), save_h5=True)
+    (tmp_path / "jax_model.msgpack").unlink()
+    model = Wav2Vec2ForCTC.from_pretrained(str(tmp_path), device="cpu")
+    _assert_state_equals_tree(model.state_dict(), jax_model.params)
 
 
 def test_remote_directory_round_trip_through_fsspec():
