@@ -165,6 +165,31 @@ Phases, each printing one JSON line:
                 kernels that ran in the region include the four inference
                 kernels; `timeit` of the forward within 3.5% of phase 4's
                 median.
+ 16. dist    -- data and tensor parallelism (`parallel/`) as two ranks on
+                the one card, each a fresh interpreter of this script
+                (`--dist-worker`; torchrun's environment, a port from a
+                freshly bound socket): the backend rule gives gloo (NCCL
+                refuses two ranks on one device), each rank has a deadline
+                and a 120 s group timeout, and a failure prints each rank's
+                last 40 stderr lines.  First the kernels at the ranks' own
+                shapes against their plain versions, timed (flash forward and
+                backward at (16, 6, 768, 64) and (16, 12, 768, 64) under a
+                shard seed, the pos conv's training kernels at 16 rows, the
+                CTC kernels at 16 x 768); then, at full base width on phase
+                10's corpus: (a) `cli.train` stage 2 at data 2 (32 x 246000,
+                16 rows a rank) and (b) at `--model_axis 2` (16 x 246000, 6
+                heads and FFN 1536 a rank), 2 updates each, the first
+                update's loss and gradient norm against one process on the
+                same global batch (attention dropout off in both: its shard
+                seeds differ from one process's) within `DIST_BOUNDS`, the
+                checkpoint and `final/` whole tensors that load in one
+                process; (c) `cli.pretrain` at data 2 with the `gather` loss
+                (8 rows a rank, 4 updates): finite, `scatter_rows_add` on
+                each rank every update; (d) `cli.evaluate --sharded` over 17
+                records (9 and 8: rank 1 runs a dummy batch) with the
+                transcripts and WER of one process.  Per case the backend,
+                ms an update on two ranks and on one, the collectives' share
+                of an update and each rank's exact launches.
 The train, robust, long and pretrain phases pass `remat=False`, so that
 their rows compare with earlier runs.
 Then the `kernels` line (every kernel's record), the card line and, last,
@@ -181,6 +206,7 @@ import math
 import os
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -3339,6 +3365,543 @@ def profiling_phase(smi: str, main_ms: float) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 16. dist: data and tensor parallelism as two ranks on the one card
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 2
+# the wrappers phase 16's ranks launch: rows 1, 2, 4-9, 13 and 14 of the table
+DIST_KERNELS = ("groupnorm_stats", "fused_conv01", "pos_conv", "pos_conv_train_fwd", "pos_conv_dx",
+                "pos_conv_dw", "flash_attention_fwd", "flash_attention_bwd", "scatter_rows_add",
+                "ctc_loss_fwd", "ctc_loss_bwd")
+DIST_RANK_TIMEOUT_S = 300   # each rank's process
+DIST_GROUP_TIMEOUT_S = 120  # init_process_group and every collective: a dead peer fails its rank
+DIST_TP_B = 16              # (b): one row-parallel activation is (16, 768, 768)
+DIST_PRETRAIN_B = 8         # (c): rows a rank, 4 updates on its 32-utterance shard
+DIST_EVAL_N = 17            # (d): 9 records on rank 0 (2 batches of 8), 8 on rank 1 (1 + a dummy)
+# the first update's loss and gradient norm on two ranks against one process
+# on the same global batch, bf16 on the card: the two sum the gradients in
+# another order (data 2) or split every product of the layers (model 2);
+# stated in PERF.md before the run that reads them
+DIST_BOUNDS = {"loss_rel": 1e-3, "grad_norm_rel": 5e-3}
+
+
+@contextlib.contextmanager
+def _no_attention_dropout():
+    """Attention-prob dropout off, every other draw unchanged: the flash
+    dropout seed of a rank is `seed + shard * 2**20` (JAX's sharded step),
+    so only without it can two ranks equal one process on the card."""
+    from gsoc_wav2vec2_tpu_torch.models import modeling
+
+    mha = modeling.mha
+
+    def without(*a, **kw):
+        kw["dropout_rate"] = 0.0
+        return mha(*a, **kw)
+
+    modeling.mha = without
+    try:
+        yield
+    finally:
+        modeling.mha = mha
+
+
+@contextlib.contextmanager
+def _gather_loss():
+    """The pretraining loss in the `gather` formulation, whose backward is
+    `scatter_rows_add` on each rank's rows (the CLI's "auto" picks `gram`)."""
+    loss = pt.pretraining_loss
+
+    def gathered(*a, **kw):
+        return loss(*a, **kw, contrastive_impl="gather")
+
+    pt.pretraining_loss = gathered
+    try:
+        yield
+    finally:
+        pt.pretraining_loss = loss
+
+
+class _DistProbe:
+    """In a rank (and in the one-process references): each update's
+    launches, host ms (ending in a readback), loss and gradient norm, and the
+    ms of the collectives of device tensors within it.  Each collective is
+    timed from a synchronize before it to one after it, so the kernels
+    queued before it are not counted; the host-side control values (flags,
+    counts) are not device tensors and are not counted."""
+
+    def __init__(self):
+        self.updates = []
+        self.coll_ms = 0.0
+        self.coll_calls = 0
+        self.coll_mb = 0.0
+
+    def _timed(self, real, pick):
+        def collective(*a, **kw):
+            t = pick(a, kw)
+            if not t.is_cuda:
+                return real(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            self.coll_ms += (time.perf_counter() - t0) * 1e3
+            self.coll_calls += 1
+            self.coll_mb += t.numel() * t.element_size() / 1e6
+            return out
+
+        return collective
+
+    def _counted(self, make):
+        def make_step(*a, **kw):
+            step = make(*a, **kw)
+
+            def counted(*args):
+                before, coll = read_counts(), self.coll_ms
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, metrics = step(*args)
+                loss = float(metrics["loss"])
+                ms = (time.perf_counter() - t) * 1e3
+                self.updates.append({"counts": counts_since(before), "ms": ms,
+                                     "collective_ms": self.coll_ms - coll, "loss": loss,
+                                     "grad_norm": float(metrics["grad_norm"])})
+                return state, metrics
+
+            return counted
+
+        return make_step
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._saved = [(dist, "all_reduce", dist.all_reduce), (dist, "all_gather", dist.all_gather),
+                       (train_cli, "make_train_step", train_cli.make_train_step),
+                       (pretrain_cli, "make_pretrain_step", pretrain_cli.make_pretrain_step)]
+        dist.all_reduce = self._timed(dist.all_reduce, lambda a, kw: a[0] if a else kw["tensor"])
+        dist.all_gather = self._timed(dist.all_gather, lambda a, kw: a[1] if len(a) > 1 else kw["tensor"])
+        train_cli.make_train_step = self._counted(train_cli.make_train_step)
+        pretrain_cli.make_pretrain_step = self._counted(pretrain_cli.make_pretrain_step)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def _recorded_transcripts(into: list):
+    """Every (reference, transcript) pair the evaluator scores, in order
+    (dummy batches of a rank that ran dry are not scored)."""
+    cls = GreedyCTCEvaluator
+    agg = cls._aggregate_wer
+
+    def recording(self, refs, hyps):
+        into.extend(zip(refs, hyps))
+        return agg(self, refs, hyps)
+
+    cls._aggregate_wer = recording
+    try:
+        yield
+    finally:
+        cls._aggregate_wer = agg
+
+
+def dist_worker(spec: dict) -> int:
+    """One rank of phase 16, in a fresh interpreter started by `_run_ranks`:
+    joins the group (the backend by `multihost.backend_for`), runs the CLI
+    of `spec["case"]` with `spec["argv"]` under `_DistProbe`, and prints one
+    JSON line of its backend, launches, updates and results."""
+    from gsoc_wav2vec2_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = multihost.initialize(timeout_s=DIST_GROUP_TIMEOUT_S)
+    _build.library()  # built by the parent's phase 2: loaded, not rebuilt
+    out = {"rank": multihost.rank(), "world": multihost.world_size(), "backend": backend,
+           "device": str(torch.cuda.current_device()), "case": spec["case"]}
+    pairs: list = []
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        probe = stack.enter_context(_DistProbe())
+        if spec.get("no_attention_dropout"):
+            stack.enter_context(_no_attention_dropout())
+        if spec.get("gather_loss"):
+            stack.enter_context(_gather_loss())
+        t = time.perf_counter()
+        if spec["case"] == "train":
+            args = train_cli.parse_args(spec["argv"])
+            train_cli.main(args)
+            out["run_dir"] = args.ckpt_dir
+        elif spec["case"] == "pretrain":
+            args = pretrain_cli.parse_args(spec["argv"])
+            pretrain_cli.main(args)
+            out["ckpt_dir"] = args.ckpt_dir
+        else:
+            stack.enter_context(_recorded_transcripts(pairs))
+            out["report"] = evaluate_cli.main(spec["argv"])
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t
+    out.update(counts=read_counts(), updates=probe.updates, pairs=pairs,
+               collective_calls=probe.coll_calls, collective_mb=probe.coll_mb,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    multihost.shutdown()
+    print(json.dumps({"dist_worker": out}), flush=True)
+    return 0
+
+
+def _run_ranks(what: str, spec: dict, root: str, world: int = DIST_RANKS) -> list:
+    """`world` fresh interpreters of this script (`--dist-worker`), the ranks
+    of one group on the card: torchrun's environment with a port from a
+    freshly bound socket, `LOCAL_WORLD_SIZE` = world (so they share cuda:0
+    and the backend rule gives gloo) and `GLOO_SOCKET_IFNAME=lo` (gloo binds
+    the loopback device and resolves no host name).  Each rank has its own
+    deadline; on any failure every rank is stopped, a JSON line with the
+    last 40 lines of each rank's stderr is printed, and it raises.  Returns
+    each rank's report (rank order) and the wall seconds."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = os.path.abspath(__file__)
+    procs, logs = [], []
+    t = time.perf_counter()
+    try:
+        for rank in range(world):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                       LOCAL_WORLD_SIZE=str(world), GLOO_SOCKET_IFNAME="lo")
+            out_path = os.path.join(root, f"{what}-{rank}.out")
+            err_path = os.path.join(root, f"{what}-{rank}.err")
+            logs.append((out_path, err_path))
+            with open(out_path, "w") as o, open(err_path, "w") as e:
+                procs.append(subprocess.Popen(
+                    [sys.executable, script, "--dist-worker", json.dumps(spec)],
+                    cwd=os.path.dirname(script), env=env, stdout=o, stderr=e))
+        deadline = time.monotonic() + DIST_RANK_TIMEOUT_S
+        timed_out = []
+        for rank, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                timed_out.append(rank)
+                p.kill()
+                p.wait()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t
+    reports, tails = [], []
+    for (out_path, err_path), p in zip(logs, procs):
+        lines = [l for l in open(out_path).read().splitlines() if l.startswith('{"dist_worker"')]
+        reports.append(json.loads(lines[-1])["dist_worker"] if lines else None)
+        tails.append(open(err_path).read().splitlines()[-40:])
+    if timed_out or any(p.returncode != 0 for p in procs) or None in reports:
+        emit({"phase": "dist", "case": what, "failed": True, "seconds": seconds,
+              "returncodes": [p.returncode for p in procs], "timed_out": timed_out,
+              "stderr_tails": tails})
+        raise RuntimeError(f"dist {what}: a rank failed (returncodes "
+                           f"{[p.returncode for p in procs]}, timed out {timed_out})")
+    for r in reports:
+        require(r["backend"] == "gloo" and r["world"] == world,
+                f"dist {what}: rank {r['rank']} ran backend {r['backend']} in a world of {r['world']}")
+    return reports, seconds
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _update_summary(updates: list) -> dict:
+    """ms, collective ms and share of the updates after the first (the
+    first of a process also warms its allocator and libraries)."""
+    later = updates[1:] or updates
+    ms = statistics.median(u["ms"] for u in later)
+    coll = statistics.median(u["collective_ms"] for u in later)
+    return {"ms_per_update": ms, "first_update_ms": updates[0]["ms"], "collective_ms": coll,
+            "collective_share": coll / ms}
+
+
+def _one_process_first_update(model_dir: str, args: TrainingArgs, batch: dict, reps: int = 2):
+    """The CLI's first stage-2 update in this process on `batch` (the same
+    model, generator seed, division factor, remat, dtype; attention dropout
+    off): its loss and gradient norm, and the ms of each of `reps` updates."""
+    config = Wav2Vec2ForCTC.from_pretrained(model_dir).config
+    model = Wav2Vec2ForCTC.from_pretrained(model_dir)
+    set_trainable(model, STAGE2)
+    state = create_train_state(model, create_optimizer(model, args.stage2_lr1),
+                               generator=torch.Generator().manual_seed(args.seed + 2))
+    with _DistProbe() as probe, _no_attention_dropout():
+        step = train_cli.make_train_step(config, division_factor=len(batch["speech"]),
+                                         compute_dtype=train_cli._compute_dtype(args),
+                                         remat=train_cli.remat_value(args))
+        for _ in range(reps):
+            state, _ = step(state, batch, state.generator)
+    del model, state
+    torch.cuda.empty_cache()
+    return probe.updates
+
+
+def _first_batch(args: TrainingArgs, shards, data: int) -> dict:
+    """The first global batch of the CLI's stream as `data` ranks load it:
+    each data rank's first batch, stacked in rank order."""
+    from gsoc_wav2vec2_tpu_torch.parallel import Mesh
+
+    parts = [next(iter(train_cli._loader(args, shards, None, Mesh(data, 1, r))(
+        seed=args.seed, drop_remainder=True))) for r in range(data)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in ("speech", "labels", "attention_mask")}
+
+
+def _check_whole_checkpoint(run_dir: str, config) -> None:
+    """The run's files are one process's: `final/` loads onto the card with
+    the model's own shapes, and the last stage-2 checkpoint holds whole
+    tensors."""
+    want = {k: v.shape for k, v in Wav2Vec2ForCTC(config, device="cpu").state_dict().items()}
+    final = Wav2Vec2ForCTC.from_pretrained(os.path.join(run_dir, "final"))
+    require(final.device.type == "cuda", f"{run_dir}/final did not load onto the card")
+    require({k: v.shape for k, v in final.state_dict().items()} == want,
+            f"{run_dir}/final does not load as the one-process model")
+    raw = CheckpointManager(os.path.join(run_dir, "stage2")).restore_raw()
+    require({k: v.shape for k, v in raw["model"].items()} == want,
+            "the stage-2 checkpoint does not hold whole tensors")
+    del final, raw
+    torch.cuda.empty_cache()
+
+
+def _dist_train_case(name: str, smi: str, root: str, model_dir: str, shards, per_device: int,
+                     model_axis: int, per_step: dict) -> dict:
+    """(a) and (b): `cli.train` stage 2 as two ranks; the first update held
+    against one process on the same global batch; exact launches a rank."""
+    config = Wav2Vec2Config()
+    data = DIST_RANKS // model_axis
+    flags = ["--model_id", model_dir, "--train_tfrecords", *shards, "--stage1_epochs", "0",
+             "--stage2_epochs", "1", "--batch_size_per_device", str(per_device),
+             "--audio_maxlen", str(SAMPLES), "--logging_steps", "1", "--model_axis",
+             str(model_axis), "--ckpt_dir", os.path.join(root, f"ckpt_{name}"),
+             "--log_dir", os.path.join(root, f"logs_{name}")]
+    ranks, seconds = _run_ranks(name, {"case": "train", "argv": flags,
+                                       "no_attention_dropout": True}, root)
+    args = train_cli.parse_args(flags)
+    global_batch = per_device * data
+    updates = len(shards) * 32 // global_batch
+    for r in ranks:
+        require(len(r["updates"]) == updates, f"{name}: rank {r['rank']} made {len(r['updates'])} updates")
+        for i, u in enumerate(r["updates"]):
+            expect_counts(f"{name} rank {r['rank']} update {i}", u["counts"], per_step)
+        expect_counts(f"{name} rank {r['rank']}", r["counts"],
+                      {k: v * updates for k, v in per_step.items()})
+        require(all(u["loss"] == ranks[0]["updates"][i]["loss"] and
+                    u["grad_norm"] == ranks[0]["updates"][i]["grad_norm"]
+                    for i, u in enumerate(r["updates"])), f"{name}: the ranks' global metrics differ")
+        require(all(math.isfinite(u["loss"]) for u in r["updates"]), f"{name}: a loss is not finite")
+    run_dir = ranks[0]["run_dir"]
+    require(ranks[1]["run_dir"] == run_dir, f"{name}: the ranks disagree on the run directory")
+    _check_whole_checkpoint(run_dir, config)
+    one = _one_process_first_update(model_dir, args, _first_batch(args, shards, data))
+    got, want = ranks[0]["updates"][0], one[0]
+    rel = {"loss_rel": _rel(got["loss"], want["loss"]),
+           "grad_norm_rel": _rel(got["grad_norm"], want["grad_norm"])}
+    emit({"phase": "dist", "case": name, "ranks": DIST_RANKS, "mesh": [data, model_axis],
+          "backend": ranks[0]["backend"], "global_batch": [global_batch, SAMPLES],
+          "rows_a_rank": per_device, "heads_a_rank": config.num_heads // model_axis,
+          "ffn_a_rank": config.intermediate_size // model_axis,
+          "attention_dropout": "off in both (shard seeds differ from one process's)",
+          "first_update": {"ranks": {k: got[k] for k in ("loss", "grad_norm")},
+                           "one_process": {k: want[k] for k in ("loss", "grad_norm")}, **rel},
+          "bounds": DIST_BOUNDS, "losses": [u["loss"] for u in ranks[0]["updates"]],
+          "two_ranks": [_update_summary(r["updates"]) for r in ranks],
+          "one_process": _update_summary(one),
+          "collective_calls_a_rank": [r["collective_calls"] for r in ranks],
+          "collective_mb_a_rank": [r["collective_mb"] for r in ranks],
+          "peak_gb_a_rank": [r["peak_gb"] for r in ranks], "rank_run_s": [r["run_s"] for r in ranks],
+          "wall_s": seconds, "launches_per_update": per_step,
+          "launches_a_rank": [r["counts"] for r in ranks], "checkpoint_whole": True,
+          "note": "two ranks share one card over gloo (collectives staged through the host): "
+                  "overhead, not scaling", "card": smi})
+    require(all(rel[k] <= DIST_BOUNDS[k] for k in rel), f"{name}: first update {rel} beyond {DIST_BOUNDS}")
+    return [r["counts"] for r in ranks]
+
+
+def _dist_pretrain_case(smi: str, root: str, shards) -> list:
+    """(c): `cli.pretrain` as two ranks at data 2 with the `gather` loss:
+    finite losses, `scatter_rows_add` on each rank every update; beside the
+    same CLI in this process on the same global batch size."""
+    config = Wav2Vec2PretrainingConfig()
+    per_step = {**pretrain_step_counts(config.num_layers, remat=True), "scatter_rows_add": 1}
+
+    config_dir = os.path.join(root, "pretrain_config")
+    config.save_pretrained(config_dir)
+
+    def flags(tag, per_device):
+        return ["--config", os.path.join(config_dir, "config.json"),
+                "--train_tfrecords", *shards, "--epochs", "1", "--batch_size_per_device",
+                str(per_device), "--audio_maxlen", str(SAMPLES), "--warmup_steps", "2",
+                "--logging_steps", "1", "--ckpt_dir", os.path.join(root, f"pretrain_{tag}"),
+                "--log_dir", os.path.join(root, f"pretrain_logs_{tag}")]
+
+    ranks, seconds = _run_ranks("pretrain", {"case": "pretrain", "gather_loss": True,
+                                             "argv": flags("ranks", DIST_PRETRAIN_B)}, root)
+    updates = 32 // DIST_PRETRAIN_B
+    for r in ranks:
+        require(len(r["updates"]) == updates, f"pretrain: rank {r['rank']} made {len(r['updates'])} updates")
+        for i, u in enumerate(r["updates"]):
+            expect_counts(f"pretrain rank {r['rank']} update {i}", u["counts"], per_step)
+            require(math.isfinite(u["loss"]) and math.isfinite(u["grad_norm"]),
+                    f"pretrain rank {r['rank']} update {i}: {u}")
+        expect_counts(f"pretrain rank {r['rank']}", r["counts"],
+                      {k: v * updates for k, v in per_step.items()})
+    require(os.path.isdir(os.path.join(ranks[0]["ckpt_dir"], "for_ctc")), "pretrain: no for_ctc/")
+    with _DistProbe() as probe, _gather_loss():
+        pretrain_cli.main(pretrain_cli.parse_args(flags("one", DIST_PRETRAIN_B * DIST_RANKS)))
+    torch.cuda.empty_cache()
+    emit({"phase": "dist", "case": "pretrain", "ranks": DIST_RANKS, "mesh": [DIST_RANKS, 1],
+          "backend": ranks[0]["backend"], "global_batch": [DIST_PRETRAIN_B * DIST_RANKS, SAMPLES],
+          "rows_a_rank": DIST_PRETRAIN_B, "loss": "gather (scatter_rows_add on each rank's rows)",
+          "losses": [u["loss"] for u in ranks[0]["updates"]],
+          "grad_norms": [u["grad_norm"] for u in ranks[0]["updates"]],
+          "one_process_losses": [u["loss"] for u in probe.updates],
+          "two_ranks": [_update_summary(r["updates"]) for r in ranks],
+          "one_process": _update_summary(probe.updates),
+          "collective_calls_a_rank": [r["collective_calls"] for r in ranks],
+          "peak_gb_a_rank": [r["peak_gb"] for r in ranks], "wall_s": seconds,
+          "launches_per_update": per_step, "launches_a_rank": [r["counts"] for r in ranks],
+          "note": "each rank's shard is one file of the corpus, one process reads both: the "
+                  "losses are not the same batches'", "card": smi})
+    return [r["counts"] for r in ranks]
+
+
+def _dist_evaluate_case(smi: str, root: str, model_dir: str, val_shard: str, per_forward: dict) -> list:
+    """(d): `cli.evaluate --sharded` as two ranks over DIST_EVAL_N records
+    (rank 0 runs 2 batches, rank 1 one and a dummy): the transcripts and the
+    WER of one process."""
+    shard = os.path.join(root, "eval.tfrecord")
+    with native_io.TFRecordWriter(shard) as w:
+        for i, (audio, label) in enumerate(native_io.read_tfrecords(val_shard)):
+            if i < DIST_EVAL_N:
+                w.write(audio, label)
+    argv = ["--model_dir", model_dir, "--tfrecords", shard, "--mode", "padded",
+            "--batch_size", "8"]
+    ranks, seconds = _run_ranks("evaluate", {"case": "evaluate", "argv": argv + ["--sharded"]}, root)
+    one: list = []
+    t = time.perf_counter()
+    with _recorded_transcripts(one):
+        want = evaluate_cli.main(argv)
+    one_s = time.perf_counter() - t
+    got = [tuple(p) for r in ranks for p in r["pairs"]]
+    forwards = [r["counts"]["fused_conv01"] for r in ranks]
+    emit({"phase": "dist", "case": "evaluate", "ranks": DIST_RANKS, "backend": ranks[0]["backend"],
+          "records": DIST_EVAL_N, "records_a_rank": [len(r["pairs"]) for r in ranks],
+          "forwards_a_rank": forwards, "wer": [r["report"]["wer"] for r in ranks],
+          "one_process_wer": want["wer"], "num_samples": [r["report"]["num_samples"] for r in ranks],
+          "transcripts_equal": sorted(got) == sorted(one),
+          "rank_run_s": [r["run_s"] for r in ranks], "one_process_s": one_s, "wall_s": seconds,
+          "launches_a_rank": [r["counts"] for r in ranks], "card": smi})
+    require([len(r["pairs"]) for r in ranks] == [9, 8], "evaluate: the records did not split 9 / 8")
+    for r in ranks:  # rank 1's one batch and one dummy: two forwards each
+        expect_counts(f"evaluate rank {r['rank']}", r["counts"],
+                      {k: v * 2 for k, v in per_forward.items()})
+        require(r["report"]["wer"] == want["wer"] and r["report"]["num_samples"] == DIST_EVAL_N,
+                f"evaluate rank {r['rank']}: {r['report']} against one process's {want}")
+    require(sorted(got) == sorted(one), "evaluate: the two ranks' transcripts differ from one process's")
+    return [r["counts"] for r in ranks]
+
+
+def dist_phase(smi: str) -> dict:
+    """Phase 16: the parallel paths as two ranks on the one card (fresh
+    interpreters; gloo, since NCCL refuses two ranks on one device).
+    Returns the ranks' launches, summed, as the `dist` path."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "dist_memory", "free_gb": free / 1e9, "total_gb": total / 1e9,
+          "reserved_gb": torch.cuda.memory_reserved() / 1e9, "card": smi})
+    t0 = time.perf_counter()
+    config = Wav2Vec2Config()  # base, the recipe's dropout 0.1 and SpecAugment
+    per_step = base_step_counts(config.num_layers, remat=True)  # cli.train's default "dots"
+    counts = []
+    with tempfile.TemporaryDirectory(prefix="w2v2_dist_") as root:
+        model_dir = os.path.join(root, "model")
+        Wav2Vec2ForCTC(config, device="cpu", generator=torch.Generator().manual_seed(0)).save_pretrained(model_dir)
+        train_shards, val_shard, _, _ = write_corpus(root, config.vocab_size)
+        counts += _dist_train_case("train_data2", smi, root, model_dir, train_shards,
+                                   TRAIN_B // DIST_RANKS, 1, per_step)
+        counts += _dist_train_case("train_model2", smi, root, model_dir, train_shards[:1],
+                                   DIST_TP_B, DIST_RANKS, per_step)
+        counts += _dist_pretrain_case(smi, root, train_shards)
+        counts += _dist_evaluate_case(smi, root, model_dir, val_shard,
+                                      base_forward_counts(config.num_layers))
+    emit({"phase": "dist_done", "seconds": time.perf_counter() - t0, "card": smi})
+    return {"dist": {k: sum(c[k] for c in counts) for k in KERNELS}}
+
+
+def check_dist_kernels(records) -> None:
+    """Phase 16's shapes that no earlier phase holds, each against its plain
+    version at the earlier phases' tolerances, timed, under its record's
+    "dist" key: a rank's flash forward and backward at tensor-parallel 6
+    heads (16, 6, 768, 64) and at 16 rows a data rank (16, 12, 768, 64),
+    dropout 0.1 under rank 1's shard seed; the pos conv's training kernels at
+    16 rows; the CTC kernels at 16 x 768 frames.  The front end at 16 rows,
+    the eval pos conv at 8 rows and `scatter_rows_add` on 8 rows of 768
+    frames are phase 3's, 11's and 9's shapes."""
+    gen = torch.Generator().manual_seed(1616)
+    by_name = {r["name"]: r for r in records}
+    config = Wav2Vec2Config()
+    t = config.conv_output_length(SAMPLES)
+    d = config.hidden_size // config.num_heads
+    seed = 12345 + 2**20  # rank 1's shard (data 2 or model 2) of a call seeded 12345
+    fwd, bwd = by_name["flash_attention_fwd"], by_name["flash_attention_bwd"]
+    fwd["dist"], bwd["dist"] = [], []
+    for heads in (config.num_heads // DIST_RANKS, config.num_heads):
+        q, kk, v, dout = _peaky(DIST_TP_B, heads, t, d, gen)
+        kb = _ragged_bias(DIST_TP_B, t, gen)
+        err, out, lse, rel, gabs, gmean = flash_dropout_errors(q, kk, v, dout, kb, 0.1, seed,
+                                                               f"dist H={heads}")
+        f, b = flash_train_records(q, kk, v, dout, kb, out, lse, 0.1, seed)
+        fwd["dist"].append(dict(max_abs_err=err[0], mean_abs_err=err[1], tol=0.04, seed=seed, **f))
+        bwd["dist"].append(dict(max_abs_err=gabs, mean_abs_err=gmean, max_rel_err_by_grad=rel,
+                                tol="0.01 x each gradient's max |value|", seed=seed, **b))
+        del q, kk, v, dout, out, lse
+    model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(0))
+    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
+    kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g).detach()
+    bias = (0.1 * torch.randn(config.hidden_size, generator=gen)).cuda()
+    del model
+    for rec in pos_conv_train_records(kernel, bias, TRAIN_B // DIST_RANKS, t, "", (), gen):
+        name = rec.pop("name")
+        for key in ("counter", "paths", "route", "source", "replaces"):
+            rec.pop(key)
+        by_name[name]["dist"] = rec
+    log_probs, labels, lengths = _ctc_case(gen, TRAIN_B // DIST_RANKS, CTC_T, config.vocab_size,
+                                           4, True)
+    check = ctc_errors(log_probs, labels, lengths, True, f"dist {TRAIN_B // DIST_RANKS} x {CTC_T}")
+    _, states = ctck.ctc_loss_fwd(log_probs, labels, lengths)
+    ones = torch.ones(len(lengths), device=log_probs.device)
+    x = log_probs.clone().requires_grad_(True)
+    plain_loss = ctck.ctc_loss_plain(x, labels, lengths).sum()
+    xl = log_probs.clone().requires_grad_(True)
+    library = lambda: torch.nn.functional.ctc_loss(  # noqa: E731
+        xl.transpose(0, 1), labels, lengths, (labels != 0).sum(1), reduction="none",
+        zero_infinity=True)
+    lib_loss = library().sum()
+    n_states, (fwd_bytes, bwd_bytes) = ctc_work(log_probs, labels, lengths)
+    runs = {"fwd": (lambda: ctck.ctc_loss_fwd(log_probs, labels, lengths),
+                    lambda: ctck.ctc_loss_plain(log_probs, labels, lengths), library,
+                    fwd_bytes, 21 * n_states),
+            "bwd": (lambda: ctck.ctc_loss_bwd(log_probs, labels, lengths, states, ones),
+                    lambda: torch.autograd.grad(plain_loss, x, retain_graph=True),
+                    lambda: torch.autograd.grad(lib_loss, xl, retain_graph=True),
+                    bwd_bytes, 39 * n_states)}
+    for which, (kern, plain, lib, nbytes, ops) in runs.items():
+        bms, by = bound(nbytes, ops, PEAK_F32)
+        by_name[f"ctc_loss_{which}"]["dist"] = dict(
+            shape=list(log_probs.shape) + [labels.shape[1]], **check,
+            max_abs_err=check["grad_max_abs_err"], ms=time_ms(kern, 20),
+            plain_ms=time_ms(plain, 2, 1), library_ms=time_ms(lib, 20), bound_ms=bms, bound_by=by)
+    del log_probs, states, x, plain_loss, xl, lib_loss
+    torch.cuda.empty_cache()
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs the card",
@@ -3490,6 +4053,16 @@ def main() -> int:
     by_path.update(export_phase(smi))
     # 15. the profiling helpers on the base forward
     profiling_phase(smi, fwd_ms)
+    # 16. data and tensor parallelism: two ranks on the one card, each a fresh
+    # interpreter; the kernels at the ranks' own shapes first
+    check_dist_kernels(records)
+    by_path.update(dist_phase(smi))
+    dist_paths = {"cli", "pretrain_cli", "pretrain_gather"}
+    for r in records:
+        if by_path["dist"][r["counter"]] and dist_paths & set(r["paths"]):
+            r["paths"] = tuple(r["paths"]) + ("dist",)
+    ran = {r["counter"] for r in records if "dist" in r["paths"]}
+    require(ran == set(DIST_KERNELS), f"the dist path's kernels: {sorted(ran)}")
     for r in records:
         counter, paths = r.pop("counter"), r.pop("paths")
         r["launches_by_path"] = {p: by_path[p][counter] for p in paths}
@@ -3505,4 +4078,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-worker":  # one rank of phase 16
+        sys.exit(dist_worker(json.loads(sys.argv[2])))
     sys.exit(main())

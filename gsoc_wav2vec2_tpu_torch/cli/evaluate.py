@@ -11,12 +11,15 @@ numbers.  `--beam_width > 0` decodes by prefix beam search, with shallow
 fusion of a char n-gram LM read from `--lm_path` or fitted on a corpus's
 transcripts (`--lm_fit_dir`).  The last line printed is one JSON object
 (`wer`, `num_samples`, `mode`, `seconds`; `round_to` in single mode,
-`beam_width` and `lm` where set).  `--sharded` raises: multi-card
-evaluation is ROADMAP item 7.
+`beam_width` and `lm` where set).  `--sharded` evaluates on several cards:
+one process a card under `torchrun`, each reading its slice of the corpus,
+the WER aggregated over all of them (`GreedyCTCEvaluator`'s `mesh`); every
+rank prints the same report.
 
 Usage:
     python -m gsoc_wav2vec2_tpu_torch.cli.evaluate --model_dir <dir> \\
         --data_dir LibriSpeech/test-clean --mode bucketed
+    torchrun --nproc_per_node 8 -m gsoc_wav2vec2_tpu_torch.cli.evaluate --sharded ...
 """
 
 from __future__ import annotations
@@ -33,14 +36,19 @@ from ..data.remote import expand_patterns
 from ..decoding import CharNGramLM
 from ..evaluation import GreedyCTCEvaluator
 from ..models.modeling import Wav2Vec2ForCTC
+from ..parallel import make_mesh, multihost
+from ..utils.devices import rank_device
 from ..utils.metrics import wer
 
 
 def _samples(loader: LibriSpeechDataLoader):
-    """(waveform, reference text) pairs from a raw corpus or from the tfrecord
-    shards training reads (labels are stored tokenised; `group_tokens=False`
-    reverses the tokenizer exactly)."""
-    it = (loader._tfrecord_samples(loader.tfrecords) if loader.from_tfrecords
+    """(waveform, reference text) pairs of the loader's shard, from a raw
+    corpus or from the tfrecord shards training reads (labels are stored
+    tokenised; `group_tokens=False` reverses the tokenizer exactly).  The JAX
+    CLI reads every tfrecord on every process here, so that its sharded WER
+    counts each record once a process; the port shards records as its
+    loader's stream does."""
+    it = (loader.shard_tfrecord_samples(list(loader.tfrecords)) if loader.from_tfrecords
           else loader._raw_samples())
     for speech, label in it:
         yield speech, loader.tokenizer.decode(label, group_tokens=False)
@@ -55,8 +63,8 @@ def main(argv=None) -> dict:
                              "(glob patterns; local or scheme://)")
     parser.add_argument("--mode", choices=["padded", "bucketed", "single"], default="bucketed")
     parser.add_argument("--sharded", action="store_true",
-                        help="shard eval batches over every card: not ported yet "
-                             "(ROADMAP item 7); raises")
+                        help="one process a card (torchrun): each rank evaluates its slice "
+                             "of the corpus, the WER is the whole corpus's")
     parser.add_argument("--beam_width", type=int, default=0,
                         help="CTC prefix beam search width (0 = greedy, the reference's decode)")
     parser.add_argument("--lm_path", type=str, default=None,
@@ -78,15 +86,21 @@ def main(argv=None) -> dict:
     parser.add_argument("--round_to", type=int, default=1600,
                         help="single mode: round lengths up to this multiple (samples); "
                              "1 for the reference's no-padding mode")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="cuda (bf16 kernels; the default) or cpu (f32 plain path)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda (bf16 kernels; the default: under torchrun the card "
+                             "LOCAL_RANK modulo the cards) or cpu (f32 plain path)")
     args = parser.parse_args(argv)
 
     if bool(args.data_dir) == bool(args.tfrecords):
         parser.error("pass exactly one of --data_dir / --tfrecords")
+    device = rank_device(args.device)
+    mesh = None
     if args.sharded:
-        raise NotImplementedError(
-            "--sharded: multi-card evaluation is not ported yet (ROADMAP.md section 1 item 7)")
+        if args.mode == "single":
+            parser.error("--sharded evaluates in the padded or bucketed mode")
+        multihost.initialize(device)
+        mesh = make_mesh(model=1)  # every rank on the data axis
+        print(f"sharded eval over {mesh.size} processes", file=sys.stderr)
 
     lm = None
     if args.lm_fit_dir:
@@ -99,18 +113,20 @@ def main(argv=None) -> dict:
         parser.error("--lm_path/--lm_fit_dir require --beam_width > 0")
     if lm is None and (args.lm_weight is not None or args.token_bonus is not None):
         parser.error("--lm_weight/--token_bonus only act with --lm_path/--lm_fit_dir")
-    model = Wav2Vec2ForCTC.from_pretrained(args.model_dir, device=args.device)
+    model = Wav2Vec2ForCTC.from_pretrained(args.model_dir, device=device)
     evaluator = GreedyCTCEvaluator(
         model, beam_width=args.beam_width, lm=lm,
         lm_weight=0.5 if args.lm_weight is None else args.lm_weight,
-        token_bonus=0.0 if args.token_bonus is None else args.token_bonus,
+        token_bonus=0.0 if args.token_bonus is None else args.token_bonus, mesh=mesh,
     )
     if args.tfrecords:
         largs = LibriSpeechDataLoaderArgs(from_tfrecords=True,
                                           tfrecords=expand_patterns(args.tfrecords))
     else:
         largs = LibriSpeechDataLoaderArgs(data_dir=args.data_dir)
-    loader = LibriSpeechDataLoader(largs)
+    # each rank reads its slice only: the evaluator aggregates the counts
+    shard = {} if mesh is None else dict(shard_index=mesh.rank, shard_count=mesh.size)
+    loader = LibriSpeechDataLoader(largs, **shard)
 
     def sample_iter():
         for i, item in enumerate(_samples(loader)):

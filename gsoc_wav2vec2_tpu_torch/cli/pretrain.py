@@ -15,13 +15,17 @@ seeded stream past it) and `MetricLogger`.  At the end `for_ctc/` holds a
 `Wav2Vec2ForCTC` (the backbone and a fresh head from `seed + 2`), and with
 `--ema_decay` `for_ctc_ema/` the EMA backbone under the same head.
 
-On one card, through the port's kernels in bf16, with `--remat
---remat_policy dots` (`--device cpu` runs the f32 plain path).  Against the
-JAX CLI: several processes and `--model_axis` above 1 raise (ROADMAP.md
-section 1 item 3).
+Through the port's kernels in bf16, with `--remat --remat_policy dots`
+(`--device cpu` runs the f32 plain path).  On several cards, one process a
+card under `torchrun`, as `cli.train` runs them: a (data, model) mesh, the
+global batch `--batch_size_per_device` x ranks / model axis, each rank
+loading its data group's rows in lockstep, the span masks drawn at the
+global batch's shape and each rank taking its rows, the LR horizon the
+smallest over ranks; rank 0 logs and exports.
 
 Usage:
     python -m gsoc_wav2vec2_tpu_torch.cli.pretrain --train_dir ... --epochs 1
+    torchrun --nproc_per_node 8 -m gsoc_wav2vec2_tpu_torch.cli.pretrain ...
 (labels in the corpus are ignored; only audio is read.)
 """
 
@@ -51,7 +55,9 @@ from ..models.pretraining import (
     make_pretrain_accum_steps,
     make_pretrain_step,
 )
-from ..ops.specaugment import compute_mask_indices
+from ..ops.specaugment import _rows_of
+from ..parallel import make_mesh, multihost, shard_params
+from ..parallel.mesh import global_rows
 from ..training import (
     create_pretrain_optimizer,
     create_train_state,
@@ -60,16 +66,19 @@ from ..training import (
     set_trainable,
 )
 from ..training.checkpoint import CheckpointManager
-from ..utils.logging import MetricLogger
+from ..utils.devices import rank_device
+from ..utils.logging import MetricLogger, NullLogger
 from .train import (
     _CKPT_STRIDE,
     _DTYPES,
     PreemptExit,
     _compute_dtype,
+    _lockstep,
     _preempt_consensus,
     _timed,
     install_preempt_handler,
     remat_value,
+    whole_model,
 )
 
 STREAM_HORIZON = 500_000  # the LR horizon of an uncounted stream (wav2vec2-base's recipe)
@@ -108,7 +117,7 @@ class PretrainingArgs:
     seed: int = 0
     logging_steps: int = 16
     ckpt_every_epochs: int = 1
-    # the JAX CLI's multi-host preemption cadence (one process here)
+    # several processes: the SIGTERM flag is all-gathered every N updates
     preempt_sync_updates: int = 25
 
     model_axis: int = 1
@@ -125,7 +134,8 @@ class PretrainingArgs:
     wandb_project: Optional[str] = None
     # a previous run's ckpt_dir: continue from its latest checkpoint
     resume: Optional[str] = None
-    # None: the card (raises without CUDA); "cpu" runs the plain f32 path
+    # None: the card, LOCAL_RANK modulo the cards (raises without CUDA); "cpu" runs the
+    # plain f32 path
     device: Optional[str] = None
 
     def __post_init__(self):
@@ -146,16 +156,18 @@ def gumbel_temperature(args: PretrainingArgs, step: int) -> float:
 
 
 def batch_masks(generator: torch.Generator, attention_mask: torch.Tensor,
-                config: Wav2Vec2PretrainingConfig, args: PretrainingArgs) -> torch.Tensor:
+                config: Wav2Vec2PretrainingConfig, args: PretrainingArgs,
+                rows=None) -> torch.Tensor:
     """Bool (B, frames) span mask for one batch, restricted to real frames:
     padded frames must never become contrastive targets or negatives (an
     utterance padded to `audio_maxlen` is often 20-70% padding).  On the
-    attention mask's device."""
+    attention mask's device.  `rows = (start, global_rows)`: a rank's rows of
+    the global batch's draw (JAX draws the masks at the global batch)."""
     attention_mask = torch.as_tensor(attention_mask)
     b, samples = attention_mask.shape
     frames = int(config.conv_output_length(samples))
     frame_length = config.conv_output_length(attention_mask.to(torch.int64).sum(dim=-1))
-    mask = compute_mask_indices(generator, b, frames, args.mask_time_prob, args.mask_time_length)
+    mask = _rows_of(generator, b, frames, args.mask_time_prob, args.mask_time_length, 2, rows)
     valid = torch.arange(frames, device=attention_mask.device)[None, :] < frame_length[:, None]
     return mask.to(attention_mask.device) & valid
 
@@ -194,6 +206,7 @@ def ctc_config_of(config: Wav2Vec2PretrainingConfig) -> Wav2Vec2Config:
 
 
 def _export(model, ema_params, config, args: PretrainingArgs) -> None:
+    """`for_ctc/` (and `for_ctc_ema/`) from whole weights."""
     ctc_config = ctc_config_of(config)
     out_dir = os.path.join(args.ckpt_dir, "for_ctc")
     head = lambda: torch.Generator().manual_seed(args.seed + 2)  # noqa: E731
@@ -209,10 +222,9 @@ def _export(model, ema_params, config, args: PretrainingArgs) -> None:
 
 
 def main(args: PretrainingArgs, config: Optional[Wav2Vec2PretrainingConfig] = None) -> None:
-    if args.model_axis > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "several processes or --model_axis > 1: data and tensor parallelism are not "
-            "ported yet (ROADMAP.md section 1 item 3); the port pretrains on one card")
+    device = rank_device(args.device)
+    multihost.initialize(device)  # nothing to do for one process
+    mesh = make_mesh(model=args.model_axis)
     if args.grad_accum < 1:
         raise ValueError(f"--grad_accum must be >= 1, got {args.grad_accum}")
     if not 0.0 <= args.ema_decay < 1.0:
@@ -222,16 +234,25 @@ def main(args: PretrainingArgs, config: Optional[Wav2Vec2PretrainingConfig] = No
     if not (args.train_tfrecords or args.train_dir):
         raise ValueError("no training data: pass --train_tfrecords or --train_dir")
     config = config if config is not None else load_config(args)
-    global_batch, accum = args.batch_size_per_device, args.grad_accum
+    lead = multihost.rank() == 0
+    # --batch_size_per_device x ranks / model axis; each rank loads its data group's rows
+    global_batch, accum = args.batch_size_per_device * mesh.data, args.grad_accum
+    if global_batch % multihost.world_size():
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"{multihost.world_size()} processes")
 
     loader = LibriSpeechDataLoader(LibriSpeechDataLoaderArgs(
         from_tfrecords=bool(args.train_tfrecords), tfrecords=args.train_tfrecords or None,
-        data_dir=args.train_dir, batch_size=global_batch, audio_maxlen=args.audio_maxlen))
-    schedule = pretrain_lr_schedule(args.lr, args.warmup_steps,
-                                    horizon(args, loader.num_batches(drop_remainder=True)))
+        data_dir=args.train_dir, batch_size=global_batch // mesh.data,
+        audio_maxlen=args.audio_maxlen), shard_index=mesh.data_index, shard_count=mesh.data)
+    # the ranks' shards can differ by a batch: every rank takes the smallest
+    # horizon (`lockstep_batches` drains that many)
+    steps_per_epoch = multihost.sync_min_count(loader.num_batches(drop_remainder=True))
+    schedule = pretrain_lr_schedule(args.lr, args.warmup_steps, horizon(args, steps_per_epoch))
 
-    model = Wav2Vec2ForPreTraining(config, device=args.device,
+    model = Wav2Vec2ForPreTraining(config, device=device,
                                    generator=torch.Generator().manual_seed(args.seed))
+    shard_params(model, mesh)
     set_trainable(model, ())
     state = create_train_state(
         model, create_pretrain_optimizer(model, args.lr, weight_decay=args.weight_decay,
@@ -239,7 +260,7 @@ def main(args: PretrainingArgs, config: Optional[Wav2Vec2PretrainingConfig] = No
         ema=args.ema_decay > 0, generator=torch.Generator().manual_seed(args.seed + 1))
     if args.resume is not None:
         args.ckpt_dir = args.resume  # continue inside the previous run's directory
-    ckpt = CheckpointManager(os.path.join(args.ckpt_dir, "pretrain"))
+    ckpt = CheckpointManager(os.path.join(args.ckpt_dir, "pretrain"), mesh=mesh)
     start_epoch = skip_updates = 0
     if args.resume is not None:
         last = ckpt.latest_step()
@@ -255,14 +276,15 @@ def main(args: PretrainingArgs, config: Optional[Wav2Vec2PretrainingConfig] = No
 
     step_kwargs = dict(division_factor=global_batch * accum,  # SUM over the effective batch
                        with_attention_mask=True, compute_dtype=compute_dtype, remat=remat,
-                       ema_decay=args.ema_decay if args.ema_decay > 0 else None)
+                       ema_decay=args.ema_decay if args.ema_decay > 0 else None, mesh=mesh)
     if accum == 1:
         step_fn = make_pretrain_step(config, **step_kwargs)
     else:
         init_fn, accum_fn, apply_fn = make_pretrain_accum_steps(config, **step_kwargs)
     gen = state.generator
     step_count = state.step
-    logger = MetricLogger(args.log_dir, project=args.wandb_project, config=asdict(args))
+    logger = (MetricLogger(args.log_dir, project=args.wandb_project, config=asdict(args))
+              if lead else NullLogger())
     previous = install_preempt_handler()  # SIGTERM -> mid-epoch checkpoint + clean exit
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -274,15 +296,18 @@ def main(args: PretrainingArgs, config: Optional[Wav2Vec2PretrainingConfig] = No
             skip_micro = skip_updates * accum if epoch == start_epoch else 0
             epoch_updates = skip_updates if epoch == start_epoch else 0
             micro = 0
-            for batch in _timed(loader(seed=args.seed + epoch, drop_remainder=True), waits):
+            batches = _lockstep(loader, loader(seed=args.seed + epoch, drop_remainder=True))
+            for batch in _timed(batches, waits):
                 epoch_batches += 1
                 if skip_micro > 0:
                     skip_micro -= 1
                     continue
-                batch = {"speech": batch["speech"], "attention_mask": batch["attention_mask"]}
+                batch = multihost.host_local_batch_to_global(
+                    {"speech": batch["speech"], "attention_mask": batch["attention_mask"]},
+                    mesh, global_batch)
                 batch["mask_time_indices"] = batch_masks(
                     mask_generator(args, step_count * accum + micro), batch["attention_mask"],
-                    config, args)
+                    config, args, rows=global_rows(mesh, len(batch["speech"])))
                 temp = gumbel_temperature(args, step_count)
                 if micro == 0:
                     # optax counts from 0: the first update runs at the schedule's 0
@@ -341,7 +366,15 @@ def main(args: PretrainingArgs, config: Optional[Wav2Vec2PretrainingConfig] = No
         return
     finally:
         signal.signal(signal.SIGTERM, previous)
-    _export(model, state.ema_params, config, args)
+    if mesh.model > 1:
+        ema = state.ema_params
+        model = whole_model(model, mesh)
+        ema_params = None if ema is None else whole_model(state.model, mesh, ema).state_dict()
+    else:
+        ema_params = state.ema_params
+    if lead:
+        _export(model, ema_params, config, args)
+    multihost.barrier()
     logger.finish()
 
 
@@ -369,7 +402,8 @@ def parse_args(argv=None) -> PretrainingArgs:
     parser.add_argument("--resume", type=str, default=None, metavar="CKPT_DIR",
                         help="a previous run's --ckpt_dir: continue from its latest checkpoint")
     parser.add_argument("--device", type=str, default=None,
-                        help="cuda (the default: bf16 kernels) or cpu (f32 plain path)")
+                        help="cuda (the default: bf16 kernels, under torchrun the "
+                             "card LOCAL_RANK modulo the cards) or cpu (f32 plain path)")
     return PretrainingArgs(**vars(parser.parse_args(argv)))
 
 

@@ -51,7 +51,8 @@ device lock (`DynamicBatcher.device_lock`), so one thread at a time
 launches on the card.
 
 Deliberate differences from the JAX server: `--sharded` raises
-`NotImplementedError` (multi-card serving is ROADMAP item 7); there is no
+`NotImplementedError` (multi-card serving, ROADMAP.md section 1 item 4: the
+JAX server runs one process over every local card, a design of its own); there is no
 persistent compilation cache to enable (the JAX server's is XLA's); and
 `--device` picks the card (the default) or the CPU, as on the port's other
 CLIs.  `warmup()` still runs one forward per bucket: on the card it builds
@@ -562,7 +563,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--sharded", action="store_true",
-        help="shard each batch over every card: not ported yet (ROADMAP item 7); raises",
+        help="shard each batch over every card: not ported yet (ROADMAP.md section 1 "
+             "item 4); raises",
     )
     parser.add_argument(
         "--device", type=str, default="cuda",
@@ -579,7 +581,8 @@ def load_evaluator(args: argparse.Namespace) -> GreedyCTCEvaluator:
     decode flags."""
     if args.sharded:
         raise NotImplementedError(
-            "--sharded: multi-card serving is not ported yet (ROADMAP.md section 1 item 7)")
+            "--sharded: multi-card serving is not ported yet (ROADMAP.md section 1 item 4: "
+            "one process that shards each batch over every local card, as the JAX server does)")
     lm = CharNGramLM.load(args.lm_path) if args.lm_path else None
     model = Wav2Vec2ForCTC.from_pretrained(args.model_dir, device=args.device)
     return GreedyCTCEvaluator(model, beam_width=args.beam_width, lm=lm,

@@ -14,15 +14,21 @@ mid-epoch, and `--resume` skips the updates that checkpoint already holds in
 that epoch's `seed + epoch` batch stream, so a resumed run is the straight
 run bit for bit (the step's generator is part of the checkpoint).
 
-On one card, through the port's kernels in bf16 (`--compute_dtype float32`
-runs every site plain), with JAX's `--remat --remat_policy dots` by default
-(each encoder layer recomputed in the backward, its matrix products kept).
-Against the JAX CLI: `--model_axis` above 1 (tensor parallelism, ROADMAP
-item 7) raises; preemption is single-process.
+Through the port's kernels in bf16 (`--compute_dtype float32` runs every
+site plain), with JAX's `--remat --remat_policy dots` by default (each
+encoder layer recomputed in the backward, its matrix products kept).  On
+several cards, one process a card under `torchrun`: a (data, model) mesh
+with `--model_axis` ranks a tensor-parallel group (`parallel/`), the global
+batch `--batch_size_per_device` x ranks / model axis, each rank loading its
+data group's rows, the streams in lockstep, the SIGTERM flag all-gathered
+every `--preempt_sync_updates` updates; rank 0 logs and writes `final/`,
+checkpoints hold whole tensors (any layout resumes any other).
 
 Usage:
     python -m gsoc_wav2vec2_tpu_torch.cli.train --model_id <dir> \\
         --train_tfrecords 'train/*.tfrecord' --val_tfrecords 'dev/*.tfrecord'
+    torchrun --nproc_per_node 8 -m gsoc_wav2vec2_tpu_torch.cli.train \\
+        --model_axis 2 ...
 (env vars DATA_BUCKET_NAME / CKPT_BUCKET_NAME / DUMMY_DATA_PATH are
 honoured, as in the reference's `main.py:24-27`.)
 """
@@ -44,6 +50,8 @@ from ..data.remote import expand_patterns
 from ..models.config import Wav2Vec2Config
 from ..models.modeling import Wav2Vec2ForCTC, wav2vec2_for_ctc_forward
 from ..ops.ctc import ctc_loss_fn
+from ..parallel import make_mesh, multihost, shard_params, unshard_state_dict
+from ..parallel.mesh import Mesh
 from ..training import (
     create_optimizer,
     create_train_state,
@@ -53,8 +61,9 @@ from ..training import (
     set_trainable,
 )
 from ..training.checkpoint import CheckpointManager
-from ..training.trainer import _to_device
-from ..utils.logging import MetricLogger
+from ..training.trainer import _to_device, data_sum
+from ..utils.devices import rank_device
+from ..utils.logging import MetricLogger, NullLogger
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -89,7 +98,7 @@ class TrainingArgs:
 
     # checkpoint cadence in epochs; the final epoch always checkpoints
     ckpt_every_epochs: int = 1
-    # the JAX driver's multi-host preemption cadence (one process here)
+    # several processes: the SIGTERM flag is all-gathered every N updates
     preempt_sync_updates: int = 25
 
     model_id: Optional[str] = None  # from_pretrained source; None = seeded init
@@ -117,7 +126,8 @@ class TrainingArgs:
     # a previous run's experiment dir (.../experiment-<id>): each stage
     # restores its latest checkpoint and continues
     resume: Optional[str] = None
-    # None: the card (raises without CUDA); "cpu" runs the plain f32 path
+    # None: the card, LOCAL_RANK modulo the cards (raises without CUDA); "cpu" runs the
+    # plain f32 path
     device: Optional[str] = None
 
     def __post_init__(self):
@@ -156,11 +166,14 @@ class PreemptExit(Exception):
 
 
 def _preempt_consensus(update_idx: int, sync_every: int) -> bool:
-    """Stop now?  One process: the local flag, checked every update (the JAX
-    driver's allgather across hosts every `sync_every` updates comes with
-    multi-process training, ROADMAP item 7)."""
-    del update_idx, sync_every
-    return _PREEMPT_REQUESTED
+    """Do all ranks agree to stop now?  One process: the local flag, checked
+    every update.  Several: every rank must checkpoint at the same update,
+    so the flag is all-gathered every `sync_every` updates (none between)."""
+    if multihost.world_size() == 1:
+        return _PREEMPT_REQUESTED
+    if update_idx % max(sync_every, 1) != 0:
+        return False
+    return multihost.max_flag(_PREEMPT_REQUESTED)
 
 
 def remat_value(args) -> Union[bool, str]:
@@ -180,22 +193,53 @@ def _compute_dtype(args: TrainingArgs) -> torch.dtype:
     return _DTYPES[args.compute_dtype]
 
 
-def _loader(args: TrainingArgs, tfrecords, data_dir):
+def _global_batch(args: TrainingArgs, mesh: Mesh) -> int:
+    """`--batch_size_per_device` x ranks / model axis (JAX `cli/train.py:157`)."""
+    return args.batch_size_per_device * mesh.data
+
+
+def _loader(args: TrainingArgs, tfrecords, data_dir, mesh: Optional[Mesh] = None):
     if not tfrecords and not data_dir:
         return None
+    mesh = make_mesh() if mesh is None else mesh
+    global_batch = _global_batch(args, mesh)
+    if global_batch % multihost.world_size():
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"{multihost.world_size()} processes")
+    # each rank loads its data group's rows of the global batch (the ranks of
+    # a model group load the same ones): --batch_size_per_device of them
     largs = LibriSpeechDataLoaderArgs(
         from_tfrecords=bool(tfrecords), tfrecords=tfrecords or None, data_dir=data_dir,
         batch_size=args.batch_size_per_device, audio_maxlen=args.audio_maxlen,
         labels_maxlen=args.labels_maxlen, bucket_boundaries=args.bucket_boundaries or None,
     )
-    return LibriSpeechDataLoader(largs)
+    return LibriSpeechDataLoader(largs, shard_index=mesh.data_index, shard_count=mesh.data)
 
 
-def _build_model(args: TrainingArgs) -> Wav2Vec2ForCTC:
+def _build_model(args: TrainingArgs, device) -> Wav2Vec2ForCTC:
     if args.model_id:
-        return Wav2Vec2ForCTC.from_pretrained(args.model_id, device=args.device)
-    return Wav2Vec2ForCTC(Wav2Vec2Config(), device=args.device,
+        return Wav2Vec2ForCTC.from_pretrained(args.model_id, device=device)
+    return Wav2Vec2ForCTC(Wav2Vec2Config(), device=device,
                           generator=torch.Generator().manual_seed(args.seed))
+
+
+def _lockstep(loader, batches):
+    """A loader's stream in lockstep over the ranks (bucketed: at each step's
+    longest bucket)."""
+    if getattr(loader, "bucket_boundaries", None):
+        return multihost.lockstep_bucket_batches(batches, repad=loader.repad_batch)
+    return multihost.lockstep_batches(batches,
+                                      num_batches=loader.num_batches(drop_remainder=True))
+
+
+def whole_model(model, mesh: Mesh, state_dict=None):
+    """A CPU copy of `model` with whole tensors (every rank calls it: the
+    split parameters are gathered over the model group); `state_dict`
+    (name -> shard, e.g. EMA weights) replaces the model's own."""
+    whole = unshard_state_dict(model.state_dict() if state_dict is None else state_dict, mesh)
+    copy = type(model)(model.config, device="cpu")
+    copy.load_state_dict({k: v.detach().cpu() for k, v in whole.items()}, strict=True)
+    return copy
 
 
 def _timed(batches, waits: list):
@@ -247,15 +291,18 @@ class _StageProfiler:
 
 
 def run_stage(*, stage: int, args: TrainingArgs, config: Wav2Vec2Config, model,
-              train_loader, val_loader, logger: MetricLogger, epochs: Optional[int] = None):
-    """One fine-tuning stage, updating `model` in place; returns
-    `(model, ema_params)`, `ema_params` None unless `args.ema_decay > 0`."""
+              train_loader, val_loader, logger: MetricLogger, epochs: Optional[int] = None,
+              mesh: Optional[Mesh] = None):
+    """One fine-tuning stage, updating `model` (this rank's shards under a
+    `mesh`) in place; returns `(model, ema_params)`, `ema_params` None unless
+    `args.ema_decay > 0`."""
+    mesh = make_mesh() if mesh is None else mesh
     epochs = epochs if epochs is not None else (
         args.stage1_epochs if stage == 1 else args.stage2_epochs)
     if epochs <= 0 or train_loader is None:
         return model, None
 
-    global_batch = args.batch_size_per_device
+    global_batch = _global_batch(args, mesh)
     if stage == 1:
         frozen, lr0 = ("wav2vec2",), args.stage1_lr  # reference `main.py:210`
     else:
@@ -271,7 +318,7 @@ def run_stage(*, stage: int, args: TrainingArgs, config: Wav2Vec2Config, model,
     # PRNGKey(seed + stage); its state is checkpointed with the weights
     state = create_train_state(model, create_optimizer(model, lr0), ema=args.ema_decay > 0,
                                generator=torch.Generator().manual_seed(args.seed + stage))
-    ckpt = CheckpointManager(os.path.join(args.ckpt_dir, f"stage{stage}"))
+    ckpt = CheckpointManager(os.path.join(args.ckpt_dir, f"stage{stage}"), mesh=mesh)
     start_epoch = skip_updates = 0
     if args.resume is not None:
         last = ckpt.latest_step()
@@ -295,6 +342,7 @@ def run_stage(*, stage: int, args: TrainingArgs, config: Wav2Vec2Config, model,
         compute_dtype=_compute_dtype(args),
         ema_decay=args.ema_decay if args.ema_decay > 0 else None,
         remat=remat_value(args),
+        mesh=mesh,
     )
     if accum == 1:
         step_fn = make_train_step(config, **step_kwargs)
@@ -302,7 +350,7 @@ def run_stage(*, stage: int, args: TrainingArgs, config: Wav2Vec2Config, model,
         init_fn, accum_fn, apply_fn = make_grad_accum_steps(config, **step_kwargs)
     gen = state.generator
     step_count = state.step
-    profiler = _StageProfiler(args.profile_steps,
+    profiler = _StageProfiler(args.profile_steps if multihost.rank() == 0 else 0,
                               os.path.join(args.log_dir, "trace", f"stage{stage}.json"),
                               model.device.type == "cuda")
     interrupted = False
@@ -318,13 +366,16 @@ def run_stage(*, stage: int, args: TrainingArgs, config: Wav2Vec2Config, model,
         epoch_updates = skip_updates if epoch == start_epoch else 0
         micro = 0
         try:
-            batches = train_loader(seed=args.seed + epoch, drop_remainder=True)
+            batches = _lockstep(train_loader,
+                                train_loader(seed=args.seed + epoch, drop_remainder=True))
             for batch in _timed(batches, waits):
                 epoch_batches += 1
                 if skip_micro > 0:
                     skip_micro -= 1
                     continue
-                batch = {k: batch[k] for k in ("speech", "labels", "attention_mask")}
+                batch = multihost.host_local_batch_to_global(
+                    {k: batch[k] for k in ("speech", "labels", "attention_mask")}, mesh,
+                    global_batch)
                 if accum == 1:
                     state, metrics = step_fn(state, batch, gen)
                 else:
@@ -373,7 +424,7 @@ def run_stage(*, stage: int, args: TrainingArgs, config: Wav2Vec2Config, model,
                 "completed an optimizer update — the epoch yields fewer batches than "
                 f"--grad_accum {accum}; reduce --grad_accum or the batch size")
         if val_loader is not None:
-            val_loss = evaluate_loss(config, model, val_loader, args)
+            val_loss = evaluate_loss(config, model, val_loader, args, mesh)
             logger.log({f"stage{stage}/val_loss": val_loss, "epoch": epoch}, step=step_count)
         if (epoch + 1) % max(args.ckpt_every_epochs, 1) == 0 or epoch + 1 == epochs:
             ckpt.save((epoch + 1) * _CKPT_STRIDE, state)
@@ -384,21 +435,25 @@ def run_stage(*, stage: int, args: TrainingArgs, config: Wav2Vec2Config, model,
     return model, state.ema_params
 
 
-def evaluate_loss(config, model, loader, args: TrainingArgs) -> float:
+def evaluate_loss(config, model, loader, args: TrainingArgs,
+                  mesh: Optional[Mesh] = None) -> float:
     """Mean over the loader's batches of the per-batch CTC loss (SUM over
     the batch / batch size, the reference's constant logit length; reference
-    `model.evaluate`, `main.py:258`), eval forward in `--compute_dtype`."""
+    `model.evaluate`, `main.py:258`), eval forward in `--compute_dtype`.
+    Under a `mesh` the ranks run their rows in lockstep and each batch's sum
+    is added over the data group: every rank returns the global loss."""
     dtype = _compute_dtype(args)
     losses = []
     with torch.inference_mode():
-        for batch in loader(drop_remainder=True):
+        for batch in _lockstep(loader, loader(drop_remainder=True)):
             batch = _to_device(batch, model.device)
             mask = batch["attention_mask"] if config.is_robust else None
             logits = wav2vec2_for_ctc_forward(model, config, batch["speech"].float(), mask,
-                                              compute_dtype=dtype)
+                                              compute_dtype=dtype, mesh=mesh)
             b, t = logits.shape[0], logits.shape[1]
             per_sample = ctc_loss_fn(logits, batch["labels"], torch.full((b,), t), config.pad_id)
-            losses.append(float(per_sample.sum() / b))
+            rows = b if mesh is None else b * mesh.data
+            losses.append(float(data_sum(per_sample.sum(), mesh) / rows))
     return float(np.mean(losses)) if losses else float("nan")
 
 
@@ -408,24 +463,33 @@ def main(args: TrainingArgs) -> None:
         raise ValueError(f"--grad_accum must be >= 1, got {args.grad_accum}")
     if not 0.0 <= args.ema_decay < 1.0:
         raise ValueError(f"--ema_decay must be in [0, 1), got {args.ema_decay}")
-    if args.model_axis > 1:
-        raise NotImplementedError(
-            f"--model_axis {args.model_axis}: tensor parallelism is not ported yet "
-            "(ROADMAP.md section 1 item 7); the port trains on one card")
     remat_value(args)
     _compute_dtype(args)
-
-    model = _build_model(args)
+    device = rank_device(args.device)
+    multihost.initialize(device)  # nothing to do for one process
+    model = _build_model(args, device)
     config = model.config
-    train_loader = _loader(args, args.train_tfrecords, args.train_dir)
-    val_loader = _loader(args, args.val_tfrecords, args.val_dir)
-    test_loader = _loader(args, args.test_tfrecords, args.test_dir)
+    if args.model_axis > 1 and (config.num_heads % args.model_axis
+                                or config.intermediate_size % args.model_axis):
+        raise ValueError(
+            f"--model_axis {args.model_axis} must divide num_heads ({config.num_heads}) and "
+            f"intermediate_size ({config.intermediate_size}) for tensor-parallel sharding")
+    mesh = make_mesh(model=args.model_axis)
+    lead = multihost.rank() == 0
+    if lead:
+        print(f"mesh: {mesh.shape}, processes: {multihost.world_size()}")
+    shard_params(model, mesh)
+    train_loader = _loader(args, args.train_tfrecords, args.train_dir, mesh)
+    val_loader = _loader(args, args.val_tfrecords, args.val_dir, mesh)
+    test_loader = _loader(args, args.test_tfrecords, args.test_dir, mesh)
     if train_loader is None:
         raise ValueError("no training data: pass --train_tfrecords or --train_dir")
 
-    logger = MetricLogger(args.log_dir, project=args.wandb_project, config=asdict(args))
+    logger = (MetricLogger(args.log_dir, project=args.wandb_project, config=asdict(args))
+              if lead else NullLogger())
     # continue inside the previous run's experiment dir, or start a new one
-    run_dir = args.resume or os.path.join(args.ckpt_dir, f"experiment-{logger.run_id}")
+    run_dir = args.resume or os.path.join(
+        args.ckpt_dir, f"experiment-{multihost.sync_run_id(logger.run_id)}")
     args.ckpt_dir = run_dir
 
     previous = install_preempt_handler()  # SIGTERM -> mid-epoch checkpoint + clean exit
@@ -435,7 +499,7 @@ def main(args: TrainingArgs) -> None:
             print(f"=== stage {stage} ===")
             model, stage_ema = run_stage(stage=stage, args=args, config=config, model=model,
                                          train_loader=train_loader, val_loader=val_loader,
-                                         logger=logger)
+                                         logger=logger, mesh=mesh)
             if stage_ema is not None:  # the last stage that ran
                 ema_params = stage_ema
     except PreemptExit:
@@ -446,19 +510,22 @@ def main(args: TrainingArgs) -> None:
         signal.signal(signal.SIGTERM, previous)
 
     if test_loader is not None:
-        test_loss = evaluate_loss(config, model, test_loader, args)
+        test_loss = evaluate_loss(config, model, test_loader, args, mesh)
         logger.log({"test_loss": test_loss})
-        print(f"test loss: {test_loss:.4f}")
+        if lead:
+            print(f"test loss: {test_loss:.4f}")
 
     final_dir = os.path.join(run_dir, "final")
-    model.save_pretrained(final_dir)
-    print(f"saved final model to {final_dir}")
-    if ema_params is not None:
-        ema_model = Wav2Vec2ForCTC(config, device="cpu")
-        ema_model.load_state_dict(ema_params, strict=True)
-        ema_dir = os.path.join(run_dir, "final_ema")
-        ema_model.save_pretrained(ema_dir)
-        print(f"saved EMA model (decay {args.ema_decay}) to {ema_dir}")
+    final = model if mesh.model == 1 else whole_model(model, mesh)
+    ema_model = None if ema_params is None else whole_model(model, mesh, ema_params)
+    if lead:
+        final.save_pretrained(final_dir)
+        print(f"saved final model to {final_dir}")
+        if ema_model is not None:
+            ema_dir = os.path.join(run_dir, "final_ema")
+            ema_model.save_pretrained(ema_dir)
+            print(f"saved EMA model (decay {args.ema_decay}) to {ema_dir}")
+    multihost.barrier()
     logger.finish()
 
 
@@ -490,7 +557,8 @@ def parse_args(argv=None) -> TrainingArgs:
                         help="experiment dir of a previous run; each stage restores its "
                              "latest checkpoint and continues")
     parser.add_argument("--device", type=str, default=None,
-                        help="cuda (the default: bf16 kernels) or cpu (f32 plain path)")
+                        help="cuda (the default: bf16 kernels, under torchrun the "
+                             "card LOCAL_RANK modulo the cards) or cpu (f32 plain path)")
     return TrainingArgs(**vars(parser.parse_args(argv)))
 
 

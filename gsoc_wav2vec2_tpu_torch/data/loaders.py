@@ -318,22 +318,20 @@ class LibriSpeechDataLoader(CommonDataLoader):
             files = list(self.tfrecords)
             if seed is not None:
                 np.random.default_rng(seed).shuffle(files)
-            # per-host sharding: whole files per host when possible,
-            # per-record striding otherwise
-            if self.shard_count > 1 and len(files) >= self.shard_count:
-                files = files[self.shard_index :: self.shard_count]
-                samples = self._tfrecord_samples(files)
-            elif self.shard_count > 1:
-                samples = (
-                    s
-                    for i, s in enumerate(self._tfrecord_samples(files))
-                    if i % self.shard_count == self.shard_index
-                )
-            else:
-                samples = self._tfrecord_samples(files)
+            samples = self.shard_tfrecord_samples(files)
         else:
             samples = self._raw_samples()
         return self.batchify(samples, seed=seed, drop_remainder=drop_remainder)
+
+    def shard_tfrecord_samples(self, files):
+        """This shard's records of `files`: whole files per shard when there
+        are at least as many files as shards, per-record striding otherwise."""
+        if self.shard_count > 1 and len(files) >= self.shard_count:
+            return self._tfrecord_samples(files[self.shard_index :: self.shard_count])
+        if self.shard_count > 1:
+            return (s for i, s in enumerate(self._tfrecord_samples(files))
+                    if i % self.shard_count == self.shard_index)
+        return self._tfrecord_samples(files)
 
     @staticmethod
     def _tfrecord_samples(files):

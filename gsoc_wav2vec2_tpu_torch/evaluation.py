@@ -1,4 +1,4 @@
-"""CTC inference and WER evaluation (the single-process half of
+"""CTC inference and WER evaluation (counterpart of
 `gsoc_wav2vec2_tpu/evaluation.py::GreedyCTCEvaluator`).
 
 Device side: the forward and the step mode's reduction (argmax ids,
@@ -6,8 +6,21 @@ log-probs, or ids with their log-probs).  Host side: the greedy CTC
 collapse or prefix beam search with optional LM fusion (`decoding.py`),
 word timestamps and forced alignment.  `evaluate_padded` is the reference's
 constant-pad mode, `evaluate_bucketed` groups samples into a handful of
-length buckets so that padding within a batch stays bounded.  No mesh and
-no multi-host lockstep (ROADMAP item 7).
+length buckets so that padding within a batch stays bounded.
+
+Several processes (`mesh`, a `parallel.Mesh` over the ranks): each rank
+evaluates its own slice of the corpus on its own device (the loaders shard
+by rank), in its own buckets and batches, so a sample decodes as it does in
+one process; the WER is the corpus's, from one all-gather of each rank's
+(errors, words, samples) at the end (`_aggregate_wer`).  The ranks step in
+lockstep (`_lockstep`, as JAX's): one all-gather of a have-a-batch flag a
+flush, and a rank whose slice ran dry runs a dummy batch, its result
+discarded, until every rank is done.  JAX needs that because its ranks
+build one global array a batch; the port's forward holds no collective
+today (`cli.evaluate --sharded` builds a model=1 mesh), so lockstep keeps
+the ranks' step counts equal and a forward that gains a collective safe.
+JAX's `_row_quantum` and `_local_rows` have no counterpart: with one
+process a device, a rank's rows are the rows it computed.
 """
 
 from __future__ import annotations
@@ -21,7 +34,8 @@ import torch
 from .data.processor import Wav2Vec2Processor
 from .decoding import ctc_forced_align, ctc_prefix_beam_search, ctc_word_segments
 from .models.modeling import default_compute_dtype, wav2vec2_for_ctc_forward
-from .utils.metrics import wer
+from .parallel import multihost
+from .utils.metrics import wer_details
 
 
 def default_buckets(max_len: int = 400000, num: int = 8) -> List[int]:
@@ -103,8 +117,12 @@ class GreedyCTCEvaluator:
         lm=None,
         lm_weight: float = 0.5,
         token_bonus: float = 0.0,
+        mesh=None,
     ):
+        if mesh is not None and mesh.model > 1:
+            raise ValueError("the evaluator shards the corpus over the data axis only (model=1)")
         self.model = model
+        self.mesh = mesh
         self.config = model.config
         self.device = model.device
         self.compute_dtype = default_compute_dtype(self.device)
@@ -114,6 +132,45 @@ class GreedyCTCEvaluator:
         self.lm = lm
         self.lm_weight = lm_weight
         self.token_bonus = token_bonus
+
+    # -- several processes ---------------------------------------------------
+
+    @property
+    def _multiprocess(self) -> bool:
+        return self.mesh is not None and multihost.world_size() > 1
+
+    def _lockstep(self, items, dummy):
+        """Yield (item, is_real): one process passes `items` through; several
+        all-gather a have-an-item flag each step (the control group), and a
+        rank whose `items` ran dry yields `dummy()` until every rank's did."""
+        if not self._multiprocess:
+            for item in items:
+                yield item, True
+            return
+        it = iter(items)
+        while True:
+            try:
+                item, have = next(it), 1
+            except StopIteration:
+                item, have = None, 0
+            if int(multihost.all_gather_ints([have]).max()) == 0:
+                return
+            yield (item if have else dummy()), bool(have)
+
+    def _aggregate_wer(self, refs, hyps) -> Tuple[float, int]:
+        """Corpus WER over every rank's shard: local (errors, words, n)
+        counts, one all-gather, the exact global rate."""
+        errors = words = 0
+        for r, h in zip(refs, hyps):
+            e, w = wer_details(r, h)
+            errors += e
+            words += w
+        n = len(refs)
+        if self._multiprocess:
+            errors, words, n = (int(x) for x in multihost.sum_counts([errors, words, n]))
+        if words == 0:
+            raise ValueError("empty reference corpus")
+        return errors / words, n
 
     def _step(self, speech: np.ndarray, mask: Optional[np.ndarray], mode: Optional[str] = None):
         """One forward on the model's device and one copy to the host.
@@ -343,7 +400,8 @@ class GreedyCTCEvaluator:
     ) -> Tuple[float, int]:
         """Reference constant-pad mode: every batch padded to `pad_to`
         samples, which is bucketed mode with one bucket.  `samples` yields
-        (audio, reference text); returns (wer, num_samples)."""
+        (audio, reference text); returns (wer, num_samples), the global
+        corpus's with several processes."""
         return self.evaluate_bucketed(samples, batch_size, [pad_to])
 
     def evaluate_bucketed(
@@ -356,26 +414,38 @@ class GreedyCTCEvaluator:
         it (the largest cuts longer audio), a bucket is run when it has
         `batch_size` samples, and the tails run at the end in bucket order:
         a handful of batch shapes, minimal padding.  Returns
-        (wer, num_samples)."""
+        (wer, num_samples), the global corpus's with several processes."""
         buckets = sorted(default_buckets() if buckets is None else buckets)
         pending = defaultdict(list)  # bucket -> [(audio, text)]
         refs, hyps = [], []
 
         def flush(entries, bucket):
-            """One forward over the entries' audio, zero-padded (or cut) to `bucket`."""
+            """One forward over the entries' audio, zero-padded (or cut) to
+            `bucket`; returns the transcripts."""
             speech = np.zeros((len(entries), bucket), np.float32)
             lengths = np.zeros((len(entries),), np.int64)
             for i, (audio, _) in enumerate(entries):
                 lengths[i] = min(len(audio), bucket)
                 speech[i, : lengths[i]] = audio[:bucket]
-            hyps.extend(self.predict_batch(speech, lengths))
-            refs.extend(text for _, text in entries)
+            return self.predict_batch(speech, lengths)
 
-        for audio, text in samples:
-            bucket = next((b for b in buckets if len(audio) <= b), buckets[-1])
-            pending[bucket].append((audio, text))
-            if len(pending[bucket]) == batch_size:
-                flush(pending.pop(bucket), bucket)
-        for bucket in sorted(pending):  # each holds fewer than batch_size
-            flush(pending[bucket], bucket)
-        return wer(refs, hyps), len(refs)
+        def flushes():
+            """(entries, bucket): full buckets as they fill, then the tails
+            (each fewer than batch_size) in bucket order."""
+            for audio, text in samples:
+                bucket = next((b for b in buckets if len(audio) <= b), buckets[-1])
+                pending[bucket].append((audio, text))
+                if len(pending[bucket]) == batch_size:
+                    yield pending.pop(bucket), bucket
+            for bucket in sorted(pending):
+                yield pending[bucket], bucket
+
+        def dummy():  # one silent sample at the smallest bucket
+            return [(np.zeros(buckets[0], np.float32), "")], buckets[0]
+
+        for (entries, bucket), real in self._lockstep(flushes(), dummy):
+            texts = flush(entries, bucket)
+            if real:
+                hyps.extend(texts)
+                refs.extend(text for _, text in entries)
+        return self._aggregate_wer(refs, hyps)

@@ -67,6 +67,8 @@ from ..ops.basic import dense, dropout, gelu, group_norm, layer_norm, seed_words
 from ..ops.conv import conv1d, init_weight_g, pos_conv_embed
 from ..ops.kernels import conv_frontend
 from ..ops.specaugment import apply_feature_masking, apply_spec_augmentation
+from ..parallel.mesh import Mesh, global_rows, global_span
+from ..parallel.partition import copy_to_model, row_parallel_dense
 from ..utils.devices import resolve_device
 from .config import Wav2Vec2Config, config_from_dict, is_hf_config_dict
 
@@ -280,11 +282,14 @@ def layer_draws(generator: torch.Generator, config: Wav2Vec2Config) -> LayerDraw
 def transformer_layer_forward(
     x: torch.Tensor, p: TransformerLayer, config: Wav2Vec2Config,
     mask_bias: Optional[torch.Tensor], *, training: bool = False,
-    draws: Optional[LayerDraws] = None,
+    draws: Optional[LayerDraws] = None, mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """One encoder layer (reference `encoder.py:111-134`); in training it
     takes its randomness as `draws` (`layer_draws`), drawn before the layer
-    runs, so that a rematerialised layer recomputes the same bits."""
+    runs, so that a rematerialised layer recomputes the same bits.  Under a
+    `mesh` it is this rank's shard: attention as `mha` runs it, the FFN
+    split as `parallel/partition.py` says, each dropout mask this rank's
+    block of the one-process mask."""
     if training and draws is None:
         raise ValueError("the training layer takes its draws (layer_draws) from the caller")
     attn_seed, attn_drop, ffn_drop, keep_ffn = draws if training else (None,) * 4
@@ -294,8 +299,8 @@ def transformer_layer_forward(
     if prenorm:
         x = layer_norm(x, p.layer_norm.gamma, p.layer_norm.beta, eps)
     x = mha(x, p.attention, config.num_heads, mask_bias, dropout_rate=rate, seed=attn_seed,
-            training=training)
-    x = dropout(x, rate, attn_drop, not training) + residual
+            training=training, mesh=mesh)
+    x = dropout(x, rate, attn_drop, not training, global_span(mesh, x.shape)) + residual
     if not prenorm:
         x = layer_norm(x, p.layer_norm.gamma, p.layer_norm.beta, eps)
 
@@ -304,13 +309,14 @@ def transformer_layer_forward(
         x = layer_norm(x, p.final_layer_norm.gamma, p.final_layer_norm.beta, eps)
     ff = p.feed_forward
     x = gelu(
-        dense(x, ff.intermediate_dense.kernel, ff.intermediate_dense.bias),
+        dense(copy_to_model(x, mesh), ff.intermediate_dense.kernel, ff.intermediate_dense.bias),
         approximate=config.is_gelu_approx,
     )
-    x = dropout(x, rate, ffn_drop, not training)
+    x = dropout(x, rate, ffn_drop, not training, global_span(mesh, x.shape, split_last=True))
     # at eval the plain residual sum, not rescaled
-    x = stochastic_depth(residual, dense(x, ff.output_dense.kernel, ff.output_dense.bias),
-                         config.survival_prob, keep_ffn, not training)
+    x = stochastic_depth(
+        residual, row_parallel_dense(x, ff.output_dense.kernel, ff.output_dense.bias, mesh),
+        config.survival_prob, keep_ffn, not training)
     if not prenorm:
         x = layer_norm(x, p.final_layer_norm.gamma, p.final_layer_norm.beta, eps)
     return x
@@ -344,6 +350,7 @@ def encoder_forward(
     params: Encoder, config: Wav2Vec2Config, x: torch.Tensor,
     frame_mask: Optional[torch.Tensor], *, training: bool = False,
     generator: Optional[torch.Generator] = None, remat: Union[bool, str] = False,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Positional conv embed + N transformer layers (a loop over the
     `ModuleList` where JAX scans).  In training every layer's draws come
@@ -368,16 +375,17 @@ def encoder_forward(
     ln = params.layer_norm
     if not prenorm:
         x = layer_norm(x, ln.gamma, ln.beta, config.layer_norm_eps)
-    x = dropout(x, config.dropout, seed_words(generator) if training else None, not training)
+    x = dropout(x, config.dropout, seed_words(generator) if training else None, not training,
+                global_span(mesh, x.shape))
     draws = [layer_draws(generator, config) if training else None for _ in params.layers]
     for layer, d in zip(params.layers, draws):
         if context_fn is not None and torch.is_grad_enabled():
             x = checkpoint(transformer_layer_forward, x, layer, config, mask_bias,
-                           training=training, draws=d, use_reentrant=False,
+                           training=training, draws=d, mesh=mesh, use_reentrant=False,
                            context_fn=context_fn)
         else:
             x = transformer_layer_forward(x, layer, config, mask_bias, training=training,
-                                          draws=d)
+                                          draws=d, mesh=mesh)
     if prenorm:
         x = layer_norm(x, ln.gamma, ln.beta, config.layer_norm_eps)
     return x
@@ -388,6 +396,7 @@ def wav2vec2_forward(
     attention_mask: Optional[torch.Tensor] = None, *,
     compute_dtype: torch.dtype = torch.float32, training: bool = False,
     generator: Optional[torch.Generator] = None, remat: Union[bool, str] = False,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """(B, L_samples) normalised waveform [+ 0/1 sample mask] ->
     (B, L_frames, hidden_size) hidden states.  `training` and `generator`
@@ -396,21 +405,27 @@ def wav2vec2_forward(
     torch op, in full f32 when the
     caller sets `torch.backends.cuda.matmul.allow_tf32 = False` and
     `torch.backends.cudnn.allow_tf32 = False` (cuDNN's convolutions
-    default to TF32)."""
+    default to TF32).  Under a `mesh` (`parallel.Mesh`) `batch` holds this
+    rank's rows and the encoder runs this rank's shard; every draw made over
+    the whole batch (dropout masks, SpecAugment) is the one-process draw's
+    block, as JAX draws it under GSPMD."""
     _check_training(training, generator)
     x = feature_encoder_forward(params.feature_extractor, config, batch, compute_dtype)
     fp = params.feature_projection
     if fp.layer_norm is not None:
         x = layer_norm(x, fp.layer_norm.gamma, fp.layer_norm.beta, config.layer_norm_eps)
     x = dense(x, fp.projection.kernel, fp.projection.bias)
-    x = dropout(x, config.dropout, seed_words(generator) if training else None, not training)
+    x = dropout(x, config.dropout, seed_words(generator) if training else None, not training,
+                global_span(mesh, x.shape))
 
     if training and config.apply_spec_augment:
+        rows = global_rows(mesh, x.shape[0])
         x = apply_spec_augmentation(generator, x, params.masked_spec_embed,
-                                    config.mask_time_prob, config.mask_time_length)
+                                    config.mask_time_prob, config.mask_time_length, rows=rows)
         if config.mask_feature_prob > 0:
             x = apply_feature_masking(generator, x, config.mask_feature_prob,
-                                      config.mask_feature_length, config.mask_feature_min_masks)
+                                      config.mask_feature_length, config.mask_feature_min_masks,
+                                      rows=rows)
 
     frame_mask = None
     if attention_mask is not None:
@@ -418,7 +433,7 @@ def wav2vec2_forward(
         frame_length = config.conv_output_length(input_length)
         frame_mask = torch.arange(x.shape[1], device=x.device)[None, :] < frame_length[:, None]
     return encoder_forward(params.encoder, config, x, frame_mask, training=training,
-                           generator=generator, remat=remat)
+                           generator=generator, remat=remat, mesh=mesh)
 
 
 def wav2vec2_for_ctc_forward(
@@ -426,16 +441,17 @@ def wav2vec2_for_ctc_forward(
     attention_mask: Optional[torch.Tensor] = None, *,
     compute_dtype: torch.dtype = torch.float32, training: bool = False,
     generator: Optional[torch.Generator] = None, remat: Union[bool, str] = False,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Base model -> dropout -> LM head; (B, L_frames, vocab) logits in
-    f32."""
+    f32 (this rank's rows under a `mesh`)."""
     _check_training(training, generator)
     head_seed = seed_words(generator) if training else None
     x = wav2vec2_forward(
         params.wav2vec2, config, batch, attention_mask, compute_dtype=compute_dtype,
-        training=training, generator=generator, remat=remat,
+        training=training, generator=generator, remat=remat, mesh=mesh,
     )
-    x = dropout(x, config.dropout, head_seed, not training)
+    x = dropout(x, config.dropout, head_seed, not training, global_span(mesh, x.shape))
     return dense(x, params.lm_head.kernel, params.lm_head.bias).float()
 
 

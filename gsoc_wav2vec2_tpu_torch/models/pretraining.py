@@ -24,10 +24,21 @@ order: projection dropout, the encoder's draws, quantizer dropout, Gumbel
 noise; the step then draws the negatives.  The two draws that are not seed
 words live in `_gumbel_noise` and `_uniform_below`.
 
-Against the JAX module: `mesh`, `attention_impl` and `use_pallas` have no
-counterpart yet (one card); `remat` takes JAX's values; the step takes the
-optimizer from the port's `TrainState` where JAX takes an optax `tx`; and
-`pretraining_loss`'s `pallas_scatter` is `scatter_kernel` here.
+Under a `mesh` (`parallel.Mesh`, JAX's `mesh=`) each rank computes its rows
+of the batch: the Gumbel noise and the negatives are drawn at the global
+batch's shape and each rank takes its rows, and the perplexity's marginal is
+over the global batch's masked frames (its two sums added over the data
+group by an all-reduce whose backward also sums, while each rank's diversity
+term counts its own masked frames, so that the terms summed over ranks are
+the one-process loss once).  `scatter_rows_add` runs per rank on its local
+rows, as JAX's `shard_map` branch does; the rows are local by construction,
+and `parallel.multihost.host_local_batch_to_global` raises where a global
+batch does not divide the data axis (JAX's error at the kernel).
+
+Against the JAX module: `attention_impl` and `use_pallas` have no
+counterpart; `remat` takes JAX's values; the step takes the optimizer from
+the port's `TrainState` where JAX takes an optax `tx`; `pretraining_loss`'s
+`pallas_scatter` is `scatter_kernel` here.
 """
 
 from __future__ import annotations
@@ -39,8 +50,10 @@ from torch import nn
 
 from ..ops.basic import dense, dropout, layer_norm, seed_words
 from ..ops.kernels import scatter_add
+from ..parallel.mesh import Mesh, global_rows, global_span
+from ..parallel.partition import all_reduce_sum
 from ..training.state import TrainState
-from ..training.trainer import _apply, _to_device
+from ..training.trainer import _apply, _to_device, data_sum
 from .config import (
     RobustWav2Vec2PretrainingConfig,
     Wav2Vec2PretrainingConfig,
@@ -127,21 +140,38 @@ class Wav2Vec2ForPreTraining(_Pretrained):
         )
 
 
-def _perplexity(probs: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _perplexity(probs: torch.Tensor, mask: Optional[torch.Tensor],
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """`Wav2Vec2GumbelVectorQuantizer._compute_perplexity`: probs (N, G, V),
     mask (N,) frame validity -> the summed per-group exp-entropy of the
-    masked marginals."""
+    masked marginals.  Under a `mesh` the marginal is the global batch's:
+    the sums are added over the data group (`all_reduce_sum`)."""
+    group = None if mesh is None or mesh.data == 1 else mesh.data_group
     if mask is not None:
         m = mask.reshape(-1, 1, 1).to(probs.dtype)
-        marginal = (probs * m).sum(dim=0) / m.sum().clamp_min(1.0)
+        num, den = (probs * m).sum(dim=0), m.sum()
+    elif group is None:
+        return _entropy_perplexity(probs.mean(dim=0))
     else:
-        marginal = probs.mean(dim=0)
+        num, den = probs.sum(dim=0), torch.tensor(float(probs.shape[0]), device=probs.device)
+    if group is not None:
+        sums = all_reduce_sum(torch.cat([num.reshape(-1), den.reshape(1)]), group)
+        num, den = sums[:-1].reshape(num.shape), sums[-1]
+    if mask is None:
+        return _entropy_perplexity(num / den)
+    return _entropy_perplexity(num / den.clamp_min(1.0))
+
+
+def _entropy_perplexity(marginal: torch.Tensor) -> torch.Tensor:
     return torch.exp(-(marginal * torch.log(marginal + 1e-7)).sum(dim=-1)).sum()
 
 
-def _gumbel_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
-    """Standard Gumbel noise -log(-log u), u ~ U(0, 1) from `generator`."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+def _gumbel_noise(generator: torch.Generator, shape, device,
+                  block: slice = slice(None)) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log u), u ~ U(0, 1) from `generator`;
+    `block`: the leading-axis rows of the draw to keep (a rank's share of the
+    global batch's), taken before the logs and the copy to `device`."""
+    u = torch.rand(shape, generator=generator, device=generator.device)[block]
     tiny = torch.finfo(u.dtype).tiny
     e = (-torch.log(u.clamp_min(tiny))).clamp_min(tiny)  # standard exponential, > 0
     return (-torch.log(e)).to(device)
@@ -151,6 +181,7 @@ def gumbel_vector_quantizer(
     params: GumbelQuantizer, config: Wav2Vec2PretrainingConfig,
     extract_features: torch.Tensor, mask_time_indices: Optional[torch.Tensor], *,
     temperature=2.0, training: bool = False, generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Per-group Gumbel-softmax codebook lookup: hard straight-through
     one-hots at `temperature` when training, argmax one-hots in eval.
@@ -168,17 +199,23 @@ def gumbel_vector_quantizer(
     if training:
         if generator is None:
             raise ValueError("training quantization needs a generator for the Gumbel noise")
-        noise = _gumbel_noise(generator, logits.shape, logits.device)
+        rows = global_rows(mesh, b)
+        if rows is None:
+            noise = _gumbel_noise(generator, logits.shape, logits.device)
+        else:  # this rank's rows of the global batch's draw
+            start, total = rows
+            noise = _gumbel_noise(generator, (total * l, g, v), logits.device,
+                                  slice(start * l, (start + b) * l))
         y_soft = torch.softmax((logits + noise) / temperature, dim=-1)
         ids = y_soft.argmax(dim=-1)
         hard = torch.nn.functional.one_hot(ids, v).to(torch.float32)
         # straight-through: forward = hard one-hot, gradient = soft
         probs = hard + y_soft - y_soft.detach()
-        perplexity = _perplexity(torch.softmax(logits, dim=-1), mask)
+        perplexity = _perplexity(torch.softmax(logits, dim=-1), mask, mesh)
     else:
         ids = logits.argmax(dim=-1)
         probs = torch.nn.functional.one_hot(ids, v).to(torch.float32)
-        perplexity = _perplexity(probs, mask)
+        perplexity = _perplexity(probs, mask, mesh)
 
     codebook = params.codevectors.reshape(g, v, -1).float()
     # (BL, G, V) x (G, V, d/G) -> (BL, G, d/G); groups concatenate on the feature axis
@@ -192,6 +229,7 @@ def wav2vec2_for_pretraining_forward(
     training: bool = False, generator: Optional[torch.Generator] = None,
     gumbel_temperature=2.0, compute_dtype: torch.dtype = torch.float32,
     return_code_ids: bool = False, remat: Union[bool, str] = False,
+    mesh: Optional[Mesh] = None,
 ):
     """Masked-prediction forward (`transformers.Wav2Vec2ForPreTraining.forward`).
 
@@ -199,7 +237,7 @@ def wav2vec2_for_pretraining_forward(
     perplexity), all f32, plus the (B, L, G) codeword ids when
     `return_code_ids`.  `mask_time_indices` is an input, so that the loss,
     the negative sampler and the forward see the same mask.  `remat` as
-    `modeling.encoder_forward`'s.
+    `modeling.encoder_forward`'s; `mesh` as in the module docstring.
     """
     _check_training(training, generator)
     w = params.wav2vec2
@@ -208,7 +246,8 @@ def wav2vec2_for_pretraining_forward(
     # the normed conv features feed both the projection and the quantizer
     extract_features = layer_norm(x, fp.layer_norm.gamma, fp.layer_norm.beta, config.layer_norm_eps)
     h = dense(extract_features, fp.projection.kernel, fp.projection.bias)
-    h = dropout(h, config.dropout, seed_words(generator) if training else None, not training)
+    h = dropout(h, config.dropout, seed_words(generator) if training else None, not training,
+                global_span(mesh, h.shape))
 
     mask_time_indices = mask_time_indices.to(h.device).bool()
     fill = w.masked_spec_embed.to(h.dtype)[None, None, :]
@@ -221,14 +260,15 @@ def wav2vec2_for_pretraining_forward(
         frame_mask = torch.arange(h.shape[1], device=h.device)[None, :] < frame_length[:, None]
 
     hidden = encoder_forward(w.encoder, config, h, frame_mask, training=training,
-                             generator=generator, remat=remat)
+                             generator=generator, remat=remat, mesh=mesh)
     projected_states = dense(hidden, params.project_hid.kernel, params.project_hid.bias).float()
 
     feats = dropout(extract_features, config.feat_quantizer_dropout,
-                    seed_words(generator) if training else None, not training)
+                    seed_words(generator) if training else None, not training,
+                    global_span(mesh, extract_features.shape))
     quantized, perplexity, code_ids = gumbel_vector_quantizer(
         params.quantizer, config, feats, mask_time_indices,
-        temperature=gumbel_temperature, training=training, generator=generator,
+        temperature=gumbel_temperature, training=training, generator=generator, mesh=mesh,
     )
     projected_quantized = dense(quantized, params.project_q.kernel, params.project_q.bias).float()
     if return_code_ids:
@@ -236,16 +276,19 @@ def wav2vec2_for_pretraining_forward(
     return projected_states, projected_quantized, perplexity
 
 
-def _uniform_below(generator: torch.Generator, shape, high: torch.Tensor) -> torch.Tensor:
+def _uniform_below(generator: torch.Generator, shape, high: torch.Tensor,
+                   block: slice = slice(None)) -> torch.Tensor:
     """int64 draws of `shape`, uniform on [0, high) with `high` (B,) >= 1
-    broadcast over the trailing axes."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    broadcast over the trailing axes; `block`: the leading-axis rows of the
+    draw to keep (`high` is theirs)."""
+    u = torch.rand(shape, generator=generator, device=generator.device)[block]
     high = high.to(u.device).reshape(-1, *([1] * (len(shape) - 1)))
     return torch.minimum((u * high).long(), high - 1)
 
 
 def sample_negative_indices(
     generator: torch.Generator, mask_time_indices: torch.Tensor, num_negatives: int,
+    rows=None,
 ) -> torch.Tensor:
     """K distractor indices per frame, drawn from the other masked frames of
     the same utterance (HF `_sample_negative_indices`).
@@ -257,7 +300,9 @@ def sample_negative_indices(
     the loss never reads them.
 
     Returns (B, L, K) int32 indices into the flattened (B * L) frame axis, on
-    the mask's device.
+    the mask's device.  With `rows = (start, global_rows)` the uniforms are
+    rows [start, start + B) of the global batch's draw (a data-parallel
+    rank's share); the indices stay local to the B rows.
     """
     b, l = mask_time_indices.shape
     k = num_negatives
@@ -266,7 +311,12 @@ def sample_negative_indices(
     cum = torch.cumsum(mask.to(torch.int64), dim=1)  # (B, L)
     m = cum[:, -1]
     rank = cum - 1  # rank among masked, valid on masked positions
-    u = _uniform_below(generator, (b, l, k), (m - 1).clamp_min(1)).to(dev)
+    high = (m - 1).clamp_min(1)
+    if rows is None:
+        u = _uniform_below(generator, (b, l, k), high).to(dev)
+    else:  # this rank's rows of the global batch's uniforms
+        start, total = rows
+        u = _uniform_below(generator, (total, l, k), high, slice(start, start + b)).to(dev)
     shifted = u + (u >= rank[:, :, None]).to(torch.int64)
     shifted = torch.minimum(shifted.clamp_min(0), (m - 1).clamp_min(0)[:, None, None])
     neg_pos = torch.searchsorted(cum, shifted.reshape(b, l * k), right=True).reshape(b, l, k)
@@ -455,12 +505,20 @@ def ctc_params_from_pretraining(pretrain_model: Wav2Vec2ForPreTraining, config,
 PART_NAMES = ("contrastive_loss", "diversity_loss", "codevector_perplexity")
 
 
+def _global_parts(parts: Dict[str, torch.Tensor], mesh: Optional[Mesh]) -> dict:
+    """The loss parts of the global batch: the sums over the data group
+    (the perplexity is global already)."""
+    return {k: (parts[k].detach() if k == "codevector_perplexity"
+                else data_sum(parts[k].detach(), mesh)) for k in PART_NAMES}
+
+
 def _make_pretrain_loss_fn(config: Wav2Vec2PretrainingConfig, *, division_factor: float,
                            with_attention_mask: bool, compute_dtype: Optional[torch.dtype],
-                           remat: Union[bool, str] = False):
+                           remat: Union[bool, str] = False, mesh: Optional[Mesh] = None):
     """`(model, batch, generator, temperature) -> (scalar, parts)`: the
     objective summed over the batch / `division_factor`, and its undivided
-    parts.  Shared by the step and the accumulation steps."""
+    parts (this rank's, under a `mesh`).  Shared by the step and the
+    accumulation steps."""
 
     def loss_fn(model, batch: dict, generator: torch.Generator, temperature):
         dev = model.device
@@ -471,9 +529,10 @@ def _make_pretrain_loss_fn(config: Wav2Vec2PretrainingConfig, *, division_factor
             model, config, batch["speech"].float(), mti, mask, training=True,
             generator=generator, gumbel_temperature=temperature,
             compute_dtype=compute_dtype or default_compute_dtype(dev), return_code_ids=True,
-            remat=remat,
+            remat=remat, mesh=mesh,
         )
-        negs = sample_negative_indices(generator, mti, config.num_negatives)
+        negs = sample_negative_indices(generator, mti, config.num_negatives,
+                                       rows=global_rows(mesh, mti.shape[0]))
         # auto resolves to the "gram" formulation (code_ids present)
         parts = pretraining_loss(states, quantized, perplexity, mti, negs, config,
                                  code_ids=code_ids)
@@ -485,7 +544,8 @@ def _make_pretrain_loss_fn(config: Wav2Vec2PretrainingConfig, *, division_factor
 def make_pretrain_step(config: Wav2Vec2PretrainingConfig, *, division_factor: float,
                        with_attention_mask: bool = False,
                        compute_dtype: Optional[torch.dtype] = None,
-                       ema_decay: Optional[float] = None, remat: Union[bool, str] = True):
+                       ema_decay: Optional[float] = None, remat: Union[bool, str] = True,
+                       mesh: Optional[Mesh] = None):
     """`(state, batch, generator, gumbel_temperature) -> (state, metrics)`:
     one forward, backward and optimizer update, in place.
 
@@ -493,17 +553,20 @@ def make_pretrain_step(config: Wav2Vec2PretrainingConfig, *, division_factor: fl
     plus optionally "attention_mask"; the negatives are drawn inside the
     step.  The metrics carry the undivided loss parts, the optimized
     (`division_factor`-normalised) "loss" and "grad_norm".  `remat` as
-    `modeling.encoder_forward`'s (JAX's step builders default to True)."""
+    `modeling.encoder_forward`'s (JAX's step functions default to True).
+    Under a `mesh` each rank passes its rows, `division_factor` is the global
+    batch, the gradients are summed over the data group and the metrics are
+    the global ones."""
     loss_fn = _make_pretrain_loss_fn(config, division_factor=division_factor,
                                      with_attention_mask=with_attention_mask,
-                                     compute_dtype=compute_dtype, remat=remat)
+                                     compute_dtype=compute_dtype, remat=remat, mesh=mesh)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator, temperature):
         state.optimizer.zero_grad(set_to_none=True)
         loss, parts = loss_fn(state.model, batch, generator, temperature)
         loss.backward()
-        state, metrics = _apply(state, loss, ema_decay)
-        return state, {**{k: parts[k].detach() for k in PART_NAMES}, **metrics}
+        state, metrics = _apply(state, loss, ema_decay, mesh)
+        return state, {**_global_parts(parts, mesh), **metrics}
 
     return step
 
@@ -512,7 +575,7 @@ def make_pretrain_accum_steps(config: Wav2Vec2PretrainingConfig, *, division_fac
                               with_attention_mask: bool = False,
                               compute_dtype: Optional[torch.dtype] = None,
                               ema_decay: Optional[float] = None,
-                              remat: Union[bool, str] = True):
+                              remat: Union[bool, str] = True, mesh: Optional[Mesh] = None):
     """Gradient accumulation, `(init_fn, accum_fn, apply_fn)`: the objective
     decomposes per utterance (negatives come from the same utterance), so
     microbatch gradients summed in `.grad` optimize it at the effective batch
@@ -524,10 +587,11 @@ def make_pretrain_accum_steps(config: Wav2Vec2PretrainingConfig, *, division_fac
         state, metrics = apply_fn(state, metrics)
 
     `accum_fn` sums each microbatch's loss and parts, so
-    "codevector_perplexity" comes back as a sum over microbatches."""
+    "codevector_perplexity" comes back as a sum over microbatches.  `mesh`
+    as in `make_pretrain_step`."""
     loss_fn = _make_pretrain_loss_fn(config, division_factor=division_factor,
                                      with_attention_mask=with_attention_mask,
-                                     compute_dtype=compute_dtype, remat=remat)
+                                     compute_dtype=compute_dtype, remat=remat, mesh=mesh)
 
     def init_fn(state: TrainState) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
@@ -541,7 +605,7 @@ def make_pretrain_accum_steps(config: Wav2Vec2PretrainingConfig, *, division_fac
                 for k in metrics_acc}
 
     def apply_fn(state: TrainState, metrics_acc: Dict[str, torch.Tensor]):
-        state, metrics = _apply(state, metrics_acc["loss"], ema_decay)
-        return state, {**metrics_acc, **metrics}
+        state, metrics = _apply(state, metrics_acc["loss"], ema_decay, mesh)
+        return state, {**_global_parts(metrics_acc, mesh), **metrics}
 
     return init_fn, accum_fn, apply_fn

@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.partition import copy_to_model, row_parallel_dense
 from .basic import dense
 from .kernels import flash_attention as flash
 
@@ -32,7 +33,8 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(x, params, num_heads):
-    head_size = x.shape[-1] // num_heads
+    # from the projection's width: under a model axis x is whole, the kernel a shard
+    head_size = params.q_proj.kernel.shape[-1] // num_heads
     q = split_heads(dense(x, params.q_proj.kernel, params.q_proj.bias), num_heads)
     k = split_heads(dense(x, params.k_proj.kernel, params.k_proj.bias), num_heads)
     v = split_heads(dense(x, params.v_proj.kernel, params.v_proj.bias), num_heads)
@@ -66,6 +68,7 @@ def attention_seed(generator: torch.Generator) -> int:
 def mha(
     x: torch.Tensor, params, num_heads: int, mask_bias: Optional[torch.Tensor] = None, *,
     dropout_rate: float = 0.0, seed: Optional[int] = None, training: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Attention through the flash kernel wrappers; `mask_bias` as in
     `mha_plain`, a key bias broadcastable to (B, 1, 1, L).  In training,
@@ -75,7 +78,17 @@ def mha(
     otherwise through the forward kernel alone, called as its
     `torch.library` operator (which `torch.export` keeps).  On the card, where the
     kernels do not take the head dim or dtype (`flash.supports`), it is the
-    kernel's plain version through autograd: the same hash dropout bits."""
+    kernel's plain version through autograd: the same hash dropout bits.
+
+    Under a `mesh` (`parallel.Mesh`) the call is this rank's shard, as
+    JAX's `shard_mapped_flash_attention`: its rows of the batch, and under a
+    model axis H / model heads (the projections are split by column,
+    `out_proj` by row, `parallel/partition.py`).  Whenever the mesh has more
+    than one rank the dropout seed is `seed + shard * 2**20` and the kernel's
+    hash index the local (row, head), as in the JAX shard."""
+    if mesh is not None and mesh.model > 1:
+        x = copy_to_model(x, mesh)
+        num_heads //= mesh.model
     q, k, v = _project_qkv(x, params, num_heads)
     bias = None
     if mask_bias is not None:
@@ -85,13 +98,16 @@ def mha(
     if rate > 0.0 and seed is None:
         raise ValueError("attention dropout in training requires a seed")
     seed = 0 if seed is None else seed
+    if mesh is not None and mesh.size > 1:
+        seed = seed + mesh.shard_index * 2**20
     if q.is_cuda and not flash.supports(q.shape[-1], q.dtype):
         context, _ = flash.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=rate, seed=seed)
     elif q.requires_grad:
         context = flash.flash_attention(q, k, v, bias, dropout_rate=rate, seed=seed)
     else:
         context, _ = flash.flash_attention_fwd_op(q, k, v, bias, rate, seed)
-    return dense(merge_heads(context), params.out_proj.kernel, params.out_proj.bias)
+    return row_parallel_dense(merge_heads(context), params.out_proj.kernel,
+                              params.out_proj.bias, mesh)
 
 
 def mask_to_bias(attention_mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

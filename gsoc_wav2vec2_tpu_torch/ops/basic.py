@@ -60,30 +60,50 @@ def murmur_mix(x: torch.Tensor) -> torch.Tensor:
     return x.bitwise_xor_(_shr(x, 16))
 
 
-def _hash_keep_mask(seed: SeedWords, shape, rate: float, device=None) -> torch.Tensor:
-    """Bool keep-mask of `shape`: `murmur_mix` of the row-major element index
-    and both seed words, bit for bit JAX's `_hash_keep_mask`."""
-    n = 1
-    for s in shape:
-        n *= s
-    if n < 2**31:
-        idx = torch.arange(n, dtype=torch.int32, device=device)
-    else:  # the uint32 index wraps, as in JAX
+def _element_index(shape, device, span=None) -> torch.Tensor:
+    """int32 bit patterns of each element's uint32 row-major index: in
+    `shape` itself, or, with `span = (offsets, full_shape)`, of the block
+    of `shape` at `offsets` in a tensor of `full_shape` (a rank's rows or
+    columns of the global tensor).  The index wraps at 2**32, as in JAX."""
+    if span is None:
+        n = 1
+        for s in shape:
+            n *= s
+        if n < 2**31:
+            return torch.arange(n, dtype=torch.int32, device=device).reshape(shape)
         idx = torch.arange(n, dtype=torch.int64, device=device) & 0xFFFFFFFF
-        idx = torch.where(idx >= 2**31, idx - 2**32, idx).to(torch.int32)
+        return torch.where(idx >= 2**31, idx - 2**32, idx).to(torch.int32).reshape(shape)
+    offsets, full = span
+    # all but the last axis in int64 (a small grid), wrapped; the last added in int32
+    lead = torch.zeros((), dtype=torch.int64, device=device)
+    for n, off, total in zip(shape[:-1], offsets[:-1], full[:-1]):
+        lead = lead[..., None] * total + (torch.arange(n, dtype=torch.int64, device=device) + off)
+    lead = (lead * full[-1]) & 0xFFFFFFFF
+    lead = torch.where(lead >= 2**31, lead - 2**32, lead).to(torch.int32)
+    last = torch.arange(shape[-1], dtype=torch.int32, device=device) + offsets[-1]
+    return lead[..., None] + last  # int32 addition wraps like uint32
+
+
+def _hash_keep_mask(seed: SeedWords, shape, rate: float, device=None, span=None) -> torch.Tensor:
+    """Bool keep-mask of `shape`: `murmur_mix` of the row-major element index
+    and both seed words, bit for bit JAX's `_hash_keep_mask`.  With `span`
+    (`_element_index`) the mask is that block of the whole tensor's mask, so
+    a rank draws its rows (and columns) of the one-process mask."""
+    idx = _element_index(tuple(shape), device, span).reshape(-1)
     x = murmur_mix(idx.bitwise_xor_(_i32(seed[0] * 2654435761)))
     x = murmur_mix(x.bitwise_xor_(_i32(seed[1])))
     return below_threshold(x, rate).reshape(shape)
 
 
 def dropout(x: torch.Tensor, rate: float, seed: Optional[SeedWords],
-            deterministic: bool) -> torch.Tensor:
-    """Inverted dropout with the hash mask of `seed` (two uint32 words)."""
+            deterministic: bool, span=None) -> torch.Tensor:
+    """Inverted dropout with the hash mask of `seed` (two uint32 words);
+    `span` places `x` in the whole tensor (`_element_index`)."""
     if deterministic or rate == 0.0:
         return x
     if seed is None:
         raise ValueError("dropout requires seed words when not deterministic")
-    keep = _hash_keep_mask(seed, x.shape, rate, device=x.device)
+    keep = _hash_keep_mask(seed, x.shape, rate, device=x.device, span=span)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

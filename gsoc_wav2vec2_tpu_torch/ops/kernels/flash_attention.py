@@ -66,10 +66,16 @@ def _head_seeds(seed: int, b: int, h: int, device) -> torch.Tensor:
     return (seed + torch.arange(b * h, dtype=torch.int64, device=device)).reshape(b, h, 1, 1)
 
 
+def _acc(q) -> torch.dtype:
+    """The plain versions' accumulation dtype: f32, f64 for f64 inputs."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
 def _scores(q, k, bias):
-    s = q.float() @ k.float().transpose(-1, -2)
+    acc = _acc(q)
+    s = q.to(acc) @ k.to(acc).transpose(-1, -2)
     if bias is not None:
-        s = s + bias.float()[:, None, None, :]
+        s = s + bias.to(acc)[:, None, None, :]
     return s
 
 
@@ -84,15 +90,17 @@ def flash_attention_fwd_plain(
     *, dropout_rate: float = 0.0, seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k, v (B, H, L, D); bias (B, L) f32 or None -> (out (B, H, L, D) in
-    q's dtype, lse (B, H, L) f32).  Dropout as JAX's kernel: normalise, cast
-    to the compute dtype, drop, scale by 1 / (1 - rate) in that dtype."""
+    q's dtype, lse (B, H, L) f32; f64 throughout for f64 inputs).  Dropout as
+    JAX's kernel: normalise, cast to the compute dtype, drop, scale by
+    1 / (1 - rate) in that dtype."""
+    acc = _acc(q)
     s = _scores(q, k, bias)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None]).to(v.dtype)
     if dropout_rate:
         p = torch.where(_keep(q, dropout_rate, seed), p / (1.0 - dropout_rate),
                         torch.zeros_like(p)).to(v.dtype)
-    return (p.float() @ v.float()).to(q.dtype), lse
+    return (p.to(acc) @ v.to(acc)).to(q.dtype), lse
 
 
 def flash_attention_bwd_plain(
@@ -101,10 +109,12 @@ def flash_attention_bwd_plain(
     """(dq, dk, dv) of `flash_attention_fwd_plain`'s out, by recomputing
     p = exp(s - lse), with the kernel's roundings: ds and the dropped p cast
     to the compute dtype before their products.  The softmax correction is
-    delta = sum_d dout * out (equal to JAX's sum_k p * dp, dropout included)."""
+    delta = sum_d dout * out (equal to JAX's sum_k p * dp, dropout included).
+    Sums in f32, in f64 for f64 inputs."""
+    acc = _acc(q)
     s = _scores(q, k, bias)
     p = torch.exp(s - lse[..., None])
-    dpt = dout.float() @ v.float().transpose(-1, -2)
+    dpt = dout.to(acc) @ v.to(acc).transpose(-1, -2)
     if dropout_rate:
         keep = _keep(q, dropout_rate, seed)
         scale = 1.0 / (1.0 - dropout_rate)
@@ -112,11 +122,11 @@ def flash_attention_bwd_plain(
         dp = torch.where(keep, dpt * scale, torch.zeros_like(dpt))
     else:
         r, dp = p, dpt
-    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
-    ds = (p * (dp - delta)).to(q.dtype).float()
-    dq = ds @ k.float()
-    dk = ds.transpose(-1, -2) @ q.float()
-    dv = r.to(v.dtype).float().transpose(-1, -2) @ dout.float()
+    delta = (dout.to(acc) * out.to(acc)).sum(-1, keepdim=True)
+    ds = (p * (dp - delta)).to(q.dtype).to(acc)
+    dq = ds @ k.to(acc)
+    dk = ds.transpose(-1, -2) @ q.to(acc)
+    dv = r.to(v.dtype).to(acc).transpose(-1, -2) @ dout.to(acc)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 

@@ -48,23 +48,36 @@ def compute_mask_indices(
     return in_span.any(dim=1)
 
 
+def _rows_of(generator, b, seqlen, mask_prob, mask_length, min_masks, rows):
+    """`b` rows of the mask: all of a batch of `b`, or with `rows = (start,
+    global_rows)` rows [start, start + b) of the global batch's mask (a
+    data-parallel rank's share of the one-process draw)."""
+    if rows is None:
+        return compute_mask_indices(generator, b, seqlen, mask_prob, mask_length, min_masks)
+    start, total = rows
+    full = compute_mask_indices(generator, total, seqlen, mask_prob, mask_length, min_masks)
+    return full[start:start + b]
+
+
 def apply_spec_augmentation(
     generator: torch.Generator, features: torch.Tensor, masked_spec_embed: torch.Tensor,
-    mask_prob: float, mask_length: int, min_masks: int = 2,
+    mask_prob: float, mask_length: int, min_masks: int = 2, rows=None,
 ) -> torch.Tensor:
-    """Replace randomly chosen time spans with the mask embedding."""
+    """Replace randomly chosen time spans with the mask embedding (`rows` as
+    in `_rows_of`)."""
     b, l, _ = features.shape
-    mask = compute_mask_indices(generator, b, l, mask_prob, mask_length, min_masks)
+    mask = _rows_of(generator, b, l, mask_prob, mask_length, min_masks, rows)
     fill = masked_spec_embed.to(features.dtype)[None, None, :]
     return torch.where(mask.to(features.device)[:, :, None], fill, features)
 
 
 def apply_feature_masking(
     generator: torch.Generator, features: torch.Tensor, mask_prob: float,
-    mask_length: int, min_masks: int = 0,
+    mask_length: int, min_masks: int = 0, rows=None,
 ) -> torch.Tensor:
     """Zero random spans of the hidden axis, shared across all time steps of
-    a sample (HF `mask_feature_prob`; the fill is 0, not the embedding)."""
+    a sample (HF `mask_feature_prob`; the fill is 0, not the embedding;
+    `rows` as in `_rows_of`)."""
     b, _, h = features.shape
-    mask = compute_mask_indices(generator, b, h, mask_prob, mask_length, min_masks)
+    mask = _rows_of(generator, b, h, mask_prob, mask_length, min_masks, rows)
     return features * (~mask).to(features.device, features.dtype)[:, None, :]

@@ -13,9 +13,17 @@ to continue bit for bit:
     and of torch's default CPU and CUDA generators.
 
 `restore` reads with `torch.load(weights_only=True)` into a `TrainState`
-built over the same trainable set.  A `scheme://` directory (the reference's
-checkpoint bucket) goes through fsspec, each file written whole under a
-temporary name and then moved.
+built over the same trainable set.
+
+Under a `mesh` (`parallel.Mesh`) a checkpoint still holds whole tensors:
+the split parameters, their Adam moments and EMA weights are gathered over
+the model group, rank 0 writes and every rank waits at a barrier; a restore
+slices each rank's shards back out.  So, as Orbax's are (JAX
+`training/checkpoint.py`), checkpoints do not depend on the layout: one
+written under (2, 1), (1, 2) or one process resumes under any other.
+
+A `scheme://` directory (the reference's checkpoint bucket) goes through
+fsspec, each file written whole under a temporary name and then moved.
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..data import remote
+from ..parallel import multihost
+from ..parallel.mesh import Mesh
+from ..parallel.partition import shard_state_dict, shard_tensor, unshard_state_dict, unshard_tensor
 from .state import TrainState, get_learning_rate
 
 CHECKPOINT_FILE = "checkpoint.pt"
@@ -48,15 +59,29 @@ def _cpu(tree):
     return tree
 
 
-def _payload(state: TrainState) -> dict:
-    """What `save` writes for `state`: CPU tensors and plain values only."""
+def _optimizer_state(sd: dict, names: List[str], convert, mesh: Optional[Mesh]) -> dict:
+    """An optimizer `state_dict` (over parameters `names`) with each
+    parameter's state tensors passed through `convert(name, tensor, mesh)`
+    (gather or slice), in new dicts: `state_dict()` hands out the
+    optimizer's own."""
+    return {**sd, "state": {
+        i: {key: (convert(names[i], t, mesh) if isinstance(t, torch.Tensor) and t.dim() else t)
+            for key, t in per.items()}
+        for i, per in sd["state"].items()}}
+
+
+def _payload(state: TrainState, mesh: Optional[Mesh] = None) -> dict:
+    """What `save` writes for `state`: CPU tensors and plain values only,
+    whole tensors under a mesh (every rank of the mesh calls it)."""
+    ema = state.ema_params
     return _cpu({
         "step": int(state.step),
-        "model": state.model.state_dict(),
+        "model": unshard_state_dict(state.model.state_dict(), mesh),
         "trainable": _trainable_names(state.model),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": _optimizer_state(state.optimizer.state_dict(),
+                                      _trainable_names(state.model), unshard_tensor, mesh),
         "learning_rate": float(get_learning_rate(state.optimizer)),
-        "ema_params": state.ema_params,
+        "ema_params": None if ema is None else unshard_state_dict(ema, mesh),
         "generator": None if state.generator is None else state.generator.get_state(),
         "default_generators": {
             "cpu": torch.get_rng_state(),
@@ -67,9 +92,11 @@ def _payload(state: TrainState) -> dict:
 
 class CheckpointManager:
     """Per-step full-state checkpoints under `directory`, keeping the newest
-    `max_to_keep` (all when None)."""
+    `max_to_keep` (all when None); `mesh` as in the module docstring."""
 
-    def __init__(self, directory: str, max_to_keep: Optional[int] = None):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = None,
+                 mesh: Optional[Mesh] = None):
+        self.mesh = mesh
         self._remote = remote.is_remote_path(directory)
         if self._remote:
             self._fs, self._root = remote.fs_for(directory)
@@ -100,9 +127,15 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState, wait: bool = False) -> None:
         """Write `state` as checkpoint `step` (replacing one of that step),
         then drop the oldest past `max_to_keep`.  Synchronous: `wait` is
-        accepted for the JAX package's signature."""
+        accepted for the JAX package's signature.  Under a mesh every rank
+        calls it; rank 0 writes."""
         del wait
-        payload = _payload(state)
+        payload = _payload(state, self.mesh)
+        if multihost.rank() == 0:
+            self._write(step, payload)
+        multihost.barrier()
+
+    def _write(self, step: int, payload: dict) -> None:
         if self._remote:
             buf = io.BytesIO()
             torch.save(payload, buf)
@@ -144,7 +177,8 @@ class CheckpointManager:
     def restore(self, state_like: TrainState, step: Optional[int] = None) -> TrainState:
         """Restore checkpoint `step` (the latest when None) into `state_like`
         in place (model, optimizer, step, EMA, generators) and return it.  Its
-        optimizer must have been built over the same trainable parameters."""
+        optimizer must have been built over the same trainable parameters.
+        Under a mesh each rank takes its shards of the whole tensors."""
         ckpt = self.restore_raw(step)
         names = _trainable_names(state_like.model)
         if ckpt["trainable"] != names:
@@ -152,15 +186,18 @@ class CheckpointManager:
                 "the checkpoint's optimizer was built over other trainable parameters "
                 f"({len(ckpt['trainable'])} saved, {len(names)} now)"
             )
-        state_like.model.load_state_dict(ckpt["model"], strict=True)
-        state_like.optimizer.load_state_dict(ckpt["optimizer"])
+        mesh = self.mesh
+        state_like.model.load_state_dict(shard_state_dict(ckpt["model"], mesh), strict=True)
+        state_like.optimizer.load_state_dict(
+            _optimizer_state(ckpt["optimizer"], names, shard_tensor, mesh))
         state_like.step = int(ckpt["step"])
         if (ckpt["ema_params"] is None) != (state_like.ema_params is None):
             raise ValueError("the checkpoint and the state disagree on EMA weights")
         if state_like.ema_params is not None:
+            ema = shard_state_dict(ckpt["ema_params"], mesh)
             with torch.no_grad():
                 for name, t in state_like.ema_params.items():
-                    t.copy_(ckpt["ema_params"][name])
+                    t.copy_(ema[name])
         if state_like.generator is not None:
             if ckpt["generator"] is None:
                 raise ValueError("the checkpoint holds no generator state")

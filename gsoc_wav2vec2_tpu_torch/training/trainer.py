@@ -12,6 +12,16 @@ reference's constant logit length or the `length_aware` one.
 and optionally "attention_mask" (B, L); tensors or numpy arrays, moved to the
 model's device.  Randomness (dropout, SpecAugment, stochastic depth) comes
 from the `torch.Generator` the caller passes to each step.
+
+Under a `mesh` (`parallel.Mesh`; JAX's `mesh=` of `make_train_step`) each
+rank passes its rows of the global batch and a generator in the same state
+as every other rank's; the model holds this rank's shards
+(`parallel.shard_params`).  After the backward the gradients are summed
+over the data group, one bucket a dtype, so with `division_factor` the global
+batch the update is the one-process update (a mean, as DDP's default, would
+make it `data` times too small); each rank's Adam then updates its shards.
+The metrics are the global ones: the loss summed over the data group,
+`grad_norm` over whole tensors.
 """
 
 from __future__ import annotations
@@ -23,12 +33,51 @@ import torch
 from ..models.config import Wav2Vec2Config
 from ..models.modeling import default_compute_dtype, wav2vec2_for_ctc_forward
 from ..ops.ctc import ctc_loss_fn
+from ..parallel.mesh import Mesh, all_reduce
+from ..parallel.partition import is_sharded
 from .state import TrainState
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32."""
     return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+
+
+def grad_norm(model, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """`global_norm` of the trainable parameters' gradients, over whole
+    tensors: a sharded parameter's squares summed over the model group, a
+    replicated one's counted once."""
+    named = [(n, p.grad) for n, p in model.named_parameters()
+             if p.requires_grad and p.grad is not None]
+    if mesh is None or mesh.model == 1:
+        return global_norm(g for _, g in named)
+    zero = torch.zeros((), device=model.device)
+    squares = [torch.sum(g.float() ** 2) for _, g in named]
+    sharded = sum((s for (n, _), s in zip(named, squares) if is_sharded(n, mesh)), zero)
+    whole = sum((s for (n, _), s in zip(named, squares) if not is_sharded(n, mesh)), zero)
+    return torch.sqrt(whole + all_reduce(sharded.clone(), mesh.model_group))
+
+
+def all_reduce_grads(model, mesh: Optional[Mesh]) -> None:
+    """Sum the trainable parameters' gradients over the data group, in
+    place: one flat bucket per (device, dtype)."""
+    if mesh is None or mesh.data == 1:
+        return
+    buckets: dict = {}
+    for p in model.parameters():
+        if p.requires_grad and p.grad is not None:
+            buckets.setdefault((p.grad.device, p.grad.dtype), []).append(p.grad)
+    for grads in buckets.values():
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh.data_group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+
+def data_sum(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A per-rank metric summed over the data group (a copy)."""
+    if mesh is None or mesh.data == 1:
+        return t
+    return all_reduce(t.detach().clone(), mesh.data_group)
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -38,11 +87,12 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 def make_ctc_loss_fn(config: Wav2Vec2Config, *, division_factor: float,
                      with_attention_mask: bool = False, length_aware: bool = False,
                      compute_dtype: Optional[torch.dtype] = None,
-                     remat: Union[bool, str] = True):
+                     remat: Union[bool, str] = True, mesh: Optional[Mesh] = None):
     """`(model, batch, generator) -> scalar loss` of the training forward
     (JAX `_make_ctc_loss_fn`).  What is frozen is what has `requires_grad`
     off (`set_trainable`).  `remat` as `modeling.encoder_forward`'s (JAX's
-    step builders default to True)."""
+    step functions default to True).  Under a `mesh` the loss of this rank's
+    rows: the global loss is its sum over the data group."""
 
     def loss_fn(model, batch: dict, generator: torch.Generator) -> torch.Tensor:
         dev = model.device
@@ -51,7 +101,7 @@ def make_ctc_loss_fn(config: Wav2Vec2Config, *, division_factor: float,
         logits = wav2vec2_for_ctc_forward(
             model, config, batch["speech"].float(), mask,
             compute_dtype=compute_dtype or default_compute_dtype(dev),
-            training=True, generator=generator, remat=remat,
+            training=True, generator=generator, remat=remat, mesh=mesh,
         )
         b, t = logits.shape[0], logits.shape[1]
         if length_aware and mask is not None:
@@ -78,9 +128,10 @@ def _trainable(model):
     return [p for p in model.parameters() if p.requires_grad]
 
 
-def _apply(state: TrainState, loss: torch.Tensor, ema_decay: Optional[float]):
-    grads = [p.grad for p in _trainable(state.model) if p.grad is not None]
-    metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+def _apply(state: TrainState, loss: torch.Tensor, ema_decay: Optional[float],
+           mesh: Optional[Mesh] = None):
+    all_reduce_grads(state.model, mesh)
+    metrics = {"loss": data_sum(loss.detach(), mesh), "grad_norm": grad_norm(state.model, mesh)}
     state.optimizer.step()
     if ema_decay is not None:
         ema_update(state.ema_params, state.model, ema_decay)
@@ -91,21 +142,23 @@ def _apply(state: TrainState, loss: torch.Tensor, ema_decay: Optional[float]):
 def make_train_step(config: Wav2Vec2Config, *, division_factor: float,
                     with_attention_mask: bool = False, length_aware: bool = False,
                     compute_dtype: Optional[torch.dtype] = None,
-                    ema_decay: Optional[float] = None, remat: Union[bool, str] = True):
+                    ema_decay: Optional[float] = None, remat: Union[bool, str] = True,
+                    mesh: Optional[Mesh] = None):
     """`(state, batch, generator) -> (state, {"loss", "grad_norm"})`: one
     forward, backward and Adam update, in place, of the parameters that
     `set_trainable` left trainable.  With `ema_decay` the state must carry
-    `ema_params`; `remat` as in `make_ctc_loss_fn`."""
+    `ema_params`; `remat` as in `make_ctc_loss_fn`; `mesh` as in the module
+    docstring (`division_factor` is then the global batch)."""
     loss_fn = make_ctc_loss_fn(config, division_factor=division_factor,
                                with_attention_mask=with_attention_mask,
                                length_aware=length_aware, compute_dtype=compute_dtype,
-                               remat=remat)
+                               remat=remat, mesh=mesh)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(state.model, batch, generator)
         loss.backward()
-        return _apply(state, loss, ema_decay)
+        return _apply(state, loss, ema_decay, mesh)
 
     return step
 
@@ -113,10 +166,13 @@ def make_train_step(config: Wav2Vec2Config, *, division_factor: float,
 def make_grad_accum_steps(config: Wav2Vec2Config, *, division_factor: float,
                           with_attention_mask: bool = False, length_aware: bool = False,
                           compute_dtype: Optional[torch.dtype] = None,
-                          ema_decay: Optional[float] = None, remat: Union[bool, str] = True):
+                          ema_decay: Optional[float] = None, remat: Union[bool, str] = True,
+                          mesh: Optional[Mesh] = None):
     """Gradient accumulation, `(init_fn, accum_fn, apply_fn)`: microbatch
     gradients sum in the parameters' `.grad`, so with `division_factor` the
-    effective batch size the update equals one step on the whole batch::
+    effective batch size the update equals one step on the whole batch
+    (under a `mesh` the gradients are summed over the data group once, in
+    `apply_fn`)::
 
         loss = init_fn(state)
         for batch in microbatches:
@@ -126,7 +182,7 @@ def make_grad_accum_steps(config: Wav2Vec2Config, *, division_factor: float,
     loss_fn = make_ctc_loss_fn(config, division_factor=division_factor,
                                with_attention_mask=with_attention_mask,
                                length_aware=length_aware, compute_dtype=compute_dtype,
-                               remat=remat)
+                               remat=remat, mesh=mesh)
 
     def init_fn(state: TrainState) -> torch.Tensor:
         state.optimizer.zero_grad(set_to_none=True)
@@ -139,7 +195,7 @@ def make_grad_accum_steps(config: Wav2Vec2Config, *, division_factor: float,
         return loss_acc + loss.detach().cpu()
 
     def apply_fn(state: TrainState, loss_acc: torch.Tensor):
-        return _apply(state, loss_acc, ema_decay)
+        return _apply(state, loss_acc, ema_decay, mesh)
 
     return init_fn, accum_fn, apply_fn
 

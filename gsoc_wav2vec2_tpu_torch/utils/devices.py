@@ -11,6 +11,7 @@ never raise.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -25,6 +26,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the host"
         )
+    return dev
+
+
+def rank_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device of this process's rank: `device` where it names one
+    (`"cpu"`, `"cuda:0"`), else card `LOCAL_RANK` modulo the cards there are
+    (torchrun's variable; 0 outside torchrun), so that ranks beyond the
+    cards share them.  Resolved as `resolve_device` resolves: a CUDA rank on
+    a machine without CUDA raises, it never drops to the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
     return dev
 
 

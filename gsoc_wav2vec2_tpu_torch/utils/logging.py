@@ -52,3 +52,16 @@ class MetricLogger:
         self._file.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullLogger:
+    """A `MetricLogger` that records nothing: what the ranks other than 0
+    hold in a run of several processes (rank 0 logs for all of them)."""
+
+    run_id = ""
+
+    def log(self, metrics: dict, step: Optional[int] = None) -> None:
+        del metrics, step
+
+    def finish(self) -> None:
+        pass

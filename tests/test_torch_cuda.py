@@ -1259,3 +1259,39 @@ def test_hubert_large_snapshot_runs_its_kernels_on_card(cuda, tmp_path):
     assert (logits[0] - want[0]).abs().max().item() <= 0.10 * scale
     agree = (logits[0].argmax(-1) == want[0].argmax(-1)).float().mean().item()
     assert agree >= 0.9 and np.isfinite(logits.numpy()).all()
+
+
+def _update_rel(got, want, p0):
+    num = sum(float(((got[n].double() - want[n].double()) ** 2).sum()) for n in want)
+    den = sum(float(((want[n].double() - p0[n].double()) ** 2).sum()) for n in want)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [[2, 1], [1, 2]], ids=["ddp", "tp"])
+def test_two_rank_gloo_run_matches_one_process_on_card(cuda, tmp_path, mesh):
+    """Two ranks on the one card over gloo (2-layer base-width model, bf16
+    kernels): the eval logits (ddp: each rank's rows; tp: 6 heads and FFN
+    1536 a rank), two stage-2 updates' losses and the parameters after them
+    against one process: logits relative L2 2e-2 (bf16 products split or
+    summed in another order), loss 1e-2, update-relative L2 0.5 (Adam's
+    first, sign-like steps carry the bf16 differences whole); every rank
+    launches the kernels."""
+    import importlib.util
+    import pathlib
+
+    # by path: on the card's machine another installed package owns `tests`
+    path = pathlib.Path(__file__).with_name("torch_parallel_ranks.py")
+    spec = importlib.util.spec_from_file_location("torch_parallel_ranks", path)
+    R = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(R)
+    want = R.card_base([1, 1])
+    outs = R.run_ranks("card_base", 2, {"mesh": mesh}, tmp_path, timeout=300)
+    for o in outs:
+        r0, r1 = o["rows"]
+        ref = want["logits"][r0:r1]
+        assert float((o["logits"] - ref).norm() / ref.norm()) <= 2e-2
+        assert max(abs(a - b) / abs(b) for a, b in zip(o["loss"], want["loss"])) <= 1e-2
+        assert _update_rel(o["params"], want["params"], want["p0"]) <= 0.5
+        assert all(n > 0 for n in o["launches"]), o["launches"]
+

@@ -201,9 +201,8 @@ def test_evaluate_cli_beam_and_lm_match_jax(files, jax_f32, tmp_path, capsys, mo
 def test_evaluate_cli_refusals(files, tmp_path, capsys):
     corpus = _corpus(tmp_path / "corpus")
     base = ["--model_dir", files["model"], "--data_dir", corpus, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        evaluate.main(base + ["--sharded"])
-    for flags, message in ((["--lm_path", files["lm"]], "require --beam_width"),
+    for flags, message in ((["--sharded", "--mode", "single"], "padded or bucketed"),
+                           (["--lm_path", files["lm"]], "require --beam_width"),
                            (["--beam_width", "2", "--lm_weight", "0.2"], "only act with")):
         with pytest.raises(SystemExit) as e:
             evaluate.main(base + flags)

@@ -208,12 +208,22 @@ def test_pos_conv_plain_fallback_has_the_kernels_gradients():
 def test_flash_plain_fallback_has_the_kernels_gradients(rate):
     """The plain attention that the card takes outside the instances, through
     autograd, gives `FlashAttention`'s output and gradients, hash dropout
-    bits included."""
+    bits included.
+
+    In float64: the two backwards are two formulas of one gradient (autograd
+    through logsumexp and exp against p * (dp - delta)), so they differ in
+    rounding only.  In f32 that difference reached half of the former
+    tolerance (dq 5.2e-6 of atol 1e-5, values up to 17.7) and moved with the
+    CPU's blocking of the products, which the load of other processes
+    changes.  In f64 each value is a sum of at most 2L = 100 products of
+    magnitude below 20, so the two differ by at most about 100 * 20 * 2.2e-16
+    = 4.4e-13 (1.1e-14 measured): held at atol 1e-12, rtol 0."""
     g = torch.Generator().manual_seed(1)
-    q, k, v = (torch.randn(2, 4, 50, 16, generator=g, requires_grad=True) for _ in range(3))
+    q, k, v = (torch.randn(2, 4, 50, 16, generator=g).double().requires_grad_(True)
+               for _ in range(3))
     bias = torch.zeros(2, 50)
     bias[1, 37:] = -10000.0
-    dout = torch.randn(2, 4, 50, 16, generator=g)
+    dout = torch.randn(2, 4, 50, 16, generator=g).double()
     grads = []
     for fn in (lambda: flash_attention.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=rate,
                                                                  seed=7)[0],
@@ -221,4 +231,5 @@ def test_flash_plain_fallback_has_the_kernels_gradients(rate):
         out = fn()
         grads.append((out.detach(),) + torch.autograd.grad(out, (q, k, v), dout))
     for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)

@@ -52,7 +52,9 @@ def test_sources_cover_training():
             "decoding.py", "streaming.py", "cli/align.py", "cli/serve.py",
             "cli/serve_bench.py", "convert/h5_to_torch.py", "convert/torch_to_h5.py",
             "cli/convert.py", "cli/export.py", "export/onnx_proto.py", "export/onnx_numpy.py",
-            "export/onnx_export.py", "export/torch_export.py", "utils/profiling.py"} <= names
+            "export/onnx_export.py", "export/torch_export.py", "utils/profiling.py",
+            "parallel/__init__.py", "parallel/mesh.py", "parallel/partition.py",
+            "parallel/multihost.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -85,7 +87,9 @@ def test_importing_the_port_loads_no_jax():
             "gsoc_wav2vec2_tpu_torch.convert.torch_to_h5",
             "gsoc_wav2vec2_tpu_torch.export.onnx_export",
             "gsoc_wav2vec2_tpu_torch.export.torch_export",
-            "gsoc_wav2vec2_tpu_torch.utils.profiling"} <= set(mods)
+            "gsoc_wav2vec2_tpu_torch.utils.profiling", "gsoc_wav2vec2_tpu_torch.parallel",
+            "gsoc_wav2vec2_tpu_torch.parallel.mesh", "gsoc_wav2vec2_tpu_torch.parallel.partition",
+            "gsoc_wav2vec2_tpu_torch.parallel.multihost"} <= set(mods)
 
 
 def test_port_calls_no_library_kernels():

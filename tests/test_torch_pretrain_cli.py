@@ -182,12 +182,11 @@ def test_pretrain_cli_sigterm_then_resume_is_the_straight_run(corpus, config_jso
         assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a), name
 
 
-def test_pretrain_cli_refuses_what_is_not_ported(config_json, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 3"):
+def test_pretrain_cli_refuses_what_is_not_ported(config_json, tmp_path):
+    """A model axis the processes cannot fill is refused (several processes
+    and tensor parallelism run since they were ported: test_torch_parallel_cli)."""
+    with pytest.raises(ValueError, match="model axis 2 does not divide device count 1"):
         pretrain.main(_args(config_json, tmp_path, "axis", model_axis=2))
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        pretrain.main(_args(config_json, tmp_path, "procs"))
 
 
 def test_pretrain_parse_args_defaults_and_horizon():

@@ -313,7 +313,7 @@ def test_beam_server_rejects_timestamps_and_streams(weights, jax_ev):
 
 
 def test_sharded_and_lm_without_beam_are_refused(model_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 4"):
         serve.main(["--model_dir", model_dir, "--sharded", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--model_dir", model_dir, "--lm_path", str(tmp_path / "lm.json"),

@@ -179,10 +179,13 @@ def test_train_cli_refuses_zero_update_epochs(corpus, tiny_model_dir, tmp_path):
         train.main(args)
 
 
+# the first case's id is the one it had while --model_axis > 1 was refused as
+# not ported; a model axis the processes cannot fill is refused now
 @pytest.mark.parametrize("flags,match", [
-    (dict(model_axis=2), "item 7"), (dict(remat_policy="offload"), "remat_policy"),
+    (dict(model_axis=2), "model axis 2 does not divide device count 1"),
+    (dict(remat_policy="offload"), "remat_policy"),
     (dict(compute_dtype="float16"), "compute_dtype"), (dict(grad_accum=0), "grad_accum"),
-])
+], ids=["flags0-item 7", "flags1-remat_policy", "flags2-compute_dtype", "flags3-grad_accum"])
 def test_train_cli_refuses_what_is_not_ported(corpus, tiny_model_dir, tmp_path, flags, match):
     with pytest.raises((NotImplementedError, ValueError), match=match):
         train.main(_args(tiny_model_dir, corpus, tmp_path, "refuse", **flags))
