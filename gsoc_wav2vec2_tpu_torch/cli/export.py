@@ -9,8 +9,11 @@ Counterpart of `gsoc_wav2vec2_tpu/cli/export.py` (and of the reference's
   * `--format onnx`: a literal `.onnx` ModelProto built op by op
     (`export/onnx_export.py`), float32 semantics, byte-equal to the JAX
     package's for the same weights;
-  * `--format saved_model`: not in the port (a TF SavedModel needs
-    TensorFlow and a TF forward); it raises and names the JAX CLI.
+  * `--format saved_model`: a TF SavedModel (`export/savedmodel.py`), what
+    the reference published to TFHub: the ONNX builder's graph evaluated
+    with TF ops, the weights as TF variables, in `--compute_dtype` (bf16 by
+    default, as the JAX CLI).  It needs TensorFlow (the card's machine has
+    none: there the format raises ImportError).
 
 Usage:
     python -m gsoc_wav2vec2_tpu_torch.cli.export \\
@@ -29,7 +32,8 @@ from ..models.modeling import Wav2Vec2ForCTC, Wav2Vec2Model
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    parser = argparse.ArgumentParser("Export wav2vec2 to a torch.export or ONNX artifact")
+    parser = argparse.ArgumentParser("Export wav2vec2 to a torch.export, TF SavedModel or ONNX "
+                                     "artifact")
     parser.add_argument("--model_id", required=True, type=str)
     parser.add_argument("--saved_model_dir", required=True, type=str)
     parser.add_argument("--seqlen", type=int, default=246000)
@@ -46,12 +50,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> str:
     """Export as `argv` asks; returns the artifact's path."""
     args = parse_args(argv)
-    if args.format == "saved_model":
-        raise NotImplementedError(
-            "a TF SavedModel needs TensorFlow and a forward in TF ops, which the port does not "
-            "have; run `python -m gsoc_wav2vec2_tpu.cli.export --format saved_model` (the JAX "
-            "package) on the same checkpoint"
-        )
     cls = Wav2Vec2ForCTC if args.with_lm_head else Wav2Vec2Model
     model = cls.from_pretrained(args.model_id, device=args.device)
     if args.format == "onnx":
@@ -59,6 +57,13 @@ def main(argv: Optional[List[str]] = None) -> str:
 
         path = export_onnx(model.config, params_to_jax(model.state_dict()), args.saved_model_dir,
                            seqlen=args.seqlen, with_lm_head=args.with_lm_head)
+    elif args.format == "saved_model":
+        from ..export.savedmodel import export_saved_model
+
+        path = export_saved_model(model.config, params_to_jax(model.state_dict()),
+                                  args.saved_model_dir, seqlen=args.seqlen,
+                                  with_lm_head=args.with_lm_head,
+                                  compute_dtype=args.compute_dtype)
     else:
         from ..export.torch_export import export_model
 

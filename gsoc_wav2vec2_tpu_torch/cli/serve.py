@@ -50,17 +50,32 @@ on the HTTP handler threads.  Every evaluator call takes the server's one
 device lock (`DynamicBatcher.device_lock`), so one thread at a time
 launches on the card.
 
-Deliberate differences from the JAX server: `--sharded` raises
-`NotImplementedError` (multi-card serving, ROADMAP.md section 1 item 4: the
-JAX server runs one process over every local card, a design of its own); there is no
-persistent compilation cache to enable (the JAX server's is XLA's); and
-`--device` picks the card (the default) or the CPU, as on the port's other
-CLIs.  `warmup()` still runs one forward per bucket: on the card it builds
-the kernel library and PyTorch's cuBLAS and cuDNN plans before the first
+`--sharded`: one server over several ranks, one process a device (the JAX
+server is one process over every local device).  Under `torchrun` every
+rank loads the model on its card (`multihost.initialize`, a model=1 mesh);
+rank 0, the leader, alone binds the port and runs the batcher, the streams,
+the handlers and the host decode; each of its device calls is one dispatch
+whose rows are split over the ranks (`GreedyCTCEvaluator(shard_rows=True)`),
+and ranks >= 1 run `serve_follower` until the leader says stop (they ignore
+SIGTERM and SIGINT: their stop comes from the leader).  The leader sends a
+heartbeat every quarter of the group's timeout (`multihost.initialize`'s)
+while idle, so a follower's wait never times out; a failed collective (a
+lost rank) stops the server with exit code 1 rather than serving on the
+leader alone.  In one process `--sharded` serves as without it.  On one card the
+ranks share it over gloo, which moves each batch through the host: that
+costs latency and adds no throughput.
+
+Deliberate differences from the JAX server: there is no persistent
+compilation cache to enable (the JAX server's is XLA's); and `--device`
+picks the card (the default) or the CPU, as on the port's other CLIs.
+`warmup()` still runs one forward per bucket: on the card it builds the
+kernel library and PyTorch's cuBLAS and cuDNN plans before the first
 request.
 
 Usage:
     python -m gsoc_wav2vec2_tpu_torch.cli.serve --model_dir <dir> --port 8057
+    torchrun --nproc_per_node 8 -m gsoc_wav2vec2_tpu_torch.cli.serve --sharded \
+        --model_dir <dir> --port 8057
 """
 
 from __future__ import annotations
@@ -81,7 +96,9 @@ from ..data.processor import Wav2Vec2Processor
 from ..decoding import CharNGramLM
 from ..evaluation import GreedyCTCEvaluator
 from ..models.modeling import Wav2Vec2ForCTC
+from ..parallel import make_mesh, multihost
 from ..streaming import StreamingTranscriber
+from ..utils.devices import rank_device
 
 DEFAULT_BUCKETS = (32000, 64000, 123000, 246000)
 
@@ -149,7 +166,8 @@ class DynamicBatcher:
         with self._cv:
             self._stop = True
             self._cv.notify_all()
-        self._worker.join(timeout=30)
+        if self._worker.ident is not None:  # started
+            self._worker.join(timeout=30)
 
     def warmup(self) -> None:
         """One forward per bucket shape, so that the first requests find the
@@ -563,8 +581,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--sharded", action="store_true",
-        help="shard each batch over every card: not ported yet (ROADMAP.md section 1 "
-             "item 4); raises",
+        help="one server over every rank of torchrun (one process a card): rank 0 serves "
+             "HTTP and splits the rows of each batch over the ranks",
     )
     parser.add_argument(
         "--device", type=str, default="cuda",
@@ -576,59 +594,110 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def load_evaluator(args: argparse.Namespace) -> GreedyCTCEvaluator:
-    """The model of `--model_dir` on `--device`, and its evaluator with the
-    decode flags."""
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: multi-card serving is not ported yet (ROADMAP.md section 1 item 4: "
-            "one process that shards each batch over every local card, as the JAX server does)")
+def load_evaluator(args: argparse.Namespace, mesh=None) -> GreedyCTCEvaluator:
+    """The model of `--model_dir` on `--device` (with `--sharded`, this
+    rank's card), and its evaluator with the decode flags; with `--sharded`
+    under a `mesh` of several ranks each `_step` of rank 0 is split over
+    them."""
     lm = CharNGramLM.load(args.lm_path) if args.lm_path else None
-    model = Wav2Vec2ForCTC.from_pretrained(args.model_dir, device=args.device)
+    device = rank_device(args.device) if args.sharded else args.device
+    model = Wav2Vec2ForCTC.from_pretrained(args.model_dir, device=device)
     return GreedyCTCEvaluator(model, beam_width=args.beam_width, lm=lm,
-                              lm_weight=args.lm_weight, token_bonus=args.token_bonus)
+                              lm_weight=args.lm_weight, token_bonus=args.token_bonus,
+                              mesh=mesh, shard_rows=args.sharded)
+
+
+def _follow(evaluator: GreedyCTCEvaluator) -> None:
+    """A follower rank: run the leader's dispatches until it says stop."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    rank = multihost.rank()
+    print(f"rank {rank} follows rank 0", file=sys.stderr, flush=True)
+    evaluator.serve_follower()
+    multihost.shutdown()
+    print(f"rank {rank} stopped", file=sys.stderr)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    evaluator = load_evaluator(args)
+    mesh = None
+    if args.sharded:
+        multihost.initialize(rank_device(args.device))
+        mesh = make_mesh(model=1)  # every rank on the data axis
+    evaluator = load_evaluator(args, mesh)
+    if mesh is not None and mesh.rank > 0:
+        _follow(evaluator)
+        return
+    if evaluator.shard_rows:
+        print(f"sharded serving over {mesh.size} processes", flush=True)
     buckets = [int(b) for b in args.buckets.split(",") if b]
     batcher = DynamicBatcher(evaluator, buckets=buckets, max_batch=args.max_batch,
                              window_ms=args.batch_window_ms)
-    if not args.no_warmup:
-        print(f"warming up {len(buckets)} bucket shapes...", flush=True)
-        batcher.warmup()
-    batcher.start()
-
-    stats = {
-        "model": args.model_dir,
-        "buckets": buckets,
-        "max_batch": args.max_batch,
-        "beam_width": args.beam_width,
-        "requests": 0,
-        "streams": 0,
-        "aligns": 0,
-    }
-    streams = StreamSessions(evaluator, max_sessions=args.max_streams,
-                             idle_timeout_s=args.stream_idle_timeout_s,
-                             device_lock=batcher.device_lock)
-    server = ThreadingHTTPServer(
-        (args.host, args.port),
-        make_handler(batcher, Wav2Vec2Processor(is_tokenizer=False), stats, streams=streams),
-    )
-
-    def shutdown(signum, frame):  # noqa: ARG001
-        threading.Thread(target=server.shutdown, daemon=True).start()
-
-    signal.signal(signal.SIGTERM, shutdown)
-    signal.signal(signal.SIGINT, shutdown)
-    print(f"serving on http://{args.host}:{server.server_address[1]}", flush=True)
+    done = threading.Event()
+    server = None
+    # from here on the followers wait for this rank: whatever ends it, stop them
     try:
+        if not args.no_warmup:
+            print(f"warming up {len(buckets)} bucket shapes...", flush=True)
+            batcher.warmup()
+        batcher.start()
+
+        stats = {
+            "model": args.model_dir,
+            "buckets": buckets,
+            "max_batch": args.max_batch,
+            "beam_width": args.beam_width,
+            "requests": 0,
+            "streams": 0,
+            "aligns": 0,
+        }
+        streams = StreamSessions(evaluator, max_sessions=args.max_streams,
+                                 idle_timeout_s=args.stream_idle_timeout_s,
+                                 device_lock=batcher.device_lock)
+        server = ThreadingHTTPServer(
+            (args.host, args.port),
+            make_handler(batcher, Wav2Vec2Processor(is_tokenizer=False), stats, streams=streams),
+        )
+
+        def shutdown(signum, frame):  # noqa: ARG001
+            threading.Thread(target=server.shutdown, daemon=True).start()
+
+        signal.signal(signal.SIGTERM, shutdown)
+        signal.signal(signal.SIGINT, shutdown)
+        if evaluator.shard_rows:
+            def peer_lost(exc):
+                print(f"a rank of the sharded server failed ({type(exc).__name__}: {exc}); "
+                      "stopping", file=sys.stderr, flush=True)
+                shutdown(None, None)
+
+            def keep_alive():
+                while not done.wait(multihost.group_timeout_s() / 4):
+                    try:
+                        with batcher.device_lock:
+                            evaluator.heartbeat()
+                    except Exception:  # noqa: BLE001 — reported through on_peer_lost
+                        return
+
+            evaluator.on_peer_lost = peer_lost
+            threading.Thread(target=keep_alive, daemon=True).start()
+        print(f"serving on http://{args.host}:{server.server_address[1]}", flush=True)
         server.serve_forever()
     finally:
+        done.set()
         batcher.stop()
-        server.server_close()
-        print("server stopped", file=sys.stderr)
+        if server is not None:
+            server.server_close()
+        if evaluator.shard_rows and evaluator.peer_lost is None:
+            try:
+                with batcher.device_lock:
+                    evaluator.stop_followers()
+            except Exception:  # noqa: BLE001 — recorded in peer_lost
+                pass
+    if evaluator.peer_lost is not None:
+        print("server stopped: a rank was lost", file=sys.stderr)
+        raise SystemExit(1)
+    multihost.shutdown()
+    print("server stopped", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,19 @@ today (`cli.evaluate --sharded` builds a model=1 mesh), so lockstep keeps
 the ranks' step counts equal and a forward that gains a collective safe.
 JAX's `_row_quantum` and `_local_rows` have no counterpart: with one
 process a device, a rank's rows are the rows it computed.
+
+The sharded server (`cli.serve --sharded`, `shard_rows=True`) splits each
+batch instead: rank 0 leads, and every `_step` it makes is one dispatch
+over the ranks.  It broadcasts a header (run, rows, samples, mode, mask or
+not), the batch padded with silent full-length filler rows to a multiple of
+the ranks (JAX's `_pad_rows`) and its mask; each rank runs its block of
+rows (`batch_sharding`) through the unchanged forward and reduction; the
+blocks are gathered on rank 0, which drops the filler rows and returns what
+one process returns.  The other ranks wait in `serve_follower` until the
+leader broadcasts stop.  Everything goes over the control group as host
+tensors: the batch arrives on the leader's host and the outputs leave from
+it.  The leader's callers serialise every dispatch (the server's one device
+lock), so the collectives go out in one order.
 """
 
 from __future__ import annotations
@@ -35,7 +48,13 @@ from .data.processor import Wav2Vec2Processor
 from .decoding import ctc_forced_align, ctc_prefix_beam_search, ctc_word_segments
 from .models.modeling import default_compute_dtype, wav2vec2_for_ctc_forward
 from .parallel import multihost
+from .parallel.mesh import batch_sharding
 from .utils.metrics import wer_details
+
+# `_step`'s modes, by the index a dispatch header carries
+STEP_MODES = ("argmax", "logprobs", "scored")
+# what a dispatch header asks of the followers
+_STOP, _RUN, _BEAT = 0, 1, 2
 
 
 def default_buckets(max_len: int = 400000, num: int = 8) -> List[int]:
@@ -118,11 +137,19 @@ class GreedyCTCEvaluator:
         lm_weight: float = 0.5,
         token_bonus: float = 0.0,
         mesh=None,
+        shard_rows: bool = False,
     ):
         if mesh is not None and mesh.model > 1:
             raise ValueError("the evaluator shards the corpus over the data axis only (model=1)")
         self.model = model
         self.mesh = mesh
+        # the sharded server: rank 0's `_step` splits its rows over the ranks
+        # (in one process there is nothing to split: the evaluator is local)
+        self.shard_rows = shard_rows and self._multiprocess
+        # the first collective failure of a dispatch: the group is broken and
+        # every later dispatch raises; `on_peer_lost(exc)` is called with it
+        self.peer_lost: Optional[BaseException] = None
+        self.on_peer_lost = None
         self.config = model.config
         self.device = model.device
         self.compute_dtype = default_compute_dtype(self.device)
@@ -181,11 +208,18 @@ class GreedyCTCEvaluator:
           * "scored"   — (argmax ids, each frame's max log-prob (B, frames)
             f32): greedy decode with word timestamps and confidences.
         The default follows `beam_width`.  Returns host numpy (outs, frame
-        lengths (B,) from the mask, or None without one)."""
+        lengths (B,) from the mask, or None without one).  On the sharded
+        server's leader, one dispatch over every rank (`_lead_step`)."""
         if mode is None:
             mode = "logprobs" if self.beam_width > 0 else "argmax"
-        if mode not in ("argmax", "logprobs", "scored"):
+        if mode not in STEP_MODES:
             raise ValueError(f"unknown step mode {mode!r}")
+        if self.shard_rows:
+            return self._lead_step(speech, mask, mode)
+        return self._local_step(speech, mask, mode)
+
+    def _local_step(self, speech: np.ndarray, mask: Optional[np.ndarray], mode: str):
+        """`_step` on this process's device alone."""
         with torch.inference_mode():
             x = torch.from_numpy(speech).to(self.device)
             m = None if mask is None else torch.from_numpy(mask).to(self.device)
@@ -203,6 +237,96 @@ class GreedyCTCEvaluator:
                 lengths = self.config.conv_output_length(m.to(torch.int64).sum(dim=-1)).cpu().numpy()
             outs = tuple(o.cpu().numpy() for o in outs)
         return (outs if mode == "scored" else outs[0]), lengths
+
+    # -- the sharded server ---------------------------------------------------
+
+    def _header(self, op: int, rows: int = 0, samples: int = 0, mode: int = 0,
+                has_mask: bool = False) -> None:
+        """Broadcast a dispatch header from the leader."""
+        multihost.broadcast_from_leader(
+            torch.tensor([op, rows, samples, mode, int(has_mask)], dtype=torch.int64))
+
+    def _collective(self, fn, *args):
+        """`fn(*args)` on the leader; a failure marks the group as lost (every
+        later dispatch raises at once) and reports it to `on_peer_lost`."""
+        if self.peer_lost is not None:
+            raise RuntimeError(f"a rank of the sharded server failed: {self.peer_lost}")
+        try:
+            return fn(*args)
+        except Exception as e:  # noqa: BLE001 — any failure leaves the group unusable
+            self.peer_lost = e
+            if self.on_peer_lost is not None:
+                self.on_peer_lost(e)
+            raise
+
+    def _lead_step(self, speech: np.ndarray, mask: Optional[np.ndarray], mode: str):
+        """`_step` as one dispatch over the ranks: the rows padded with silent,
+        full-length filler rows to a multiple of the ranks, broadcast with
+        their mask, each rank's block through `_local_step`, the blocks
+        gathered here and the filler rows dropped."""
+        b, l = speech.shape
+        pad = (-b) % multihost.world_size()
+        speech = np.ascontiguousarray(speech, np.float32)
+        if pad:
+            speech = np.concatenate([speech, np.zeros((pad, l), np.float32)])
+            if mask is not None:
+                mask = np.concatenate([mask, np.ones((pad, l), mask.dtype)])
+
+        def dispatch():
+            self._header(_RUN, b + pad, l, STEP_MODES.index(mode), mask is not None)
+            x = multihost.broadcast_from_leader(torch.from_numpy(speech))
+            m = None
+            if mask is not None:
+                m = multihost.broadcast_from_leader(
+                    torch.from_numpy(np.ascontiguousarray(mask, np.float32)))
+            return self._block_step(x, m, mode)
+
+        outs, lengths = self._collective(dispatch)
+        outs = tuple(o[:b] for o in outs) if isinstance(outs, tuple) else outs[:b]
+        return outs, (None if lengths is None else lengths[:b])
+
+    def _block_step(self, speech: torch.Tensor, mask: Optional[torch.Tensor], mode: str):
+        """This rank's block of the broadcast rows through `_local_step`; the
+        blocks gathered on the leader in rank order.  Returns `_step`'s
+        (outs, lengths) of every row on the leader, None elsewhere."""
+        rows = batch_sharding(self.mesh, speech.shape[0])
+        outs, lengths = self._local_step(speech[rows].numpy(),
+                                         None if mask is None else mask[rows].numpy(), mode)
+        parts = outs if isinstance(outs, tuple) else (outs,)
+        if lengths is not None:
+            parts += (np.asarray(lengths),)
+        whole = [multihost.gather_to_leader(torch.from_numpy(np.ascontiguousarray(p)))
+                 for p in parts]
+        if multihost.rank() != 0:
+            return None
+        whole = [torch.cat(w).numpy() for w in whole]
+        lengths = whole.pop() if lengths is not None else None
+        return (tuple(whole) if mode == "scored" else whole[0]), lengths
+
+    def heartbeat(self) -> None:
+        """The leader's idle signal: a header that asks nothing, so that a
+        follower's wait never reaches the group timeout while the server is
+        idle, and a lost follower shows between requests."""
+        self._collective(self._header, _BEAT)
+
+    def stop_followers(self) -> None:
+        """The leader's last dispatch: every follower leaves `serve_follower`."""
+        self._collective(self._header, _STOP)
+
+    def serve_follower(self) -> None:
+        """A follower's loop (ranks >= 1 of the sharded server): wait for the
+        leader's next header, run its block of each dispatch, return on stop.
+        A failed collective (the leader lost, the group timeout) raises."""
+        while True:
+            op, rows, samples, mode, has_mask = multihost.broadcast_from_leader(
+                torch.zeros(5, dtype=torch.int64)).tolist()
+            if op == _STOP:
+                return
+            if op == _BEAT:
+                continue
+            x = multihost.broadcast_from_leader(torch.empty(rows, samples))
+            m = multihost.broadcast_from_leader(torch.empty(rows, samples)) if has_mask else None
+            self._block_step(x, m, STEP_MODES[mode])
 
     def _device_outputs(self, speech: np.ndarray, sample_lengths: np.ndarray, mode=None):
         """(outs, frame lengths clipped to [0, frames]) of `_step`:

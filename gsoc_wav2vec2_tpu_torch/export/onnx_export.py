@@ -26,6 +26,12 @@ the positional conv folds into a static kernel at export time
 Float32 semantics throughout: GELU uses the exact-erf form the float32
 path uses (`ops/basic.py::gelu`); parity with the f32 forward is tested to
 ~1e-4 logits by executing the artifact with `export/onnx_numpy.py`.
+
+`build_wav2vec2_onnx(compute_dtype="bfloat16")` builds the graph of the JAX
+package's bf16 forward instead, for `export/savedmodel.py` (an `.onnx` file
+is always float32): the waveform and every weight cast to bf16 at their
+use, norms and the attention scores and softmax in f32 between casts, tanh
+GELU, f32 logits.  For float32 the builder emits exactly the graph above.
 """
 
 from __future__ import annotations
@@ -74,8 +80,11 @@ def _attr(name: str, v: Any) -> Dict[str, Any]:
 class GraphBuilder:
     """Tiny ONNX graph assembler: initializers + topologically-ordered nodes."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, compute_dtype: str = "float32"):
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or bfloat16")
         self.name = name
+        self.bf16 = compute_dtype == "bfloat16"
         self.nodes: List[dict] = []
         self.initializers: List[dict] = []
         self.inputs: List[dict] = []
@@ -99,6 +108,34 @@ class GraphBuilder:
         if key not in self._const_cache:
             self._const_cache[key] = self.init(arr, hint)
         return self._const_cache[key]
+
+    def weight(self, arr: np.ndarray, hint: str) -> str:
+        """A parameter initializer (float32) in the compute dtype: a bf16
+        graph casts it at its use, as the JAX forward casts each weight."""
+        name = self.init(arr, hint)
+        return self.to_compute(name, hint)
+
+    def to_compute(self, x: str, hint: str) -> str:
+        """`x` (float32) in the compute dtype."""
+        return self.node("Cast", [x], hint=f"{hint}.bf16", to=P.BFLOAT16) if self.bf16 else x
+
+    def scalar(self, value: float) -> str:
+        """A float constant in the compute dtype."""
+        name = self.const(value, np.float32)
+        if not self.bf16:
+            return name
+        key = ("bf16", name)
+        if key not in self._const_cache:
+            self._const_cache[key] = self.to_compute(name, "const")
+        return self._const_cache[key]
+
+    def in_f32(self, x: str, op, hint: str) -> str:
+        """`op(x)` computed in float32: a bf16 graph casts `x` up and the
+        result back (the JAX forward's norms)."""
+        if not self.bf16:
+            return op(x)
+        y = op(self.node("Cast", [x], hint=f"{hint}.f32", to=P.FLOAT))
+        return self.to_compute(y, hint)
 
     def node(
         self,
@@ -177,31 +214,32 @@ def _layer_slice(tree, i: int):
 
 
 def _dense(b: GraphBuilder, x: str, p: dict, hint: str) -> str:
-    y = b.node("MatMul", [x, b.init(_np32(p["kernel"]), f"{hint}.kernel")], hint=hint)
+    y = b.node("MatMul", [x, b.weight(_np32(p["kernel"]), f"{hint}.kernel")], hint=hint)
     if p.get("bias") is not None:
-        y = b.node("Add", [y, b.init(_np32(p["bias"]), f"{hint}.bias")], hint=hint)
+        y = b.node("Add", [y, b.weight(_np32(p["bias"]), f"{hint}.bias")], hint=hint)
     return y
 
 
 def _layer_norm(b: GraphBuilder, x: str, p: dict, eps: float, hint: str) -> str:
-    return b.node(
+    return b.in_f32(x, lambda x32: b.node(
         "LayerNormalization",
-        [x, b.init(_np32(p["gamma"]), f"{hint}.gamma"),
+        [x32, b.init(_np32(p["gamma"]), f"{hint}.gamma"),
          b.init(_np32(p["beta"]), f"{hint}.beta")],
         hint=hint,
         axis=-1,
         epsilon=float(eps),
-    )
+    ), hint)
 
 
 def _gelu(b: GraphBuilder, x: str, approximate: bool, hint: str) -> str:
     """GELU via primitive ops (the fused Gelu op is opset 20; we target 17).
 
     Exact: 0.5 * x * (1 + erf(x / sqrt(2))) — matches the float32 JAX path.
-    Approximate: the tanh form (`jax.nn.gelu(approximate=True)`).
+    Approximate: the tanh form (`jax.nn.gelu(approximate=True)`), which a
+    bf16 graph always takes (`ops/basic.py::gelu`).
     """
-    f = lambda v: b.const(v, np.float32)  # noqa: E731
-    if approximate:
+    f = b.scalar
+    if approximate or b.bf16:
         x3 = b.node("Pow", [x, f(3.0)], hint=hint)
         inner = b.node("Add", [x, b.node("Mul", [x3, f(0.044715)], hint=hint)], hint=hint)
         t = b.node("Tanh", [b.node("Mul", [inner, f(float(np.sqrt(2.0 / np.pi)))], hint=hint)], hint=hint)
@@ -225,9 +263,9 @@ def _conv_ncl(
     hint: str,
 ) -> str:
     w = np.transpose(kernel, (2, 1, 0))  # -> ONNX (C_out, C_in // groups, k)
-    inputs = [x, b.init(w, f"{hint}.weight")]
+    inputs = [x, b.weight(w, f"{hint}.weight")]
     if bias is not None:
-        inputs.append(b.init(bias, f"{hint}.bias"))
+        inputs.append(b.weight(bias, f"{hint}.bias"))
     return b.node(
         "Conv",
         inputs,
@@ -254,14 +292,14 @@ def _feature_encoder(b: GraphBuilder, x_ncl: str, params, config: Wav2Vec2Config
                 # degenerates to per-channel instance norm over time — the
                 # exact InstanceNormalization op (`ops/basic.py::group_norm`)
                 assert config.filter_sizes[i] == _np32(p["layer_norm"]["gamma"]).shape[0]
-                x_ncl = b.node(
+                x_ncl = b.in_f32(x_ncl, lambda x32: b.node(
                     "InstanceNormalization",
-                    [x_ncl,
+                    [x32,
                      b.init(_np32(p["layer_norm"]["gamma"]), f"{hint}.gn.gamma"),
                      b.init(_np32(p["layer_norm"]["beta"]), f"{hint}.gn.beta")],
                     hint=f"{hint}.gn",
                     epsilon=1e-5,
-                )
+                ), f"{hint}.gn")
             else:  # robust family: LayerNorm over channels
                 x_btc = b.node("Transpose", [x_ncl], hint=hint, perm=[0, 2, 1])
                 x_btc = _layer_norm(b, x_btc, p["layer_norm"], 1e-5, f"{hint}.ln")
@@ -314,15 +352,19 @@ def _attention(
         return b.node("Transpose", [t], hint=f"{hint}.{tag}", perm=[0, 2, 1, 3])
 
     q = _dense(b, x, p["q_proj"], f"{hint}.q")
-    q = b.node("Mul", [q, b.const(float(d) ** -0.5, np.float32)], hint=f"{hint}.qs")
+    q = b.node("Mul", [q, b.scalar(float(d) ** -0.5)], hint=f"{hint}.qs")
     k = _dense(b, x, p["k_proj"], f"{hint}.k")
     v = _dense(b, x, p["v_proj"], f"{hint}.v")
     qh, kh, vh = heads(q, "qh"), heads(k, "kh"), heads(v, "vh")
     kt = b.node("Transpose", [kh], hint=f"{hint}.kt", perm=[0, 1, 3, 2])
+    if b.bf16:  # scores and softmax in f32 (the JAX product's preferred type)
+        qh = b.node("Cast", [qh], hint=f"{hint}.qh.f32", to=P.FLOAT)
+        kt = b.node("Cast", [kt], hint=f"{hint}.kt.f32", to=P.FLOAT)
     scores = b.node("MatMul", [qh, kt], hint=f"{hint}.scores")
     if bias is not None:
         scores = b.node("Add", [scores, bias], hint=f"{hint}.scores")
     probs = b.node("Softmax", [scores], hint=f"{hint}.probs", axis=-1)
+    probs = b.to_compute(probs, f"{hint}.probs")
     ctx = b.node("MatMul", [probs, vh], hint=f"{hint}.ctx")
     ctx = b.node("Transpose", [ctx], hint=f"{hint}.ctx", perm=[0, 2, 1, 3])
     ctx = b.node("Reshape", [ctx, shape_merge], hint=f"{hint}.ctx")
@@ -389,13 +431,15 @@ def build_wav2vec2_onnx(
     seqlen: int = 246000,
     with_lm_head: bool = True,
     with_attention_mask: Optional[bool] = None,
+    compute_dtype: str = "float32",
 ) -> dict:
     """Assemble the full inference graph; returns a ModelProto dict.
-    `params` is the JAX-layout tree (`params_to_jax(model.state_dict())`)."""
+    `params` is the JAX-layout tree (`params_to_jax(model.state_dict())`);
+    `compute_dtype` "bfloat16" gives the bf16 forward's graph (see above)."""
     if with_attention_mask is None:
         with_attention_mask = config.is_robust
     frames = int(config.conv_output_length(seqlen))
-    b = GraphBuilder("wav2vec2_for_ctc" if with_lm_head else "wav2vec2")
+    b = GraphBuilder("wav2vec2_for_ctc" if with_lm_head else "wav2vec2", compute_dtype)
 
     speech = b.add_input("speech", P.FLOAT, ["batch", seqlen])
     mask_in = (
@@ -410,6 +454,7 @@ def build_wav2vec2_onnx(
         "Reshape", [speech, b.init(np.array([0, 1, seqlen], np.int64), "in.shape")],
         hint="in.ncl",
     )
+    x = b.to_compute(x, "in.ncl")
     x = _feature_encoder(b, x, w2v["feature_extractor"], config)
     x = b.node("Transpose", [x], hint="fe.btc", perm=[0, 2, 1])  # (B, T', C)
 
@@ -426,7 +471,7 @@ def build_wav2vec2_onnx(
             [frame_f, b.init(np.array([0, frames, 1], np.int64), "mask.xshape")],
             hint="mask.3d",
         )
-        x = b.node("Mul", [x, frame_3d], hint="mask.zero")
+        x = b.node("Mul", [x, b.to_compute(frame_3d, "mask.3d")], hint="mask.zero")
 
     enc = w2v["encoder"]
     x = b.node("Add", [x, _pos_conv(b, x, enc["pos_conv_embed"]["conv"], config, frames)],
@@ -442,16 +487,20 @@ def build_wav2vec2_onnx(
     if prenorm:
         x = _layer_norm(b, x, enc["layer_norm"], config.layer_norm_eps, "enc.ln")
 
+    out_type = P.FLOAT
     if with_lm_head:
         x = _dense(b, x, params["lm_head"], "lm_head")
+        if b.bf16:  # f32 logits, as the JAX forward returns them
+            x = b.node("Cast", [x], hint="lm_head.f32", to=P.FLOAT)
         out_name, out_dim = "logits", config.vocab_size
     else:
         out_name, out_dim = "hidden_states", config.hidden_size
+        out_type = P.BFLOAT16 if b.bf16 else P.FLOAT
 
     # final Identity pins the public output name
     b.nodes.append({"op_type": "Identity", "input": [x], "output": [out_name],
                     "name": b.fresh("n.Identity")})
-    b.add_output(out_name, P.FLOAT, ["batch", frames, out_dim])
+    b.add_output(out_name, out_type, ["batch", frames, out_dim])
     return b.model(
         doc=(
             "wav2vec2 CTC inference graph exported by gsoc_wav2vec2_tpu "

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import os
 from datetime import timedelta
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -40,6 +40,9 @@ from .mesh import DATA_AXIS, Mesh, batch_sharding
 # the gloo group of every rank that carries the host-side control values
 # when the default group is NCCL (None: the default group is gloo)
 _control = None
+# the timeout `initialize` gave the group (the default until a group is joined)
+DEFAULT_TIMEOUT_S = 1800.0
+_timeout_s = DEFAULT_TIMEOUT_S
 
 
 def world_size() -> int:
@@ -60,13 +63,14 @@ def backend_for(device: torch.device) -> str:
     return "nccl" if local <= torch.cuda.device_count() else "gloo"
 
 
-def initialize(device=None, timeout_s: float = 1800.0) -> Optional[str]:
+def initialize(device=None, timeout_s: float = DEFAULT_TIMEOUT_S) -> Optional[str]:
     """Join the process group that torchrun's environment describes, on
     `rank_device(device)` with `backend_for` that device, and print the
     backend; returns it (None for one process, where there is nothing to
-    join).  Idempotent.  `timeout_s` bounds every collective, so a rank
-    whose peer died fails instead of waiting forever."""
-    global _control
+    join).  Idempotent: a later call keeps the first call's group and
+    timeout.  `timeout_s` bounds every collective, so a rank whose peer died
+    fails instead of waiting forever (`group_timeout_s`)."""
+    global _control, _timeout_s
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return None
     if dist.is_initialized():
@@ -75,6 +79,7 @@ def initialize(device=None, timeout_s: float = 1800.0) -> Optional[str]:
     backend = backend_for(dev)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    _timeout_s = float(timeout_s)
     timeout = timedelta(seconds=timeout_s)
     dist.init_process_group(backend=backend, init_method="env://",
                             world_size=int(os.environ["WORLD_SIZE"]),
@@ -86,14 +91,21 @@ def initialize(device=None, timeout_s: float = 1800.0) -> Optional[str]:
     return backend
 
 
+def group_timeout_s() -> float:
+    """The seconds a collective of the joined group may wait (`initialize`'s
+    `timeout_s`)."""
+    return _timeout_s
+
+
 def shutdown() -> None:
     """Leave the process group (a no-op when none was joined)."""
-    global _control
+    global _control, _timeout_s
     if dist.is_initialized():
         from .mesh import _groups
 
         _groups.cache_clear()
         _control = None
+        _timeout_s = DEFAULT_TIMEOUT_S
         dist.destroy_process_group()
 
 
@@ -104,6 +116,21 @@ def all_gather_ints(values) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(world_size())]
     dist.all_gather(parts, t, group=_control)
     return torch.stack(parts)
+
+
+def broadcast_from_leader(t: torch.Tensor) -> torch.Tensor:
+    """Rank 0's host tensor `t` into every rank's `t` (in place, the same
+    shape and dtype on all), over the control group; returns `t`."""
+    dist.broadcast(t, src=0, group=_control)
+    return t
+
+
+def gather_to_leader(t: torch.Tensor) -> Optional[List[torch.Tensor]]:
+    """Every rank's host tensor `t` (the same shape on all) on rank 0, in
+    rank order, over the control group; None on the other ranks."""
+    parts = [torch.empty_like(t) for _ in range(world_size())] if rank() == 0 else None
+    dist.gather(t, parts, dst=0, group=_control)
+    return parts
 
 
 def sync_run_id(run_id: str, max_len: int = 64) -> str:

@@ -1,16 +1,22 @@
-"""Rehearse chip_smoke.py's phase 16 (`dist`) on the CPU at a tiny size.
+"""Rehearse chip_smoke.py's phase 16 (`dist`), or its phases 11 (`serve`)
+and 17 (`serve_sharded`), on the CPU at a tiny size.
 
-    python logs/rehearse_dist.py
+    python logs/rehearse_dist.py          # phase 16, ~40 s
+    python logs/rehearse_dist.py serve    # phases 11 and 17, ~45 s
 
 The parent patches chip_smoke (tiny configs, 8000-sample corpus, the CPU for
 the card, no kernel build, launch counts not held: the CPU runs the plain
-versions) and points `chip_smoke.__file__` here, so that each rank process
-runs this file with `--dist-worker`, applies the same patches and calls
-`chip_smoke.dist_worker`.
+versions; kernel checks, timings and profiles of the card stubbed) and points
+`chip_smoke.__file__` here, so that each rank process runs this file with
+`--dist-worker`, applies the same patches and calls `chip_smoke.dist_worker`.
+Phase 11 serves and records its replies; phase 17 holds the sharded server's
+replies against them, at the default buckets and batch ((8, bucket) on the
+leader, (4, bucket) a rank).
 """
 import json
 import os
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,7 +55,13 @@ def patch():
     cs._build.library = lambda: None
     cs.expect_counts = lambda *a: None
     require = cs.require
-    cs.require = lambda cond, msg: require(cond or "onto the card" in msg, msg)
+    cs.require = lambda cond, msg: require(cond or "onto the card" in msg or "on the card" in msg,
+                                           msg)
+    cs.check_serve_kernels = lambda *a, **k: None
+    cs.time_ms = lambda fn, iters, warmup=2: (fn(), 0.0)[1]
+    cs.profile_device = lambda fn, reps, unit, top=15: (fn(), {
+        "wall_ms_per_pass": 0.0, "device_busy_ms_per_pass": 0.0, "device_idle_share": 0.0,
+        "top": [], "device_busy_ms_per_forward": 0.0})[1]
     for cli in (train_cli, pretrain_cli):
         parse = cli.parse_args
         cli.parse_args = lambda argv, parse=parse: parse(list(argv) + ["--compute_dtype", "float32"])
@@ -61,5 +73,15 @@ if __name__ == "__main__":
         sys.exit(cs.dist_worker(json.loads(sys.argv[2])))
     cs.__file__ = os.path.abspath(__file__)
     t = time.perf_counter()
-    print(json.dumps(cs.dist_phase("rehearsal on the CPU")), flush=True)
-    print("seconds", time.perf_counter() - t)
+    if sys.argv[1:] != ["serve"]:
+        print(json.dumps(cs.dist_phase("rehearsal on the CPU")), flush=True)
+        print("seconds", time.perf_counter() - t)
+        sys.exit(0)
+    records = [{"name": n, "counter": n, "paths": ("serve",)} for n in cs.SERVE_SHARDED_KERNELS]
+    with tempfile.TemporaryDirectory() as root:
+        _, one = cs.serve_phase("rehearsal on the CPU", records, root)
+        print("phase 11 seconds", time.perf_counter() - t, flush=True)
+        t = time.perf_counter()
+        launched = cs.serve_sharded_phase("rehearsal on the CPU", records,
+                                          os.path.join(root, "model"), one)
+    print("phase 17 seconds", time.perf_counter() - t, json.dumps(launched), flush=True)

@@ -194,9 +194,20 @@ def test_export_cli(tmp_path, capsys):
     x = torch.from_numpy(_speech(3, 8))
     with torch.no_grad():
         assert torch.equal(program.module()(x), model(x))
-    with pytest.raises(NotImplementedError, match="gsoc_wav2vec2_tpu.cli.export --format saved_model"):
-        export_cli.main(["--model_id", model_dir, "--saved_model_dir", out, "--format",
-                         "saved_model", "--device", "cpu"])
+    # the TF SavedModel format is ported (tests/test_torch_savedmodel.py): it
+    # writes the artifact where TensorFlow is installed, else names it
+    sm_dir = str(tmp_path / "sm")
+    try:
+        import tensorflow  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="tensorflow"):
+            export_cli.main(["--model_id", model_dir, "--saved_model_dir", sm_dir, "--format",
+                             "saved_model", "--seqlen", str(SEQLEN), "--device", "cpu"])
+    else:
+        assert export_cli.main(["--model_id", model_dir, "--saved_model_dir", sm_dir, "--format",
+                                "saved_model", "--seqlen", str(SEQLEN),
+                                "--device", "cpu"]) == sm_dir
+        assert os.path.isfile(os.path.join(sm_dir, "saved_model.pb"))
 
 
 def test_cross_device_load_raises(tmp_path):

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX and nothing of the JAX package in its
 sources or in `chip_smoke.py`, none of the packages the card's machine lacks
-(msgpack, safetensors, orbax, soundfile; fsspec, wandb, h5py, transformers
-and huggingface_hub only inside the function that needs them), and none of the library kernels the port must
-not call."""
+(msgpack, safetensors, orbax, soundfile; fsspec, wandb, h5py, transformers,
+huggingface_hub and tensorflow only inside the function that needs them),
+and none of the library kernels the port must not call."""
 
 import re
 import subprocess
@@ -23,10 +23,13 @@ FORBIDDEN_IMPORTS = [
     re.compile(r"^\s*(import|from)\s+(msgpack|safetensors|orbax|soundfile)\b", re.M),
     # at module scope (no indentation): these load only where used
     re.compile(r"^(import|from)\s+(fsspec|wandb|h5py|transformers|huggingface_hub)\b", re.M),
+    # TensorFlow only inside the SavedModel export (the card's machine has none)
+    re.compile(r"^(import|from)\s+tensorflow\b", re.M),
 ]
 # what a fresh interpreter may not hold after importing every module of the port
 ABSENT_AFTER_IMPORT = ("jax", "gsoc_wav2vec2_tpu", "flax", "msgpack", "safetensors", "orbax",
-                       "soundfile", "fsspec", "wandb", "h5py", "transformers", "huggingface_hub")
+                       "soundfile", "fsspec", "wandb", "h5py", "transformers", "huggingface_hub",
+                       "tensorflow")
 
 
 def _sources():
@@ -54,7 +57,7 @@ def test_sources_cover_training():
             "cli/convert.py", "cli/export.py", "export/onnx_proto.py", "export/onnx_numpy.py",
             "export/onnx_export.py", "export/torch_export.py", "utils/profiling.py",
             "parallel/__init__.py", "parallel/mesh.py", "parallel/partition.py",
-            "parallel/multihost.py"} <= names
+            "parallel/multihost.py", "export/savedmodel.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -89,7 +92,8 @@ def test_importing_the_port_loads_no_jax():
             "gsoc_wav2vec2_tpu_torch.export.torch_export",
             "gsoc_wav2vec2_tpu_torch.utils.profiling", "gsoc_wav2vec2_tpu_torch.parallel",
             "gsoc_wav2vec2_tpu_torch.parallel.mesh", "gsoc_wav2vec2_tpu_torch.parallel.partition",
-            "gsoc_wav2vec2_tpu_torch.parallel.multihost"} <= set(mods)
+            "gsoc_wav2vec2_tpu_torch.parallel.multihost",
+            "gsoc_wav2vec2_tpu_torch.export.savedmodel"} <= set(mods)
 
 
 def test_port_calls_no_library_kernels():
@@ -110,3 +114,22 @@ def test_chip_smoke_refuses_without_cuda():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_tensorflow_only_inside_the_saved_model_export():
+    """`export/savedmodel.py` imports tensorflow in `export_saved_model`'s
+    body alone, and the sharded server's modules import neither it nor
+    JAX (the module-scope patterns above cover every file)."""
+    import ast
+
+    src = (PORT / "export" / "savedmodel.py").read_text()
+    found = []
+    for fn in ast.walk(ast.parse(src)):
+        if isinstance(fn, ast.FunctionDef):
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Import) and any(a.name == "tensorflow" for a in node.names):
+                    found.append(fn.name)
+    assert found == ["export_saved_model"]
+    for rel in ("cli/serve.py", "evaluation.py", "parallel/multihost.py"):
+        text = (PORT / rel).read_text()
+        assert not re.search(r"\b(import|from)\s+(tensorflow|jax)\b", text), rel

@@ -4,7 +4,7 @@ batching, bucketed shapes, WAV/JSON payloads, the long-form fallback,
 timestamps, alignment, stream sessions, error paths), with every served
 transcript also held against the JAX evaluator's decode of the same padded
 `(max_batch, bucket)` batch on the same weights.  The JAX file's sharded
-case becomes a test that `--sharded` raises.  One stress test holds the
+case is `tests/test_torch_serve_sharded.py`'s.  One stress test holds the
 server's device lock: no two evaluator calls overlap."""
 
 import dataclasses
@@ -313,8 +313,16 @@ def test_beam_server_rejects_timestamps_and_streams(weights, jax_ev):
 
 
 def test_sharded_and_lm_without_beam_are_refused(model_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 4"):
-        serve.main(["--model_dir", model_dir, "--sharded", "--device", "cpu"])
+    """`--sharded` is ported (tests/test_torch_serve_sharded.py): in one
+    process it no longer raises, and its evaluator is the one-process one
+    (a 1 x 1 mesh, rows not split, no collective); an LM without beam
+    search is refused."""
+    args = serve.parse_args(["--model_dir", model_dir, "--sharded", "--device", "cpu"])
+    assert args.sharded
+    mesh = serve.make_mesh(model=1)
+    ev = serve.load_evaluator(args, mesh)
+    assert not ev.shard_rows and (mesh.data, mesh.model) == (1, 1) and not ev._multiprocess
+    assert len(ev.predict_batch(np.zeros((2, 4000), np.float32))) == 2
     with pytest.raises(SystemExit):
         serve.main(["--model_dir", model_dir, "--lm_path", str(tmp_path / "lm.json"),
                     "--device", "cpu"])
