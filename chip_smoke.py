@@ -17,12 +17,16 @@ Phases, each printing one JSON line:
                 exponentials and the library's kernel names; the CTC
                 kernels (forward; backward = adjoint + per-class sums) at
                 32 x 768 frames, V = 32, labels 50-200, 8 rows short and one
-                infeasible (its loss finite, >= 1e4), at 1 x 5999 frames
-                and at 4 x 400 frames of an 8192-class vocabulary, against
-                `ctc_loss_plain` (loss rtol 1e-5, gradient atol 1e-5, two
-                launches bit-equal), a row of 2049 label positions refused
-                on the card, timed beside `F.ctc_loss`'s forward and its
-                backward alone;
+                infeasible (its loss finite, >= 1e4), at a data-2 rank's 16
+                x 768, at 1 x 5999 frames, at 4 x 400 frames of an
+                8192-class vocabulary and at the widest label row of each
+                kernel instance, against `ctc_loss_plain` (loss rtol 1e-5,
+                gradient atol 1e-5, two launches bit-equal), a row of 2049
+                label positions refused on the card, the kernels' log1p
+                bit-equal to log1pf on [0, 1], timed beside `F.ctc_loss`'s
+                forward and its backward alone (the forward no slower at 16
+                x 768), with the profiler's device ms and the chain bound
+                (frames x one frame's critical path, timed on the card);
   4. main    -- full-width, full-depth base `Wav2Vec2ForCTC` from seeded
                 weights: a bf16 batch through `GreedyCTCEvaluator`, three
                 requests of different lengths, one 40 s clip through
@@ -60,7 +64,8 @@ Phases, each printing one JSON line:
                 utterance of 1,920,000 samples (5999 frames) through
                 `predict_batch` and through a stage-2 step with dropout
                 0.1, each held against the same path through the plain
-                versions on the card;
+                versions on the card; the step's device time by kernel and
+                the CTC kernels' share of it;
   9. pretrain -- `scatter_rows_add` against its plain version at
                 (8, 76800, 256) and (8, 76800, 768) -> 768 rows, f32 and bf16, on
                 indices from `sample_negative_indices` over a `batch_masks`
@@ -1198,19 +1203,78 @@ def ctc_work(log_probs, labels, lengths):
                     lp_bytes + lab_bytes + states * 4 + b * 4 + lp_bytes)  # backward: + gradient
 
 
+def _ctc_wide_case(gen, n: int, t: int = 200):
+    """Two rows at label width n (V = 32): row 0 n/2-n random ids, row 1 n
+    equal ids (they need 2n - 1 frames: infeasible in t = 200)."""
+    dev = torch.device("cuda")
+    log_probs = torch.log_softmax(2.0 * torch.randn(2, t, 32, generator=gen), -1)
+    labels = torch.zeros(2, n, dtype=torch.int64)
+    m = int(torch.randint(n // 2, n + 1, (), generator=gen))
+    labels[0, :m] = torch.randint(1, 32, (m,), generator=gen)
+    labels[1] = 1
+    lengths = torch.tensor([t, int(torch.randint(t // 2, t + 1, (), generator=gen))])
+    return log_probs.to(dev), labels.to(dev), lengths.to(dev)
+
+
+# label widths at the end of each kernel instance: the forward's slots a
+# lane (1 up to 512 positions, 2, 4, then 8 for 2049) and the backward's
+# compile-time single chain warp (256 positions)
+CTC_EDGE_WIDTHS = (255, 511, 1023, 2047, 2048)
+
+
+def _ctc_times(log_probs, labels, lengths):
+    """Device ms a call of the CTC wrappers and of `F.ctc_loss` (forward,
+    and its backward alone) on the same inputs, by CUDA events, and each
+    wrapper's kernels by the profiler."""
+    b = log_probs.shape[0]
+    ones = torch.ones(b, device=log_probs.device)
+    _, states = ctck.ctc_loss_fwd(log_probs, labels, lengths)
+    xl = log_probs.clone().requires_grad_(True)
+    library = lambda: torch.nn.functional.ctc_loss(  # noqa: E731
+        xl.transpose(0, 1), labels, lengths, (labels != 0).sum(1), reduction="none",
+        zero_infinity=True)
+    lib_loss = library().sum()
+    fwd = lambda: ctck.ctc_loss_fwd(log_probs, labels, lengths)  # noqa: E731
+    bwd = lambda: ctck.ctc_loss_bwd(log_probs, labels, lengths, states, ones)  # noqa: E731
+    iters = 20 if log_probs.shape[1] < 2000 else 3
+    out = {"fwd": time_ms(fwd, iters), "bwd": time_ms(bwd, iters),
+           "library_fwd": time_ms(library, iters),
+           "library_bwd": time_ms(lambda: torch.autograd.grad(lib_loss, xl, retain_graph=True),
+                                  iters)}
+    for which, fn in (("fwd", fwd), ("bwd", bwd)):
+        prof = profile_device(fn, 5, "call", top=8)
+        out[f"{which}_device_ms"] = prof["device_busy_ms_per_call"]
+        out[f"{which}_kernels_ms"] = {k["kernel"][:60]: k["ms"] for k in prof["top"]}
+    return out
+
+
 def check_ctc_kernels(records):
     """Phase 3: the CTC kernels at the recipe's 32 x 768 frames (V = 32,
-    labels 50-200, 8 rows short, one infeasible), at 1 x 5999 frames and at
-    a subword vocabulary (4 x 400 frames, V = 8192), against
+    labels 50-200, 8 rows short, one infeasible), a data-2 rank's 16 x 768,
+    1 x 5999 frames, a subword vocabulary (4 x 400 frames, V = 8192) and the
+    widest label row of each kernel instance (`CTC_EDGE_WIDTHS`), against
     `ctc_loss_plain`; more than `MAX_LABELS` label positions must raise;
-    times beside `F.ctc_loss` (forward, and its backward alone)."""
+    the kernels' log1p against the math library's over every float in
+    [0, 1]; times beside `F.ctc_loss` (forward, and its backward alone),
+    the profiler's device ms, and the chain bound (the longest row's frames
+    times one frame's critical path, timed on the card)."""
     gen = torch.Generator().manual_seed(77)
+    mismatches = ctck.log1p_mismatches()
+    require(mismatches == 0, f"ctc: the kernels' log1p differs from log1pf on {mismatches} floats")
     log_probs, labels, lengths = _ctc_case(gen, TRAIN_B, CTC_T, 32, 8, True)
     check = ctc_errors(log_probs, labels, lengths, True, f"{TRAIN_B} x {CTC_T}")
+    rank_case = _ctc_case(gen, TRAIN_B // 2, CTC_T, 32, 4, True)
+    rank_check = ctc_errors(*rank_case, True, f"{TRAIN_B // 2} x {CTC_T}")
     long_lp, long_labels, long_lengths = _ctc_case(gen, 1, CTC_LONG_T, 32, 0, False)
     long_check = ctc_errors(long_lp, long_labels, long_lengths, False, f"1 x {CTC_LONG_T}")
     vocab_case = _ctc_case(gen, 4, 400, CTC_WIDE_V, 2, False)
     vocab_check = ctc_errors(*vocab_case, False, f"V = {CTC_WIDE_V}")
+    edges = []
+    for n in CTC_EDGE_WIDTHS:
+        p = ctck.plan(n, 32)
+        edges.append({"labels": n, "fwd_lane_slots": p.fwd_lane_slots, "fwd_warps": p.fwd_warps,
+                      "bwd_warps": p.bwd_warps,
+                      **ctc_errors(*_ctc_wide_case(gen, n), True, f"label width {n}")})
     wide = torch.zeros(1, ctck.MAX_LABELS + 1, dtype=torch.int64, device=log_probs.device)
     try:
         ctc_loss_fn(log_probs[:1], wide, lengths[:1], 0)
@@ -1218,59 +1282,57 @@ def check_ctc_kernels(records):
     except ValueError:
         refused = True
     require(refused, f"ctc: {ctck.MAX_LABELS + 1} label positions did not raise on the card")
-    del vocab_case
 
     ones = torch.ones(TRAIN_B, device=log_probs.device)
     _, states = ctck.ctc_loss_fwd(log_probs, labels, lengths)
     x = log_probs.clone().requires_grad_(True)
     plain_loss = ctck.ctc_loss_plain(x, labels, lengths).sum()
-    label_lengths = (labels != 0).sum(1)
-    xl = log_probs.clone().requires_grad_(True)
-    library = lambda: torch.nn.functional.ctc_loss(  # noqa: E731
-        xl.transpose(0, 1), labels, lengths, label_lengths, reduction="none", zero_infinity=True)
-    lib_loss = library().sum()
     n_states, (fwd_bytes, bwd_bytes) = ctc_work(log_probs, labels, lengths)
     # a log-add-exp is ~7 f32 operations and 2 SFU results (exp, log1p): the
     # forward does 3 a state and frame, the backward recomputes them and takes
     # 6 more exponentials and ~12 products and sums
     fwd_ops, bwd_ops = 21 * n_states, 39 * n_states
     chain = int(lengths.max())
-    times = {
-        "fwd": time_ms(lambda: ctck.ctc_loss_fwd(log_probs, labels, lengths), 20),
-        "bwd": time_ms(lambda: ctck.ctc_loss_bwd(log_probs, labels, lengths, states, ones), 20),
-        "plain_fwd": time_ms(lambda: ctck.ctc_loss_plain(log_probs, labels, lengths), 2, 1),
-        "plain_bwd": time_ms(lambda: torch.autograd.grad(plain_loss, x, retain_graph=True), 2, 1),
-        "library_fwd": time_ms(library, 20),
-        "library_bwd": time_ms(lambda: torch.autograd.grad(lib_loss, xl, retain_graph=True), 20),
-    }
-    _, long_states = ctck.ctc_loss_fwd(long_lp, long_labels, long_lengths)
-    long_ones = torch.ones(1, device=long_lp.device)
-    long_times = {
-        "fwd_ms": time_ms(lambda: ctck.ctc_loss_fwd(long_lp, long_labels, long_lengths), 3),
-        "bwd_ms": time_ms(lambda: ctck.ctc_loss_bwd(long_lp, long_labels, long_lengths,
-                                                    long_states, long_ones), 3),
-    }
+    step_ms = {"fwd": ctck.chain_step_ms(False), "bwd": ctck.chain_step_ms(True)}
+    times = _ctc_times(log_probs, labels, lengths)
+    times["plain_fwd"] = time_ms(lambda: ctck.ctc_loss_plain(log_probs, labels, lengths), 2, 1)
+    times["plain_bwd"] = time_ms(lambda: torch.autograd.grad(plain_loss, x, retain_graph=True), 2, 1)
+    rank_times = _ctc_times(*rank_case)
+    require(rank_times["fwd"] <= rank_times["library_fwd"] * 1.05,
+            f"ctc {TRAIN_B // 2} x {CTC_T}: the forward {rank_times['fwd']} ms against F.ctc_loss's "
+            f"{rank_times['library_fwd']}")
+    long_times = _ctc_times(long_lp, long_labels, long_lengths)
+    p = ctck.plan(labels.shape[1], 32)
     shape = [TRAIN_B, CTC_T, 32, labels.shape[1]]
     common = dict(route="cuda", source=CSRC + "ctc.cu", paths=CTC_PATHS,
                   replaces="gsoc_wav2vec2_tpu/ops/ctc.py:52 (optax.ctc_loss, no Pallas kernel)",
                   shape=shape, states_touched=n_states, chain_frames=chain, **check,
                   max_abs_err=check["grad_max_abs_err"], tol={"loss_rtol": 1e-5, "grad_atol": 1e-5},
+                  plan={"fwd_lane_slots": p.fwd_lane_slots, "fwd_warps": p.fwd_warps,
+                        "bulk": p.bulk, "bwd_warps": p.bwd_warps, "coef_groups": p.coef_groups},
+                  chain_step_ms=step_ms, log1p_mismatches=mismatches,
+                  rank={"shape": [TRAIN_B // 2, CTC_T, 32, 200], **rank_check, **rank_times},
                   long={"shape": [1, CTC_LONG_T, 32, long_labels.shape[1]], **long_check,
-                        **long_times},
+                        **long_times,
+                        "chain_bound_ms": {k: CTC_LONG_T * v for k, v in step_ms.items()}},
                   wide_vocab={"shape": [4, 400, CTC_WIDE_V, 200], **vocab_check},
-                  wide_labels_refused=refused,
+                  instance_edges=edges, wide_labels_refused=refused,
                   library="F.ctc_loss (zero_infinity), forward and its backward alone")
+    del vocab_case, rank_case
     for which, nbytes, ops, n_exp in (("fwd", fwd_bytes, fwd_ops, 6 * n_states),
                                       ("bwd", bwd_bytes, bwd_ops, 12 * n_states)):
         bms, by = bound(nbytes, ops, PEAK_F32)
+        chain_ms = chain * step_ms[which]
         records.append(dict(
             name=f"ctc_loss_{which}", counter=f"ctc_loss_{which}", ms=times[which],
             plain_ms=times[f"plain_{which}"], library_ms=times[f"library_{which}"],
             bound_ms=bms, bound_by=by, exp_bound_ms=exp_bound_ms(n_exp),
+            device_ms=times[f"{which}_device_ms"], kernels_ms=times[f"{which}_kernels_ms"],
+            chain_bound_ms=chain_ms, chain_share=chain_ms / times[which],
             ms_per_frame=times[which] / chain, **common))
     records[-1]["fwd_bwd_ms"] = times["fwd"] + times["bwd"]
     records[-1]["library_fwd_bwd_ms"] = times["library_fwd"] + times["library_bwd"]
-    del states, long_states, x, plain_loss, xl, lib_loss
+    del states, x, plain_loss
     torch.cuda.empty_cache()
 
 
@@ -1650,8 +1712,12 @@ def long_phases(smi: str):
           "first_step_ms": times[0], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "kernel_path_loss": card_loss, "plain_path_loss": plain_loss, "loss_rel_diff": rel,
           "grad_cosine_vs_plain_path": cos, "grad_rel_err_vs_plain_path": rel_grad, "card": smi})
-    emit({"phase": "long_train_profile", "card": smi,
-          **profile_device(lambda: step(st, batch, gen), 1, "stage2_step", top=25)})
+    prof = profile_device(lambda: step(st, batch, gen), 1, "stage2_step", top=10_000)
+    ctc_ms = sum(k["ms"] for k in prof["top"] if "ctc_" in k["kernel"])
+    prof["top"] = prof["top"][:25]
+    emit({"phase": "long_train_profile", "card": smi, **prof, "ctc_kernels_ms": ctc_ms,
+          "ctc_share_of_device_busy": ctc_ms / prof["device_busy_ms_per_stage2_step"],
+          "ctc_share_of_wall": ctc_ms / prof["wall_ms_per_stage2_step"]})
     return {"long_inference": launches, "long_train": train}
 
 

@@ -1,6 +1,6 @@
 """Times the port's hand-written kernels on one NVIDIA GPU.
 
-    python3 flash_bench.py [--family flash|conv|pos_conv|scatter|forward] [--root DIR] [--label NAME]
+    python3 flash_bench.py [--family flash|conv|pos_conv|scatter|ctc|forward] [--root DIR] [--label NAME]
 
 `--family flash` (the default): at each shape of the main paths (base
 inference, base training, robust, long), the forward and the backward
@@ -27,6 +27,17 @@ samples) and K = 128 taps: base (C = 768, 16 groups) `pos_conv` at B=16 and
 recipe's (8, 768 x 100, D) -> 768 rows, D = 256 and 768, f32 and bf16, on
 the indices the package's negative sampler gives a ragged masked batch (row
 0 hot) and on uniform indices, with the device ms of each kernel of the call.
+
+`--family ctc`: the CTC wrappers of
+`gsoc_wav2vec2_tpu_torch.ops.kernels.ctc` (forward; backward = the adjoint
+and the per-class sums) at the recipe's 32 x 768 frames, a data-2 rank's 16
+x 768 (V = 32, labels 50-200, pad 0, a quarter of the rows cut to 400-768
+frames), the long cell's 1 x 5999 and a subword vocabulary's 4 x 400 at
+V = 8192; beside them `F.ctc_loss`'s forward and its backward alone
+(`zero_infinity`, a yardstick the port never calls), each call's kernels
+by the profiler; and, where the tree has it, the chain bound: the longest
+row's frames times one frame's critical path timed on the card
+(`chain_step_ms`), and the kernels' registers and spills.
 
 `--family forward`: the base model's bf16 forward (`Wav2Vec2Config()`, seeded
 weights) at B=16 x 246000: ms per forward (host clock around a forward that
@@ -232,6 +243,58 @@ def bench_scatter(torch, label):
             torch.cuda.empty_cache()
 
 
+def bench_ctc(torch, label):
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import ctc as ck
+
+    gen = torch.Generator().manual_seed(0)
+    for b, t, v in ((32, 768, 32), (16, 768, 32), (1, 5999, 32), (4, 400, 8192)):
+        log_probs = torch.log_softmax(2.0 * torch.randn(b, t, v, generator=gen), -1).cuda()
+        labels = torch.zeros(b, 200, dtype=torch.int64)
+        lengths = torch.full((b,), t, dtype=torch.int64)
+        for i in range(b):
+            n = int(torch.randint(50, 201, (), generator=gen))
+            labels[i, :n] = torch.randint(1, v, (n,), generator=gen)
+            if i >= b - b // 4:
+                lengths[i] = int(torch.randint(400, t + 1, (), generator=gen))
+        labels, lengths = labels.cuda(), lengths.cuda()
+        _, states = ck.ctc_loss_fwd(log_probs, labels, lengths)
+        ones = torch.ones(b, device="cuda")
+        xl = log_probs.clone().requires_grad_(True)
+        label_lengths = (labels != 0).sum(1)
+        library = lambda: torch.nn.functional.ctc_loss(  # noqa: E731
+            xl.transpose(0, 1), labels, lengths, label_lengths, reduction="none",
+            zero_infinity=True)
+        lib_loss = library().sum()
+        fns = {
+            "fwd": lambda: ck.ctc_loss_fwd(log_probs, labels, lengths),
+            "bwd": lambda: ck.ctc_loss_bwd(log_probs, labels, lengths, states, ones),
+            "library_fwd": library,
+            "library_bwd": lambda: torch.autograd.grad(lib_loss, xl, retain_graph=True),
+        }
+        row = {"label": label, "kernel": "ctc", "shape": [b, t, v, 200],
+               "frames": int(lengths.max())}
+        for name, fn in fns.items():
+            row[name + "_ms"] = events_ms(torch, fn, 20)
+            rows = profiled_rows(torch, fn, 5)
+            row[name + "_device_ms"] = sum(e.self_device_time_total for e in rows) / 5e3
+            row[name + "_kernels"] = {e.key[:48]: e.self_device_time_total / 5e3 for e in rows}
+        row["fwd_bwd_ms"] = row["fwd_ms"] + row["bwd_ms"]
+        row["library_fwd_bwd_ms"] = row["library_fwd_ms"] + row["library_bwd_ms"]
+        if hasattr(ck, "chain_step_ms"):
+            row["chain_bound_fwd_ms"] = row["frames"] * ck.chain_step_ms(False)
+            row["chain_bound_bwd_ms"] = row["frames"] * ck.chain_step_ms(True)
+        print(json.dumps(row), flush=True)
+        del log_probs, states, xl, lib_loss
+        torch.cuda.empty_cache()
+    if hasattr(ck, "plan"):  # the instances' registers and spills (-Xptxas -v)
+        from gsoc_wav2vec2_tpu_torch.ops.kernels import _build
+
+        report = _build.ptxas_report()
+        report = report[report.index("== ctc.cu"):].split("\n== ")[0]
+        print(json.dumps({"label": label, "kernel": "ctc", "ptxas": report.splitlines()[1:]}),
+              flush=True)
+
+
 def bench_forward(torch, label):
     import statistics
 
@@ -266,7 +329,7 @@ def bench_forward(torch, label):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--family", choices=("flash", "conv", "pos_conv", "scatter", "forward"),
+    ap.add_argument("--family", choices=("flash", "conv", "pos_conv", "scatter", "ctc", "forward"),
                     default="flash")
     ap.add_argument("--root", default=".", help="checkout to import the package from")
     ap.add_argument("--label", default="this tree")
@@ -280,7 +343,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     {"flash": bench_flash, "conv": bench_conv, "pos_conv": bench_pos_conv,
-     "scatter": bench_scatter, "forward": bench_forward}[args.family](torch, args.label)
+     "scatter": bench_scatter, "ctc": bench_ctc, "forward": bench_forward}[args.family](torch, args.label)
     print(smi, flush=True)
     return 0
 

@@ -71,11 +71,16 @@ SIGNATURES = {
     # dneg, idx, order, start, off, ticket, work, part, meta, out,
     # B, N, D, ld, L, shares, bf16, stream
     "w2v2_scatter_rows_add": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    # log_probs, labels, lengths, states, loss, B, T, V, N, pad, stream
-    "w2v2_ctc_fwd": [P, P, P, P, P, I, I, I, I, I, P],
-    # log_probs, labels, lengths, states, gloss, dl, order, offsets, grad,
-    # B, T, V, N, pad, stream
-    "w2v2_ctc_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # log_probs, labels, lengths, states, loss, B, T, V, N, pad,
+    # the plan's P, W, F, R, Ro, stride, bulk, stream
+    "w2v2_ctc_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P],
+    # log_probs, labels, lengths, states, gloss, dl, order, offsets, blank,
+    # grad, B, T, V, N, pad, the plan's W, G, D, F, Ro, stream
+    "w2v2_ctc_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    # in, out, iters, backward, stream
+    "w2v2_ctc_chain_probe": [P, P, I, I, P],
+    # bad, stream
+    "w2v2_ctc_log1p_check": [P, P],
 }
 
 

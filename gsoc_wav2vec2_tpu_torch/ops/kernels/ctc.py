@@ -32,18 +32,28 @@ states, so that feasible and infeasible rows get optax's autodiff alike.
 The cotangent of lp[t, v] is the sum over the states whose label is v
 (blank: every phi state), taken in state order.
 
-The kernels: `ctc_fwd_kernel` and `ctc_bwd_kernel`, one block per batch row,
-a thread per label position, the frames a loop with one barrier each; then
-`ctc_grad_kernel`, one thread per (row, frame, class), which adds its
-states' cotangents in state order (`ctc_bwd_kernel` lists each row's
-positions by class, for any number of classes).  No float atomics: two
-launches on the same inputs are bit-equal.  The kernels take up to
-`MAX_LABELS` label positions a row; on the card a wider label tensor
+The kernels (`csrc/ctc.cu`, whose header says what bounds them):
+`ctc_fwd_kernel<P>`, one block a row, the row's positions in W chain warps
+of P slots a lane (no block-wide barrier a frame; the neighbour's value by
+shuffle, between warps through shared memory and a barrier of the row's
+warps), a producer warp that keeps the log-probs chunks of frames ahead in
+an mbarrier ring, a storer warp that takes the states out;
+`ctc_bwd_kernel<W>`, coefficient warps that compute each (frame,
+position)'s exponentials from the saved states ahead of the chain warps
+running the adjoint's linear recursion, a storer warp for the per-state
+cotangents and the blank's sums, and the row's positions sorted by class;
+then `ctc_grad_kernel`, one thread a (row, frame, class), which adds its
+cotangents in state order.  `plan` is the host's choice of instance, warps,
+ring depths and shared memory for a label width and a vocabulary.  No float
+atomics: two launches on the same inputs are bit-equal.  The kernels take
+up to `MAX_LABELS` label positions a row; on the card a wider label tensor
 raises (`supports`), it never falls back to the plain loop.
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -225,6 +235,123 @@ def supports(num_labels: int, num_classes: int, pad_id: int) -> bool:
     return 0 <= num_labels <= MAX_LABELS and 0 <= pad_id < num_classes
 
 
+# The plan's constants; `csrc/ctc.cu` checks what it is given against the
+# same limits.
+SMEM_LIMIT = 232448   # bytes of shared memory a block may use (H100)
+MAX_THREADS = 576     # the kernels' __launch_bounds__
+MAX_CHAIN_WARPS = 16
+FWD_STAGES = 4        # log-prob chunks in flight (the producer's ring)
+OUT_STAGES = 2        # staged chunks of states or cotangents (the storer's ring)
+MAX_CHUNK = 16        # frames a chunk
+FWD_BUDGET = 96 * 1024    # the forward's two rings, bytes
+COEF_WARPS = {1: 12}  # coefficient warps of the backward by chain warps (else 6)
+BWD_LANE_SLOTS = 8
+COEF_BUDGET = 150 * 1024  # the backward's ring of coefficient frames, bytes
+STAGE_BUDGET = 32 * 1024  # the backward's staged cotangents, bytes
+SORT_BYTES = 8 * MAX_LABELS  # the backward's sort keys
+
+
+def _align16(nbytes: int) -> int:
+    return (nbytes + 15) & ~15
+
+
+def fwd_smem_bytes(lane_slots, warps, num_labels, frames, stages, out_stages, stride) -> int:
+    """Shared memory of a forward block (`fwd_layout` in `csrc/ctc.cu`):
+    mbarriers, the labels, the warps' edge values, the log-prob ring, the
+    staged states."""
+    slots = 32 * lane_slots * warps
+    return (_align16(8 * (2 * stages + 2 * out_stages)) + _align16(4 * num_labels)
+            + _align16(4 * (2 * warps * lane_slots + 1)) + _align16(4 * stages * frames * stride)
+            + 4 * out_stages * frames * 2 * slots)
+
+
+def bwd_smem_bytes(warps, num_labels, coef_frames, frames, out_stages) -> int:
+    """Shared memory of a backward block (`bwd_layout` in `csrc/ctc.cu`):
+    mbarriers, each position's class and repeat rule, the edge values, the sort keys, the ring of
+    coefficient frames (6 a position), the staged cotangents."""
+    slots = 32 * BWD_LANE_SLOTS * warps
+    return (_align16(8 * (2 * coef_frames + 2 * out_stages)) + _align16(4 * (num_labels + 1))
+            + _align16(4 * 2 * warps * BWD_LANE_SLOTS) + SORT_BYTES
+            + 4 * coef_frames * 6 * slots + 4 * out_stages * frames * 2 * slots)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """What the wrappers launch for N label positions and V classes.
+
+    Forward: `fwd_lane_slots` (the instance, P) slots a lane in `fwd_warps`
+    chain warps, chunks of `frames` frames, `stages` log-prob chunks of
+    `stride` floats a frame (`bulk`: a chunk's V classes copied whole; else
+    the row's L classes and the blank gathered, blank at 32 P W), states
+    staged `out_stages` chunks deep.  Backward: 8 slots a lane in
+    `bwd_warps` chain warps, the coefficient warps (`coef_warps`) in
+    `coef_groups` groups that take frames in turn, a ring of `coef_frames` frames of
+    coefficients, cotangents staged in chunks of `bwd_frames`."""
+
+    fwd_lane_slots: int
+    fwd_warps: int
+    frames: int
+    stages: int
+    out_stages: int
+    stride: int
+    bulk: bool
+    fwd_smem: int
+    bwd_warps: int
+    coef_groups: int
+    coef_frames: int
+    bwd_frames: int
+    bwd_smem: int
+
+    @property
+    def fwd_threads(self) -> int:
+        return 32 * (self.fwd_warps + 2)
+
+    @property
+    def coef_warps(self) -> int:
+        return COEF_WARPS.get(self.bwd_warps, 6)
+
+    @property
+    def bwd_threads(self) -> int:
+        # W = 1: the chain warp and the storer alone on sub-partition 0 (with
+        # two warps that leave after the sort), 12 coefficient warps on 1-3
+        return 32 * (16 if self.bwd_warps == 1 else self.bwd_warps + 1 + self.coef_warps)
+
+
+def fwd_lane_slots(num_labels: int) -> int:
+    """The forward's instance for N label positions: the slots a lane.  A
+    frame's latency is two dependent log-add-exps whatever P is, but the
+    compiler issues a lane's P slots mostly one after another, while the
+    card interleaves warps for free: so one slot a lane while 16 warps hold
+    the row (512 positions), then 2, 4, and 8 for 2049."""
+    positions = num_labels + 1
+    return 1 if positions <= 512 else 2 if positions <= 1024 else 4 if positions <= 2048 else 8
+
+
+@functools.lru_cache(maxsize=None)
+def plan(num_labels: int, num_classes: int, aligned: bool = True) -> Plan:
+    """The kernels' plan for a label tensor of width N and V classes
+    (`aligned`: the log-probs start on 16 bytes, so a chunk may be copied
+    whole)."""
+    lane_slots = fwd_lane_slots(num_labels)
+    warps = -(-(num_labels + 1) // (32 * lane_slots))
+    slots = 32 * lane_slots * warps
+    bulk = aligned and num_classes % 4 == 0 and num_classes <= slots + 1
+    stride = num_classes if bulk else slots + 1
+    per_frame = 4 * (FWD_STAGES * stride + OUT_STAGES * 2 * slots)
+    frames = max(1, min(MAX_CHUNK, FWD_BUDGET // per_frame))
+    bwd_warps = -(-(num_labels + 1) // (32 * BWD_LANE_SLOTS))
+    bwd_slots = 32 * BWD_LANE_SLOTS * bwd_warps
+    coef_warps = COEF_WARPS.get(bwd_warps, 6)
+    groups = next(g for g in range(coef_warps, 0, -1)
+                  if coef_warps % g == 0 and (g == 1 or 2 * g * 24 * bwd_slots <= COEF_BUDGET))
+    bwd_frames = max(1, min(MAX_CHUNK, STAGE_BUDGET // (OUT_STAGES * 2 * 4 * bwd_slots)))
+    return Plan(lane_slots, warps, frames, FWD_STAGES, OUT_STAGES, stride, bulk,
+                fwd_smem_bytes(lane_slots, warps, num_labels, frames, FWD_STAGES, OUT_STAGES,
+                               stride),
+                bwd_warps, groups, 2 * groups, bwd_frames,
+                bwd_smem_bytes(bwd_warps, num_labels, 2 * groups, bwd_frames, OUT_STAGES))
+
+
 def _kernel_inputs(name, log_probs, labels, logit_lengths, pad_id):
     _check(log_probs, labels, logit_lengths, pad_id)
     b, t, v = log_probs.shape
@@ -237,6 +364,18 @@ def _kernel_inputs(name, log_probs, labels, logit_lengths, pad_id):
     dev = log_probs.device
     return (log_probs.contiguous(), labels.to(dev, torch.int32).contiguous(),
             logit_lengths.to(dev, torch.int32).contiguous())
+
+
+def _plan_for(lp: torch.Tensor, num_labels: int) -> Plan:
+    return plan(num_labels, lp.shape[2], lp.data_ptr() % 16 == 0)
+
+
+def _launch_fwd(lp, lab, lengths, states, loss, pad_id, p: Plan) -> None:
+    b, t, v = lp.shape
+    _build.check("ctc_loss_fwd", _build.library().w2v2_ctc_fwd(
+        lp.data_ptr(), lab.data_ptr(), lengths.data_ptr(), states.data_ptr(), loss.data_ptr(),
+        b, t, v, lab.shape[1], pad_id, p.fwd_lane_slots, p.fwd_warps, p.frames, p.stages,
+        p.out_stages, p.stride, int(p.bulk), _build.stream_of(lp)))
 
 
 def ctc_loss_fwd(log_probs, labels, logit_lengths, pad_id: int = 0):
@@ -252,9 +391,7 @@ def ctc_loss_fwd(log_probs, labels, logit_lengths, pad_id: int = 0):
     loss = torch.empty((b,), dtype=torch.float32, device=lp.device)
     if b == 0:
         return loss, states
-    _build.check("ctc_loss_fwd", _build.library().w2v2_ctc_fwd(
-        lp.data_ptr(), lab.data_ptr(), lengths.data_ptr(), states.data_ptr(), loss.data_ptr(),
-        b, t, v, n, pad_id, _build.stream_of(lp)))
+    _launch_fwd(lp, lab, lengths, states, loss, pad_id, _plan_for(lp, n))
     ctc_loss_fwd.launches += 1
     return loss, states
 
@@ -277,18 +414,55 @@ def ctc_loss_bwd(log_probs, labels, logit_lengths, states, grad_loss, pad_id: in
     dl = torch.empty_like(states)                 # each state's cotangent a frame
     order = torch.empty((b, n), dtype=torch.int32, device=dev)       # positions by class
     offsets = torch.empty((b, v + 1), dtype=torch.int32, device=dev)
+    blank = torch.empty((b, t), dtype=torch.float32, device=dev)    # the blank's sum a frame
     grad = torch.empty_like(lp)
     if b == 0:
         return grad
+    p = _plan_for(lp, n)
     _build.check("ctc_loss_bwd", _build.library().w2v2_ctc_bwd(
         lp.data_ptr(), lab.data_ptr(), lengths.data_ptr(), states.contiguous().data_ptr(),
-        g.data_ptr(), dl.data_ptr(), order.data_ptr(), offsets.data_ptr(), grad.data_ptr(),
-        b, t, v, n, pad_id, _build.stream_of(lp)))
+        g.data_ptr(), dl.data_ptr(), order.data_ptr(), offsets.data_ptr(), blank.data_ptr(),
+        grad.data_ptr(), b, t, v, n, pad_id, p.bwd_warps, p.coef_groups, p.coef_frames,
+        p.bwd_frames, p.out_stages, _build.stream_of(lp)))
     ctc_loss_bwd.launches += 1
     return grad
 
 
 ctc_loss_bwd.launches = 0
+
+
+def chain_step_ms(backward: bool, iters: int = 20000) -> float:
+    """Device ms of one step of a frame's critical path on the card (the
+    forward's: a shuffle, an add, a log-add-exp, an add, a log-add-exp; the
+    backward's: a mul, an add, a mul, an add, a shuffle, an add), `iters`
+    dependent steps in one warp timed by CUDA events: the chain bound of a
+    row is its frames times this."""
+    dev = torch.device("cuda")
+    x = torch.linspace(-3.0, -1.0, 128, device=dev)
+    out = torch.empty(32, device=dev)
+    lib = _build.library()
+
+    def run(n):
+        _build.check("ctc_chain_probe", lib.w2v2_ctc_chain_probe(
+            x.data_ptr(), out.data_ptr(), n, int(backward), _build.stream_of(x)))
+
+    run(iters)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(iters)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def log1p_mismatches() -> int:
+    """The floats in [0, 1] where the kernels' branch-free log1p and the
+    CUDA math library's `log1pf` differ in any bit (0: the kernels compute
+    the plain version's log-add-exp exactly), counted on the card."""
+    bad = torch.zeros(1, dtype=torch.int32, device="cuda")
+    _build.check("ctc_log1p_check", _build.library().w2v2_ctc_log1p_check(
+        bad.data_ptr(), _build.stream_of(bad)))
+    return int(bad.item())
 
 
 class CTCLoss(torch.autograd.Function):

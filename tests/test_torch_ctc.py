@@ -180,3 +180,91 @@ def test_ctc_supports():
     assert not ctc_kernel.supports(ctc_kernel.MAX_LABELS + 1, 32, 0)
     assert not ctc_kernel.supports(16, 32, 32)
     assert ctc_kernel.supports(16, 50000, 0) and ctc_kernel.supports(0, 32, 0)
+
+
+def _owners(lane_slots, warps):
+    """(warp, lane, slot, position) of every chain slot of the kernels'
+    layout (`csrc/ctc.cu`): lane l of warp w owns positions
+    slot * 32 W + 32 w + l."""
+    for w in range(warps):
+        for lane in range(32):
+            for i in range(lane_slots):
+                yield w, lane, i, i * 32 * warps + 32 * w + lane
+
+
+def _source_is(owner_of, lane_slots, warps, step):
+    """Every chain slot's neighbour (n - 1 for the forward's emit value,
+    n + 1 for the backward's adjoint) is where the kernels take it from:
+    lane l -/+ 1 of the same warp and slot, else lane 31 / 0 of the warp
+    before / after, else that of the last / first warp in the slot before /
+    after (`csrc/ctc.cu`)."""
+    for w, lane, i, n in _owners(lane_slots, warps):
+        if step < 0:
+            src = ((w, lane - 1, i) if lane else (w - 1, 31, i) if w else
+                   (warps - 1, 31, i - 1) if i else None)
+        else:
+            src = ((w, lane + 1, i) if lane < 31 else (w + 1, 0, i) if w + 1 < warps else
+                   (0, 0, i + 1) if i + 1 < lane_slots else None)
+        if src is None:
+            assert n == (0 if step < 0 else 32 * lane_slots * warps - 1)
+        else:
+            assert owner_of[src] == n + step
+
+
+@pytest.mark.parametrize("vocab", [32, 8192, 50])
+def test_ctc_plan_covers_every_label_width(vocab):
+    """The host's plan for every label width N = 0..MAX_LABELS: each of the
+    positions 0..N owned by exactly one chain slot in the forward's and the
+    backward's layouts (the slots a bijection onto 0..32 P W - 1, each
+    neighbour where the kernels read it); an instance that is compiled; the
+    blocks within the kernels' thread and shared-memory limits; the rings
+    and staging large enough for a chunk (a bulk chunk of V classes, or the
+    L gathered classes and the blank; 2L + 1 staged words a frame; a frame
+    of coefficients for each coefficient group twice)."""
+    k = ctc_kernel
+    checked = set()
+    for n in range(k.MAX_LABELS + 1):
+        p = k.plan(n, vocab)
+        assert p.fwd_lane_slots in (1, 2, 4, 8) and p.fwd_lane_slots == k.fwd_lane_slots(n)
+        for slots_a_lane, warps in ((p.fwd_lane_slots, p.fwd_warps),
+                                    (k.BWD_LANE_SLOTS, p.bwd_warps)):
+            slots = 32 * slots_a_lane * warps
+            assert slots >= n + 1 and slots - 32 * slots_a_lane < n + 1  # as few warps as N needs
+            assert 2 * n + 1 <= 2 * slots                                  # the staged words
+            if (slots_a_lane, warps) not in checked:
+                checked.add((slots_a_lane, warps))
+                owner_of = {(w, lane, i): q for w, lane, i, q in _owners(slots_a_lane, warps)}
+                assert sorted(owner_of.values()) == list(range(slots))
+                _source_is(owner_of, slots_a_lane, warps, -1)
+                _source_is(owner_of, slots_a_lane, warps, +1)
+        fwd_slots = 32 * p.fwd_lane_slots * p.fwd_warps
+        assert p.fwd_warps <= k.MAX_CHAIN_WARPS
+        assert p.fwd_threads <= k.MAX_THREADS and p.bwd_threads <= k.MAX_THREADS
+        assert p.bulk == (vocab % 4 == 0 and vocab <= fwd_slots + 1)
+        assert p.stride >= (vocab if p.bulk else fwd_slots + 1)
+        assert 1 <= p.frames <= k.MAX_CHUNK and 1 <= p.bwd_frames <= k.MAX_CHUNK
+        assert p.stages >= 2 and p.out_stages >= 2
+        assert p.coef_warps % p.coef_groups == 0 and p.coef_frames == 2 * p.coef_groups
+        assert p.fwd_smem == k.fwd_smem_bytes(p.fwd_lane_slots, p.fwd_warps, n, p.frames, p.stages,
+                                              p.out_stages, p.stride)
+        assert p.bwd_smem == k.bwd_smem_bytes(p.bwd_warps, n, p.coef_frames, p.bwd_frames,
+                                              p.out_stages)
+        ring = 4 * p.stages * p.frames * p.stride
+        stage = 4 * p.out_stages * p.frames * 2 * fwd_slots
+        assert ring + stage + 4 * n <= p.fwd_smem <= k.SMEM_LIMIT
+        bwd_slots = 32 * k.BWD_LANE_SLOTS * p.bwd_warps
+        coef = 4 * p.coef_frames * 6 * bwd_slots
+        assert coef + k.SORT_BYTES + 4 * n <= p.bwd_smem <= k.SMEM_LIMIT
+    assert not k.supports(k.MAX_LABELS + 1, vocab, 0)
+
+
+def test_ctc_plan_of_the_recipe():
+    """The recipe's 200 labels at V = 32: one slot a lane in 7 forward chain
+    warps, the log-probs copied whole; one backward chain warp (the W = 1
+    instance) with 12 coefficient warps, each a group of its own; an
+    unaligned tensor gathers."""
+    p = ctc_kernel.plan(200, 32)
+    assert (p.fwd_lane_slots, p.fwd_warps, p.bulk, p.stride) == (1, 7, True, 32)
+    assert (p.bwd_warps, p.coef_warps, p.coef_groups, p.bwd_threads) == (1, 12, 12, 512)
+    q = ctc_kernel.plan(200, 32, aligned=False)
+    assert (q.bulk, q.stride) == (False, 225)

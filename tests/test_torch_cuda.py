@@ -1024,7 +1024,9 @@ def _ctc_case(cuda, b, t, v, n, seed):
         labels[i, :m] = torch.randint(1, 4 if i % 2 else v, (m,), generator=g)  # odd rows repeat
     lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
     lengths[0] = t
-    labels[-1], lengths[-1] = 1, n  # n equal labels need 2n - 1 frames: infeasible
+    # n equal labels need 2n - 1 frames: infeasible in n (one label fits one
+    # frame, so at width 1 the row gets none)
+    labels[-1], lengths[-1] = 1, n if n > 1 else 0
     return log_probs, labels.to(cuda), lengths.to(cuda)
 
 
@@ -1037,12 +1039,21 @@ def _ctc_run(fn, log_probs, labels, lengths):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,v,n", [(4, 120, 32, 30), (3, 777, 32, 200), (1, 2000, 8, 900),
-                                     (3, 90, 8192, 40)])
+@pytest.mark.parametrize("b,t,v,n", [
+    (4, 120, 32, 30), (3, 777, 32, 200), (1, 2000, 8, 900), (3, 90, 8192, 40),
+    # each kernel instance's edges: label widths 1 and 31-33 (one warp of one
+    # slot a lane), 255 / 256 (the backward's single chain warp), 511 / 512,
+    # 1023 / 1024, 2047 / 2048 (the forward's 1, 2, 4, 8 slots a lane)
+    (2, 40, 32, 1), (2, 100, 32, 31), (2, 100, 32, 32), (2, 100, 32, 33), (2, 300, 32, 255),
+    (2, 300, 32, 256), (2, 300, 32, 511), (2, 300, 32, 512), (2, 300, 32, 1023),
+    (2, 300, 32, 1024), (2, 300, 32, 2047), (2, 300, 32, 2048),
+    # the long cell's frames and a subword vocabulary at the recipe's labels
+    (2, 5999, 32, 200), (4, 400, 8192, 200)])
 def test_ctc_kernel_matches_plain_on_card(cuda, b, t, v, n):
     """The CTC kernels against `ctc_loss_plain` on the card: loss rtol 1e-5,
     gradient atol 1e-5; the infeasible row finite (loss >= 1e4), no gradient
-    past a row's logit length; a subword vocabulary (V = 8192) too."""
+    past a row's logit length; a subword vocabulary (V = 8192) too; at the
+    edges of every kernel instance (`ctc.plan`)."""
     from gsoc_wav2vec2_tpu_torch.ops.kernels import ctc
 
     log_probs, labels, lengths = _ctc_case(cuda, b, t, v, n, seed=b + t)
@@ -1122,6 +1133,16 @@ def test_layer_norm_fused_matches_plain_on_card(cuda, shape):
         outs.append((y.detach(), torch.autograd.grad(y, x, dy)[0]))
     torch.testing.assert_close(outs[0][0], outs[1][0], rtol=0, atol=1e-5)
     torch.testing.assert_close(outs[0][1], outs[1][1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ctc_log1p_is_the_math_library_on_card(cuda):
+    """The kernels' branch-free log1p gives log1pf's bits on every float in
+    [0, 1] (all its log-add-exps take), so the kernels' arithmetic is the
+    plain version's."""
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import ctc
+
+    assert ctc.log1p_mismatches() == 0
 
 
 @pytest.mark.cuda
