@@ -156,6 +156,21 @@ Phases, each printing one JSON line:
                 launches a forward (`conv01_robust` 1, `pos_conv` 1, flash
                 24); ms a forward; row 0 against the f32 CPU forward (10% of
                 the logit scale, argmax >= 90%).
+ 13b. xlarge -- the 1280-d family (HuBERT-xlarge, XLS-R 1B, MMS-1B): a raw HF
+                snapshot of facebook/hubert-xlarge-ls960-ft's architecture
+                (1280-d, 48 layers, 16 heads of 80, pos conv 16 groups of 80,
+                seed 1) through `from_pretrained` onto the card, bit for bit; a
+                ragged B=8 x 246000 batch through `predict_batch`: launches a
+                forward (`conv01_robust` 1, `pos_conv` 1, flash 0: no flash
+                instance at head dim 80, as in JAX), ms a forward, row 0
+                against the card's plain f32 forward (10% of the logit scale,
+                argmax >= 90%); the four pos-conv kernels at C/G = 80 and (8,
+                768, 1280) against their plain versions, timed, with the
+                library's grouped conv beside them; one stage-1 and 4 stage-2
+                steps of the batch (dropout 0.1, SpecAugment, the mask;
+                `cli.train`'s default remat "dots"; the three pos-conv
+                training kernels and the CTC pair 1 each a step), ms a step,
+                peak memory, and two identical stage-2 gradients bit-equal.
  14. export  -- `cli.export.main` at base width and depth: `torch_export` on
                 the card (symbolic batch, 246000 samples), the program run
                 in a process that imports `ops.kernels` alone (no model
@@ -332,10 +347,11 @@ SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gat
                                                      "export",
                                                      "remat", "pretrain_cli")
 TRAIN_PATHS = ("train", "pretrain", "pretrain_gather", "cli", "remat", "pretrain_cli")
-CTC_PATHS = ("train", "robust_train", "long_train", "cli", "remat")
+CTC_PATHS = ("train", "robust_train", "long_train", "cli", "remat", "xlarge_train")
 # a CTC loss and its gradient: one launch of each wrapper
 CTC_STEP = {"ctc_loss_fwd": 1, "ctc_loss_bwd": 1}
 LONG_PATHS = ("long_inference", "long_train")
+XLARGE_PATHS = ("xlarge", "xlarge_train")  # the 1280-d family (phase 13b)
 
 
 def reset_counts() -> None:
@@ -974,7 +990,7 @@ def check_robust_kernels(model, records):
         return fn.gelu(fn.layer_norm(y, (c,), half[4], half[5], 1e-5), approximate="tanh")
 
     records.append(dict(
-        name="conv01_robust", counter="conv01_robust", paths=ROBUST_PATHS, route="cuda",
+        name="conv01_robust", counter="conv01_robust", paths=ROBUST_PATHS + XLARGE_PATHS, route="cuda",
         source=CSRC + "conv_frontend.cu", replaces=PALLAS + "conv_frontend.py:334",
         shape=[b, SAMPLES], max_abs_err=err, mean_abs_err=mean_err, tol=tol,
         relaunch_bit_equal=True,
@@ -3180,6 +3196,36 @@ HUBERT_LARGE = {
 }
 
 
+def hubert_snapshot_model(fields: dict, config):
+    """A raw HF snapshot of a HuBERT architecture (config.json of `fields`,
+    pytorch_model.bin under HF's `hubert.` names, weights from seed 1 on the
+    CPU) loaded by `from_pretrained` onto the card, bit for bit.  Returns the
+    card's model, the CPU model, and the seconds to initialise, write and
+    load."""
+    t = time.perf_counter()
+    ref = Wav2Vec2ForCTC(config, device="cpu", generator=torch.Generator().manual_seed(1))
+    ref_sd = ref.state_dict()
+    init_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory(prefix="w2v2_hubert_") as snap:
+        t = time.perf_counter()
+        names = hf_name_map(config, with_lm_head=True, prefix="hubert.")
+        hf_sd = {theirs: fn(ref_sd[ours]).contiguous()
+                 for ours, (theirs, fn) in names.items() if ours in ref_sd}
+        require(len(hf_sd) == len(ref_sd), "every parameter has an HF name")
+        torch.save(hf_sd, os.path.join(snap, "pytorch_model.bin"))
+        with open(os.path.join(snap, "config.json"), "w") as f:
+            json.dump(fields, f)
+        del hf_sd
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        model = Wav2Vec2ForCTC.from_pretrained(snap)
+        load_s = time.perf_counter() - t
+    require(model.device.type == "cuda", "from_pretrained loads onto the card")
+    require(all(torch.equal(v.cpu(), ref_sd[k]) for k, v in model.state_dict().items()),
+            "the snapshot's weights did not load bit for bit")
+    return model, ref, init_s, write_s, load_s
+
+
 def hubert_phase(smi: str) -> dict:
     """Phase 13: a raw HF snapshot of `facebook/hubert-large-ls960-ft`'s
     architecture (config.json with model_type "hubert", pytorch_model.bin
@@ -3192,25 +3238,7 @@ def hubert_phase(smi: str) -> dict:
     require(config.is_robust and config.feat_proj_layer_norm, "hubert-large is the robust family")
     layers = config.num_layers
     per_forward = {"conv01_robust": 1, "pos_conv": 1, "flash_attention_fwd": layers}
-    ref = Wav2Vec2ForCTC(config, device="cpu", generator=torch.Generator().manual_seed(1))
-    ref_sd = ref.state_dict()
-    with tempfile.TemporaryDirectory(prefix="w2v2_hubert_") as snap:
-        t = time.perf_counter()
-        names = hf_name_map(config, with_lm_head=True, prefix="hubert.")
-        hf_sd = {theirs: fn(ref_sd[ours]).contiguous()
-                 for ours, (theirs, fn) in names.items() if ours in ref_sd}
-        require(len(hf_sd) == len(ref_sd), "every parameter has an HF name")
-        torch.save(hf_sd, os.path.join(snap, "pytorch_model.bin"))
-        with open(os.path.join(snap, "config.json"), "w") as f:
-            json.dump(HUBERT_LARGE, f)
-        del hf_sd
-        write_s = time.perf_counter() - t
-        t = time.perf_counter()
-        model = Wav2Vec2ForCTC.from_pretrained(snap)
-        load_s = time.perf_counter() - t
-    require(model.device.type == "cuda", "from_pretrained loads onto the card")
-    require(all(torch.equal(v.cpu(), ref_sd[k]) for k, v in model.state_dict().items()),
-            "the snapshot's weights did not load bit for bit")
+    model, ref, _, write_s, load_s = hubert_snapshot_model(HUBERT_LARGE, config)
     evaluator = GreedyCTCEvaluator(model)
     require(evaluator.compute_dtype == torch.bfloat16 and evaluator.use_attention_mask,
             "HuBERT-large runs in bf16 with a sample mask on the card")
@@ -3261,6 +3289,147 @@ def hubert_phase(smi: str) -> dict:
           "forward_reps": len(reps), "cpu_f32_max_abs_err": err, "cpu_f32_mean_abs_err": mean_err,
           "logit_scale": scale, "argmax_agree": agree, "card": smi})
     return {"hubert": launches}
+
+
+# facebook/hubert-xlarge-ls960-ft's architecture fields, as its config.json
+# gives them: the 1280-d family (as facebook/wav2vec2-xls-r-1b and
+# facebook/mms-1b), 16 pos-conv groups of 80 channels, 16 heads of 80
+HUBERT_XLARGE = {**HUBERT_LARGE, "hidden_size": 1280, "num_hidden_layers": 48,
+                 "intermediate_size": 5120}
+XLARGE_STAGE2_STEPS = 4
+# the stage-2 step's remat: `cli.train`'s default ("dots").  Without remat the
+# step peaked at 82.9 GB of the card's 85.0 (H100 80GB HBM3, phase 13b alone): too
+# little room to promise late in this script
+XLARGE_REMAT = "dots"
+
+
+def xlarge_phase(smi: str, records) -> dict:
+    """Phase 13b: a raw HF snapshot of `facebook/hubert-xlarge-ls960-ft`'s
+    architecture (1280-d, 48 layers, weights from seed 1) loaded by
+    `from_pretrained` onto the card, bit for bit; a ragged B=8 x 246000 batch
+    through `predict_batch` with its mask (launches a forward: `conv01_robust`
+    1, `pos_conv` 1 at C/G = 80, flash 0: head dim 80 has no flash instance,
+    as in JAX); ms a forward; row 0 against the card's plain f32 forward (no
+    kernel in f32) at the robust cell's bounds; the four pos-conv kernels at
+    C/G = 80 and (8, 768, 1280) against their plain versions, timed (into
+    `records`); one stage-1 and `XLARGE_STAGE2_STEPS` stage-2 steps of the
+    same batch with dropout 0.1, SpecAugment and the mask (the three pos-conv
+    training kernels and the CTC pair 1 each a step); two identical stage-2
+    losses and gradients bit-equal, all under `XLARGE_REMAT`.  Returns
+    {path: launch counts}."""
+    config = config_from_hf_dict(HUBERT_XLARGE)
+    cg = config.hidden_size // config.num_conv_pos_embedding_groups
+    require(config.is_robust and config.num_layers == 48 and cg == 80, "hubert-xlarge's geometry")
+    require(pc.supports(config.hidden_size, config.num_conv_pos_embedding_groups, torch.bfloat16,
+                        config.num_conv_pos_embeddings)
+            and not fa.supports(config.hidden_size // config.num_heads, torch.bfloat16),
+            "the 1280-d card dispatch: pos-conv kernels at C/G = 80, no flash at head dim 80")
+    per_forward = {"conv01_robust": 1, "pos_conv": 1}
+    model, ref, init_s, write_s, load_s = hubert_snapshot_model(HUBERT_XLARGE, config)
+    n_params = sum(v.numel() for v in ref.state_dict().values())
+    del ref  # the f32 reference runs on the card
+    evaluator = GreedyCTCEvaluator(model)
+    require(evaluator.compute_dtype == torch.bfloat16 and evaluator.use_attention_mask,
+            "HuBERT-xlarge runs in bf16 with a sample mask on the card")
+    rng = np.random.default_rng(17)
+    speech, lengths = _ragged_batch(rng, ROBUST_B, SAMPLES, 80000)
+    reset_counts()
+    t = time.perf_counter()
+    texts = evaluator.predict_batch(speech, lengths)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t
+    launches = read_counts()
+    expect_counts("one HuBERT-xlarge forward", launches, per_forward)
+    require(len(texts) == ROBUST_B, "predict_batch returned the wrong number of transcripts")
+
+    x = torch.from_numpy(speech).to("cuda")
+    m = torch.from_numpy((np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.float32)).cuda()
+    frames = config.conv_output_length(SAMPLES)
+
+    def forward():
+        with torch.inference_mode():
+            return model(x, m)
+
+    logits = forward()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(logits).all()), "non-finite HuBERT-xlarge logits on the card")
+    require(logits.shape == (ROBUST_B, frames, config.vocab_size), f"logits {tuple(logits.shape)}")
+    reps = []
+    for _ in range(10):
+        t = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t) * 1e3)
+    row0 = logits[0].float().cpu()
+    del logits
+    profile = profile_device(forward, 2, "forward", top=10)
+    # row 0 (full length) through the card's f32 path: every site plain
+    before = read_counts()
+    with torch.inference_mode():
+        want = wav2vec2_for_ctc_forward(model, config, x[:1], torch.ones(1, SAMPLES, device="cuda"),
+                                        compute_dtype=torch.float32)[0]
+    expect_counts("the f32 reference forward", counts_since(before), {})
+    err, mean_err, scale, agree = logits_vs(row0, want)
+    del x, m, want
+    # the robust cell's bounds (24 layers: 10% of the logit scale, argmax >= 90%)
+    require(err <= 0.10 * scale and agree >= 0.9,
+            f"HuBERT-xlarge card bf16 vs card f32: max {err} (scale {scale}), argmax agree {agree}")
+    emit({"phase": "xlarge", "config": "facebook/hubert-xlarge-ls960-ft architecture (1280-d, "
+          "48 stable-layer-norm layers, 16 heads of 80, pos conv 16 groups of 80, LayerNorm conv "
+          "stack with bias), seed 1", "parameters": n_params,
+          "snapshot": ["config.json", "pytorch_model.bin"], "init_s": init_s, "write_s": write_s,
+          "from_pretrained_s": load_s, "batch": [ROBUST_B, SAMPLES], "lengths": lengths.tolist(),
+          "launches_per_forward": per_forward, "predict_batch_s": batch_s,
+          "ms_per_forward": statistics.median(reps), "ms_per_forward_min_max": [min(reps), max(reps)],
+          "forward_reps": len(reps), "f32_reference": "the card's plain f32 path",
+          "f32_max_abs_err": err, "f32_mean_abs_err": mean_err, "logit_scale": scale,
+          "argmax_agree": agree, "card": smi})
+    emit({"phase": "xlarge_profile", "card": smi, **profile})
+
+    # the four pos-conv kernels at C/G = 80 at the phase's shapes
+    gen = torch.Generator().manual_seed(8080)
+    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
+    with torch.no_grad():
+        kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
+    bias = (0.1 * torch.randn(config.hidden_size, generator=gen)).to("cuda")
+    records.append(pos_conv_eval_record(kernel, bias, ROBUST_B, frames, "pos_conv_cg80",
+                                        ("xlarge",), gen))
+    records.extend(pos_conv_train_records(kernel, bias, ROBUST_B, frames, "_cg80",
+                                          ("xlarge_train",), gen))
+    del kernel, bias
+    torch.cuda.empty_cache()
+
+    # training: the recipe's regularisation, the mask and length-aware CTC
+    tconfig = config.replace(dropout=0.1)
+    require(tconfig.apply_spec_augment, "the recipe's SpecAugment")
+    batch = {"speech": speech, "labels": _labels(rng, ROBUST_B, tconfig.vocab_size, 120),
+             "attention_mask": (np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.int32)}
+    per_step = {"conv01_robust": 1, "pos_conv_train_fwd": 1, "pos_conv_dx": 1, "pos_conv_dw": 1,
+                **CTC_STEP}
+    kw = dict(with_attention_mask=True, length_aware=True, remat=XLARGE_REMAT)
+    train = train_phase(
+        "xlarge_train", f"hubert-xlarge (1280-d, 48 layers) dropout 0.1, SpecAugment, mask, "
+        f"remat {XLARGE_REMAT}, seed 1", model, tconfig, batch, per_step, XLARGE_STAGE2_STEPS, smi,
+        **kw)
+    # two stage-2 losses and gradients of one batch from one seed: bit-equal
+    loss_fn = make_ctc_loss_fn(tconfig, division_factor=ROBUST_B, **kw)
+    grads, losses = [], []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch, torch.Generator().manual_seed(7))
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None})
+    model.zero_grad(set_to_none=True)
+    require(grads[0].keys() == grads[1].keys() and all(torch.equal(grads[0][n], grads[1][n])
+                                                       for n in grads[0]),
+            "two identical HuBERT-xlarge stage-2 gradients differ")
+    require(losses[0] == losses[1] and np.isfinite(losses[0]), f"xlarge stage-2 losses {losses}")
+    emit({"phase": "xlarge_grads", "reps": 2, "loss": losses[0], "tensors": len(grads[0]),
+          "grads_bit_equal": True, "card": smi})
+    del grads, model, evaluator
+    torch.cuda.empty_cache()
+    return {"xlarge": launches, "xlarge_train": train}
 
 
 # the exported program, run in a process that imports the port's kernels alone
@@ -4487,6 +4656,9 @@ def main() -> int:
     by_path["remat"] = remat_phase(smi)
     # 13. HuBERT-large from a raw HF snapshot
     by_path.update(hubert_phase(smi))
+    # 13b. the 1280-d family: HuBERT-xlarge from a raw HF snapshot, its kernels
+    # at C/G = 80, inference and stage-2 steps
+    by_path.update(xlarge_phase(smi, records))
     # 14. export: torch.export run in a process of its own, then ONNX
     by_path.update(export_phase(smi))
     # 15. the profiling helpers on the base forward

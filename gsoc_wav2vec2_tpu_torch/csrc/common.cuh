@@ -275,6 +275,18 @@ __device__ __forceinline__ uint64_t wgmma_desc_rows(const void* p, uint32_t chun
          (uint64_t(128 >> 4) << 32);
 }
 
+// wgmma descriptor of a tile of 32-byte rows with the 32-byte swizzle (TMA's
+// CU_TENSOR_MAP_SWIZZLE_32B: chunk c of row r at c ^ (r / 4 % 2), a 256-byte
+// atom of 8 rows, 256-byte aligned): 8-row groups 256 bytes apart (stride
+// byte offset) and, read MN-major, consecutive 16-element atoms along N
+// `lbo` bytes apart (leading byte offset; unused K-major, where a k step of
+// 16 elements is the whole row); layout type 3 = 32-byte swizzle
+__device__ __forceinline__ uint64_t wgmma_desc_sw32(const void* p, uint32_t lbo) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t(256 >> 4) << 32) | (uint64_t(3) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -344,8 +356,8 @@ __device__ __forceinline__ void wgmma_ss_n128(float d[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x N, f32) += A (64 x 16) . B (16 x N), N (16, 48 or 64) chosen by the
-// accumulator's size (N / 2 a thread), B in shared memory: `wgmma_ss` with A
+// d (64 x N, f32) += A (64 x 16) . B (16 x N), N (16, 40, 48, 64 or 80) chosen by
+// the accumulator's size (N / 2 a thread), B in shared memory: `wgmma_ss` with A
 // K-major in shared memory and B K-major (kTransB 0) or MN-major (kTransB 1);
 // `wgmma_rs_mn` with A from registers (the m64k16 layout of `pack_a`) and B
 // MN-major (the transpose bit)
@@ -379,12 +391,31 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(1), "n"(kTransB));
 }
 
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[40], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 0, %43;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(1), "n"(kTransB));
+}
+
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[8], const uint32_t a[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[20], const uint32_t a[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

@@ -1,6 +1,7 @@
 // Grouped positional convolution of the wav2vec2 encoder (K = 128 taps,
-// 16 groups): the inference forward, the training forward and both halves
-// of its backward.
+// 16 groups; CG = C / 16 channels a group: 48 base, 64 robust/large, 80 in
+// the 1280-d family): the inference forward, the training forward and both
+// halves of its backward.
 //
 // pos_conv_kernel<CG, Mode> replaces three Pallas kernels of
 // gsoc_wav2vec2_tpu/ops/pallas/pos_conv.py, one per epilogue:
@@ -41,6 +42,14 @@
 //     shared memory: no A registers to keep out of a product in flight.
 //   * 288 threads and 2 CTAs an SM (<= 112 registers a thread): one CTA's
 //     window load and epilogue overlap the other's products.
+//   * CG = 80 (N = 80, wider than one 64-column box): a tap's weights are
+//     five boxes of CG rows x 16 columns with the 32-byte swizzle, so no box
+//     reaches into the next group's channels.  The forward reads them
+//     MN-major as one m64n80k16 B (a k step 16 rows of 32 bytes down every
+//     box; the five 16-column atoms one box apart, the descriptor's leading
+//     byte offset); dx reads box j as k step j, K-major (80 rows of its
+//     output channels x the 16 contraction channels of the box).  80
+//     accumulators a thread: one CTA an SM (112 KB of shared memory).
 //   * The epilogues run straight from the accumulators: kEval + bias, GELU,
 //     bf16; kTrain the same plus the f32 pre-activation; kDx the sum, bf16.
 //
@@ -62,12 +71,20 @@
 //     two taps at CG = 48, which no descriptor describes.
 //   * B = the dpre tile read MN-major (64 time steps x 64 channels, N = CG of
 //     them; a k step is 16 rows down).
+//   * CG = 80: M = 8 taps x 80 = 640 rows (5 m64 tiles a consumer
+//     warpgroup) and a group's 80 output channels split over two CTAs (N =
+//     40, 100 accumulators a thread); 2 x 16 tap blocks x 16 groups = 512
+//     CTAs at K = 128, G = 16.  The x window is one box of 80 channels
+//     without swizzle (rows of 160 bytes, ldmatrix addresses plain); the
+//     dpre tile a 64-channel box from the CTA's first output channel, of
+//     which N = 40 are read.
 //   * Where the CTAs cannot fill the card (small B*T or few groups), the
 //     wrapper splits the time tiles over `splits` CTAs per tile block
 //     (`pos_conv.dw_splits`); each writes an f32 partial and
 //     pos_conv_dw_reduce_kernel sums them in split order.  Otherwise the
 //     kernel writes dW itself.
-// Bound: operations, the same 2*B*T*K*CG*C as the forward.
+// Bound: operations, the same 2*B*T*K*CG*C as the forward (1.61e11 FLOP,
+// 0.163 ms, at B = 8, T = 768, CG = 80, C = 1280).
 //
 // Every output element is written by one CTA from sums in a fixed order (the
 // splits reduced in a fixed order), so a relaunch is bit-equal.
@@ -104,7 +121,16 @@ constexpr int kFwdThreads = kConsumerThreads + 32;  // + one producer warp
 
 template <int CG>
 struct FwdLayout {
-  static constexpr int kSlot = CG * 128;  // one tap's box: CG rows x 64 bf16, swizzled
+  // one tap's weights: up to CG = 64 one box of CG rows x 64 columns (128-byte
+  // swizzle); wider, CG / 16 boxes of CG rows x 16 columns (32-byte swizzle)
+  static constexpr bool kNarrowBoxes = CG > kBox;
+  static constexpr int kBoxCols = kNarrowBoxes ? 16 : kBox;
+  static constexpr int kBoxes = kNarrowBoxes ? CG / 16 : 1;
+  static constexpr int kBoxBytes = CG * kBoxCols * 2;
+  static constexpr int kSlot = kBoxes * kBoxBytes;
+  // 2 CTAs an SM (<= 112 registers a thread) hold CG / 2 accumulators a tile
+  // up to CG = 64; at 80 one CTA an SM, so that 80 a thread do not spill
+  static constexpr int kMinBlocks = CG > kBox ? 1 : 2;
   static constexpr int kBars = 2 * kStages * 8;
   // bytes of dynamic shared memory: alignment slack, ring, barriers, window
   static int bytes(int K) { return 1024 + kStages * kSlot + kBars + (kRows + K) * CG * 2; }
@@ -122,7 +148,7 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane) {
 }
 
 template <int CG, int kMode>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+__global__ void __launch_bounds__(kFwdThreads, FwdLayout<CG>::kMinBlocks)
 pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* __restrict__ x,
                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
                 float* __restrict__ pre, int T, int C, int K, int pad) {
@@ -153,8 +179,10 @@ pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* 
       for (int s = 0; s < K; ++s) {
         if (round > 0) w2v2::mbar_wait(&empty[st], (round - 1) & 1);
         w2v2::mbar_arrive_expect_tx(&full[st], L::kSlot);
-        w2v2::tma_load_3d(ring + st * L::kSlot, &w_map, &full[st], grp * CG, 0,
-                          kMode == kDx ? K - 1 - s : s);
+        const int tap = kMode == kDx ? K - 1 - s : s;
+        for (int i = 0; i < L::kBoxes; ++i)
+          w2v2::tma_load_3d(ring + st * L::kSlot + i * L::kBoxBytes, &w_map, &full[st],
+                            grp * CG + i * L::kBoxCols, 0, tap);
         if (++st == kStages) st = 0, ++round;
       }
     }
@@ -201,8 +229,14 @@ pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* 
       const unsigned char* a0 = arow + 2 * j * chunk_bytes + s * 16;
       // B: the forward's box is (input channel, output channel), MN-major, a
       // k step 16 rows down; dx's is (its output channel, contraction),
-      // K-major, a k step 32 bytes along
-      const uint64_t db = w2v2::wgmma_desc(slot + (kMode == kDx ? 32 * j : 2048 * j));
+      // K-major, a k step 32 bytes along.  Narrow boxes: the forward's k step
+      // is 16 rows of 32 bytes down every box, the boxes (16 output channels
+      // each) one box apart along N; dx's k step is box j
+      uint64_t db;
+      if constexpr (L::kNarrowBoxes)
+        db = w2v2::wgmma_desc_sw32(slot + (kMode == kDx ? L::kBoxBytes * j : 512 * j), L::kBoxBytes);
+      else
+        db = w2v2::wgmma_desc(slot + (kMode == kDx ? 32 * j : 2048 * j));
 #pragma unroll
       for (int m = 0; m < kFwdMt; ++m)
         w2v2::wgmma_ss<kMode == kDx ? 0 : 1>(acc[m], w2v2::wgmma_desc_rows(a0 + m * 64 * 16, chunk_bytes), db);
@@ -244,15 +278,16 @@ pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* 
 }
 
 // a tensor map of `rank` dims (innermost first; byte strides of dims 1..)
-// with the 128-byte swizzle and zero fill out of bounds
+// with the given swizzle (128-byte by default) and zero fill out of bounds
 cudaError_t encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                   const cuuint64_t* strides, const cuuint32_t* box) {
+                   const cuuint64_t* strides, const cuuint32_t* box,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const w2v2::EncodeTiled fn = w2v2::encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -260,15 +295,18 @@ cudaError_t encode(CUtensorMap* map, const void* base, int rank, const cuuint64_
 template <int CG, int kMode>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out, void* pre, int B,
                    int T, int C, int G, int K, int pad, cudaStream_t stream) {
-  // w: the kernel (K, CG, C) bf16; one box a tap: CG rows (its second axis)
-  // x 64 columns from the group's first (16 past the group at CG = 48, read
-  // as zero past C)
+  // w: the kernel (K, CG, C) bf16; a box is CG rows (its second axis) x 64
+  // columns from the group's first (16 past the group at CG = 48, read as
+  // zero past C, never used), or at CG = 80 x 16 columns, five a tap, which
+  // end at the group's last column
+  using L = FwdLayout<CG>;
   CUtensorMap w_map;
   const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)CG, (cuuint64_t)K};
   const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)CG * C * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)CG, 1};
-  W2V2_TRY(encode(&w_map, w, 3, dims, strides, box));
-  const int smem = FwdLayout<CG>::bytes(K);
+  const cuuint32_t box[3] = {(cuuint32_t)L::kBoxCols, (cuuint32_t)CG, 1};
+  W2V2_TRY(encode(&w_map, w, 3, dims, strides, box,
+                  L::kNarrowBoxes ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B));
+  const int smem = L::bytes(K);
   W2V2_TRY(w2v2::allow_smem(pos_conv_kernel<CG, kMode>, smem));
   const dim3 grid((T + kRows - 1) / kRows, G, B);
   pos_conv_kernel<CG, kMode><<<grid, kFwdThreads, smem, stream>>>(
@@ -280,12 +318,13 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out, vo
 template <int kMode>
 int dispatch(const void* x, const void* w, const void* bias, void* out, void* pre, int B, int T,
              int C, int G, int K, int pad, cudaStream_t s) {
-  // C / G is 48 in the base family and 64 in the robust/large one; 16 is the
-  // narrow geometry of the tests
+  // C / G is 48 in the base family, 64 in the robust/large one and 80 in the
+  // 1280-d one (HuBERT-xlarge, XLS-R 1B); 16 is the narrow geometry of the tests
   switch (C / G) {
     case 16: return (int)launch<16, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     case 48: return (int)launch<48, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     case 64: return (int)launch<64, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
+    case 80: return (int)launch<80, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -299,18 +338,25 @@ constexpr int kConsumerRegs = 232;
 
 template <int CG, int kTaps>
 struct DwLayout {
-  static constexpr int kM = kTaps * CG;         // dW rows a CTA
+  static constexpr bool kWide = CG > kBox;       // a group wider than one 64-channel box
+  static constexpr int kNSplit = kWide ? 2 : 1;  // CTAs that share a group's output channels
+  static constexpr int kN = CG / kNSplit;        // output channels a CTA (wgmma N)
+  static constexpr int kM = kTaps * CG;          // dW rows a CTA
   static constexpr int kMt = kM / 128;           // m64 tiles a consumer warpgroup
   static constexpr int kXRows = kDwT + kTaps;    // window rows a stage (one spare)
-  static constexpr int kXBytes = kXRows * 128;   // 64 channels, swizzled
+  // a window row: 64 channels, 128-byte swizzle; wide, the CG channels unswizzled
+  static constexpr int kXPitch = kWide ? CG * 2 : 128;
+  static constexpr int kXLoad = kXRows * kXPitch;              // bytes the x box brings
+  static constexpr int kXBytes = (kXLoad + 1023) / 1024 * 1024;  // its room in a stage
   static constexpr int kDBytes = kDwT * 128;     // 64 time steps x 64 channels, swizzled
   static constexpr int kStage = kXBytes + kDBytes;
   static constexpr int kBytes = 1024 + kStages * kStage + 2 * kStages * 8;
-  static_assert(kM % 128 == 0 && kXBytes % 1024 == 0 && kDBytes % 1024 == 0, "tile layout");
+  static_assert(kM % 128 == 0 && kN % 8 == 0 && kN <= kBox, "tile layout");
 };
 
 // This CTA's sums over the time tiles [n0, n1) of its split, tile n = (batch
-// row n / tpr, t0 = 64 (n % tpr)): into dW (K, CG, C) itself when splits is
+// row n / tpr, t0 = 64 (n % tpr)), for its kN output channels (blockIdx.x =
+// tap block * kNSplit + which kN): into dW (K, CG, C) itself when splits is
 // 1, else into part (splits, G, K*CG, CG).  Rows of taps past K are not
 // stored.
 template <int CG, int kTaps>
@@ -319,13 +365,14 @@ pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_const
                    float* __restrict__ dw, float* __restrict__ part, int B, int T, int C, int K,
                    int splits) {
   using L = DwLayout<CG, kTaps>;
-  constexpr int kNa = CG / 2;
+  constexpr int kNa = L::kN / 2;
   constexpr int kMt = L::kMt;
   unsigned char* ring = aligned_smem();
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * L::kStage);
   uint64_t* empty = full + kStages;
 
-  const int tap0 = blockIdx.x * kTaps, grp = blockIdx.y, split = blockIdx.z;
+  const int tap0 = (blockIdx.x / L::kNSplit) * kTaps, o0 = (blockIdx.x % L::kNSplit) * L::kN;
+  const int grp = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31;
   const int tpr = (T + kDwT - 1) / kDwT;
   const long long n_all = (long long)B * tpr;
@@ -343,16 +390,17 @@ pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_const
     w2v2::setmaxnreg_dec<kProducerRegs>();
     if (tid != kConsumerThreads) return;
     // the copy thread: per time tile, the x window of this CTA's taps (rows
-    // t0 + tap0 - K/2 ..) and the dpre tile, zero-filled out of bounds
+    // t0 + tap0 - K/2 ..) and the dpre tile from its first output channel,
+    // zero-filled out of bounds
     int st = 0;
     uint32_t round = 0;
     for (int n = n0; n < n1; ++n) {
       const int b = n / tpr, t0 = (n % tpr) * kDwT;
       if (round > 0) w2v2::mbar_wait(&empty[st], (round - 1) & 1);
       unsigned char* stage = ring + st * L::kStage;
-      w2v2::mbar_arrive_expect_tx(&full[st], L::kStage);
+      w2v2::mbar_arrive_expect_tx(&full[st], L::kXLoad + L::kDBytes);
       w2v2::tma_load_3d(stage, &x_map, &full[st], grp * CG, t0 + tap0 - K / 2, b);
-      w2v2::tma_load_3d(stage + L::kXBytes, &d_map, &full[st], grp * CG, t0, b);
+      w2v2::tma_load_3d(stage + L::kXBytes, &d_map, &full[st], grp * CG + o0, t0, b);
       if (++st == kStages) st = 0, ++round;
     }
     return;
@@ -368,14 +416,15 @@ pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_const
   // A[m][t] = window[t + tap][i] of tile m's 16 rows (tap, i0 ..) of this
   // warp, by ldmatrix.trans: matrix lane / 8 covers channels i0 + 8 (q & 1),
   // time steps 8 (q >> 1); the swizzle term (chunk ^ row % 8) does not change
-  // along k steps of 16 rows, so each tile keeps one offset
+  // along k steps of 16 rows, so each tile keeps one offset (wide groups:
+  // rows of CG channels, no swizzle)
   uint32_t off[kMt];
 #pragma unroll
   for (int m = 0; m < kMt; ++m) {
     const int mrow = wg * (L::kM / 2) + m * 64 + 16 * w;
     const int r = mrow / CG + (lane & 7) + ((lane >> 4) & 1) * 8;
     const int c = (mrow % CG) / 8 + ((lane >> 3) & 1);
-    off[m] = r * 128 + (((c ^ r) & 7) << 4);
+    off[m] = L::kWide ? r * L::kXPitch + c * 16 : r * 128 + (((c ^ r) & 7) << 4);
   }
   uint32_t a[2][kMt][4];
   int st = 0, prev = 0;
@@ -387,7 +436,8 @@ pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_const
 #pragma unroll
     for (int j = 0; j < kDwT / 16; ++j) {
 #pragma unroll
-      for (int m = 0; m < kMt; ++m) w2v2::ldmatrix_x4_trans(a[j & 1][m], stage + off[m] + j * 16 * 128);
+      for (int m = 0; m < kMt; ++m)
+        w2v2::ldmatrix_x4_trans(a[j & 1][m], stage + off[m] + j * 16 * L::kXPitch);
       w2v2::mbar_wait(&full[st], ph);  // (complete already) keeps ptxas from serialising the wgmma
 #pragma unroll
       for (int m = 0; m < kMt; ++m) w2v2::fence_operands(acc[m]);
@@ -409,7 +459,7 @@ pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_const
   for (int m = 0; m < kMt; ++m) w2v2::fence_operands(acc[m]);
 
   const int G = gridDim.y;
-  float* dst = splits == 1 ? dw + grp * CG : part + ((size_t)split * G + grp) * K * CG * CG;
+  float* dst = (splits == 1 ? dw + grp * CG : part + ((size_t)split * G + grp) * K * CG * CG) + o0;
   const int ld = splits == 1 ? C : CG;
 #pragma unroll
   for (int m = 0; m < kMt; ++m)
@@ -418,7 +468,7 @@ pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_const
       const int row = tap0 * CG + wg * (L::kM / 2) + m * 64 + 16 * w + g + 8 * h;  // tap * CG + i
       if (row >= K * CG) continue;
 #pragma unroll
-      for (int j = 0; j < CG / 8; ++j)
+      for (int j = 0; j < L::kN / 8; ++j)
         *reinterpret_cast<float2*>(dst + (size_t)row * ld + 8 * j + 2 * tq) =
             make_float2(acc[m][4 * j + 2 * h], acc[m][4 * j + 2 * h + 1]);
     }
@@ -449,13 +499,14 @@ cudaError_t launch_dw(const void* x, const void* dpre, void* part, void* dw, int
   using L = DwLayout<CG, kTaps>;
   if (K % kTapStep || splits < 1 || (splits > 1 && !part)) return cudaErrorInvalidValue;
   CUtensorMap x_map, d_map;
-  {  // x (B, T, C): boxes of 64 channels x kXRows rows of one batch row
+  {  // x (B, T, C): boxes of 64 channels (wide: CG, unswizzled) x kXRows rows of one batch row
     const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
     const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
-    const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)L::kXRows, 1};
-    W2V2_TRY(encode(&x_map, x, 3, dims, strides, box));
+    const cuuint32_t box[3] = {(cuuint32_t)(L::kWide ? CG : kBox), (cuuint32_t)L::kXRows, 1};
+    W2V2_TRY(encode(&x_map, x, 3, dims, strides, box,
+                    L::kWide ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B));
   }
-  {  // dpre (B, T, C): boxes of 64 channels x 64 time steps (B MN-major, N = CG of them)
+  {  // dpre (B, T, C): boxes of 64 channels x 64 time steps (B MN-major, N = kN of them)
     const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
     const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
     const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)kDwT, 1};
@@ -463,7 +514,7 @@ cudaError_t launch_dw(const void* x, const void* dpre, void* part, void* dw, int
   }
   const auto kernel = pos_conv_dw_kernel<CG, kTaps>;
   W2V2_TRY(w2v2::allow_smem(kernel, L::kBytes));
-  const dim3 grid((K + kTaps - 1) / kTaps, G, splits);
+  const dim3 grid((K + kTaps - 1) / kTaps * L::kNSplit, G, splits);
   kernel<<<grid, kDwThreads, L::kBytes, s>>>(x_map, d_map, (float*)dw, (float*)part, B, T, C, K,
                                               splits);
   W2V2_TRY(cudaGetLastError());
@@ -508,6 +559,7 @@ extern "C" int w2v2_pos_conv_dw(const void* x, const void* dpre, void* part, voi
     case 16: return (int)launch_dw<16, 8, 32>(x, dpre, part, dw, B, T, C, G, K, splits, s);
     case 48: return (int)launch_dw<48, 8, 16>(x, dpre, part, dw, B, T, C, G, K, splits, s);
     case 64: return (int)launch_dw<64, 4, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 80: return (int)launch_dw<80, 8, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

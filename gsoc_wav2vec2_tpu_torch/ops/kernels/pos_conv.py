@@ -33,14 +33,18 @@ from ..basic import gelu
 from . import _build
 
 
-# C // groups the CUDA kernels are instantiated for: base, robust/large, and
-# the narrow geometry of the tests
-KERNEL_GROUP_WIDTHS = (48, 64, 16)
+# C // groups the CUDA kernels are instantiated for: base, robust/large, the
+# narrow geometry of the tests, and the 1280-d family (HuBERT-xlarge, XLS-R 1B)
+KERNEL_GROUP_WIDTHS = (48, 64, 16, 80)
+_WIDTHS = "48 (base), 64 (robust/large), 80 (1280-d) or 16"
 # C // groups -> the tap counts the kernels take are its multiples
 # (`launch_dw<CG, kTapStep, kTaps>`'s kTapStep)
-DW_TAP_BLOCK = {48: 8, 64: 4, 16: 8}
+DW_TAP_BLOCK = {48: 8, 64: 4, 16: 8, 80: 8}
 # C // groups -> taps a CTA of the dW kernel (kTaps): M = taps * C // groups rows
-DW_CTA_TAPS = {48: 16, 64: 8, 16: 32}
+DW_CTA_TAPS = {48: 16, 64: 8, 16: 32, 80: 8}
+# C // groups -> CTAs that share a tap block's output channels (`DwLayout`'s
+# kNSplit: 2 where a group is wider than one 64-channel box)
+DW_N_SPLIT = {48: 1, 64: 1, 16: 1, 80: 2}
 DW_TIME_TILE = 64  # time steps a stage of the dW kernel
 
 
@@ -83,16 +87,16 @@ def _check(name, x, kernel, groups):
     if c % groups or cg != c // groups or c_out != c or cg not in KERNEL_GROUP_WIDTHS:
         raise ValueError(
             f"{name}: kernel {tuple(kernel.shape)} with {groups} groups does not fit "
-            f"{c} channels (the kernel takes C // groups of 48, base, 64, robust/large, or 16)"
+            f"{c} channels (the kernel takes C // groups of {_WIDTHS})"
         )
     return b, t, c, k, cg
 
 
 def dw_splits(kernel_size: int, cg: int, groups: int, b: int, t: int, sms: int) -> int:
     """How many CTAs share each dW tile block's time tiles: 1 where the tile
-    blocks (ceil(K / taps) per group) fill the `sms` SMs, else as many as
-    fit, at most one per time tile."""
-    blocks = -(-kernel_size // DW_CTA_TAPS[cg]) * groups
+    blocks (ceil(K / taps) per group, each `DW_N_SPLIT` CTAs) fill the `sms`
+    SMs, else as many as fit, at most one per time tile."""
+    blocks = -(-kernel_size // DW_CTA_TAPS[cg]) * groups * DW_N_SPLIT[cg]
     tiles = b * -(-t // DW_TIME_TILE)
     return max(1, min(sms // blocks, tiles))
 
@@ -229,7 +233,7 @@ def pos_conv_dw(x: torch.Tensor, dpre: torch.Tensor, kernel_size: int, *,
         raise ValueError("pos_conv_dw takes bf16 x and dpre of one (B, T, C) shape")
     if c % groups or cg not in KERNEL_GROUP_WIDTHS or k % DW_TAP_BLOCK[cg]:
         raise ValueError(
-            f"pos_conv_dw takes C // groups of 48 (base), 64 (robust/large) or 16 and a multiple of "
+            f"pos_conv_dw takes C // groups of {_WIDTHS} and a multiple of "
             f"{DW_TAP_BLOCK} taps, got {c} channels, {groups} groups, {k} taps"
         )
     x, dpre = x.contiguous(), dpre.contiguous()

@@ -30,7 +30,8 @@ def _port(robust=False, **kw):
 
 
 # (name, config): tiny_config is the JAX tests' geometry; "huge" is hidden
-# 1280 with 16 heads and 16 pos-conv groups (D = 80, C/G = 80)
+# 1280 with 16 heads and 16 pos-conv groups (D = 80: no flash instance, as
+# JAX's d % 64 rule; C/G = 80: the pos-conv kernels' 80-channel instances)
 CONFIGS = {
     "tiny": lambda: _port(),
     "tiny_robust": lambda: _port(robust=True),
@@ -47,7 +48,7 @@ COVERED = {
     "tiny_robust": (False, False, False),
     "base": (True, True, True),
     "robust": (True, True, True),
-    "huge": (True, False, False),
+    "huge": (True, True, False),
     "base_384": (False, True, True),
 }
 
