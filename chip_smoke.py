@@ -171,6 +171,14 @@ Phases, each printing one JSON line:
                 `cli.train`'s default remat "dots"; the three pos-conv
                 training kernels and the CTC pair 1 each a step), ms a step,
                 peak memory, and two identical stage-2 gradients bit-equal.
+ 13c. xls_r_2b -- XLS-R 2B's 1920-d: facebook/wav2vec2-xls-r-2b's
+                architecture (1920-d, 48 layers, 16 heads of 120, FFN 7680,
+                pos conv 16 groups of 120, ~2.16e9 parameters) with a CTC
+                head of vocab 32, seed 1, built by the model's constructor
+                (no snapshot); as 13b at C/G = 120 (flash 0: no flash
+                instance at head dim 120, as in JAX), with 4 stage-2 steps
+                under remat "full" (the f32 weights, gradients and Adam
+                moments alone are ~34.6 GB).
  14. export  -- `cli.export.main` at base width and depth: `torch_export` on
                 the card (symbolic batch, 246000 samples), the program run
                 in a process that imports `ops.kernels` alone (no model
@@ -347,11 +355,13 @@ SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gat
                                                      "export",
                                                      "remat", "pretrain_cli")
 TRAIN_PATHS = ("train", "pretrain", "pretrain_gather", "cli", "remat", "pretrain_cli")
-CTC_PATHS = ("train", "robust_train", "long_train", "cli", "remat", "xlarge_train")
+CTC_PATHS = ("train", "robust_train", "long_train", "cli", "remat", "xlarge_train",
+             "xls_r_2b_train")
 # a CTC loss and its gradient: one launch of each wrapper
 CTC_STEP = {"ctc_loss_fwd": 1, "ctc_loss_bwd": 1}
 LONG_PATHS = ("long_inference", "long_train")
-XLARGE_PATHS = ("xlarge", "xlarge_train")  # the 1280-d family (phase 13b)
+# the 1280-d family (phase 13b) and XLS-R 2B's 1920-d (phase 13c)
+XLARGE_PATHS = ("xlarge", "xlarge_train", "xls_r_2b", "xls_r_2b_train")
 
 
 def reset_counts() -> None:
@@ -3296,7 +3306,7 @@ def hubert_phase(smi: str) -> dict:
 # facebook/mms-1b), 16 pos-conv groups of 80 channels, 16 heads of 80
 HUBERT_XLARGE = {**HUBERT_LARGE, "hidden_size": 1280, "num_hidden_layers": 48,
                  "intermediate_size": 5120}
-XLARGE_STAGE2_STEPS = 4
+XLARGE_STAGE2_STEPS = 4  # phases 13b and 13c
 # the stage-2 step's remat: `cli.train`'s default ("dots").  Without remat the
 # step peaked at 82.9 GB of the card's 85.0 (H100 80GB HBM3, phase 13b alone): too
 # little room to promise late in this script
@@ -3306,32 +3316,86 @@ XLARGE_REMAT = "dots"
 def xlarge_phase(smi: str, records) -> dict:
     """Phase 13b: a raw HF snapshot of `facebook/hubert-xlarge-ls960-ft`'s
     architecture (1280-d, 48 layers, weights from seed 1) loaded by
-    `from_pretrained` onto the card, bit for bit; a ragged B=8 x 246000 batch
-    through `predict_batch` with its mask (launches a forward: `conv01_robust`
-    1, `pos_conv` 1 at C/G = 80, flash 0: head dim 80 has no flash instance,
-    as in JAX); ms a forward; row 0 against the card's plain f32 forward (no
-    kernel in f32) at the robust cell's bounds; the four pos-conv kernels at
-    C/G = 80 and (8, 768, 1280) against their plain versions, timed (into
-    `records`); one stage-1 and `XLARGE_STAGE2_STEPS` stage-2 steps of the
-    same batch with dropout 0.1, SpecAugment and the mask (the three pos-conv
-    training kernels and the CTC pair 1 each a step); two identical stage-2
-    losses and gradients bit-equal, all under `XLARGE_REMAT`.  Returns
+    `from_pretrained` onto the card, bit for bit, through `wide_phases` at
+    C/G = 80 (head dim 80: no flash instance, as in JAX), with
+    `XLARGE_STAGE2_STEPS` stage-2 steps under `XLARGE_REMAT`.  Returns
     {path: launch counts}."""
     config = config_from_hf_dict(HUBERT_XLARGE)
-    cg = config.hidden_size // config.num_conv_pos_embedding_groups
-    require(config.is_robust and config.num_layers == 48 and cg == 80, "hubert-xlarge's geometry")
-    require(pc.supports(config.hidden_size, config.num_conv_pos_embedding_groups, torch.bfloat16,
-                        config.num_conv_pos_embeddings)
-            and not fa.supports(config.hidden_size // config.num_heads, torch.bfloat16),
-            "the 1280-d card dispatch: pos-conv kernels at C/G = 80, no flash at head dim 80")
-    per_forward = {"conv01_robust": 1, "pos_conv": 1}
     model, ref, init_s, write_s, load_s = hubert_snapshot_model(HUBERT_XLARGE, config)
     n_params = sum(v.numel() for v in ref.state_dict().values())
     del ref  # the f32 reference runs on the card
+    info = {"config": "facebook/hubert-xlarge-ls960-ft architecture (1280-d, 48 stable-layer-norm "
+                      "layers, 16 heads of 80, pos conv 16 groups of 80, LayerNorm conv stack with "
+                      "bias), seed 1", "parameters": n_params,
+            "snapshot": ["config.json", "pytorch_model.bin"], "init_s": init_s,
+            "write_s": write_s, "from_pretrained_s": load_s}
+    return wide_phases("xlarge", "hubert-xlarge (1280-d, 48 layers)", config, model, info, 80, smi,
+                       records, seed=17, remat=XLARGE_REMAT, steps=XLARGE_STAGE2_STEPS)
+
+
+# facebook/wav2vec2-xls-r-2b's architecture fields, as its config.json gives
+# them (XLS-R 1B's at 1920-d, arXiv:2111.09296 Table 1): 16 pos-conv groups of
+# 120 channels, 16 heads of 120; the CTC head of the 32-symbol vocabulary
+XLS_R_2B = {
+    "model_type": "wav2vec2", "architectures": ["Wav2Vec2ForPreTraining"], "vocab_size": 32,
+    "hidden_size": 1920, "num_hidden_layers": 48, "num_attention_heads": 16,
+    "intermediate_size": 7680, "hidden_act": "gelu", "conv_dim": [512] * 7,
+    "conv_kernel": [10, 3, 3, 3, 3, 2, 2], "conv_stride": [5, 2, 2, 2, 2, 2, 2],
+    "conv_bias": True, "feat_extract_norm": "layer", "do_stable_layer_norm": True,
+    "num_conv_pos_embeddings": 128, "num_conv_pos_embedding_groups": 16, "layer_norm_eps": 1e-5,
+    "pad_token_id": 0, "apply_spec_augment": True, "mask_time_prob": 0.075, "mask_time_length": 10,
+}
+# the stage-2 step's remat: "full".  The f32 weights, gradients and Adam
+# moments of ~2.16e9 parameters alone are ~34.6 GB; "dots" at HuBERT-xlarge's
+# rate (40.7 GB peak with 15.4 GB of that state) scales to ~73 GB here
+XLS_R_2B_REMAT = "full"
+
+
+def xls_r_2b_phase(smi: str, records) -> dict:
+    """Phase 13c: `facebook/wav2vec2-xls-r-2b`'s architecture (1920-d, 48
+    layers) with a CTC head, weights from seed 1, through `wide_phases` at
+    C/G = 120 (head dim 120: no flash instance, as in JAX), with
+    `XLARGE_STAGE2_STEPS` stage-2 steps under `XLS_R_2B_REMAT`.  No
+    snapshot: an f32 `pytorch_model.bin` of it would be ~8.6 GB.  Returns
+    {path: launch counts}."""
+    config = config_from_hf_dict(XLS_R_2B)
+    t = time.perf_counter()
+    model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(1))
+    init_s = time.perf_counter() - t
+    info = {"config": "facebook/wav2vec2-xls-r-2b architecture (1920-d, 48 stable-layer-norm "
+                      "layers, 16 heads of 120, FFN 7680, pos conv 16 groups of 120, LayerNorm conv "
+                      "stack with bias) with a CTC head of vocab 32, seed 1",
+            "parameters": sum(p.numel() for p in model.parameters()), "init_s": init_s}
+    return wide_phases("xls_r_2b", "xls-r-2b (1920-d, 48 layers)", config, model, info, 120, smi,
+                       records, seed=18, remat=XLS_R_2B_REMAT, steps=XLARGE_STAGE2_STEPS)
+
+
+def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, remat, steps) -> dict:
+    """The 48-layer stable-layer-norm checkpoints of the 1280-d and 1920-d
+    families on the card (phases 13b, 13c), whose pos conv runs the
+    kernels' C/G = `cg` instances and whose attention runs the plain version
+    (head dim `cg`: no flash instance, as in JAX): a ragged B=8 x 246000
+    batch through `predict_batch` with its mask (launches a forward:
+    `conv01_robust` 1, `pos_conv` 1, flash 0); ms a forward; row 0 against
+    the card's plain f32 forward (no kernel in f32) at the robust cell's
+    bounds; the four pos-conv kernels at (8, 768, C) against their plain
+    versions, timed (into `records`, names ending `_cg{cg}`); one stage-1
+    and `steps` stage-2 steps of the same batch with dropout 0.1,
+    SpecAugment and the mask (the three pos-conv training kernels and the
+    CTC pair 1 each a step); two identical stage-2 losses and gradients
+    bit-equal, all under `remat`.  Frees the model.  Returns {phase: launch
+    counts of the forward, phase + "_train": of the steps}."""
+    groups = config.num_conv_pos_embedding_groups
+    require(config.is_robust and config.num_layers == 48 and config.hidden_size // groups == cg
+            and config.hidden_size // config.num_heads == cg, f"{what}'s geometry")
+    require(pc.supports(config.hidden_size, groups, torch.bfloat16, config.num_conv_pos_embeddings)
+            and not fa.supports(cg, torch.bfloat16),
+            f"the {config.hidden_size}-d card dispatch: pos-conv kernels at C/G = {cg}, no flash")
+    per_forward = {"conv01_robust": 1, "pos_conv": 1}
     evaluator = GreedyCTCEvaluator(model)
     require(evaluator.compute_dtype == torch.bfloat16 and evaluator.use_attention_mask,
-            "HuBERT-xlarge runs in bf16 with a sample mask on the card")
-    rng = np.random.default_rng(17)
+            f"{what} runs in bf16 with a sample mask on the card")
+    rng = np.random.default_rng(seed)
     speech, lengths = _ragged_batch(rng, ROBUST_B, SAMPLES, 80000)
     reset_counts()
     t = time.perf_counter()
@@ -3339,11 +3403,12 @@ def xlarge_phase(smi: str, records) -> dict:
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t
     launches = read_counts()
-    expect_counts("one HuBERT-xlarge forward", launches, per_forward)
+    expect_counts(f"one {what} forward", launches, per_forward)
     require(len(texts) == ROBUST_B, "predict_batch returned the wrong number of transcripts")
 
-    x = torch.from_numpy(speech).to("cuda")
-    m = torch.from_numpy((np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.float32)).cuda()
+    dev = model.device
+    x = torch.from_numpy(speech).to(dev)
+    m = torch.from_numpy((np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.float32)).to(dev)
     frames = config.conv_output_length(SAMPLES)
 
     def forward():
@@ -3352,7 +3417,7 @@ def xlarge_phase(smi: str, records) -> dict:
 
     logits = forward()
     torch.cuda.synchronize()
-    require(bool(torch.isfinite(logits).all()), "non-finite HuBERT-xlarge logits on the card")
+    require(bool(torch.isfinite(logits).all()), f"non-finite {what} logits on the card")
     require(logits.shape == (ROBUST_B, frames, config.vocab_size), f"logits {tuple(logits.shape)}")
     reps = []
     for _ in range(10):
@@ -3366,36 +3431,32 @@ def xlarge_phase(smi: str, records) -> dict:
     # row 0 (full length) through the card's f32 path: every site plain
     before = read_counts()
     with torch.inference_mode():
-        want = wav2vec2_for_ctc_forward(model, config, x[:1], torch.ones(1, SAMPLES, device="cuda"),
+        want = wav2vec2_for_ctc_forward(model, config, x[:1], torch.ones(1, SAMPLES, device=dev),
                                         compute_dtype=torch.float32)[0]
     expect_counts("the f32 reference forward", counts_since(before), {})
     err, mean_err, scale, agree = logits_vs(row0, want)
     del x, m, want
     # the robust cell's bounds (24 layers: 10% of the logit scale, argmax >= 90%)
     require(err <= 0.10 * scale and agree >= 0.9,
-            f"HuBERT-xlarge card bf16 vs card f32: max {err} (scale {scale}), argmax agree {agree}")
-    emit({"phase": "xlarge", "config": "facebook/hubert-xlarge-ls960-ft architecture (1280-d, "
-          "48 stable-layer-norm layers, 16 heads of 80, pos conv 16 groups of 80, LayerNorm conv "
-          "stack with bias), seed 1", "parameters": n_params,
-          "snapshot": ["config.json", "pytorch_model.bin"], "init_s": init_s, "write_s": write_s,
-          "from_pretrained_s": load_s, "batch": [ROBUST_B, SAMPLES], "lengths": lengths.tolist(),
+            f"{what} card bf16 vs card f32: max {err} (scale {scale}), argmax agree {agree}")
+    emit({"phase": phase, **info, "batch": [ROBUST_B, SAMPLES], "lengths": lengths.tolist(),
           "launches_per_forward": per_forward, "predict_batch_s": batch_s,
           "ms_per_forward": statistics.median(reps), "ms_per_forward_min_max": [min(reps), max(reps)],
           "forward_reps": len(reps), "f32_reference": "the card's plain f32 path",
           "f32_max_abs_err": err, "f32_mean_abs_err": mean_err, "logit_scale": scale,
           "argmax_agree": agree, "card": smi})
-    emit({"phase": "xlarge_profile", "card": smi, **profile})
+    emit({"phase": phase + "_profile", "card": smi, **profile})
 
-    # the four pos-conv kernels at C/G = 80 at the phase's shapes
-    gen = torch.Generator().manual_seed(8080)
+    # the four pos-conv kernels at the phase's shapes
+    gen = torch.Generator().manual_seed(8000 + cg)
     pcv = model.wav2vec2.encoder.pos_conv_embed.conv
     with torch.no_grad():
         kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
-    bias = (0.1 * torch.randn(config.hidden_size, generator=gen)).to("cuda")
-    records.append(pos_conv_eval_record(kernel, bias, ROBUST_B, frames, "pos_conv_cg80",
-                                        ("xlarge",), gen))
-    records.extend(pos_conv_train_records(kernel, bias, ROBUST_B, frames, "_cg80",
-                                          ("xlarge_train",), gen))
+    bias = (0.1 * torch.randn(config.hidden_size, generator=gen)).to(dev)
+    records.append(pos_conv_eval_record(kernel, bias, ROBUST_B, frames, f"pos_conv_cg{cg}",
+                                        (phase,), gen))
+    records.extend(pos_conv_train_records(kernel, bias, ROBUST_B, frames, f"_cg{cg}",
+                                          (phase + "_train",), gen))
     del kernel, bias
     torch.cuda.empty_cache()
 
@@ -3406,11 +3467,10 @@ def xlarge_phase(smi: str, records) -> dict:
              "attention_mask": (np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.int32)}
     per_step = {"conv01_robust": 1, "pos_conv_train_fwd": 1, "pos_conv_dx": 1, "pos_conv_dw": 1,
                 **CTC_STEP}
-    kw = dict(with_attention_mask=True, length_aware=True, remat=XLARGE_REMAT)
+    kw = dict(with_attention_mask=True, length_aware=True, remat=remat)
     train = train_phase(
-        "xlarge_train", f"hubert-xlarge (1280-d, 48 layers) dropout 0.1, SpecAugment, mask, "
-        f"remat {XLARGE_REMAT}, seed 1", model, tconfig, batch, per_step, XLARGE_STAGE2_STEPS, smi,
-        **kw)
+        phase + "_train", f"{what} dropout 0.1, SpecAugment, mask, remat {remat}, seed 1", model,
+        tconfig, batch, per_step, steps, smi, **kw)
     # two stage-2 losses and gradients of one batch from one seed: bit-equal
     loss_fn = make_ctc_loss_fn(tconfig, division_factor=ROBUST_B, **kw)
     grads, losses = [], []
@@ -3420,16 +3480,16 @@ def xlarge_phase(smi: str, records) -> dict:
         loss.backward()
         losses.append(loss.item())
         grads.append({n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None})
-    model.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
     require(grads[0].keys() == grads[1].keys() and all(torch.equal(grads[0][n], grads[1][n])
                                                        for n in grads[0]),
-            "two identical HuBERT-xlarge stage-2 gradients differ")
-    require(losses[0] == losses[1] and np.isfinite(losses[0]), f"xlarge stage-2 losses {losses}")
-    emit({"phase": "xlarge_grads", "reps": 2, "loss": losses[0], "tensors": len(grads[0]),
+            f"two identical {what} stage-2 gradients differ")
+    require(losses[0] == losses[1] and np.isfinite(losses[0]), f"{phase} stage-2 losses {losses}")
+    emit({"phase": phase + "_grads", "reps": 2, "loss": losses[0], "tensors": len(grads[0]),
           "grads_bit_equal": True, "card": smi})
     del grads, model, evaluator
     torch.cuda.empty_cache()
-    return {"xlarge": launches, "xlarge_train": train}
+    return {phase: launches, phase + "_train": train}
 
 
 # the exported program, run in a process that imports the port's kernels alone
@@ -4659,6 +4719,8 @@ def main() -> int:
     # 13b. the 1280-d family: HuBERT-xlarge from a raw HF snapshot, its kernels
     # at C/G = 80, inference and stage-2 steps
     by_path.update(xlarge_phase(smi, records))
+    # 13c. XLS-R 2B's 1920-d: its kernels at C/G = 120, inference and stage-2 steps
+    by_path.update(xls_r_2b_phase(smi, records))
     # 14. export: torch.export run in a process of its own, then ONNX
     by_path.update(export_phase(smi))
     # 15. the profiling helpers on the base forward

@@ -20,7 +20,10 @@ followed by the torch glue `groupnorm_scale_shift`, which it replaced),
 `gsoc_wav2vec2_tpu_torch.ops.kernels.pos_conv` at T = 768 frames (246000
 samples) and K = 128 taps: base (C = 768, 16 groups) `pos_conv` at B=16 and
 `pos_conv_train_fwd`, `pos_conv_dx`, `pos_conv_dw` at B=32; robust/large
-(C = 1024, C/G = 64) all four at B=8.
+(C = 1024, C/G = 64), the 1280-d family (C/G = 80) and XLS-R 2B (C = 1920,
+C/G = 120) all four at B=8, and `pos_conv` of the last two also at 32 and
+64 taps (a launch's fixed cost against its cost a tap); widths the tree's
+`pos_conv.supports` does not cover are skipped.
 
 `--family scatter`: `scatter_rows_add` of
 `gsoc_wav2vec2_tpu_torch.ops.kernels.scatter_add` at the pretraining
@@ -189,15 +192,19 @@ def bench_pos_conv(torch, label):
     from gsoc_wav2vec2_tpu_torch.ops.kernels import pos_conv as pc
 
     gen = torch.Generator().manual_seed(0)
-    t, k = 768, 128
-    for c, cg, cases in ((768, 48, (("pos_conv", 16), ("pos_conv_train_fwd", 32), ("pos_conv_dx", 32),
-                                    ("pos_conv_dw", 32))),
-                         (1024, 64, (("pos_conv", 8), ("pos_conv_train_fwd", 8), ("pos_conv_dx", 8),
-                                     ("pos_conv_dw", 8)))):
+    t = 768
+    b8 = (("pos_conv", 8, 128), ("pos_conv_train_fwd", 8, 128), ("pos_conv_dx", 8, 128),
+          ("pos_conv_dw", 8, 128))
+    taps = (("pos_conv", 8, 32), ("pos_conv", 8, 64))
+    for c, cg, cases in ((768, 48, (("pos_conv", 16, 128), ("pos_conv_train_fwd", 32, 128),
+                                    ("pos_conv_dx", 32, 128), ("pos_conv_dw", 32, 128))),
+                         (1024, 64, b8), (1280, 80, b8 + taps), (1920, 120, b8 + taps)):
         groups = c // cg
-        kernel = (torch.randn(k, cg, c, generator=gen) * (1.5 / (k * cg) ** 0.5)).cuda()
-        bias = (0.1 * torch.randn(c, generator=gen)).cuda()
-        for name, b in cases:
+        if not pc.supports(c, groups, torch.bfloat16, 128):
+            continue
+        for name, b, k in cases:
+            kernel = (torch.randn(k, cg, c, generator=gen) * (1.5 / (k * cg) ** 0.5)).cuda()
+            bias = (0.1 * torch.randn(c, generator=gen)).cuda()
             x, dpre = (torch.randn(b, t, c, generator=gen).cuda().to(torch.bfloat16) for _ in range(2))
             fn = {
                 "pos_conv": lambda: pc.pos_conv(x, kernel, bias, groups=groups, gelu_approx=True),
@@ -207,7 +214,7 @@ def bench_pos_conv(torch, label):
                 "pos_conv_dw": lambda: pc.pos_conv_dw(x, dpre, k, groups=groups),
             }[name]
             row = {"label": label, "kernel": name, "shape": [b, t, c], "channels_per_group": cg,
-                   "ms": events_ms(torch, fn, 20)}
+                   "taps": k, "ms": events_ms(torch, fn, 20)}
             row["call_device_ms"], row["device_ms"], row["device_kernel"] = profiled_ms(torch, fn, 5)
             print(json.dumps(row), flush=True)
             del x, dpre

@@ -1,7 +1,7 @@
 // Grouped positional convolution of the wav2vec2 encoder (K = 128 taps,
 // 16 groups; CG = C / 16 channels a group: 48 base, 64 robust/large, 80 in
-// the 1280-d family): the inference forward, the training forward and both
-// halves of its backward.
+// the 1280-d family, 120 in XLS-R 2B's 1920-d): the inference forward, the
+// training forward and both halves of its backward.
 //
 // pos_conv_kernel<CG, Mode> replaces three Pallas kernels of
 // gsoc_wav2vec2_tpu/ops/pallas/pos_conv.py, one per epilogue:
@@ -50,6 +50,20 @@
 //     byte offset); dx reads box j as k step j, K-major (80 rows of its
 //     output channels x the 16 contraction channels of the box).  80
 //     accumulators a thread: one CTA an SM (112 KB of shared memory).
+//   * CG = 120 (XLS-R 2B; 7.5 k steps of 16 and N = 7.5 16-column atoms): the
+//     contraction is padded to 128 channels with zeros in both operands.  B:
+//     a tap is eight boxes of 128 rows x 16 columns (32-byte swizzle) through
+//     a 4-D map (o, group, i, tap), so rows 120-127 (past the group's input
+//     channels) and the last box's columns 120-127 (past its output
+//     channels) are TMA's zero fill, never the next tap's or group's weights;
+//     the forward reads them as one m64n120k16 B (7.5 atoms, the last half
+//     of the eighth unread), dx reads box j as k step j (its N = 120 rows of
+//     the 128).  A: the window's 16th column chunk is written as zeros.  120
+//     accumulators a thread, one CTA an SM; shared memory 4 slots x 32 KB +
+//     a window of (256 + K) x 256 bytes = 230,464 bytes at K = 128, of the
+//     232,448 a block may take (`pos_conv.fwd_shared_bytes`).  Bound at (8, 768,
+//     1920): 2*B*T*K*CG*C = 3.62e11 FLOP, 0.366 ms at 989 TFLOP/s, for each
+//     of the four kernels.
 //   * The epilogues run straight from the accumulators: kEval + bias, GELU,
 //     bf16; kTrain the same plus the f32 pre-activation; kDx the sum, bf16.
 //
@@ -78,6 +92,13 @@
 //     without swizzle (rows of 160 bytes, ldmatrix addresses plain); the
 //     dpre tile a 64-channel box from the CTA's first output channel, of
 //     which N = 40 are read.
+//   * CG = 120: a tap's M rows are padded to 128 (a warp's 16 rows then lie
+//     in one tap; the padding rows re-read the rows 8 above and are not
+//     stored: 6.7% more products), 6 taps a CTA (M = 768, 6 m64 tiles a
+//     consumer warpgroup), the group's 120 output channels over three CTAs
+//     (N = 40, 120 accumulators a thread); 22 x 3 x 16 = 1056 CTAs at K =
+//     128, G = 16, the last tap block 2 taps.  The x window is one
+//     unswizzled box of 120 channels (rows of 240 bytes).
 //   * Where the CTAs cannot fill the card (small B*T or few groups), the
 //     wrapper splits the time tiles over `splits` CTAs per tile block
 //     (`pos_conv.dw_splits`); each writes an f32 partial and
@@ -121,19 +142,26 @@ constexpr int kFwdThreads = kConsumerThreads + 32;  // + one producer warp
 
 template <int CG>
 struct FwdLayout {
+  // the contraction (a tap's CG channels) padded with zeros to whole k steps
+  // of 16: 128 at CG = 120, CG itself at the other widths
+  static constexpr int kKRows = (CG + 15) / 16 * 16;
+  static constexpr int kKSteps = kKRows / 16;
   // one tap's weights: up to CG = 64 one box of CG rows x 64 columns (128-byte
-  // swizzle); wider, CG / 16 boxes of CG rows x 16 columns (32-byte swizzle)
+  // swizzle); wider, kKRows / 16 boxes of kKRows rows x 16 columns (32-byte
+  // swizzle), through a 4-D map that zero-fills what lies past the group
   static constexpr bool kNarrowBoxes = CG > kBox;
   static constexpr int kBoxCols = kNarrowBoxes ? 16 : kBox;
-  static constexpr int kBoxes = kNarrowBoxes ? CG / 16 : 1;
-  static constexpr int kBoxBytes = CG * kBoxCols * 2;
+  static constexpr int kBoxes = kNarrowBoxes ? kKRows / 16 : 1;
+  static constexpr int kBoxBytes = kKRows * kBoxCols * 2;
   static constexpr int kSlot = kBoxes * kBoxBytes;
+  // the window's 16-byte column chunks: CG / 8, and a chunk of zeros at 120
+  static constexpr int kChunks = kKRows / 8;
   // 2 CTAs an SM (<= 112 registers a thread) hold CG / 2 accumulators a tile
-  // up to CG = 64; at 80 one CTA an SM, so that 80 a thread do not spill
+  // up to CG = 64; wider, one CTA an SM, so that CG a thread do not spill
   static constexpr int kMinBlocks = CG > kBox ? 1 : 2;
   static constexpr int kBars = 2 * kStages * 8;
   // bytes of dynamic shared memory: alignment slack, ring, barriers, window
-  static int bytes(int K) { return 1024 + kStages * kSlot + kBars + (kRows + K) * CG * 2; }
+  static int bytes(int K) { return 1024 + kStages * kSlot + kBars + (kRows + K) * kChunks * 16; }
 };
 
 __device__ __forceinline__ unsigned char* aligned_smem() {
@@ -180,9 +208,13 @@ pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* 
         if (round > 0) w2v2::mbar_wait(&empty[st], (round - 1) & 1);
         w2v2::mbar_arrive_expect_tx(&full[st], L::kSlot);
         const int tap = kMode == kDx ? K - 1 - s : s;
-        for (int i = 0; i < L::kBoxes; ++i)
-          w2v2::tma_load_3d(ring + st * L::kSlot + i * L::kBoxBytes, &w_map, &full[st],
-                            grp * CG + i * L::kBoxCols, 0, tap);
+        for (int i = 0; i < L::kBoxes; ++i) {
+          unsigned char* dst = ring + st * L::kSlot + i * L::kBoxBytes;
+          if constexpr (L::kNarrowBoxes)
+            w2v2::tma_load_4d(dst, &w_map, &full[st], i * L::kBoxCols, grp, 0, tap);
+          else
+            w2v2::tma_load_3d(dst, &w_map, &full[st], grp * CG, 0, tap);
+        }
         if (++st == kStages) st = 0, ++round;
       }
     }
@@ -190,15 +222,17 @@ pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* 
   }
 
   // the window: input rows t0 - pad .. t0 + kRows + K - 2 - pad, zero outside
-  // [0, T), as CG / 8 column chunks of kRows + K rows of 16 bytes each
+  // [0, T), as kChunks column chunks of kRows + K rows of 16 bytes each (the
+  // chunk past the group's CG / 8 zero)
   constexpr int kVecRow = CG / 8;
   const int rows = kRows + K, win_rows = rows - 1;
-  for (int i = tid; i < win_rows * kVecRow; i += kConsumerThreads) {
-    const int row = i / kVecRow, v = i % kVecRow;
+  for (int i = tid; i < win_rows * L::kChunks; i += kConsumerThreads) {
+    const int row = i / L::kChunks, v = i % L::kChunks;
     const int tr = t0 - pad + row;
-    const bool valid = tr >= 0 && tr < T;
+    const bool valid = tr >= 0 && tr < T && v < kVecRow;
     w2v2::cp_async16(xs + ((size_t)v * rows + row) * 8,
-                     x + ((size_t)b * T + (valid ? tr : 0)) * C + grp * CG + v * 8, valid);
+                     x + ((size_t)b * T + (valid ? tr : 0)) * C + grp * CG + (valid ? v * 8 : 0),
+                     valid);
   }
   w2v2::cp_async_commit();
   w2v2::cp_async_wait<0>();
@@ -224,7 +258,7 @@ pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* 
     for (int m = 0; m < kFwdMt; ++m) w2v2::fence_operands(acc[m]);
     w2v2::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < CG / 16; ++j) {
+    for (int j = 0; j < L::kKSteps; ++j) {
       // A of tile m: window rows m * 64 + s .., channels 16j .. 16j + 15
       const unsigned char* a0 = arow + 2 * j * chunk_bytes + s * 16;
       // B: the forward's box is (input channel, output channel), MN-major, a
@@ -277,14 +311,14 @@ pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* 
     }
 }
 
-// a tensor map of `rank` dims (innermost first; byte strides of dims 1..)
+// a tensor map of `rank` (<= 4) dims (innermost first; byte strides of dims 1..)
 // with the given swizzle (128-byte by default) and zero fill out of bounds
 cudaError_t encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                    const cuuint64_t* strides, const cuuint32_t* box,
                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const w2v2::EncodeTiled fn = w2v2::encode_tiled();
   if (!fn) return cudaErrorNotSupported;
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};  // element strides, one a dim
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
                           strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -295,17 +329,25 @@ cudaError_t encode(CUtensorMap* map, const void* base, int rank, const cuuint64_
 template <int CG, int kMode>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out, void* pre, int B,
                    int T, int C, int G, int K, int pad, cudaStream_t stream) {
-  // w: the kernel (K, CG, C) bf16; a box is CG rows (its second axis) x 64
-  // columns from the group's first (16 past the group at CG = 48, read as
-  // zero past C, never used), or at CG = 80 x 16 columns, five a tap, which
-  // end at the group's last column
+  // w: the kernel (K, CG, C) bf16.  Up to CG = 64 a box is CG rows (its
+  // second axis) x 64 columns from the group's first (16 past the group at
+  // CG = 48, read as zero past C, never used).  Wider, the map is 4-D, (o,
+  // group, i, tap), and a box kKRows rows x 16 columns of one group: five a
+  // tap at 80; eight at 120, whose rows 120-127 and the last box's columns
+  // 120-127 lie past the group's dims and are zero-filled
   using L = FwdLayout<CG>;
   CUtensorMap w_map;
-  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)CG, (cuuint64_t)K};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)CG * C * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)L::kBoxCols, (cuuint32_t)CG, 1};
-  W2V2_TRY(encode(&w_map, w, 3, dims, strides, box,
-                  L::kNarrowBoxes ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B));
+  if constexpr (L::kNarrowBoxes) {
+    const cuuint64_t dims[4] = {(cuuint64_t)CG, (cuuint64_t)G, (cuuint64_t)CG, (cuuint64_t)K};
+    const cuuint64_t strides[3] = {(cuuint64_t)CG * 2, (cuuint64_t)C * 2, (cuuint64_t)CG * C * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, 1, (cuuint32_t)L::kKRows, 1};
+    W2V2_TRY(encode(&w_map, w, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_32B));
+  } else {
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)CG, (cuuint64_t)K};
+    const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)CG * C * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)L::kBoxCols, (cuuint32_t)CG, 1};
+    W2V2_TRY(encode(&w_map, w, 3, dims, strides, box));
+  }
   const int smem = L::bytes(K);
   W2V2_TRY(w2v2::allow_smem(pos_conv_kernel<CG, kMode>, smem));
   const dim3 grid((T + kRows - 1) / kRows, G, B);
@@ -318,13 +360,15 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out, vo
 template <int kMode>
 int dispatch(const void* x, const void* w, const void* bias, void* out, void* pre, int B, int T,
              int C, int G, int K, int pad, cudaStream_t s) {
-  // C / G is 48 in the base family, 64 in the robust/large one and 80 in the
-  // 1280-d one (HuBERT-xlarge, XLS-R 1B); 16 is the narrow geometry of the tests
+  // C / G is 48 in the base family, 64 in the robust/large one, 80 in the
+  // 1280-d one (HuBERT-xlarge, XLS-R 1B) and 120 in XLS-R 2B's 1920-d; 16 is
+  // the narrow geometry of the tests
   switch (C / G) {
     case 16: return (int)launch<16, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     case 48: return (int)launch<48, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     case 64: return (int)launch<64, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     case 80: return (int)launch<80, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
+    case 120: return (int)launch<120, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -339,9 +383,11 @@ constexpr int kConsumerRegs = 232;
 template <int CG, int kTaps>
 struct DwLayout {
   static constexpr bool kWide = CG > kBox;       // a group wider than one 64-channel box
-  static constexpr int kNSplit = kWide ? 2 : 1;  // CTAs that share a group's output channels
-  static constexpr int kN = CG / kNSplit;        // output channels a CTA (wgmma N)
-  static constexpr int kM = kTaps * CG;          // dW rows a CTA
+  static constexpr int kN = kWide ? 40 : CG;     // output channels a CTA (wgmma N)
+  static constexpr int kNSplit = CG / kN;        // CTAs that share a group's output channels
+  // M rows a tap: CG padded to whole 16-row warp slabs (128 at CG = 120)
+  static constexpr int kTapRows = (CG + 15) / 16 * 16;
+  static constexpr int kM = kTaps * kTapRows;    // dW rows a CTA
   static constexpr int kMt = kM / 128;           // m64 tiles a consumer warpgroup
   static constexpr int kXRows = kDwT + kTaps;    // window rows a stage (one spare)
   // a window row: 64 channels, 128-byte swizzle; wide, the CG channels unswizzled
@@ -351,7 +397,7 @@ struct DwLayout {
   static constexpr int kDBytes = kDwT * 128;     // 64 time steps x 64 channels, swizzled
   static constexpr int kStage = kXBytes + kDBytes;
   static constexpr int kBytes = 1024 + kStages * kStage + 2 * kStages * 8;
-  static_assert(kM % 128 == 0 && kN % 8 == 0 && kN <= kBox, "tile layout");
+  static_assert(kM % 128 == 0 && kN % 8 == 0 && kN <= kBox && kNSplit * kN == CG, "tile layout");
 };
 
 // This CTA's sums over the time tiles [n0, n1) of its split, tile n = (batch
@@ -414,16 +460,19 @@ pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_const
 #pragma unroll
     for (int i = 0; i < kNa; ++i) acc[m][i] = 0.f;
   // A[m][t] = window[t + tap][i] of tile m's 16 rows (tap, i0 ..) of this
-  // warp, by ldmatrix.trans: matrix lane / 8 covers channels i0 + 8 (q & 1),
-  // time steps 8 (q >> 1); the swizzle term (chunk ^ row % 8) does not change
-  // along k steps of 16 rows, so each tile keeps one offset (wide groups:
-  // rows of CG channels, no swizzle)
+  // warp, by ldmatrix.trans: matrix lane / 8 covers the rows 8 (q & 1) ..
+  // of the 16 (channels i0 + 8 (q & 1) of their tap), time steps 8 (q >> 1);
+  // padding rows (i >= CG, at 120) read the 8 rows above them again.  The
+  // swizzle term (chunk ^ row % 8) does not change along k steps of 16 rows,
+  // so each tile keeps one offset (wide groups: rows of CG channels, no
+  // swizzle)
   uint32_t off[kMt];
 #pragma unroll
   for (int m = 0; m < kMt; ++m) {
-    const int mrow = wg * (L::kM / 2) + m * 64 + 16 * w;
-    const int r = mrow / CG + (lane & 7) + ((lane >> 4) & 1) * 8;
-    const int c = (mrow % CG) / 8 + ((lane >> 3) & 1);
+    const int mrow = wg * (L::kM / 2) + m * 64 + 16 * w + 8 * ((lane >> 3) & 1);
+    const int i = mrow % L::kTapRows;
+    const int r = mrow / L::kTapRows + (lane & 7) + ((lane >> 4) & 1) * 8;
+    const int c = (i < CG ? i : i - 8) / 8;
     off[m] = L::kWide ? r * L::kXPitch + c * 16 : r * 128 + (((c ^ r) & 7) << 4);
   }
   uint32_t a[2][kMt][4];
@@ -465,8 +514,10 @@ pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_const
   for (int m = 0; m < kMt; ++m)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = tap0 * CG + wg * (L::kM / 2) + m * 64 + 16 * w + g + 8 * h;  // tap * CG + i
-      if (row >= K * CG) continue;
+      const int mrow = wg * (L::kM / 2) + m * 64 + 16 * w + g + 8 * h;
+      const int tap = tap0 + mrow / L::kTapRows, i = mrow % L::kTapRows;
+      if (tap >= K || i >= CG) continue;
+      const int row = tap * CG + i;
 #pragma unroll
       for (int j = 0; j < L::kN / 8; ++j)
         *reinterpret_cast<float2*>(dst + (size_t)row * ld + 8 * j + 2 * tq) =
@@ -560,6 +611,7 @@ extern "C" int w2v2_pos_conv_dw(const void* x, const void* dpre, void* part, voi
     case 48: return (int)launch_dw<48, 8, 16>(x, dpre, part, dw, B, T, C, G, K, splits, s);
     case 64: return (int)launch_dw<64, 4, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
     case 80: return (int)launch_dw<80, 8, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 120: return (int)launch_dw<120, 4, 6>(x, dpre, part, dw, B, T, C, G, K, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

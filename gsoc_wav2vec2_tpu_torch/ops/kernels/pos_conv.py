@@ -34,30 +34,54 @@ from . import _build
 
 
 # C // groups the CUDA kernels are instantiated for: base, robust/large, the
-# narrow geometry of the tests, and the 1280-d family (HuBERT-xlarge, XLS-R 1B)
-KERNEL_GROUP_WIDTHS = (48, 64, 16, 80)
-_WIDTHS = "48 (base), 64 (robust/large), 80 (1280-d) or 16"
+# narrow geometry of the tests, the 1280-d family (HuBERT-xlarge, XLS-R 1B)
+# and XLS-R 2B's 1920-d
+KERNEL_GROUP_WIDTHS = (48, 64, 16, 80, 120)
+_WIDTHS = "48 (base), 64 (robust/large), 80 (1280-d), 120 (1920-d) or 16"
 # C // groups -> the tap counts the kernels take are its multiples
 # (`launch_dw<CG, kTapStep, kTaps>`'s kTapStep)
-DW_TAP_BLOCK = {48: 8, 64: 4, 16: 8, 80: 8}
-# C // groups -> taps a CTA of the dW kernel (kTaps): M = taps * C // groups rows
-DW_CTA_TAPS = {48: 16, 64: 8, 16: 32, 80: 8}
+DW_TAP_BLOCK = {48: 8, 64: 4, 16: 8, 80: 8, 120: 4}
+# C // groups -> taps a CTA of the dW kernel (kTaps): M = taps * `tap_rows`
+DW_CTA_TAPS = {48: 16, 64: 8, 16: 32, 80: 8, 120: 6}
 # C // groups -> CTAs that share a tap block's output channels (`DwLayout`'s
-# kNSplit: 2 where a group is wider than one 64-channel box)
-DW_N_SPLIT = {48: 1, 64: 1, 16: 1, 80: 2}
+# kNSplit: N = 40 channels a CTA where a group is wider than one 64-channel box)
+DW_N_SPLIT = {48: 1, 64: 1, 16: 1, 80: 2, 120: 3}
 DW_TIME_TILE = 64  # time steps a stage of the dW kernel
+FWD_ROWS = 256  # output rows a CTA of the forward / dx kernel
+FWD_STAGES = 4  # tap slots of its weight ring
+SHARED_BYTES_PER_BLOCK = 232_448  # the H100's opt-in shared memory a block (227 KB)
+
+
+def tap_rows(cg: int) -> int:
+    """A tap's C // groups channels padded with zeros to whole k steps of 16
+    (`FwdLayout::kKRows`, `DwLayout::kTapRows`): 128 at 120, cg elsewhere."""
+    return -(-cg // 16) * 16
+
+
+def fwd_shared_bytes(cg: int, kernel_size: int) -> int:
+    """Dynamic shared memory of the forward / dx kernel (`FwdLayout::bytes`):
+    1024 bytes of alignment slack, a ring of `FWD_STAGES` taps' weights (one
+    box of tap_rows x 64 columns up to 64 channels a group; wider, tap_rows /
+    16 boxes of tap_rows x 16), its barriers, and the input window of
+    FWD_ROWS + kernel_size rows of tap_rows bf16 channels."""
+    rows = tap_rows(cg)
+    slot = rows * (rows if cg > 64 else 64) * 2
+    return 1024 + FWD_STAGES * slot + 2 * FWD_STAGES * 8 + (FWD_ROWS + kernel_size) * rows * 2
 
 
 def supports(c: int, groups: int, dtype: torch.dtype, kernel_size: int = 128) -> bool:
     """Whether the pos-conv kernels' instances cover a (.., C) activation of
     `dtype` convolved in `groups` groups with `kernel_size` taps: bf16, C //
     groups in `KERNEL_GROUP_WIDTHS`, a tap count that is a multiple of
-    `DW_TAP_BLOCK` (8; 4 at 64 channels a group).  Elsewhere the card runs
-    `pos_conv_plain` through autograd, as the JAX package runs XLA's conv."""
+    `DW_TAP_BLOCK` (8; 4 at 64 and 120 channels a group) and whose window
+    fits the forward's shared memory (up to 132 taps at 120 channels a
+    group).  Elsewhere the card runs `pos_conv_plain` through autograd, as
+    the JAX package runs XLA's conv."""
     if dtype != torch.bfloat16 or groups < 1 or c % groups:
         return False
     cg = c // groups
-    return cg in KERNEL_GROUP_WIDTHS and kernel_size % DW_TAP_BLOCK[cg] == 0
+    return (cg in KERNEL_GROUP_WIDTHS and kernel_size % DW_TAP_BLOCK[cg] == 0
+            and fwd_shared_bytes(cg, kernel_size) <= SHARED_BYTES_PER_BLOCK)
 
 
 def _conv_plain(x: torch.Tensor, kernel: torch.Tensor, groups: int, pad_lo: int) -> torch.Tensor:

@@ -328,7 +328,7 @@ def test_pos_conv_train_kernels_match_plain_on_card(cuda, c):
     torch.testing.assert_close(dw, pdw, rtol=0, atol=1e-4 * pdw.abs().max().item())
 
 
-POS_CONV_C = {48: 768, 64: 1024, 16: 256, 80: 1280}  # C at 16 groups for each C/G instance
+POS_CONV_C = {48: 768, 64: 1024, 16: 256, 80: 1280, 120: 1920}  # C at 16 groups for each C/G instance
 
 
 def _pos_conv_case(cuda, cg, k, b, t, seed):
@@ -362,7 +362,7 @@ def _check_pos_conv_wrappers(cuda, cg, k, b, t, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cg", [48, 64, 16, 80])
+@pytest.mark.parametrize("cg", [48, 64, 16, 80, 120])
 @pytest.mark.parametrize("b,t", [(b, t) for t in (1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 768)
                                  for b in (1, 3)] + [(1, 5999)])
 def test_pos_conv_kernels_match_plain_at_tile_edges(cuda, cg, b, t):
@@ -374,21 +374,24 @@ def test_pos_conv_kernels_match_plain_at_tile_edges(cuda, cg, b, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cg,k", [(64, 36), (64, 4), (48, 8), (48, 24), (16, 8), (16, 40),
-                                  (80, 8), (80, 24)])
+                                  (80, 8), (80, 24), (120, 4), (120, 8), (120, 24), (120, 132)])
 def test_pos_conv_kernels_match_plain_at_small_tap_counts(cuda, cg, k):
     """36 taps at 64 channels a group, the smallest tap count each instance
-    takes, and counts that end inside a dW CTA's tap block."""
+    takes, counts that end inside a dW CTA's tap block, and at 120 channels
+    a group the most taps the forward's shared memory holds."""
     assert pos_conv.supports(POS_CONV_C[cg], 16, torch.bfloat16, k)
     _check_pos_conv_wrappers(cuda, cg, k, 3, 129, seed=k)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cg,k,b,t", [(48, 128, 2, 300), (64, 36, 3, 129), (16, 128, 2, 300),
-                                     (80, 128, 2, 300), (80, 8, 3, 129)])
+                                     (80, 128, 2, 300), (80, 8, 3, 129), (120, 128, 2, 300),
+                                     (120, 4, 3, 129)])
 def test_pos_conv_launches_are_bit_equal_on_card(cuda, cg, k, b, t):
     """Two launches of each pos-conv wrapper on the same inputs are
     bit-equal, a dW that splits its time tiles (C/G = 16: 64 tile blocks;
-    C/G = 80 at 8 taps: 32 CTAs, two a tap block) included."""
+    C/G = 80 at 8 taps: 32 CTAs, two a tap block; C/G = 120 at 4 taps: 48
+    CTAs, three a tap block, 2 splits) included."""
     x, dpre, kernel, bias, groups = _pos_conv_case(cuda, cg, k, b, t, 5)
     runs = [(pos_conv.pos_conv(x, kernel, bias, groups=groups, gelu_approx=True),
              *pos_conv.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True),

@@ -31,7 +31,8 @@ def _port(robust=False, **kw):
 
 # (name, config): tiny_config is the JAX tests' geometry; "huge" is hidden
 # 1280 with 16 heads and 16 pos-conv groups (D = 80: no flash instance, as
-# JAX's d % 64 rule; C/G = 80: the pos-conv kernels' 80-channel instances)
+# JAX's d % 64 rule; C/G = 80: the pos-conv kernels' 80-channel instances);
+# "xls_r_2b" is hidden 1920 (D = 120, C/G = 120)
 CONFIGS = {
     "tiny": lambda: _port(),
     "tiny_robust": lambda: _port(robust=True),
@@ -39,6 +40,8 @@ CONFIGS = {
     "robust": lambda: port_config.RobustWav2Vec2Config(),
     "huge": lambda: port_config.RobustWav2Vec2Config(hidden_size=1280, num_heads=16,
                                                      intermediate_size=5120),
+    "xls_r_2b": lambda: port_config.RobustWav2Vec2Config(hidden_size=1920, num_heads=16,
+                                                         intermediate_size=7680),
     "base_384": lambda: port_config.Wav2Vec2Config(filter_sizes=[384] * 7),
 }
 
@@ -49,6 +52,7 @@ COVERED = {
     "base": (True, True, True),
     "robust": (True, True, True),
     "huge": (True, True, False),
+    "xls_r_2b": (True, True, False),
     "base_384": (False, True, True),
 }
 
@@ -77,10 +81,15 @@ def test_f32_takes_no_kernel(name):
 @pytest.mark.parametrize("c,groups,k,ok", [(768, 16, 128, True), (1024, 16, 128, True),
                                            (256, 16, 128, True), (1024, 16, 36, True),
                                            (768, 16, 36, False), (768, 16, 127, False),
-                                           (768, 8, 128, False), (770, 16, 128, False)])
+                                           (768, 8, 128, False), (770, 16, 128, False),
+                                           (1920, 16, 128, True), (1920, 16, 36, True),
+                                           (1920, 16, 130, False), (1920, 16, 136, False),
+                                           (1920, 15, 128, False)])
 def test_pos_conv_supports_taps_and_groups(c, groups, k, ok):
-    """C/G in the instances (48, 64, 16), and a tap count the dW kernel's
-    tap blocks divide (8, or 4 at 64 channels a group)."""
+    """C/G in the instances (48, 64, 16, 80, 120), a tap count the dW
+    kernel's tap blocks divide (8, or 4 at 64 and 120 channels a group),
+    and at 120 channels a group a window the forward's shared memory holds
+    (up to 132 taps)."""
     assert pos_conv.supports(c, groups, torch.bfloat16, k) is ok
 
 
@@ -109,9 +118,10 @@ def test_dw_tap_rule_is_the_cuda_instances():
 
 def test_dw_cta_taps_are_the_cuda_instances():
     """`dw_splits` counts the dW kernel's tap blocks with the C entry's taps a
-    CTA (kTaps), and each is a whole number of 128-row warpgroup halves."""
+    CTA (kTaps), and each is a whole number of 128-row warpgroup halves of
+    `tap_rows` M rows a tap (C/G, padded to 128 at 120)."""
     assert {cg: taps for cg, (_, taps) in _dw_launches().items()} == pos_conv.DW_CTA_TAPS
-    assert all(taps * cg % 128 == 0 for cg, taps in pos_conv.DW_CTA_TAPS.items())
+    assert all(taps * pos_conv.tap_rows(cg) % 128 == 0 for cg, taps in pos_conv.DW_CTA_TAPS.items())
 
 
 @pytest.mark.parametrize("cg", sorted(pos_conv.DW_TAP_BLOCK))

@@ -7,7 +7,10 @@ kernel in its JAX layout (K, C // groups, C), cast to bf16; x and dpre as
 kernels' order (forward and dx: one tap a ring slot, 16 channels a k step;
 dW: a CTA's block of taps and share of the output channels over 64-step
 time tiles, split as `dw_splits` says), and hold the result to the plain
-versions.
+versions.  At C/G = 120 the contraction is padded to 128 channels with
+zeros in both operands (8 k steps), the forward's N is 120 of the 128
+columns its boxes hold, and dW pads each tap's M rows to 128 and splits the
+group's output channels over three CTAs.
 """
 
 import math
@@ -41,34 +44,65 @@ def _case(cg, k, b, t, seed):
     return x, dpre, kernel, bias, groups
 
 
+def _tma_box(flat, dims, strides, box, coords):
+    """A TMA box as `cuTensorMapEncodeTiled` describes it: `dims` and `box`
+    innermost first, `strides` (in elements) of dims 1.., elements at
+    coordinates outside `dims` read as zero.  Returns the box with its
+    innermost dim last."""
+    at = torch.meshgrid(*[c + torch.arange(n) for c, n in zip(coords, box)], indexing="ij")
+    inside = torch.stack([(a >= 0) & (a < d) for a, d in zip(at, dims)]).all(0)
+    offset = at[0] + sum(a * st for a, st in zip(at[1:], strides))
+    out = torch.where(inside, flat[torch.where(inside, offset, 0)], torch.zeros((), dtype=flat.dtype))
+    return out.permute(*reversed(range(len(box))))
+
+
 def _tap_boxes(w, tap, g, cg):
-    """The TMA boxes of one tap and group: CG rows (the kernel's second axis)
-    x 64 columns from the group's first, zero past C; wider than 64 (C/G =
-    80), CG / 16 boxes of 16 columns each, the last ending at the group's
-    last column."""
+    """The TMA boxes of one tap and group as `launch` encodes them: up to 64
+    channels a group, CG rows (the kernel's second axis) x 64 columns from
+    the group's first, zero past C (a 3-D map over (C, CG, K)); wider (C/G =
+    80, 120), the 4-D map (o, group, i, tap) and tap_rows / 16 boxes of
+    tap_rows rows x 16 columns of the group, zero past its CG rows and
+    columns."""
+    k, _, c = w.shape
+    flat = w.reshape(-1)
     if cg <= BOX:
-        return [F.pad(w[tap], (0, BOX))[:, g * cg:g * cg + BOX]]
-    return [w[tap][:, g * cg + 16 * i:g * cg + 16 * i + 16] for i in range(cg // 16)]
+        return [_tma_box(flat, (c, cg, k), (c, cg * c), (BOX, cg, 1), (g * cg, 0, tap))[0]]
+    rows = pos_conv.tap_rows(cg)
+    return [_tma_box(flat, (cg, c // cg, cg, k), (cg, c, cg * c), (16, 1, rows, 1),
+                     (16 * i, g, 0, tap))[0, :, 0] for i in range(rows // 16)]
+
+
+def _window(x, g, cg, pad, k):
+    """The forward's staged window of group g: rows t0 - pad .., zero outside
+    [0, T), as tap_rows / 8 column chunks of 8 channels, those past the
+    group's CG / 8 written as zeros."""
+    b, t, _ = x.shape
+    rows = pos_conv.tap_rows(cg)
+    win = torch.zeros(b, t + k - 1, rows, dtype=x.dtype)
+    for v in range(rows // 8):
+        if v < cg // 8:
+            win[:, pad:pad + t, 8 * v:8 * v + 8] = x[:, :, g * cg + 8 * v:g * cg + 8 * v + 8]
+    return win
 
 
 def _walk_forward(x, w, groups, pad, dx):
-    """sum over taps s (ring slots) and k steps j of window[t + s] (channels
-    16j ..) times the slot's boxes: the forward reads them MN-major (rows are
-    the contraction; N = CG columns across the boxes), dx reads tap K-1-s
-    K-major (rows are its outputs; k step j is columns 16j .., box j where
-    the boxes are 16 columns wide)."""
+    """sum over taps s (ring slots) and the tap_rows / 16 k steps j of
+    window[t + s] (channels 16j ..) times the slot's boxes: the forward reads
+    them MN-major (rows are the contraction; N = CG columns across the
+    boxes), dx reads tap K-1-s K-major (N = its CG outputs of the box rows;
+    k step j is columns 16j .., box j where the boxes are 16 columns wide)."""
     b, t, c = x.shape
     k, cg, _ = w.shape
-    win = F.pad(x, (0, 0, pad, k - 1 - pad))  # rows t0 - pad .., zero outside [0, T)
     out = torch.zeros(b, t, c, dtype=torch.float64)
     for g in range(groups):
+        win = _window(x, g, cg, pad, k)
         acc = torch.zeros(b, t, cg, dtype=torch.float64)
         for s in range(k):
             boxes = [box.double() for box in _tap_boxes(w, k - 1 - s if dx else s, g, cg)]
-            for j in range(cg // 16):
-                a = win[:, s:s + t, g * cg + 16 * j:g * cg + 16 * j + 16].double()
+            for j in range(pos_conv.tap_rows(cg) // 16):
+                a = win[:, s:s + t, 16 * j:16 * j + 16].double()
                 if dx:
-                    bmat = (boxes[j] if len(boxes) > 1 else boxes[0][:, 16 * j:16 * j + 16]).T
+                    bmat = (boxes[j] if len(boxes) > 1 else boxes[0][:, 16 * j:16 * j + 16]).T[:, :cg]
                 else:
                     bmat = torch.cat(boxes, dim=1)[16 * j:16 * j + 16, :cg]
                 acc += a @ bmat
@@ -77,7 +111,7 @@ def _walk_forward(x, w, groups, pad, dx):
 
 
 @pytest.mark.parametrize("cg,k,t", [(48, 128, 37), (64, 36, 50), (16, 8, 21), (48, 8, 5),
-                                    (80, 128, 37), (80, 8, 5)])
+                                    (80, 128, 37), (80, 8, 5), (120, 128, 37), (120, 4, 5)])
 def test_forward_walk_over_tap_boxes_is_the_plain_forward(cg, k, t):
     x, _, kernel, bias, groups = _case(cg, k, 2, t, cg + k)
     w = kernel.to(torch.bfloat16)  # what the wrappers pass
@@ -92,7 +126,7 @@ def test_forward_walk_over_tap_boxes_is_the_plain_forward(cg, k, t):
 
 
 @pytest.mark.parametrize("cg,k,t", [(48, 128, 37), (64, 36, 50), (16, 8, 21), (64, 4, 3),
-                                    (80, 128, 37), (80, 8, 3)])
+                                    (80, 128, 37), (80, 8, 3), (120, 128, 37), (120, 8, 3)])
 def test_dx_walk_over_flipped_tap_boxes_is_the_plain_dx(cg, k, t):
     """dx reads the forward's kernel with the taps flipped and each box read
     K-major: that is `dx_kernel`'s flipped, in/out-swapped kernel."""
@@ -103,12 +137,33 @@ def test_dx_walk_over_flipped_tap_boxes_is_the_plain_dx(cg, k, t):
     assert (got.float() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
+def _dw_a_rows(cg, taps):
+    """(tap, channel) that each M row of a dW CTA reads, by the kernel's
+    ldmatrix.trans addresses: warp w of consumer warpgroup wg, m64 tile m,
+    matrix half q & 1 of its 16 rows, row e of that 8-channel matrix; a
+    tap's rows padded to tap_rows (padding rows read the 8 rows above)."""
+    rows = pos_conv.tap_rows(cg)
+    m_rows = taps * rows
+    got = [None] * m_rows
+    for wg in range(2):
+        for m in range(m_rows // 128):
+            for w in range(4):
+                for half in range(2):
+                    mrow = wg * (m_rows // 2) + m * 64 + 16 * w + 8 * half
+                    i = mrow % rows
+                    c = (i if i < cg else i - 8) // 8
+                    for e in range(8):
+                        got[mrow + e] = (mrow // rows, 8 * c + e)
+    return got
+
+
 def _walk_dw(x, dpre, k, groups, splits):
     """dW as the kernel's CTAs sum it: a block of DW_CTA_TAPS taps (the last
-    one ragged) and one of the DW_N_SPLIT shares of the group's output
-    channels (the first CG / DW_N_SPLIT of a 64-channel dpre box from the
-    share's first, zero past C) over the 64-step time tiles n = (b, t0) of
-    its split, [n_all s / S, n_all (s + 1) / S), the splits added in order."""
+    one ragged) of tap_rows M rows each (`_dw_a_rows`; rows past CG not
+    stored) and one of the DW_N_SPLIT shares of the group's output channels
+    (the first CG / DW_N_SPLIT of a 64-channel dpre box from the share's
+    first, zero past C) over the 64-step time tiles n = (b, t0) of its
+    split, [n_all s / S, n_all (s + 1) / S), the splits added in order."""
     b, t, c = x.shape
     cg = c // groups
     taps, tt = pos_conv.DW_CTA_TAPS[cg], pos_conv.DW_TIME_TILE
@@ -116,6 +171,9 @@ def _walk_dw(x, dpre, k, groups, splits):
     tpr = -(-t // tt)
     n_all = b * tpr
     rows = tt + taps
+    a_rows = _dw_a_rows(cg, taps)
+    row_tap = torch.tensor([tap for tap, _ in a_rows])
+    row_ch = torch.tensor([ch for _, ch in a_rows])
     # x rows t0 + tap0 - K/2 .. (the box), dpre rows t0 .. t0 + 63; zero outside
     xp = F.pad(x, (0, 0, k // 2 + tt, k + 2 * tt)).double()
     dp = F.pad(dpre, (0, BOX, 0, tt)).double()
@@ -125,27 +183,31 @@ def _walk_dw(x, dpre, k, groups, splits):
             for o0 in range(0, cg, kn):
                 parts = []
                 for s in range(splits):
-                    acc = torch.zeros(taps * cg, kn, dtype=torch.float64)
+                    acc = torch.zeros(len(a_rows), kn, dtype=torch.float64)
                     for n in range(n_all * s // splits, n_all * (s + 1) // splits):
                         bi, t0 = n // tpr, (n % tpr) * tt
                         lo = t0 + tap0 + tt  # x row t0 + tap0 - K/2 in xp
                         win = xp[bi, lo:lo + rows, g * cg:(g + 1) * cg]
                         d = dp[bi, t0:t0 + tt, g * cg + o0:g * cg + o0 + BOX][:, :kn]
-                        for tl in range(taps):
-                            acc[tl * cg:(tl + 1) * cg] += win[tl:tl + tt].T @ d
+                        # A[mrow, step] = window[tap + step, channel] of the row
+                        a = win[row_tap[:, None] + torch.arange(tt)[None, :], row_ch[:, None]]
+                        acc += a @ d
                     parts.append(acc)
                 total = parts[0]
                 for p in parts[1:]:
                     total = total + p
-                n_taps = min(taps, k - tap0)
-                dw[tap0:tap0 + n_taps, :, g * cg + o0:g * cg + o0 + kn] = \
-                    total[:n_taps * cg].reshape(n_taps, cg, kn)
+                # the epilogue: M row (tap, i) to dW[tap0 + tap, i], i < CG
+                for mrow, (tap, _) in enumerate(a_rows):
+                    i = mrow % pos_conv.tap_rows(cg)
+                    if tap0 + tap < k and i < cg:
+                        dw[tap0 + tap, i, g * cg + o0:g * cg + o0 + kn] = total[mrow]
     return dw
 
 
 @pytest.mark.parametrize("cg,k,b,t,splits", [(48, 24, 3, 130, 1), (64, 36, 2, 65, 3),
                                              (16, 40, 1, 200, 2), (48, 8, 2, 1, 1),
-                                             (80, 24, 2, 130, 1), (80, 16, 1, 200, 3)])
+                                             (80, 24, 2, 130, 1), (80, 16, 1, 200, 3),
+                                             (120, 24, 2, 130, 1), (120, 8, 1, 200, 3)])
 def test_dw_walk_over_time_tiles_is_the_plain_dw(cg, k, b, t, splits):
     """Every (b, t) is in one time tile of one split, the x box starts at the
     tap block's shift, and ragged tap blocks and splits drop nothing."""
@@ -165,6 +227,9 @@ def test_dw_walk_over_time_tiles_is_the_plain_dw(cg, k, b, t, splits):
     (128, 80, 16, 8, 768, 1),    # 1280-d (the xlarge phase): 16 tap blocks x 16 groups x 2 = 512
     (8, 80, 16, 3, 129, 4),      # 16 blocks x 2 shares = 32 CTAs: 4 splits (9 time tiles)
     (24, 80, 4, 2, 65, 4),       # 3 x 4 x 2 = 24 CTAs (5 would fit), 4 time tiles
+    (128, 120, 16, 8, 768, 1),   # 1920-d (XLS-R 2B): 22 tap blocks x 16 groups x 3 = 1056
+    (4, 120, 16, 3, 129, 2),     # 1 x 16 x 3 = 48 CTAs: 2 splits
+    (24, 120, 4, 2, 65, 2),      # 4 x 4 x 3 = 48 CTAs: 2 splits of the 4 time tiles
 ])
 def test_dw_splits_fill_the_card_and_no_more(k, cg, groups, b, t, want):
     """`dw_splits` as `pos_conv_dw` calls it: 1 where the tap blocks fill the
@@ -187,3 +252,46 @@ def test_80_channel_boxes_load_exactly_the_group():
         assert torch.equal(cols, w[1][:, g * cg:(g + 1) * cg])
     kn = cg // pos_conv.DW_N_SPLIT[cg]
     assert pos_conv.DW_N_SPLIT[cg] * kn == cg and kn % 8 == 0 and kn <= BOX
+
+
+def test_120_channel_boxes_load_exactly_the_group():
+    """At C/G = 120 a tap's eight 16-column boxes of the 4-D map hold the
+    group's 120 x 120 weights and zeros in rows and columns 120-127, never
+    the next tap's rows or the next group's columns (which a 3-D map's box
+    of 128 rows, or a last box 16 columns wide, would load); the window's
+    16th chunk is zero; the dW CTAs' three output shares tile the group's
+    columns, and a dW tap's 128 M rows read each of its 120 channels."""
+    cg, groups = 120, 3
+    rows = pos_conv.tap_rows(cg)
+    assert rows == 128
+    w = torch.arange(1, 1 + 2 * cg * groups * cg, dtype=torch.float64).reshape(2, cg, groups * cg)
+    for g in range(groups):
+        boxes = _tap_boxes(w, 0, g, cg)
+        assert len(boxes) == 8 and all(box.shape == (rows, 16) for box in boxes)
+        tile = torch.cat(boxes, dim=1)
+        assert torch.equal(tile[:cg, :cg], w[0][:, g * cg:(g + 1) * cg])
+        assert not tile[cg:].any() and not tile[:, cg:].any()
+    x = torch.arange(1, 1 + 2 * 5 * groups * cg, dtype=torch.float64).reshape(2, 5, groups * cg)
+    win = _window(x, 1, cg, 2, 4)
+    assert win.shape == (2, 8, rows) and not win[..., cg:].any()
+    assert torch.equal(win[:, 2:7, :cg], x[:, :, cg:2 * cg])
+    kn = cg // pos_conv.DW_N_SPLIT[cg]
+    assert pos_conv.DW_N_SPLIT[cg] * kn == cg and kn % 8 == 0 and kn <= BOX
+    taps = pos_conv.DW_CTA_TAPS[cg]
+    a_rows = _dw_a_rows(cg, taps)
+    assert len(a_rows) == taps * rows and len(a_rows) % 128 == 0
+    for tap in range(taps):
+        real = [a_rows[tap * rows + i] for i in range(cg)]
+        assert real == [(tap, i) for i in range(cg)]
+        assert all(t == tap and ch < cg for t, ch in a_rows[tap * rows + cg:(tap + 1) * rows])
+
+
+def test_forward_shared_memory_fits_the_block():
+    """`fwd_shared_bytes` at 128 taps (the kernel's header note: 113,728
+    bytes at 80 channels a group, 230,464 at 120) and the tap counts
+    `supports` admits at 120 channels a group: up to 132."""
+    assert pos_conv.fwd_shared_bytes(80, 128) == 113_728
+    assert pos_conv.fwd_shared_bytes(120, 128) == 230_464
+    for k in (128, 132, 136):
+        fits = pos_conv.fwd_shared_bytes(120, k) <= pos_conv.SHARED_BYTES_PER_BLOCK
+        assert fits is (k <= 132) and pos_conv.supports(1920, 16, torch.bfloat16, k) is fits
