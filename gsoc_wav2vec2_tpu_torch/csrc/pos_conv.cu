@@ -61,9 +61,9 @@
 //     the 128).  A: the window's 16th column chunk is written as zeros.  120
 //     accumulators a thread, one CTA an SM; shared memory 4 slots x 32 KB +
 //     a window of (256 + K) x 256 bytes = 230,464 bytes at K = 128, of the
-//     232,448 a block may take (`pos_conv.fwd_shared_bytes`).  Bound at (8, 768,
-//     1920): 2*B*T*K*CG*C = 3.62e11 FLOP, 0.366 ms at 989 TFLOP/s, for each
-//     of the four kernels.
+//     232,448 a block may take (up to 132 taps, `pos_conv.MAX_TAPS`).  Bound
+//     at (8, 768, 1920): 2*B*T*K*CG*C = 3.62e11 FLOP, 0.366 ms at 989
+//     TFLOP/s, for each of the four kernels.
 //   * The epilogues run straight from the accumulators: kEval + bias, GELU,
 //     bf16; kTrain the same plus the f32 pre-activation; kDx the sum, bf16.
 //

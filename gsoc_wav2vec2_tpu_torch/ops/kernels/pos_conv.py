@@ -47,9 +47,10 @@ DW_CTA_TAPS = {48: 16, 64: 8, 16: 32, 80: 8, 120: 6}
 # kNSplit: N = 40 channels a CTA where a group is wider than one 64-channel box)
 DW_N_SPLIT = {48: 1, 64: 1, 16: 1, 80: 2, 120: 3}
 DW_TIME_TILE = 64  # time steps a stage of the dW kernel
-FWD_ROWS = 256  # output rows a CTA of the forward / dx kernel
-FWD_STAGES = 4  # tap slots of its weight ring
-SHARED_BYTES_PER_BLOCK = 232_448  # the H100's opt-in shared memory a block (227 KB)
+# C // groups -> the most taps whose input window fits the forward / dx
+# kernel's shared memory beside its weight ring (`FwdLayout::bytes`; 230,464
+# of the 232,448 bytes a block may take at 120 channels a group and 128 taps)
+MAX_TAPS = {120: 132}
 
 
 def tap_rows(cg: int) -> int:
@@ -58,30 +59,18 @@ def tap_rows(cg: int) -> int:
     return -(-cg // 16) * 16
 
 
-def fwd_shared_bytes(cg: int, kernel_size: int) -> int:
-    """Dynamic shared memory of the forward / dx kernel (`FwdLayout::bytes`):
-    1024 bytes of alignment slack, a ring of `FWD_STAGES` taps' weights (one
-    box of tap_rows x 64 columns up to 64 channels a group; wider, tap_rows /
-    16 boxes of tap_rows x 16), its barriers, and the input window of
-    FWD_ROWS + kernel_size rows of tap_rows bf16 channels."""
-    rows = tap_rows(cg)
-    slot = rows * (rows if cg > 64 else 64) * 2
-    return 1024 + FWD_STAGES * slot + 2 * FWD_STAGES * 8 + (FWD_ROWS + kernel_size) * rows * 2
-
-
 def supports(c: int, groups: int, dtype: torch.dtype, kernel_size: int = 128) -> bool:
     """Whether the pos-conv kernels' instances cover a (.., C) activation of
     `dtype` convolved in `groups` groups with `kernel_size` taps: bf16, C //
     groups in `KERNEL_GROUP_WIDTHS`, a tap count that is a multiple of
-    `DW_TAP_BLOCK` (8; 4 at 64 and 120 channels a group) and whose window
-    fits the forward's shared memory (up to 132 taps at 120 channels a
-    group).  Elsewhere the card runs `pos_conv_plain` through autograd, as
-    the JAX package runs XLA's conv."""
+    `DW_TAP_BLOCK` (8; 4 at 64 and 120 channels a group) and at most
+    `MAX_TAPS` (132 at 120 channels a group).  Elsewhere the card runs
+    `pos_conv_plain` through autograd, as the JAX package runs XLA's conv."""
     if dtype != torch.bfloat16 or groups < 1 or c % groups:
         return False
     cg = c // groups
     return (cg in KERNEL_GROUP_WIDTHS and kernel_size % DW_TAP_BLOCK[cg] == 0
-            and fwd_shared_bytes(cg, kernel_size) <= SHARED_BYTES_PER_BLOCK)
+            and kernel_size <= MAX_TAPS.get(cg, kernel_size))
 
 
 def _conv_plain(x: torch.Tensor, kernel: torch.Tensor, groups: int, pad_lo: int) -> torch.Tensor:

@@ -287,11 +287,24 @@ def test_120_channel_boxes_load_exactly_the_group():
 
 
 def test_forward_shared_memory_fits_the_block():
-    """`fwd_shared_bytes` at 128 taps (the kernel's header note: 113,728
-    bytes at 80 channels a group, 230,464 at 120) and the tap counts
-    `supports` admits at 120 channels a group: up to 132."""
-    assert pos_conv.fwd_shared_bytes(80, 128) == 113_728
-    assert pos_conv.fwd_shared_bytes(120, 128) == 230_464
+    """`MAX_TAPS` against the forward / dx kernel's shared memory as its
+    header note lays it out (`FwdLayout::bytes`): 1024 bytes of alignment
+    slack, 4 weight slots of tap_rows rows x 64 columns (tap_rows x tap_rows
+    past 64 channels a group), 8 bytes a barrier, and a window of 256 + K
+    rows of tap_rows bf16 channels; 113,728 bytes at 80 channels a group and
+    128 taps, 230,464 at 120, of the 232,448 a block may take.  At 120 the
+    most taps that fit is 132, and `supports` stops there; at the other
+    widths 128 taps fit with room to spare."""
+    def fwd_bytes(cg, k):
+        rows = pos_conv.tap_rows(cg)
+        return 1024 + 4 * rows * max(64, rows) * 2 + 2 * 4 * 8 + (256 + k) * rows * 2
+
+    limit = 232_448
+    assert fwd_bytes(80, 128) == 113_728 and fwd_bytes(120, 128) == 230_464
+    step = pos_conv.DW_TAP_BLOCK[120]
+    most = max(k for k in range(step, 512, step) if fwd_bytes(120, k) <= limit)
+    assert pos_conv.MAX_TAPS == {120: most} == {120: 132}
     for k in (128, 132, 136):
-        fits = pos_conv.fwd_shared_bytes(120, k) <= pos_conv.SHARED_BYTES_PER_BLOCK
-        assert fits is (k <= 132) and pos_conv.supports(1920, 16, torch.bfloat16, k) is fits
+        assert pos_conv.supports(1920, 16, torch.bfloat16, k) is (k <= 132)
+    for cg in pos_conv.KERNEL_GROUP_WIDTHS:
+        assert fwd_bytes(cg, 128) <= limit
