@@ -99,8 +99,12 @@ def profiled_rows(torch, fn, reps):
 
 def profiled_ms(torch, fn, reps):
     """(device ms a call of every kernel, of the largest kernel, its name)
-    by the profiler over `reps` calls."""
+    by the profiler over `reps` calls; None for each where the trace holds
+    no kernel (the profiler drops a window's records now and then), so the
+    events' time of the row is kept."""
     rows = profiled_rows(torch, fn, reps)
+    if not rows:
+        return None, None, None
     top = max(rows, key=lambda e: e.self_device_time_total)
     return (sum(e.self_device_time_total for e in rows) / 1e3 / reps,
             top.self_device_time_total / 1e3 / reps, top.key[:80])

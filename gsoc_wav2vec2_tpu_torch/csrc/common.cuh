@@ -255,12 +255,14 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile at `p`
-// (start address, leading byte offset unused here, stride byte offset 1024,
-// layout type 1 = 128-byte swizzle; address fields in 16-byte units)
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
+// (start address; stride byte offset 1024, between 8-row groups; layout type
+// 1 = 128-byte swizzle; address fields in 16-byte units).  The leading byte
+// offset `lbo` is read only MN-major with N > 64: the distance between the
+// 64-column atoms along N (K-major, a k step of 32 bytes lies in one row)
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo = 16) {
   const uint64_t addr = smem_addr(p);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
-         (uint64_t(1) << 62);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
 // wgmma descriptor of a K-major tile without swizzle whose 8-element (16-byte)
@@ -273,18 +275,6 @@ __device__ __forceinline__ uint64_t wgmma_desc_rows(const void* p, uint32_t chun
   const uint64_t addr = smem_addr(p);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t((chunk_bytes >> 4) & 0x3FFF) << 16) |
          (uint64_t(128 >> 4) << 32);
-}
-
-// wgmma descriptor of a tile of 32-byte rows with the 32-byte swizzle (TMA's
-// CU_TENSOR_MAP_SWIZZLE_32B: chunk c of row r at c ^ (r / 4 % 2), a 256-byte
-// atom of 8 rows, 256-byte aligned): 8-row groups 256 bytes apart (stride
-// byte offset) and, read MN-major, consecutive 16-element atoms along N
-// `lbo` bytes apart (leading byte offset; unused K-major, where a k step of
-// 16 elements is the whole row); layout type 3 = 32-byte swizzle
-__device__ __forceinline__ uint64_t wgmma_desc_sw32(const void* p, uint32_t lbo) {
-  const uint64_t addr = smem_addr(p);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t(256 >> 4) << 32) | (uint64_t(3) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

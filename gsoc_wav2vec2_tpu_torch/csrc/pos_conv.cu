@@ -24,14 +24,21 @@
 //     warpgroups of two m64 tiles each (SS wgmma m64nCGk16, f32 accumulators
 //     in registers: CG a thread), and one producer warp.
 //   * B, the weights, stream through a 4-slot ring by TMA, one tap a slot,
-//     straight from the kernel in its (K, CG, C) layout: a box of CG rows x
-//     64 columns from the group's first, 128-byte swizzle.  The forward
-//     reads it MN-major (rows = input channels = contraction, N = CG of the
-//     64 columns; a k step is 16 rows down); dx reads the box of tap K-1-s
-//     K-major (rows = its output channels, contraction = the forward's
-//     output channels; a k step is 32 bytes along), which is the flipped,
-//     in/out-swapped kernel without a copy of it.  Full / empty mbarriers
-//     per slot; the consumers never wait on each other inside the k loop.
+//     straight from the kernel in its (K, CG, C) layout through one 4-D map
+//     (o, group, i, tap) at every width: a tap is ceil(CG / 64) boxes of
+//     kKRows rows (i) x 64 columns (o) of its group, 128-byte swizzle (one
+//     box up to CG = 64, two at 80 and 120).  TMA's zero fill stands for
+//     everything past the group (columns CG.. of the last box, rows 120-127
+//     at 120), so no box reads the next group's or the next tap's weights.
+//     The forward reads a tap MN-major: rows = input channels = the
+//     contraction, a k step 16 rows (2048 bytes) down; N = CG columns across
+//     the boxes, one box apart (the descriptor's leading byte offset; its
+//     stride byte offset, 1024, steps 8 rows of the contraction).  dx reads
+//     tap K-1-s K-major: rows = its N output channels, the contraction = the
+//     forward's output channels along the row, k step j 32 bytes along box j
+//     / 4; that is the flipped, in/out-swapped kernel without a copy of it.
+//     Full / empty mbarriers per slot; the consumers never wait on each
+//     other inside the k loop.
 //   * A is the input window shifted by the tap: a shift by any number of
 //     rows, which no swizzled descriptor addresses (its 8-row atoms must be
 //     aligned).  The consumers stage the window once per CTA (256 + K - 1
@@ -42,28 +49,21 @@
 //     shared memory: no A registers to keep out of a product in flight.
 //   * 288 threads and 2 CTAs an SM (<= 112 registers a thread): one CTA's
 //     window load and epilogue overlap the other's products.
-//   * CG = 80 (N = 80, wider than one 64-column box): a tap's weights are
-//     five boxes of CG rows x 16 columns with the 32-byte swizzle, so no box
-//     reaches into the next group's channels.  The forward reads them
-//     MN-major as one m64n80k16 B (a k step 16 rows of 32 bytes down every
-//     box; the five 16-column atoms one box apart, the descriptor's leading
-//     byte offset); dx reads box j as k step j, K-major (80 rows of its
-//     output channels x the 16 contraction channels of the box).  80
-//     accumulators a thread: one CTA an SM (112 KB of shared memory).
-//   * CG = 120 (XLS-R 2B; 7.5 k steps of 16 and N = 7.5 16-column atoms): the
-//     contraction is padded to 128 channels with zeros in both operands.  B:
-//     a tap is eight boxes of 128 rows x 16 columns (32-byte swizzle) through
-//     a 4-D map (o, group, i, tap), so rows 120-127 (past the group's input
-//     channels) and the last box's columns 120-127 (past its output
-//     channels) are TMA's zero fill, never the next tap's or group's weights;
-//     the forward reads them as one m64n120k16 B (7.5 atoms, the last half
-//     of the eighth unread), dx reads box j as k step j (its N = 120 rows of
-//     the 128).  A: the window's 16th column chunk is written as zeros.  120
-//     accumulators a thread, one CTA an SM; shared memory 4 slots x 32 KB +
-//     a window of (256 + K) x 256 bytes = 230,464 bytes at K = 128, of the
-//     232,448 a block may take (up to 132 taps, `pos_conv.MAX_TAPS`).  Bound
-//     at (8, 768, 1920): 2*B*T*K*CG*C = 3.62e11 FLOP, 0.366 ms at 989
-//     TFLOP/s, for each of the four kernels.
+//   * CG = 80 (N = 80): a tap is two 80 x 64 boxes (columns 80-127 zero), a
+//     slot 20 KB; the forward's m64n80k16 B spans both, dx's k steps 0-3 lie
+//     in box 0 and k step 4 in box 1.  80 accumulators a thread: one CTA an
+//     SM (144,448 bytes of shared memory at K = 128).
+//   * CG = 120 (XLS-R 2B; 7.5 k steps of 16): the contraction is padded to
+//     128 channels with zeros in both operands.  B: a tap is two 128 x 64
+//     boxes (rows 120-127 and the second box's columns 56-63 zero), a slot
+//     32 KB; the forward's m64n120k16 reads 56 columns of the second box;
+//     dx's N = 120 reads rows 0-119 (the zero rows 120-127 are never read
+//     nor stored), its k steps 4-7 in box 1.  A: the window's 16th column chunk is written as
+//     zeros.  120 accumulators a thread, one CTA an SM; shared memory 4
+//     slots x 32 KB + a window of (256 + K) x 256 bytes = 230,464 bytes at K
+//     = 128, of the 232,448 a block may take (up to 132 taps,
+//     `pos_conv.MAX_TAPS`).  Bound at (8, 768, 1920): 2*B*T*K*CG*C = 3.62e11
+//     FLOP, 0.366 ms at 989 TFLOP/s, for each of the four kernels.
 //   * The epilogues run straight from the accumulators: kEval + bias, GELU,
 //     bf16; kTrain the same plus the f32 pre-activation; kDx the sum, bf16.
 //
@@ -88,17 +88,21 @@
 //   * CG = 80: M = 8 taps x 80 = 640 rows (5 m64 tiles a consumer
 //     warpgroup) and a group's 80 output channels split over two CTAs (N =
 //     40, 100 accumulators a thread); 2 x 16 tap blocks x 16 groups = 512
-//     CTAs at K = 128, G = 16.  The x window is one box of 80 channels
-//     without swizzle (rows of 160 bytes, ldmatrix addresses plain); the
-//     dpre tile a 64-channel box from the CTA's first output channel, of
-//     which N = 40 are read.
+//     CTAs at K = 128, G = 16.  The x window is one box of 88 channels
+//     without swizzle (ldmatrix addresses plain): rows of 176 bytes, 11
+//     16-byte units, so an ldmatrix matrix's 8 rows start in 8 distinct bank
+//     groups (rows of 80 channels, 160 bytes = 10 units, would put rows r
+//     and r + 4 on the same banks: every A load a 2-way conflict); channels
+//     80-87 are the next group's, or zero past C, and never read.  The dpre tile is a
+//     64-channel box from the CTA's first output channel, of which N = 40
+//     are read.
 //   * CG = 120: a tap's M rows are padded to 128 (a warp's 16 rows then lie
 //     in one tap; the padding rows re-read the rows 8 above and are not
 //     stored: 6.7% more products), 6 taps a CTA (M = 768, 6 m64 tiles a
 //     consumer warpgroup), the group's 120 output channels over three CTAs
 //     (N = 40, 120 accumulators a thread); 22 x 3 x 16 = 1056 CTAs at K =
 //     128, G = 16, the last tap block 2 taps.  The x window is one
-//     unswizzled box of 120 channels (rows of 240 bytes).
+//     unswizzled box of 120 channels (rows of 240 bytes, 15 units).
 //   * Where the CTAs cannot fill the card (small B*T or few groups), the
 //     wrapper splits the time tiles over `splits` CTAs per tile block
 //     (`pos_conv.dw_splits`); each writes an f32 partial and
@@ -106,6 +110,14 @@
 //     kernel writes dW itself.
 // Bound: operations, the same 2*B*T*K*CG*C as the forward (1.61e11 FLOP,
 // 0.163 ms, at B = 8, T = 768, CG = 80, C = 1280).
+//
+// Registers (`_build.ptxas_report()` on the H100, 0 spills, no C7514 /
+// C7513) and dynamic shared memory at K = 128 (`FwdLayout::bytes`,
+// `DwLayout::kBytes`): pos_conv_kernel<CG, kEval / kTrain / kDx> 42 / 43 /
+// 42 at 16 (21,568 bytes), 82 / 81 / 74 at 48 (62,528), 96 / 96 / 90 at 64
+// (83,008), 122 / 124 / 106 at 80 (144,448), 168 / 168 / 146 at 120
+// (230,464); pos_conv_dw_kernel 168 at every width (83,008 / 74,816 / 70,720
+// / 87,104 / 103,488 bytes at 16 / 48 / 64 / 80 / 120).
 //
 // Every output element is written by one CTA from sums in a fixed order (the
 // splits reduced in a fixed order), so a relaunch is bit-equal.
@@ -146,13 +158,11 @@ struct FwdLayout {
   // of 16: 128 at CG = 120, CG itself at the other widths
   static constexpr int kKRows = (CG + 15) / 16 * 16;
   static constexpr int kKSteps = kKRows / 16;
-  // one tap's weights: up to CG = 64 one box of CG rows x 64 columns (128-byte
-  // swizzle); wider, kKRows / 16 boxes of kKRows rows x 16 columns (32-byte
-  // swizzle), through a 4-D map that zero-fills what lies past the group
-  static constexpr bool kNarrowBoxes = CG > kBox;
-  static constexpr int kBoxCols = kNarrowBoxes ? 16 : kBox;
-  static constexpr int kBoxes = kNarrowBoxes ? kKRows / 16 : 1;
-  static constexpr int kBoxBytes = kKRows * kBoxCols * 2;
+  // one tap's weights: a box of kKRows rows x 64 columns (128-byte swizzle)
+  // for every 64 of the group's CG output channels, through a 4-D map that
+  // zero-fills what lies past the group
+  static constexpr int kBoxes = (CG + kBox - 1) / kBox;
+  static constexpr int kBoxBytes = kKRows * kBox * 2;
   static constexpr int kSlot = kBoxes * kBoxBytes;
   // the window's 16-byte column chunks: CG / 8, and a chunk of zeros at 120
   static constexpr int kChunks = kKRows / 8;
@@ -208,13 +218,9 @@ pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* 
         if (round > 0) w2v2::mbar_wait(&empty[st], (round - 1) & 1);
         w2v2::mbar_arrive_expect_tx(&full[st], L::kSlot);
         const int tap = kMode == kDx ? K - 1 - s : s;
-        for (int i = 0; i < L::kBoxes; ++i) {
-          unsigned char* dst = ring + st * L::kSlot + i * L::kBoxBytes;
-          if constexpr (L::kNarrowBoxes)
-            w2v2::tma_load_4d(dst, &w_map, &full[st], i * L::kBoxCols, grp, 0, tap);
-          else
-            w2v2::tma_load_3d(dst, &w_map, &full[st], grp * CG, 0, tap);
-        }
+        for (int i = 0; i < L::kBoxes; ++i)
+          w2v2::tma_load_4d(ring + st * L::kSlot + i * L::kBoxBytes, &w_map, &full[st], i * kBox, grp,
+                            0, tap);
         if (++st == kStages) st = 0, ++round;
       }
     }
@@ -261,16 +267,13 @@ pos_conv_kernel(const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* 
     for (int j = 0; j < L::kKSteps; ++j) {
       // A of tile m: window rows m * 64 + s .., channels 16j .. 16j + 15
       const unsigned char* a0 = arow + 2 * j * chunk_bytes + s * 16;
-      // B: the forward's box is (input channel, output channel), MN-major, a
-      // k step 16 rows down; dx's is (its output channel, contraction),
-      // K-major, a k step 32 bytes along.  Narrow boxes: the forward's k step
-      // is 16 rows of 32 bytes down every box, the boxes (16 output channels
-      // each) one box apart along N; dx's k step is box j
-      uint64_t db;
-      if constexpr (L::kNarrowBoxes)
-        db = w2v2::wgmma_desc_sw32(slot + (kMode == kDx ? L::kBoxBytes * j : 512 * j), L::kBoxBytes);
-      else
-        db = w2v2::wgmma_desc(slot + (kMode == kDx ? 32 * j : 2048 * j));
+      // B: the forward's boxes are (input channel, output channel), MN-major:
+      // a k step 16 rows down, N across the boxes one box apart (the leading
+      // byte offset); dx's are (its output channel, contraction), K-major: k
+      // step j is 32 bytes along, in box j / 4
+      const uint64_t db = kMode == kDx
+          ? w2v2::wgmma_desc(slot + (j / 4) * L::kBoxBytes + 32 * (j % 4))
+          : w2v2::wgmma_desc(slot + 2048 * j, L::kBoxBytes);
 #pragma unroll
       for (int m = 0; m < kFwdMt; ++m)
         w2v2::wgmma_ss<kMode == kDx ? 0 : 1>(acc[m], w2v2::wgmma_desc_rows(a0 + m * 64 * 16, chunk_bytes), db);
@@ -329,25 +332,17 @@ cudaError_t encode(CUtensorMap* map, const void* base, int rank, const cuuint64_
 template <int CG, int kMode>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out, void* pre, int B,
                    int T, int C, int G, int K, int pad, cudaStream_t stream) {
-  // w: the kernel (K, CG, C) bf16.  Up to CG = 64 a box is CG rows (its
-  // second axis) x 64 columns from the group's first (16 past the group at
-  // CG = 48, read as zero past C, never used).  Wider, the map is 4-D, (o,
-  // group, i, tap), and a box kKRows rows x 16 columns of one group: five a
-  // tap at 80; eight at 120, whose rows 120-127 and the last box's columns
-  // 120-127 lie past the group's dims and are zero-filled
+  // w: the kernel (K, CG, C) bf16 as a 4-D map (o, group, i, tap); a box is
+  // kKRows rows (i) x 64 columns (o) of one group and tap, 64 j the first
+  // column of box j.  Columns past CG (48 of the one box at 16, 16 at 48, 48
+  // of the second at 80, 8 at 120) and rows past CG (120-127 at 120) lie
+  // past the group's dims and are zero-filled
   using L = FwdLayout<CG>;
   CUtensorMap w_map;
-  if constexpr (L::kNarrowBoxes) {
-    const cuuint64_t dims[4] = {(cuuint64_t)CG, (cuuint64_t)G, (cuuint64_t)CG, (cuuint64_t)K};
-    const cuuint64_t strides[3] = {(cuuint64_t)CG * 2, (cuuint64_t)C * 2, (cuuint64_t)CG * C * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, 1, (cuuint32_t)L::kKRows, 1};
-    W2V2_TRY(encode(&w_map, w, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_32B));
-  } else {
-    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)CG, (cuuint64_t)K};
-    const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)CG * C * 2};
-    const cuuint32_t box[3] = {(cuuint32_t)L::kBoxCols, (cuuint32_t)CG, 1};
-    W2V2_TRY(encode(&w_map, w, 3, dims, strides, box));
-  }
+  const cuuint64_t dims[4] = {(cuuint64_t)CG, (cuuint64_t)G, (cuuint64_t)CG, (cuuint64_t)K};
+  const cuuint64_t strides[3] = {(cuuint64_t)CG * 2, (cuuint64_t)C * 2, (cuuint64_t)CG * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)L::kKRows, 1};
+  W2V2_TRY(encode(&w_map, w, 4, dims, strides, box));
   const int smem = L::bytes(K);
   W2V2_TRY(w2v2::allow_smem(pos_conv_kernel<CG, kMode>, smem));
   const dim3 grid((T + kRows - 1) / kRows, G, B);
@@ -390,8 +385,12 @@ struct DwLayout {
   static constexpr int kM = kTaps * kTapRows;    // dW rows a CTA
   static constexpr int kMt = kM / 128;           // m64 tiles a consumer warpgroup
   static constexpr int kXRows = kDwT + kTaps;    // window rows a stage (one spare)
-  // a window row: 64 channels, 128-byte swizzle; wide, the CG channels unswizzled
-  static constexpr int kXPitch = kWide ? CG * 2 : 128;
+  // a window row: 64 channels, 128-byte swizzle; wide, the CG channels
+  // unswizzled, 8 more where CG / 8 is even, so that the pitch is an odd
+  // number of 16-byte units and an ldmatrix matrix's 8 rows start in 8
+  // distinct bank groups (80: 88 channels, 176 bytes; 120: 240 bytes)
+  static constexpr int kXCols = !kWide ? kBox : (CG / 8) % 2 ? CG : CG + 8;
+  static constexpr int kXPitch = kXCols * 2;
   static constexpr int kXLoad = kXRows * kXPitch;              // bytes the x box brings
   static constexpr int kXBytes = (kXLoad + 1023) / 1024 * 1024;  // its room in a stage
   static constexpr int kDBytes = kDwT * 128;     // 64 time steps x 64 channels, swizzled
@@ -464,7 +463,7 @@ pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_const
   // of the 16 (channels i0 + 8 (q & 1) of their tap), time steps 8 (q >> 1);
   // padding rows (i >= CG, at 120) read the 8 rows above them again.  The
   // swizzle term (chunk ^ row % 8) does not change along k steps of 16 rows,
-  // so each tile keeps one offset (wide groups: rows of CG channels, no
+  // so each tile keeps one offset (wide groups: rows of kXCols channels, no
   // swizzle)
   uint32_t off[kMt];
 #pragma unroll
@@ -550,10 +549,11 @@ cudaError_t launch_dw(const void* x, const void* dpre, void* part, void* dw, int
   using L = DwLayout<CG, kTaps>;
   if (K % kTapStep || splits < 1 || (splits > 1 && !part)) return cudaErrorInvalidValue;
   CUtensorMap x_map, d_map;
-  {  // x (B, T, C): boxes of 64 channels (wide: CG, unswizzled) x kXRows rows of one batch row
+  {  // x (B, T, C): boxes of kXCols channels (64; wide unswizzled) x kXRows rows of one
+     // batch row, from the group's first channel (those past CG are never read)
     const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
     const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
-    const cuuint32_t box[3] = {(cuuint32_t)(L::kWide ? CG : kBox), (cuuint32_t)L::kXRows, 1};
+    const cuuint32_t box[3] = {(cuuint32_t)L::kXCols, (cuuint32_t)L::kXRows, 1};
     W2V2_TRY(encode(&x_map, x, 3, dims, strides, box,
                     L::kWide ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B));
   }

@@ -59,6 +59,17 @@ def tap_rows(cg: int) -> int:
     return -(-cg // 16) * 16
 
 
+def dw_window_cols(cg: int) -> int:
+    """Channels a row of the dW kernel's x window (`DwLayout::kXCols`): a
+    64-channel box with the 128-byte swizzle up to 64 channels a group;
+    wider, the group's channels unswizzled, 8 more where cg / 8 is even, so
+    that the row pitch is an odd number of 16-byte units (88 at 80, 120 at
+    120)."""
+    if cg <= 64:
+        return 64
+    return cg if (cg // 8) % 2 else cg + 8
+
+
 def supports(c: int, groups: int, dtype: torch.dtype, kernel_size: int = 128) -> bool:
     """Whether the pos-conv kernels' instances cover a (.., C) activation of
     `dtype` convolved in `groups` groups with `kernel_size` taps: bf16, C //

@@ -364,11 +364,14 @@ def _check_pos_conv_wrappers(cuda, cg, k, b, t, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cg", [48, 64, 16, 80, 120])
 @pytest.mark.parametrize("b,t", [(b, t) for t in (1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 768)
-                                 for b in (1, 3)] + [(1, 5999)])
+                                 for b in (1, 3)] + [(1, 5999), (2, 3000)])
 def test_pos_conv_kernels_match_plain_at_tile_edges(cuda, cg, b, t):
     """Every pos-conv wrapper at T on each side of the forward's 256-row and
     the dW kernel's 64-step tiles, one and three batch rows (ragged splits
-    of the dW time tiles), and the long path's 5999 frames."""
+    of the dW time tiles), the long path's 5999 frames and the 2 x 3000 of
+    the smoke script's checks.  At 80 and 120 channels a group this holds
+    the forward's B across a tap's two weight boxes, dx's k steps in both,
+    and dW's unswizzled x window."""
     _check_pos_conv_wrappers(cuda, cg, 128, b, t, seed=t + 7 * b)
 
 

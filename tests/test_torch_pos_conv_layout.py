@@ -7,10 +7,12 @@ kernel in its JAX layout (K, C // groups, C), cast to bf16; x and dpre as
 kernels' order (forward and dx: one tap a ring slot, 16 channels a k step;
 dW: a CTA's block of taps and share of the output channels over 64-step
 time tiles, split as `dw_splits` says), and hold the result to the plain
-versions.  At C/G = 120 the contraction is padded to 128 channels with
-zeros in both operands (8 k steps), the forward's N is 120 of the 128
-columns its boxes hold, and dW pads each tap's M rows to 128 and splits the
-group's output channels over three CTAs.
+versions.  The forward / dx weights come through one 4-D map at every
+width, ceil(C/G / 64) boxes of 64 columns a tap.  At C/G = 120 the
+contraction is padded to 128 channels with zeros in both operands (8 k
+steps), the forward's N is 120 of the 128 columns its two boxes hold, and
+dW pads each tap's M rows to 128 and splits the group's output channels
+over three CTAs.
 """
 
 import math
@@ -57,19 +59,14 @@ def _tma_box(flat, dims, strides, box, coords):
 
 
 def _tap_boxes(w, tap, g, cg):
-    """The TMA boxes of one tap and group as `launch` encodes them: up to 64
-    channels a group, CG rows (the kernel's second axis) x 64 columns from
-    the group's first, zero past C (a 3-D map over (C, CG, K)); wider (C/G =
-    80, 120), the 4-D map (o, group, i, tap) and tap_rows / 16 boxes of
-    tap_rows rows x 16 columns of the group, zero past its CG rows and
-    columns."""
+    """The TMA boxes of one tap and group as `launch` encodes them at every
+    width: the 4-D map (o, group, i, tap) over the kernel (K, CG, C), and
+    ceil(CG / 64) boxes of tap_rows rows (i) x 64 columns (o), box j from
+    column 64 j; zero past the group's CG rows and columns."""
     k, _, c = w.shape
-    flat = w.reshape(-1)
-    if cg <= BOX:
-        return [_tma_box(flat, (c, cg, k), (c, cg * c), (BOX, cg, 1), (g * cg, 0, tap))[0]]
     rows = pos_conv.tap_rows(cg)
-    return [_tma_box(flat, (cg, c // cg, cg, k), (cg, c, cg * c), (16, 1, rows, 1),
-                     (16 * i, g, 0, tap))[0, :, 0] for i in range(rows // 16)]
+    return [_tma_box(w.reshape(-1), (cg, c // cg, cg, k), (cg, c, cg * c), (BOX, 1, rows, 1),
+                     (BOX * j, g, 0, tap))[0, :, 0] for j in range(-(-cg // BOX))]
 
 
 def _window(x, g, cg, pad, k):
@@ -88,9 +85,10 @@ def _window(x, g, cg, pad, k):
 def _walk_forward(x, w, groups, pad, dx):
     """sum over taps s (ring slots) and the tap_rows / 16 k steps j of
     window[t + s] (channels 16j ..) times the slot's boxes: the forward reads
-    them MN-major (rows are the contraction; N = CG columns across the
-    boxes), dx reads tap K-1-s K-major (N = its CG outputs of the box rows;
-    k step j is columns 16j .., box j where the boxes are 16 columns wide)."""
+    them MN-major (rows are the contraction, k step j rows 16j ..; N = CG
+    columns across the boxes), dx reads tap K-1-s K-major (N = its CG
+    outputs of the box rows; k step j is columns 16 (j % 4) .. of box
+    j // 4)."""
     b, t, c = x.shape
     k, cg, _ = w.shape
     out = torch.zeros(b, t, c, dtype=torch.float64)
@@ -102,7 +100,8 @@ def _walk_forward(x, w, groups, pad, dx):
             for j in range(pos_conv.tap_rows(cg) // 16):
                 a = win[:, s:s + t, 16 * j:16 * j + 16].double()
                 if dx:
-                    bmat = (boxes[j] if len(boxes) > 1 else boxes[0][:, 16 * j:16 * j + 16]).T[:, :cg]
+                    col = 16 * (j % 4)
+                    bmat = boxes[j // 4][:, col:col + 16].T[:, :cg]
                 else:
                     bmat = torch.cat(boxes, dim=1)[16 * j:16 * j + 16, :cg]
                 acc += a @ bmat
@@ -111,7 +110,8 @@ def _walk_forward(x, w, groups, pad, dx):
 
 
 @pytest.mark.parametrize("cg,k,t", [(48, 128, 37), (64, 36, 50), (16, 8, 21), (48, 8, 5),
-                                    (80, 128, 37), (80, 8, 5), (120, 128, 37), (120, 4, 5)])
+                                    (80, 128, 37), (80, 8, 5), (80, 16, 1), (120, 128, 37),
+                                    (120, 4, 5), (120, 8, 1)])
 def test_forward_walk_over_tap_boxes_is_the_plain_forward(cg, k, t):
     x, _, kernel, bias, groups = _case(cg, k, 2, t, cg + k)
     w = kernel.to(torch.bfloat16)  # what the wrappers pass
@@ -126,7 +126,8 @@ def test_forward_walk_over_tap_boxes_is_the_plain_forward(cg, k, t):
 
 
 @pytest.mark.parametrize("cg,k,t", [(48, 128, 37), (64, 36, 50), (16, 8, 21), (64, 4, 3),
-                                    (80, 128, 37), (80, 8, 3), (120, 128, 37), (120, 8, 3)])
+                                    (80, 128, 37), (80, 8, 3), (80, 16, 1), (120, 128, 37),
+                                    (120, 8, 3), (120, 4, 1)])
 def test_dx_walk_over_flipped_tap_boxes_is_the_plain_dx(cg, k, t):
     """dx reads the forward's kernel with the taps flipped and each box read
     K-major: that is `dx_kernel`'s flipped, in/out-swapped kernel."""
@@ -241,36 +242,25 @@ def test_dw_splits_fill_the_card_and_no_more(k, cg, groups, b, t, want):
     assert 1 <= got <= max(1, tiles) and (got == 1 or blocks * got <= 132)
 
 
-def test_80_channel_boxes_load_exactly_the_group():
-    """At C/G = 80 a tap's boxes (five of 16 columns) cover the group's 80
-    columns once and nothing of the next group's, which a 64-column second
-    box would load; the dW CTAs' output shares tile the group's columns."""
-    cg, groups = 80, 3
-    w = torch.arange(2 * cg * groups * cg, dtype=torch.float32).reshape(2, cg, groups * cg)
-    for g in range(groups):
-        cols = torch.cat(_tap_boxes(w, 1, g, cg), dim=1)
-        assert torch.equal(cols, w[1][:, g * cg:(g + 1) * cg])
-    kn = cg // pos_conv.DW_N_SPLIT[cg]
-    assert pos_conv.DW_N_SPLIT[cg] * kn == cg and kn % 8 == 0 and kn <= BOX
-
-
-def test_120_channel_boxes_load_exactly_the_group():
-    """At C/G = 120 a tap's eight 16-column boxes of the 4-D map hold the
-    group's 120 x 120 weights and zeros in rows and columns 120-127, never
-    the next tap's rows or the next group's columns (which a 3-D map's box
-    of 128 rows, or a last box 16 columns wide, would load); the window's
-    16th chunk is zero; the dW CTAs' three output shares tile the group's
-    columns, and a dW tap's 128 M rows read each of its 120 channels."""
-    cg, groups = 120, 3
+@pytest.mark.parametrize("cg", [16, 48, 64, 80, 120])
+def test_tap_boxes_load_exactly_the_group(cg):
+    """A tap's 64-column boxes hold the group's CG x CG weights of that tap
+    and zeros past them (rows CG .. tap_rows - 1, columns CG .. of the last
+    box): never the next group's columns, which a 3-D map's box from the
+    group's first column would load at 16 and 48 channels, nor the next
+    tap's rows.  The window's chunks past CG are zero; the dW CTAs' output
+    shares tile the group's columns, and a dW tap's tap_rows M rows read
+    each of its CG channels."""
+    groups, k = 3, 2
     rows = pos_conv.tap_rows(cg)
-    assert rows == 128
-    w = torch.arange(1, 1 + 2 * cg * groups * cg, dtype=torch.float64).reshape(2, cg, groups * cg)
-    for g in range(groups):
-        boxes = _tap_boxes(w, 0, g, cg)
-        assert len(boxes) == 8 and all(box.shape == (rows, 16) for box in boxes)
-        tile = torch.cat(boxes, dim=1)
-        assert torch.equal(tile[:cg, :cg], w[0][:, g * cg:(g + 1) * cg])
-        assert not tile[cg:].any() and not tile[:, cg:].any()
+    w = torch.arange(1, 1 + k * cg * groups * cg, dtype=torch.float64).reshape(k, cg, groups * cg)
+    for tap in range(k):
+        for g in range(groups):
+            boxes = _tap_boxes(w, tap, g, cg)
+            assert len(boxes) == -(-cg // BOX) and all(box.shape == (rows, BOX) for box in boxes)
+            tile = torch.cat(boxes, dim=1)
+            assert torch.equal(tile[:cg, :cg], w[tap][:, g * cg:(g + 1) * cg])
+            assert not tile[cg:].any() and not tile[:, cg:].any()
     x = torch.arange(1, 1 + 2 * 5 * groups * cg, dtype=torch.float64).reshape(2, 5, groups * cg)
     win = _window(x, 1, cg, 2, 4)
     assert win.shape == (2, 8, rows) and not win[..., cg:].any()
@@ -286,21 +276,65 @@ def test_120_channel_boxes_load_exactly_the_group():
         assert all(t == tap and ch < cg for t, ch in a_rows[tap * rows + cg:(tap + 1) * rows])
 
 
+def _dw_bank_groups(cg, cols):
+    """For every ldmatrix_x4_trans of a dW CTA (consumer warpgroup, m64 tile,
+    warp, k step of 16 time steps) and each of its four 8 x 8 matrices, the
+    16-byte bank group (address / 16 mod 8) of each of the matrix's 8 rows,
+    by the kernel's addresses: window rows of `cols` channels, with the
+    128-byte swizzle (chunk c of row r at c ^ r % 8) where `cols` is 64,
+    plain otherwise; the stage 1024-byte aligned."""
+    rows = pos_conv.tap_rows(cg)
+    m_rows = pos_conv.DW_CTA_TAPS[cg] * rows
+    pitch = 2 * cols
+    out = []
+    for wg in range(2):
+        for m in range(m_rows // 128):
+            for w in range(4):
+                for j in range(pos_conv.DW_TIME_TILE // 16):
+                    addrs = []
+                    for lane in range(32):
+                        mrow = wg * (m_rows // 2) + m * 64 + 16 * w + 8 * ((lane >> 3) & 1)
+                        i = mrow % rows
+                        r = mrow // rows + (lane & 7) + ((lane >> 4) & 1) * 8
+                        c = (i if i < cg else i - 8) // 8
+                        off = r * 128 + (((c ^ r) & 7) << 4) if cols == BOX else r * pitch + c * 16
+                        addrs.append(off + j * 16 * pitch)
+                    out.extend([[(a // 16) % 8 for a in addrs[8 * q:8 * q + 8]] for q in range(4)])
+    return out
+
+
+@pytest.mark.parametrize("cg", [48, 64, 80, 120])
+def test_dw_window_ldmatrix_rows_hit_distinct_banks(cg):
+    """Each 8-row matrix of the dW kernel's ldmatrix_x4_trans reads 8 rows of
+    16 bytes, one phase of the shared memory's 32 banks: the rows must start
+    in 8 distinct 16-byte bank groups, or the load is serialised.  The
+    window of `dw_window_cols` channels has that at every width; at 80 an
+    unpadded row (160 bytes) puts rows r and r + 4 on the same banks."""
+    cols = pos_conv.dw_window_cols(cg)
+    assert cols >= min(cg, BOX) and (2 * cols) % 16 == 0
+    for groups in _dw_bank_groups(cg, cols):
+        assert len(set(groups)) == 8
+    if cg == 80:
+        assert any(len(set(groups)) < 8 for groups in _dw_bank_groups(cg, cg))
+
+
 def test_forward_shared_memory_fits_the_block():
     """`MAX_TAPS` against the forward / dx kernel's shared memory as its
     header note lays it out (`FwdLayout::bytes`): 1024 bytes of alignment
-    slack, 4 weight slots of tap_rows rows x 64 columns (tap_rows x tap_rows
-    past 64 channels a group), 8 bytes a barrier, and a window of 256 + K
-    rows of tap_rows bf16 channels; 113,728 bytes at 80 channels a group and
-    128 taps, 230,464 at 120, of the 232,448 a block may take.  At 120 the
-    most taps that fit is 132, and `supports` stops there; at the other
-    widths 128 taps fit with room to spare."""
+    slack, 4 weight slots of ceil(CG / 64) boxes of tap_rows rows x 64
+    columns, 8 bytes a barrier, and a window of 256 + K rows of tap_rows
+    bf16 channels; 144,448 bytes at 80 channels a group and 128 taps,
+    230,464 at 120, of the 232,448 a block may take.  At 120 the most taps
+    that fit is 132, and `supports` stops there; at the other widths 128
+    taps fit with room to spare, and at 48 and 64 two CTAs an SM."""
     def fwd_bytes(cg, k):
         rows = pos_conv.tap_rows(cg)
-        return 1024 + 4 * rows * max(64, rows) * 2 + 2 * 4 * 8 + (256 + k) * rows * 2
+        slot = -(-cg // BOX) * rows * BOX * 2
+        return 1024 + 4 * slot + 2 * 4 * 8 + (256 + k) * rows * 2
 
     limit = 232_448
-    assert fwd_bytes(80, 128) == 113_728 and fwd_bytes(120, 128) == 230_464
+    assert fwd_bytes(80, 128) == 144_448 and fwd_bytes(120, 128) == 230_464
+    assert 2 * fwd_bytes(48, 128) <= limit and 2 * fwd_bytes(64, 128) <= limit
     step = pos_conv.DW_TAP_BLOCK[120]
     most = max(k for k in range(step, 512, step) if fwd_bytes(120, k) <= limit)
     assert pos_conv.MAX_TAPS == {120: most} == {120: 132}
