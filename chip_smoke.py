@@ -179,6 +179,22 @@ Phases, each printing one JSON line:
                 instance at head dim 120, as in JAX), with 4 stage-2 steps
                 under remat "full" (the f32 weights, gradients and Adam
                 moments alone are ~34.6 GB).
+ 13d. robust_h128 -- `RobustWav2Vec2Config(num_heads=8)`: facebook/
+                wav2vec2-large-robust's widths (1024-d, 24 pre-norm layers,
+                FFN 4096, pos conv 16 groups of 64) with 8 heads of 128, the
+                one field that sets the head dim changed, vocab 32, seed 1:
+                first the flash kernels' D = 128 instances against their
+                plain versions (forward 0.02, with dropout 0.04, gradients
+                1% of their scale; every launch twice, bit-equal) at (8, 8,
+                768, 128) with a ragged bias, without and with dropout 0.1,
+                at (1, 8, 5999, 128) with dropout and at the tile edges L =
+                1, 63, 64, 65, 127, 128, 129, 1249, timed beside their
+                bounds and SDPA; then as 13b at C/G = 64 with the flash
+                kernels: launches a forward `conv01_robust` 1, `pos_conv` 1,
+                flash 24; ms a forward, and once with the flash kernels
+                turned off through `supports` (the plain attention); row 0
+                against the card's plain f32 forward; 1 + 4 stage-2 steps
+                without remat (flash forward 24 and backward 24 a step).
  14. export  -- `cli.export.main` at base width and depth: `torch_export` on
                 the card (symbolic batch, 246000 samples), the program run
                 in a process that imports `ops.kernels` alone (no model
@@ -191,8 +207,9 @@ Phases, each printing one JSON line:
  15. profiling -- `timeit` of the base forward at its defaults (3 warmup
                 calls, 20 timed back to back, one readback) and the
                 host-clock ms of 20 forwards back to back ended by one
-                synchronize, over 20, on one model by turns, 11 rounds: the
-                median relative difference within 3.5% (phase 4's method,
+                synchronize, over 20, on one model by turns, 11 rounds, the
+                two in alternating order from round to round: the median
+                relative difference within 3.5% (phase 4's method,
                 the median of 20 synchronised calls, by turns, and phase
                 4's median printed beside it); then
                 `utils.profiling.trace` around an unannotated forward and
@@ -356,12 +373,14 @@ SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gat
                                                      "remat", "pretrain_cli")
 TRAIN_PATHS = ("train", "pretrain", "pretrain_gather", "cli", "remat", "pretrain_cli")
 CTC_PATHS = ("train", "robust_train", "long_train", "cli", "remat", "xlarge_train",
-             "xls_r_2b_train")
+             "xls_r_2b_train", "robust_h128_train")
 # a CTC loss and its gradient: one launch of each wrapper
 CTC_STEP = {"ctc_loss_fwd": 1, "ctc_loss_bwd": 1}
 LONG_PATHS = ("long_inference", "long_train")
 # the 1280-d family (phase 13b) and XLS-R 2B's 1920-d (phase 13c)
 XLARGE_PATHS = ("xlarge", "xlarge_train", "xls_r_2b", "xls_r_2b_train")
+# the robust/large widths at 8 heads of 128 (phase 13d)
+H128_PATHS = ("robust_h128", "robust_h128_train")
 
 
 def reset_counts() -> None:
@@ -830,24 +849,36 @@ def _ragged_bias(b: int, l: int, gen: torch.Generator) -> torch.Tensor:
     return torch.where(torch.arange(l)[None, :] < lengths[:, None], 0.0, -10000.0).cuda()
 
 
-def flash_dropout_errors(q, kk, v, dout, kb, rate, seed, what, backward=True):
-    """The flash forward with dropout and, on the same inputs, the backward,
-    each against its plain version.  Returns ((fwd err, mean), out, lse,
-    {dq, dk, dv: err / scale}, bwd max abs err, bwd max mean err)."""
+def flash_dropout_errors(q, kk, v, dout, kb, rate, seed, what, backward=True, floor=0.0,
+                         relaunch=False):
+    """The flash forward with dropout `rate` and, on the same inputs, the
+    backward, each against its plain version: the forward within 0.04 (0.02
+    without dropout), each gradient within 1% of its scale + `floor` (L = 1
+    leaves dq = dk = 0 up to rounding); with `relaunch` each launched twice,
+    bit-equal.  Returns ((fwd err, mean), out, lse, {dq, dk, dv: err /
+    scale}, bwd max abs err, bwd max mean err)."""
     out, lse = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
     pout, plse = fa.flash_attention_fwd_plain(q, kk, v, kb, dropout_rate=rate, seed=seed)
+    if relaunch:
+        again = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
+        require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                f"flash {what}: two forward launches differ")
     torch.cuda.synchronize()
     err, mean_err = errors(out, pout)
     lse_err, _ = errors(lse, plse)
-    # bf16 output (|out| < 4: ulp 2^-6): p rounded before / after the
-    # normalisation and the 1 / (1 - rate) scaling: 2.5 ulp; a mask that
-    # differed in one element of a row would move that row by ~|v| p / 0.9
-    tol = 0.04
+    # bf16 output (|out| < 4: ulp 2^-6): p rounded to bf16 before / after the
+    # 1/l scaling; under dropout also the 1 / (1 - rate) scaling: 2.5 ulp; a
+    # mask that differed in one element of a row would move that row by ~|v| p / 0.9
+    tol = 0.04 if rate else 0.02
     require(err <= tol and mean_err <= 2e-3 and lse_err <= 1e-3,
             f"flash dropout {what}: {err} / mean {mean_err} / lse {lse_err}")
     rel, bwd_abs, bwd_mean = {}, 0.0, 0.0
     if backward:
         grads = fa.flash_attention_bwd(q, kk, v, kb, pout, plse, dout, dropout_rate=rate, seed=seed)
+        if relaunch:
+            again = fa.flash_attention_bwd(q, kk, v, kb, pout, plse, dout, dropout_rate=rate, seed=seed)
+            require(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                    f"flash bwd {what}: two launches differ")
         pgrads = fa.flash_attention_bwd_plain(q, kk, v, kb, pout, plse, dout,
                                               dropout_rate=rate, seed=seed)
         torch.cuda.synchronize()
@@ -856,9 +887,9 @@ def flash_dropout_errors(q, kk, v, dout, kb, rate, seed, what, backward=True):
             scale = pg.float().abs().max().item()
             # bf16 outputs of f32 sums over L in another order: 1% of the
             # tensor's scale (~1.3 ulp at its top), mean 0.1%
-            require(gerr <= 0.01 * scale and gmean <= 1e-3 * scale,
+            require(gerr <= 0.01 * scale + floor and gmean <= 1e-3 * scale + floor,
                     f"flash bwd {name} {what}: {gerr} / mean {gmean} (scale {scale})")
-            rel[name] = gerr / scale
+            rel[name] = gerr / scale if scale else 0.0
             bwd_abs, bwd_mean = max(bwd_abs, gerr), max(bwd_mean, gmean)
     return (err, mean_err), out, lse, rel, bwd_abs, bwd_mean
 
@@ -1000,7 +1031,8 @@ def check_robust_kernels(model, records):
         return fn.gelu(fn.layer_norm(y, (c,), half[4], half[5], 1e-5), approximate="tanh")
 
     records.append(dict(
-        name="conv01_robust", counter="conv01_robust", paths=ROBUST_PATHS + XLARGE_PATHS, route="cuda",
+        name="conv01_robust", counter="conv01_robust", paths=ROBUST_PATHS + XLARGE_PATHS + H128_PATHS,
+        route="cuda",
         source=CSRC + "conv_frontend.cu", replaces=PALLAS + "conv_frontend.py:334",
         shape=[b, SAMPLES], max_abs_err=err, mean_abs_err=mean_err, tol=tol,
         relaunch_bit_equal=True,
@@ -1017,8 +1049,10 @@ def check_robust_kernels(model, records):
     require(kernel.shape[1] == 64, f"robust pos conv C/G {kernel.shape[1]}")
     bias = (0.1 * torch.randn(h, generator=gen)).to(dev)
     t = model.config.conv_output_length(SAMPLES)  # 768
-    records.append(pos_conv_eval_record(kernel, bias, b, t, "pos_conv_cg64", ROBUST_PATHS, gen))
-    records.extend(pos_conv_train_records(kernel, bias, b, t, "_cg64", ("robust_train",), gen))
+    records.append(pos_conv_eval_record(kernel, bias, b, t, "pos_conv_cg64",
+                                        ROBUST_PATHS + ("robust_h128",), gen))
+    records.extend(pos_conv_train_records(kernel, bias, b, t, "_cg64",
+                                          ("robust_train", "robust_h128_train"), gen))
 
     # flash forward at (8, 16, 768, 64), ragged bias, with and without dropout
     heads = model.config.num_heads
@@ -3321,6 +3355,7 @@ def xlarge_phase(smi: str, records) -> dict:
     `XLARGE_STAGE2_STEPS` stage-2 steps under `XLARGE_REMAT`.  Returns
     {path: launch counts}."""
     config = config_from_hf_dict(HUBERT_XLARGE)
+    _wide_geometry(config, 80)
     model, ref, init_s, write_s, load_s = hubert_snapshot_model(HUBERT_XLARGE, config)
     n_params = sum(v.numel() for v in ref.state_dict().values())
     del ref  # the f32 reference runs on the card
@@ -3359,6 +3394,7 @@ def xls_r_2b_phase(smi: str, records) -> dict:
     snapshot: an f32 `pytorch_model.bin` of it would be ~8.6 GB.  Returns
     {path: launch counts}."""
     config = config_from_hf_dict(XLS_R_2B)
+    _wide_geometry(config, 120)
     t = time.perf_counter()
     model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(1))
     init_s = time.perf_counter() - t
@@ -3370,28 +3406,172 @@ def xls_r_2b_phase(smi: str, records) -> dict:
                        records, seed=18, remat=XLS_R_2B_REMAT, steps=XLARGE_STAGE2_STEPS)
 
 
-def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, remat, steps) -> dict:
-    """The 48-layer stable-layer-norm checkpoints of the 1280-d and 1920-d
-    families on the card (phases 13b, 13c), whose pos conv runs the
-    kernels' C/G = `cg` instances and whose attention runs the plain version
-    (head dim `cg`: no flash instance, as in JAX): a ragged B=8 x 246000
+# facebook/wav2vec2-large-robust's widths with 8 heads of 128 in place of 16
+# of 64: the one field that sets the head dim changed (no public wav2vec2 /
+# XLS-R / HuBERT checkpoint has heads of 128)
+H128_HEADS = 8
+H128_EDGES = (1, 63, 64, 65, 127, 128, 129, 1249)
+
+
+def check_flash_d128_kernels(records):
+    """Phase 13d, first part: the flash kernels' D = 128 instances, forward
+    and backward, against their plain versions (`flash_dropout_errors`,
+    every launch twice, bit-equal) at the phase's (8, 8, 768, 128) with a
+    ragged bias, without and with dropout 0.1, at (1, 8, 5999, 128) with
+    dropout (the long regime, where JAX switches to its kv-blocked kernels;
+    hash stride 6016) and at the tile edges L = `H128_EDGES` on (2, 3, L,
+    128), no bias and ragged, dropout 0 and 0.1.  Timed at (8, 8, 768, 128)
+    and (1, 8, 5999, 128) with their bounds and SDPA's time at the same
+    shape (a yardstick the port never calls).  Appends two records, the
+    long regime and the edges inside them."""
+    gen = torch.Generator().manual_seed(12800)
+    d, heads = 128, H128_HEADS
+    b, t = ROBUST_B, RobustWav2Vec2Config().conv_output_length(SAMPLES)
+    rate, seed = 0.1, 4321
+    # -- the tile edges (at L = 1 dq = dk = 0 up to rounding: its gradients'
+    # errors are recorded as they are, not over their scale) --------------------
+    edge_fwd, edge_rel, l1_abs = 0.0, {"dq": 0.0, "dk": 0.0, "dv": 0.0}, 0.0
+    for l in H128_EDGES:
+        q, kk, v, dout = _peaky(2, 3, l, d, gen)
+        for bias in (None, _ragged_bias(2, l, gen)):
+            for r in (0.0, rate):
+                (err, _), _, _, rel, gabs, _ = flash_dropout_errors(
+                    q, kk, v, dout, bias, r, seed, f"d=128 L={l} bias={bias is not None} rate={r}",
+                    floor=1e-4, relaunch=True)
+                edge_fwd = max(edge_fwd, err)
+                if l == 1:
+                    l1_abs = max(l1_abs, gabs)
+                else:
+                    edge_rel = {n: max(edge_rel[n], rel[n]) for n in rel}
+    del q, kk, v, dout
+    # -- the phase's shape: without dropout, then with it (and the backward) --
+    q, kk, v, dout = _peaky(b, heads, t, d, gen)
+    kb = _ragged_bias(b, t, gen)
+    (err, mean_err), *_ = flash_dropout_errors(q, kk, v, dout, kb, 0.0, seed, "d=128 (8, 8, 768)",
+                                               relaunch=True)
+    (derr, _), _, _, rel, gabs, _ = flash_dropout_errors(q, kk, v, dout, kb, rate, seed,
+                                                         "d=128 (8, 8, 768)", relaunch=True)
+    run_flash = lambda: fa.flash_attention_fwd(q, kk, v, kb)
+    run_library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kk, v, attn_mask=kb[:, None, None, :].to(q.dtype), scale=1.0)
+    dev_ms, _ = device_kernels(run_flash)
+    lib_dev_ms, lib_kernels = device_kernels(run_library)
+    bms, by = bound(4 * q.numel() * 2 + b * heads * t * 4 + b * t * 4, 4 * b * heads * t * t * d,
+                    PEAK_BF16)
+    fwd = dict(
+        name="flash_attention_fwd_d128", counter="flash_attention_fwd", paths=H128_PATHS,
+        route="cuda", source=CSRC + "flash_attention.cu", replaces=PALLAS + "flash_attention.py:224",
+        also_replaces=[PALLAS + "flash_attention.py:516"], head_dim=d,
+        shape=[b, heads, t, d], ragged_bias=True, max_abs_err=err, mean_abs_err=mean_err, tol=0.02,
+        relaunch_bit_equal=True, ms=time_ms(run_flash, 30), device_ms=dev_ms,
+        plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(q, kk, v, kb), 3, 1),
+        bound_ms=bms, bound_by=by, exp_bound_ms=exp_bound_ms(b * heads * t * t),
+        library_ms=time_ms(run_library, 30), library_device_ms=lib_dev_ms,
+        library_kernels=lib_kernels,
+        edges=dict(shape=[2, 3, "L", d], checked_at_L=list(H128_EDGES), max_abs_err=edge_fwd,
+                   bwd_max_rel_err_by_grad=edge_rel, bwd_max_abs_err_at_L1=l1_abs))
+    out, lse = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
+    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed)
+    fwd["dropout"] = dict(max_abs_err=derr, tol=0.04, **fwd_rec)
+    bwd = dict(
+        name="flash_attention_bwd_d128", counter="flash_attention_bwd", paths=("robust_h128_train",),
+        route="cuda", source=CSRC + "flash_attention.cu", replaces=PALLAS + "flash_attention.py:285",
+        also_replaces=[PALLAS + "flash_attention.py:595", PALLAS + "flash_attention.py:638"],
+        head_dim=d, max_abs_err=gabs, max_rel_err_by_grad=rel,
+        tol="0.01 x each gradient's max |value|", relaunch_bit_equal=True, **bwd_rec)
+    del q, kk, v, dout, kb, out, lse
+    torch.cuda.empty_cache()
+    # -- the long regime: (1, 8, 5999, 128) with dropout -------------------------
+    l = RobustWav2Vec2Config().conv_output_length(LONG_SAMPLES)
+    q, kk, v, dout = _peaky(1, heads, l, d, gen)
+    kb = _ragged_bias(1, l, gen)
+    (lerr, _), out, lse, lrel, lgabs, _ = flash_dropout_errors(q, kk, v, dout, kb, rate, seed,
+                                                               f"d=128 L={l}", relaunch=True)
+    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed)
+    fwd["long"] = dict(max_abs_err=lerr, tol=0.04, **fwd_rec)
+    bwd["long"] = dict(max_abs_err=lgabs, max_rel_err_by_grad=lrel, **bwd_rec)
+    records.extend((fwd, bwd))
+    del q, kk, v, dout, kb, out, lse
+    torch.cuda.empty_cache()
+
+
+def robust_h128_phase(smi: str, records) -> dict:
+    """Phase 13d: `RobustWav2Vec2Config(num_heads=8)` (facebook/wav2vec2-
+    large-robust's 1024-d, 24 pre-norm layers, FFN 4096, LayerNorm conv
+    stack with bias, pos conv 16 groups of 64, with 8 heads of 128) as
+    `Wav2Vec2ForCTC` of vocab 32, weights from seed 1: first the flash
+    kernels' D = 128 instances (`check_flash_d128_kernels`), then
+    `wide_phases` at C/G = 64 with the flash kernels at D = 128 (24
+    forward launches a forward, 24 + 24 a stage-2 step), no remat, 4
+    stage-2 steps; its pos-conv kernels' records are phase 7's (the same
+    instance at the same shape), which this path's launches join.
+    Returns {path: launch counts}."""
+    config = RobustWav2Vec2Config(num_heads=H128_HEADS)
+    require(config.hidden_size // config.num_heads == 128 and fa.supports(128, torch.bfloat16),
+            "the card's dispatch takes the flash kernels at head dim 128")
+    check_flash_d128_kernels(records)
+    t = time.perf_counter()
+    model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(1))
+    info = {"config": "facebook/wav2vec2-large-robust's widths (1024-d, 24 pre-norm layers, FFN "
+                      "4096, LayerNorm conv stack with bias, pos conv 16 groups of 64) with 8 heads "
+                      "of 128 in place of 16 of 64, CTC head of vocab 32, seed 1",
+            "parameters": sum(p.numel() for p in model.parameters()),
+            "init_s": time.perf_counter() - t}
+    cg = config.hidden_size // config.num_conv_pos_embedding_groups  # 64
+    return wide_phases("robust_h128", "robust/large at 8 heads of 128", config, model, info, cg, smi,
+                       records, seed=20, remat=False, steps=XLARGE_STAGE2_STEPS, pos_records=False)
+
+
+def _wide_geometry(config, cg: int) -> None:
+    """Phases 13b, 13c: 48 stable-layer-norm layers, C/G = head dim = `cg`,
+    which no flash instance takes (as in JAX)."""
+    require(config.is_robust and config.num_layers == 48
+            and config.hidden_size // config.num_conv_pos_embedding_groups == cg
+            and config.hidden_size // config.num_heads == cg
+            and not fa.supports(cg, torch.bfloat16), f"the {config.hidden_size}-d geometry")
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model sites' dispatch with no flash instance (`fa.supports`
+    false): the attention runs `flash_attention_fwd_plain` on the card."""
+    saved = fa.supports
+    fa.supports = lambda head_dim, dtype: False
+    try:
+        yield
+    finally:
+        fa.supports = saved
+
+
+def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, remat, steps,
+                pos_records=True) -> dict:
+    """Stable-layer-norm models at full width on the card (phases 13b, 13c,
+    13d), whose pos conv runs the kernels' C/G = `cg` instances and whose
+    attention runs the flash kernels where `fa.supports` takes the head dim,
+    else the plain version (as JAX runs XLA there): a ragged B=8 x 246000
     batch through `predict_batch` with its mask (launches a forward:
-    `conv01_robust` 1, `pos_conv` 1, flash 0); ms a forward; row 0 against
-    the card's plain f32 forward (no kernel in f32) at the robust cell's
-    bounds; the four pos-conv kernels at (8, 768, C) against their plain
-    versions, timed (into `records`, names ending `_cg{cg}`); one stage-1
-    and `steps` stage-2 steps of the same batch with dropout 0.1,
-    SpecAugment and the mask (the three pos-conv training kernels and the
-    CTC pair 1 each a step); two identical stage-2 losses and gradients
-    bit-equal, all under `remat`.  Frees the model.  Returns {phase: launch
-    counts of the forward, phase + "_train": of the steps}."""
+    `conv01_robust` 1, `pos_conv` 1, flash forward one a layer or 0); ms a
+    forward, and with flash also ms a forward of the plain attention (the
+    flash kernels turned off through `fa.supports`); row 0 against the
+    card's plain f32 forward (no kernel in f32) at the robust cell's
+    bounds; with `pos_records` the four pos-conv kernels at (8, 768, C)
+    against their plain versions, timed (into `records`, names ending
+    `_cg{cg}`); one stage-1 and `steps` stage-2 steps of the same batch with
+    dropout 0.1, SpecAugment and the mask (the three pos-conv training
+    kernels and the CTC pair 1 each a step, with flash the forward one a
+    layer, two under remat, and the backward one a layer); two identical
+    stage-2 losses and gradients bit-equal, all under `remat`.  Frees the
+    model.  Returns {phase: launch counts of the forward, phase + "_train":
+    of the steps}."""
     groups = config.num_conv_pos_embedding_groups
-    require(config.is_robust and config.num_layers == 48 and config.hidden_size // groups == cg
-            and config.hidden_size // config.num_heads == cg, f"{what}'s geometry")
-    require(pc.supports(config.hidden_size, groups, torch.bfloat16, config.num_conv_pos_embeddings)
-            and not fa.supports(cg, torch.bfloat16),
-            f"the {config.hidden_size}-d card dispatch: pos-conv kernels at C/G = {cg}, no flash")
+    layers = config.num_layers
+    flash = fa.supports(config.hidden_size // config.num_heads, torch.bfloat16)
+    require(config.is_robust and config.hidden_size // groups == cg, f"{what}'s geometry")
+    require(pc.supports(config.hidden_size, groups, torch.bfloat16, config.num_conv_pos_embeddings),
+            f"the {config.hidden_size}-d card dispatch: pos-conv kernels at C/G = {cg}")
     per_forward = {"conv01_robust": 1, "pos_conv": 1}
+    if flash:
+        per_forward["flash_attention_fwd"] = layers
     evaluator = GreedyCTCEvaluator(model)
     require(evaluator.compute_dtype == torch.bfloat16 and evaluator.use_attention_mask,
             f"{what} runs in bf16 with a sample mask on the card")
@@ -3419,14 +3599,29 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     torch.cuda.synchronize()
     require(bool(torch.isfinite(logits).all()), f"non-finite {what} logits on the card")
     require(logits.shape == (ROBUST_B, frames, config.vocab_size), f"logits {tuple(logits.shape)}")
-    reps = []
-    for _ in range(10):
-        t = time.perf_counter()
-        forward()
-        torch.cuda.synchronize()
-        reps.append((time.perf_counter() - t) * 1e3)
+
+    def timed_forwards(n):
+        reps = []
+        for _ in range(n):
+            t = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t) * 1e3)
+        return reps
+
+    reps = timed_forwards(10)
     row0 = logits[0].float().cpu()
     del logits
+    plain = {}
+    if flash:
+        # the same forwards with the flash kernels turned off, for the record
+        before = read_counts()
+        with plain_attention():
+            plain_reps = timed_forwards(3)
+        expect_counts("the plain-attention forwards", counts_since(before),
+                      {k: 3 * v for k, v in per_forward.items() if k != "flash_attention_fwd"})
+        plain = {"ms_per_forward_plain_attention": statistics.median(plain_reps),
+                 "plain_attention_min_max": [min(plain_reps), max(plain_reps)]}
     profile = profile_device(forward, 2, "forward", top=10)
     # row 0 (full length) through the card's f32 path: every site plain
     before = read_counts()
@@ -3442,23 +3637,23 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     emit({"phase": phase, **info, "batch": [ROBUST_B, SAMPLES], "lengths": lengths.tolist(),
           "launches_per_forward": per_forward, "predict_batch_s": batch_s,
           "ms_per_forward": statistics.median(reps), "ms_per_forward_min_max": [min(reps), max(reps)],
-          "forward_reps": len(reps), "f32_reference": "the card's plain f32 path",
+          "forward_reps": len(reps), **plain, "f32_reference": "the card's plain f32 path",
           "f32_max_abs_err": err, "f32_mean_abs_err": mean_err, "logit_scale": scale,
           "argmax_agree": agree, "card": smi})
     emit({"phase": phase + "_profile", "card": smi, **profile})
 
-    # the four pos-conv kernels at the phase's shapes
-    gen = torch.Generator().manual_seed(8000 + cg)
-    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
-    with torch.no_grad():
-        kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
-    bias = (0.1 * torch.randn(config.hidden_size, generator=gen)).to(dev)
-    records.append(pos_conv_eval_record(kernel, bias, ROBUST_B, frames, f"pos_conv_cg{cg}",
-                                        (phase,), gen))
-    records.extend(pos_conv_train_records(kernel, bias, ROBUST_B, frames, f"_cg{cg}",
-                                          (phase + "_train",), gen))
-    del kernel, bias
-    torch.cuda.empty_cache()
+    if pos_records:  # the four pos-conv kernels at the phase's shapes
+        gen = torch.Generator().manual_seed(8000 + cg)
+        pcv = model.wav2vec2.encoder.pos_conv_embed.conv
+        with torch.no_grad():
+            kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
+        bias = (0.1 * torch.randn(config.hidden_size, generator=gen)).to(dev)
+        records.append(pos_conv_eval_record(kernel, bias, ROBUST_B, frames, f"pos_conv_cg{cg}",
+                                            (phase,), gen))
+        records.extend(pos_conv_train_records(kernel, bias, ROBUST_B, frames, f"_cg{cg}",
+                                              (phase + "_train",), gen))
+        del kernel, bias
+        torch.cuda.empty_cache()
 
     # training: the recipe's regularisation, the mask and length-aware CTC
     tconfig = config.replace(dropout=0.1)
@@ -3467,6 +3662,8 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
              "attention_mask": (np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.int32)}
     per_step = {"conv01_robust": 1, "pos_conv_train_fwd": 1, "pos_conv_dx": 1, "pos_conv_dw": 1,
                 **CTC_STEP}
+    if flash:
+        per_step.update(flash_attention_fwd=layers * (2 if remat else 1), flash_attention_bwd=layers)
     kw = dict(with_attention_mask=True, length_aware=True, remat=remat)
     train = train_phase(
         phase + "_train", f"{what} dropout 0.1, SpecAugment, mask, remat {remat}, seed 1", model,
@@ -3668,7 +3865,9 @@ def profiling_phase(smi: str, main_ms: float) -> None:
     timed back to back) against the like method without it, the host-clock
     ms of `PROFILING_REPS` forwards back to back ended by one synchronize,
     over their count, on the same model, by turns over `PROFILING_ROUNDS`
-    rounds: the median of the rounds' relative differences must lie within
+    rounds, the two in alternating order from round to round (the chained
+    clock first in even rounds): the median of the rounds' relative
+    differences must lie within
     the 3.5% spread between calls recorded in PERF.md section 2.  Phase 4's
     method (the median of synchronised calls, each of which drains the card;
     it read -3.0% to +4.1% against a chain, PERF.md section 6) is
@@ -3688,10 +3887,16 @@ def profiling_phase(smi: str, main_ms: float) -> None:
 
     forward()
     synced, chained, timed = [], [], []
-    for _ in range(PROFILING_ROUNDS):
+    for i in range(PROFILING_ROUNDS):
         synced.append(_host_median_ms(forward))
-        chained.append(_chained_host_ms(forward))
-        timed.append(profiling.timeit(forward) * 1e3)
+        # the two chains swap places from round to round, so that a drift
+        # within a round falls on each side as often
+        if i % 2:
+            timed.append(profiling.timeit(forward) * 1e3)
+            chained.append(_chained_host_ms(forward))
+        else:
+            chained.append(_chained_host_ms(forward))
+            timed.append(profiling.timeit(forward) * 1e3)
     rel = statistics.median(t / c - 1.0 for t, c in zip(timed, chained))
     chained_ms, timeit_ms = statistics.median(chained), statistics.median(timed)
     with tempfile.TemporaryDirectory(prefix="w2v2_trace_") as log_dir:
@@ -3719,6 +3924,7 @@ def profiling_phase(smi: str, main_ms: float) -> None:
           "kernel_events": len(kernels), "kernels_in_region": len(inside),
           "first_kernels": [n[:60] for _, n in kernels[:4]],
           "timeit_ms": timeit_ms, "chained_host_ms": chained_ms, "rounds": PROFILING_ROUNDS,
+          "order": "chained first in even rounds, timeit first in odd ones",
           "timeit_ms_by_round": timed, "chained_host_ms_by_round": chained,
           "rel_diff": rel, "tol": 0.035,
           "synced_median_ms_by_round": synced,
@@ -4721,6 +4927,9 @@ def main() -> int:
     by_path.update(xlarge_phase(smi, records))
     # 13c. XLS-R 2B's 1920-d: its kernels at C/G = 120, inference and stage-2 steps
     by_path.update(xls_r_2b_phase(smi, records))
+    # 13d. the robust/large widths at 8 heads of 128: the flash kernels' D = 128
+    # instances, inference and stage-2 steps
+    by_path.update(robust_h128_phase(smi, records))
     # 14. export: torch.export run in a process of its own, then ONNX
     by_path.update(export_phase(smi))
     # 15. the profiling helpers on the base forward

@@ -3,10 +3,13 @@
     python3 flash_bench.py [--family flash|conv|pos_conv|scatter|ctc|forward] [--root DIR] [--label NAME]
 
 `--family flash` (the default): at each shape of the main paths (base
-inference, base training, robust, long), the forward and the backward
-wrappers of `gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention`, and
+inference, base training, robust, long; head dim 64) and of the robust
+widths at 8 heads of 128 ((8, 8, 768, 128) without and with dropout 0.1,
+(1, 8, 5999, 128) with it), the forward and the backward wrappers of
+`gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention`, and
 `scaled_dot_product_attention` with the same mask and dropout rate; and the
-wrappers' host time a call at a tiny shape.
+wrappers' host time a call at a tiny shape.  Under `--root`, a head dim
+that tree's `flash_attention.supports` does not take prints a skipped row.
 
 `--family conv`: the conv front-end kernels of
 `gsoc_wav2vec2_tpu_torch.ops.kernels.conv_frontend` at the main paths'
@@ -115,12 +118,18 @@ def bench_flash(torch, label):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator().manual_seed(0)
-    for b, h, l, rate, ragged in ((16, 12, 768, 0.0, False), (32, 12, 768, 0.1, True),
-                                  (8, 16, 768, 0.0, True), (8, 16, 768, 0.1, True),
-                                  (1, 12, 5999, 0.1, True)):
-        q, k, v, dout = (torch.randn(b, h, l, 64, generator=gen).cuda().to(torch.bfloat16)
+    for b, h, l, d, rate, ragged in ((16, 12, 768, 64, 0.0, False), (32, 12, 768, 64, 0.1, True),
+                                     (8, 16, 768, 64, 0.0, True), (8, 16, 768, 64, 0.1, True),
+                                     (1, 12, 5999, 64, 0.1, True), (8, 8, 768, 128, 0.0, True),
+                                     (8, 8, 768, 128, 0.1, True), (1, 8, 5999, 128, 0.1, True)):
+        row = {"label": label, "shape": [b, h, l, d], "dropout": rate, "ragged_bias": ragged}
+        if not fa.supports(d, torch.bfloat16):
+            print(json.dumps({**row, "skipped": "the tree's flash_attention.supports does not take it"}),
+                  flush=True)
+            continue
+        q, k, v, dout = (torch.randn(b, h, l, d, generator=gen).cuda().to(torch.bfloat16)
                          for _ in range(4))
-        q = q * 0.25
+        q = q * (2.0 / d ** 0.5)  # scores of std ~2
         bias, mask = None, None
         if ragged:
             lengths = torch.randint(l // 4, l + 1, (b,), generator=gen)
@@ -135,7 +144,6 @@ def bench_flash(torch, label):
             "sdpa_fwd": lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=rate, scale=1.0),
             "sdpa_bwd": lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True),
         }
-        row = {"label": label, "shape": [b, h, l, 64], "dropout": rate, "ragged_bias": ragged}
         for name, fn in fns.items():
             row[name + "_ms"] = events_ms(torch, fn, 50)
             row[name + "_device_ms"] = profiled_ms(torch, fn, 10)[0]

@@ -1,6 +1,7 @@
-// Flash attention for the wav2vec2 encoder, head dim 64: forward (with
-// in-kernel attention-prob dropout) and backward, on Hopper's warpgroup MMA
-// (wgmma) fed by TMA.
+// Flash attention for the wav2vec2 encoder, head dims 64 and 128: forward
+// (with in-kernel attention-prob dropout) and backward, on Hopper's
+// warpgroup MMA (wgmma) fed by TMA.  Every kernel is a template on the head
+// dim D; the JAX package's kernels take any D that is a multiple of 64.
 //
 // Forward replaces gsoc_wav2vec2_tpu/ops/pallas/flash_attention.py::_flash_fwd
 // (_fwd_kernel) and, past 4096 frames, _flash_fwd_blocked:
@@ -8,46 +9,68 @@
 // softmax in f32, probabilities cast to bf16 before the product with v, and
 // the row logsumexp (of the undropped softmax) written for the backward.
 //
-// Bound on the H100 at B=16, H=12, L=768: the products (4 B H L^2 D ~ 2.9e10
-// FLOP: 0.029 ms at 989 TFLOP/s), the exponentials (B H L^2 = 1.1e8 at 16
-// MUFU results a clock on 132 SMs at 1.98 GHz: 0.027 ms) and the bytes (q, k,
-// v, out: 0.023 ms at 3.35 TB/s) all come within 25% of each other, so the
-// design keeps the tensor cores and the MUFU busy at once.
+// Bound on the H100 at B=16, H=12, L=768, D=64: the products (4 B H L^2 D ~
+// 2.9e10 FLOP: 0.029 ms at 989 TFLOP/s), the exponentials (B H L^2 = 1.1e8
+// at 16 MUFU results a clock on 132 SMs at 1.98 GHz: 0.027 ms) and the bytes
+// (q, k, v, out: 0.023 ms at 3.35 TB/s) all come within 25% of each other,
+// so the design keeps the tensor cores and the MUFU busy at once.  At D =
+// 128 a score costs twice the products for one exponential: at B=8, H=8,
+// L=768 the products take 0.0195 ms and the exponentials 0.009.
 //
 // Design (every kernel here): one producer warpgroup after the consumer
 // warpgroups.  `setmaxnreg` drops the producer to 40 registers (32 in the
-// forward), and one of its warps keeps TMA loads in flight into a ring of
-// shared-memory stages, each with a `full` mbarrier (TMA bytes + 32
-// producer-lane arrivals, the lanes having written the stage's per-row f32
-// values) and an `empty` mbarrier (one arrival per consumer warp).  The
-// consumers (232 registers; 160 in the forward) each own 64 rows of the
-// block; their products are SS or RS `wgmma` m64nNk16 with f32
-// accumulators.  q, k, v, dout are read and out, dq, dk, dv written through
-// 4-D tensor maps of their (batch, head, row) strides with the 128-byte
-// swizzle, so the heads split out of the (B, L, H*D) projections need no
-// copy; TMA zero-fills rows at or past L and clips stores there, so nothing
-// is padded.  The consumer warpgroups run out of phase on their own, so
-// one's softmax overlaps another's wgmma.  No block outlives one tile of
-// rows; 132 SMs hold one block each (registers).
+// forward, 24 at D = 128), and one of its warps keeps TMA loads in flight
+// into a ring of shared-memory stages, each with a `full` mbarrier (TMA
+// bytes + 32 producer-lane arrivals, the lanes having written the stage's
+// per-row f32 values) and an `empty` mbarrier (one arrival per consumer
+// warp).  The consumers (232 registers at D = 64, 240 at 128; the forward
+// 160 / 240) each own 64 rows of the block; their products are SS or RS
+// `wgmma` m64nNk16 with f32 accumulators.  q, k, v, dout are read and out,
+// dq, dk, dv written through 4-D tensor maps of their (batch, head, row)
+// strides with the 128-byte swizzle, so the heads split out of the (B, L,
+// H*D) projections need no copy; TMA zero-fills rows at or past L and clips
+// stores there, so nothing is padded.  The consumer warpgroups run out of
+// phase on their own, so one's softmax overlaps another's wgmma.  No block
+// outlives one tile of rows; 132 SMs hold one block each (registers).
 //
-// Forward: a block owns 192 query rows of one (batch, head): three consumer
-// warpgroups (the shape FlashAttention-3 takes for head dim 64; two, at 128
-// rows, took 0.093 ms against 0.083 at B=16, L=768 on an H100 at 700 W).  Per
-// 128-key tile: S = Q K^T (SS wgmma, N = 128); the softmax in registers in
-// the log2 domain, exp2 by ex2.approx, with the online-softmax recurrence on
-// the running max and sum.  The key bias comes from shared memory, where the
-// producer writes it once per tile as bias x log2 e (-inf past L), so the
-// consumer has no compare; a tile with a bias or the ragged edge takes it in
-// one FFMA per score, a tile with neither keeps raw scores and folds log2 e
-// into the exp's FFMA.  P packed to bf16 in place from S's accumulator is
-// the A operand of O += P V (RS wgmma, V MN-major through the transpose
-// bit).  A warpgroup issues tile j's S together with tile j - 1's P V, so its
-// own softmax of tile j overlaps that product (0.102 → 0.093 ms there at
-// two warpgroups); a stage is then held across two iterations, and the
-// forward's ring has three.  The epilogue scales by 1 / l (1 / (l (1 -
-// rate)) under dropout), stages bf16 O in the warpgroup's own Q tile and
-// writes it with one TMA store into (B, L, H, D); the lane that owns a row
-// writes its lse.
+// Rows of D bf16 (tiles below): a 128-byte swizzle row holds 64 columns, so
+// a tile of R rows is D / 64 column boxes, box c (columns 64c .. 64c + 63)
+// R x 128 bytes after box c - 1, each loaded (and stored) as 64-row TMA
+// boxes at column coordinate 64c.  A K-major operand's k step kk (16
+// columns) is 32 (kk % 4) bytes into box kk / 4 (`kstep`); an MN-major one
+// with N = D = 128 spans both boxes, one box apart: the descriptor's leading
+// byte offset (`mn_desc`), as the pos conv's weights at 80 and 120 channels.
+//
+// Forward: a block owns 64 x F query rows of one (batch, head): F consumer
+// warpgroups, three at D = 64 (the shape FlashAttention-3 takes for head
+// dim 64; two, at 128 rows, took 0.093 ms against 0.083 at B=16, L=768 on
+// an H100 at 700 W) at 160 registers.  At D = 128 the accumulators of O
+// double (64 f32 a thread beside S's 64 and P's 32 packed), so F = 2 at 240
+// registers and the producer at 24, as FlashAttention-3 at head dim 128:
+// setmaxnreg moves registers within what the launch gave the block (168 a
+// thread at 384 threads, 64,512), and 128 x 24 + 256 x 240 is all of it (a
+// producer at 32 left the consumers' setmaxnreg waiting forever).  With
+// dropout the hash's registers do not fit beside S, P and O (ptxas spilled
+// 8 bytes), so that instance runs each tile's P V after its own softmax,
+// the other warpgroup's products overlapping it.  Per 128-key tile: S = Q K^T (SS wgmma, N = 128); the softmax in
+// registers in the log2 domain, exp2 by ex2.approx, with the online-softmax
+// recurrence on the running max and sum.  The key bias comes from shared
+// memory, where the producer writes it once per tile as bias x log2 e (-inf
+// past L), so the consumer has no compare; a tile with a bias or the ragged
+// edge takes it in one FFMA per score, a tile with neither keeps raw scores
+// and folds log2 e into the exp's FFMA.  P packed to bf16 in place from S's
+// accumulator is the A operand of O += P V (RS wgmma, V MN-major through the
+// transpose bit; m64n128k16 at D = 128).  A warpgroup issues tile j's S
+// together with tile j - 1's P V, so its own softmax of tile j overlaps that
+// product (0.102 → 0.093 ms there at two warpgroups); a stage is then held
+// across two iterations, and the forward's ring has three.  At D = 128 a
+// stage is 64 KB (128 keys of K and V at 256 bytes a row), so three stages
+// and the two Q tiles take 230,968 bytes (+ 1024 of alignment: 231,992 of
+// the 232,448 a block may have); a 64-key tile would halve the products a
+// wgmma issues and a two-stage ring would stall the producer a tile.  The
+// epilogue scales by 1 / l (1 / (l (1 - rate)) under dropout), stages bf16
+// O in the warpgroup's own Q tile and writes it with one TMA store a column
+// box into (B, L, H, D); the lane that owns a row writes its lse.
 //
 // Dropout: the keep bit of element (bh, row, col) is the TPU kernel's
 // counter hash (_dropout_mask) of seed + bh and the index row * stride + col,
@@ -65,7 +88,8 @@
 // order and float atomics would make the sums depend on it, so it is three
 // launches, deterministic:
 //   flash_delta_kernel   delta[row] = sum_d dout * out (= sum_k p * dp, also
-//                        under dropout), one f32 per query row;
+//                        under dropout), one f32 per query row, D / 8
+//                        threads a row;
 //   flash_bwd_dkdv_kernel  a block owns 128 keys (64 a consumer warpgroup) and
 //                        walks 64-query tiles of Q, dO, lse, delta through
 //                        the ring: S^T = K Q^T and dP^T = V dO^T (SS wgmma),
@@ -79,40 +103,52 @@
 //                        (RS, K MN-major).
 // ds and r are rounded to bf16 before their products (as in the TPU kernel);
 // dq, dk and dv accumulate in f32 registers and are written once, in bf16,
-// (B, L, H, D) like the forward's output.  Bound: operations, 5 products of
-// 2 B H L^2 D (~0.15 ms at B=32, L=768 on the H100; the bytes, 7 (B, H, L, D)
-// bf16 tensors, ~0.03 ms).  The two passes recompute S and dP once each
-// (7 products in all): the price of having no atomics.
+// (B, L, H, D) like the forward's output.  At D = 128 a dK/dV consumer holds
+// dK and dV (64 + 64 f32 a thread) beside S^T and dP^T (32 + 32), at 240
+// registers (the producer at 24), 0 spills; shared memory 133,160 bytes
+// (dK/dV) and 132,648 (dQ): resident 64-row tiles of two operands a
+// consumer, two stages of two 64-row tiles.  Bound: operations, 5 products of 2 B H L^2 D (~0.15 ms
+// at B=32, H=12, L=768, D=64 on the H100; the bytes, 7 (B, H, L, D) bf16
+// tensors, ~0.03 ms).  The two passes recompute S and dP once each (7
+// products in all): the price of having no atomics.
 #include "common.cuh"
 
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kD = 64;
-constexpr int kRowBytes = kD * 2;           // one 128-byte swizzle row
-constexpr int kBox = 64;                    // rows per TMA box = rows per consumer warpgroup
-constexpr int kBoxBytes = kBox * kRowBytes;  // 8 KB
-constexpr int kConsumers = 2;               // consumer warpgroups
+constexpr int kBox = 64;                 // rows per TMA box = rows per consumer warpgroup
+constexpr int kBoxCols = 64;             // bf16 columns per box: one 128-byte swizzle row
+constexpr int kBoxRowBytes = 2 * kBoxCols;
+constexpr int kBoxBytes = kBox * kBoxRowBytes;  // 8 KB
+constexpr int kConsumers = 2;            // consumer warpgroups of the backward kernels
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kBlockRows = kBox * kConsumers;  // queries (forward, dQ) or keys (dK/dV) a block owns
+constexpr int kBlockRows = kBox * kConsumers;  // queries (dQ) or keys (dK/dV) a block owns
 constexpr int kStages = 2;     // ring stages of the backward kernels
 constexpr int kFwdStages = 3;  // of the forward (a stage is held across two iterations)
 constexpr int kFwdKeys = 128;   // keys per forward tile
 constexpr int kBwdTile = 64;    // queries per dK/dV tile, keys per dQ tile
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 65536
-// the forward: three consumer warpgroups (192 queries a block); 128 x 32 +
-// 384 x 160 registers fill the SM's 65536
-constexpr int kFwdConsumers = 3;
-constexpr int kFwdThreads = 128 * (kFwdConsumers + 1);
-constexpr int kFwdRows = kBox * kFwdConsumers;
-constexpr int kFwdProducerRegs = 32;
-constexpr int kFwdConsumerRegs = 160;
-constexpr int kKStep = 32 >> 4;                 // descriptor advance of a K-major k-step (16 bf16)
-constexpr int kMnStep = (16 * kRowBytes) >> 4;  // of an MN-major one (16 rows)
+constexpr int kMnStep = (16 * kBoxRowBytes) >> 4;  // descriptor advance of an MN-major k step (16 rows)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// Per head dim: the forward's consumer warpgroups and every kernel's
+// register split.  setmaxnreg moves registers within the block's own pool,
+// what the launch gave it (the entry count, 128 at 512 threads and 168 at
+// 384, times the threads), so producer x 128 + consumers x 128 x their count
+// may not exceed it: at 384 threads 24 + 2 x 240 is the most
+template <int D>
+struct Cfg;
+template <>
+struct Cfg<64> {
+  static constexpr int kFwdConsumers = 3, kFwdConsumerRegs = 160, kFwdProducerRegs = 32;
+  static constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+};
+template <>
+struct Cfg<128> {
+  static constexpr int kFwdConsumers = 2, kFwdConsumerRegs = 240, kFwdProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+};
 
 struct Dropout {
   uint32_t seed_mix;   // (seed + bh) * 2654435761, wrapped to 32 bits
@@ -140,28 +176,59 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The tensor maps are 4-D (64, n1, n2, B) with (n1, n2) = (L, H), or (H, L)
+template <typename T>
+__device__ __forceinline__ unsigned char* bytes(T* p) {
+  return reinterpret_cast<unsigned char*>(p);
+}
+
+// The descriptor of k step kk (16 columns) of a K-major tile of kRows rows:
+// 32 (kk % 4) bytes into column box kk / 4
+template <int kRows>
+__device__ __forceinline__ uint64_t kstep(uint64_t desc, int kk) {
+  return desc + (((kk / 4) * kRows * kBoxRowBytes + (kk % 4) * 32) >> 4);
+}
+
+// The descriptor of a tile of kRows rows read MN-major with N = D: past 64
+// columns N steps to the next column box (the leading byte offset)
+template <int D, int kRows>
+__device__ __forceinline__ uint64_t mn_desc(const void* tile) {
+  return D > kBoxCols ? w2v2::wgmma_desc(tile, kRows * kBoxRowBytes) : w2v2::wgmma_desc(tile);
+}
+
+// The tensor maps are 4-D (D, n1, n2, B) with (n1, n2) = (L, H), or (H, L)
 // when the heads of a row lie side by side (`heads_inner`, the order with
-// ascending strides: see `encode_bhld`).
-__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map, bool heads_inner,
-                                          uint64_t* bar, int row, int h, int b) {
-  w2v2::tma_load_4d(dst, map, bar, 0, heads_inner ? h : row, heads_inner ? row : h, b);
+// ascending strides: see `encode_bhld`).  64 rows from `row` of every column
+// box, into the tile of kRows rows at `tile`, rows 64 chunk on.
+template <int D, int kRows>
+__device__ __forceinline__ void load_rows(unsigned char* tile, int chunk, const CUtensorMap* map,
+                                          bool heads_inner, uint64_t* bar, int row, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < D / kBoxCols; ++c)
+    w2v2::tma_load_4d(tile + c * kRows * kBoxRowBytes + chunk * kBoxBytes, map, bar, c * kBoxCols,
+                      heads_inner ? h : row, heads_inner ? row : h, b);
 }
 
+// a 64-row tile out to rows `row` .. of the map
+template <int D>
 __device__ __forceinline__ void store_rows(const CUtensorMap* map, bool heads_inner,
-                                           const void* src, int row, int h, int b) {
-  w2v2::tma_store_4d(map, src, 0, heads_inner ? h : row, heads_inner ? row : h, b);
+                                           const unsigned char* tile, int row, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < D / kBoxCols; ++c)
+    w2v2::tma_store_4d(map, tile + c * kBoxBytes, c * kBoxCols, heads_inner ? h : row,
+                       heads_inner ? row : h, b);
 }
 
-// A consumer warpgroup's 64 x 64 f32 accumulator (rows scaled by scale[0]
+// A consumer warpgroup's 64 x D f32 accumulator (rows scaled by scale[0]
 // for rows g, scale[1] for rows g + 8) as bf16 into a swizzled 64-row tile
-__device__ __forceinline__ void acc_to_tile(unsigned char* tile, const float acc[32],
+template <int D>
+__device__ __forceinline__ void acc_to_tile(unsigned char* tile, const float (&acc)[D / 2],
                                             const float scale[2], int w, int g, int tq) {
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(tile + w2v2::swizzled_offset(16 * w + g + 8 * r, 8 * j + 2 * tq)) =
+      *reinterpret_cast<uint32_t*>(tile + (j / 8) * kBoxBytes +
+                                   w2v2::swizzled_offset(16 * w + g + 8 * r, 8 * (j % 8) + 2 * tq)) =
           w2v2::pack_bf16x2(acc[4 * j + 2 * r] * scale[r], acc[4 * j + 2 * r + 1] * scale[r]);
 }
 
@@ -219,44 +286,46 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], const float* bias2
 
 // -- forward -------------------------------------------------------------------
 
+template <int D>
 struct FwdSmem {
-  __nv_bfloat16 q[kFwdConsumers][kBox * kD];   // a 64-row Q tile per consumer (later its O)
-  __nv_bfloat16 k[kFwdStages][kFwdKeys * kD];
-  __nv_bfloat16 v[kFwdStages][kFwdKeys * kD];
-  float bias[kFwdStages][kFwdKeys];            // key bias x log2 e; -inf at or past L
+  __nv_bfloat16 q[Cfg<D>::kFwdConsumers][kBox * D];  // a 64-row Q tile per consumer (later its O)
+  __nv_bfloat16 k[kFwdStages][kFwdKeys * D];
+  __nv_bfloat16 v[kFwdStages][kFwdKeys * D];
+  float bias[kFwdStages][kFwdKeys];        // key bias x log2 e; -inf at or past L
   uint64_t full[kFwdStages], empty[kFwdStages], q_full;
 };
 
-template <bool kDrop>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(128 * (Cfg<D>::kFwdConsumers + 1), 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
                  const float* __restrict__ bias, float* __restrict__ lse, int H, int L, int order,
                  int seed, uint32_t threshold, uint32_t stride, float inv_keep) {
-  FwdSmem& sm = w2v2::block_smem<FwdSmem>();
+  constexpr int kCons = Cfg<D>::kFwdConsumers, kRows = kBox * kCons;
+  FwdSmem<D>& sm = w2v2::block_smem<FwdSmem<D>>();
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
-  const int q0 = blockIdx.x * kFwdRows;
+  const int q0 = blockIdx.x * kRows;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const bool hi_in = order & 1, hi_out = order & 2;
   const int tiles = (L + kFwdKeys - 1) / kFwdKeys;
   if (tid == 0) {
     for (int s = 0; s < kFwdStages; ++s) {
       w2v2::mbar_init(&sm.full[s], 32);
-      w2v2::mbar_init(&sm.empty[s], kFwdConsumers * 4);
+      w2v2::mbar_init(&sm.empty[s], kCons * 4);
     }
     w2v2::mbar_init(&sm.q_full, 1);
     w2v2::mbar_init_fence();
   }
   __syncthreads();
 
-  if (wg == kFwdConsumers) {
+  if (wg == kCons) {
     // producer: Q once, then K, V and the tile's key bias into the ring
-    w2v2::setmaxnreg_dec<kFwdProducerRegs>();
+    w2v2::setmaxnreg_dec<Cfg<D>::kFwdProducerRegs>();
     if (tid % 128 >= 32) return;
     if (lane == 0) {
-      w2v2::mbar_arrive_expect_tx(&sm.q_full, kFwdConsumers * kBoxBytes);
-      for (int c = 0; c < kFwdConsumers; ++c)
-        load_rows(sm.q[c], &q_map, hi_in, &sm.q_full, q0 + c * kBox, h, b);
+      w2v2::mbar_arrive_expect_tx(&sm.q_full, kCons * kBox * D * 2);
+      for (int c = 0; c < kCons; ++c)
+        load_rows<D, kBox>(bytes(sm.q[c]), 0, &q_map, hi_in, &sm.q_full, q0 + c * kBox, h, b);
     }
     const float* kb = bias ? bias + (size_t)b * L : nullptr;
     for (int it = 0; it < tiles; ++it) {
@@ -267,10 +336,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
         sm.bias[s][i] = key < L ? (kb ? kb[key] * kLog2e : 0.f) : -CUDART_INF_F;
       }
       if (lane == 0) {
-        w2v2::mbar_arrive_expect_tx(&sm.full[s], 2 * kFwdKeys * kRowBytes);
+        w2v2::mbar_arrive_expect_tx(&sm.full[s], 2 * kFwdKeys * D * 2);
         for (int c = 0; c < kFwdKeys / kBox; ++c) {
-          load_rows(sm.k[s] + c * kBox * kD, &k_map, hi_in, &sm.full[s], key0 + c * kBox, h, b);
-          load_rows(sm.v[s] + c * kBox * kD, &v_map, hi_in, &sm.full[s], key0 + c * kBox, h, b);
+          load_rows<D, kFwdKeys>(bytes(sm.k[s]), c, &k_map, hi_in, &sm.full[s], key0 + c * kBox, h, b);
+          load_rows<D, kFwdKeys>(bytes(sm.v[s]), c, &v_map, hi_in, &sm.full[s], key0 + c * kBox, h, b);
         }
       } else {
         w2v2::mbar_arrive(&sm.full[s]);
@@ -280,94 +349,134 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
   }
 
   // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
-  w2v2::setmaxnreg_inc<kFwdConsumerRegs>();
+  w2v2::setmaxnreg_inc<Cfg<D>::kFwdConsumerRegs>();
   const int w = (tid % 128) / 32, g = lane >> 2, tq = lane & 3;
   const int row0 = q0 + wg * kBox + 16 * w + g;  // this thread's rows: row0, row0 + 8
   const Dropout dr = make_dropout(seed, bh, threshold, stride, inv_keep);
   const bool has_bias = bias != nullptr;
-  float o[32];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 domain
   float l_run[2] = {0.f, 0.f};                      // this thread's partial sums
   w2v2::mbar_wait(&sm.q_full, 0);
   const uint64_t qdesc = w2v2::wgmma_desc(sm.q[wg]);
 
-  // Tile it's scores are issued together with tile it - 1's P V, so the
-  // softmax of one overlaps the tensor cores' work on the other: S (64 f32),
-  // P (32 bf16 pairs) and O (32 f32) are live at once.  Tile 0 comes first,
-  // alone, so that the loop has one shape.
   float sc[64];
   uint32_t pa[kFwdKeys / 16][4];
   float alpha[2], rsum[2];
-  w2v2::mbar_wait(&sm.full[0], 0);
-  {
-    const uint64_t kdesc = w2v2::wgmma_desc(sm.k[0]);
-    w2v2::wgmma_fence();
+  if constexpr (kDrop && D > kBoxCols) {
+    // D = 128 with dropout: S, P and O (64 + 32 + 64 registers) and the
+    // hash do not fit 240 registers together (8 bytes spilled), so each
+    // tile's P V follows its own softmax; the other consumer warpgroup's
+    // products overlap it.  On the first tile alpha = 0 scales O's zeros.
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kFwdStages, key0 = it * kFwdKeys;
+      w2v2::mbar_wait(&sm.full[s], (it / kFwdStages) & 1);
+      const uint64_t kdesc = w2v2::wgmma_desc(sm.k[s]), vdesc = mn_desc<D, kFwdKeys>(sm.v[s]);
+      w2v2::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      w2v2::wgmma_ss_n128(sc, qdesc + kk * kKStep, kdesc + kk * kKStep, kk > 0);
-    w2v2::wgmma_commit();
-    w2v2::wgmma_wait<0>();
-    w2v2::fence_operands(sc);
-  }
-  softmax_tile<kDrop>(sc, sm.bias[0], has_bias || kFwdKeys > L, m_run, alpha, rsum, dr, row0, 0, tq);
+      for (int kk = 0; kk < D / 16; ++kk)
+        w2v2::wgmma_ss_n128(sc, kstep<kBox>(qdesc, kk), kstep<kFwdKeys>(kdesc, kk), kk > 0);
+      w2v2::wgmma_commit();
+      w2v2::wgmma_wait<0>();
+      w2v2::fence_operands(sc);
+      softmax_tile<kDrop>(sc, sm.bias[s], has_bias || key0 + kFwdKeys > L, m_run, alpha, rsum, dr,
+                          row0, key0, tq);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) l_run[r] = rsum[r];
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rsum[r];
 #pragma unroll
-  for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::pack_a(pa[kc], &sc[8 * kc]);
-
-  for (int it = 1; it < tiles; ++it) {
-    const int s = it % kFwdStages, key0 = it * kFwdKeys;
-    const int prev = (it - 1) % kFwdStages;
-    w2v2::mbar_wait(&sm.full[s], (it / kFwdStages) & 1);
-    const uint64_t kdesc = w2v2::wgmma_desc(sm.k[s]), vdesc = w2v2::wgmma_desc(sm.v[prev]);
-    w2v2::wgmma_fence();
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      w2v2::wgmma_ss_n128(sc, qdesc + kk * kKStep, kdesc + kk * kKStep, kk > 0);
-    w2v2::wgmma_commit();
-    w2v2::fence_operands(o);
-    w2v2::wgmma_fence();
+      for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::pack_a(pa[kc], &sc[8 * kc]);
+      w2v2::fence_operands(o);
+      w2v2::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::wgmma_rs_mn(o, pa[kc], vdesc + kc * kMnStep);
-    w2v2::wgmma_commit();
-    w2v2::wgmma_wait<1>();  // S is in; P V may still run
-    w2v2::fence_operands(sc);
-    softmax_tile<kDrop>(sc, sm.bias[s], has_bias || key0 + kFwdKeys > L, m_run, alpha, rsum, dr,
-                        row0, key0, tq);
-    // the tile before's P V is done: its stage goes back to the producer,
-    // and O and P take this tile's scale and probabilities
-    w2v2::wgmma_wait<0>();
-    w2v2::fence_operands(o);
-    release(&sm.empty[prev], lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rsum[r];
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      o[4 * j + 0] *= alpha[0];
-      o[4 * j + 1] *= alpha[0];
-      o[4 * j + 2] *= alpha[1];
-      o[4 * j + 3] *= alpha[1];
+      for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::wgmma_rs_mn(o, pa[kc], vdesc + kc * kMnStep);
+      w2v2::wgmma_commit();
+      w2v2::wgmma_wait<0>();
+      w2v2::fence_operands(o);
+      release(&sm.empty[s], lane);
     }
+  } else {
+    // Tile it's scores are issued together with tile it - 1's P V, so the
+    // softmax of one overlaps the tensor cores' work on the other: S (64 f32),
+    // P (32 bf16 pairs) and O (D / 2 f32) are live at once.  Tile 0 comes
+    // first, alone, so that the loop has one shape.
+    w2v2::mbar_wait(&sm.full[0], 0);
+    {
+      const uint64_t kdesc = w2v2::wgmma_desc(sm.k[0]);
+      w2v2::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        w2v2::wgmma_ss_n128(sc, kstep<kBox>(qdesc, kk), kstep<kFwdKeys>(kdesc, kk), kk > 0);
+      w2v2::wgmma_commit();
+      w2v2::wgmma_wait<0>();
+      w2v2::fence_operands(sc);
+    }
+    softmax_tile<kDrop>(sc, sm.bias[0], has_bias || kFwdKeys > L, m_run, alpha, rsum, dr, row0, 0, tq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = rsum[r];
 #pragma unroll
     for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::pack_a(pa[kc], &sc[8 * kc]);
-  }
-  {  // the last tile's P V
-    const int last = (tiles - 1) % kFwdStages;
-    const uint64_t vdesc = w2v2::wgmma_desc(sm.v[last]);
-    w2v2::fence_operands(o);
-    w2v2::wgmma_fence();
+
+    for (int it = 1; it < tiles; ++it) {
+      const int s = it % kFwdStages, key0 = it * kFwdKeys;
+      const int prev = (it - 1) % kFwdStages;
+      w2v2::mbar_wait(&sm.full[s], (it / kFwdStages) & 1);
+      const uint64_t kdesc = w2v2::wgmma_desc(sm.k[s]), vdesc = mn_desc<D, kFwdKeys>(sm.v[prev]);
+      w2v2::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::wgmma_rs_mn(o, pa[kc], vdesc + kc * kMnStep);
-    w2v2::wgmma_commit();
-    w2v2::wgmma_wait<0>();
-    w2v2::fence_operands(o);
-    release(&sm.empty[last], lane);
+      for (int kk = 0; kk < D / 16; ++kk)
+        w2v2::wgmma_ss_n128(sc, kstep<kBox>(qdesc, kk), kstep<kFwdKeys>(kdesc, kk), kk > 0);
+      w2v2::wgmma_commit();
+      w2v2::fence_operands(o);
+      w2v2::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::wgmma_rs_mn(o, pa[kc], vdesc + kc * kMnStep);
+      w2v2::wgmma_commit();
+      w2v2::wgmma_wait<1>();  // S is in; P V may still run
+      w2v2::fence_operands(sc);
+      softmax_tile<kDrop>(sc, sm.bias[s], has_bias || key0 + kFwdKeys > L, m_run, alpha, rsum, dr,
+                          row0, key0, tq);
+      // the tile before's P V is done: its stage goes back to the producer,
+      // and O and P take this tile's scale and probabilities
+      w2v2::wgmma_wait<0>();
+      w2v2::fence_operands(o);
+      release(&sm.empty[prev], lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rsum[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::pack_a(pa[kc], &sc[8 * kc]);
+    }
+    {  // the last tile's P V
+      const int last = (tiles - 1) % kFwdStages;
+      const uint64_t vdesc = mn_desc<D, kFwdKeys>(sm.v[last]);
+      w2v2::fence_operands(o);
+      w2v2::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kFwdKeys / 16; ++kc) w2v2::wgmma_rs_mn(o, pa[kc], vdesc + kc * kMnStep);
+      w2v2::wgmma_commit();
+      w2v2::wgmma_wait<0>();
+      w2v2::fence_operands(o);
+      release(&sm.empty[last], lane);
+    }
   }
 
   // row sums across the quad; normalise (and undo the dropout's 1 - rate);
-  // the lse; bf16 O through this warpgroup's Q tile and one TMA store
+  // the lse; bf16 O through this warpgroup's Q tile and TMA stores
   float scale[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -378,22 +487,24 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
     if (row < L && tq == 0) lse[(size_t)bh * L + row] = (m_run[r] + log2f(l_run[r])) * kLn2;
   }
   w2v2::named_barrier_sync(1 + wg, 128);  // every warp's last product has read Q
-  acc_to_tile(reinterpret_cast<unsigned char*>(sm.q[wg]), o, scale, w, g, tq);
+  acc_to_tile<D>(bytes(sm.q[wg]), o, scale, w, g, tq);
   w2v2::fence_proxy_async();
   w2v2::named_barrier_sync(1 + wg, 128);
   if (tid % 128 == 0) {
-    store_rows(&o_map, hi_out, sm.q[wg], q0 + wg * kBox, h, b);
+    store_rows<D>(&o_map, hi_out, bytes(sm.q[wg]), q0 + wg * kBox, h, b);
     w2v2::tma_store_commit_and_wait();
   }
 }
 
-// delta[row] = sum_d dout[row, d] * out[row, d] (f32), 8 threads per row
+// delta[row] = sum_d dout[row, d] * out[row, d] (f32), D / 8 threads per row
+template <int D>
 __global__ void __launch_bounds__(256)
 flash_delta_kernel(const __nv_bfloat16* __restrict__ dout, const __nv_bfloat16* __restrict__ out,
                    float* __restrict__ delta, int H, int L, int rows, long long dsb,
                    long long dsh, long long dsl, long long osb, long long osh, long long osl) {
+  constexpr int kParts = D / 8;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = gid >> 3, part = gid & 7;
+  const int row = gid / kParts, part = gid % kParts;
   float acc = 0.f;
   if (row < rows) {
     const int bh = row / L, l = row % L, b = bh / H, h = bh % H;
@@ -407,26 +518,26 @@ flash_delta_kernel(const __nv_bfloat16* __restrict__ dout, const __nv_bfloat16* 
       acc += a.x * c.x + a.y * c.y;
     }
   }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+#pragma unroll
+  for (int o = 1; o < kParts; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (row < rows && part == 0) delta[row] = acc;
 }
 
 // -- backward: dK, dV ----------------------------------------------------------
 
+template <int D>
 struct DkdvSmem {
-  __nv_bfloat16 k[kConsumers][kBox * kD];  // resident; later the block's dK
-  __nv_bfloat16 v[kConsumers][kBox * kD];  // resident; later its dV
-  __nv_bfloat16 q[kStages][kBwdTile * kD];
-  __nv_bfloat16 dout[kStages][kBwdTile * kD];
+  __nv_bfloat16 k[kConsumers][kBox * D];  // resident; later the block's dK
+  __nv_bfloat16 v[kConsumers][kBox * D];  // resident; later its dV
+  __nv_bfloat16 q[kStages][kBwdTile * D];
+  __nv_bfloat16 dout[kStages][kBwdTile * D];
   float lse[kStages][kBwdTile];    // lse x log2 e; 0 at or past L
   float delta[kStages][kBwdTile];  // 0 at or past L
   uint64_t full[kStages], empty[kStages], kv_full;
 };
 
 // order: bit 0 q/k/v, bit 1 dout, bit 2 the outputs have their heads inner
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
@@ -434,7 +545,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
                       const float* __restrict__ bias, const float* __restrict__ lse,
                       const float* __restrict__ delta, int H, int L, int order, int seed,
                       uint32_t threshold, uint32_t stride, float inv_keep) {
-  DkdvSmem& sm = w2v2::block_smem<DkdvSmem>();
+  DkdvSmem<D>& sm = w2v2::block_smem<DkdvSmem<D>>();
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
   const int k0 = blockIdx.x * kBlockRows;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -452,13 +563,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
 
   if (wg == kConsumers) {
     // producer: K, V once, then Q, dO, lse and delta tiles into the ring
-    w2v2::setmaxnreg_dec<kProducerRegs>();
+    w2v2::setmaxnreg_dec<Cfg<D>::kProducerRegs>();
     if (tid % 128 >= 32) return;
     if (lane == 0) {
-      w2v2::mbar_arrive_expect_tx(&sm.kv_full, 2 * kConsumers * kBoxBytes);
+      w2v2::mbar_arrive_expect_tx(&sm.kv_full, 2 * kConsumers * kBox * D * 2);
       for (int c = 0; c < kConsumers; ++c) {
-        load_rows(sm.k[c], &k_map, hi_in, &sm.kv_full, k0 + c * kBox, h, b);
-        load_rows(sm.v[c], &v_map, hi_in, &sm.kv_full, k0 + c * kBox, h, b);
+        load_rows<D, kBox>(bytes(sm.k[c]), 0, &k_map, hi_in, &sm.kv_full, k0 + c * kBox, h, b);
+        load_rows<D, kBox>(bytes(sm.v[c]), 0, &v_map, hi_in, &sm.kv_full, k0 + c * kBox, h, b);
       }
     }
     const float* lse_bh = lse + (size_t)bh * L;
@@ -472,9 +583,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
         sm.delta[s][i] = valid ? delta_bh[q0 + i] : 0.f;
       }
       if (lane == 0) {
-        w2v2::mbar_arrive_expect_tx(&sm.full[s], 2 * kBoxBytes);
-        load_rows(sm.q[s], &q_map, hi_in, &sm.full[s], q0, h, b);
-        load_rows(sm.dout[s], &do_map, hi_do, &sm.full[s], q0, h, b);
+        w2v2::mbar_arrive_expect_tx(&sm.full[s], 2 * kBwdTile * D * 2);
+        load_rows<D, kBwdTile>(bytes(sm.q[s]), 0, &q_map, hi_in, &sm.full[s], q0, h, b);
+        load_rows<D, kBwdTile>(bytes(sm.dout[s]), 0, &do_map, hi_do, &sm.full[s], q0, h, b);
       } else {
         w2v2::mbar_arrive(&sm.full[s]);
       }
@@ -483,7 +594,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
   }
 
   // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
-  w2v2::setmaxnreg_inc<kConsumerRegs>();
+  w2v2::setmaxnreg_inc<Cfg<D>::kConsumerRegs>();
   const int w = (tid % 128) / 32, g = lane >> 2, tq = lane & 3;
   const int key0 = k0 + wg * kBox + 16 * w + g;  // this thread's keys: key0, key0 + 8
   const Dropout dr = make_dropout(seed, bh, threshold, stride, inv_keep);
@@ -493,9 +604,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
     const int key = key0 + 8 * r;
     kb2[r] = key < L ? (bias ? bias[(size_t)b * L + key] * kLog2e : 0.f) : -CUDART_INF_F;
   }
-  float dk[32], dv[32];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
   w2v2::mbar_wait(&sm.kv_full, 0);
   const uint64_t kdesc = w2v2::wgmma_desc(sm.k[wg]), vdesc = w2v2::wgmma_desc(sm.v[wg]);
 
@@ -510,11 +621,11 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
     const uint64_t qdesc = w2v2::wgmma_desc(sm.q[s]), ddesc = w2v2::wgmma_desc(sm.dout[s]);
     w2v2::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      w2v2::wgmma_ss_n64(st, kdesc + kk * kKStep, qdesc + kk * kKStep, kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk)
+      w2v2::wgmma_ss_n64(st, kstep<kBox>(kdesc, kk), kstep<kBwdTile>(qdesc, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      w2v2::wgmma_ss_n64(dpt, vdesc + kk * kKStep, ddesc + kk * kKStep, kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk)
+      w2v2::wgmma_ss_n64(dpt, kstep<kBox>(vdesc, kk), kstep<kBwdTile>(ddesc, kk), kk > 0);
     w2v2::wgmma_commit();
     w2v2::wgmma_wait<0>();
     w2v2::fence_operands(st);
@@ -545,13 +656,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
       w2v2::pack_a(ra[kc], &st[8 * kc]);
       w2v2::pack_a(da[kc], &dpt[8 * kc]);
     }
+    const uint64_t qmn = mn_desc<D, kBwdTile>(sm.q[s]), dmn = mn_desc<D, kBwdTile>(sm.dout[s]);
     w2v2::fence_operands(dv);
     w2v2::fence_operands(dk);
     w2v2::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dv, ra[kc], ddesc + kc * kMnStep);
+    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dv, ra[kc], dmn + kc * kMnStep);
 #pragma unroll
-    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dk, da[kc], qdesc + kc * kMnStep);
+    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dk, da[kc], qmn + kc * kMnStep);
     w2v2::wgmma_commit();
     w2v2::wgmma_wait<0>();
     w2v2::fence_operands(dv);
@@ -561,36 +673,37 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
 
   const float one[2] = {1.f, 1.f};
   w2v2::named_barrier_sync(1 + wg, 128);  // every warp's last product has read K, V
-  acc_to_tile(reinterpret_cast<unsigned char*>(sm.k[wg]), dk, one, w, g, tq);
-  acc_to_tile(reinterpret_cast<unsigned char*>(sm.v[wg]), dv, one, w, g, tq);
+  acc_to_tile<D>(bytes(sm.k[wg]), dk, one, w, g, tq);
+  acc_to_tile<D>(bytes(sm.v[wg]), dv, one, w, g, tq);
   w2v2::fence_proxy_async();
   w2v2::named_barrier_sync(1 + wg, 128);
   if (tid % 128 == 0) {
-    store_rows(&dk_map, hi_out, sm.k[wg], k0 + wg * kBox, h, b);
-    store_rows(&dv_map, hi_out, sm.v[wg], k0 + wg * kBox, h, b);
+    store_rows<D>(&dk_map, hi_out, bytes(sm.k[wg]), k0 + wg * kBox, h, b);
+    store_rows<D>(&dv_map, hi_out, bytes(sm.v[wg]), k0 + wg * kBox, h, b);
     w2v2::tma_store_commit_and_wait();
   }
 }
 
 // -- backward: dQ --------------------------------------------------------------
 
+template <int D>
 struct DqSmem {
-  __nv_bfloat16 q[kConsumers][kBox * kD];     // resident; later the block's dQ
-  __nv_bfloat16 dout[kConsumers][kBox * kD];  // resident
-  __nv_bfloat16 k[kStages][kBwdTile * kD];
-  __nv_bfloat16 v[kStages][kBwdTile * kD];
+  __nv_bfloat16 q[kConsumers][kBox * D];     // resident; later the block's dQ
+  __nv_bfloat16 dout[kConsumers][kBox * D];  // resident
+  __nv_bfloat16 k[kStages][kBwdTile * D];
+  __nv_bfloat16 v[kStages][kBwdTile * D];
   float bias[kStages][kBwdTile];  // key bias x log2 e; -inf at or past L
   uint64_t full[kStages], empty[kStages], qd_full;
 };
 
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
                     const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ bias,
                     const float* __restrict__ lse, const float* __restrict__ delta, int H, int L,
                     int order, int seed, uint32_t threshold, uint32_t stride, float inv_keep) {
-  DqSmem& sm = w2v2::block_smem<DqSmem>();
+  DqSmem<D>& sm = w2v2::block_smem<DqSmem<D>>();
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
   const int q0 = blockIdx.x * kBlockRows;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -608,13 +721,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
 
   if (wg == kConsumers) {
     // producer: Q, dO once, then K, V and the key bias into the ring
-    w2v2::setmaxnreg_dec<kProducerRegs>();
+    w2v2::setmaxnreg_dec<Cfg<D>::kProducerRegs>();
     if (tid % 128 >= 32) return;
     if (lane == 0) {
-      w2v2::mbar_arrive_expect_tx(&sm.qd_full, 2 * kConsumers * kBoxBytes);
+      w2v2::mbar_arrive_expect_tx(&sm.qd_full, 2 * kConsumers * kBox * D * 2);
       for (int c = 0; c < kConsumers; ++c) {
-        load_rows(sm.q[c], &q_map, hi_in, &sm.qd_full, q0 + c * kBox, h, b);
-        load_rows(sm.dout[c], &do_map, hi_do, &sm.qd_full, q0 + c * kBox, h, b);
+        load_rows<D, kBox>(bytes(sm.q[c]), 0, &q_map, hi_in, &sm.qd_full, q0 + c * kBox, h, b);
+        load_rows<D, kBox>(bytes(sm.dout[c]), 0, &do_map, hi_do, &sm.qd_full, q0 + c * kBox, h, b);
       }
     }
     const float* kb = bias ? bias + (size_t)b * L : nullptr;
@@ -626,9 +739,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
         sm.bias[s][i] = key < L ? (kb ? kb[key] * kLog2e : 0.f) : -CUDART_INF_F;
       }
       if (lane == 0) {
-        w2v2::mbar_arrive_expect_tx(&sm.full[s], 2 * kBoxBytes);
-        load_rows(sm.k[s], &k_map, hi_in, &sm.full[s], key0, h, b);
-        load_rows(sm.v[s], &v_map, hi_in, &sm.full[s], key0, h, b);
+        w2v2::mbar_arrive_expect_tx(&sm.full[s], 2 * kBwdTile * D * 2);
+        load_rows<D, kBwdTile>(bytes(sm.k[s]), 0, &k_map, hi_in, &sm.full[s], key0, h, b);
+        load_rows<D, kBwdTile>(bytes(sm.v[s]), 0, &v_map, hi_in, &sm.full[s], key0, h, b);
       } else {
         w2v2::mbar_arrive(&sm.full[s]);
       }
@@ -637,7 +750,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
   }
 
   // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
-  w2v2::setmaxnreg_inc<kConsumerRegs>();
+  w2v2::setmaxnreg_inc<Cfg<D>::kConsumerRegs>();
   const int w = (tid % 128) / 32, g = lane >> 2, tq = lane & 3;
   const int row0 = q0 + wg * kBox + 16 * w + g;  // this thread's rows: row0, row0 + 8
   const Dropout dr = make_dropout(seed, bh, threshold, stride, inv_keep);
@@ -648,9 +761,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
     lse2[r] = row < L ? lse[(size_t)bh * L + row] * kLog2e : 0.f;
     dl[r] = row < L ? delta[(size_t)bh * L + row] : 0.f;
   }
-  float dq[32];
+  float dq[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
   w2v2::mbar_wait(&sm.qd_full, 0);
   const uint64_t qdesc = w2v2::wgmma_desc(sm.q[wg]), ddesc = w2v2::wgmma_desc(sm.dout[wg]);
 
@@ -663,11 +776,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
     const uint64_t kdesc = w2v2::wgmma_desc(sm.k[s]), vdesc = w2v2::wgmma_desc(sm.v[s]);
     w2v2::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      w2v2::wgmma_ss_n64(sc, qdesc + kk * kKStep, kdesc + kk * kKStep, kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk)
+      w2v2::wgmma_ss_n64(sc, kstep<kBox>(qdesc, kk), kstep<kBwdTile>(kdesc, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      w2v2::wgmma_ss_n64(dp, ddesc + kk * kKStep, vdesc + kk * kKStep, kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk)
+      w2v2::wgmma_ss_n64(dp, kstep<kBox>(ddesc, kk), kstep<kBwdTile>(vdesc, kk), kk > 0);
     w2v2::wgmma_commit();
     w2v2::wgmma_wait<0>();
     w2v2::fence_operands(sc);
@@ -690,10 +803,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
     uint32_t da[kBwdTile / 16][4];
 #pragma unroll
     for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::pack_a(da[kc], &sc[8 * kc]);
+    const uint64_t kmn = mn_desc<D, kBwdTile>(sm.k[s]);
     w2v2::fence_operands(dq);
     w2v2::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dq, da[kc], kdesc + kc * kMnStep);
+    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dq, da[kc], kmn + kc * kMnStep);
     w2v2::wgmma_commit();
     w2v2::wgmma_wait<0>();
     w2v2::fence_operands(dq);
@@ -702,40 +816,43 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
 
   const float one[2] = {1.f, 1.f};
   w2v2::named_barrier_sync(1 + wg, 128);  // every warp's last product has read Q
-  acc_to_tile(reinterpret_cast<unsigned char*>(sm.q[wg]), dq, one, w, g, tq);
+  acc_to_tile<D>(bytes(sm.q[wg]), dq, one, w, g, tq);
   w2v2::fence_proxy_async();
   w2v2::named_barrier_sync(1 + wg, 128);
   if (tid % 128 == 0) {
-    store_rows(&dq_map, hi_out, sm.q[wg], q0 + wg * kBox, h, b);
+    store_rows<D>(&dq_map, hi_out, bytes(sm.q[wg]), q0 + wg * kBox, h, b);
     w2v2::tma_store_commit_and_wait();
   }
 }
 
 // -- host side -----------------------------------------------------------------
 
-// The tensor map of a (B, H, L, 64) bf16 tensor whose element (b, h, l, d)
-// sits at base + b sb + h sh + l sl + d (elements): 4-D (64, n1, n2, B) with
+// The tensor map of a (B, H, L, D) bf16 tensor whose element (b, h, l, d)
+// sits at base + b sb + h sh + l sl + d (elements): 4-D (D, n1, n2, B) with
 // (n1, n2) = (H, L) when sh < sl (the heads of a row side by side:
 // projections and the (B, L, H, D) outputs), else (L, H), so that the
 // strides ascend; a dimension of size 1 gets the packed stride.  Boxes are
-// 64 rows x 64 elements, 128-byte swizzle, zero fill.  *heads_inner says which
-// order was taken.  The wrapper's `tma_layout` (ops/kernels/flash_attention.py)
-// computes the same dims and strides and refuses what TMA would.
+// 64 rows x 64 elements (D / 64 of them a row), 128-byte swizzle, zero fill.
+// *heads_inner says which order was taken.  The wrapper's `tma_layout`
+// (ops/kernels/flash_attention.py) computes the same dims and strides and
+// refuses what TMA would.
+template <int D>
 cudaError_t encode_bhld(CUtensorMap* map, const void* base, int B, int H, int L, long long sb,
                         long long sh, long long sl, bool* heads_inner) {
   const w2v2::EncodeTiled encode = w2v2::encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   const bool hi = sh < sl;
-  cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)(hi ? H : L), (cuuint64_t)(hi ? L : H),
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)(hi ? H : L), (cuuint64_t)(hi ? L : H),
                         (cuuint64_t)B};
   long long st[3] = {hi ? sh : sl, hi ? sl : sh, sb};
-  long long span = kD;  // elements spanned by the dimensions below
+  long long span = D;  // elements spanned by the dimensions below
   for (int i = 0; i < 3; ++i) {
     if (dims[i + 1] == 1) st[i] = span;
     span = st[i] * (long long)dims[i + 1];
   }
   const cuuint64_t strides[3] = {(cuuint64_t)st[0] * 2, (cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kD, hi ? 1u : (cuuint32_t)kBox, hi ? (cuuint32_t)kBox : 1u, 1u};
+  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, hi ? 1u : (cuuint32_t)kBox,
+                             hi ? (cuuint32_t)kBox : 1u, 1u};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   *heads_inner = hi;
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
@@ -745,33 +862,35 @@ cudaError_t encode_bhld(CUtensorMap* map, const void* base, int B, int H, int L,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// (B, L, H, 64) contiguous, as a (B, H, L, 64) view
+// (B, L, H, D) contiguous, as a (B, H, L, D) view
+template <int D>
 cudaError_t encode_out(CUtensorMap* map, const void* base, int B, int H, int L, bool* heads_inner) {
-  return encode_bhld(map, base, B, H, L, (long long)L * H * kD, kD, (long long)H * kD, heads_inner);
+  return encode_bhld<D>(map, base, B, H, L, (long long)L * H * D, D, (long long)H * D, heads_inner);
 }
 
-template <bool kDrop>
+template <int D, bool kDrop>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
                        void* lse, int BH, int H, int L, long long sb, long long sh, long long sl,
                        int seed, uint32_t threshold, uint32_t stride, float inv_keep,
                        cudaStream_t s) {
+  constexpr int kCons = Cfg<D>::kFwdConsumers, kRows = kBox * kCons;
   const int B = BH / H;
   CUtensorMap qm, km, vm, om;
   bool hi_in, hi_out;
-  W2V2_TRY(encode_bhld(&qm, q, B, H, L, sb, sh, sl, &hi_in));
-  W2V2_TRY(encode_bhld(&km, k, B, H, L, sb, sh, sl, &hi_in));
-  W2V2_TRY(encode_bhld(&vm, v, B, H, L, sb, sh, sl, &hi_in));
-  W2V2_TRY(encode_out(&om, out, B, H, L, &hi_out));
-  constexpr int smem = w2v2::smem_bytes<FwdSmem>();
-  W2V2_TRY(w2v2::allow_smem(flash_fwd_kernel<kDrop>, smem));
-  const dim3 grid((L + kFwdRows - 1) / kFwdRows, BH);
-  flash_fwd_kernel<kDrop><<<grid, kFwdThreads, smem, s>>>(
+  W2V2_TRY(encode_bhld<D>(&qm, q, B, H, L, sb, sh, sl, &hi_in));
+  W2V2_TRY(encode_bhld<D>(&km, k, B, H, L, sb, sh, sl, &hi_in));
+  W2V2_TRY(encode_bhld<D>(&vm, v, B, H, L, sb, sh, sl, &hi_in));
+  W2V2_TRY(encode_out<D>(&om, out, B, H, L, &hi_out));
+  constexpr int smem = w2v2::smem_bytes<FwdSmem<D>>();
+  W2V2_TRY(w2v2::allow_smem(flash_fwd_kernel<D, kDrop>, smem));
+  const dim3 grid((L + kRows - 1) / kRows, BH);
+  flash_fwd_kernel<D, kDrop><<<grid, 128 * (kCons + 1), smem, s>>>(
       qm, km, vm, om, (const float*)bias, (float*)lse, H, L, int(hi_in) | (int(hi_out) << 1), seed,
       threshold, stride, inv_keep);
   return cudaGetLastError();
 }
 
-template <bool kDrop>
+template <int D, bool kDrop>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* bias,
                        const void* out, const void* lse, const void* dout, void* delta,
                        void* dq, void* dk, void* dv, int BH, int H, int L, long long sb,
@@ -781,54 +900,82 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   const int B = BH / H;
   CUtensorMap qm, km, vm, dom, dqm, dkm, dvm;
   bool hi_in, hi_do, hi_out;
-  W2V2_TRY(encode_bhld(&qm, q, B, H, L, sb, sh, sl, &hi_in));
-  W2V2_TRY(encode_bhld(&km, k, B, H, L, sb, sh, sl, &hi_in));
-  W2V2_TRY(encode_bhld(&vm, v, B, H, L, sb, sh, sl, &hi_in));
-  W2V2_TRY(encode_bhld(&dom, dout, B, H, L, dsb, dsh, dsl, &hi_do));
-  W2V2_TRY(encode_out(&dqm, dq, B, H, L, &hi_out));
-  W2V2_TRY(encode_out(&dkm, dk, B, H, L, &hi_out));
-  W2V2_TRY(encode_out(&dvm, dv, B, H, L, &hi_out));
+  W2V2_TRY(encode_bhld<D>(&qm, q, B, H, L, sb, sh, sl, &hi_in));
+  W2V2_TRY(encode_bhld<D>(&km, k, B, H, L, sb, sh, sl, &hi_in));
+  W2V2_TRY(encode_bhld<D>(&vm, v, B, H, L, sb, sh, sl, &hi_in));
+  W2V2_TRY(encode_bhld<D>(&dom, dout, B, H, L, dsb, dsh, dsl, &hi_do));
+  W2V2_TRY(encode_out<D>(&dqm, dq, B, H, L, &hi_out));
+  W2V2_TRY(encode_out<D>(&dkm, dk, B, H, L, &hi_out));
+  W2V2_TRY(encode_out<D>(&dvm, dv, B, H, L, &hi_out));
   const int order = int(hi_in) | (int(hi_do) << 1) | (int(hi_out) << 2);
 
   const int rows = BH * L;
-  flash_delta_kernel<<<(rows * 8 + 255) / 256, 256, 0, s>>>(
+  flash_delta_kernel<D><<<(rows * (D / 8) + 255) / 256, 256, 0, s>>>(
       (const __nv_bfloat16*)dout, (const __nv_bfloat16*)out, (float*)delta, H, L, rows, dsb, dsh,
       dsl, osb, osh, osl);
   W2V2_TRY(cudaGetLastError());
-  constexpr int smem_dkdv = w2v2::smem_bytes<DkdvSmem>(), smem_dq = w2v2::smem_bytes<DqSmem>();
-  W2V2_TRY(w2v2::allow_smem(flash_bwd_dkdv_kernel<kDrop>, smem_dkdv));
-  W2V2_TRY(w2v2::allow_smem(flash_bwd_dq_kernel<kDrop>, smem_dq));
+  constexpr int smem_dkdv = w2v2::smem_bytes<DkdvSmem<D>>(), smem_dq = w2v2::smem_bytes<DqSmem<D>>();
+  W2V2_TRY(w2v2::allow_smem(flash_bwd_dkdv_kernel<D, kDrop>, smem_dkdv));
+  W2V2_TRY(w2v2::allow_smem(flash_bwd_dq_kernel<D, kDrop>, smem_dq));
   const dim3 grid((L + kBlockRows - 1) / kBlockRows, BH);
-  flash_bwd_dkdv_kernel<kDrop><<<grid, kThreads, smem_dkdv, s>>>(
+  flash_bwd_dkdv_kernel<D, kDrop><<<grid, kThreads, smem_dkdv, s>>>(
       qm, km, vm, dom, dkm, dvm, (const float*)bias, (const float*)lse, (const float*)delta, H, L,
       order, seed, threshold, stride, inv_keep);
   W2V2_TRY(cudaGetLastError());
-  flash_bwd_dq_kernel<kDrop><<<grid, kThreads, smem_dq, s>>>(
+  flash_bwd_dq_kernel<D, kDrop><<<grid, kThreads, smem_dq, s>>>(
       qm, km, vm, dom, dqm, (const float*)bias, (const float*)lse, (const float*)delta, H, L, order,
       seed, threshold, stride, inv_keep);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t fwd_at(bool dropout, const void* q, const void* k, const void* v, const void* bias,
+                   void* out, void* lse, int BH, int H, int L, long long sb, long long sh,
+                   long long sl, int seed, uint32_t threshold, uint32_t stride, float inv_keep,
+                   cudaStream_t s) {
+  return dropout ? launch_fwd<D, true>(q, k, v, bias, out, lse, BH, H, L, sb, sh, sl, seed,
+                                       threshold, stride, inv_keep, s)
+                 : launch_fwd<D, false>(q, k, v, bias, out, lse, BH, H, L, sb, sh, sl, seed,
+                                        threshold, stride, inv_keep, s);
+}
+
+template <int D>
+cudaError_t bwd_at(bool dropout, const void* q, const void* k, const void* v, const void* bias,
+                   const void* out, const void* lse, const void* dout, void* delta, void* dq,
+                   void* dk, void* dv, int BH, int H, int L, long long sb, long long sh,
+                   long long sl, long long osb, long long osh, long long osl, long long dsb,
+                   long long dsh, long long dsl, int seed, uint32_t threshold, uint32_t stride,
+                   float inv_keep, cudaStream_t s) {
+  return dropout ? launch_bwd<D, true>(q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H, L,
+                                       sb, sh, sl, osb, osh, osl, dsb, dsh, dsl, seed, threshold,
+                                       stride, inv_keep, s)
+                 : launch_bwd<D, false>(q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H,
+                                        L, sb, sh, sl, osb, osh, osl, dsb, dsh, dsl, seed,
+                                        threshold, stride, inv_keep, s);
+}
+
 }  // namespace
 
-// q, k, v: (B, H, L, 64) bf16 through strides (sb, sh, sl), 16-byte-aligned
-// base and strides (TMA); out (B, L, H, 64); lse (B*H, L) f32.  dropout != 0
-// applies the hash mask (seed, threshold, stride) and scales kept
-// probabilities by inv_keep.
+// q, k, v: (B, H, L, D) bf16 through strides (sb, sh, sl), D = 64 or 128,
+// 16-byte-aligned base and strides (TMA); out (B, L, H, D); lse (B*H, L)
+// f32.  dropout != 0 applies the hash mask (seed, threshold, stride) and
+// scales kept probabilities by inv_keep.
 extern "C" int w2v2_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                               void* out, void* lse, int BH, int H, int L, int D, long long sb,
                               long long sh, long long sl, int seed, unsigned threshold,
                               unsigned stride, float inv_keep, int dropout, void* stream) {
-  if (D != kD) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(dropout ? launch_fwd<true>(q, k, v, bias, out, lse, BH, H, L, sb, sh, sl, seed,
-                                          threshold, stride, inv_keep, s)
-                       : launch_fwd<false>(q, k, v, bias, out, lse, BH, H, L, sb, sh, sl, seed,
-                                           threshold, stride, inv_keep, s));
+  if (D == 64)
+    return (int)fwd_at<64>(dropout, q, k, v, bias, out, lse, BH, H, L, sb, sh, sl, seed, threshold,
+                           stride, inv_keep, s);
+  if (D == 128)
+    return (int)fwd_at<128>(dropout, q, k, v, bias, out, lse, BH, H, L, sb, sh, sl, seed,
+                            threshold, stride, inv_keep, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The backward: out and dout through their own strides (osb.., dsb..);
-// delta is (B*H, L) f32 scratch; dq, dk, dv written (B, L, H, 64) bf16.
+// delta is (B*H, L) f32 scratch; dq, dk, dv written (B, L, H, D) bf16.
 extern "C" int w2v2_flash_bwd(const void* q, const void* k, const void* v, const void* bias,
                               const void* out, const void* lse, const void* dout, void* delta,
                               void* dq, void* dk, void* dv, int BH, int H, int L, int D,
@@ -836,13 +983,14 @@ extern "C" int w2v2_flash_bwd(const void* q, const void* k, const void* v, const
                               long long osh, long long osl, long long dsb, long long dsh,
                               long long dsl, int seed, unsigned threshold, unsigned stride,
                               float inv_keep, int dropout, void* stream) {
-  if (D != kD) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(dropout
-                   ? launch_bwd<true>(q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H, L,
-                                      sb, sh, sl, osb, osh, osl, dsb, dsh, dsl, seed, threshold,
-                                      stride, inv_keep, s)
-                   : launch_bwd<false>(q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H,
-                                       L, sb, sh, sl, osb, osh, osl, dsb, dsh, dsl, seed,
-                                       threshold, stride, inv_keep, s));
+  if (D == 64)
+    return (int)bwd_at<64>(dropout, q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H, L, sb,
+                           sh, sl, osb, osh, osl, dsb, dsh, dsl, seed, threshold, stride, inv_keep,
+                           s);
+  if (D == 128)
+    return (int)bwd_at<128>(dropout, q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H, L,
+                            sb, sh, sl, osb, osh, osl, dsb, dsh, dsl, seed, threshold, stride,
+                            inv_keep, s);
+  return (int)cudaErrorInvalidValue;
 }

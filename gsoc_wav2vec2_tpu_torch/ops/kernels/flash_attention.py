@@ -1,6 +1,6 @@
-"""Flash attention, head dim 64 (`csrc/flash_attention.cu`): forward with
-in-kernel prob dropout, backward, and the `torch.autograd.Function` over
-both.
+"""Flash attention, head dims 64 and 128 (`csrc/flash_attention.cu`):
+forward with in-kernel prob dropout, backward, and the
+`torch.autograd.Function` over both.
 
 Counterpart of `gsoc_wav2vec2_tpu/ops/pallas/flash_attention.py`
 (`_flash_fwd`, `_flash_bwd` and the custom VJP `_flash_attention_core`):
@@ -29,6 +29,11 @@ import torch
 
 from ..basic import _i32, _shr, below_threshold, keep_threshold
 from . import _build
+
+# the head dims the kernels are instantiated at (`csrc/flash_attention.cu`)
+HEAD_DIMS = (64, 128)
+# bf16 columns of one TMA box: one 128-byte swizzle row
+BOX_COLS = 64
 
 
 def _mix_seed(seed) -> torch.Tensor:
@@ -131,16 +136,17 @@ def flash_attention_bwd_plain(
 
 
 def supports(head_dim: int, dtype: torch.dtype) -> bool:
-    """Whether the flash kernels take heads of `head_dim` in `dtype`: 64 and
-    bf16 (the JAX kernel takes multiples of 64).  Elsewhere the card runs
-    `flash_attention_fwd_plain` through autograd, with the same hash dropout."""
-    return head_dim == 64 and dtype == torch.bfloat16
+    """Whether the flash kernels take heads of `head_dim` in `dtype`: 64 or
+    128, bf16 (the JAX kernel takes multiples of 64).  Elsewhere the card
+    runs `flash_attention_fwd_plain` through autograd, with the same hash
+    dropout."""
+    return head_dim in HEAD_DIMS and dtype == torch.bfloat16
 
 
 def _check(name, q, k, v, bias):
     b, h, l, d = q.shape
-    if d != 64:
-        raise ValueError(f"{name} takes head dim 64, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} takes head dims {HEAD_DIMS}, got {d}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError(f"{name} takes bf16 q, k, v, got {q.dtype}")
     if k.shape != q.shape or v.shape != q.shape:
@@ -157,13 +163,14 @@ def _check(name, q, k, v, bias):
 
 
 def tma_layout(shape, strides):
-    """The 4-D tensor map the kernels read a (B, H, L, 64) tensor through, as
+    """The 4-D tensor map the kernels read a (B, H, L, D) tensor through, as
     `encode_bhld` in `csrc/flash_attention.cu` builds it from the element
-    strides (sb, sh, sl, 1): dims innermost first, (64, L, H, B), or (64, H,
+    strides (sb, sh, sl, 1): dims innermost first, (D, L, H, B), or (D, H,
     L, B) when sh < sl (the heads of a row side by side, as in the (B, L, H*D)
     projections), so that the strides ascend; a dimension of size 1 gets the
     packed stride.  Returns (dims, byte strides of dims 1-3, box,
-    heads_inner); the box is 64 rows of 64 elements."""
+    heads_inner); the box is 64 rows of 64 elements (one 128-byte swizzle
+    row), D / 64 boxes a row of D."""
     b, h, l, d = shape
     sb, sh, sl = strides[:3]
     heads_inner = sh < sl
@@ -174,20 +181,20 @@ def tma_layout(shape, strides):
         if dims[i + 1] == 1:
             st[i] = span
         span = st[i] * dims[i + 1]
-    box = [d, 1, 64, 1] if heads_inner else [d, 64, 1, 1]
+    box = [BOX_COLS, 1, 64, 1] if heads_inner else [BOX_COLS, 64, 1, 1]
     return dims, [2 * s for s in st], box, heads_inner
 
 
 def _strided_ok(x: torch.Tensor) -> bool:
-    """What TMA reads in place: rows of 64 contiguous bf16 at a 16-byte-aligned
-    base, byte strides that are multiples of 16 below 2^40, and nested
+    """What TMA reads in place: rows of D contiguous bf16 (D in `HEAD_DIMS`) at
+    a 16-byte-aligned base, byte strides that are multiples of 16 below 2^40, and nested
     (non-overlapping) dimensions in the `tma_layout` order."""
     return x.data_ptr() % 16 == 0 and _layout_ok(tuple(x.shape), x.stride())
 
 
 @functools.lru_cache(maxsize=256)
 def _layout_ok(shape, strides) -> bool:
-    if len(shape) != 4 or shape[-1] != 64 or strides[-1] != 1:
+    if len(shape) != 4 or shape[-1] not in HEAD_DIMS or strides[-1] != 1:
         return False
     dims, byte_strides, _, _ = tma_layout(shape, strides)
     if any(s % 16 or s >= 2**40 for s in byte_strides):

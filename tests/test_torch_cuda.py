@@ -244,13 +244,27 @@ def test_robust_step_at_36_pos_conv_taps_goes_through_the_kernels(cuda):
 
 
 @pytest.mark.cuda
+def test_robust_step_at_head_dim_128_goes_through_the_kernels(cuda):
+    """Two heads of 128: `flash_attention.supports` takes them, so the step's
+    attention launches the flash kernels' D = 128 instances, forward and
+    backward, and the loss goes down."""
+    assert flash_attention.supports(ROBUST_SMALL["hidden_size"] // 2, torch.bfloat16)
+    _robust_steps_go_through_the_kernels(cuda, num_heads=2)
+
+
+# the head dims of the flash kernels' instances
+FLASH_HEAD_DIMS = (64, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
 @pytest.mark.parametrize("l,b,h", [(5999, 1, 2), (8192, 1, 2)])
-def test_flash_long_sequences_match_plain_on_card(cuda, l, b, h):
+def test_flash_long_sequences_match_plain_on_card(cuda, l, b, h, d):
     """Past 4096 frames (where the TPU package switches to its kv-blocked
     kernels): forward and backward with dropout 0.1 and a ragged key bias
     against the plain versions; L = 5999 hashes with the padded stride 6016."""
     g = torch.Generator().manual_seed(l)
-    q, k, v, dout = _peaky_qkv(b, h, l, g, cuda)
+    q, k, v, dout = _peaky_qkv(b, h, l, g, cuda, d)
     bias = torch.zeros(b, l)
     bias[0, (2 * l) // 3:] = -10000.0
     bias = bias.to(cuda)
@@ -267,22 +281,23 @@ def test_flash_long_sequences_match_plain_on_card(cuda, l, b, h):
         assert (got.float() - want.float()).abs().max().item() < 0.01 * scale
 
 
-def _peaky_qkv(b, h, l, g, cuda):
-    """bf16 q, k, v, dout with scores of std ~6: most rows have one
-    dominant key, so a keep bit that differs moves that row by ~|v|."""
-    q, k, v, dout = (torch.randn(b, h, l, 64, generator=g).to(cuda, torch.bfloat16)
+def _peaky_qkv(b, h, l, g, cuda, d=64):
+    """bf16 q, k, v, dout (B, H, L, d) with scores of std ~6: most rows have
+    one dominant key, so a keep bit that differs moves that row by ~|v|."""
+    q, k, v, dout = (torch.randn(b, h, l, d, generator=g).to(cuda, torch.bfloat16)
                      for _ in range(4))
-    return q * 0.75, k, v, dout
+    return q * (6.0 / d ** 0.5), k, v, dout
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
 @pytest.mark.parametrize("l", [200, 768])
-def test_flash_dropout_fwd_bwd_match_plain_on_card(cuda, l):
+def test_flash_dropout_fwd_bwd_match_plain_on_card(cuda, l, d):
     """The kernels' dropout against the plain versions, same seed, ragged
     bias, forward and backward.  The tolerances are far below what one
     differing keep bit moves; a plain run with another seed shows it."""
     g = torch.Generator().manual_seed(l)
-    q, k, v, dout = _peaky_qkv(2, 4, l, g, cuda)
+    q, k, v, dout = _peaky_qkv(2, 4, l, g, cuda, d)
     bias = torch.zeros(2, l)
     bias[1, l // 3:] = -10000.0
     bias = bias.to(cuda)
@@ -660,24 +675,26 @@ def test_gather_rows_backward_matches_autograd_on_card(cuda):
 
 
 def _proj_view(x):
-    """(B, H, L, 64) -> the same values as the head split of a (B, L, H*64)
+    """(B, H, L, D) -> the same values as the head split of a (B, L, H*D)
     projection: a strided view with the heads of a row side by side."""
     b, h, l, d = x.shape
     return x.transpose(1, 2).reshape(b, l, h * d).view(b, l, h, d).transpose(1, 2)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
 @pytest.mark.parametrize("l", [1, 63, 64, 65, 127, 128, 129, 768, 1249])
-def test_flash_tiles_and_edges_match_plain_on_card(cuda, l):
+def test_flash_tiles_and_edges_match_plain_on_card(cuda, l, d):
     """The wgmma/TMA kernels against the plain versions at every edge of their
-    tiles (64-row boxes, 128-query blocks, 128-key forward tiles): no bias and
-    a ragged bias, dropout 0 and 0.1 (keep bits from `dropout_mask` in the
-    plain path: one differing bit would move a row of these peaky scores far
-    past the tolerance), q/k/v contiguous and as projection head views."""
+    tiles (64-row boxes, 128- or 192-query blocks, 128-key forward tiles, two
+    64-column boxes a row at d = 128): no bias and a ragged bias, dropout 0
+    and 0.1 (keep bits from `dropout_mask` in the plain path: one differing
+    bit would move a row of these peaky scores far past the tolerance),
+    q/k/v contiguous and as projection head views."""
     from gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention import _strided_ok
 
     g = torch.Generator().manual_seed(1000 + l)
-    q, k, v, dout = _peaky_qkv(2, 3, l, g, cuda)
+    q, k, v, dout = _peaky_qkv(2, 3, l, g, cuda, d)
     ragged = torch.zeros(2, l)
     ragged[1, max(1, (2 * l) // 3):] = -10000.0
     ragged = ragged.to(cuda)
@@ -706,11 +723,12 @@ def test_flash_tiles_and_edges_match_plain_on_card(cuda, l):
 
 
 @pytest.mark.cuda
-def test_flash_launches_are_deterministic_on_card(cuda):
+@pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
+def test_flash_launches_are_deterministic_on_card(cuda, d):
     """No float atomics: two launches of the forward and of the backward give
     equal bits (dropout, ragged bias, a ragged last tile)."""
     g = torch.Generator().manual_seed(11)
-    q, k, v, dout = _peaky_qkv(2, 4, 1000, g, cuda)
+    q, k, v, dout = _peaky_qkv(2, 4, 1000, g, cuda, d)
     bias = torch.zeros(2, 1000)
     bias[0, 700:] = -10000.0
     bias = bias.to(cuda)
@@ -725,15 +743,16 @@ def test_flash_launches_are_deterministic_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_flash_misaligned_views_are_copied_on_card(cuda):
+@pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
+def test_flash_misaligned_views_are_copied_on_card(cuda, d):
     """Views that break TMA's 16-byte rules (a base 2 bytes off, a row stride
-    of 68 elements) are copied by the wrappers, never handed to the tensor
+    of d + 4 elements) are copied by the wrappers, never handed to the tensor
     maps, and give the plain versions' results."""
     from gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention import _strided_ok
 
     g = torch.Generator().manual_seed(12)
     b, h, l = 1, 2, 200
-    q, k, v, dout = _peaky_qkv(b, h, l, g, cuda)
+    q, k, v, dout = _peaky_qkv(b, h, l, g, cuda, d)
     n = q.numel()
 
     def shifted(x):
@@ -743,9 +762,9 @@ def test_flash_misaligned_views_are_copied_on_card(cuda):
         return y
 
     def wide(x):
-        buf = torch.zeros(b, h, l, 68, dtype=x.dtype, device=cuda)
-        buf[..., :64] = x
-        return buf[..., :64]
+        buf = torch.zeros(b, h, l, d + 4, dtype=x.dtype, device=cuda)
+        buf[..., :d] = x
+        return buf[..., :d]
 
     pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v)
     pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, None, pout, plse, dout)
