@@ -195,6 +195,17 @@ Phases, each printing one JSON line:
                 turned off through `supports` (the plain attention); row 0
                 against the card's plain f32 forward; 1 + 4 stage-2 steps
                 without remat (flash forward 24 and backward 24 a step).
+ 13e. base_h192, robust_h256 -- the flash kernels' D = 192 and 256
+                instances, checked and timed as 13d's at (16, 4, 768, 192)
+                and (8, 4, 768, 256), at (1, 4, 5999, D) and at the tile
+                edges; then `Wav2Vec2Config(num_heads=4)` (base width, 12
+                post-norm layers, 4 heads of 192, seed 1) on B=16 x 246000
+                through `predict_batch` (`groupnorm_stats`, `fused_conv01`,
+                `pos_conv` 1 each, flash 12 a forward), row 0 against the
+                card's plain f32 forward (5% of the logit scale), its
+                front-end, pos-conv and flash kernels held at B=8, 1 + 4
+                stage-2 steps at B=8 (flash 12 + 12 a step); and
+                `RobustWav2Vec2Config(num_heads=4)` (4 heads of 256) as 13d.
  14. export  -- `cli.export.main` at base width and depth: `torch_export` on
                 the card (symbolic batch, 246000 samples), the program run
                 in a process that imports `ops.kernels` alone (no model
@@ -366,21 +377,23 @@ KERNELS = {
     "ctc_loss_fwd": ctck.ctc_loss_fwd, "ctc_loss_bwd": ctck.ctc_loss_bwd,
 }
 # the paths whose launches count for each family of records
-BASE_PATHS = ("inference", "train", "long_inference", "long_train", "cli", "serve", "export")
+BASE_PATHS = ("inference", "train", "long_inference", "long_train", "cli", "serve", "export",
+              "base_h192", "base_h192_train")
 ROBUST_PATHS = ("robust_inference", "robust_train", "hubert")
 SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gather", "cli", "serve",
                                                      "export",
                                                      "remat", "pretrain_cli")
 TRAIN_PATHS = ("train", "pretrain", "pretrain_gather", "cli", "remat", "pretrain_cli")
 CTC_PATHS = ("train", "robust_train", "long_train", "cli", "remat", "xlarge_train",
-             "xls_r_2b_train", "robust_h128_train")
+             "xls_r_2b_train", "robust_h128_train", "base_h192_train", "robust_h256_train")
 # a CTC loss and its gradient: one launch of each wrapper
 CTC_STEP = {"ctc_loss_fwd": 1, "ctc_loss_bwd": 1}
 LONG_PATHS = ("long_inference", "long_train")
 # the 1280-d family (phase 13b) and XLS-R 2B's 1920-d (phase 13c)
 XLARGE_PATHS = ("xlarge", "xlarge_train", "xls_r_2b", "xls_r_2b_train")
-# the robust/large widths at 8 heads of 128 (phase 13d)
+# the robust/large widths at 8 heads of 128 (phase 13d), at 4 of 256 (13e)
 H128_PATHS = ("robust_h128", "robust_h128_train")
+H256_PATHS = ("robust_h256", "robust_h256_train")
 
 
 def reset_counts() -> None:
@@ -613,11 +626,12 @@ def frontend_checks(x, w0, gamma, beta, w1):
     return gn, dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol), (scale, shift)
 
 
-def check_eval_kernels_at(model, records, b):
+def check_eval_kernels_at(model, records, b, path=None):
     """groupnorm_stats, fused_conv01 and the inference pos conv against their
     plain versions at b x 246000 (the cli phase runs them there: stage 1's
-    forward and the validation batch), launched twice (bit-equal), at phase
-    3's tolerances; each check is added to its record under `checked_at`."""
+    forward and the validation batch; base_h192's steps at 8), launched
+    twice (bit-equal), at phase 3's tolerances; each check is added to its
+    record under `checked_at`, with `path` where one is given."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4321)
     fe = model.wav2vec2.feature_extractor.conv_layers
@@ -634,7 +648,8 @@ def check_eval_kernels_at(model, records, b):
     for name, check in (("groupnorm_stats", gn), ("fused_conv01", c01),
                         ("pos_conv", dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol))):
         by_name[name].setdefault("checked_at", []).append(
-            {"shape": [b, SAMPLES], **check, "relaunch_bit_equal": True})
+            {"shape": [b, SAMPLES], **({"path": path} if path else {}), **check,
+             "relaunch_bit_equal": True})
     torch.cuda.empty_cache()
 
 
@@ -704,7 +719,7 @@ def check_kernels(model):
     t = model.config.conv_output_length(SAMPLES)  # 768 frames
     records.append(pos_conv_eval_record(kernel, bias, B, t, "pos_conv",
                                         ("inference", "train", "long_inference", "cli", "serve",
-                                         "export"), gen))
+                                         "export", "base_h192", "base_h192_train"), gen))
 
     # -- flash attention at (16, 12, 768, 64); ragged masks and L = 1249 -------
     heads = model.config.num_heads
@@ -1031,8 +1046,8 @@ def check_robust_kernels(model, records):
         return fn.gelu(fn.layer_norm(y, (c,), half[4], half[5], 1e-5), approximate="tanh")
 
     records.append(dict(
-        name="conv01_robust", counter="conv01_robust", paths=ROBUST_PATHS + XLARGE_PATHS + H128_PATHS,
-        route="cuda",
+        name="conv01_robust", counter="conv01_robust",
+        paths=ROBUST_PATHS + XLARGE_PATHS + H128_PATHS + H256_PATHS, route="cuda",
         source=CSRC + "conv_frontend.cu", replaces=PALLAS + "conv_frontend.py:334",
         shape=[b, SAMPLES], max_abs_err=err, mean_abs_err=mean_err, tol=tol,
         relaunch_bit_equal=True,
@@ -1050,9 +1065,10 @@ def check_robust_kernels(model, records):
     bias = (0.1 * torch.randn(h, generator=gen)).to(dev)
     t = model.config.conv_output_length(SAMPLES)  # 768
     records.append(pos_conv_eval_record(kernel, bias, b, t, "pos_conv_cg64",
-                                        ROBUST_PATHS + ("robust_h128",), gen))
+                                        ROBUST_PATHS + ("robust_h128", "robust_h256"), gen))
     records.extend(pos_conv_train_records(kernel, bias, b, t, "_cg64",
-                                          ("robust_train", "robust_h128_train"), gen))
+                                          ("robust_train", "robust_h128_train", "robust_h256_train"),
+                                          gen))
 
     # flash forward at (8, 16, 768, 64), ragged bias, with and without dropout
     heads = model.config.num_heads
@@ -3340,7 +3356,7 @@ def hubert_phase(smi: str) -> dict:
 # facebook/mms-1b), 16 pos-conv groups of 80 channels, 16 heads of 80
 HUBERT_XLARGE = {**HUBERT_LARGE, "hidden_size": 1280, "num_hidden_layers": 48,
                  "intermediate_size": 5120}
-XLARGE_STAGE2_STEPS = 4  # phases 13b and 13c
+XLARGE_STAGE2_STEPS = 4  # phases 13b-13e
 # the stage-2 step's remat: `cli.train`'s default ("dots").  Without remat the
 # step peaked at 82.9 GB of the card's 85.0 (H100 80GB HBM3, phase 13b alone): too
 # little room to promise late in this script
@@ -3410,34 +3426,39 @@ def xls_r_2b_phase(smi: str, records) -> dict:
 # of 64: the one field that sets the head dim changed (no public wav2vec2 /
 # XLS-R / HuBERT checkpoint has heads of 128)
 H128_HEADS = 8
-H128_EDGES = (1, 63, 64, 65, 127, 128, 129, 1249)
+# the tile edges each head dim's kernels are checked at, on (2, 3, L, D)
+FLASH_EDGES = (1, 63, 64, 65, 127, 128, 129, 1249)
 
 
-def check_flash_d128_kernels(records):
-    """Phase 13d, first part: the flash kernels' D = 128 instances, forward
-    and backward, against their plain versions (`flash_dropout_errors`,
-    every launch twice, bit-equal) at the phase's (8, 8, 768, 128) with a
-    ragged bias, without and with dropout 0.1, at (1, 8, 5999, 128) with
-    dropout (the long regime, where JAX switches to its kv-blocked kernels;
-    hash stride 6016) and at the tile edges L = `H128_EDGES` on (2, 3, L,
-    128), no bias and ragged, dropout 0 and 0.1.  Timed at (8, 8, 768, 128)
-    and (1, 8, 5999, 128) with their bounds and SDPA's time at the same
-    shape (a yardstick the port never calls).  Appends two records, the
-    long regime and the edges inside them."""
-    gen = torch.Generator().manual_seed(12800)
-    d, heads = 128, H128_HEADS
-    b, t = ROBUST_B, RobustWav2Vec2Config().conv_output_length(SAMPLES)
-    rate, seed = 0.1, 4321
+def check_flash_head_dim_kernels(records, d: int, heads: int, b: int, phase: str, seed: int,
+                                 train_b: int | None = None):
+    """The flash kernels' head dim `d` instances, forward and backward,
+    against their plain versions (`flash_dropout_errors`, every launch
+    twice, bit-equal) at the phase's (b, heads, 768, d) with a ragged bias,
+    without and with dropout 0.1, at (1, heads, 5999, d) with dropout (the
+    long regime, where JAX switches to its kv-blocked kernels; hash stride
+    6016) and at the tile edges L = `FLASH_EDGES` on (2, 3, L, d), no bias
+    and ragged, dropout 0 and 0.1.  Timed at the phase's shape and the long
+    one with their bounds and SDPA's time at the same shape (a yardstick
+    the port never calls).  With `train_b`, the base family's training batch
+    where it differs from `b`, also at (train_b, heads, 768, d) with no bias
+    (the base family trains without a mask) and dropout 0.1.  Appends two
+    records, `flash_attention_fwd_d{d}` (paths `phase` and `phase`_train) and
+    `flash_attention_bwd_d{d}` (`phase`_train), the long regime, the training
+    shape and the edges inside them."""
+    gen = torch.Generator().manual_seed(seed)
+    t = RobustWav2Vec2Config().conv_output_length(SAMPLES)
+    rate, drop_seed = 0.1, 4321
     # -- the tile edges (at L = 1 dq = dk = 0 up to rounding: its gradients'
     # errors are recorded as they are, not over their scale) --------------------
     edge_fwd, edge_rel, l1_abs = 0.0, {"dq": 0.0, "dk": 0.0, "dv": 0.0}, 0.0
-    for l in H128_EDGES:
+    for l in FLASH_EDGES:
         q, kk, v, dout = _peaky(2, 3, l, d, gen)
         for bias in (None, _ragged_bias(2, l, gen)):
             for r in (0.0, rate):
                 (err, _), _, _, rel, gabs, _ = flash_dropout_errors(
-                    q, kk, v, dout, bias, r, seed, f"d=128 L={l} bias={bias is not None} rate={r}",
-                    floor=1e-4, relaunch=True)
+                    q, kk, v, dout, bias, r, drop_seed,
+                    f"d={d} L={l} bias={bias is not None} rate={r}", floor=1e-4, relaunch=True)
                 edge_fwd = max(edge_fwd, err)
                 if l == 1:
                     l1_abs = max(l1_abs, gabs)
@@ -3447,10 +3468,10 @@ def check_flash_d128_kernels(records):
     # -- the phase's shape: without dropout, then with it (and the backward) --
     q, kk, v, dout = _peaky(b, heads, t, d, gen)
     kb = _ragged_bias(b, t, gen)
-    (err, mean_err), *_ = flash_dropout_errors(q, kk, v, dout, kb, 0.0, seed, "d=128 (8, 8, 768)",
-                                               relaunch=True)
-    (derr, _), _, _, rel, gabs, _ = flash_dropout_errors(q, kk, v, dout, kb, rate, seed,
-                                                         "d=128 (8, 8, 768)", relaunch=True)
+    what = f"d={d} ({b}, {heads}, {t})"
+    (err, mean_err), *_ = flash_dropout_errors(q, kk, v, dout, kb, 0.0, drop_seed, what, relaunch=True)
+    (derr, _), _, _, rel, gabs, _ = flash_dropout_errors(q, kk, v, dout, kb, rate, drop_seed, what,
+                                                         relaunch=True)
     run_flash = lambda: fa.flash_attention_fwd(q, kk, v, kb)
     run_library = lambda: torch.nn.functional.scaled_dot_product_attention(
         q, kk, v, attn_mask=kb[:, None, None, :].to(q.dtype), scale=1.0)
@@ -3459,7 +3480,8 @@ def check_flash_d128_kernels(records):
     bms, by = bound(4 * q.numel() * 2 + b * heads * t * 4 + b * t * 4, 4 * b * heads * t * t * d,
                     PEAK_BF16)
     fwd = dict(
-        name="flash_attention_fwd_d128", counter="flash_attention_fwd", paths=H128_PATHS,
+        name=f"flash_attention_fwd_d{d}", counter="flash_attention_fwd",
+        paths=(phase, phase + "_train"),
         route="cuda", source=CSRC + "flash_attention.cu", replaces=PALLAS + "flash_attention.py:224",
         also_replaces=[PALLAS + "flash_attention.py:516"], head_dim=d,
         shape=[b, heads, t, d], ragged_bias=True, max_abs_err=err, mean_abs_err=mean_err, tol=0.02,
@@ -3468,30 +3490,41 @@ def check_flash_d128_kernels(records):
         bound_ms=bms, bound_by=by, exp_bound_ms=exp_bound_ms(b * heads * t * t),
         library_ms=time_ms(run_library, 30), library_device_ms=lib_dev_ms,
         library_kernels=lib_kernels,
-        edges=dict(shape=[2, 3, "L", d], checked_at_L=list(H128_EDGES), max_abs_err=edge_fwd,
+        edges=dict(shape=[2, 3, "L", d], checked_at_L=list(FLASH_EDGES), max_abs_err=edge_fwd,
                    bwd_max_rel_err_by_grad=edge_rel, bwd_max_abs_err_at_L1=l1_abs))
-    out, lse = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
-    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed)
+    out, lse = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=drop_seed)
+    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, drop_seed)
     fwd["dropout"] = dict(max_abs_err=derr, tol=0.04, **fwd_rec)
     bwd = dict(
-        name="flash_attention_bwd_d128", counter="flash_attention_bwd", paths=("robust_h128_train",),
+        name=f"flash_attention_bwd_d{d}", counter="flash_attention_bwd", paths=(phase + "_train",),
         route="cuda", source=CSRC + "flash_attention.cu", replaces=PALLAS + "flash_attention.py:285",
         also_replaces=[PALLAS + "flash_attention.py:595", PALLAS + "flash_attention.py:638"],
         head_dim=d, max_abs_err=gabs, max_rel_err_by_grad=rel,
         tol="0.01 x each gradient's max |value|", relaunch_bit_equal=True, **bwd_rec)
     del q, kk, v, dout, kb, out, lse
     torch.cuda.empty_cache()
-    # -- the long regime: (1, 8, 5999, 128) with dropout -------------------------
+    # -- the long regime: (1, heads, 5999, d) with dropout -----------------------
     l = RobustWav2Vec2Config().conv_output_length(LONG_SAMPLES)
     q, kk, v, dout = _peaky(1, heads, l, d, gen)
     kb = _ragged_bias(1, l, gen)
-    (lerr, _), out, lse, lrel, lgabs, _ = flash_dropout_errors(q, kk, v, dout, kb, rate, seed,
-                                                               f"d=128 L={l}", relaunch=True)
-    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed)
+    (lerr, _), out, lse, lrel, lgabs, _ = flash_dropout_errors(q, kk, v, dout, kb, rate, drop_seed,
+                                                               f"d={d} L={l}", relaunch=True)
+    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, drop_seed)
     fwd["long"] = dict(max_abs_err=lerr, tol=0.04, **fwd_rec)
     bwd["long"] = dict(max_abs_err=lgabs, max_rel_err_by_grad=lrel, **bwd_rec)
-    records.extend((fwd, bwd))
     del q, kk, v, dout, kb, out, lse
+    if train_b is not None:
+        q, kk, v, dout = _peaky(train_b, heads, t, d, gen)
+        (terr, _), _, _, trel, tgabs, _ = flash_dropout_errors(
+            q, kk, v, dout, None, rate, drop_seed, f"d={d} ({train_b}, {heads}, {t}) no bias",
+            relaunch=True)
+        shape = [train_b, heads, t, d]
+        fwd["train_shape"] = dict(shape=shape, path=phase + "_train", ragged_bias=False,
+                                  max_abs_err=terr, tol=0.04, relaunch_bit_equal=True)
+        bwd["train_shape"] = dict(shape=shape, path=phase + "_train", ragged_bias=False,
+                                  max_abs_err=tgabs, max_rel_err_by_grad=trel, relaunch_bit_equal=True)
+        del q, kk, v, dout
+    records.extend((fwd, bwd))
     torch.cuda.empty_cache()
 
 
@@ -3500,16 +3533,16 @@ def robust_h128_phase(smi: str, records) -> dict:
     large-robust's 1024-d, 24 pre-norm layers, FFN 4096, LayerNorm conv
     stack with bias, pos conv 16 groups of 64, with 8 heads of 128) as
     `Wav2Vec2ForCTC` of vocab 32, weights from seed 1: first the flash
-    kernels' D = 128 instances (`check_flash_d128_kernels`), then
-    `wide_phases` at C/G = 64 with the flash kernels at D = 128 (24
-    forward launches a forward, 24 + 24 a stage-2 step), no remat, 4
+    kernels' D = 128 instances (`check_flash_head_dim_kernels` at (8, 8,
+    768, 128)), then `wide_phases` at C/G = 64 with the flash kernels at D =
+    128 (24 forward launches a forward, 24 + 24 a stage-2 step), no remat, 4
     stage-2 steps; its pos-conv kernels' records are phase 7's (the same
     instance at the same shape), which this path's launches join.
     Returns {path: launch counts}."""
     config = RobustWav2Vec2Config(num_heads=H128_HEADS)
     require(config.hidden_size // config.num_heads == 128 and fa.supports(128, torch.bfloat16),
             "the card's dispatch takes the flash kernels at head dim 128")
-    check_flash_d128_kernels(records)
+    check_flash_head_dim_kernels(records, 128, H128_HEADS, ROBUST_B, "robust_h128", 12800)
     t = time.perf_counter()
     model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(1))
     info = {"config": "facebook/wav2vec2-large-robust's widths (1024-d, 24 pre-norm layers, FFN "
@@ -3520,6 +3553,83 @@ def robust_h128_phase(smi: str, records) -> dict:
     cg = config.hidden_size // config.num_conv_pos_embedding_groups  # 64
     return wide_phases("robust_h128", "robust/large at 8 heads of 128", config, model, info, cg, smi,
                        records, seed=20, remat=False, steps=XLARGE_STAGE2_STEPS, pos_records=False)
+
+
+# facebook/wav2vec2-base-960h's widths with 4 heads of 192 in place of 12 of
+# 64, and facebook/wav2vec2-large-robust's with 4 of 256 in place of 16 of 64:
+# the one field that sets the head dim changed (no public wav2vec2 / XLS-R /
+# HuBERT checkpoint has heads of 192 or 256; the JAX package runs them on its
+# Pallas kernels, as any multiple of 64).  base_h192 trains at B = ROBUST_B
+# (8), the recipe's 32 cut to hold the script's time.
+WIDE_HEADS = 4
+
+
+def check_base_train_kernels_at(model, records, b: int, path: str) -> None:
+    """The base family's kernels that a stage-1 and stage-2 step runs, against
+    their plain versions at the training batch `b` x 246000 where phase 3
+    holds them at 16 and 32 (base_h192: 8): `groupnorm_stats`,
+    `fused_conv01` and the inference pos conv (stage 1's frozen forward)
+    into their records' `checked_at`, and the C/G = 48 pos conv's training
+    forward, dx and dW (dW sums over the batch) as records of their own
+    (names ending `_cg48`, paths `path`), timed."""
+    check_eval_kernels_at(model, records, b, path)
+    gen = torch.Generator().manual_seed(8048)
+    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
+    with torch.no_grad():
+        kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
+    bias = (0.1 * torch.randn(kernel.shape[-1], generator=gen)).to(model.device)
+    frames = model.config.conv_output_length(SAMPLES)
+    records.extend(pos_conv_train_records(kernel, bias, b, frames, f"_cg{kernel.shape[1]}", (path,),
+                                          gen))
+    del kernel, bias
+    torch.cuda.empty_cache()
+
+
+def wide_heads_phase(smi: str, records) -> dict:
+    """Phase 13e: the flash kernels' D = 192 and 256 instances.  For each,
+    first the kernels against their plain versions
+    (`check_flash_head_dim_kernels` at (16, 4, 768, 192) and (8, 4, 768,
+    256)), then a model at full width and depth with weights from seed 1
+    through `wide_phases`: `Wav2Vec2Config(num_heads=4)` (base_h192:
+    facebook/wav2vec2-base-960h's 768-d, 12 post-norm layers, FFN 3072,
+    GroupNorm conv stack, pos conv 16 groups of 48, with 4 heads of 192)
+    on B=16 x 246000 (flash forward 12 a forward), then 4 stage-2 steps at
+    B=8 (12 + 12 a step), its front-end and pos-conv kernels held at B=8 first
+    (`check_base_train_kernels_at`) and its flash kernels too;
+    `RobustWav2Vec2Config(num_heads=4)` (robust_h256: the robust/large
+    widths with 4 heads of 256) as phase 13d (24 a forward, 24 + 24 a step,
+    4 steps).  No remat; their other pos-conv records are phase 3's (C/G =
+    48, B=16) and phase 7's (C/G = 64, B=8), whose instances run here at
+    those shapes.  Returns {path: launch counts}."""
+    by_path = {}
+    for phase, family, d, b, what in (
+            ("base_h192", Wav2Vec2Config, 192, B,
+             "facebook/wav2vec2-base-960h's widths (768-d, 12 post-norm layers, FFN 3072, GroupNorm "
+             "conv stack, pos conv 16 groups of 48) with 4 heads of 192 in place of 12 of 64"),
+            ("robust_h256", RobustWav2Vec2Config, 256, ROBUST_B,
+             "facebook/wav2vec2-large-robust's widths (1024-d, 24 pre-norm layers, FFN 4096, "
+             "LayerNorm conv stack with bias, pos conv 16 groups of 64) with 4 heads of 256 in "
+             "place of 16 of 64")):
+        config = family(num_heads=WIDE_HEADS)
+        require(config.hidden_size // config.num_heads == d and fa.supports(d, torch.bfloat16),
+                f"the card's dispatch takes the flash kernels at head dim {d}")
+        base = not config.is_robust
+        check_flash_head_dim_kernels(records, d, WIDE_HEADS, b, phase, 12800 + d,
+                                     train_b=ROBUST_B if base else None)
+        t = time.perf_counter()
+        model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(1))
+        info = {"config": what + ", CTC head of vocab 32, seed 1",
+                "parameters": sum(p.numel() for p in model.parameters()),
+                "init_s": time.perf_counter() - t}
+        if base:
+            check_base_train_kernels_at(model, records, ROBUST_B, phase + "_train")
+        cg = config.hidden_size // config.num_conv_pos_embedding_groups
+        by_path.update(wide_phases(phase, f"{phase} ({WIDE_HEADS} heads of {d})", config, model, info,
+                                   cg, smi, records, seed=d, remat=False, steps=XLARGE_STAGE2_STEPS,
+                                   pos_records=False, b=b))
+        del model
+        torch.cuda.empty_cache()
+    return by_path
 
 
 def _wide_geometry(config, cg: int) -> None:
@@ -3544,39 +3654,44 @@ def plain_attention():
 
 
 def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, remat, steps,
-                pos_records=True) -> dict:
-    """Stable-layer-norm models at full width on the card (phases 13b, 13c,
-    13d), whose pos conv runs the kernels' C/G = `cg` instances and whose
-    attention runs the flash kernels where `fa.supports` takes the head dim,
-    else the plain version (as JAX runs XLA there): a ragged B=8 x 246000
-    batch through `predict_batch` with its mask (launches a forward:
-    `conv01_robust` 1, `pos_conv` 1, flash forward one a layer or 0); ms a
-    forward, and with flash also ms a forward of the plain attention (the
-    flash kernels turned off through `fa.supports`); row 0 against the
-    card's plain f32 forward (no kernel in f32) at the robust cell's
-    bounds; with `pos_records` the four pos-conv kernels at (8, 768, C)
-    against their plain versions, timed (into `records`, names ending
-    `_cg{cg}`); one stage-1 and `steps` stage-2 steps of the same batch with
-    dropout 0.1, SpecAugment and the mask (the three pos-conv training
-    kernels and the CTC pair 1 each a step, with flash the forward one a
-    layer, two under remat, and the backward one a layer); two identical
-    stage-2 losses and gradients bit-equal, all under `remat`.  Frees the
-    model.  Returns {phase: launch counts of the forward, phase + "_train":
-    of the steps}."""
+                pos_records=True, b=ROBUST_B) -> dict:
+    """Models at full width on the card (phases 13b-13e), whose pos conv runs
+    the kernels' C/G = `cg` instances and whose attention runs the flash
+    kernels where `fa.supports` takes the head dim, else the plain version
+    (as JAX runs XLA there).  The stable-layer-norm family: a ragged B=`b` x
+    246000 batch through `predict_batch` with its mask (launches a forward:
+    `conv01_robust` 1, `pos_conv` 1, flash forward one a layer or 0); the
+    base family (no mask): a full-length one (`groupnorm_stats`,
+    `fused_conv01`, `pos_conv` 1 each, flash as above).  ms a forward, and
+    with flash also ms a forward of the plain attention (the flash kernels
+    turned off through `fa.supports`); row 0 against the card's plain f32
+    forward (no kernel in f32) at the family's cell's bounds (base 5% of the
+    logit scale, robust 10%); with `pos_records` the four pos-conv kernels
+    at (8, 768, C) against their plain versions, timed (into `records`,
+    names ending `_cg{cg}`); one stage-1 and `steps` stage-2 steps of the
+    batch's first `ROBUST_B` rows with dropout 0.1, SpecAugment and the
+    family's mask (the three pos-conv training kernels and the CTC pair 1
+    each a step, the base family's front-end kernels too, with flash the
+    forward one a layer, two under remat, and the backward one a layer);
+    two identical stage-2 losses and gradients bit-equal, all under
+    `remat`.  Frees the model.  Returns {phase: launch counts of the
+    forward, phase + "_train": of the steps}."""
     groups = config.num_conv_pos_embedding_groups
     layers = config.num_layers
+    robust = config.is_robust
     flash = fa.supports(config.hidden_size // config.num_heads, torch.bfloat16)
-    require(config.is_robust and config.hidden_size // groups == cg, f"{what}'s geometry")
+    require(config.hidden_size // groups == cg, f"{what}'s geometry")
     require(pc.supports(config.hidden_size, groups, torch.bfloat16, config.num_conv_pos_embeddings),
             f"the {config.hidden_size}-d card dispatch: pos-conv kernels at C/G = {cg}")
-    per_forward = {"conv01_robust": 1, "pos_conv": 1}
+    front = {"conv01_robust": 1} if robust else {"groupnorm_stats": 1, "fused_conv01": 1}
+    per_forward = {**front, "pos_conv": 1}
     if flash:
         per_forward["flash_attention_fwd"] = layers
     evaluator = GreedyCTCEvaluator(model)
-    require(evaluator.compute_dtype == torch.bfloat16 and evaluator.use_attention_mask,
-            f"{what} runs in bf16 with a sample mask on the card")
+    require(evaluator.compute_dtype == torch.bfloat16 and evaluator.use_attention_mask == robust,
+            f"{what} runs in bf16 on the card, with a sample mask in the robust family")
     rng = np.random.default_rng(seed)
-    speech, lengths = _ragged_batch(rng, ROBUST_B, SAMPLES, 80000)
+    speech, lengths = _ragged_batch(rng, b, SAMPLES, 80000 if robust else SAMPLES)
     reset_counts()
     t = time.perf_counter()
     texts = evaluator.predict_batch(speech, lengths)
@@ -3584,11 +3699,12 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     batch_s = time.perf_counter() - t
     launches = read_counts()
     expect_counts(f"one {what} forward", launches, per_forward)
-    require(len(texts) == ROBUST_B, "predict_batch returned the wrong number of transcripts")
+    require(len(texts) == b, "predict_batch returned the wrong number of transcripts")
 
     dev = model.device
     x = torch.from_numpy(speech).to(dev)
-    m = torch.from_numpy((np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.float32)).to(dev)
+    m = (torch.from_numpy((np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.float32)).to(dev)
+         if robust else None)
     frames = config.conv_output_length(SAMPLES)
 
     def forward():
@@ -3598,7 +3714,7 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     logits = forward()
     torch.cuda.synchronize()
     require(bool(torch.isfinite(logits).all()), f"non-finite {what} logits on the card")
-    require(logits.shape == (ROBUST_B, frames, config.vocab_size), f"logits {tuple(logits.shape)}")
+    require(logits.shape == (b, frames, config.vocab_size), f"logits {tuple(logits.shape)}")
 
     def timed_forwards(n):
         reps = []
@@ -3626,20 +3742,23 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     # row 0 (full length) through the card's f32 path: every site plain
     before = read_counts()
     with torch.inference_mode():
-        want = wav2vec2_for_ctc_forward(model, config, x[:1], torch.ones(1, SAMPLES, device=dev),
+        want = wav2vec2_for_ctc_forward(model, config, x[:1],
+                                        torch.ones(1, SAMPLES, device=dev) if robust else None,
                                         compute_dtype=torch.float32)[0]
     expect_counts("the f32 reference forward", counts_since(before), {})
     err, mean_err, scale, agree = logits_vs(row0, want)
     del x, m, want
-    # the robust cell's bounds (24 layers: 10% of the logit scale, argmax >= 90%)
-    require(err <= 0.10 * scale and agree >= 0.9,
+    # the family's cell's bounds (base, 12 layers: 5% of the logit scale;
+    # robust, 24: 10%; argmax >= 90%)
+    tol = 0.10 if robust else 0.05
+    require(err <= tol * scale and agree >= 0.9,
             f"{what} card bf16 vs card f32: max {err} (scale {scale}), argmax agree {agree}")
-    emit({"phase": phase, **info, "batch": [ROBUST_B, SAMPLES], "lengths": lengths.tolist(),
+    emit({"phase": phase, **info, "batch": [b, SAMPLES], "lengths": lengths.tolist(),
           "launches_per_forward": per_forward, "predict_batch_s": batch_s,
           "ms_per_forward": statistics.median(reps), "ms_per_forward_min_max": [min(reps), max(reps)],
           "forward_reps": len(reps), **plain, "f32_reference": "the card's plain f32 path",
           "f32_max_abs_err": err, "f32_mean_abs_err": mean_err, "logit_scale": scale,
-          "argmax_agree": agree, "card": smi})
+          "argmax_agree": agree, "f32_tol": tol, "card": smi})
     emit({"phase": phase + "_profile", "card": smi, **profile})
 
     if pos_records:  # the four pos-conv kernels at the phase's shapes
@@ -3655,21 +3774,23 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
         del kernel, bias
         torch.cuda.empty_cache()
 
-    # training: the recipe's regularisation, the mask and length-aware CTC
+    # training: the recipe's regularisation; the robust family's mask and
+    # length-aware CTC
     tconfig = config.replace(dropout=0.1)
     require(tconfig.apply_spec_augment, "the recipe's SpecAugment")
-    batch = {"speech": speech, "labels": _labels(rng, ROBUST_B, tconfig.vocab_size, 120),
-             "attention_mask": (np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.int32)}
-    per_step = {"conv01_robust": 1, "pos_conv_train_fwd": 1, "pos_conv_dx": 1, "pos_conv_dw": 1,
-                **CTC_STEP}
+    tb = ROBUST_B
+    batch = {"speech": speech[:tb], "labels": _labels(rng, tb, tconfig.vocab_size, 120)}
+    if robust:
+        batch["attention_mask"] = (np.arange(SAMPLES)[None, :] < lengths[:tb, None]).astype(np.int32)
+    per_step = {**front, "pos_conv_train_fwd": 1, "pos_conv_dx": 1, "pos_conv_dw": 1, **CTC_STEP}
     if flash:
         per_step.update(flash_attention_fwd=layers * (2 if remat else 1), flash_attention_bwd=layers)
-    kw = dict(with_attention_mask=True, length_aware=True, remat=remat)
-    train = train_phase(
-        phase + "_train", f"{what} dropout 0.1, SpecAugment, mask, remat {remat}, seed 1", model,
-        tconfig, batch, per_step, steps, smi, **kw)
+    kw = dict(with_attention_mask=robust, length_aware=robust, remat=remat)
+    regs = "dropout 0.1, SpecAugment" + (", mask" if robust else "")
+    train = train_phase(phase + "_train", f"{what} {regs}, remat {remat}, seed 1", model, tconfig,
+                        batch, per_step, steps, smi, **kw)
     # two stage-2 losses and gradients of one batch from one seed: bit-equal
-    loss_fn = make_ctc_loss_fn(tconfig, division_factor=ROBUST_B, **kw)
+    loss_fn = make_ctc_loss_fn(tconfig, division_factor=tb, **kw)
     grads, losses = [], []
     for _ in range(2):
         model.zero_grad(set_to_none=True)
@@ -4930,6 +5051,9 @@ def main() -> int:
     # 13d. the robust/large widths at 8 heads of 128: the flash kernels' D = 128
     # instances, inference and stage-2 steps
     by_path.update(robust_h128_phase(smi, records))
+    # 13e. the flash kernels' D = 192 and 256 instances: base width at 4 heads
+    # of 192, the robust/large widths at 4 of 256, inference and stage-2 steps
+    by_path.update(wide_heads_phase(smi, records))
     # 14. export: torch.export run in a process of its own, then ONNX
     by_path.update(export_phase(smi))
     # 15. the profiling helpers on the base forward

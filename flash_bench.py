@@ -3,9 +3,12 @@
     python3 flash_bench.py [--family flash|conv|pos_conv|scatter|ctc|forward] [--root DIR] [--label NAME]
 
 `--family flash` (the default): at each shape of the main paths (base
-inference, base training, robust, long; head dim 64) and of the robust
-widths at 8 heads of 128 ((8, 8, 768, 128) without and with dropout 0.1,
-(1, 8, 5999, 128) with it), the forward and the backward wrappers of
+inference, base training, robust, long; head dim 64), of the robust widths
+at 8 heads of 128 ((8, 8, 768, 128) without and with dropout 0.1, (1, 8,
+5999, 128) with it), of the base widths at 4 heads of 192 ((16, 4, 768,
+192), the same two ways, and (1, 4, 5999, 192)) and of the robust widths at
+4 heads of 256 ((8, 4, 768, 256), (1, 4, 5999, 256)), the forward and the
+backward wrappers of
 `gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention`, and
 `scaled_dot_product_attention` with the same mask and dropout rate; and the
 wrappers' host time a call at a tiny shape.  Under `--root`, a head dim
@@ -121,7 +124,10 @@ def bench_flash(torch, label):
     for b, h, l, d, rate, ragged in ((16, 12, 768, 64, 0.0, False), (32, 12, 768, 64, 0.1, True),
                                      (8, 16, 768, 64, 0.0, True), (8, 16, 768, 64, 0.1, True),
                                      (1, 12, 5999, 64, 0.1, True), (8, 8, 768, 128, 0.0, True),
-                                     (8, 8, 768, 128, 0.1, True), (1, 8, 5999, 128, 0.1, True)):
+                                     (8, 8, 768, 128, 0.1, True), (1, 8, 5999, 128, 0.1, True),
+                                     (16, 4, 768, 192, 0.0, True), (16, 4, 768, 192, 0.1, True),
+                                     (1, 4, 5999, 192, 0.1, True), (8, 4, 768, 256, 0.0, True),
+                                     (8, 4, 768, 256, 0.1, True), (1, 4, 5999, 256, 0.1, True)):
         row = {"label": label, "shape": [b, h, l, d], "dropout": rate, "ragged_bias": ragged}
         if not fa.supports(d, torch.bfloat16):
             print(json.dumps({**row, "skipped": "the tree's flash_attention.supports does not take it"}),

@@ -1,7 +1,9 @@
-// Flash attention for the wav2vec2 encoder, head dims 64 and 128: forward
-// (with in-kernel attention-prob dropout) and backward, on Hopper's
+// Flash attention for the wav2vec2 encoder, head dims 64, 128, 192 and 256:
+// forward (with in-kernel attention-prob dropout) and backward, on Hopper's
 // warpgroup MMA (wgmma) fed by TMA.  Every kernel is a template on the head
-// dim D; the JAX package's kernels take any D that is a multiple of 64.
+// dim D (its traits in `Cfg<D>`); the JAX package's kernels take any D that
+// is a multiple of 64, and from 320 on the port runs the plain attention
+// (O alone would be 160 f32 registers a consumer thread).
 //
 // Forward replaces gsoc_wav2vec2_tpu/ops/pallas/flash_attention.py::_flash_fwd
 // (_fwd_kernel) and, past 4096 frames, _flash_fwd_blocked:
@@ -38,8 +40,9 @@
 // R x 128 bytes after box c - 1, each loaded (and stored) as 64-row TMA
 // boxes at column coordinate 64c.  A K-major operand's k step kk (16
 // columns) is 32 (kk % 4) bytes into box kk / 4 (`kstep`); an MN-major one
-// with N = D = 128 spans both boxes, one box apart: the descriptor's leading
-// byte offset (`mn_desc`), as the pos conv's weights at 80 and 120 channels.
+// with N = D > 64 spans the D / 64 boxes, one box apart: the descriptor's
+// leading byte offset (`mn_desc`), as the pos conv's weights at 80 and 120
+// channels; N = 192 and 256 are single m64n192k16 / m64n256k16 products.
 //
 // Forward: a block owns 64 x F query rows of one (batch, head): F consumer
 // warpgroups, three at D = 64 (the shape FlashAttention-3 takes for head
@@ -111,6 +114,32 @@
 // at B=32, H=12, L=768, D=64 on the H100; the bytes, 7 (B, H, L, D) bf16
 // tensors, ~0.03 ms).  The two passes recompute S and dP once each (7
 // products in all): the price of having no atomics.
+//
+// D = 192 and 256 (traits in `Cfg<D>`; every instance 168 registers at
+// entry, consumers at 240 and the producer at 24, 0 spills, no C7514 /
+// C7513 in `_build.ptxas_report()` on the H100).  What did not fit, and what
+// each kernel does instead:
+// - Forward: three stages of 128-key K and V are 3 x 98,304 bytes at 192
+//   alone, past the block's 232,448, and S's 64 f32 beside O's 96 / 128
+//   leave the hash no room.  So 64-key tiles (S 32 f32 a thread, N = 64),
+//   three stages at 192 (198,456 bytes with the two Q tiles) and two at 256
+//   (198,184).  A two-stage ring cannot hold a stage across two iterations,
+//   so at 256 (and with dropout at every D >= 128) each tile's P V follows
+//   its own softmax.
+// - dK/dV: a consumer holding both dK and dV for 64 keys is D f32 a thread
+//   (192 / 256) before S^T and dP^T (32 + 32): past 240.  Of the two
+//   splits, dV and dK in two warpgroups of one 64-key block beats D's
+//   columns shared between them: the dV warpgroup computes S^T and dV (D / 2
+//   + 48 f32), the dK one S^T, dP^T and dK (D / 2 + 80), so S^T is the one
+//   product computed twice (5 a tile where a column split computes 6), both
+//   read one resident K and V, and no partial sums meet.  149,544 / 198,696
+//   bytes (resident K and V of 64 keys, two stages of Q and dO).
+// - dQ: the registers fit (dQ D / 2 + S, dP 64), but resident Q and dO for
+//   two consumers and two stages of K and V are 262,144 bytes at 256: there
+//   the ring is one stage (197,912 bytes; 198,184 at 192 with two).
+// - delta: D / 8 = 24 lanes a row at 192 would straddle warps, so a row
+//   takes the largest power of two dividing D / 8 (8 there) and each lane
+//   sums 3 units.
 #include "common.cuh"
 
 #include <math_constants.h>
@@ -124,31 +153,84 @@ constexpr int kBoxBytes = kBox * kBoxRowBytes;  // 8 KB
 constexpr int kConsumers = 2;            // consumer warpgroups of the backward kernels
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kBlockRows = kBox * kConsumers;  // queries (dQ) or keys (dK/dV) a block owns
-constexpr int kStages = 2;     // ring stages of the backward kernels
-constexpr int kFwdStages = 3;  // of the forward (a stage is held across two iterations)
-constexpr int kFwdKeys = 128;   // keys per forward tile
+constexpr int kStages = 2;     // ring stages of the dK/dV kernel
 constexpr int kBwdTile = 64;    // queries per dK/dV tile, keys per dQ tile
 constexpr int kMnStep = (16 * kBoxRowBytes) >> 4;  // descriptor advance of an MN-major k step (16 rows)
+constexpr int kMaxSmem = 232448;  // shared memory a block may have (sm_90)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Per head dim: the forward's consumer warpgroups and every kernel's
-// register split.  setmaxnreg moves registers within the block's own pool,
-// what the launch gave it (the entry count, 128 at 512 threads and 168 at
-// 384, times the threads), so producer x 128 + consumers x 128 x their count
-// may not exceed it: at 384 threads 24 + 2 x 240 is the most
+// Per head dim, the register splits and the forward's consumer warpgroups.
+// setmaxnreg moves registers within the block's own pool, what the launch
+// gave it (the entry count, 128 at 512 threads and 168 at 384, times the
+// threads), so producer x 128 + consumers x 128 x their count may not exceed
+// it: at 384 threads 24 + 2 x 240 is the most, what every D from 128 takes.
 template <int D>
-struct Cfg;
-template <>
-struct Cfg<64> {
-  static constexpr int kFwdConsumers = 3, kFwdConsumerRegs = 160, kFwdProducerRegs = 32;
-  static constexpr int kConsumerRegs = 232, kProducerRegs = 40;
-};
-template <>
-struct Cfg<128> {
+struct Regs {
   static constexpr int kFwdConsumers = 2, kFwdConsumerRegs = 240, kFwdProducerRegs = 24;
   static constexpr int kConsumerRegs = 240, kProducerRegs = 24;
 };
+template <>  // measured: a third forward consumer warpgroup, at 160 registers
+struct Regs<64> {
+  static constexpr int kFwdConsumers = 3, kFwdConsumerRegs = 160, kFwdProducerRegs = 32;
+  static constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+};
+
+// The forward's key tile: past 128, 64 keys (S 32 f32 a thread beside O's D / 2)
+constexpr int fwd_keys(int d) { return d > 128 ? 64 : 128; }
+
+// The forward's shared memory with a ring of kRing stages of K and V
+template <int D, int kRing>
+struct FwdLayout {
+  static constexpr int kFwdKeys = fwd_keys(D);
+  __nv_bfloat16 q[Regs<D>::kFwdConsumers][kBox * D];  // a 64-row Q tile per consumer (later its O)
+  __nv_bfloat16 k[kRing][kFwdKeys * D];
+  __nv_bfloat16 v[kRing][kFwdKeys * D];
+  float bias[kRing][kFwdKeys];        // key bias x log2 e; -inf at or past L
+  uint64_t full[kRing], empty[kRing], q_full;
+};
+
+// The dQ kernel's, with a ring of kRing stages of K and V
+template <int D, int kRing_>
+struct DqLayout {
+  static constexpr int kRing = kRing_;
+  __nv_bfloat16 q[kConsumers][kBox * D];     // resident; later the block's dQ
+  __nv_bfloat16 dout[kConsumers][kBox * D];  // resident
+  __nv_bfloat16 k[kRing][kBwdTile * D];
+  __nv_bfloat16 v[kRing][kBwdTile * D];
+  float bias[kRing][kBwdTile];  // key bias x log2 e; -inf at or past L
+  uint64_t full[kRing], empty[kRing], qd_full;
+};
+
+// The deepest ring of at most kMost stages whose layout fits a block
+template <template <int, int> class Layout, int D, int kMost>
+constexpr int deepest_ring() {
+  if constexpr (kMost > 1 && w2v2::smem_bytes<Layout<D, kMost>>() > kMaxSmem)
+    return deepest_ring<Layout, D, kMost - 1>();
+  else
+    return kMost;
+}
+
+// Every kernel's traits at head dim D: the register splits, the forward's
+// key tile and ring (at most three stages), whether the dK/dV kernel's two
+// consumer warpgroups share one 64-key tile (past 128, one accumulating dV,
+// the other dK) and the dQ kernel's ring (at most two).  See the header.
+template <int D>
+struct Cfg : Regs<D> {
+  static constexpr int kFwdKeys = fwd_keys(D);
+  static constexpr int kFwdStages = deepest_ring<FwdLayout, D, 3>();
+  static constexpr bool kSplitKeys = D > 128;
+  static constexpr int kDqStages = deepest_ring<DqLayout, D, 2>();
+};
+// the rings the header's bytes and registers were measured with
+static_assert(Cfg<64>::kFwdStages == 3 && Cfg<128>::kFwdStages == 3 && Cfg<192>::kFwdStages == 3 &&
+                  Cfg<256>::kFwdStages == 2 && Cfg<192>::kDqStages == 2 && Cfg<256>::kDqStages == 1,
+              "the rings that fit a block");
+
+template <int D>
+using FwdSmem = FwdLayout<D, Cfg<D>::kFwdStages>;
+template <int D>
+using DqSmem = DqLayout<D, Cfg<D>::kDqStages>;
 
 struct Dropout {
   uint32_t seed_mix;   // (seed + bh) * 2654435761, wrapped to 32 bits
@@ -238,14 +320,22 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane) {
   if (lane == 0) w2v2::mbar_arrive(empty);
 }
 
-// The forward's softmax step on one 64 x 128 score tile in registers (row0,
+// S = Q K^T over a forward tile of 64 or 128 keys (the accumulator's size)
+__device__ __forceinline__ void wgmma_scores(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  w2v2::wgmma_ss_n64(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_scores(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  w2v2::wgmma_ss_n128(d, da, db, accumulate);
+}
+
+// The forward's softmax step on one 64 x (2N) score tile in registers (row0,
 // row0 + 8 this thread's rows; keys key0 + 8j + 2tq (+1)): to the log2
 // domain, plus the key bias (`bias2`, bias x log2 e, -inf past L) where
 // `masked`; the running max m_run moves to the tile's, alpha = the factor
 // on the old sums, rsum = this tile's partial row sums (every key, kept or
 // not), and sc = p, dropped ones 0.
-template <bool kDrop>
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], const float* bias2, bool masked,
+template <bool kDrop, int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], const float* bias2, bool masked,
                                              float m_run[2], float alpha[2], float rsum[2],
                                              const Dropout& dr, int row0, int key0, int tq) {
   // a masked tile goes to the log2 domain here (one FFMA with the bias); an
@@ -253,7 +343,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], const float* bias2
   float scale = kLog2e;
   if (masked) {
 #pragma unroll
-    for (int j = 0; j < kFwdKeys / 8; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
       const float2 b2 = *reinterpret_cast<const float2*>(&bias2[8 * j + 2 * tq]);
       sc[4 * j + 0] = fmaf(sc[4 * j + 0], kLog2e, b2.x);
       sc[4 * j + 1] = fmaf(sc[4 * j + 1], kLog2e, b2.y);
@@ -264,7 +354,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], const float* bias2
   }
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  for (int i = 0; i < N; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -275,7 +365,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], const float* bias2
     rsum[r] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     float p = ex2(fmaf(sc[i], scale, -m_run[r]));
     rsum[r] += p;
@@ -286,15 +376,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], const float* bias2
 
 // -- forward -------------------------------------------------------------------
 
-template <int D>
-struct FwdSmem {
-  __nv_bfloat16 q[Cfg<D>::kFwdConsumers][kBox * D];  // a 64-row Q tile per consumer (later its O)
-  __nv_bfloat16 k[kFwdStages][kFwdKeys * D];
-  __nv_bfloat16 v[kFwdStages][kFwdKeys * D];
-  float bias[kFwdStages][kFwdKeys];        // key bias x log2 e; -inf at or past L
-  uint64_t full[kFwdStages], empty[kFwdStages], q_full;
-};
-
 template <int D, bool kDrop>
 __global__ void __launch_bounds__(128 * (Cfg<D>::kFwdConsumers + 1), 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
@@ -302,6 +383,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
                  const float* __restrict__ bias, float* __restrict__ lse, int H, int L, int order,
                  int seed, uint32_t threshold, uint32_t stride, float inv_keep) {
   constexpr int kCons = Cfg<D>::kFwdConsumers, kRows = kBox * kCons;
+  constexpr int kFwdKeys = Cfg<D>::kFwdKeys, kFwdStages = Cfg<D>::kFwdStages;
   FwdSmem<D>& sm = w2v2::block_smem<FwdSmem<D>>();
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
   const int q0 = blockIdx.x * kRows;
@@ -362,14 +444,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
   w2v2::mbar_wait(&sm.q_full, 0);
   const uint64_t qdesc = w2v2::wgmma_desc(sm.q[wg]);
 
-  float sc[64];
+  float sc[kFwdKeys / 2];
   uint32_t pa[kFwdKeys / 16][4];
   float alpha[2], rsum[2];
-  if constexpr (kDrop && D > kBoxCols) {
-    // D = 128 with dropout: S, P and O (64 + 32 + 64 registers) and the
-    // hash do not fit 240 registers together (8 bytes spilled), so each
-    // tile's P V follows its own softmax; the other consumer warpgroup's
-    // products overlap it.  On the first tile alpha = 0 scales O's zeros.
+  if constexpr ((kDrop && D > kBoxCols) || kFwdStages < 3) {
+    // D >= 128 with dropout: at 128, S, P and O (64 + 32 + 64 registers) and
+    // the hash do not fit 240 registers together (8 bytes spilled); and a
+    // ring of two stages (D = 256) cannot hold one across two iterations.
+    // So each tile's P V follows its own softmax; the other consumer
+    // warpgroup's products overlap it.  On the first tile alpha = 0 scales
+    // O's zeros.
     for (int it = 0; it < tiles; ++it) {
       const int s = it % kFwdStages, key0 = it * kFwdKeys;
       w2v2::mbar_wait(&sm.full[s], (it / kFwdStages) & 1);
@@ -377,7 +461,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
       w2v2::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        w2v2::wgmma_ss_n128(sc, kstep<kBox>(qdesc, kk), kstep<kFwdKeys>(kdesc, kk), kk > 0);
+        wgmma_scores(sc, kstep<kBox>(qdesc, kk), kstep<kFwdKeys>(kdesc, kk), kk > 0);
       w2v2::wgmma_commit();
       w2v2::wgmma_wait<0>();
       w2v2::fence_operands(sc);
@@ -414,7 +498,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
       w2v2::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        w2v2::wgmma_ss_n128(sc, kstep<kBox>(qdesc, kk), kstep<kFwdKeys>(kdesc, kk), kk > 0);
+        wgmma_scores(sc, kstep<kBox>(qdesc, kk), kstep<kFwdKeys>(kdesc, kk), kk > 0);
       w2v2::wgmma_commit();
       w2v2::wgmma_wait<0>();
       w2v2::fence_operands(sc);
@@ -433,7 +517,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
       w2v2::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        w2v2::wgmma_ss_n128(sc, kstep<kBox>(qdesc, kk), kstep<kFwdKeys>(kdesc, kk), kk > 0);
+        wgmma_scores(sc, kstep<kBox>(qdesc, kk), kstep<kFwdKeys>(kdesc, kk), kk > 0);
       w2v2::wgmma_commit();
       w2v2::fence_operands(o);
       w2v2::wgmma_fence();
@@ -496,26 +580,38 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constan
   }
 }
 
-// delta[row] = sum_d dout[row, d] * out[row, d] (f32), D / 8 threads per row
+// delta[row] = sum_d dout[row, d] * out[row, d] (f32).  A row is D / 8
+// 16-byte units; kDeltaLanes<D> lanes, the largest power of two that divides
+// that count (8, 16, 24, 32 -> 8, 16, 8, 32), share it, each summing D / 8 /
+// kDeltaLanes<D> units, so that a row's lanes are an aligned group of the
+// warp and the butterfly over them mixes no other row's.
+template <int D>
+constexpr int kDeltaLanes = (D / 8) & -(D / 8);
+
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_delta_kernel(const __nv_bfloat16* __restrict__ dout, const __nv_bfloat16* __restrict__ out,
                    float* __restrict__ delta, int H, int L, int rows, long long dsb,
                    long long dsh, long long dsl, long long osb, long long osh, long long osl) {
-  constexpr int kParts = D / 8;
+  constexpr int kParts = kDeltaLanes<D>, kChunks = D / 8 / kParts;
+  static_assert(kParts <= 32, "a row's lanes lie in one warp");
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = gid / kParts, part = gid % kParts;
   float acc = 0.f;
   if (row < rows) {
     const int bh = row / L, l = row % L, b = bh / H, h = bh % H;
-    const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * dsb + h * dsh + l * dsl + part * 8);
-    const uint4 ov = *reinterpret_cast<const uint4*>(out + b * osb + h * osh + l * osl + part * 8);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = __bfloat1622float2(d2[i]), c = __bfloat1622float2(o2[i]);
-      acc += a.x * c.x + a.y * c.y;
+    for (int j = 0; j < kChunks; ++j) {
+      const int u = part + j * kParts;
+      const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * dsb + h * dsh + l * dsl + u * 8);
+      const uint4 ov = *reinterpret_cast<const uint4*>(out + b * osb + h * osh + l * osl + u * 8);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(d2[i]), c = __bfloat1622float2(o2[i]);
+        acc += a.x * c.x + a.y * c.y;
+      }
     }
   }
 #pragma unroll
@@ -527,14 +623,128 @@ flash_delta_kernel(const __nv_bfloat16* __restrict__ dout, const __nv_bfloat16* 
 
 template <int D>
 struct DkdvSmem {
-  __nv_bfloat16 k[kConsumers][kBox * D];  // resident; later the block's dK
-  __nv_bfloat16 v[kConsumers][kBox * D];  // resident; later its dV
+  // resident 64-key tiles: one a consumer warpgroup, or one the two share
+  static constexpr int kTiles = Cfg<D>::kSplitKeys ? 1 : kConsumers;
+  __nv_bfloat16 k[kTiles][kBox * D];  // resident; later the block's dK
+  __nv_bfloat16 v[kTiles][kBox * D];  // resident; later its dV
   __nv_bfloat16 q[kStages][kBwdTile * D];
   __nv_bfloat16 dout[kStages][kBwdTile * D];
   float lse[kStages][kBwdTile];    // lse x log2 e; 0 at or past L
   float delta[kStages][kBwdTile];  // 0 at or past L
   uint64_t full[kStages], empty[kStages], kv_full;
 };
+
+// One dK/dV consumer warpgroup over every query tile of the ring: with kDv
+// and kDk both it owns its 64 keys (tile wg) alone; with one of them it
+// shares tile 0 with the other warpgroup, which accumulates the other
+// gradient (the dV one skips dP^T, so S^T is the one product computed
+// twice).  Ends by writing what it accumulated: (B, L, H, D) bf16 through
+// its resident tile, once no warpgroup reads that tile any more.
+template <int D, bool kDrop, bool kDv, bool kDk>
+__device__ __forceinline__ void dkdv_consumer(DkdvSmem<D>& sm, const CUtensorMap* dk_map,
+                                              const CUtensorMap* dv_map, const float* bias, int k0,
+                                              int wg, int tiles, int L, int b, int h, int bh,
+                                              bool hi_out, const Dropout& dr) {
+  constexpr bool kShared = !(kDv && kDk);
+  const int kt = kShared ? 0 : wg;  // the resident key tile
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int w = (tid % 128) / 32, g = lane >> 2, tq = lane & 3;
+  const int key0 = k0 + kt * kBox + 16 * w + g;  // this thread's keys: key0, key0 + 8
+  float kb2[2];  // key bias x log2 e; -inf at or past L (those keys get p = 0)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    kb2[r] = key < L ? (bias ? bias[(size_t)b * L + key] * kLog2e : 0.f) : -CUDART_INF_F;
+  }
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    if constexpr (kDk) dk[i] = 0.f;
+    if constexpr (kDv) dv[i] = 0.f;
+  }
+  w2v2::mbar_wait(&sm.kv_full, 0);
+  const uint64_t kdesc = w2v2::wgmma_desc(sm.k[kt]), vdesc = w2v2::wgmma_desc(sm.v[kt]);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % kStages, q0 = it * kBwdTile;
+    w2v2::mbar_wait(&sm.full[s], (it / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x the tile's 64 queries.  Query
+    // rows past L are zero in q and dout (TMA fill) and in lse and delta, so
+    // their p is finite and their r . dout and ds are exactly 0.
+    float st[32], dpt[32];
+    const uint64_t qdesc = w2v2::wgmma_desc(sm.q[s]), ddesc = w2v2::wgmma_desc(sm.dout[s]);
+    w2v2::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      w2v2::wgmma_ss_n64(st, kstep<kBox>(kdesc, kk), kstep<kBwdTile>(qdesc, kk), kk > 0);
+    if constexpr (kDk) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        w2v2::wgmma_ss_n64(dpt, kstep<kBox>(vdesc, kk), kstep<kBwdTile>(ddesc, kk), kk > 0);
+    }
+    w2v2::wgmma_commit();
+    w2v2::wgmma_wait<0>();
+    w2v2::fence_operands(st);
+    if constexpr (kDk) w2v2::fence_operands(dpt);
+
+#pragma unroll
+    for (int j = 0; j < kBwdTile / 8; ++j) {
+      const float2 ls = *reinterpret_cast<const float2*>(&sm.lse[s][8 * j + 2 * tq]);
+      float2 de = {0.f, 0.f};
+      if constexpr (kDk) de = *reinterpret_cast<const float2*>(&sm.delta[s][8 * j + 2 * tq]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, i = 4 * j + e;
+        const float p = ex2(fmaf(st[i], kLog2e, kb2[r] - ((e & 1) ? ls.y : ls.x)));
+        const bool keep = !kDrop || keep_bit(dr, q0 + 8 * j + 2 * tq + (e & 1), key0 + 8 * r);
+        if constexpr (kDv) st[i] = kDrop ? (keep ? p * dr.inv_keep : 0.f) : p;  // r -> bf16 for dV
+        if constexpr (kDk) {
+          const float dp = kDrop ? (keep ? dpt[i] * dr.inv_keep : 0.f) : dpt[i];
+          dpt[i] = p * (dp - ((e & 1) ? de.y : de.x));  // ds -> bf16 for dK
+        }
+      }
+    }
+    // dV += R^T dO, dK += dS^T Q (contraction over the tile's queries)
+    uint32_t ra[kBwdTile / 16][4], da[kBwdTile / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < kBwdTile / 16; ++kc) {
+      if constexpr (kDv) w2v2::pack_a(ra[kc], &st[8 * kc]);
+      if constexpr (kDk) w2v2::pack_a(da[kc], &dpt[8 * kc]);
+    }
+    const uint64_t qmn = mn_desc<D, kBwdTile>(sm.q[s]), dmn = mn_desc<D, kBwdTile>(sm.dout[s]);
+    if constexpr (kDv) w2v2::fence_operands(dv);
+    if constexpr (kDk) w2v2::fence_operands(dk);
+    w2v2::wgmma_fence();
+    if constexpr (kDv) {
+#pragma unroll
+      for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dv, ra[kc], dmn + kc * kMnStep);
+    }
+    if constexpr (kDk) {
+#pragma unroll
+      for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dk, da[kc], qmn + kc * kMnStep);
+    }
+    w2v2::wgmma_commit();
+    w2v2::wgmma_wait<0>();
+    if constexpr (kDv) w2v2::fence_operands(dv);
+    if constexpr (kDk) w2v2::fence_operands(dk);
+    release(&sm.empty[s], lane);
+  }
+
+  // every warp's last product has read K and V: this warpgroup's own, or
+  // both warpgroups' where they share the tile
+  const float one[2] = {1.f, 1.f};
+  w2v2::named_barrier_sync(kShared ? 1 : 1 + wg, kShared ? 256 : 128);
+  if constexpr (kDk) acc_to_tile<D>(bytes(sm.k[kt]), dk, one, w, g, tq);
+  if constexpr (kDv) acc_to_tile<D>(bytes(sm.v[kt]), dv, one, w, g, tq);
+  w2v2::fence_proxy_async();
+  w2v2::named_barrier_sync(kShared ? 2 + wg : 1 + wg, 128);
+  if (tid % 128 == 0) {
+    if constexpr (kDk) store_rows<D>(dk_map, hi_out, bytes(sm.k[kt]), k0 + kt * kBox, h, b);
+    if constexpr (kDv) store_rows<D>(dv_map, hi_out, bytes(sm.v[kt]), k0 + kt * kBox, h, b);
+    w2v2::tma_store_commit_and_wait();
+  }
+}
 
 // order: bit 0 q/k/v, bit 1 dout, bit 2 the outputs have their heads inner
 template <int D, bool kDrop>
@@ -545,9 +755,10 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
                       const float* __restrict__ bias, const float* __restrict__ lse,
                       const float* __restrict__ delta, int H, int L, int order, int seed,
                       uint32_t threshold, uint32_t stride, float inv_keep) {
+  constexpr int kTiles = DkdvSmem<D>::kTiles;
   DkdvSmem<D>& sm = w2v2::block_smem<DkdvSmem<D>>();
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
-  const int k0 = blockIdx.x * kBlockRows;
+  const int k0 = blockIdx.x * kBox * kTiles;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const bool hi_in = order & 1, hi_do = order & 2, hi_out = order & 4;
   const int tiles = (L + kBwdTile - 1) / kBwdTile;
@@ -566,8 +777,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
     w2v2::setmaxnreg_dec<Cfg<D>::kProducerRegs>();
     if (tid % 128 >= 32) return;
     if (lane == 0) {
-      w2v2::mbar_arrive_expect_tx(&sm.kv_full, 2 * kConsumers * kBox * D * 2);
-      for (int c = 0; c < kConsumers; ++c) {
+      w2v2::mbar_arrive_expect_tx(&sm.kv_full, 2 * kTiles * kBox * D * 2);
+      for (int c = 0; c < kTiles; ++c) {
         load_rows<D, kBox>(bytes(sm.k[c]), 0, &k_map, hi_in, &sm.kv_full, k0 + c * kBox, h, b);
         load_rows<D, kBox>(bytes(sm.v[c]), 0, &v_map, hi_in, &sm.kv_full, k0 + c * kBox, h, b);
       }
@@ -593,108 +804,23 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_co
     return;
   }
 
-  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 and both their
+  // gradients, or (kSplitKeys) the two share keys k0 .. k0 + 63, wg 0
+  // accumulating dV and wg 1 dK
   w2v2::setmaxnreg_inc<Cfg<D>::kConsumerRegs>();
-  const int w = (tid % 128) / 32, g = lane >> 2, tq = lane & 3;
-  const int key0 = k0 + wg * kBox + 16 * w + g;  // this thread's keys: key0, key0 + 8
   const Dropout dr = make_dropout(seed, bh, threshold, stride, inv_keep);
-  float kb2[2];  // key bias x log2 e; -inf at or past L (those keys get p = 0)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    kb2[r] = key < L ? (bias ? bias[(size_t)b * L + key] * kLog2e : 0.f) : -CUDART_INF_F;
-  }
-  float dk[D / 2], dv[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-  w2v2::mbar_wait(&sm.kv_full, 0);
-  const uint64_t kdesc = w2v2::wgmma_desc(sm.k[wg]), vdesc = w2v2::wgmma_desc(sm.v[wg]);
-
-  for (int it = 0; it < tiles; ++it) {
-    const int s = it % kStages, q0 = it * kBwdTile;
-    w2v2::mbar_wait(&sm.full[s], (it / kStages) & 1);
-
-    // S^T = K Q^T and dP^T = V dO^T: 64 keys x the tile's 64 queries.  Query
-    // rows past L are zero in q and dout (TMA fill) and in lse and delta, so
-    // their p is finite and their r . dout and ds are exactly 0.
-    float st[32], dpt[32];
-    const uint64_t qdesc = w2v2::wgmma_desc(sm.q[s]), ddesc = w2v2::wgmma_desc(sm.dout[s]);
-    w2v2::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      w2v2::wgmma_ss_n64(st, kstep<kBox>(kdesc, kk), kstep<kBwdTile>(qdesc, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      w2v2::wgmma_ss_n64(dpt, kstep<kBox>(vdesc, kk), kstep<kBwdTile>(ddesc, kk), kk > 0);
-    w2v2::wgmma_commit();
-    w2v2::wgmma_wait<0>();
-    w2v2::fence_operands(st);
-    w2v2::fence_operands(dpt);
-
-#pragma unroll
-    for (int j = 0; j < kBwdTile / 8; ++j) {
-      const float2 ls = *reinterpret_cast<const float2*>(&sm.lse[s][8 * j + 2 * tq]);
-      const float2 de = *reinterpret_cast<const float2*>(&sm.delta[s][8 * j + 2 * tq]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, i = 4 * j + e;
-        const float p = ex2(fmaf(st[i], kLog2e, kb2[r] - ((e & 1) ? ls.y : ls.x)));
-        float dp = dpt[i], rp = p;
-        if (kDrop) {
-          const bool keep = keep_bit(dr, q0 + 8 * j + 2 * tq + (e & 1), key0 + 8 * r);
-          rp = keep ? p * dr.inv_keep : 0.f;
-          dp = keep ? dp * dr.inv_keep : 0.f;
-        }
-        st[i] = rp;                                      // -> bf16 for dV
-        dpt[i] = p * (dp - ((e & 1) ? de.y : de.x));     // ds -> bf16 for dK
-      }
-    }
-    // dV += R^T dO, dK += dS^T Q (contraction over the tile's queries)
-    uint32_t ra[kBwdTile / 16][4], da[kBwdTile / 16][4];
-#pragma unroll
-    for (int kc = 0; kc < kBwdTile / 16; ++kc) {
-      w2v2::pack_a(ra[kc], &st[8 * kc]);
-      w2v2::pack_a(da[kc], &dpt[8 * kc]);
-    }
-    const uint64_t qmn = mn_desc<D, kBwdTile>(sm.q[s]), dmn = mn_desc<D, kBwdTile>(sm.dout[s]);
-    w2v2::fence_operands(dv);
-    w2v2::fence_operands(dk);
-    w2v2::wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dv, ra[kc], dmn + kc * kMnStep);
-#pragma unroll
-    for (int kc = 0; kc < kBwdTile / 16; ++kc) w2v2::wgmma_rs_mn(dk, da[kc], qmn + kc * kMnStep);
-    w2v2::wgmma_commit();
-    w2v2::wgmma_wait<0>();
-    w2v2::fence_operands(dv);
-    w2v2::fence_operands(dk);
-    release(&sm.empty[s], lane);
-  }
-
-  const float one[2] = {1.f, 1.f};
-  w2v2::named_barrier_sync(1 + wg, 128);  // every warp's last product has read K, V
-  acc_to_tile<D>(bytes(sm.k[wg]), dk, one, w, g, tq);
-  acc_to_tile<D>(bytes(sm.v[wg]), dv, one, w, g, tq);
-  w2v2::fence_proxy_async();
-  w2v2::named_barrier_sync(1 + wg, 128);
-  if (tid % 128 == 0) {
-    store_rows<D>(&dk_map, hi_out, bytes(sm.k[wg]), k0 + wg * kBox, h, b);
-    store_rows<D>(&dv_map, hi_out, bytes(sm.v[wg]), k0 + wg * kBox, h, b);
-    w2v2::tma_store_commit_and_wait();
-  }
+  if constexpr (!Cfg<D>::kSplitKeys)
+    dkdv_consumer<D, kDrop, true, true>(sm, &dk_map, &dv_map, bias, k0, wg, tiles, L, b, h, bh,
+                                        hi_out, dr);
+  else if (wg == 0)
+    dkdv_consumer<D, kDrop, true, false>(sm, &dk_map, &dv_map, bias, k0, wg, tiles, L, b, h, bh,
+                                         hi_out, dr);
+  else
+    dkdv_consumer<D, kDrop, false, true>(sm, &dk_map, &dv_map, bias, k0, wg, tiles, L, b, h, bh,
+                                         hi_out, dr);
 }
 
 // -- backward: dQ --------------------------------------------------------------
-
-template <int D>
-struct DqSmem {
-  __nv_bfloat16 q[kConsumers][kBox * D];     // resident; later the block's dQ
-  __nv_bfloat16 dout[kConsumers][kBox * D];  // resident
-  __nv_bfloat16 k[kStages][kBwdTile * D];
-  __nv_bfloat16 v[kStages][kBwdTile * D];
-  float bias[kStages][kBwdTile];  // key bias x log2 e; -inf at or past L
-  uint64_t full[kStages], empty[kStages], qd_full;
-};
 
 template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -703,6 +829,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
                     const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ bias,
                     const float* __restrict__ lse, const float* __restrict__ delta, int H, int L,
                     int order, int seed, uint32_t threshold, uint32_t stride, float inv_keep) {
+  constexpr int kRing = DqSmem<D>::kRing;
   DqSmem<D>& sm = w2v2::block_smem<DqSmem<D>>();
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
   const int q0 = blockIdx.x * kBlockRows;
@@ -710,7 +837,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
   const bool hi_in = order & 1, hi_do = order & 2, hi_out = order & 4;
   const int tiles = (L + kBwdTile - 1) / kBwdTile;
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kRing; ++s) {
       w2v2::mbar_init(&sm.full[s], 32);
       w2v2::mbar_init(&sm.empty[s], kConsumers * 4);
     }
@@ -732,8 +859,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
     }
     const float* kb = bias ? bias + (size_t)b * L : nullptr;
     for (int it = 0; it < tiles; ++it) {
-      const int s = it % kStages, key0 = it * kBwdTile;
-      if (it >= kStages) w2v2::mbar_wait(&sm.empty[s], ((it / kStages) + 1) & 1);
+      const int s = it % kRing, key0 = it * kBwdTile;
+      if (it >= kRing) w2v2::mbar_wait(&sm.empty[s], ((it / kRing) + 1) & 1);
       for (int i = lane; i < kBwdTile; i += 32) {
         const int key = key0 + i;
         sm.bias[s][i] = key < L ? (kb ? kb[key] * kLog2e : 0.f) : -CUDART_INF_F;
@@ -768,8 +895,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
   const uint64_t qdesc = w2v2::wgmma_desc(sm.q[wg]), ddesc = w2v2::wgmma_desc(sm.dout[wg]);
 
   for (int it = 0; it < tiles; ++it) {
-    const int s = it % kStages, key0 = it * kBwdTile;
-    w2v2::mbar_wait(&sm.full[s], (it / kStages) & 1);
+    const int s = it % kRing, key0 = it * kBwdTile;
+    w2v2::mbar_wait(&sm.full[s], (it / kRing) & 1);
 
     // S = Q K^T, dP = dO V^T: 64 queries x the tile's 64 keys
     float sc[32], dp[32];
@@ -882,6 +1009,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   W2V2_TRY(encode_bhld<D>(&vm, v, B, H, L, sb, sh, sl, &hi_in));
   W2V2_TRY(encode_out<D>(&om, out, B, H, L, &hi_out));
   constexpr int smem = w2v2::smem_bytes<FwdSmem<D>>();
+  static_assert(smem <= kMaxSmem, "the forward's shared memory");
   W2V2_TRY(w2v2::allow_smem(flash_fwd_kernel<D, kDrop>, smem));
   const dim3 grid((L + kRows - 1) / kRows, BH);
   flash_fwd_kernel<D, kDrop><<<grid, 128 * (kCons + 1), smem, s>>>(
@@ -910,15 +1038,17 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   const int order = int(hi_in) | (int(hi_do) << 1) | (int(hi_out) << 2);
 
   const int rows = BH * L;
-  flash_delta_kernel<D><<<(rows * (D / 8) + 255) / 256, 256, 0, s>>>(
+  flash_delta_kernel<D><<<(rows * kDeltaLanes<D> + 255) / 256, 256, 0, s>>>(
       (const __nv_bfloat16*)dout, (const __nv_bfloat16*)out, (float*)delta, H, L, rows, dsb, dsh,
       dsl, osb, osh, osl);
   W2V2_TRY(cudaGetLastError());
   constexpr int smem_dkdv = w2v2::smem_bytes<DkdvSmem<D>>(), smem_dq = w2v2::smem_bytes<DqSmem<D>>();
+  static_assert(smem_dkdv <= kMaxSmem && smem_dq <= kMaxSmem, "the backward's shared memory");
   W2V2_TRY(w2v2::allow_smem(flash_bwd_dkdv_kernel<D, kDrop>, smem_dkdv));
   W2V2_TRY(w2v2::allow_smem(flash_bwd_dq_kernel<D, kDrop>, smem_dq));
-  const dim3 grid((L + kBlockRows - 1) / kBlockRows, BH);
-  flash_bwd_dkdv_kernel<D, kDrop><<<grid, kThreads, smem_dkdv, s>>>(
+  constexpr int kDkdvKeys = kBox * DkdvSmem<D>::kTiles;
+  const dim3 grid_dkdv((L + kDkdvKeys - 1) / kDkdvKeys, BH), grid((L + kBlockRows - 1) / kBlockRows, BH);
+  flash_bwd_dkdv_kernel<D, kDrop><<<grid_dkdv, kThreads, smem_dkdv, s>>>(
       qm, km, vm, dom, dkm, dvm, (const float*)bias, (const float*)lse, (const float*)delta, H, L,
       order, seed, threshold, stride, inv_keep);
   W2V2_TRY(cudaGetLastError());
@@ -956,21 +1086,24 @@ cudaError_t bwd_at(bool dropout, const void* q, const void* k, const void* v, co
 
 }  // namespace
 
-// q, k, v: (B, H, L, D) bf16 through strides (sb, sh, sl), D = 64 or 128,
-// 16-byte-aligned base and strides (TMA); out (B, L, H, D); lse (B*H, L)
-// f32.  dropout != 0 applies the hash mask (seed, threshold, stride) and
-// scales kept probabilities by inv_keep.
+// q, k, v: (B, H, L, D) bf16 through strides (sb, sh, sl), D = 64, 128, 192
+// or 256, 16-byte-aligned base and strides (TMA); out (B, L, H, D); lse
+// (B*H, L) f32.  dropout != 0 applies the hash mask (seed, threshold,
+// stride) and scales kept probabilities by inv_keep.
 extern "C" int w2v2_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                               void* out, void* lse, int BH, int H, int L, int D, long long sb,
                               long long sh, long long sl, int seed, unsigned threshold,
                               unsigned stride, float inv_keep, int dropout, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64)
-    return (int)fwd_at<64>(dropout, q, k, v, bias, out, lse, BH, H, L, sb, sh, sl, seed, threshold,
-                           stride, inv_keep, s);
-  if (D == 128)
-    return (int)fwd_at<128>(dropout, q, k, v, bias, out, lse, BH, H, L, sb, sh, sl, seed,
-                            threshold, stride, inv_keep, s);
+#define W2V2_FWD_AT(DIM)                                                                          \
+  if (D == DIM)                                                                                  \
+    return (int)fwd_at<DIM>(dropout, q, k, v, bias, out, lse, BH, H, L, sb, sh, sl, seed, threshold, \
+                            stride, inv_keep, s);
+  W2V2_FWD_AT(64)
+  W2V2_FWD_AT(128)
+  W2V2_FWD_AT(192)
+  W2V2_FWD_AT(256)
+#undef W2V2_FWD_AT
   return (int)cudaErrorInvalidValue;
 }
 
@@ -984,13 +1117,15 @@ extern "C" int w2v2_flash_bwd(const void* q, const void* k, const void* v, const
                               long long dsl, int seed, unsigned threshold, unsigned stride,
                               float inv_keep, int dropout, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64)
-    return (int)bwd_at<64>(dropout, q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H, L, sb,
-                           sh, sl, osb, osh, osl, dsb, dsh, dsl, seed, threshold, stride, inv_keep,
-                           s);
-  if (D == 128)
-    return (int)bwd_at<128>(dropout, q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H, L,
-                            sb, sh, sl, osb, osh, osl, dsb, dsh, dsl, seed, threshold, stride,
-                            inv_keep, s);
+#define W2V2_BWD_AT(DIM)                                                                          \
+  if (D == DIM)                                                                                  \
+    return (int)bwd_at<DIM>(dropout, q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H, L, sb, \
+                            sh, sl, osb, osh, osl, dsb, dsh, dsl, seed, threshold, stride, inv_keep, \
+                            s);
+  W2V2_BWD_AT(64)
+  W2V2_BWD_AT(128)
+  W2V2_BWD_AT(192)
+  W2V2_BWD_AT(256)
+#undef W2V2_BWD_AT
   return (int)cudaErrorInvalidValue;
 }

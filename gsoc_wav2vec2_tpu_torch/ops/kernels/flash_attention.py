@@ -1,4 +1,4 @@
-"""Flash attention, head dims 64 and 128 (`csrc/flash_attention.cu`):
+"""Flash attention, head dims 64, 128, 192 and 256 (`csrc/flash_attention.cu`):
 forward with in-kernel prob dropout, backward, and the
 `torch.autograd.Function` over both.
 
@@ -30,8 +30,11 @@ import torch
 from ..basic import _i32, _shr, below_threshold, keep_threshold
 from . import _build
 
-# the head dims the kernels are instantiated at (`csrc/flash_attention.cu`)
-HEAD_DIMS = (64, 128)
+# the head dims the kernels are instantiated at (`csrc/flash_attention.cu`);
+# JAX's kernel takes every multiple of 64, but from 320 on the output
+# accumulator alone (D / 2 f32 a consumer thread: 160) leaves too few of the
+# 240 registers a consumer warpgroup has, so those run the plain attention
+HEAD_DIMS = (64, 128, 192, 256)
 # bf16 columns of one TMA box: one 128-byte swizzle row
 BOX_COLS = 64
 
@@ -136,10 +139,10 @@ def flash_attention_bwd_plain(
 
 
 def supports(head_dim: int, dtype: torch.dtype) -> bool:
-    """Whether the flash kernels take heads of `head_dim` in `dtype`: 64 or
-    128, bf16 (the JAX kernel takes multiples of 64).  Elsewhere the card
-    runs `flash_attention_fwd_plain` through autograd, with the same hash
-    dropout."""
+    """Whether the flash kernels take heads of `head_dim` in `dtype`: 64,
+    128, 192 or 256, bf16 (the JAX kernel takes every multiple of 64).
+    Elsewhere the card runs `flash_attention_fwd_plain` through autograd,
+    with the same hash dropout."""
     return head_dim in HEAD_DIMS and dtype == torch.bfloat16
 
 
@@ -170,7 +173,7 @@ def tma_layout(shape, strides):
     projections), so that the strides ascend; a dimension of size 1 gets the
     packed stride.  Returns (dims, byte strides of dims 1-3, box,
     heads_inner); the box is 64 rows of 64 elements (one 128-byte swizzle
-    row), D / 64 boxes a row of D."""
+    row), D / 64 boxes a row of D (rows of 128 to 512 bytes)."""
     b, h, l, d = shape
     sb, sh, sl = strides[:3]
     heads_inner = sh < sl

@@ -252,8 +252,17 @@ def test_robust_step_at_head_dim_128_goes_through_the_kernels(cuda):
     _robust_steps_go_through_the_kernels(cuda, num_heads=2)
 
 
+@pytest.mark.cuda
+def test_robust_step_at_head_dim_256_goes_through_the_kernels(cuda):
+    """One head of 256: `flash_attention.supports` takes it, so the step's
+    attention launches the flash kernels' D = 256 instances, forward and
+    backward, and the loss goes down."""
+    assert flash_attention.supports(ROBUST_SMALL["hidden_size"], torch.bfloat16)
+    _robust_steps_go_through_the_kernels(cuda, num_heads=1)
+
+
 # the head dims of the flash kernels' instances
-FLASH_HEAD_DIMS = (64, 128)
+FLASH_HEAD_DIMS = (64, 128, 192, 256)
 
 
 @pytest.mark.cuda
@@ -686,8 +695,8 @@ def _proj_view(x):
 @pytest.mark.parametrize("l", [1, 63, 64, 65, 127, 128, 129, 768, 1249])
 def test_flash_tiles_and_edges_match_plain_on_card(cuda, l, d):
     """The wgmma/TMA kernels against the plain versions at every edge of their
-    tiles (64-row boxes, 128- or 192-query blocks, 128-key forward tiles, two
-    64-column boxes a row at d = 128): no bias and a ragged bias, dropout 0
+    tiles (64-row boxes, 64-, 128- or 192-row blocks, 64- or 128-key forward
+    tiles, d / 64 64-column boxes a row): no bias and a ragged bias, dropout 0
     and 0.1 (keep bits from `dropout_mask` in the plain path: one differing
     bit would move a row of these peaky scores far past the tolerance),
     q/k/v contiguous and as projection head views."""
