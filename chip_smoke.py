@@ -206,6 +206,22 @@ Phases, each printing one JSON line:
                 front-end, pos-conv and flash kernels held at B=8, 1 + 4
                 stage-2 steps at B=8 (flash 12 + 12 a step); and
                 `RobustWav2Vec2Config(num_heads=4)` (4 heads of 256) as 13d.
+ 13f. conv_widths, base_c384, robust_c1024 -- every conv01 instance (C =
+                128, 256, ..., 1024, both families) against its plain
+                version at (8, 246000) and at T1 = 1, 63, 64, 65, 129 (0.05,
+                mean 5e-3), launched twice bit-equal, timed beside its plain
+                version, the library chain and its bound; `groupnorm_stats`
+                at 384 and 1024; then `Wav2Vec2Config(filter_sizes=[384] *
+                7)` (base width, 12 layers, seed 1) on B=16 x 246000 through
+                `predict_batch` (`groupnorm_stats`, `fused_conv01` (C = 384),
+                `pos_conv` 1 each, flash 12 a forward; its front end held
+                at B=16 and 8 and flash at (8, 12, 768, 64) first) and
+                `RobustWav2Vec2Config(filter_sizes=[1024] * 7)` (24 layers)
+                on a ragged B=8 batch with its mask (`conv01_robust` (C =
+                1024) 1, `pos_conv` 1, flash 24): ms a forward, and with the
+                front-end kernels off (the plain layer loop); row 0 against
+                the card's plain f32 forward (5% / 10% of the logit scale);
+                1 + 3 stage-2 steps at B=8; two stage-2 gradients bit-equal.
  14. export  -- `cli.export.main` at base width and depth: `torch_export` on
                 the card (symbolic batch, 246000 samples), the program run
                 in a process that imports `ops.kernels` alone (no model
@@ -346,6 +362,8 @@ from gsoc_wav2vec2_tpu_torch.training.checkpoint import CheckpointManager
 from gsoc_wav2vec2_tpu_torch.utils import profiling
 from gsoc_wav2vec2_tpu_torch.utils.logging import MetricLogger
 
+from flash_bench import front_params
+
 # Published H100 SXM peaks (dense): bf16 tensor cores, HBM3.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12  # outside the tensor cores
@@ -385,7 +403,8 @@ SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gat
                                                      "remat", "pretrain_cli")
 TRAIN_PATHS = ("train", "pretrain", "pretrain_gather", "cli", "remat", "pretrain_cli")
 CTC_PATHS = ("train", "robust_train", "long_train", "cli", "remat", "xlarge_train",
-             "xls_r_2b_train", "robust_h128_train", "base_h192_train", "robust_h256_train")
+             "xls_r_2b_train", "robust_h128_train", "base_h192_train", "robust_h256_train",
+             "base_c384_train", "robust_c1024_train")
 # a CTC loss and its gradient: one launch of each wrapper
 CTC_STEP = {"ctc_loss_fwd": 1, "ctc_loss_bwd": 1}
 LONG_PATHS = ("long_inference", "long_train")
@@ -591,6 +610,32 @@ def pos_conv_eval_record(kernel, bias, b, t, name, paths, gen):
     )
 
 
+def _front_library(robust: bool, params, x):
+    """One PyTorch call chain of the same function (a yardstick the port
+    never calls): conv1d, then group_norm / layer_norm, GELU, conv1d, (layer_norm,)
+    GELU, in bf16."""
+    fn = torch.nn.functional
+    c = params[0].shape[-1]
+    w0t = params[0].to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, 1, 10)
+    w1t = params[4 if robust else 3].to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, C, 3)
+    if robust:
+        half = [v.to(torch.bfloat16) for v in params[1:4] + params[5:]]
+
+        def library():
+            y = fn.conv1d(x[:, None, :], w0t, half[0], stride=5).transpose(1, 2)
+            y = fn.gelu(fn.layer_norm(y, (c,), half[1], half[2], 1e-5), approximate="tanh")
+            y = fn.conv1d(y.transpose(1, 2), w1t, half[3], stride=2).transpose(1, 2)
+            return fn.gelu(fn.layer_norm(y, (c,), half[4], half[5], 1e-5), approximate="tanh")
+        return library
+    gb, bb = params[1].to(torch.bfloat16), params[2].to(torch.bfloat16)
+
+    def library():
+        y = fn.conv1d(x[:, None, :], w0t, stride=5)
+        y = fn.gelu(fn.group_norm(y, c, gb, bb), approximate="tanh")
+        return fn.gelu(fn.conv1d(y, w1t, stride=2), approximate="tanh")
+    return library
+
+
 def frontend_checks(x, w0, gamma, beta, w1):
     """groupnorm_stats, then fused_conv01 on its scale and shift, on `x`
     (rows, samples) against their plain versions, each launched twice
@@ -626,12 +671,14 @@ def frontend_checks(x, w0, gamma, beta, w1):
     return gn, dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol), (scale, shift)
 
 
-def check_eval_kernels_at(model, records, b, path=None):
+def check_eval_kernels_at(model, records, b, path=None, front=""):
     """groupnorm_stats, fused_conv01 and the inference pos conv against their
     plain versions at b x 246000 (the cli phase runs them there: stage 1's
     forward and the validation batch; base_h192's steps at 8), launched
     twice (bit-equal), at phase 3's tolerances; each check is added to its
-    record under `checked_at`, with `path` where one is given."""
+    record under `checked_at`, with `path` where one is given.  `front`
+    ends the two front-end records' names (`_c384`: the model's front end
+    is that instance)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4321)
     fe = model.wav2vec2.feature_extractor.conv_layers
@@ -645,7 +692,7 @@ def check_eval_kernels_at(model, records, b, path=None):
     t = model.config.conv_output_length(SAMPLES)
     err, mean_err, tol, _ = pos_conv_eval_check(kernel, bias, ((b, t),), "pos_conv", gen)
     by_name = {r["name"]: r for r in records}
-    for name, check in (("groupnorm_stats", gn), ("fused_conv01", c01),
+    for name, check in (("groupnorm_stats" + front, gn), ("fused_conv01" + front, c01),
                         ("pos_conv", dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol))):
         by_name[name].setdefault("checked_at", []).append(
             {"shape": [b, SAMPLES], **({"path": path} if path else {}), **check,
@@ -691,23 +738,14 @@ def check_kernels(model):
     nbytes = x.numel() * 2 + (10 * c + 3 * c * c) * 2 + 2 * B * c * 4 + B * t1 * c * 2
     flops = 2 * B * t1 * (2 * 10 * c + 3 * c * c)
     bms, by = bound(nbytes, flops, PEAK_BF16)
-    w0t = w0.to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, 1, 10)
-    w1t = w1.to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, C, 3)
-    gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
-
-    def library_conv01():
-        y = torch.nn.functional.conv1d(x[:, None, :], w0t, stride=5)
-        y = torch.nn.functional.gelu(torch.nn.functional.group_norm(y, c, gb, bb), approximate="tanh")
-        y = torch.nn.functional.conv1d(y, w1t, stride=2)
-        return torch.nn.functional.gelu(y, approximate="tanh")
-
     records.append(dict(
         name="fused_conv01", counter="fused_conv01", paths=BASE_PATHS, route="cuda",
         source=CSRC + "conv_frontend.cu", replaces=PALLAS + "conv_frontend.py:251",
         max_abs_err=err, mean_abs_err=mean_err, tol=tol, relaunch_bit_equal=True,
         ms=time_ms(lambda: cf.conv01(x, w0, scale, shift, w1, t1, True), 10),
         plain_ms=time_ms(lambda: cf.conv01_plain(x, w0, scale, shift, w1, t1, True), 3, 1),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(library_conv01, 10),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(_front_library(False, (w0, gamma, beta, w1), x), 10),
     ))
     del x
 
@@ -1033,18 +1071,6 @@ def check_robust_kernels(model, records):
     nbytes = x.numel() * 2 + (10 * c + 3 * c * c) * 2 + 6 * c * 4 + b * t1 * c * 2
     flops = 2 * b * t1 * (2 * 10 * c + 3 * c * c)
     bms, by = bound(nbytes, flops, PEAK_BF16)
-    w0, b0, g0, e0, w1, b1, g1, e1 = params
-    w0t = w0.to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, 1, 10)
-    w1t = w1.to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, C, 3)
-    half = [v.to(torch.bfloat16) for v in (b0, g0, e0, b1, g1, e1)]
-    fn = torch.nn.functional
-
-    def library_conv01_robust():
-        y = fn.conv1d(x[:, None, :], w0t, half[0], stride=5).transpose(1, 2)
-        y = fn.gelu(fn.layer_norm(y, (c,), half[1], half[2], 1e-5), approximate="tanh")
-        y = fn.conv1d(y.transpose(1, 2), w1t, half[3], stride=2).transpose(1, 2)
-        return fn.gelu(fn.layer_norm(y, (c,), half[4], half[5], 1e-5), approximate="tanh")
-
     records.append(dict(
         name="conv01_robust", counter="conv01_robust",
         paths=ROBUST_PATHS + XLARGE_PATHS + H128_PATHS + H256_PATHS, route="cuda",
@@ -1053,7 +1079,7 @@ def check_robust_kernels(model, records):
         relaunch_bit_equal=True,
         ms=time_ms(lambda: cf.conv01_robust(x, *params, t1, 1e-5, True), 10),
         plain_ms=time_ms(lambda: cf.conv01_robust_plain(x, *params, t1, 1e-5, True), 3, 1),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(library_conv01_robust, 10),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(_front_library(True, params, x), 10),
     ))
     del x
     torch.cuda.empty_cache()
@@ -3514,18 +3540,28 @@ def check_flash_head_dim_kernels(records, d: int, heads: int, b: int, phase: str
     bwd["long"] = dict(max_abs_err=lgabs, max_rel_err_by_grad=lrel, **bwd_rec)
     del q, kk, v, dout, kb, out, lse
     if train_b is not None:
-        q, kk, v, dout = _peaky(train_b, heads, t, d, gen)
-        (terr, _), _, _, trel, tgabs, _ = flash_dropout_errors(
-            q, kk, v, dout, None, rate, drop_seed, f"d={d} ({train_b}, {heads}, {t}) no bias",
-            relaunch=True)
-        shape = [train_b, heads, t, d]
-        fwd["train_shape"] = dict(shape=shape, path=phase + "_train", ragged_bias=False,
-                                  max_abs_err=terr, tol=0.04, relaunch_bit_equal=True)
-        bwd["train_shape"] = dict(shape=shape, path=phase + "_train", ragged_bias=False,
-                                  max_abs_err=tgabs, max_rel_err_by_grad=trel, relaunch_bit_equal=True)
-        del q, kk, v, dout
+        fwd["train_shape"], bwd["train_shape"] = flash_train_batch_checks(
+            train_b, heads, d, phase + "_train", gen)
     records.extend((fwd, bwd))
     torch.cuda.empty_cache()
+
+
+def flash_train_batch_checks(b: int, heads: int, d: int, path: str, gen: torch.Generator):
+    """The flash forward and backward at a base family's training shape (b,
+    heads, 768, d) against their plain versions: no bias (the base family
+    trains without a mask), dropout 0.1, every launch twice bit-equal.
+    Returns the forward's and the backward's check, tagged with `path`."""
+    t = RobustWav2Vec2Config().conv_output_length(SAMPLES)
+    q, kk, v, dout = _peaky(b, heads, t, d, gen)
+    (err, _), _, _, rel, gabs, _ = flash_dropout_errors(
+        q, kk, v, dout, None, 0.1, 4321, f"d={d} ({b}, {heads}, {t}) no bias", relaunch=True)
+    del q, kk, v, dout
+    torch.cuda.empty_cache()
+    shape = [b, heads, t, d]
+    return (dict(shape=shape, path=path, ragged_bias=False, dropout=0.1, max_abs_err=err, tol=0.04,
+                 relaunch_bit_equal=True),
+            dict(shape=shape, path=path, ragged_bias=False, dropout=0.1, max_abs_err=gabs,
+                 max_rel_err_by_grad=rel, relaunch_bit_equal=True))
 
 
 def robust_h128_phase(smi: str, records) -> dict:
@@ -3632,6 +3668,213 @@ def wide_heads_phase(smi: str, records) -> dict:
     return by_path
 
 
+# Phase 13f: the conv01 instances at every multiple of 128 from 128 to 1024,
+# and two full-width models driven through two of them: facebook/wav2vec2-
+# base-960h's architecture with a 384-wide front end (the narrow kernel at a
+# width 4 does not divide in atoms) and facebook/wav2vec2-large-robust's with
+# a 1024-wide one (the wide kernel: columns over two CTAs, the LayerNorm
+# split between them).  No public checkpoint has a front end other than 512
+# wide; `filter_sizes` is the one field changed.
+CONV_WIDTHS_B = ROBUST_B          # the instances' batch, x 246000 samples
+CONV_EDGES = (1, 63, 64, 65, 129)  # conv1 rows: tile edges (64 rows a tile), odd tile counts
+CONV_WIDTH_MODELS = {"base_c384": (Wav2Vec2Config, 384, B),
+                     "robust_c1024": (RobustWav2Vec2Config, 1024, ROBUST_B)}
+CONV_WIDTH_STEPS = 3  # stage-2 steps: two warm, one timed (`train_phase` times from the third)
+
+
+def _front_pair(robust: bool, params, x):
+    """(kernel, plain) calls of the family's conv01 wrapper on waveform x;
+    the base family's scale and shift from `groupnorm_stats_plain` of x."""
+    t0, t1 = cf.conv0_length(x.shape[1]), cf.conv1_length(x.shape[1])
+    if robust:
+        return (lambda: cf.conv01_robust(x, *params, t1, 1e-5, True),
+                lambda: cf.conv01_robust_plain(x, *params, t1, 1e-5, True))
+    w0, gamma, beta, w1 = params
+    scale, shift = cf.groupnorm_stats_plain(x, t0, w0, gamma, beta, 1e-5)
+    return (lambda: cf.conv01(x, w0, scale, shift, w1, t1, True),
+            lambda: cf.conv01_plain(x, w0, scale, shift, w1, t1, True))
+
+
+def conv_width_record(c: int, robust: bool, gen: torch.Generator) -> dict:
+    """One conv01 instance (width c, the family's kernel) against its plain
+    version at (CONV_WIDTHS_B, 246000) and at T1 = `CONV_EDGES` on one row
+    (max error 0.05, mean 5e-3: bf16 outputs, ulp 2^-6 at |y| in [2, 4), over
+    f32 sums in another order), launched twice bit-equal, timed beside its
+    plain version, the library chain and its bound: max(bytes / 3.35 TB/s,
+    2 B T1 (20 C + 3 C^2) FLOP / 989 TFLOP/s)."""
+    dev = torch.device("cuda")
+    params = front_params(torch, c, robust, gen, dev)
+    edge_err = 0.0
+    for t1e in CONV_EDGES:
+        xe = torch.randn(1, 10 * t1e + 17, generator=gen).to(dev, torch.bfloat16)
+        kern, plain = _front_pair(robust, params, xe)
+        got, want = kern(), plain()
+        require(got.shape == want.shape == (1, t1e, c), f"conv01 c{c} T1={t1e} shape {tuple(got.shape)}")
+        err, mean_err = errors(got, want)
+        require(err <= 0.05 and mean_err <= 5e-3, f"conv01 c{c} robust={robust} T1={t1e}: {err} / {mean_err}")
+        edge_err = max(edge_err, err)
+    b = CONV_WIDTHS_B
+    x = torch.randn(b, SAMPLES, generator=gen).to(dev, torch.bfloat16)
+    t1 = cf.conv1_length(SAMPLES)
+    kern, plain = _front_pair(robust, params, x)
+    got = kern()
+    require(torch.equal(got, kern()), f"conv01 c{c} robust={robust}: two launches differ")
+    want = plain()
+    torch.cuda.synchronize()
+    require(got.shape == (b, t1, c), f"conv01 c{c} shape {tuple(got.shape)}")
+    err, mean_err = errors(got, want)
+    del got, want
+    require(err <= 0.05 and mean_err <= 5e-3, f"conv01 c{c} robust={robust}: err {err} / mean {mean_err}")
+    norm_bytes = 6 * c * 4 if robust else 2 * b * c * 4
+    nbytes = x.numel() * 2 + (10 * c + 3 * c * c) * 2 + norm_bytes + b * t1 * c * 2
+    bms, by = bound(nbytes, 2 * b * t1 * (2 * 10 * c + 3 * c * c), PEAK_BF16)
+    name = "conv01_robust" if robust else "fused_conv01"
+    rec = dict(
+        name=f"{name}_c{c}", counter=name, route="cuda", source=CSRC + "conv_frontend.cu",
+        replaces=PALLAS + ("conv_frontend.py:334" if robust else "conv_frontend.py:251"),
+        width=c, instance="conv01_wide_kernel" if c > 512 else "conv01_kernel",
+        shape=[b, SAMPLES], max_abs_err=err, mean_abs_err=mean_err, tol=0.05,
+        edges=dict(t1=list(CONV_EDGES), rows=1, max_abs_err=edge_err), relaunch_bit_equal=True,
+        ms=time_ms(kern, 10), plain_ms=time_ms(plain, 2, 1), bound_ms=bms, bound_by=by,
+        library_ms=time_ms(_front_library(robust, params, x), 10))
+    del x, kern, plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def groupnorm_width_record(c: int, gen: torch.Generator) -> dict:
+    """`groupnorm_stats` at width c and (16, 246000) against its plain
+    version (1e-5 of each output's scale), launched twice bit-equal, timed
+    beside its bound (bytes: one pass over the waveform)."""
+    dev = torch.device("cuda")
+    w0, gamma, beta, _ = front_params(torch, c, False, gen, dev)
+    x = torch.randn(B, SAMPLES, generator=gen).to(dev, torch.bfloat16)
+    t0 = cf.conv0_length(SAMPLES)
+    run = lambda: cf.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
+    got = run()
+    require(all(torch.equal(u, v) for u, v in zip(got, run())), f"groupnorm_stats c{c}: two launches differ")
+    want = cf.groupnorm_stats_plain(x, t0, w0, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    tol = 1e-5 * max(want[0].abs().max().item(), want[1].abs().max().item())
+    err, mean_err = max(errors(got[0], want[0]), errors(got[1], want[1]))
+    require(err <= tol, f"groupnorm_stats c{c}: max abs err {err} > {tol}")
+    nbytes = x.numel() * 2 + (10 + 2) * c * 4 + 2 * B * c * 4
+    bms, by = bound(nbytes, B * t0 * (2 * 55 + 10) + B * c * (2 * 10 + 2 * 110), PEAK_BF16)
+    rec = dict(
+        name=f"groupnorm_stats_c{c}", counter="groupnorm_stats", route="cuda",
+        source=CSRC + "conv_frontend.cu", replaces=PALLAS + "conv_frontend.py:87",
+        also_replaces=[PALLAS + "conv_frontend.py:239-249 (the XLA tail)"], width=c,
+        shape=[B, SAMPLES], max_abs_err=err, mean_abs_err=mean_err, tol=tol, relaunch_bit_equal=True,
+        ms=time_ms(run, 50), plain_ms=time_ms(lambda: cf.groupnorm_stats_plain(x, t0, w0, gamma, beta,
+                                                                           1e-5), 5),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    del x
+    torch.cuda.empty_cache()
+    return rec
+
+
+@contextlib.contextmanager
+def plain_front_end():
+    """The model sites' dispatch with no conv01 instance (`cf.supports`
+    false): the card runs the seven conv layers as plain torch ops."""
+    saved = cf.supports
+    cf.supports = lambda config: False
+    try:
+        yield
+    finally:
+        cf.supports = saved
+
+
+def conv_widths_phase(smi: str, records) -> dict:
+    """Phase 13f.  First every conv01 instance, C = 128 ... 1024 in both
+    families (`conv_width_record`), and `groupnorm_stats` at 384 and 1024:
+    the instances the two models below run become records of the kernels
+    line (`fused_conv01_c384`, `groupnorm_stats_c384`, `conv01_robust_c1024`,
+    with their paths), the others go into this phase's line with the same
+    keys (launches 0: no path here runs them).  Then, through `wide_phases`
+    with weights from seed 1, `Wav2Vec2Config(filter_sizes=[384] * 7)`
+    (base_c384: B=16 x 246000, `groupnorm_stats`, `fused_conv01`, `pos_conv`
+    1 each and flash 12 a forward) and `RobustWav2Vec2Config(filter_sizes=
+    [1024] * 7)` (robust_c1024: a ragged B=8 batch with its mask,
+    `conv01_robust` 1, `pos_conv` 1, flash 24): ms a forward, and with the
+    front-end kernels turned off through `supports` (the plain layer loop);
+    row 0 against the card's plain f32 forward; 1 stage-1 and 3 stage-2 steps
+    at B=8 (the front end frozen: its kernels once a step); two identical
+    stage-2 gradients bit-equal.  Before base_c384 runs, its front-end
+    kernels are held at both its batches (16 and 8; `check_eval_kernels_at`
+    into `checked_at` of the `_c384` records) and flash D = 64 at its steps'
+    (8, 12, 768, 64) with dropout (`flash_train_batch_checks`).  Their pos-conv, flash and CTC kernels are
+    those of the base and robust cells at the same shapes, whose records
+    take these paths.  Returns {path: launch counts}."""
+    t = time.perf_counter()
+    gen = torch.Generator().manual_seed(1313)
+    on_path = {("base_c384", False, 384), ("robust_c1024", True, 1024)}
+    others = []
+    for c in cf.KERNEL_WIDTHS:
+        for robust in (False, True):
+            rec = conv_width_record(c, robust, gen)
+            phase = "robust_c1024" if robust else "base_c384"
+            if (phase, robust, c) in on_path:
+                records.append({**rec, "paths": (phase, phase + "_train")})
+            else:
+                others.append({**{k: v for k, v in rec.items() if k != "counter"}, "launches": 0})
+    for c in (384, 1024):
+        rec = groupnorm_width_record(c, gen)
+        if c == 384:
+            records.append({**rec, "paths": ("base_c384", "base_c384_train")})
+        else:
+            others.append({**{k: v for k, v in rec.items() if k != "counter"}, "launches": 0})
+    emit({"phase": "conv_widths", "seconds": time.perf_counter() - t,
+          "not_on_a_path": others, "card": smi})
+    # the other kernels of the two models: the base and robust cells' records
+    # at the same instances and shapes (flash at D = 64; pos conv C/G = 48 at
+    # B=16 and, training at B=8, 13e's `_cg48`; C/G = 64 at B=8; CTC)
+    joins = {"base_c384": ("pos_conv", "flash_attention_fwd"),
+             "base_c384_train": ("pos_conv", "pos_conv_train_fwd_cg48", "pos_conv_dx_cg48",
+                                 "pos_conv_dw_cg48", "flash_attention_fwd", "flash_attention_bwd"),
+             "robust_c1024": ("pos_conv_cg64", "flash_attention_fwd"),
+             "robust_c1024_train": ("pos_conv_cg64", "pos_conv_train_fwd_cg64", "pos_conv_dx_cg64",
+                                    "pos_conv_dw_cg64", "flash_attention_fwd", "flash_attention_bwd")}
+    by_name = {r["name"]: r for r in records}
+    for path, names in joins.items():
+        for n in names:
+            by_name[n]["paths"] = tuple(by_name[n]["paths"]) + (path,)
+    by_path = {}
+    for phase, (family, c, b) in CONV_WIDTH_MODELS.items():
+        config = family(filter_sizes=[c] * 7)
+        require(cf.supports(config) and config.filter_sizes[0] == c,
+                f"the card's dispatch takes the conv01 kernels at {c}")
+        t = time.perf_counter()
+        model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(1))
+        what = ("facebook/wav2vec2-base-960h's architecture (768-d, 12 post-norm layers, 12 heads "
+                "of 64, FFN 3072, GroupNorm conv stack, pos conv 16 groups of 48) with the front "
+                "end 384 wide in place of 512" if c == 384 else
+                "facebook/wav2vec2-large-robust's architecture (1024-d, 24 pre-norm layers, 16 "
+                "heads of 64, FFN 4096, LayerNorm conv stack with bias, pos conv 16 groups of 64) "
+                "with the front end 1024 wide in place of 512")
+        info = {"config": what + ", CTC head of vocab 32, seed 1",
+                "parameters": sum(p.numel() for p in model.parameters()),
+                "init_s": time.perf_counter() - t}
+        if not config.is_robust:
+            # base_c384 runs its front end at B=16 (inference) and 8 (the
+            # steps), where the instance records hold one each, and flash D =
+            # 64 at the steps' (8, 12, 768, 64): each held at the other too
+            check_eval_kernels_at(model, records, b, phase, front=f"_c{c}")
+            check_eval_kernels_at(model, records, ROBUST_B, phase + "_train", front=f"_c{c}")
+            checks = flash_train_batch_checks(ROBUST_B, config.num_heads,
+                                              config.hidden_size // config.num_heads,
+                                              phase + "_train", gen)
+            for name, check in zip(("flash_attention_fwd", "flash_attention_bwd"), checks):
+                by_name[name].setdefault("checked_at", []).append(check)
+        cg = config.hidden_size // config.num_conv_pos_embedding_groups
+        by_path.update(wide_phases(phase, f"{phase} (front end {c} wide)", config, model, info, cg,
+                                   smi, records, seed=c, remat=False, steps=CONV_WIDTH_STEPS,
+                                   pos_records=False, b=b, plain_site="front_end"))
+        del model
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def _wide_geometry(config, cg: int) -> None:
     """Phases 13b, 13c: 48 stable-layer-norm layers, C/G = head dim = `cg`,
     which no flash instance takes (as in JAX)."""
@@ -3654,7 +3897,7 @@ def plain_attention():
 
 
 def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, remat, steps,
-                pos_records=True, b=ROBUST_B) -> dict:
+                pos_records=True, b=ROBUST_B, plain_site="attention") -> dict:
     """Models at full width on the card (phases 13b-13e), whose pos conv runs
     the kernels' C/G = `cg` instances and whose attention runs the flash
     kernels where `fa.supports` takes the head dim, else the plain version
@@ -3664,7 +3907,8 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     base family (no mask): a full-length one (`groupnorm_stats`,
     `fused_conv01`, `pos_conv` 1 each, flash as above).  ms a forward, and
     with flash also ms a forward of the plain attention (the flash kernels
-    turned off through `fa.supports`); row 0 against the card's plain f32
+    turned off through `fa.supports`), or with `plain_site` "front_end" of
+    the plain conv layer loop (`cf.supports`); row 0 against the card's plain f32
     forward (no kernel in f32) at the family's cell's bounds (base 5% of the
     logit scale, robust 10%); with `pos_records` the four pos-conv kernels
     at (8, 768, C) against their plain versions, timed (into `records`,
@@ -3729,7 +3973,16 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     row0 = logits[0].float().cpu()
     del logits
     plain = {}
-    if flash:
+    if plain_site == "front_end":
+        # the same forwards with the front-end kernels turned off, for the record
+        before = read_counts()
+        with plain_front_end():
+            plain_reps = timed_forwards(3)
+        expect_counts("the plain front-end forwards", counts_since(before),
+                      {k: 3 * v for k, v in per_forward.items() if k not in front})
+        plain = {"ms_per_forward_plain_front_end": statistics.median(plain_reps),
+                 "plain_front_end_min_max": [min(plain_reps), max(plain_reps)]}
+    elif flash:
         # the same forwards with the flash kernels turned off, for the record
         before = read_counts()
         with plain_attention():
@@ -5054,6 +5307,9 @@ def main() -> int:
     # 13e. the flash kernels' D = 192 and 256 instances: base width at 4 heads
     # of 192, the robust/large widths at 4 of 256, inference and stage-2 steps
     by_path.update(wide_heads_phase(smi, records))
+    # 13f. the conv01 instances at every front-end width from 128 to 1024, then
+    # base at a 384-wide front end and robust/large at a 1024-wide one
+    by_path.update(conv_widths_phase(smi, records))
     # 14. export: torch.export run in a process of its own, then ONNX
     by_path.update(export_phase(smi))
     # 15. the profiling helpers on the base forward

@@ -20,7 +20,10 @@ shapes (x 246000 samples): GroupNorm's scale and shift at B=16 and at 1 x
 1,920,000 (`groupnorm_stats`; in a tree that predates it, `window_stats`
 followed by the torch glue `groupnorm_scale_shift`, which it replaced),
 `conv01` (the base family) at B=16 (inference) and B=32 (training),
-`conv01_robust` at B=8.
+`conv01_robust` at B=8, all at C = 512; both at C = 256 (B=16, B=8), 384
+(the base_c384 cell's B=16) and 1024 (the robust_c1024 cell's B=8).  Under
+`--root`, a width that tree's `conv_frontend.KERNEL_WIDTHS` does not hold
+prints a skipped row.
 
 `--family pos_conv`: the four wrappers of
 `gsoc_wav2vec2_tpu_torch.ops.kernels.pos_conv` at T = 768 frames (246000
@@ -173,19 +176,44 @@ def bench_flash(torch, label):
     print(json.dumps(row), flush=True)
 
 
+def front_params(torch, c: int, robust: bool, gen, dev):
+    """Random conv front-end weights at width c on the model's glorot-uniform
+    scale, and random norm affines (and biases): robust (w0, b0, g0, e0, w1,
+    b1, g1, e1), base (w0, gamma, beta, w1).  `chip_smoke.py` holds the
+    instances against their plain versions on the same weights."""
+    uniform = lambda shape, limit: ((torch.rand(shape, generator=gen) * 2 - 1) * limit).to(dev)
+    w0 = uniform((10, 1, c), (6 / (10 * (1 + c))) ** 0.5)
+    w1 = uniform((3, c, c), c ** -0.5)
+    vec = lambda scale, offset: (offset + scale * torch.randn(c, generator=gen)).to(dev)
+    if robust:
+        return (w0, vec(0.1, 0.0), vec(0.1, 1.0), vec(0.1, 0.0), w1, vec(0.1, 0.0), vec(0.1, 1.0),
+                vec(0.1, 0.0))
+    return w0, vec(0.1, 1.0), vec(0.1, 0.0), w1
+
+
 def bench_conv(torch, label):
     from gsoc_wav2vec2_tpu_torch.ops.kernels import conv_frontend as cf
 
     gen = torch.Generator().manual_seed(0)
-    c = 512
-    w0 = (torch.randn(10, 1, c, generator=gen) * 0.3).cuda()
-    w1 = (torch.randn(3, c, c, generator=gen) * (1.5 / c ** 0.5)).cuda()
-    vec = lambda scale, offset: (offset + scale * torch.randn(c, generator=gen)).cuda()
-    gamma, beta = vec(0.1, 1.0), vec(0.1, 0.0)
-    robust = (w0, vec(0.1, 0.0), vec(0.1, 1.0), vec(0.1, 0.0), w1, vec(0.1, 0.0), vec(0.1, 1.0),
-              vec(0.1, 0.0))
-    for name, b, samples in (("stats", 16, 246000), ("stats", 1, 1_920_000), ("conv01", 16, 246000),
-                             ("conv01", 32, 246000), ("conv01_robust", 8, 246000)):
+    weights = {}
+
+    def at_width(c):
+        if c not in weights:
+            w0, gamma, beta, w1 = front_params(torch, c, False, gen, "cuda")
+            weights[c] = w0, w1, gamma, beta, front_params(torch, c, True, gen, "cuda")
+        return weights[c]
+
+    for name, c, b, samples in (("stats", 512, 16, 246000), ("stats", 512, 1, 1_920_000),
+                                ("conv01", 512, 16, 246000), ("conv01", 512, 32, 246000),
+                                ("conv01_robust", 512, 8, 246000), ("conv01", 256, 16, 246000),
+                                ("conv01_robust", 256, 8, 246000), ("conv01", 384, 16, 246000),
+                                ("conv01_robust", 1024, 8, 246000)):
+        if name != "stats" and c not in getattr(cf, "KERNEL_WIDTHS", (512, 256)):
+            print(json.dumps({"label": label, "kernel": name, "width": c, "shape": [b, samples],
+                              "skipped": "the tree's conv_frontend.KERNEL_WIDTHS does not hold it"}),
+                  flush=True)
+            continue
+        w0, w1, gamma, beta, robust = at_width(c)
         x = torch.randn(b, samples, generator=gen).cuda().to(torch.bfloat16)
         t0, t1 = cf.conv0_length(samples), cf.conv1_length(samples)
         if name == "stats" and hasattr(cf, "groupnorm_stats"):
@@ -200,7 +228,8 @@ def bench_conv(torch, label):
             fn = lambda: cf.conv01(x, w0, scale, shift, w1, t1, True)
         else:
             fn = lambda: cf.conv01_robust(x, *robust, t1, 1e-5, True)
-        row = {"label": label, "kernel": name, "shape": [b, samples], "ms": events_ms(torch, fn, 50)}
+        row = {"label": label, "kernel": name, "width": c, "shape": [b, samples],
+               "ms": events_ms(torch, fn, 50)}
         row["call_device_ms"], row["device_ms"], row["device_kernel"] = profiled_ms(torch, fn, 5)
         print(json.dumps(row), flush=True)
         del x

@@ -62,8 +62,8 @@
 //     row in, which breaks the 8-row alignment of a swizzled SS descriptor,
 //     and ldmatrix takes any row address.  Full/empty mbarriers per stage
 //     replace every block-wide barrier in the k loop.
-//   * Clusters of 4 CTAs on neighbouring row tiles: each CTA loads 1/4 of
-//     every slab and multicasts it to the cluster, so W1 crosses L2 once per
+//   * Clusters of 4 CTAs on neighbouring row tiles: each CTA loads its share
+//     of every slab (1/4 at 256 and 512) and multicasts it to the cluster, so W1 crosses L2 once per
 //     cluster-tile (base at B=16: ~9.7 -> ~2.4 GB).  Clusters of 1 and 2, and
 //     one cluster per cluster-tile in place of the persistent grid, were
 //     slower on the H100 (PERF.md §6).
@@ -85,6 +85,42 @@
 // Samples at or past L read as 0; rows at or past T1 are computed and not
 // stored.  Every output element is written by one CTA from sums in a fixed
 // k order, so a relaunch is bit-equal.
+//
+// Widths (`ConvCfg<C>`; an instance at every multiple of 128 from 128 to 1024,
+// the widths the JAX package sends to Pallas up to 1024):
+//   * Up to 512 the design above.  A rank loads its share of each slab's C/64
+//     atoms: C/256 each where 4 divides them (256, 512), else [r n / 4, (r +
+//     1) n / 4) (`AtomShare`), which sum to the slab: 0 or 1 at 128, 1 or 2
+//     at 384.  The 256 and 512 instances compile to the SASS they had before
+//     the other widths (instruction for instruction): `conv01_kernel` keeps
+//     its sample warp, its row-128 code and its copy loop written out as they
+//     were, since the wide kernel's helpers for them (`stage_samples`,
+//     `conv0_row128`, `finish_row128`, `AtomShare` at 4 | n) changed ptxas's
+//     schedule there.
+//   * Past 512 the resident conv0 tile (~258 C bytes) and the ring no longer
+//     fit 232,448 bytes, and all C columns would be C/4 accumulators a consumer
+//     thread.  `conv01_wide_kernel` splits the columns over two CTAs of the
+//     cluster (a cluster is 2 row tiles x 2 column halves; each half's slabs,
+//     16 rows x C/2, are multicast to its 2 CTAs), 5-8 atoms a CTA over the two
+//     warpgroups (3 + 2 at 640, 4 + 3 at 896: the consumer body is instantiated
+//     per atom count).  Both CTAs of a row tile make all of conv0, one block of
+//     256 channels (128 at 640 and 896) at a time: per block, conv0's atoms on
+//     the tensor cores into one 32-register accumulator (GroupNorm is a
+//     per-channel affine map, so blocks are independent), normalised, GELU,
+//     bf16 into a block-sized ye / yo, then conv1's 3 x block / 16 slabs of
+//     those channels.  Robust: conv0's LayerNorm needs a row's moments over all
+//     C first, so a first pass makes conv0 atom by atom and combines per-atom
+//     (mean, M2) in atom order (Chan), then the warpgroups' in a fixed order;
+//     conv1's LayerNorm combines the warpgroups' moments (by their atom counts)
+//     into the CTA's, writes them into the partner's shared memory
+//     (st.shared::cluster, then a .release.cluster arrival on its barrier), and
+//     both CTAs combine half 0 then half 1: the same bits in both.  The
+//     exchange buffer is double-buffered by tile parity; the partner writes tile
+//     n + 2's only after it has tile n + 1's from this CTA, which this CTA sends
+//     after its tile n reads.
+//   * Past 1024 a half would hold over 8 atoms (over 128 accumulators beside a
+//     conv0 atom's 32 in 232 registers): no instance; `supports` sends such
+//     widths to the plain layer loop.
 //
 // Traps, as met in this design:
 //   * After warp specialisation a __syncthreads() that the looping producer
@@ -268,7 +304,7 @@ groupnorm_stats_kernel(const StatsArgs a) {
 // -- conv01 (both families) ----------------------------------------------------
 
 constexpr int kTileRows = 64;                   // conv1 rows a tile
-constexpr int kConsumers = 2;                   // consumer warpgroups, C/2 columns each
+constexpr int kConsumers = 2;                   // consumer warpgroups
 constexpr int kConvThreads = 128 * (kConsumers + 1);
 constexpr int kStages = 4;                      // W1 slabs in flight
 constexpr int kSlabRows = 16;                   // input channels of a slab (W0: taps, 10 of 16 used)
@@ -280,12 +316,33 @@ constexpr int kExtraSample = 10 * kTileRows;    // conv0 row 128 (= ye[64]) star
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;              // 128 x 40 + 256 x 232 <= 65536
 constexpr int kConsumerBarrier = 1;             // named barrier of the 256 consumer threads
-constexpr int kCluster = 4;                     // CTAs sharing each W1 slab by multicast
+constexpr int kCluster = 4;                     // CTAs of a cluster
+constexpr int kMaxSmem = 232448;                // shared memory a block may have on the H100
+
+// Everything an instance of width C derives from C (the header's "Widths"):
+// up to 512 `conv01_kernel` (a CTA owns all C columns of its 64-row tile and
+// the whole conv0 tile, ~422 C bytes with the ring), from 640
+// `conv01_wide_kernel` (two CTAs split the columns, conv0 one block at a time).
+template <int C>
+struct ConvCfg {
+  static_assert(C % 128 == 0 && C >= 128 && C <= 1024, "conv01 instances: multiples of 128 to 1024");
+  static constexpr int kRowAtoms = C / kAtomCols;     // 64-column atoms of a row
+  static constexpr bool kWide = kRowAtoms > 8;
+  static constexpr int kSplit = kWide ? 2 : 1;        // CTAs sharing a row tile's output columns
+  static constexpr int kCols = C / kSplit;            // output columns of a CTA
+  static constexpr int kCtaAtoms = kCols / kAtomCols;
+  static constexpr int kAtoms0 = (kCtaAtoms + 1) / 2;  // atoms of consumer warpgroup 0
+  static constexpr int kAtoms1 = kCtaAtoms / 2;        // of warpgroup 1
+  static constexpr int kRowTiles = kCluster / kSplit;  // row tiles of a cluster: a slab's multicast
+  static constexpr int kBlock = !kWide ? C : C % 256 == 0 ? 256 : 128;  // conv0 channels resident at once
+  static constexpr int kSlabBytes = kSlabRows * kCols * 2;
+};
 
 template <int C>
 struct ConvSmem {
-  static constexpr int kLd = C + 8;  // padded conv0 rows: the 8 rows an ldmatrix reads hit distinct banks
-  static constexpr int kSlabBytes = kSlabRows * C * 2;
+  // padded conv0 rows (kBlock = C): the 8 rows an ldmatrix reads hit distinct banks
+  static constexpr int kLd = ConvCfg<C>::kBlock + 8;
+  static constexpr int kSlabBytes = ConvCfg<C>::kSlabBytes;
   // the W1 slabs: C / 64 swizzled atoms of 16 rows x 64 columns
   unsigned char ring[kStages][kSlabBytes];
   unsigned char w0[kSlabBytes];  // W0 padded to 16 taps, the same layout
@@ -298,6 +355,33 @@ struct ConvSmem {
   float2 red[3][kConsumers][kTileRows + 1];
   uint64_t full[kStages], empty[kStages], w0_full, xs_full[2], xs_empty[2];
 };
+
+template <int C>
+struct ConvWideSmem {
+  using Cfg = ConvCfg<C>;
+  static constexpr int kLd = Cfg::kBlock + 8;  // padded conv0 rows of a block (ldmatrix banks)
+  unsigned char ring[kStages][Cfg::kSlabBytes];  // W1 slabs: 16 rows x this CTA's C/2 columns
+  unsigned char w0[kSlabRows * C * 2];           // W0 padded to 16 taps, all C columns
+  __nv_bfloat16 ye[(kTileRows + 1) * kLd];       // a block's conv0 rows 2r, r = 0 .. 64
+  __nv_bfloat16 yo[kTileRows * kLd];             // its rows 2r + 1
+  float xrow[C];                                 // conv0 row 128 before its norm (+ bias), f32
+  uint16_t xs[2][kSamplesPad];
+  // per-row (mean, M2) of each warpgroup: conv0's even rows over its C/2
+  // channels (row 128 at [64]), its odd rows, conv1 over its atoms
+  float2 red[3][kConsumers][kTileRows + 1];
+  // conv1's per-row (mean, M2) of each column half, by tile parity: the
+  // partner writes its half here (distributed shared memory)
+  float2 xch[2][2][kTileRows];
+  uint64_t full[kStages], empty[kStages], w0_full, xs_full[2], xs_empty[2], xch_full[2];
+};
+
+template <int C>
+constexpr int conv_smem_bytes() {
+  if constexpr (ConvCfg<C>::kWide)
+    return w2v2::smem_bytes<ConvWideSmem<C>>();
+  else
+    return w2v2::smem_bytes<ConvSmem<C>>();
+}
 
 struct ConvArgs {
   const __nv_bfloat16* x;  // (B, L)
@@ -330,55 +414,89 @@ __device__ __forceinline__ Tile tile_of(const ConvArgs& a, int t) {
   return Tile{valid ? t / a.tiles_per_row : 0, valid ? (t % a.tiles_per_row) * kTileRows : 0, valid};
 }
 
-// consumer warp's release of a ring slot: one arrival on the slot's empty
-// barrier in every CTA of the cluster (each was written by the multicast)
-__device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) {
-#pragma unroll
-    for (int q = 0; q < kCluster; ++q) w2v2::mbar_arrive_cluster(empty, q);
+// the wide kernel's sample warp (conv01_kernel writes its own out: the
+// header's "Widths"): the n-th tile's samples into buffer n % 2, once the
+// consumers are done with tile n - 2's
+template <int kRowTiles, typename SmemT>
+__device__ __forceinline__ void stage_samples(SmemT& sm, const ConvArgs& args, int cluster,
+                                              int clusters, int steps, uint32_t slot, int lane) {
+  for (int step = cluster, n = 0; step < steps; step += clusters, ++n) {
+    if (n >= 2) w2v2::mbar_wait(&sm.xs_empty[n & 1], ((n >> 1) + 1) & 1);
+    const Tile t = tile_of(args, step * kRowTiles + slot);
+    const uint16_t* xb = reinterpret_cast<const uint16_t*>(args.x) + (size_t)t.b * args.L;
+    const long long s0 = 10LL * t.r0;
+    for (int i = lane; i < kSamplesPad; i += 32)
+      sm.xs[n & 1][i] = (t.valid && i < kTileSamples && s0 + i < args.L) ? xb[s0 + i] : uint16_t(0);
+    w2v2::mbar_arrive(&sm.xs_full[n & 1]);
   }
 }
 
-// this warpgroup's C/2 columns of a 64-row product with B a 16-row slab in
-// shared memory (C/64 atoms; the warpgroup's are wg * C/128 ..): acc += A B
-template <int C>
-__device__ __forceinline__ void issue_slab(float (&acc)[C / 128][32], const uint32_t a[4],
-                                           const unsigned char* slab, int wg) {
-  constexpr int kAtoms = C / 128;
+// The atoms [lo, end) of a slab's n that rank r of the k CTAs sharing it
+// loads: n / k each where k divides n, else [r n / k, (r + 1) n / k), which
+// sum to n.
+template <int n, int k>
+struct AtomShare {
+  int lo, end;
+  __device__ __forceinline__ explicit AtomShare(uint32_t r) {
+    if constexpr (n % k == 0) {
+      lo = int(r) * (n / k);
+      end = int(r + 1) * (n / k);
+    } else {
+      lo = int(r) * n / k;
+      end = int(r + 1) * n / k;
+    }
+  }
+};
+
+// consumer warp's release of a ring slot: one arrival on the slot's empty
+// barrier in every CTA the slab was multicast to (ranks first, first +
+// stride, ...)
+template <int kPeers, int kStride>
+__device__ __forceinline__ void release_slot(uint64_t* empty, int lane, uint32_t first) {
+  __syncwarp();
+  if (lane == 0) {
 #pragma unroll
-  for (int at = 0; at < kAtoms; ++at) w2v2::fence_operands(acc[at]);
+    for (int q = 0; q < kPeers; ++q) w2v2::mbar_arrive_cluster(empty, first + q * kStride);
+  }
+}
+
+// acc += A B over the kA 64-column atoms first, first + 1, ... of a 16-row
+// slab in shared memory, one m64n64k16 each
+template <int kA>
+__device__ __forceinline__ void issue_atoms(float (&acc)[kA][32], const uint32_t a[4],
+                                            const unsigned char* slab, int first) {
+#pragma unroll
+  for (int at = 0; at < kA; ++at) w2v2::fence_operands(acc[at]);
   w2v2::wgmma_fence();
 #pragma unroll
-  for (int at = 0; at < kAtoms; ++at)
-    w2v2::wgmma_rs_mn(acc[at], a, w2v2::wgmma_desc(slab + (wg * kAtoms + at) * kAtomBytes));
+  for (int at = 0; at < kA; ++at)
+    w2v2::wgmma_rs_mn(acc[at], a, w2v2::wgmma_desc(slab + (first + at) * kAtomBytes));
   w2v2::wgmma_commit();
 }
 
-template <int C>
-__device__ __forceinline__ void zero(float (&acc)[C / 128][32]) {
+template <int kA>
+__device__ __forceinline__ void zero(float (&acc)[kA][32]) {
 #pragma unroll
-  for (int at = 0; at < C / 128; ++at)
+  for (int at = 0; at < kA; ++at)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[at][i] = 0.f;
 }
 
-// Column of accumulator element (at, j, e) of this thread in the warpgroup's
-// half: acc[at][4j + e] is row 16w + g + 8 (e / 2), column wg C/2 + 64 at + 8 j
-// + 2 tq + e % 2 (the m64nN accumulator layout of common.cuh's pack_a note).
-template <int C>
-__device__ __forceinline__ int col_of(int wg, int at, int j, int tq) {
-  return wg * (C / 2) + at * kAtomCols + 8 * j + 2 * tq;
+// Column of accumulator element (at, j, e) of this thread, whose warpgroup's
+// first column is col0: acc[at][4j + e] is row 16w + g + 8 (e / 2), column
+// col0 + 64 at + 8 j + 2 tq + e % 2 (the m64nN accumulator layout of
+// common.cuh's pack_a note).
+__device__ __forceinline__ int col_of(int col0, int at, int j, int tq) {
+  return col0 + at * kAtomCols + 8 * j + 2 * tq;
 }
 
-// per-row (mean, M2) of v over this warpgroup's C/2 columns, for this
-// thread's rows ra and ra + 8, into red_wg[row] (lane tq == 0 of each quad)
-template <int C>
-__device__ __forceinline__ void row_moments(const float (&v)[C / 128][32], float2* red_wg, int ra,
-                                            int tq) {
+// per-row (mean, M2) of v over this warpgroup's kA atoms, for this thread's
+// rows ra and ra + 8, into red_wg[row] (lane tq == 0 of each quad)
+template <int kA>
+__device__ __forceinline__ void row_moments(const float (&v)[kA][32], float2* red_wg, int ra, int tq) {
   float s[2] = {0.f, 0.f};
 #pragma unroll
-  for (int at = 0; at < C / 128; ++at)
+  for (int at = 0; at < kA; ++at)
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[(i >> 1) & 1] += v[at][i];
   float mean[2], m2[2] = {0.f, 0.f};
@@ -386,10 +504,10 @@ __device__ __forceinline__ void row_moments(const float (&v)[C / 128][32], float
   for (int h = 0; h < 2; ++h) {
     s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
     s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
-    mean[h] = s[h] * (2.f / C);
+    mean[h] = s[h] * (1.f / (kA * kAtomCols));
   }
 #pragma unroll
-  for (int at = 0; at < C / 128; ++at)
+  for (int at = 0; at < kA; ++at)
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const float d = v[at][i] - mean[(i >> 1) & 1];
@@ -414,14 +532,20 @@ __device__ __forceinline__ float2 row_norm(const float2 (&red)[kConsumers][kTile
   return make_float2(0.5f * (a.x + c.x), rsqrtf(m2 * (1.f / C) + eps));
 }
 
+// Chan's pairwise (mean, M2) of two parts of na and nb values, a first
+__device__ __forceinline__ float2 chan(float2 a, float na, float2 b, float nb) {
+  const float n = na + nb, d = b.x - a.x;
+  return make_float2(a.x + d * (nb / n), a.y + b.y + d * d * (na * nb / n));
+}
+
 // bias of the robust family's conv (row 0 of p), added in place
-template <int C>
-__device__ __forceinline__ void add_bias(float (&v)[C / 128][32], const float* p, int wg, int tq) {
+template <int kA>
+__device__ __forceinline__ void add_bias(float (&v)[kA][32], const float* p, int col0, int tq) {
 #pragma unroll
-  for (int at = 0; at < C / 128; ++at)
+  for (int at = 0; at < kA; ++at)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float2 bias = *reinterpret_cast<const float2*>(p + col_of<C>(wg, at, j, tq));
+      const float2 bias = *reinterpret_cast<const float2*>(p + col_of(col0, at, j, tq));
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[at][4 * j + e] += (e & 1) ? bias.y : bias.x;
     }
@@ -429,17 +553,16 @@ __device__ __forceinline__ void add_bias(float (&v)[C / 128][32], const float* p
 
 // GELU(norm(v)) of the thread's two rows as bf16 pairs, handed to
 // store(h, col, bits) (h: row ra or ra + 8).  kLayer: v is already biased,
-// norm = (v - mean) rstd gamma + beta with gamma, beta rows 1, 2 of p;
+// norm = (v - mean) rstd gamma + beta with gamma, beta rows 1, 2 of p (3, C);
 // else v scale + shift, scale and shift from (p, q) at this batch row.
-template <int C, bool kLayer, typename Store>
-__device__ __forceinline__ void activate(const float (&v)[C / 128][32], const float* p,
-                                         const float* q, const float2 (&stat)[2], int wg, int tq,
-                                         Store store) {
+template <int C, bool kLayer, int kA, typename Store>
+__device__ __forceinline__ void activate(const float (&v)[kA][32], const float* p, const float* q,
+                                         const float2 (&stat)[2], int col0, int tq, Store store) {
 #pragma unroll
-  for (int at = 0; at < C / 128; ++at)
+  for (int at = 0; at < kA; ++at)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int col = col_of<C>(wg, at, j, tq);
+      const int col = col_of(col0, at, j, tq);
       float2 mul, add;
       if constexpr (kLayer) {
         mul = *reinterpret_cast<const float2*>(p + C + col);
@@ -461,15 +584,83 @@ __device__ __forceinline__ void activate(const float (&v)[C / 128][32], const fl
     }
 }
 
+// the A fragment of conv0's even (par 0) or odd (par 1) rows of a tile: the
+// thread's rows ra, ra + 8 of the 64 x 16 window block (taps 10-15 zero),
+// packed from the staged samples
+__device__ __forceinline__ void window_fragment(uint32_t (&a)[4], const uint16_t* xs, int ra, int tq,
+                                                int par) {
+  const int off = 5 * par;
+  a[0] = pack_samples(xs, 10 * ra + off + 2 * tq);
+  a[1] = pack_samples(xs, 10 * (ra + 8) + off + 2 * tq);
+  a[2] = tq == 0 ? pack_samples(xs, 10 * ra + off + 8) : 0u;  // taps 8, 9; 10-15 are 0
+  a[3] = tq == 0 ? pack_samples(xs, 10 * (ra + 8) + off + 8) : 0u;
+}
+
+// the wide kernel's conv0 row 128 of a tile (ye[64]; conv01_kernel writes
+// its own out) on the CUDA cores, by warp 0 of each warpgroup (a lane: C/64
+// adjacent channels of the warpgroup's half), parked in f32 (+ bias) in xrow;
+// kLayer: its (mean, M2) over the half into red_x
+template <int C, bool kLayer>
+__device__ __forceinline__ void conv0_row128(float* xrow, float2* red_x, const uint16_t* xs,
+                                             const __nv_bfloat16* w0, const float* p, int col_x,
+                                             int lane) {
+  constexpr int kPer = C / 64;
+  float xw[10], s = 0.f;
+#pragma unroll
+  for (int k = 0; k < 10; ++k) xw[k] = bf16_bits_to_float(xs[kExtraSample + k]);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    float y = kLayer ? p[col_x + i] : 0.f;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) y += xw[k] * __bfloat162float(w0[k * C + col_x + i]);
+    xrow[col_x + i] = y;
+    s += y;
+  }
+  if constexpr (kLayer) {
+    const float mean = w2v2::warp_sum(s) * (2.f / C);
+    float m2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const float d = xrow[col_x + i] - mean;
+      m2 += d * d;
+    }
+    m2 = w2v2::warp_sum(m2);
+    if (lane == 0) *red_x = make_float2(mean, m2);
+  }
+}
+
+// GELU(norm(xrow)) of channels col .. col + n - 1 (n even) as bf16 into
+// dst[0 .. n - 1]
+template <int C, bool kLayer, int n>
+__device__ __forceinline__ void finish_row128(__nv_bfloat16* dst, const float* xrow, const float* p,
+                                              const float* q, float2 stat_x, int col) {
+#pragma unroll
+  for (int i = 0; i < n; i += 2) {
+    const int c = col + i;
+    float y0 = xrow[c], y1 = xrow[c + 1];
+    if constexpr (kLayer) {
+      y0 = (y0 - stat_x.x) * stat_x.y * p[C + c] + p[2 * C + c];
+      y1 = (y1 - stat_x.x) * stat_x.y * p[C + c + 1] + p[2 * C + c + 1];
+    } else {
+      y0 = y0 * p[c] + q[c];
+      y1 = y1 * p[c + 1] + q[c + 1];
+    }
+    *reinterpret_cast<uint32_t*>(dst + i) =
+        w2v2::pack_bf16x2(w2v2::gelu_tanh(y0), w2v2::gelu_tanh(y1));
+  }
+}
+
 template <int C, bool kLayer>
 __global__ void __launch_bounds__(kConvThreads, 1)
 conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant__ CUtensorMap w0_map,
               const ConvArgs args) {
+  using Cfg = ConvCfg<C>;
   using S = ConvSmem<C>;
+  static_assert(!Cfg::kWide && Cfg::kAtoms0 == Cfg::kAtoms1, "conv01_kernel: up to 512 columns");
   constexpr int kLd = S::kLd;
-  constexpr int kAtoms = C / 128;              // 64-column atoms a warpgroup
+  constexpr int kAtoms = Cfg::kAtoms0;         // 64-column atoms a warpgroup: C / 128
   constexpr int kSlabs = 3 * C / kSlabRows;    // W1 slabs (k16 steps) a tile
-  constexpr int kAtomsPerCta = C / kAtomCols / kCluster;
+  constexpr int kRowAtoms = Cfg::kRowAtoms;
   S& sm = w2v2::block_smem<S>();
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
   const uint32_t rank = w2v2::cluster_rank();
@@ -495,8 +686,6 @@ conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
     w2v2::setmaxnreg_dec<kProducerRegs>();
     const int pw = (tid % 128) / 32;
     if (pw == 1) {
-      // the sample warp: the n-th tile's samples into buffer n % 2, once the
-      // consumers are done with tile n - 2's
       for (int step = cluster, n = 0; step < steps; step += clusters, ++n) {
         if (n >= 2) w2v2::mbar_wait(&sm.xs_empty[n & 1], ((n >> 1) + 1) & 1);
         const Tile t = tile_of(args, step * kCluster + rank);
@@ -513,7 +702,7 @@ conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
     // share of their atoms, multicast to the cluster
     // slot st of the ring, in its round `round` (the slot's first use is round 0)
     w2v2::mbar_arrive_expect_tx(&sm.w0_full, S::kSlabBytes);
-    for (int at = 0; at < C / kAtomCols; ++at)
+    for (int at = 0; at < kRowAtoms; ++at)
       w2v2::tma_load_2d(sm.w0 + at * kAtomBytes, &w0_map, &sm.w0_full, at * kAtomCols, 0);
     int st = 0;
     uint32_t round = 0;
@@ -522,9 +711,17 @@ conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
         const int row = e * kSlabRows;
         if (round > 0) w2v2::mbar_wait(&sm.empty[st], (round - 1) & 1);
         w2v2::mbar_arrive_expect_tx(&sm.full[st], S::kSlabBytes);
-        for (int at = int(rank) * kAtomsPerCta; at < int(rank + 1) * kAtomsPerCta; ++at)
-          w2v2::tma_load_2d_multicast(sm.ring[st] + at * kAtomBytes, &w1_map, &sm.full[st],
-                                      at * kAtomCols, row, (1u << kCluster) - 1);
+        if constexpr (Cfg::kCtaAtoms % kCluster == 0) {
+          constexpr int kAtomsPerCta = Cfg::kCtaAtoms / kCluster;
+          for (int at = int(rank) * kAtomsPerCta; at < int(rank + 1) * kAtomsPerCta; ++at)
+            w2v2::tma_load_2d_multicast(sm.ring[st] + at * kAtomBytes, &w1_map, &sm.full[st],
+                                        at * kAtomCols, row, (1u << kCluster) - 1);
+        } else {
+          const AtomShare<Cfg::kCtaAtoms, kCluster> share{rank};
+          for (int at = share.lo; at < share.end; ++at)
+            w2v2::tma_load_2d_multicast(sm.ring[st] + at * kAtomBytes, &w1_map, &sm.full[st],
+                                        at * kAtomCols, row, (1u << kCluster) - 1);
+        }
         if (++st == kStages) st = 0, ++round;
       }
     }
@@ -587,32 +784,27 @@ conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
     }
 
     // -- conv0, even rows (ye[0..63]), then odd rows (yo), each a 64 x 16
-    //    window block times W0 (the tile's first ring entry), A packed from
-    //    the samples
+    //    window block times W0, A packed from the samples
     const unsigned char* w0s = sm.w0;
 #pragma unroll 1
     for (int par = 0; par < 2; ++par) {
-      const int off = 5 * par;
       uint32_t a[4];
-      a[0] = pack_samples(xs, 10 * ra + off + 2 * tq);
-      a[1] = pack_samples(xs, 10 * (ra + 8) + off + 2 * tq);
-      a[2] = tq == 0 ? pack_samples(xs, 10 * ra + off + 8) : 0u;  // taps 8, 9; 10-15 are 0
-      a[3] = tq == 0 ? pack_samples(xs, 10 * (ra + 8) + off + 8) : 0u;
-      zero<C>(acc);
-      issue_slab<C>(acc, a, w0s, wg);
+      window_fragment(a, xs, ra, tq, par);
+      zero<kAtoms>(acc);
+      issue_atoms<kAtoms>(acc, a, w0s, wg * kAtoms);
       w2v2::wgmma_wait<0>();
 #pragma unroll
       for (int at = 0; at < kAtoms; ++at) w2v2::fence_operands(acc[at]);
       __nv_bfloat16* dst = par ? sm.yo : sm.ye;
       float2 stat[2] = {};
       if constexpr (kLayer) {
-        add_bias<C>(acc, p, wg, tq);
-        row_moments<C>(acc, sm.red[par][wg], ra, tq);
+        add_bias<kAtoms>(acc, p, wg * (C / 2), tq);
+        row_moments<kAtoms>(acc, sm.red[par][wg], ra, tq);
         w2v2::named_barrier_sync(kConsumerBarrier, 256);
         stat[0] = row_norm<C>(sm.red[par], ra, args.eps);
         stat[1] = row_norm<C>(sm.red[par], ra + 8, args.eps);
       }
-      activate<C, kLayer>(acc, p, q, stat, wg, tq, [&](int h, int col, uint32_t bits) {
+      activate<C, kLayer, kAtoms>(acc, p, q, stat, wg * (C / 2), tq, [&](int h, int col, uint32_t bits) {
         *reinterpret_cast<uint32_t*>(dst + (ra + 8 * h) * kLd + col) = bits;
       });
     }
@@ -640,7 +832,7 @@ conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
 
     // -- conv1: slab s is tap s / (C/16), input channels 16 (s % (C/16)) ..;
     //    A (this warp's 16 rows x 16 channels) by ldmatrix from ye / yo
-    zero<C>(acc);
+    zero<kAtoms>(acc);
     uint32_t a[2][4];
     const int lrow = 16 * w + (lane & 15), lcol = (lane >> 4) * 8;
     int prev = 0;  // the slot of the slab before
@@ -653,11 +845,11 @@ conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
         const __nv_bfloat16* src = (j == 1 ? sm.yo : sm.ye) + (j == 2 ? kLd : 0);
         w2v2::ldmatrix_x4(a[u], src + lrow * kLd + c0 + lcol);
         w2v2::mbar_wait(&sm.full[st], ph);
-        issue_slab<C>(acc, a[u], sm.ring[st], wg);
+        issue_atoms<kAtoms>(acc, a[u], sm.ring[st], wg * kAtoms);
         w2v2::wgmma_wait<1>();  // slab ss - 1 is read: its slot goes back
 #pragma unroll
         for (int at = 0; at < kAtoms; ++at) w2v2::fence_operands(acc[at]);
-        if (ss > 0) release_slot(&sm.empty[prev], lane);
+        if (ss > 0) release_slot<kCluster, 1>(&sm.empty[prev], lane, 0);
         prev = st;
         if (++st == kStages) st = 0, ph ^= 1;
       }
@@ -665,13 +857,13 @@ conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
     w2v2::wgmma_wait<0>();
 #pragma unroll
     for (int at = 0; at < kAtoms; ++at) w2v2::fence_operands(acc[at]);
-    release_slot(&sm.empty[prev], lane);
+    release_slot<kCluster, 1>(&sm.empty[prev], lane, 0);
 
     // -- epilogue: [+ b1 -> LayerNorm] -> GELU -> bf16 rows < T1
     float2 stat[2] = {};
     if constexpr (kLayer) {
-      add_bias<C>(acc, args.p1, wg, tq);
-      row_moments<C>(acc, sm.red[2][wg], ra, tq);
+      add_bias<kAtoms>(acc, args.p1, wg * (C / 2), tq);
+      row_moments<kAtoms>(acc, sm.red[2][wg], ra, tq);
       w2v2::named_barrier_sync(kConsumerBarrier, 256);
       stat[0] = row_norm<C>(sm.red[2], ra, args.eps);
       stat[1] = row_norm<C>(sm.red[2], ra + 8, args.eps);
@@ -679,7 +871,8 @@ conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
     __nv_bfloat16* orow = args.out + ((size_t)t.b * args.T1 + t.r0 + ra) * C;
     const bool ok[2] = {t.valid && t.r0 + ra < args.T1, t.valid && t.r0 + ra + 8 < args.T1};
     if constexpr (kLayer) {
-      activate<C, true>(acc, args.p1, nullptr, stat, wg, tq, [&](int h, int col, uint32_t bits) {
+      activate<C, true, kAtoms>(acc, args.p1, nullptr, stat, wg * (C / 2), tq,
+                                [&](int h, int col, uint32_t bits) {
         if (ok[h]) *reinterpret_cast<uint32_t*>(orow + (size_t)8 * h * C + col) = bits;
       });
     } else {
@@ -688,7 +881,7 @@ conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
       for (int at = 0; at < kAtoms; ++at)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int col = col_of<C>(wg, at, j, tq);
+          const int col = col_of(wg * (C / 2), at, j, tq);
 #pragma unroll
           for (int h = 0; h < 2; ++h)
             if (ok[h])
@@ -696,6 +889,321 @@ conv01_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
                   w2v2::gelu_tanh(acc[at][4 * j + 2 * h]), w2v2::gelu_tanh(acc[at][4 * j + 2 * h + 1]));
         }
     }
+  }
+}
+
+// -- the wide instances (640 to 1024) ---------------------------------------------
+
+// v at the offset of p in block `cta` of the cluster (distributed shared memory)
+__device__ __forceinline__ void st_shared_cluster(float2* p, uint32_t cta, float2 v) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "st.shared::cluster.v2.f32 [remote], {%2, %3};\n}\n"
+      :: "r"(w2v2::smem_addr(p)), "r"(cta), "f"(v.x), "f"(v.y) : "memory");
+}
+
+// one arrival on the barrier at the offset of `bar` in block `cta`, after
+// this thread's earlier writes reach the cluster (release)
+__device__ __forceinline__ void mbar_arrive_release_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(w2v2::smem_addr(bar)), "r"(cta) : "memory");
+}
+
+// mbar_wait that also sees the writes the cluster released before its
+// arrivals (acquire at cluster scope)
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = w2v2::smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// A consumer warpgroup of the wide kernel: kA atoms of this CTA's C/2
+// columns, from atom `aoff` on.  Per tile: conv0 row 128 (and, robust, the
+// per-row LayerNorm moments of all of conv0, atom by atom: pass 1); then per
+// block of kBlock conv0 channels, that block of conv0 on the tensor cores
+// (normalised, GELU, bf16 into ye / yo) and conv1's 3 kBlock / 16 slabs of
+// it into the accumulators; then the epilogue.
+template <int C, bool kLayer, int kA>
+__device__ __forceinline__ void wide_consumer(ConvWideSmem<C>& sm, const ConvArgs& args, int aoff,
+                                              uint32_t rank, int cluster, int clusters, int steps) {
+  using Cfg = ConvCfg<C>;
+  using S = ConvWideSmem<C>;
+  constexpr int kLd = S::kLd, kBlock = Cfg::kBlock;
+  constexpr int kBlockSlabs = 3 * kBlock / kSlabRows;
+  constexpr int kHalfAtoms = C / 128;  // conv0 atoms of a warpgroup in pass 1
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
+  const int w = (tid % 128) / 32, g = lane >> 2, tq = lane & 3;
+  const int ra = 16 * w + g;  // this thread's rows of a 64-row block: ra, ra + 8
+  const uint32_t half = rank & 1, slot = rank >> 1;
+  const int col1 = int(half) * Cfg::kCols + aoff * kAtomCols;  // this warpgroup's first output column
+  const int col_x = wg * (C / 2) + lane * (C / 64);            // row 128: this lane's channels
+  float acc[kA][32];
+  float t0[1][32];  // one conv0 atom
+  int st = 0;
+  uint32_t ph = 0;
+  w2v2::mbar_wait(&sm.w0_full, 0);
+  for (int step = cluster, n = 0; step < steps; step += clusters, ++n) {
+    const Tile t = tile_of(args, step * Cfg::kRowTiles + slot);
+    const uint16_t* xs = sm.xs[n & 1];
+    const float* p = args.p0 + (kLayer ? 0 : (size_t)t.b * C);  // conv0's norm
+    const float* q = args.p1 + (kLayer ? 0 : (size_t)t.b * C);
+    w2v2::mbar_wait(&sm.xs_full[n & 1], (n >> 1) & 1);
+    // the last tile's reads of ye / yo / xrow / red are done
+    w2v2::named_barrier_sync(kConsumerBarrier, 256);
+    if (w == 0) conv0_row128<C, kLayer>(sm.xrow, &sm.red[0][wg][kTileRows], xs, args.w0, p, col_x, lane);
+
+    // -- robust pass 1: conv0's per-row (mean, M2) over this warpgroup's C/2
+    //    channels, atom by atom (Chan's combination in atom order), then
+    //    over both warpgroups in a fixed order
+    float2 stat0[2][2] = {};  // (mean, rstd) of conv0 rows ra, ra + 8, by parity
+    float2 stat_x = {};
+    if constexpr (kLayer) {
+#pragma unroll 1
+      for (int par = 0; par < 2; ++par) {
+        uint32_t a[4];
+        window_fragment(a, xs, ra, tq, par);
+        float2 run[2] = {};
+#pragma unroll 1
+        for (int u = 0; u < kHalfAtoms; ++u) {
+          const int at = wg * kHalfAtoms + u;
+          zero<1>(t0);
+          issue_atoms<1>(t0, a, sm.w0, at);
+          w2v2::wgmma_wait<0>();
+          w2v2::fence_operands(t0[0]);
+          add_bias<1>(t0, p, at * kAtomCols, tq);
+          float2 part[2];
+          float s[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll
+          for (int i = 0; i < 32; ++i) s[(i >> 1) & 1] += t0[0][i];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+            s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+            s[h] *= 1.f / kAtomCols;
+          }
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const float d = t0[0][i] - s[(i >> 1) & 1];
+            m2[(i >> 1) & 1] += d * d;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 1);
+            m2[h] += __shfl_xor_sync(0xffffffffu, m2[h], 2);
+            part[h] = make_float2(s[h], m2[h]);
+            run[h] = u ? chan(run[h], float(u * kAtomCols), part[h], float(kAtomCols)) : part[h];
+          }
+        }
+        if (tq == 0) {
+          sm.red[par][wg][ra] = run[0];
+          sm.red[par][wg][ra + 8] = run[1];
+        }
+      }
+      w2v2::named_barrier_sync(kConsumerBarrier, 256);
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        stat0[par][0] = row_norm<C>(sm.red[par], ra, args.eps);
+        stat0[par][1] = row_norm<C>(sm.red[par], ra + 8, args.eps);
+      }
+      stat_x = row_norm<C>(sm.red[0], kTileRows, args.eps);
+    }
+
+    // -- per block: conv0 channels kb kBlock .. + kBlock, then conv1 over them
+    zero<kA>(acc);
+    const int lrow = 16 * w + (lane & 15), lcol = (lane >> 4) * 8;
+#pragma unroll 1
+    for (int kb = 0; kb < C / kBlock; ++kb) {
+      // the last block's ldmatrix reads of ye / yo are done (and xrow whole)
+      w2v2::named_barrier_sync(kConsumerBarrier, 256);
+#pragma unroll 1
+      for (int par = 0; par < 2; ++par) {
+        uint32_t a[4];
+        window_fragment(a, xs, ra, tq, par);
+        __nv_bfloat16* dst = par ? sm.yo : sm.ye;
+        const float2 stat[2] = {par ? stat0[1][0] : stat0[0][0], par ? stat0[1][1] : stat0[0][1]};
+#pragma unroll 1
+        for (int u = 0; u < kBlock / 128; ++u) {
+          const int at = kb * (kBlock / kAtomCols) + wg * (kBlock / 128) + u;
+          zero<1>(t0);
+          issue_atoms<1>(t0, a, sm.w0, at);
+          w2v2::wgmma_wait<0>();
+          w2v2::fence_operands(t0[0]);
+          if constexpr (kLayer) add_bias<1>(t0, p, at * kAtomCols, tq);
+          activate<C, kLayer, 1>(t0, p, q, stat, at * kAtomCols, tq,
+                                 [&](int h, int col, uint32_t bits) {
+                                   *reinterpret_cast<uint32_t*>(dst + (ra + 8 * h) * kLd + col -
+                                                                kb * kBlock) = bits;
+                                 });
+        }
+      }
+      if (w == 0) {
+        const int c = kb * kBlock + wg * (kBlock / 2) + lane * (kBlock / 64);
+        finish_row128<C, kLayer, kBlock / 64>(sm.ye + kTileRows * kLd + c - kb * kBlock, sm.xrow, p,
+                                              q, stat_x, c);
+      }
+      // the block's conv0 rows are whole
+      w2v2::named_barrier_sync(kConsumerBarrier, 256);
+      // after the last block's conv0 the samples go back to the sample warp
+      if (kb == C / kBlock - 1 && tid == 0) w2v2::mbar_arrive(&sm.xs_empty[n & 1]);
+
+      uint32_t a[2][4];
+      int prev = 0;
+#pragma unroll 1
+      for (int s = 0; s < kBlockSlabs; s += 2) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int ss = s + u;
+          const int j = ss / (kBlock / kSlabRows), c0 = (ss % (kBlock / kSlabRows)) * kSlabRows;
+          const __nv_bfloat16* src = (j == 1 ? sm.yo : sm.ye) + (j == 2 ? kLd : 0);
+          w2v2::ldmatrix_x4(a[u], src + lrow * kLd + c0 + lcol);
+          w2v2::mbar_wait(&sm.full[st], ph);
+          issue_atoms<kA>(acc, a[u], sm.ring[st], aoff);
+          w2v2::wgmma_wait<1>();  // slab ss - 1 is read: its slot goes back
+#pragma unroll
+          for (int at = 0; at < kA; ++at) w2v2::fence_operands(acc[at]);
+          if (ss > 0) release_slot<Cfg::kRowTiles, 2>(&sm.empty[prev], lane, half);
+          prev = st;
+          if (++st == kStages) st = 0, ph ^= 1;
+        }
+      }
+      w2v2::wgmma_wait<0>();
+#pragma unroll
+      for (int at = 0; at < kA; ++at) w2v2::fence_operands(acc[at]);
+      release_slot<Cfg::kRowTiles, 2>(&sm.empty[prev], lane, half);
+    }
+
+    // -- epilogue: [+ b1 -> LayerNorm over both halves] -> GELU -> bf16 rows < T1
+    float2 stat[2] = {};
+    if constexpr (kLayer) {
+      add_bias<kA>(acc, args.p1, col1, tq);
+      row_moments<kA>(acc, sm.red[2][wg], ra, tq);
+      w2v2::named_barrier_sync(kConsumerBarrier, 256);
+      float2* xch = sm.xch[n & 1][half];
+      if (tid < kTileRows) {
+        // this CTA's columns: warpgroup 0's atoms, then warpgroup 1's; to this
+        // CTA's slot of its half and to the partner's
+        const float2 m = chan(sm.red[2][0][tid], float(Cfg::kAtoms0 * kAtomCols), sm.red[2][1][tid],
+                              float(Cfg::kAtoms1 * kAtomCols));
+        xch[tid] = m;
+        st_shared_cluster(&xch[tid], rank ^ 1, m);
+        mbar_arrive_release_cluster(&sm.xch_full[n & 1], rank ^ 1);
+      }
+      w2v2::named_barrier_sync(kConsumerBarrier, 256);
+      mbar_wait_cluster(&sm.xch_full[n & 1], (n >> 1) & 1);
+      // the halves in column order: both CTAs get the same bits
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = ra + 8 * h;
+        const float2 m = chan(sm.xch[n & 1][0][row], float(Cfg::kCols), sm.xch[n & 1][1][row],
+                              float(Cfg::kCols));
+        stat[h] = make_float2(m.x, rsqrtf(m.y * (1.f / C) + args.eps));
+      }
+    }
+    __nv_bfloat16* orow = args.out + ((size_t)t.b * args.T1 + t.r0 + ra) * C;
+    const bool ok[2] = {t.valid && t.r0 + ra < args.T1, t.valid && t.r0 + ra + 8 < args.T1};
+    if constexpr (kLayer) {
+      activate<C, true, kA>(acc, args.p1, nullptr, stat, col1, tq, [&](int h, int col, uint32_t bits) {
+        if (ok[h]) *reinterpret_cast<uint32_t*>(orow + (size_t)8 * h * C + col) = bits;
+      });
+    } else {
+#pragma unroll
+      for (int at = 0; at < kA; ++at)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = col_of(col1, at, j, tq);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (ok[h])
+              *reinterpret_cast<uint32_t*>(orow + (size_t)8 * h * C + col) = w2v2::pack_bf16x2(
+                  w2v2::gelu_tanh(acc[at][4 * j + 2 * h]), w2v2::gelu_tanh(acc[at][4 * j + 2 * h + 1]));
+        }
+    }
+  }
+}
+
+template <int C, bool kLayer>
+__global__ void __launch_bounds__(kConvThreads, 1)
+conv01_wide_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant__ CUtensorMap w0_map,
+                   const ConvArgs args) {
+  using Cfg = ConvCfg<C>;
+  using S = ConvWideSmem<C>;
+  constexpr int kBlock = Cfg::kBlock;
+  S& sm = w2v2::block_smem<S>();
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
+  const uint32_t rank = w2v2::cluster_rank();
+  const uint32_t half = rank & 1, slot = rank >> 1;  // column half, row tile of the cluster-tile
+  const int clusters = gridDim.x / kCluster, cluster = blockIdx.x / kCluster;
+  const int steps = (args.tiles + Cfg::kRowTiles - 1) / Cfg::kRowTiles;  // cluster-tiles
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      w2v2::mbar_init(&sm.full[s], 1);
+      w2v2::mbar_init(&sm.empty[s], Cfg::kRowTiles * kConsumers * 4);
+    }
+    w2v2::mbar_init(&sm.w0_full, 1);
+    for (int k = 0; k < 2; ++k) {
+      w2v2::mbar_init(&sm.xs_full[k], 32);
+      w2v2::mbar_init(&sm.xs_empty[k], 1);
+      w2v2::mbar_init(&sm.xch_full[k], kTileRows);  // the partner's 64 rows
+    }
+    w2v2::mbar_init_fence();
+  }
+  w2v2::cluster_sync();
+
+  if (wg == kConsumers) {
+    w2v2::setmaxnreg_dec<kProducerRegs>();
+    const int pw = (tid % 128) / 32;
+    if (pw == 1) {
+      stage_samples<Cfg::kRowTiles>(sm, args, cluster, clusters, steps, slot, lane);
+      return;
+    }
+    if (tid % 128 != 0) return;
+    // the copy thread: W0 once (all C columns), then per tile each W1 slab
+    // of this half's columns in the consumers' order (block, tap, 16
+    // channels), this CTA's share of its atoms, multicast to the half's CTAs
+    w2v2::mbar_arrive_expect_tx(&sm.w0_full, kSlabRows * C * 2);
+    for (int at = 0; at < Cfg::kRowAtoms; ++at)
+      w2v2::tma_load_2d(sm.w0 + at * kAtomBytes, &w0_map, &sm.w0_full, at * kAtomCols, 0);
+    const AtomShare<Cfg::kCtaAtoms, Cfg::kRowTiles> share{slot};
+    const uint16_t mask = uint16_t(0x5u << half);  // ranks half and half + 2
+    int st = 0;
+    uint32_t round = 0;
+    for (int step = cluster; step < steps; step += clusters) {
+      for (int kb = 0; kb < C / kBlock; ++kb)
+        for (int j = 0; j < 3; ++j)
+          for (int c0 = 0; c0 < kBlock; c0 += kSlabRows) {
+            const int row = j * C + kb * kBlock + c0;
+            if (round > 0) w2v2::mbar_wait(&sm.empty[st], (round - 1) & 1);
+            w2v2::mbar_arrive_expect_tx(&sm.full[st], Cfg::kSlabBytes);
+            for (int at = share.lo; at < share.end; ++at)
+              w2v2::tma_load_2d_multicast(sm.ring[st] + at * kAtomBytes, &w1_map, &sm.full[st],
+                                          int(half) * Cfg::kCols + at * kAtomCols, row, mask);
+            if (++st == kStages) st = 0, ++round;
+          }
+    }
+    for (int k = 0; k < kStages; ++k) {
+      if (round > 0) w2v2::mbar_wait(&sm.empty[st], (round - 1) & 1);
+      if (++st == kStages) st = 0, ++round;
+    }
+    return;
+  }
+
+  w2v2::setmaxnreg_inc<kConsumerRegs>();
+  if constexpr (Cfg::kAtoms0 == Cfg::kAtoms1) {
+    wide_consumer<C, kLayer, Cfg::kAtoms0>(sm, args, wg * Cfg::kAtoms0, rank, cluster, clusters, steps);
+  } else if (wg == 0) {
+    wide_consumer<C, kLayer, Cfg::kAtoms0>(sm, args, 0, rank, cluster, clusters, steps);
+  } else {
+    wide_consumer<C, kLayer, Cfg::kAtoms1>(sm, args, Cfg::kAtoms0, rank, cluster, clusters, steps);
   }
 }
 
@@ -717,6 +1225,14 @@ cudaError_t encode_slabs(CUtensorMap* map, const void* base, int rows, int cols)
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+template <int C, bool kLayer>
+auto conv01_entry() {
+  if constexpr (ConvCfg<C>::kWide)
+    return conv01_wide_kernel<C, kLayer>;
+  else
+    return conv01_kernel<C, kLayer>;
+}
+
 // A persistent grid: as many clusters as the card holds at once (or as there
 // are cluster-tiles, if fewer), each walking the tiles.
 template <int C, bool kLayer>
@@ -724,8 +1240,9 @@ cudaError_t launch_conv(const ConvArgs& args, const void* w1, cudaStream_t s) {
   CUtensorMap w1_map, w0_map;
   W2V2_TRY(encode_slabs(&w1_map, w1, 3 * C, C));
   W2V2_TRY(encode_slabs(&w0_map, args.w0, kSlabRows, C));
-  const auto kernel = conv01_kernel<C, kLayer>;
-  constexpr int smem = w2v2::smem_bytes<ConvSmem<C>>();
+  const auto kernel = conv01_entry<C, kLayer>();
+  constexpr int smem = conv_smem_bytes<C>();
+  static_assert(smem <= kMaxSmem, "conv01: the shared-memory layout does not fit the H100");
   W2V2_TRY(w2v2::allow_smem(kernel, smem));
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -738,7 +1255,8 @@ cudaError_t launch_conv(const ConvArgs& args, const void* w1, cudaStream_t s) {
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const int steps = (args.tiles + kCluster - 1) / kCluster;
+  constexpr int kRowTiles = ConvCfg<C>::kRowTiles;
+  const int steps = (args.tiles + kRowTiles - 1) / kRowTiles;
   static int resident = 0;  // clusters the card holds at once, for this instance
   if (!resident) {
     cfg.gridDim = dim3(kCluster);
@@ -752,10 +1270,19 @@ cudaError_t launch_conv(const ConvArgs& args, const void* w1, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// every width with an instance: the multiples of 128 from 128 to 1024
 template <bool kLayer>
 cudaError_t launch_conv01(const ConvArgs& args, const void* w1, int C, cudaStream_t s) {
-  if (C == 256) return launch_conv<256, kLayer>(args, w1, s);
-  if (C == 512) return launch_conv<512, kLayer>(args, w1, s);
+  switch (C) {
+    case 128: return launch_conv<128, kLayer>(args, w1, s);
+    case 256: return launch_conv<256, kLayer>(args, w1, s);
+    case 384: return launch_conv<384, kLayer>(args, w1, s);
+    case 512: return launch_conv<512, kLayer>(args, w1, s);
+    case 640: return launch_conv<640, kLayer>(args, w1, s);
+    case 768: return launch_conv<768, kLayer>(args, w1, s);
+    case 896: return launch_conv<896, kLayer>(args, w1, s);
+    case 1024: return launch_conv<1024, kLayer>(args, w1, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -787,7 +1314,8 @@ extern "C" int w2v2_groupnorm_stats(const void* x, const void* w0, const void* g
 }
 
 // x (B, L) bf16; w0p (16, C) bf16, W0 with taps 10-15 zero; scale, shift
-// (B, C) f32; w1 (3, C, C) bf16; out (B, T1, C) bf16.  C is 512 or 256.
+// (B, C) f32; w1 (3, C, C) bf16; out (B, T1, C) bf16.  C is a multiple of
+// 128 from 128 to 1024 (an instance each); any other width is an error.
 extern "C" int w2v2_conv01(const void* x, const void* w0p, const void* scale, const void* shift,
                            const void* w1, void* out, int B, int L, int T1, int C,
                            void* stream) {
@@ -796,8 +1324,8 @@ extern "C" int w2v2_conv01(const void* x, const void* w0p, const void* scale, co
 }
 
 // x (B, L) bf16; w0p (16, C) as above; w1 (3, C, C) bf16; p0, p1 (3, C) f32,
-// rows [bias, gamma, beta] of conv0 / conv1; out (B, T1, C) bf16.  C is 512
-// (the robust/large family) or 256 (the narrow geometry of the tests).
+// rows [bias, gamma, beta] of conv0 / conv1; out (B, T1, C) bf16.  C as
+// w2v2_conv01's.
 extern "C" int w2v2_conv01_robust(const void* x, const void* w0p, const void* p0, const void* w1,
                                   const void* p1, void* out, int B, int L, int T1, int C,
                                   float eps, void* stream) {

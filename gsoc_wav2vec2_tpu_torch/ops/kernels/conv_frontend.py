@@ -22,10 +22,13 @@ Three kernels (`csrc/conv_frontend.cu`):
 * `conv01_robust` replaces the body of `fused_conv01_robust`: both
   LayerNorms per frame in f32 inside the kernel, no statistics pass.
 
-`conv01` and `conv01_robust` are one Hopper kernel templated on the norm
+`conv01` and `conv01_robust` are one Hopper design templated on the norm
 (wgmma fed by TMA, W1 multicast across a cluster of CTAs, warp
-specialised); its instances take C of 512 or 256 (`KERNEL_WIDTHS`,
-`supports`).
+specialised); its instances take every multiple of 128 from 128 to 1024
+(`KERNEL_WIDTHS`, `supports`): up to 512 a CTA owns all columns of its rows
+and keeps conv0 resident, from 640 two CTAs split the columns and conv0 is
+made one block of channels at a time.  Past 1024 the card runs the plain
+layer loop, where the JAX package takes any multiple of 128.
 
 `groupnorm_stats_plain` is `window_stats_plain` (the Pallas call's
 function) followed by `groupnorm_scale_shift` (the XLA tail).  Each kernel has its plain version here; a wrapper runs the plain version for
@@ -187,9 +190,10 @@ def groupnorm_stats(
 groupnorm_stats.launches = 0
 
 
-# the widths C of the conv01 kernels' instances: the 512 of every published
-# configuration, and the narrow 256 of the card tests
-KERNEL_WIDTHS = (512, 256)
+# the widths C of the conv01 kernels' instances (`launch_conv01` in
+# csrc/conv_frontend.cu): every multiple of 128 that the JAX package sends to
+# Pallas, up to 1024
+KERNEL_WIDTHS = (128, 256, 384, 512, 640, 768, 896, 1024)
 
 
 def _taps16(w0: torch.Tensor, c: int) -> torch.Tensor:
@@ -202,11 +206,12 @@ def _taps16(w0: torch.Tensor, c: int) -> torch.Tensor:
 
 def conv01_plain(
     x: torch.Tensor, w0: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-    w1: torch.Tensor, t1: int, gelu_approx: bool,
+    w1: torch.Tensor, t1: int, gelu_approx: bool, out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """x: (B, L) bf16 waveform; w0 (10, 1, C); w1 (3, C, C) (JAX layout);
     scale/shift (B, C) f32 -> (B, t1, C) bf16.  Products of bf16 values
-    accumulate in f32, as in the kernel."""
+    accumulate in f32, as in the kernel.  `out_dtype` f32 returns the
+    output before its last rounding."""
     c = w0.shape[-1]
     win = x.float().unfold(-1, 10, 5)[:, : 2 * t1 + 1]  # conv0 rows 0 .. 2 t1
     y0 = win @ w0.reshape(10, c).to(torch.bfloat16).float()
@@ -218,7 +223,7 @@ def conv01_plain(
         + y0[:, 1 : 2 * t1 + 1 : 2] @ w1f[1]
         + y0[:, 2 : 2 * t1 + 1 : 2] @ w1f[2]
     )
-    return gelu(y1, approximate=gelu_approx).to(torch.bfloat16)
+    return gelu(y1, approximate=gelu_approx).to(out_dtype)
 
 
 def conv01(
@@ -235,7 +240,7 @@ def conv01(
         raise ValueError("conv01 computes tanh GELU only, the form every bf16 path takes")
     if tuple(w0.shape) != (10, 1, c) or tuple(w1.shape) != (3, c, c) or c not in KERNEL_WIDTHS:
         raise ValueError(
-            f"conv01 takes w0 (10, 1, C), w1 (3, C, C) with C of 512 or 256, got "
+            f"conv01 takes w0 (10, 1, C), w1 (3, C, C) with C in {KERNEL_WIDTHS}, got "
             f"{tuple(w0.shape)}, {tuple(w1.shape)}"
         )
     b, l = x.shape
@@ -280,12 +285,14 @@ def conv01_robust_plain(
     x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, gamma0: torch.Tensor,
     beta0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, gamma1: torch.Tensor,
     beta1: torch.Tensor, t1: int, eps: float, gelu_approx: bool,
+    out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """x: (B, L) bf16 waveform; w0 (10, 1, C); w1 (3, C, C) (JAX layout);
     biases and LayerNorm affines (C,) -> (B, t1, C) bf16.  Products of bf16
     values accumulate in f32 and both LayerNorms run in f32 over the
     channels of a frame, as in the kernel; conv0's activations are rounded
-    to bf16 before conv1."""
+    to bf16 before conv1.  `out_dtype` f32 returns the output before its
+    last rounding."""
     c = w0.shape[-1]
     win = x.float().unfold(-1, 10, 5)[:, : 2 * t1 + 1]  # conv0 rows 0 .. 2 t1
     y0 = win @ w0.reshape(10, c).to(torch.bfloat16).float() + b0.float()
@@ -298,7 +305,7 @@ def conv01_robust_plain(
         + y0[:, 2 : 2 * t1 + 1 : 2] @ w1f[2]
     ) + b1.float()
     y1 = F.layer_norm(y1, (c,), gamma1.float(), beta1.float(), eps)
-    return gelu(y1, approximate=gelu_approx).to(torch.bfloat16)
+    return gelu(y1, approximate=gelu_approx).to(out_dtype)
 
 
 def conv01_robust(
@@ -319,7 +326,7 @@ def conv01_robust(
         raise ValueError("conv01_robust computes tanh GELU only, the form every bf16 path takes")
     if tuple(w0.shape) != (10, 1, c) or tuple(w1.shape) != (3, c, c) or c not in KERNEL_WIDTHS:
         raise ValueError(
-            f"conv01_robust takes w0 (10, 1, C), w1 (3, C, C) with C of 512 or 256, got "
+            f"conv01_robust takes w0 (10, 1, C), w1 (3, C, C) with C in {KERNEL_WIDTHS}, got "
             f"{tuple(w0.shape)}, {tuple(w1.shape)}"
         )
     b, l = x.shape
@@ -411,8 +418,9 @@ def fusable(config) -> bool:
     """Both conv-stack families: base (GroupNorm on layer 0, no bias:
     `fused_conv01`) and robust/large/XLSR (LayerNorm on every layer, biases:
     `fused_conv01_robust`), at conv0 k10 s5 and conv1 k3 s2 of equal
-    widths, as the JAX package's `supports`.  The plain versions (a CPU
-    tensor) take any width."""
+    widths: the JAX package's `supports` without its rule that the width be
+    a multiple of 128, since the plain versions (a CPU tensor) take any
+    width."""
     if not _geometry_ok(config):
         return False
     if config.feature_extractor_norm_type == "group":
@@ -422,6 +430,7 @@ def fusable(config) -> bool:
 
 def supports(config) -> bool:
     """Whether the conv01 kernels' instances cover `config` on the card: a
-    `fusable` front end of width 512 or 256.  Elsewhere the card runs the
-    plain layer loop, as the JAX package runs XLA's convolutions."""
+    `fusable` front end whose width is in `KERNEL_WIDTHS` (the JAX package's
+    multiples of 128, up to 1024).  Elsewhere the card runs the plain layer
+    loop, as the JAX package runs XLA's convolutions."""
     return fusable(config) and config.filter_sizes[0] in KERNEL_WIDTHS

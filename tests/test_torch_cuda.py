@@ -138,11 +138,12 @@ def _robust_frontend_inputs(c, length, g, cuda, b=2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,length", [(512, 26003), (256, 24000), (512, 40975)])
+@pytest.mark.parametrize("length", [26003, 24000, 40975])
+@pytest.mark.parametrize("c", conv_frontend.KERNEL_WIDTHS)
 def test_conv01_robust_matches_plain_on_card(cuda, c, length):
-    """The robust front end kernel against its plain version: full tiles, a
-    tail tile (T1 not a multiple of 64) and a waveform whose last conv0
-    window ends at the last sample."""
+    """The robust front end kernel against its plain version at every
+    instance width: full tiles, a tail tile (T1 not a multiple of 64) and a
+    waveform whose last conv0 window ends at the last sample."""
     g = torch.Generator().manual_seed(c + length)
     wave, params = _robust_frontend_inputs(c, length, g, cuda)
     t1 = conv_frontend.conv1_length(length)
@@ -808,24 +809,26 @@ def _conv_inputs(robust, c, b, t1, g, cuda, extra=7):
     return wave, (w0, scale, shift, w1)
 
 
-def _conv_pair(robust, wave, params, t1):
+def _conv_pair(robust, wave, params, t1, out_dtype=torch.bfloat16):
+    """(kernel, plain) calls; the plain one returns `out_dtype`."""
     if robust:
         return (lambda: conv_frontend.conv01_robust(wave, *params, t1, 1e-5, True),
-                lambda: conv_frontend.conv01_robust_plain(wave, *params, t1, 1e-5, True))
+                lambda: conv_frontend.conv01_robust_plain(wave, *params, t1, 1e-5, True,
+                                                          out_dtype))
     w0, scale, shift, w1 = params
     return (lambda: conv_frontend.conv01(wave, w0, scale, shift, w1, t1, True),
-            lambda: conv_frontend.conv01_plain(wave, w0, scale, shift, w1, t1, True))
+            lambda: conv_frontend.conv01_plain(wave, w0, scale, shift, w1, t1, True, out_dtype))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t1,b", [(1, 1), (63, 1), (64, 1), (65, 1), (127, 1), (128, 1),
                                   (129, 1), (65, 3), (24599, 2)])
-@pytest.mark.parametrize("c", [512, 256])
+@pytest.mark.parametrize("c", conv_frontend.KERNEL_WIDTHS)
 @pytest.mark.parametrize("robust", [False, True])
 def test_conv01_kernels_match_plain_at_tile_edges(cuda, robust, c, t1, b):
     """Both conv front-end kernels against their plain versions at every
-    tile edge (64 rows a tile), odd tile counts (a cluster partner past the
-    last tile), and the main path's 24599 rows."""
+    instance width, every tile edge (64 rows a tile), odd tile counts (a
+    cluster partner past the last tile), and the main path's 24599 rows."""
     g = torch.Generator().manual_seed(c + t1 + b)
     wave, params = _conv_inputs(robust, c, b, t1, g, cuda)
     kernel, plain = _conv_pair(robust, wave, params, t1)
@@ -833,34 +836,79 @@ def test_conv01_kernels_match_plain_at_tile_edges(cuda, robust, c, t1, b):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (b, t1, c) and got.dtype == torch.bfloat16
     d = (got.float() - want.float()).abs()
-    # bf16 outputs (ulp 2^-6 at |y| in [2, 4)) over f32 sums in another order
-    assert d.max().item() < 0.05 and d.mean().item() < 5e-3
+    if c in (256, 512):
+        # bf16 outputs (ulp 2^-6 at |y| in [2, 4)) over f32 sums in another order
+        assert d.max().item() < 0.05 and d.mean().item() < 5e-3
+        return
+    # the widths added beside 256 and 512: the base family's outputs reach
+    # |y| = 8 at 24599 x 2 rows, where two bf16 roundings of sums in another
+    # order may fall one ulp (2^-4) apart, so the maximum is held against the
+    # plain version's value before its last rounding
+    exact = _conv_pair(robust, wave, params, t1, torch.float32)[1]()
+    assert (got.float() - exact).abs().max().item() < 0.05 and d.mean().item() < 5e-3
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [512, 384, 1024])
 @pytest.mark.parametrize("robust", [False, True])
-def test_conv01_launches_are_bit_equal_on_card(cuda, robust):
-    """Every output element comes from one CTA in a fixed k order: two
+def test_conv01_launches_are_bit_equal_on_card(cuda, robust, c):
+    """Every output element comes from one CTA in a fixed k order (from 640
+    the robust LayerNorm's two column halves combined in column order): two
     launches give equal bits."""
     g = torch.Generator().manual_seed(21)
-    wave, params = _conv_inputs(robust, 512, 2, 3001, g, cuda)
+    wave, params = _conv_inputs(robust, c, 2, 3001, g, cuda)
     kernel, _ = _conv_pair(robust, wave, params, 3001)
     first = kernel()
     assert torch.equal(kernel(), first)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [192, 1152])
+@pytest.mark.parametrize("robust", [False, True])
+def test_conv01_widths_without_an_instance_raise_on_card(cuda, robust, c):
+    """A width without an instance (no multiple of 128, or past 1024) is
+    refused by `supports`, raises in the wrapper and is an error at the C
+    entry; nothing runs the plain version in its place."""
+    from gsoc_wav2vec2_tpu_torch.models.config import RobustWav2Vec2Config
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import _build
+
+    family = RobustWav2Vec2Config if robust else Wav2Vec2Config
+    assert not conv_frontend.supports(family(filter_sizes=[c] * 7))
+    g = torch.Generator().manual_seed(23)
+    wave, params = _conv_inputs(robust, c, 1, 65, g, cuda)
+    kernel, _ = _conv_pair(robust, wave, params, 65)
+    with pytest.raises(ValueError, match="KERNEL_WIDTHS|C in"):
+        kernel()
+    out = torch.empty((1, 65, c), dtype=torch.bfloat16, device=cuda)
+    w0 = conv_frontend._taps16(params[0], c)
+    w1 = params[4 if robust else 3].to(torch.bfloat16).contiguous()
+    lib = _build.library()
+    if robust:
+        p = torch.zeros((3, c), device=cuda)
+        err = lib.w2v2_conv01_robust(wave.data_ptr(), w0.data_ptr(), p.data_ptr(), w1.data_ptr(),
+                                     p.data_ptr(), out.data_ptr(), 1, wave.shape[1], 65, c, 1e-5,
+                                     _build.stream_of(wave))
+    else:
+        ss = params[1].contiguous()
+        err = lib.w2v2_conv01(wave.data_ptr(), w0.data_ptr(), ss.data_ptr(), ss.data_ptr(),
+                              w1.data_ptr(), out.data_ptr(), 1, wave.shape[1], 65, c,
+                              _build.stream_of(wave))
+    assert err != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [512, 384, 1024])
 @pytest.mark.parametrize("b,length", [(16, 246000), (1, 1_920_000), (3, 24007), (2, 16000)])
-def test_groupnorm_stats_matches_plain_on_card(cuda, b, length):
+def test_groupnorm_stats_matches_plain_on_card(cuda, b, length, c):
     """The one-launch GroupNorm statistics against `groupnorm_stats_plain` at
     the base batch, the long path's 120 s and a length that is no multiple
-    of 8 samples (a padded copy); no float atomics: two launches give equal
-    bits."""
+    of 8 samples (a padded copy), at three front-end widths; no float
+    atomics: two launches give equal bits."""
     g = torch.Generator().manual_seed(22 + b)
     x = (torch.randn(b, length, generator=g) + 0.3).to(cuda, torch.bfloat16)
-    w0 = (torch.randn(10, 1, 512, generator=g) * 0.3).to(cuda)
-    gamma = (1 + 0.1 * torch.randn(512, generator=g)).to(cuda)
-    beta = (0.1 * torch.randn(512, generator=g)).to(cuda)
+    w0 = (torch.randn(10, 1, c, generator=g) * 0.3).to(cuda)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda)
+    beta = (0.1 * torch.randn(c, generator=g)).to(cuda)
     t0 = conv_frontend.conv0_length(length)
     conv_frontend.groupnorm_stats.launches = 0
     first = conv_frontend.groupnorm_stats(x, t0, w0, gamma, beta, 1e-5)
@@ -868,7 +916,7 @@ def test_groupnorm_stats_matches_plain_on_card(cuda, b, length):
     assert conv_frontend.groupnorm_stats.launches == 2
     assert all(torch.equal(u, v) for u, v in zip(first, second))
     for got, want in zip(first, conv_frontend.groupnorm_stats_plain(x, t0, w0, gamma, beta, 1e-5)):
-        assert got.shape == (b, 512) and got.dtype == torch.float32
+        assert got.shape == (b, c) and got.dtype == torch.float32
         assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 

@@ -32,7 +32,9 @@ def _port(robust=False, **kw):
 # (name, config): tiny_config is the JAX tests' geometry; "huge" is hidden
 # 1280 with 16 heads and 16 pos-conv groups (D = 80: no flash instance, as
 # JAX's d % 64 rule; C/G = 80: the pos-conv kernels' 80-channel instances);
-# "xls_r_2b" is hidden 1920 (D = 120, C/G = 120)
+# "xls_r_2b" is hidden 1920 (D = 120, C/G = 120); "base_384" and
+# "robust_c1024" have front ends of 384 and 1024 channels (the conv01
+# kernels' narrow and wide instances)
 CONFIGS = {
     "tiny": lambda: _port(),
     "tiny_robust": lambda: _port(robust=True),
@@ -43,6 +45,7 @@ CONFIGS = {
     "xls_r_2b": lambda: port_config.RobustWav2Vec2Config(hidden_size=1920, num_heads=16,
                                                          intermediate_size=7680),
     "base_384": lambda: port_config.Wav2Vec2Config(filter_sizes=[384] * 7),
+    "robust_c1024": lambda: port_config.RobustWav2Vec2Config(filter_sizes=[1024] * 7),
 }
 
 # per config: (conv front end, pos conv in bf16, flash in bf16)
@@ -53,7 +56,8 @@ COVERED = {
     "robust": (True, True, True),
     "huge": (True, True, False),
     "xls_r_2b": (True, True, False),
-    "base_384": (False, True, True),
+    "base_384": (True, True, True),
+    "robust_c1024": (True, True, True),
 }
 
 
@@ -91,6 +95,38 @@ def test_pos_conv_supports_taps_and_groups(c, groups, k, ok):
     and at 120 channels a group a window the forward's shared memory holds
     (up to 132 taps)."""
     assert pos_conv.supports(c, groups, torch.bfloat16, k) is ok
+
+
+@pytest.mark.parametrize("width", [128 * k for k in range(1, 9)] + [192, 200, 1152, 1280])
+@pytest.mark.parametrize("robust", [False, True])
+def test_conv_frontend_supports_the_multiples_of_128_up_to_1024(robust, width):
+    """The card takes the conv01 kernels at every multiple of 128 from 128 to
+    1024 in both families (JAX's Pallas rule, capped at 1024: past it the
+    plain layer loop, a deliberate difference); elsewhere the plain loop, as
+    JAX's XLA fallback.  The plain versions (the CPU) take any width."""
+    family = port_config.RobustWav2Vec2Config if robust else port_config.Wav2Vec2Config
+    cfg = family(filter_sizes=[width] * 7)
+    assert conv_frontend.fusable(cfg)
+    assert conv_frontend.supports(cfg) is (width % 128 == 0 and width <= 1024)
+
+
+def _conv01_launches():
+    """The widths `launch_conv01` in `csrc/conv_frontend.cu` dispatches to an
+    instance (`case C: return launch_conv<C, kLayer>`)."""
+    src = (pathlib.Path(conv_frontend.__file__).parents[2] / "csrc" / "conv_frontend.cu").read_text()
+    entry = src[src.index("cudaError_t launch_conv01("):]
+    entry = entry[:entry.index("\n}\n")]
+    found = re.findall(r"case (\d+): return launch_conv<(\d+), kLayer>", entry)
+    assert all(case == c for case, c in found)
+    return [int(c) for _, c in found]
+
+
+def test_conv01_widths_are_the_cuda_instances():
+    """`KERNEL_WIDTHS` (what `supports` and the wrappers admit) is exactly
+    the set of widths the C entry dispatches, each once."""
+    launched = _conv01_launches()
+    assert len(launched) == len(set(launched))
+    assert set(launched) == set(conv_frontend.KERNEL_WIDTHS)
 
 
 def _dw_launches():

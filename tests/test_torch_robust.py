@@ -75,9 +75,11 @@ def test_supports_is_family_aware(norm, bias, ok):
     assert conv_frontend.fusable(port_config.Wav2Vec2Config(**kw)) is ok
     assert jax_cf.supports(JaxConfig(**kw), training=False) is ok
     # the card's kernels: the same families, at the widths of their instances
+    # (every multiple of 128 up to 1024), not at a width without one
     wide = {**kw, "filter_sizes": [512] * 7}
     assert conv_frontend.supports(port_config.Wav2Vec2Config(**wide)) is ok
-    assert not conv_frontend.supports(port_config.Wav2Vec2Config(**kw))
+    assert conv_frontend.supports(port_config.Wav2Vec2Config(**kw)) is ok
+    assert not conv_frontend.supports(port_config.Wav2Vec2Config(**{**kw, "filter_sizes": [192] * 7}))
     odd = port_config.Wav2Vec2Config(**{**wide, "strides": [4, 2, 2, 2, 2, 2, 2]})
     assert not conv_frontend.fusable(odd) and not conv_frontend.supports(odd)
 
