@@ -158,9 +158,9 @@ Phases, each printing one JSON line:
                 the logit scale, argmax >= 90%).
  13b. xlarge -- the 1280-d family (HuBERT-xlarge, XLS-R 1B, MMS-1B): a raw HF
                 snapshot of facebook/hubert-xlarge-ls960-ft's architecture
-                (1280-d, 48 layers, 16 heads of 80, pos conv 16 groups of 80,
-                seed 1) through `from_pretrained` onto the card, bit for bit; a
-                ragged B=8 x 246000 batch through `predict_batch`: launches a
+                (1280-d, its 48 layers cut to 24 for the time limit, 16
+                heads of 80, pos conv 16 groups of 80, seed 1) through
+                `from_pretrained` onto the card, bit for bit; a ragged B=8 x 246000 batch through `predict_batch`: launches a
                 forward (`conv01_robust` 1, `pos_conv` 1, flash 0: no flash
                 instance at head dim 80, as in JAX), ms a forward, row 0
                 against the card's plain f32 forward (10% of the logit scale,
@@ -172,13 +172,14 @@ Phases, each printing one JSON line:
                 training kernels and the CTC pair 1 each a step), ms a step,
                 peak memory, and two identical stage-2 gradients bit-equal.
  13c. xls_r_2b -- XLS-R 2B's 1920-d: facebook/wav2vec2-xls-r-2b's
-                architecture (1920-d, 48 layers, 16 heads of 120, FFN 7680,
-                pos conv 16 groups of 120, ~2.16e9 parameters) with a CTC
-                head of vocab 32, seed 1, built by the model's constructor
-                (no snapshot); as 13b at C/G = 120 (flash 0: no flash
-                instance at head dim 120, as in JAX), with 4 stage-2 steps
-                under remat "full" (the f32 weights, gradients and Adam
-                moments alone are ~34.6 GB).
+                architecture (1920-d, its 48 layers cut to 24 as 13b's, 16
+                heads of 120, FFN 7680, pos conv 16 groups of 120, ~2.16e9
+                parameters at full depth) with a CTC head of vocab 32, seed
+                1, built by the model's constructor (no snapshot); as 13b at
+                C/G = 120 (flash 0: no flash instance at head dim 120, as in
+                JAX), with 4 stage-2 steps under remat "full" (at full depth
+                the f32 weights, gradients and Adam moments alone are ~34.6
+                GB).
  13d. robust_h128 -- `RobustWav2Vec2Config(num_heads=8)`: facebook/
                 wav2vec2-large-robust's widths (1024-d, 24 pre-norm layers,
                 FFN 4096, pos conv 16 groups of 64) with 8 heads of 128, the
@@ -222,6 +223,21 @@ Phases, each printing one JSON line:
                 front-end kernels off (the plain layer loop); row 0 against
                 the card's plain f32 forward (5% / 10% of the logit scale);
                 1 + 3 stage-2 steps at B=8; two stage-2 gradients bit-equal.
+ 13g. pos_widths, base_g8, robust_g8 -- the four pos-conv kernels' C/G =
+                32, 96, 112 and 128 instances against their plain versions
+                at (8, 768, 16 C/G), K = 128, 16 groups, and at 2 x 3000, 1
+                x 63 and 3 x 129 with K = 16 (at 128 also K = 132),
+                launched twice bit-equal, timed beside the plain versions,
+                the library calls and the bound; then
+                `Wav2Vec2Config(num_conv_pos_embedding_groups=8)` (base
+                width, C/G = 96, seed 0) on B=16 x 246000 and
+                `RobustWav2Vec2Config(num_conv_pos_embedding_groups=8)` (24
+                layers, C/G = 128) on a ragged B=8 batch with its mask, each
+                model's pos conv first held at its paths' shapes: ms a
+                forward, and with the pos-conv kernels off (the plain
+                conv); row 0 against the card's plain f32 forward (5% / 10%
+                of the logit scale); 1 + 3 stage-2 steps at B=8; two
+                stage-2 gradients bit-equal.
  14. export  -- `cli.export.main` at base width and depth: `torch_export` on
                 the card (symbolic batch, 246000 samples), the program run
                 in a process that imports `ops.kernels` alone (no model
@@ -232,13 +248,15 @@ Phases, each printing one JSON line:
                 `onnx_numpy` on the host against the f32 CPU forward (atol
                 1e-3).
  15. profiling -- `timeit` of the base forward at its defaults (3 warmup
-                calls, 20 timed back to back, one readback) and the
-                host-clock ms of 20 forwards back to back ended by one
-                synchronize, over 20, on one model by turns, 11 rounds, the
-                two in alternating order from round to round: the median
-                relative difference within 3.5% (phase 4's method,
-                the median of 20 synchronised calls, by turns, and phase
-                4's median printed beside it); then
+                calls, 20 timed back to back, one readback) against the
+                card's own span of the same 20 calls (CUDA events recorded
+                before the first timed call and after the last), 11
+                rounds: the median relative difference within 3.5%; by
+                turns with it, printed for the record, the host-clock ms
+                of 20 forwards back to back ended by one synchronize, over
+                20 (the two in alternating order from round to round), and
+                phase 4's method (the median of 20 synchronised calls)
+                beside phase 4's median; then
                 `utils.profiling.trace` around an unannotated forward and
                 one inside `annotate("w2v2_forward")`: the kernels that ran
                 in the region include the four inference kernels.
@@ -293,6 +311,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import inspect
 import json
 import math
 import os
@@ -404,7 +423,7 @@ SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gat
 TRAIN_PATHS = ("train", "pretrain", "pretrain_gather", "cli", "remat", "pretrain_cli")
 CTC_PATHS = ("train", "robust_train", "long_train", "cli", "remat", "xlarge_train",
              "xls_r_2b_train", "robust_h128_train", "base_h192_train", "robust_h256_train",
-             "base_c384_train", "robust_c1024_train")
+             "base_c384_train", "robust_c1024_train", "base_g8_train", "robust_g8_train")
 # a CTC loss and its gradient: one launch of each wrapper
 CTC_STEP = {"ctc_loss_fwd": 1, "ctc_loss_bwd": 1}
 LONG_PATHS = ("long_inference", "long_train")
@@ -671,14 +690,15 @@ def frontend_checks(x, w0, gamma, beta, w1):
     return gn, dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol), (scale, shift)
 
 
-def check_eval_kernels_at(model, records, b, path=None, front=""):
+def check_eval_kernels_at(model, records, b, path=None, front="", pos="pos_conv"):
     """groupnorm_stats, fused_conv01 and the inference pos conv against their
     plain versions at b x 246000 (the cli phase runs them there: stage 1's
     forward and the validation batch; base_h192's steps at 8), launched
     twice (bit-equal), at phase 3's tolerances; each check is added to its
     record under `checked_at`, with `path` where one is given.  `front`
     ends the two front-end records' names (`_c384`: the model's front end
-    is that instance)."""
+    is that instance); `pos` names the pos conv's record (`pos_conv_cg96`:
+    base_g8's instance)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4321)
     fe = model.wav2vec2.feature_extractor.conv_layers
@@ -693,7 +713,7 @@ def check_eval_kernels_at(model, records, b, path=None, front=""):
     err, mean_err, tol, _ = pos_conv_eval_check(kernel, bias, ((b, t),), "pos_conv", gen)
     by_name = {r["name"]: r for r in records}
     for name, check in (("groupnorm_stats" + front, gn), ("fused_conv01" + front, c01),
-                        ("pos_conv", dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol))):
+                        (pos, dict(max_abs_err=err, mean_abs_err=mean_err, tol=tol))):
         by_name[name].setdefault("checked_at", []).append(
             {"shape": [b, SAMPLES], **({"path": path} if path else {}), **check,
              "relaunch_bit_equal": True})
@@ -798,44 +818,53 @@ def check_kernels(model):
     return records
 
 
-def pos_conv_train_records(kernel, bias, b, t, suffix, paths, gen):
+def pos_conv_train_check(kernel, bias, b, t, suffix, gen):
     """The pos conv's training forward, dx and dW against their plain
-    versions at (b, t, C) and at T = 3000 (2 rows); returns their three
-    records (names + `suffix`), timed at (b, t, C)."""
+    versions at (b, t, C), each launched twice (bit-equal).  Returns
+    ({name: (max err, mean err)}, {name: tol}, x, dpre)."""
     dev = torch.device("cuda")
     k, cg, h = kernel.shape
     groups = h // cg
+    x, dpre = (torch.randn(b, t, h, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    y, pre = pc.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True)
+    py, ppre = pc.pos_conv_train_fwd_plain(x, kernel, bias, groups=groups, gelu_approx=True)
+    dx = pc.pos_conv_dx(dpre, kernel, groups=groups)
+    pdx = pc.pos_conv_dx_plain(dpre, kernel, groups=groups)
+    dw = pc.pos_conv_dw(x, dpre, k, groups=groups)
+    pdw = pc.pos_conv_dw_plain(x, dpre, k, groups=groups)
+    again = pc.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True)
+    require(torch.equal(y, again[0]) and torch.equal(pre, again[1]),
+            f"pos_conv_train_fwd{suffix} T={t}: two launches differ")
+    require(torch.equal(dx, pc.pos_conv_dx(dpre, kernel, groups=groups)),
+            f"pos_conv_dx{suffix} T={t}: two launches differ")
+    require(torch.equal(dw, pc.pos_conv_dw(x, dpre, k, groups=groups)),
+            f"pos_conv_dw{suffix} T={t}: two launches differ")
+    del again
+    torch.cuda.synchronize()
+    checks = {"pos_conv_train_fwd": errors(y, py), "pre": errors(pre, ppre),
+              "pos_conv_dx": errors(dx, pdx), "pos_conv_dw": errors(dw, pdw)}
+    # bf16 outputs: as pos_conv (0.05, mean 5e-3); dx 1.5% of its scale
+    # (2 ulp at its top); f32 outputs (pre-activation, dW: sums of
+    # K*CG (6144 or 8192) and B*T products in another order): 1e-4 of the scale
+    scales = {"pre": ppre.abs().max().item(), "pos_conv_dx": pdx.float().abs().max().item(),
+              "pos_conv_dw": pdw.abs().max().item()}
+    tols = {"pos_conv_train_fwd": 0.05, "pre": 1e-4 * scales["pre"],
+            "pos_conv_dx": 0.015 * scales["pos_conv_dx"], "pos_conv_dw": 1e-4 * scales["pos_conv_dw"]}
+    for name, (err, mean_err) in checks.items():
+        require(err <= tols[name], f"{name} T={t}: err {err} > {tols[name]}")
+    require(checks["pos_conv_train_fwd"][1] <= 5e-3, "pos_conv_train_fwd: mean error")
+    del y, py, pre, ppre, dx, pdx, dw, pdw
+    return checks, tols, x, dpre
+
+
+def pos_conv_train_records(kernel, bias, b, t, suffix, paths, gen):
+    """The pos conv's training forward, dx and dW against their plain
+    versions at (b, t, C) and at T = 3000 (2 rows) (`pos_conv_train_check`);
+    returns their three records (names + `suffix`), timed at (b, t, C)."""
+    k, cg, h = kernel.shape
+    groups = h // cg
     for tt in (3000, t):
-        bb = b if tt == t else 2
-        x, dpre = (torch.randn(bb, tt, h, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
-        y, pre = pc.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True)
-        py, ppre = pc.pos_conv_train_fwd_plain(x, kernel, bias, groups=groups, gelu_approx=True)
-        dx = pc.pos_conv_dx(dpre, kernel, groups=groups)
-        pdx = pc.pos_conv_dx_plain(dpre, kernel, groups=groups)
-        dw = pc.pos_conv_dw(x, dpre, k, groups=groups)
-        pdw = pc.pos_conv_dw_plain(x, dpre, k, groups=groups)
-        again = pc.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True)
-        require(torch.equal(y, again[0]) and torch.equal(pre, again[1]),
-                f"pos_conv_train_fwd{suffix} T={tt}: two launches differ")
-        require(torch.equal(dx, pc.pos_conv_dx(dpre, kernel, groups=groups)),
-                f"pos_conv_dx{suffix} T={tt}: two launches differ")
-        require(torch.equal(dw, pc.pos_conv_dw(x, dpre, k, groups=groups)),
-                f"pos_conv_dw{suffix} T={tt}: two launches differ")
-        del again
-        torch.cuda.synchronize()
-        checks = {"pos_conv_train_fwd": errors(y, py), "pre": errors(pre, ppre),
-                  "pos_conv_dx": errors(dx, pdx), "pos_conv_dw": errors(dw, pdw)}
-        # bf16 outputs: as pos_conv (0.05, mean 5e-3); dx 1.5% of its scale
-        # (2 ulp at its top); f32 outputs (pre-activation, dW: sums of
-        # K*CG (6144 or 8192) and B*T products in another order): 1e-4 of the scale
-        scales = {"pre": ppre.abs().max().item(), "pos_conv_dx": pdx.float().abs().max().item(),
-                  "pos_conv_dw": pdw.abs().max().item()}
-        tols = {"pos_conv_train_fwd": 0.05, "pre": 1e-4 * scales["pre"],
-                "pos_conv_dx": 0.015 * scales["pos_conv_dx"], "pos_conv_dw": 1e-4 * scales["pos_conv_dw"]}
-        for name, (err, mean_err) in checks.items():
-            require(err <= tols[name], f"{name} T={tt}: err {err} > {tols[name]}")
-        require(checks["pos_conv_train_fwd"][1] <= 5e-3, "pos_conv_train_fwd: mean error")
-        del y, py, pre, ppre, dx, pdx, dw, pdw
+        checks, tols, x, dpre = pos_conv_train_check(kernel, bias, b if tt == t else 2, tt, suffix, gen)
     flops = 2 * b * t * k * cg * h
     act = x.numel() * 2  # one (B, T, C) bf16 tensor
     wt = kernel.to(torch.bfloat16).permute(2, 1, 0).contiguous()  # (C, CG, K)
@@ -860,7 +889,7 @@ def pos_conv_train_records(kernel, bias, b, t, suffix, paths, gen):
         return torch.nn.functional.conv1d(dt, wdx, padding=k // 2, groups=groups)[:, :, 1:]
 
     lib_err = errors(library_dx().transpose(1, 2), pc.pos_conv_dx_plain(dpre, kernel, groups=groups))[0]
-    require(lib_err <= 0.015 * scales["pos_conv_dx"], f"the dx yardstick computes another function: {lib_err}")
+    require(lib_err <= tols["pos_conv_dx"], f"the dx yardstick computes another function: {lib_err}")
 
     specs = [
         ("pos_conv_train_fwd", "gsoc_wav2vec2_tpu/ops/pallas/pos_conv.py:324",
@@ -3383,6 +3412,10 @@ def hubert_phase(smi: str) -> dict:
 HUBERT_XLARGE = {**HUBERT_LARGE, "hidden_size": 1280, "num_hidden_layers": 48,
                  "intermediate_size": 5120}
 XLARGE_STAGE2_STEPS = 4  # phases 13b-13e
+# the depth of phases 13b and 13c: their published 48 layers cut to 24 to hold
+# the script inside its time limit (a layer more is one more of the same shapes;
+# widths, heads, groups and FFN stay as published)
+WIDE_LAYERS = 24
 # the stage-2 step's remat: `cli.train`'s default ("dots").  Without remat the
 # step peaked at 82.9 GB of the card's 85.0 (H100 80GB HBM3, phase 13b alone): too
 # little room to promise late in this script
@@ -3391,23 +3424,24 @@ XLARGE_REMAT = "dots"
 
 def xlarge_phase(smi: str, records) -> dict:
     """Phase 13b: a raw HF snapshot of `facebook/hubert-xlarge-ls960-ft`'s
-    architecture (1280-d, 48 layers, weights from seed 1) loaded by
-    `from_pretrained` onto the card, bit for bit, through `wide_phases` at
+    architecture (1280-d, `WIDE_LAYERS` of its 48 layers, weights from seed
+    1) loaded by `from_pretrained` onto the card, bit for bit, through `wide_phases` at
     C/G = 80 (head dim 80: no flash instance, as in JAX), with
     `XLARGE_STAGE2_STEPS` stage-2 steps under `XLARGE_REMAT`.  Returns
     {path: launch counts}."""
-    config = config_from_hf_dict(HUBERT_XLARGE)
+    fields = {**HUBERT_XLARGE, "num_hidden_layers": WIDE_LAYERS}
+    config = config_from_hf_dict(fields)
     _wide_geometry(config, 80)
-    model, ref, init_s, write_s, load_s = hubert_snapshot_model(HUBERT_XLARGE, config)
+    model, ref, init_s, write_s, load_s = hubert_snapshot_model(fields, config)
     n_params = sum(v.numel() for v in ref.state_dict().values())
     del ref  # the f32 reference runs on the card
-    info = {"config": "facebook/hubert-xlarge-ls960-ft architecture (1280-d, 48 stable-layer-norm "
-                      "layers, 16 heads of 80, pos conv 16 groups of 80, LayerNorm conv stack with "
-                      "bias), seed 1", "parameters": n_params,
+    info = {"config": f"facebook/hubert-xlarge-ls960-ft architecture (1280-d, {WIDE_LAYERS} of its 48 "
+                      "stable-layer-norm layers, 16 heads of 80, pos conv 16 groups of 80, LayerNorm "
+                      "conv stack with bias), seed 1", "parameters": n_params,
             "snapshot": ["config.json", "pytorch_model.bin"], "init_s": init_s,
             "write_s": write_s, "from_pretrained_s": load_s}
-    return wide_phases("xlarge", "hubert-xlarge (1280-d, 48 layers)", config, model, info, 80, smi,
-                       records, seed=17, remat=XLARGE_REMAT, steps=XLARGE_STAGE2_STEPS)
+    return wide_phases("xlarge", f"hubert-xlarge (1280-d, {WIDE_LAYERS} layers)", config, model, info,
+                       80, smi, records, seed=17, remat=XLARGE_REMAT, steps=XLARGE_STAGE2_STEPS)
 
 
 # facebook/wav2vec2-xls-r-2b's architecture fields, as its config.json gives
@@ -3423,29 +3457,29 @@ XLS_R_2B = {
     "pad_token_id": 0, "apply_spec_augment": True, "mask_time_prob": 0.075, "mask_time_length": 10,
 }
 # the stage-2 step's remat: "full".  The f32 weights, gradients and Adam
-# moments of ~2.16e9 parameters alone are ~34.6 GB; "dots" at HuBERT-xlarge's
+# moments of ~2.16e9 parameters (full depth) alone are ~34.6 GB; "dots" at HuBERT-xlarge's
 # rate (40.7 GB peak with 15.4 GB of that state) scales to ~73 GB here
 XLS_R_2B_REMAT = "full"
 
 
 def xls_r_2b_phase(smi: str, records) -> dict:
-    """Phase 13c: `facebook/wav2vec2-xls-r-2b`'s architecture (1920-d, 48
-    layers) with a CTC head, weights from seed 1, through `wide_phases` at
-    C/G = 120 (head dim 120: no flash instance, as in JAX), with
-    `XLARGE_STAGE2_STEPS` stage-2 steps under `XLS_R_2B_REMAT`.  No
-    snapshot: an f32 `pytorch_model.bin` of it would be ~8.6 GB.  Returns
-    {path: launch counts}."""
-    config = config_from_hf_dict(XLS_R_2B)
+    """Phase 13c: `facebook/wav2vec2-xls-r-2b`'s architecture (1920-d,
+    `WIDE_LAYERS` of its 48 layers) with a CTC head, weights from seed 1,
+    through `wide_phases` at C/G = 120 (head dim 120: no flash instance, as
+    in JAX), with `XLARGE_STAGE2_STEPS` stage-2 steps under
+    `XLS_R_2B_REMAT`.  No snapshot: an f32 `pytorch_model.bin` of it would
+    be ~8.6 GB at full depth.  Returns {path: launch counts}."""
+    config = config_from_hf_dict({**XLS_R_2B, "num_hidden_layers": WIDE_LAYERS})
     _wide_geometry(config, 120)
     t = time.perf_counter()
     model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(1))
     init_s = time.perf_counter() - t
-    info = {"config": "facebook/wav2vec2-xls-r-2b architecture (1920-d, 48 stable-layer-norm "
-                      "layers, 16 heads of 120, FFN 7680, pos conv 16 groups of 120, LayerNorm conv "
-                      "stack with bias) with a CTC head of vocab 32, seed 1",
+    info = {"config": f"facebook/wav2vec2-xls-r-2b architecture (1920-d, {WIDE_LAYERS} of its 48 "
+                      "stable-layer-norm layers, 16 heads of 120, FFN 7680, pos conv 16 groups of 120, "
+                      "LayerNorm conv stack with bias) with a CTC head of vocab 32, seed 1",
             "parameters": sum(p.numel() for p in model.parameters()), "init_s": init_s}
-    return wide_phases("xls_r_2b", "xls-r-2b (1920-d, 48 layers)", config, model, info, 120, smi,
-                       records, seed=18, remat=XLS_R_2B_REMAT, steps=XLARGE_STAGE2_STEPS)
+    return wide_phases("xls_r_2b", f"xls-r-2b (1920-d, {WIDE_LAYERS} layers)", config, model, info,
+                       120, smi, records, seed=18, remat=XLS_R_2B_REMAT, steps=XLARGE_STAGE2_STEPS)
 
 
 # facebook/wav2vec2-large-robust's widths with 8 heads of 128 in place of 16
@@ -3773,18 +3807,6 @@ def groupnorm_width_record(c: int, gen: torch.Generator) -> dict:
     return rec
 
 
-@contextlib.contextmanager
-def plain_front_end():
-    """The model sites' dispatch with no conv01 instance (`cf.supports`
-    false): the card runs the seven conv layers as plain torch ops."""
-    saved = cf.supports
-    cf.supports = lambda config: False
-    try:
-        yield
-    finally:
-        cf.supports = saved
-
-
 def conv_widths_phase(smi: str, records) -> dict:
     """Phase 13f.  First every conv01 instance, C = 128 ... 1024 in both
     families (`conv_width_record`), and `groupnorm_stats` at 384 and 1024:
@@ -3875,29 +3897,189 @@ def conv_widths_phase(smi: str, records) -> dict:
     return by_path
 
 
+# Phase 13g: the pos-conv instances at 32, 96, 112 and 128 channels a group
+# (JAX's Pallas kernels take any C/G), and two full-width models driven
+# through two of them: facebook/wav2vec2-base-960h's architecture and
+# facebook/wav2vec2-large-robust's, each with 8 pos-conv groups in place of
+# 16 (C/G = 96 and 128).  No public checkpoint has these widths;
+# `num_conv_pos_embedding_groups` is the one field changed.
+POS_WIDTHS = (32, 96, 112, 128)
+POS_WIDTHS_B = ROBUST_B  # the instances' batch, x 768 frames, in 16 groups
+POS_EDGES = ((1, 63), (3, 129))  # (rows, T): a short T, an odd one over ragged dW splits
+POS_WIDTH_MODELS = {"base_g8": (Wav2Vec2Config, B), "robust_g8": (RobustWav2Vec2Config, ROBUST_B)}
+POS_WIDTH_STEPS = 3  # stage-2 steps: two warm, one timed
+# the models' weights: seed 0, the base and robust cells' seed.  From seed 1
+# base_g8's row-0 logits nearly tie between two classes over most frames,
+# within the bf16 path's error of the f32 one, so the two forwards part on
+# the argmax of many frames, on the CPU (where every site is plain) as on
+# the card: the argmax check would measure the ties
+POS_WIDTH_SEED = 0
+
+
+def pos_width_records(cg: int, paths, gen: torch.Generator) -> list:
+    """The four pos-conv kernels' C/G = `cg` instances at (`POS_WIDTHS_B`,
+    768, 16 cg), K = 128, 16 groups, against their plain versions and timed
+    beside them, the library calls and the bound (`pos_conv_eval_record`,
+    `pos_conv_train_records`: also at 2 x 3000); then at `POS_EDGES` with K
+    = 16 (at 128 also K = 132, the most taps the forward's window takes)
+    into each record's `edges`.  Every launch twice, bit-equal.  Records
+    named `_cg{cg}`; `paths` (the forward's, the steps') may be empty, and
+    the inference kernel's record takes both (stage 1's forward runs it)."""
+    dev = torch.device("cuda")
+    c, t = 16 * cg, Wav2Vec2Config().conv_output_length(SAMPLES)
+
+    def params(k):
+        kernel = (torch.randn(k, cg, c, generator=gen) * (1.5 / (k * cg) ** 0.5)).to(dev)
+        return kernel, (0.1 * torch.randn(c, generator=gen)).to(dev)
+
+    kernel, bias = params(128)
+    recs = [pos_conv_eval_record(kernel, bias, POS_WIDTHS_B, t, f"pos_conv_cg{cg}", paths, gen)]
+    recs += pos_conv_train_records(kernel, bias, POS_WIDTHS_B, t, f"_cg{cg}", paths[1:], gen)
+    edges = {r["counter"]: [] for r in recs}
+    for k in (16, 132) if cg == 128 else (16,):
+        kernel, bias = params(k)
+        require(pc.supports(c, 16, torch.bfloat16, k), f"the card's dispatch takes C/G = {cg}, K = {k}")
+        for rows, tt in POS_EDGES:
+            err, _, tol, _ = pos_conv_eval_check(kernel, bias, ((rows, tt),), f"pos_conv_cg{cg} K={k}", gen)
+            edges["pos_conv"].append(dict(shape=[rows, tt, c], taps=k, max_abs_err=err, tol=tol))
+            checks, tols, _, _ = pos_conv_train_check(kernel, bias, rows, tt, f"_cg{cg} K={k}", gen)
+            for name in ("pos_conv_train_fwd", "pos_conv_dx", "pos_conv_dw"):
+                edges[name].append(dict(shape=[rows, tt, c], taps=k, max_abs_err=checks[name][0],
+                                        tol=tols[name]))
+    for r in recs:
+        r["edges"] = edges[r["counter"]]
+    torch.cuda.empty_cache()
+    return recs
+
+
+def check_pos_conv_at(model, records, b: int, path: str, train: bool) -> None:
+    """The model's pos conv (its weight-normed kernel, its groups) against the
+    plain versions at (b, 768, C), the shape its path gives it: the
+    inference kernel or, with `train`, the training three, launched twice
+    (bit-equal); each check is added under `checked_at` of the model's
+    C/G record with `path`."""
+    gen = torch.Generator().manual_seed(2323)
+    pcv = model.wav2vec2.encoder.pos_conv_embed.conv
+    with torch.no_grad():
+        kernel = conv_ops.weight_norm_kernel(pcv.weight_v, pcv.weight_g)
+    k, cg, c = kernel.shape
+    bias = (0.1 * torch.randn(c, generator=gen)).to(kernel.device)
+    t = model.config.conv_output_length(SAMPLES)
+    shape = dict(shape=[b, t, c], groups=c // cg, path=path, relaunch_bit_equal=True)
+    by_name = {r["name"]: r for r in records}
+    if train:
+        checks, tols, _, _ = pos_conv_train_check(kernel, bias, b, t, f"_cg{cg} {path}", gen)
+        for name in ("pos_conv_train_fwd", "pos_conv_dx", "pos_conv_dw"):
+            by_name[f"{name}_cg{cg}"].setdefault("checked_at", []).append(
+                {**shape, "max_abs_err": checks[name][0], "mean_abs_err": checks[name][1],
+                 "tol": tols[name]})
+    else:
+        err, mean_err, tol, _ = pos_conv_eval_check(kernel, bias, ((b, t),), f"pos_conv_cg{cg} {path}", gen)
+        by_name[f"pos_conv_cg{cg}"].setdefault("checked_at", []).append(
+            {**shape, "max_abs_err": err, "mean_abs_err": mean_err, "tol": tol})
+    del kernel, bias
+    torch.cuda.empty_cache()
+
+
+def pos_widths_phase(smi: str, records) -> dict:
+    """Phase 13g.  First the pos-conv kernels at every C/G in `POS_WIDTHS`
+    (`pos_width_records`): the 96 and 128 instances, which the two models
+    below run, become records of the kernels line (`pos_conv_cg96`,
+    `pos_conv_train_fwd_cg96`, ...; `_cg128`), the 32 and 112 ones go into
+    this phase's line with the same keys (launches 0: no path here runs
+    them).  Then, through `wide_phases` with weights from `POS_WIDTH_SEED`,
+    `Wav2Vec2Config(num_conv_pos_embedding_groups=8)` (base_g8: C/G = 96,
+    B=16 x 246000, `groupnorm_stats`, `fused_conv01`, `pos_conv` 1 each and
+    flash 12 a forward) and `RobustWav2Vec2Config(num_conv_pos_embedding_
+    groups=8)` (robust_g8: C/G = 128, a ragged B=8 batch with its mask,
+    `conv01_robust` 1, `pos_conv` 1, flash 24): ms a forward, and with the
+    pos-conv kernels turned off through `supports` (the plain conv, what
+    the card ran at these widths before); row 0 against the card's plain
+    f32 forward; 1 stage-1 and 3 stage-2 steps at B=8; two identical stage-2
+    gradients bit-equal.  Before each model runs, its own pos conv is held
+    at its paths' shapes (`check_pos_conv_at`; base_g8 also its front end
+    at B=8).  Their front-end, flash and CTC kernels are those of the base
+    and robust cells at the same instances, whose records take these paths.
+    Returns {path: launch counts}."""
+    t = time.perf_counter()
+    gen = torch.Generator().manual_seed(2300)
+    on_path = {96: ("base_g8", "base_g8_train"), 128: ("robust_g8", "robust_g8_train")}
+    others = []
+    for cg in POS_WIDTHS:
+        recs = pos_width_records(cg, on_path.get(cg, ()), gen)
+        if cg in on_path:
+            records.extend(recs)
+        else:
+            others += [{**{k: v for k, v in r.items() if k not in ("counter", "paths")}, "launches": 0}
+                       for r in recs]
+    emit({"phase": "pos_widths", "seconds": time.perf_counter() - t, "not_on_a_path": others,
+          "card": smi})
+    joins = {"base_g8": ("groupnorm_stats", "fused_conv01", "flash_attention_fwd"),
+             "base_g8_train": ("groupnorm_stats", "fused_conv01", "flash_attention_fwd",
+                               "flash_attention_bwd"),
+             "robust_g8": ("conv01_robust", "flash_attention_fwd"),
+             "robust_g8_train": ("conv01_robust", "flash_attention_fwd", "flash_attention_bwd")}
+    by_name = {r["name"]: r for r in records}
+    for path, names in joins.items():
+        for n in names:
+            by_name[n]["paths"] = tuple(by_name[n]["paths"]) + (path,)
+    by_path = {}
+    for phase, (family, b) in POS_WIDTH_MODELS.items():
+        config = family(num_conv_pos_embedding_groups=8)
+        cg = config.hidden_size // 8
+        t = time.perf_counter()
+        model = Wav2Vec2ForCTC(config, device="cuda",
+                               generator=torch.Generator().manual_seed(POS_WIDTH_SEED))
+        what = ("facebook/wav2vec2-base-960h's architecture (768-d, 12 post-norm layers, 12 heads "
+                "of 64, FFN 3072, GroupNorm conv stack) with the pos conv in 8 groups of 96 in place "
+                "of 16 of 48" if not config.is_robust else
+                "facebook/wav2vec2-large-robust's architecture (1024-d, 24 pre-norm layers, 16 heads "
+                "of 64, FFN 4096, LayerNorm conv stack with bias) with the pos conv in 8 groups of "
+                "128 in place of 16 of 64")
+        info = {"config": what + f", CTC head of vocab 32, seed {POS_WIDTH_SEED}",
+                "parameters": sum(p.numel() for p in model.parameters()),
+                "init_s": time.perf_counter() - t}
+        if not config.is_robust:
+            # base_g8's steps run its front end and stage 1's pos conv at B=8
+            # (phase 3 holds the front end at 16 and 32)
+            check_eval_kernels_at(model, records, ROBUST_B, phase + "_train", pos=f"pos_conv_cg{cg}")
+        check_pos_conv_at(model, records, b, phase, train=False)
+        check_pos_conv_at(model, records, ROBUST_B, phase + "_train", train=True)
+        by_path.update(wide_phases(phase, f"{phase} (pos conv 8 groups of {cg})", config, model, info,
+                                   cg, smi, records, seed=cg, remat=False, steps=POS_WIDTH_STEPS,
+                                   pos_records=False, b=b, plain_site="pos_conv",
+                                   weights_seed=POS_WIDTH_SEED))
+        del model
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def _wide_geometry(config, cg: int) -> None:
-    """Phases 13b, 13c: 48 stable-layer-norm layers, C/G = head dim = `cg`,
-    which no flash instance takes (as in JAX)."""
-    require(config.is_robust and config.num_layers == 48
+    """Phases 13b, 13c: `WIDE_LAYERS` stable-layer-norm layers, C/G = head
+    dim = `cg`, which no flash instance takes (as in JAX)."""
+    require(config.is_robust and config.num_layers == WIDE_LAYERS
             and config.hidden_size // config.num_conv_pos_embedding_groups == cg
             and config.hidden_size // config.num_heads == cg
             and not fa.supports(cg, torch.bfloat16), f"the {config.hidden_size}-d geometry")
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """The model sites' dispatch with no flash instance (`fa.supports`
-    false): the attention runs `flash_attention_fwd_plain` on the card."""
-    saved = fa.supports
-    fa.supports = lambda head_dim, dtype: False
+def supports_off(mod):
+    """The model sites' dispatch with no instance of `mod`'s kernels
+    (`mod.supports` false), as JAX runs XLA where Pallas has no kernel: the
+    card runs the seven conv layers as plain torch ops (`cf`),
+    `flash_attention_fwd_plain` (`fa`) or `pos_conv_plain` through autograd
+    (`pc`)."""
+    saved = mod.supports
+    mod.supports = lambda *args, **kwargs: False
     try:
         yield
     finally:
-        fa.supports = saved
+        mod.supports = saved
 
 
 def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, remat, steps,
-                pos_records=True, b=ROBUST_B, plain_site="attention") -> dict:
+                pos_records=True, b=ROBUST_B, plain_site="attention", weights_seed=1) -> dict:
     """Models at full width on the card (phases 13b-13e), whose pos conv runs
     the kernels' C/G = `cg` instances and whose attention runs the flash
     kernels where `fa.supports` takes the head dim, else the plain version
@@ -3908,7 +4090,8 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     `fused_conv01`, `pos_conv` 1 each, flash as above).  ms a forward, and
     with flash also ms a forward of the plain attention (the flash kernels
     turned off through `fa.supports`), or with `plain_site` "front_end" of
-    the plain conv layer loop (`cf.supports`); row 0 against the card's plain f32
+    the plain conv layer loop (`cf.supports`) or "pos_conv" of the plain pos
+    conv (`pc.supports`); row 0 against the card's plain f32
     forward (no kernel in f32) at the family's cell's bounds (base 5% of the
     logit scale, robust 10%); with `pos_records` the four pos-conv kernels
     at (8, 768, C) against their plain versions, timed (into `records`,
@@ -3918,7 +4101,8 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     each a step, the base family's front-end kernels too, with flash the
     forward one a layer, two under remat, and the backward one a layer);
     two identical stage-2 losses and gradients bit-equal, all under
-    `remat`.  Frees the model.  Returns {phase: launch counts of the
+    `remat` (`weights_seed` names the model's seed in the steps' line).
+    Frees the model.  Returns {phase: launch counts of the
     forward, phase + "_train": of the steps}."""
     groups = config.num_conv_pos_embedding_groups
     layers = config.num_layers
@@ -3973,24 +4157,17 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     row0 = logits[0].float().cpu()
     del logits
     plain = {}
-    if plain_site == "front_end":
-        # the same forwards with the front-end kernels turned off, for the record
+    mod, off = {"front_end": (cf, set(front)), "pos_conv": (pc, {"pos_conv"}),
+                "attention": (fa, {"flash_attention_fwd"} if flash else set())}[plain_site]
+    if off:
+        # the same forwards with the site's kernels turned off, for the record
         before = read_counts()
-        with plain_front_end():
+        with supports_off(mod):
             plain_reps = timed_forwards(3)
-        expect_counts("the plain front-end forwards", counts_since(before),
-                      {k: 3 * v for k, v in per_forward.items() if k not in front})
-        plain = {"ms_per_forward_plain_front_end": statistics.median(plain_reps),
-                 "plain_front_end_min_max": [min(plain_reps), max(plain_reps)]}
-    elif flash:
-        # the same forwards with the flash kernels turned off, for the record
-        before = read_counts()
-        with plain_attention():
-            plain_reps = timed_forwards(3)
-        expect_counts("the plain-attention forwards", counts_since(before),
-                      {k: 3 * v for k, v in per_forward.items() if k != "flash_attention_fwd"})
-        plain = {"ms_per_forward_plain_attention": statistics.median(plain_reps),
-                 "plain_attention_min_max": [min(plain_reps), max(plain_reps)]}
+        expect_counts(f"the plain {plain_site} forwards", counts_since(before),
+                      {k: 3 * v for k, v in per_forward.items() if k not in off})
+        plain = {f"ms_per_forward_plain_{plain_site}": statistics.median(plain_reps),
+                 f"plain_{plain_site}_min_max": [min(plain_reps), max(plain_reps)]}
     profile = profile_device(forward, 2, "forward", top=10)
     # row 0 (full length) through the card's f32 path: every site plain
     before = read_counts()
@@ -4040,8 +4217,8 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
         per_step.update(flash_attention_fwd=layers * (2 if remat else 1), flash_attention_bwd=layers)
     kw = dict(with_attention_mask=robust, length_aware=robust, remat=remat)
     regs = "dropout 0.1, SpecAugment" + (", mask" if robust else "")
-    train = train_phase(phase + "_train", f"{what} {regs}, remat {remat}, seed 1", model, tconfig,
-                        batch, per_step, steps, smi, **kw)
+    train = train_phase(phase + "_train", f"{what} {regs}, remat {remat}, seed {weights_seed}", model,
+                        tconfig, batch, per_step, steps, smi, **kw)
     # two stage-2 losses and gradients of one batch from one seed: bit-equal
     loss_fn = make_ctc_loss_fn(tconfig, division_factor=tb, **kw)
     grads, losses = [], []
@@ -4205,7 +4382,7 @@ def export_phase(smi: str) -> dict:
 PROFILED_KERNELS = ("conv01_kernel", "groupnorm_stats_kernel", "pos_conv_kernel", "flash_fwd_kernel")
 
 
-PROFILING_ROUNDS = 11  # phase 15's turns of (synchronised median, chained host clock, timeit)
+PROFILING_ROUNDS = 11  # phase 15's turns of (synchronised median, chained host clock, timeit + its span)
 PROFILING_REPS = 20   # calls a reading: `timeit`'s default `iters`
 
 
@@ -4233,23 +4410,55 @@ def _chained_host_ms(forward, reps: int = PROFILING_REPS) -> float:
     return (time.perf_counter() - t) * 1e3 / reps
 
 
+def _timeit_and_span(forward) -> tuple[float, float]:
+    """`profiling.timeit(forward)` at its defaults, in ms a call, and the
+    card's ms a call over the same timed calls: CUDA events recorded before
+    the first timed call (after the warmup calls) and after the last."""
+    params = inspect.signature(profiling.timeit).parameters
+    warmup, iters = params["warmup"].default, params["iters"].default
+    calls, events = [0], []
+
+    def counted():
+        i = calls[0]
+        calls[0] += 1
+        if i == warmup:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        out = forward()
+        if i == warmup + iters - 1:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        return out
+
+    host_ms = profiling.timeit(counted) * 1e3
+    require(calls[0] == warmup + iters and len(events) == 2,
+            f"timeit made {calls[0]} calls, not {warmup} + {iters}")
+    events[1].synchronize()
+    return host_ms, events[0].elapsed_time(events[1]) / iters
+
+
 def profiling_phase(smi: str, main_ms: float) -> None:
     """Phase 15: `utils.profiling` on the base forward (B=16 x 246000, seed
     0).  First `timeit` at its defaults (3 warmup calls, `PROFILING_REPS`
-    timed back to back) against the like method without it, the host-clock
-    ms of `PROFILING_REPS` forwards back to back ended by one synchronize,
-    over their count, on the same model, by turns over `PROFILING_ROUNDS`
-    rounds, the two in alternating order from round to round (the chained
-    clock first in even rounds): the median of the rounds' relative
-    differences must lie within
-    the 3.5% spread between calls recorded in PERF.md section 2.  Phase 4's
-    method (the median of synchronised calls, each of which drains the card;
-    it read -3.0% to +4.1% against a chain, PERF.md section 6) is
-    taken by turns too, and it and phase 4's median, taken minutes earlier,
-    are printed for the record.  The turns come before the trace: after a
-    trace the synchronised calls ran 3-15% slower.  Then `trace` around one
-    forward inside `annotate("w2v2_forward")`, after an unannotated one; the
-    kernels that ran in the region must include the four inference
+    timed back to back) against the card's own time for the same timed
+    calls (`_timeit_and_span`), over `PROFILING_ROUNDS` rounds: the median
+    of the rounds' relative differences must lie within the 3.5% spread
+    between calls recorded in PERF.md section 2.  Both clocks read one
+    interval, so a forward that the machine slows slows both alike (in one
+    run on a card held at 1980 MHz, readings of this forward ran 11.9 to
+    15.6 ms, a whole reading at a time, each within 0.1% of the card's span
+    of it: PERF.md section 6); a `timeit` that timed its
+    warmup calls, divided by another count or returned before the card had
+    finished would miss them.  By turns with it, for the record: the like
+    method without `timeit`, the host-clock ms of `PROFILING_REPS` forwards
+    back to back ended by one synchronize, over their count (the chained
+    clock first in even rounds), and phase 4's method (the median of
+    synchronised calls, each of which drains the card; it read -3.0% to
+    +4.1% against a chain, PERF.md section 6), beside phase 4's median,
+    taken minutes earlier.  The turns come before the trace: after a trace
+    the synchronised calls ran 3-15% slower.  Then `trace` around one
+    forward inside `annotate("w2v2_forward")`, after an unannotated one;
+    the kernels that ran in the region must include the four inference
     kernels."""
     config = Wav2Vec2Config(dropout=0.0, apply_spec_augment=False)
     model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(0))
@@ -4260,18 +4469,18 @@ def profiling_phase(smi: str, main_ms: float) -> None:
             return model(x)
 
     forward()
-    synced, chained, timed = [], [], []
+    synced, chained, pairs = [], [], []
     for i in range(PROFILING_ROUNDS):
         synced.append(_host_median_ms(forward))
-        # the two chains swap places from round to round, so that a drift
-        # within a round falls on each side as often
+        # the chained clock and timeit swap places from round to round
         if i % 2:
-            timed.append(profiling.timeit(forward) * 1e3)
+            pairs.append(_timeit_and_span(forward))
             chained.append(_chained_host_ms(forward))
         else:
             chained.append(_chained_host_ms(forward))
-            timed.append(profiling.timeit(forward) * 1e3)
-    rel = statistics.median(t / c - 1.0 for t, c in zip(timed, chained))
+            pairs.append(_timeit_and_span(forward))
+    timed, spans = [t for t, _ in pairs], [d for _, d in pairs]
+    rel = statistics.median(t / d - 1.0 for t, d in zip(timed, spans))
     chained_ms, timeit_ms = statistics.median(chained), statistics.median(timed)
     with tempfile.TemporaryDirectory(prefix="w2v2_trace_") as log_dir:
         with profiling.trace(log_dir):
@@ -4297,18 +4506,20 @@ def profiling_phase(smi: str, main_ms: float) -> None:
     emit({"phase": "profiling", "trace_events": len(events), "trace_mb": trace_mb, "found": found,
           "kernel_events": len(kernels), "kernels_in_region": len(inside),
           "first_kernels": [n[:60] for _, n in kernels[:4]],
-          "timeit_ms": timeit_ms, "chained_host_ms": chained_ms, "rounds": PROFILING_ROUNDS,
-          "order": "chained first in even rounds, timeit first in odd ones",
-          "timeit_ms_by_round": timed, "chained_host_ms_by_round": chained,
+          "timeit_ms": timeit_ms, "device_span_ms": statistics.median(spans), "rounds": PROFILING_ROUNDS,
+          "timeit_ms_by_round": timed, "device_span_ms_by_round": spans,
           "rel_diff": rel, "tol": 0.035,
+          "order": "chained first in even rounds, timeit first in odd ones",
+          "chained_host_ms": chained_ms, "chained_host_ms_by_round": chained,
+          "chained_rel_diff_for_the_record": statistics.median(
+              t / c - 1.0 for t, c in zip(timed, chained)),
           "synced_median_ms_by_round": synced,
           "synced_rel_diff_for_the_record": statistics.median(
               t / h - 1.0 for t, h in zip(timed, synced)),
           "main_median_ms": main_ms,
           "main_rel_diff_for_the_record": timeit_ms / main_ms - 1.0, "card": smi})
     require(all(found.values()), f"the trace lacks {[k for k, v in found.items() if not v]}")
-    require(abs(rel) <= 0.035, f"timeit {timed} ms against the chained host-clock ms {chained} "
-                               "taken by turns")
+    require(abs(rel) <= 0.035, f"timeit {timed} ms against the card's span of the same calls, {spans} ms")
     del model, x
     torch.cuda.empty_cache()
 
@@ -5155,6 +5366,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    walls, clock = {}, [time.perf_counter()]
+
+    def lap(finished: str) -> None:
+        """Wall seconds since the last lap, under the phase just finished."""
+        now = time.perf_counter()
+        walls[finished] = now - clock[0]
+        clock[0] = now
 
     # 1. card
     name = torch.cuda.get_device_name(0)
@@ -5165,6 +5383,7 @@ def main() -> int:
     emit({"phase": "card", "name": name, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    lap("card")
     # 2. build: the CUDA kernels and, beside them, the data plane's codec (g++)
     t_build = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -5178,6 +5397,7 @@ def main() -> int:
     config = Wav2Vec2Config(dropout=0.0, apply_spec_augment=False)  # base: 768-d, 12 layers
     model = Wav2Vec2ForCTC(config, device=dev, generator=torch.Generator().manual_seed(0))
 
+    lap("build")
     # 3. kernels (those of the robust/large shapes come with its model, in phase 7)
     records = check_kernels(model)
     check_train_kernels(model, records)
@@ -5186,6 +5406,7 @@ def main() -> int:
     check_ctc_kernels(records)
     emit({"phase": "kernels", "checked": [r["name"] for r in records], "card": smi})
 
+    lap("kernels")
     # 4. main path
     per_forward = base_forward_counts(config.num_layers)
     evaluator = GreedyCTCEvaluator(model)
@@ -5267,9 +5488,11 @@ def main() -> int:
     del model, cpu_model
     tiny_phase(smi)
 
+    lap("main")
     # 6. training (base)
     by_path["train"] = base_train_phase(smi)
     layer_norm_cost(smi)
+    lap("train")
     # 7. the robust/large family: its kernels at its shapes, then its paths.  The
     # model comes only now, so that the base phases' peak memory is theirs alone
     robust_model = Wav2Vec2ForCTC(
@@ -5281,39 +5504,57 @@ def main() -> int:
     by_path.update(robust_phases(robust_model, smi))
     del robust_model
     torch.cuda.empty_cache()
+    lap("robust")
     # 8. long audio in one pass
     by_path.update(long_phases(smi))
+    lap("long")
     # 9. pretraining: the scatter kernel at the recipe's shapes, then the paths
     check_scatter_kernels(records, smi)
     by_path.update(pretrain_phases(smi))
+    lap("pretrain")
     # 10. the command-line path: weight files, the data plane, both stages, resume, evaluate
     by_path.update(cli_phase(smi))
+    lap("cli")
     # 11. the HTTP server: batching, timestamps, a stream, alignment, beam search;
     # its model and replies serve again in phase 17
     serve_root = tempfile.TemporaryDirectory(prefix="w2v2_serve_")
     by_path["serve"], one_serve = serve_phase(smi, records, serve_root.name)
+    lap("serve")
     # 12. rematerialisation: the three policies on fine-tuning and pretraining steps
     by_path["remat"] = remat_phase(smi)
+    lap("remat")
     # 13. HuBERT-large from a raw HF snapshot
     by_path.update(hubert_phase(smi))
+    lap("hubert")
     # 13b. the 1280-d family: HuBERT-xlarge from a raw HF snapshot, its kernels
     # at C/G = 80, inference and stage-2 steps
     by_path.update(xlarge_phase(smi, records))
+    lap("xlarge")
     # 13c. XLS-R 2B's 1920-d: its kernels at C/G = 120, inference and stage-2 steps
     by_path.update(xls_r_2b_phase(smi, records))
+    lap("xls_r_2b")
     # 13d. the robust/large widths at 8 heads of 128: the flash kernels' D = 128
     # instances, inference and stage-2 steps
     by_path.update(robust_h128_phase(smi, records))
+    lap("robust_h128")
     # 13e. the flash kernels' D = 192 and 256 instances: base width at 4 heads
     # of 192, the robust/large widths at 4 of 256, inference and stage-2 steps
     by_path.update(wide_heads_phase(smi, records))
+    lap("wide_heads")
     # 13f. the conv01 instances at every front-end width from 128 to 1024, then
     # base at a 384-wide front end and robust/large at a 1024-wide one
     by_path.update(conv_widths_phase(smi, records))
+    lap("conv_widths")
+    # 13g. the pos-conv instances at 32, 96, 112 and 128 channels a group, then
+    # base and robust/large with their pos conv in 8 groups (96 and 128)
+    by_path.update(pos_widths_phase(smi, records))
+    lap("pos_widths")
     # 14. export: torch.export run in a process of its own, then ONNX
     by_path.update(export_phase(smi))
+    lap("export")
     # 15. the profiling helpers on the base forward
     profiling_phase(smi, fwd_ms)
+    lap("profiling")
     # 16. data and tensor parallelism: two ranks on the one card, each a fresh
     # interpreter; the kernels at the ranks' own shapes first
     check_dist_kernels(records)
@@ -5324,6 +5565,7 @@ def main() -> int:
             r["paths"] = tuple(r["paths"]) + ("dist",)
     ran = {r["counter"] for r in records if "dist" in r["paths"]}
     require(ran == set(DIST_KERNELS), f"the dist path's kernels: {sorted(ran)}")
+    lap("dist")
     # 17. cli.serve --sharded: two ranks on the one card serve phase 11's model
     by_path["serve_sharded"] = serve_sharded_phase(smi, records, os.path.join(serve_root.name, "model"),
                                                    one_serve)
@@ -5340,6 +5582,8 @@ def main() -> int:
         require(r["launches"] > 0 and all(r["launches_by_path"].values()),
                 f"{r['name']} was not launched on each of its paths: {r['launches_by_path']}")
 
+    lap("serve_sharded")
+    emit({"phase": "walls", "seconds": walls, "total_s": sum(walls.values())})
     emit({"kernels": records})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

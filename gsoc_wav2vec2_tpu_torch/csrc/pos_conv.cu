@@ -1,7 +1,8 @@
 // Grouped positional convolution of the wav2vec2 encoder (K = 128 taps,
 // 16 groups; CG = C / 16 channels a group: 48 base, 64 robust/large, 80 in
-// the 1280-d family, 120 in XLS-R 2B's 1920-d): the inference forward, the
-// training forward and both halves of its backward.
+// the 1280-d family, 120 in XLS-R 2B's 1920-d; also every other multiple of
+// 16 up to 128, as the Pallas kernels take any CG): the inference forward,
+// the training forward and both halves of its backward.
 //
 // pos_conv_kernel<CG, Mode> replaces three Pallas kernels of
 // gsoc_wav2vec2_tpu/ops/pallas/pos_conv.py, one per epilogue:
@@ -62,8 +63,23 @@
 //     zeros.  120 accumulators a thread, one CTA an SM; shared memory 4
 //     slots x 32 KB + a window of (256 + K) x 256 bytes = 230,464 bytes at K
 //     = 128, of the 232,448 a block may take (up to 132 taps,
-//     `pos_conv.MAX_TAPS`).  Bound at (8, 768, 1920): 2*B*T*K*CG*C = 3.62e11
-//     FLOP, 0.366 ms at 989 TFLOP/s, for each of the four kernels.
+//     `pos_conv.Width.max_taps`).  Bound at (8, 768, 1920): 2*B*T*K*CG*C =
+//     3.62e11 FLOP, 0.366 ms at 989 TFLOP/s, for each of the four kernels.
+//   * CG = 32 (512 channels in 16 groups): the contraction is CG itself (2 k
+//     steps), a tap one 32 x 64 box (columns 32-63 zero), m64n32k16; 32
+//     accumulators a thread, 2 CTAs an SM (42,048 bytes at K = 128).
+//   * CG = 96 (the base widths in 8 groups): 6 k steps, a tap two 96 x 64
+//     boxes (the second's columns 32-63 zero), m64n96k16 across both; dx's
+//     k steps 0-3 in box 0, 4-5 in box 1.  96 accumulators a thread, one CTA
+//     an SM (173,120 bytes at K = 128).
+//   * CG = 112: 7 k steps, two 112 x 64 boxes (the second's columns 48-63
+//     zero), m64n112k16; dx's k steps 4-6 in box 1.  One CTA an SM (201,792
+//     bytes at K = 128; up to 264 taps).
+//   * CG = 128 (the robust/large widths in 8 groups): 8 k steps, two 128 x
+//     64 boxes with no zero fill, m64n128k16; unlike 120, the window's 16th
+//     column chunk is data, and dx reads all 128 rows.  128 accumulators a
+//     thread, one CTA an SM; 230,464 bytes at K = 128, as 120 (up to 132
+//     taps).
 //   * The epilogues run straight from the accumulators: kEval + bias, GELU,
 //     bf16; kTrain the same plus the f32 pre-activation; kDx the sum, bf16.
 //
@@ -103,6 +119,20 @@
 //     (N = 40, 120 accumulators a thread); 22 x 3 x 16 = 1056 CTAs at K =
 //     128, G = 16, the last tap block 2 taps.  The x window is one
 //     unswizzled box of 120 channels (rows of 240 bytes, 15 units).
+//   * CG = 32: one swizzled box as at 48, N = 32, 16 taps a CTA (M = 512,
+//     64 accumulators a thread): 8 x 16 = 128 CTAs at K = 128, G = 16.
+//   * CG = 96: 8 taps a CTA (M = 768, 6 m64 tiles), the group's output
+//     channels over two CTAs (N = 48, 144 accumulators a thread, as at 48):
+//     16 x 2 x 16 = 512 CTAs; an unswizzled x window of 104 channels (208
+//     bytes, 13 units).
+//   * CG = 112: 8 taps of 112 rows (M = 896) would be 196 accumulators a
+//     thread at N = 56, past the 232 registers beside the A operands; so a
+//     tap's rows are padded to 128 as at 120 (14% more products), 4 taps a
+//     CTA (M = 512), N = 56 over two CTAs (112 accumulators): 32 x 2 x 16 =
+//     1024 CTAs; an x window of 120 channels (240 bytes, 15 units).
+//   * CG = 128: 4 taps a CTA (M = 512), N = 64 over two CTAs (128
+//     accumulators; 6 taps would be 192 beside 48 A registers): 1024 CTAs;
+//     an x window of 136 channels (272 bytes, 17 units).
 //   * Where the CTAs cannot fill the card (small B*T or few groups), the
 //     wrapper splits the time tiles over `splits` CTAs per tile block
 //     (`pos_conv.dw_splits`); each writes an f32 partial and
@@ -114,10 +144,13 @@
 // Registers (`_build.ptxas_report()` on the H100, 0 spills, no C7514 /
 // C7513) and dynamic shared memory at K = 128 (`FwdLayout::bytes`,
 // `DwLayout::kBytes`): pos_conv_kernel<CG, kEval / kTrain / kDx> 42 / 43 /
-// 42 at 16 (21,568 bytes), 82 / 81 / 74 at 48 (62,528), 96 / 96 / 90 at 64
-// (83,008), 122 / 124 / 106 at 80 (144,448), 168 / 168 / 146 at 120
-// (230,464); pos_conv_dw_kernel 168 at every width (83,008 / 74,816 / 70,720
-// / 87,104 / 103,488 bytes at 16 / 48 / 64 / 80 / 120).
+// 42 at 16 (21,568 bytes), 61 / 66 / 58 at 32 (42,048), 82 / 81 / 74 at 48
+// (62,528), 96 / 96 / 90 at 64 (83,008), 122 / 124 / 106 at 80 (144,448),
+// 143 / 145 / 122 at 96 (173,120), 162 / 162 / 138 at 112 (201,792), 168 /
+// 168 / 146 at 120 and 168 / 168 / 154 at 128 (230,464); pos_conv_dw_kernel
+// 168 at every width (83,008 / 74,816 / 74,816 / 70,720 / 87,104 / 95,296 /
+// 99,392 / 103,488 / 111,680 bytes at 16 / 32 / 48 / 64 / 80 / 96 / 112 /
+// 120 / 128).
 //
 // Every output element is written by one CTA from sums in a fixed order (the
 // splits reduced in a fixed order), so a relaunch is bit-equal.
@@ -334,9 +367,10 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out, vo
                    int T, int C, int G, int K, int pad, cudaStream_t stream) {
   // w: the kernel (K, CG, C) bf16 as a 4-D map (o, group, i, tap); a box is
   // kKRows rows (i) x 64 columns (o) of one group and tap, 64 j the first
-  // column of box j.  Columns past CG (48 of the one box at 16, 16 at 48, 48
-  // of the second at 80, 8 at 120) and rows past CG (120-127 at 120) lie
-  // past the group's dims and are zero-filled
+  // column of box j.  Columns past CG (48 of the one box at 16, 32 at 32, 16
+  // at 48, 48 of the second at 80, 32 at 96, 16 at 112, 8 at 120, none at
+  // 128) and rows past CG (120-127 at 120) lie past the group's dims and are
+  // zero-filled
   using L = FwdLayout<CG>;
   CUtensorMap w_map;
   const cuuint64_t dims[4] = {(cuuint64_t)CG, (cuuint64_t)G, (cuuint64_t)CG, (cuuint64_t)K};
@@ -357,13 +391,18 @@ int dispatch(const void* x, const void* w, const void* bias, void* out, void* pr
              int C, int G, int K, int pad, cudaStream_t s) {
   // C / G is 48 in the base family, 64 in the robust/large one, 80 in the
   // 1280-d one (HuBERT-xlarge, XLS-R 1B) and 120 in XLS-R 2B's 1920-d; 16 is
-  // the narrow geometry of the tests
+  // the narrow geometry of the tests; 32, 96, 112 and 128 are the other
+  // multiples of 16 up to 128 (no public checkpoint has them)
   switch (C / G) {
     case 16: return (int)launch<16, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
+    case 32: return (int)launch<32, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     case 48: return (int)launch<48, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     case 64: return (int)launch<64, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     case 80: return (int)launch<80, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
+    case 96: return (int)launch<96, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
+    case 112: return (int)launch<112, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     case 120: return (int)launch<120, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
+    case 128: return (int)launch<128, kMode>(x, w, bias, out, pre, B, T, C, G, K, pad, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -375,20 +414,23 @@ constexpr int kDwThreads = kConsumerThreads + 128;        // + a producer warpgr
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
-template <int CG, int kTaps>
+template <int CG, int kTaps, int kNSplit>
 struct DwLayout {
   static constexpr bool kWide = CG > kBox;       // a group wider than one 64-channel box
-  static constexpr int kN = kWide ? 40 : CG;     // output channels a CTA (wgmma N)
-  static constexpr int kNSplit = CG / kN;        // CTAs that share a group's output channels
-  // M rows a tap: CG padded to whole 16-row warp slabs (128 at CG = 120)
-  static constexpr int kTapRows = (CG + 15) / 16 * 16;
+  static constexpr int kN = CG / kNSplit;        // output channels a CTA (wgmma N)
+  // M rows a tap: CG padded to whole 16-row warp slabs, and to 128 where
+  // kTaps such taps would not fill whole 128-row warpgroup halves (128 at CG
+  // = 120, and at 112 with 4 taps)
+  static constexpr int kSlabRows = (CG + 15) / 16 * 16;
+  static constexpr int kTapRows = kTaps * kSlabRows % 128 ? 128 : kSlabRows;
   static constexpr int kM = kTaps * kTapRows;    // dW rows a CTA
   static constexpr int kMt = kM / 128;           // m64 tiles a consumer warpgroup
   static constexpr int kXRows = kDwT + kTaps;    // window rows a stage (one spare)
   // a window row: 64 channels, 128-byte swizzle; wide, the CG channels
   // unswizzled, 8 more where CG / 8 is even, so that the pitch is an odd
   // number of 16-byte units and an ldmatrix matrix's 8 rows start in 8
-  // distinct bank groups (80: 88 channels, 176 bytes; 120: 240 bytes)
+  // distinct bank groups (80: 88 channels, 176 bytes; 96: 208; 112 and 120:
+  // 240; 128: 272)
   static constexpr int kXCols = !kWide ? kBox : (CG / 8) % 2 ? CG : CG + 8;
   static constexpr int kXPitch = kXCols * 2;
   static constexpr int kXLoad = kXRows * kXPitch;              // bytes the x box brings
@@ -404,19 +446,19 @@ struct DwLayout {
 // tap block * kNSplit + which kN): into dW (K, CG, C) itself when splits is
 // 1, else into part (splits, G, K*CG, CG).  Rows of taps past K are not
 // stored.
-template <int CG, int kTaps>
+template <int CG, int kTaps, int kNSplit>
 __global__ void __launch_bounds__(kDwThreads, 1)
 pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap d_map,
                    float* __restrict__ dw, float* __restrict__ part, int B, int T, int C, int K,
                    int splits) {
-  using L = DwLayout<CG, kTaps>;
+  using L = DwLayout<CG, kTaps, kNSplit>;
   constexpr int kNa = L::kN / 2;
   constexpr int kMt = L::kMt;
   unsigned char* ring = aligned_smem();
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * L::kStage);
   uint64_t* empty = full + kStages;
 
-  const int tap0 = (blockIdx.x / L::kNSplit) * kTaps, o0 = (blockIdx.x % L::kNSplit) * L::kN;
+  const int tap0 = (blockIdx.x / kNSplit) * kTaps, o0 = (blockIdx.x % kNSplit) * L::kN;
   const int grp = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31;
   const int tpr = (T + kDwT - 1) / kDwT;
@@ -461,7 +503,9 @@ pos_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_const
   // A[m][t] = window[t + tap][i] of tile m's 16 rows (tap, i0 ..) of this
   // warp, by ldmatrix.trans: matrix lane / 8 covers the rows 8 (q & 1) ..
   // of the 16 (channels i0 + 8 (q & 1) of their tap), time steps 8 (q >> 1);
-  // padding rows (i >= CG, at 120) read the 8 rows above them again.  The
+  // padding rows (i >= CG, at 112 and 120) read the 8 rows above them again
+  // (at 112 the rows 120-127 so read channels 112-119, inside the window and
+  // never stored).  The
   // swizzle term (chunk ^ row % 8) does not change along k steps of 16 rows,
   // so each tile keeps one offset (wide groups: rows of kXCols channels, no
   // swizzle)
@@ -541,12 +585,13 @@ pos_conv_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw
   dw[idx] = sum;
 }
 
-// kTapStep: the tap counts the instance takes are its multiples
-// (pos_conv.DW_TAP_BLOCK); kTaps: taps a CTA (pos_conv.DW_CTA_TAPS)
-template <int CG, int kTapStep, int kTaps>
+// kTapStep: the tap counts the instance takes are its multiples; kTaps: taps
+// a CTA; kNSplit: CTAs that share a tap block's output channels (a
+// `pos_conv.Width`'s tap_step, dw_taps and dw_n_split)
+template <int CG, int kTapStep, int kTaps, int kNSplit>
 cudaError_t launch_dw(const void* x, const void* dpre, void* part, void* dw, int B, int T, int C,
                       int G, int K, int splits, cudaStream_t s) {
-  using L = DwLayout<CG, kTaps>;
+  using L = DwLayout<CG, kTaps, kNSplit>;
   if (K % kTapStep || splits < 1 || (splits > 1 && !part)) return cudaErrorInvalidValue;
   CUtensorMap x_map, d_map;
   {  // x (B, T, C): boxes of kXCols channels (64; wide unswizzled) x kXRows rows of one
@@ -563,9 +608,9 @@ cudaError_t launch_dw(const void* x, const void* dpre, void* part, void* dw, int
     const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)kDwT, 1};
     W2V2_TRY(encode(&d_map, dpre, 3, dims, strides, box));
   }
-  const auto kernel = pos_conv_dw_kernel<CG, kTaps>;
+  const auto kernel = pos_conv_dw_kernel<CG, kTaps, kNSplit>;
   W2V2_TRY(w2v2::allow_smem(kernel, L::kBytes));
-  const dim3 grid((K + kTaps - 1) / kTaps * L::kNSplit, G, splits);
+  const dim3 grid((K + kTaps - 1) / kTaps * kNSplit, G, splits);
   kernel<<<grid, kDwThreads, L::kBytes, s>>>(x_map, d_map, (float*)dw, (float*)part, B, T, C, K,
                                               splits);
   W2V2_TRY(cudaGetLastError());
@@ -607,11 +652,15 @@ extern "C" int w2v2_pos_conv_dw(const void* x, const void* dpre, void* part, voi
                                 int T, int C, int G, int K, int splits, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   switch (C / G) {
-    case 16: return (int)launch_dw<16, 8, 32>(x, dpre, part, dw, B, T, C, G, K, splits, s);
-    case 48: return (int)launch_dw<48, 8, 16>(x, dpre, part, dw, B, T, C, G, K, splits, s);
-    case 64: return (int)launch_dw<64, 4, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
-    case 80: return (int)launch_dw<80, 8, 8>(x, dpre, part, dw, B, T, C, G, K, splits, s);
-    case 120: return (int)launch_dw<120, 4, 6>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 16: return (int)launch_dw<16, 8, 32, 1>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 32: return (int)launch_dw<32, 4, 16, 1>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 48: return (int)launch_dw<48, 8, 16, 1>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 64: return (int)launch_dw<64, 4, 8, 1>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 80: return (int)launch_dw<80, 8, 8, 2>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 96: return (int)launch_dw<96, 4, 8, 2>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 112: return (int)launch_dw<112, 4, 4, 2>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 120: return (int)launch_dw<120, 4, 6, 3>(x, dpre, part, dw, B, T, C, G, K, splits, s);
+    case 128: return (int)launch_dw<128, 4, 4, 2>(x, dpre, part, dw, B, T, C, G, K, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,6 +26,8 @@ kernels stopped at MAX_T = 2048 and needed the halo-tiled
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -33,55 +35,89 @@ from ..basic import gelu
 from . import _build
 
 
-# C // groups the CUDA kernels are instantiated for: base, robust/large, the
-# narrow geometry of the tests, the 1280-d family (HuBERT-xlarge, XLS-R 1B)
-# and XLS-R 2B's 1920-d
-KERNEL_GROUP_WIDTHS = (48, 64, 16, 80, 120)
-_WIDTHS = "48 (base), 64 (robust/large), 80 (1280-d), 120 (1920-d) or 16"
-# C // groups -> the tap counts the kernels take are its multiples
-# (`launch_dw<CG, kTapStep, kTaps>`'s kTapStep)
-DW_TAP_BLOCK = {48: 8, 64: 4, 16: 8, 80: 8, 120: 4}
-# C // groups -> taps a CTA of the dW kernel (kTaps): M = taps * `tap_rows`
-DW_CTA_TAPS = {48: 16, 64: 8, 16: 32, 80: 8, 120: 6}
-# C // groups -> CTAs that share a tap block's output channels (`DwLayout`'s
-# kNSplit: N = 40 channels a CTA where a group is wider than one 64-channel box)
-DW_N_SPLIT = {48: 1, 64: 1, 16: 1, 80: 2, 120: 3}
+SMEM_PER_BLOCK = 232_448  # bytes of dynamic shared memory an sm_90 block may take
 DW_TIME_TILE = 64  # time steps a stage of the dW kernel
-# C // groups -> the most taps whose input window fits the forward / dx
-# kernel's shared memory beside its weight ring (`FwdLayout::bytes`; 230,464
-# of the 232,448 bytes a block may take at 120 channels a group and 128 taps)
-MAX_TAPS = {120: 132}
 
 
 def tap_rows(cg: int) -> int:
     """A tap's C // groups channels padded with zeros to whole k steps of 16
-    (`FwdLayout::kKRows`, `DwLayout::kTapRows`): 128 at 120, cg elsewhere."""
+    (`FwdLayout::kKRows`): 128 at 120, cg elsewhere."""
     return -(-cg // 16) * 16
+
+
+def dw_tap_rows(cg: int, taps: int) -> int:
+    """M rows a tap of the dW kernel (`DwLayout::kTapRows`): `tap_rows`, or
+    128 where `taps` taps of it would not fill whole 128-row warpgroup
+    halves (at 120, and at 112 with 4 taps a CTA)."""
+    rows = tap_rows(cg)
+    return 128 if taps * rows % 128 else rows
 
 
 def dw_window_cols(cg: int) -> int:
     """Channels a row of the dW kernel's x window (`DwLayout::kXCols`): a
     64-channel box with the 128-byte swizzle up to 64 channels a group;
     wider, the group's channels unswizzled, 8 more where cg / 8 is even, so
-    that the row pitch is an odd number of 16-byte units (88 at 80, 120 at
-    120)."""
+    that the row pitch is an odd number of 16-byte units (88 at 80, 104 at
+    96, 120 at 112 and 120, 136 at 128)."""
     if cg <= 64:
         return 64
     return cg if (cg // 8) % 2 else cg + 8
 
 
+def fwd_smem_bytes(cg: int, kernel_size: int) -> int:
+    """Dynamic shared memory of the forward / dx kernel (`FwdLayout::bytes`):
+    1024 bytes of alignment slack, 4 weight slots of ceil(cg / 64) boxes of
+    `tap_rows` rows x 64 columns, 8 bytes a barrier, and a window of 256 + K
+    rows of `tap_rows` bf16 channels."""
+    rows = tap_rows(cg)
+    return 1024 + 4 * -(-cg // 64) * rows * 64 * 2 + 2 * 4 * 8 + (256 + kernel_size) * rows * 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Width:
+    """One C // groups the CUDA kernels are instantiated for: a case of both
+    C switches of `csrc/pos_conv.cu` (`dispatch` and `w2v2_pos_conv_dw`,
+    whose `launch_dw<CG, kTapStep, kTaps, kNSplit>` gives the last three
+    fields)."""
+
+    cg: int
+    tap_step: int    # kTapStep: the tap counts the instance takes are its multiples
+    dw_taps: int     # kTaps: taps a dW CTA, M = taps * `dw_tap_rows`
+    dw_n_split: int  # kNSplit: CTAs that share a tap block's output channels
+
+    @property
+    def max_taps(self) -> int:
+        """The most taps, a multiple of `tap_step`, whose input window fits
+        the forward / dx kernel's shared memory beside its weight ring (132
+        at 120 and 128 channels a group)."""
+        room = (SMEM_PER_BLOCK - fwd_smem_bytes(self.cg, 0)) // (2 * tap_rows(self.cg))
+        return room // self.tap_step * self.tap_step
+
+
+WIDTHS = {w.cg: w for w in (
+    Width(16, 8, 32, 1),   # the narrow geometry of the tests
+    Width(32, 4, 16, 1),   # 512 channels in 16 groups
+    Width(48, 8, 16, 1),   # base
+    Width(64, 4, 8, 1),    # robust/large
+    Width(80, 8, 8, 2),    # the 1280-d family (HuBERT-xlarge, XLS-R 1B)
+    Width(96, 4, 8, 2),    # base widths in 8 groups
+    Width(112, 4, 4, 2),   # 1792 channels in 16 groups
+    Width(120, 4, 6, 3),   # XLS-R 2B's 1920-d
+    Width(128, 4, 4, 2),   # robust/large widths in 8 groups
+)}
+
+
 def supports(c: int, groups: int, dtype: torch.dtype, kernel_size: int = 128) -> bool:
     """Whether the pos-conv kernels' instances cover a (.., C) activation of
     `dtype` convolved in `groups` groups with `kernel_size` taps: bf16, C //
-    groups in `KERNEL_GROUP_WIDTHS`, a tap count that is a multiple of
-    `DW_TAP_BLOCK` (8; 4 at 64 and 120 channels a group) and at most
-    `MAX_TAPS` (132 at 120 channels a group).  Elsewhere the card runs
+    groups in `WIDTHS` (the multiples of 16 up to 128, and 120), a tap count
+    that is a multiple of the width's `tap_step` (4 or 8) and at most its
+    `max_taps` (132 at 120 and 128).  Elsewhere the card runs
     `pos_conv_plain` through autograd, as the JAX package runs XLA's conv."""
     if dtype != torch.bfloat16 or groups < 1 or c % groups:
         return False
-    cg = c // groups
-    return (cg in KERNEL_GROUP_WIDTHS and kernel_size % DW_TAP_BLOCK[cg] == 0
-            and kernel_size <= MAX_TAPS.get(cg, kernel_size))
+    w = WIDTHS.get(c // groups)
+    return w is not None and kernel_size % w.tap_step == 0 and kernel_size <= w.max_taps
 
 
 def _conv_plain(x: torch.Tensor, kernel: torch.Tensor, groups: int, pad_lo: int) -> torch.Tensor:
@@ -108,19 +144,20 @@ def _check(name, x, kernel, groups):
     k, cg, c_out = kernel.shape
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{name} takes bf16 activations, got {x.dtype}")
-    if c % groups or cg != c // groups or c_out != c or cg not in KERNEL_GROUP_WIDTHS:
+    if c % groups or cg != c // groups or c_out != c or cg not in WIDTHS:
         raise ValueError(
             f"{name}: kernel {tuple(kernel.shape)} with {groups} groups does not fit "
-            f"{c} channels (the kernel takes C // groups of {_WIDTHS})"
+            f"{c} channels (the kernel takes C // groups of {sorted(WIDTHS)})"
         )
     return b, t, c, k, cg
 
 
 def dw_splits(kernel_size: int, cg: int, groups: int, b: int, t: int, sms: int) -> int:
     """How many CTAs share each dW tile block's time tiles: 1 where the tile
-    blocks (ceil(K / taps) per group, each `DW_N_SPLIT` CTAs) fill the `sms`
-    SMs, else as many as fit, at most one per time tile."""
-    blocks = -(-kernel_size // DW_CTA_TAPS[cg]) * groups * DW_N_SPLIT[cg]
+    blocks (ceil(K / `dw_taps`) per group, each `dw_n_split` CTAs) fill the
+    `sms` SMs, else as many as fit, at most one per time tile."""
+    w = WIDTHS[cg]
+    blocks = -(-kernel_size // w.dw_taps) * groups * w.dw_n_split
     tiles = b * -(-t // DW_TIME_TILE)
     return max(1, min(sms // blocks, tiles))
 
@@ -255,10 +292,10 @@ def pos_conv_dw(x: torch.Tensor, dpre: torch.Tensor, kernel_size: int, *,
     k, cg = kernel_size, c // groups
     if x.dtype != torch.bfloat16 or dpre.dtype != torch.bfloat16 or dpre.shape != x.shape:
         raise ValueError("pos_conv_dw takes bf16 x and dpre of one (B, T, C) shape")
-    if c % groups or cg not in KERNEL_GROUP_WIDTHS or k % DW_TAP_BLOCK[cg]:
+    if c % groups or cg not in WIDTHS or k % WIDTHS[cg].tap_step:
         raise ValueError(
-            f"pos_conv_dw takes C // groups of {_WIDTHS} and a multiple of "
-            f"{DW_TAP_BLOCK} taps, got {c} channels, {groups} groups, {k} taps"
+            f"pos_conv_dw takes C // groups of {sorted(WIDTHS)} and a multiple of "
+            f"its tap step (4 or 8) taps, got {c} channels, {groups} groups, {k} taps"
         )
     x, dpre = x.contiguous(), dpre.contiguous()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count

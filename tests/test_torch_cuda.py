@@ -353,7 +353,9 @@ def test_pos_conv_train_kernels_match_plain_on_card(cuda, c):
     torch.testing.assert_close(dw, pdw, rtol=0, atol=1e-4 * pdw.abs().max().item())
 
 
-POS_CONV_C = {48: 768, 64: 1024, 16: 256, 80: 1280, 120: 1920}  # C at 16 groups for each C/G instance
+# C at 16 groups for each C/G instance
+POS_CONV_C = {48: 768, 64: 1024, 16: 256, 80: 1280, 120: 1920, 32: 512, 96: 1536, 112: 1792,
+              128: 2048}
 
 
 def _pos_conv_case(cuda, cg, k, b, t, seed):
@@ -387,7 +389,7 @@ def _check_pos_conv_wrappers(cuda, cg, k, b, t, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cg", [48, 64, 16, 80, 120])
+@pytest.mark.parametrize("cg", list(POS_CONV_C))
 @pytest.mark.parametrize("b,t", [(b, t) for t in (1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 768)
                                  for b in (1, 3)] + [(1, 5999), (2, 3000)])
 def test_pos_conv_kernels_match_plain_at_tile_edges(cuda, cg, b, t):
@@ -396,17 +398,21 @@ def test_pos_conv_kernels_match_plain_at_tile_edges(cuda, cg, b, t):
     of the dW time tiles), the long path's 5999 frames and the 2 x 3000 of
     the smoke script's checks.  At 80 and 120 channels a group this holds
     the forward's B across a tap's two weight boxes, dx's k steps in both,
-    and dW's unswizzled x window."""
+    and dW's unswizzled x window; so at 96, 112 and 128, where dW also
+    splits a group's output channels over two CTAs (and pads a tap's rows
+    to 128 at 112)."""
     _check_pos_conv_wrappers(cuda, cg, 128, b, t, seed=t + 7 * b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cg,k", [(64, 36), (64, 4), (48, 8), (48, 24), (16, 8), (16, 40),
-                                  (80, 8), (80, 24), (120, 4), (120, 8), (120, 24), (120, 132)])
+                                  (80, 8), (80, 24), (120, 4), (120, 8), (120, 24), (120, 132),
+                                  (32, 4), (32, 36), (96, 4), (96, 36), (112, 4), (112, 36),
+                                  (112, 264), (128, 4), (128, 16), (128, 36), (128, 132)])
 def test_pos_conv_kernels_match_plain_at_small_tap_counts(cuda, cg, k):
     """36 taps at 64 channels a group, the smallest tap count each instance
-    takes, counts that end inside a dW CTA's tap block, and at 120 channels
-    a group the most taps the forward's shared memory holds."""
+    takes, counts that end inside a dW CTA's tap block, and at 112, 120 and
+    128 channels a group the most taps the forward's shared memory holds."""
     assert pos_conv.supports(POS_CONV_C[cg], 16, torch.bfloat16, k)
     _check_pos_conv_wrappers(cuda, cg, k, 3, 129, seed=k)
 
@@ -414,7 +420,9 @@ def test_pos_conv_kernels_match_plain_at_small_tap_counts(cuda, cg, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cg,k,b,t", [(48, 128, 2, 300), (64, 36, 3, 129), (16, 128, 2, 300),
                                      (80, 128, 2, 300), (80, 8, 3, 129), (120, 128, 2, 300),
-                                     (120, 4, 3, 129)])
+                                     (120, 4, 3, 129), (32, 128, 2, 300), (96, 128, 2, 300),
+                                     (96, 8, 3, 129), (112, 128, 2, 300), (112, 4, 3, 129),
+                                     (128, 128, 2, 300), (128, 4, 3, 129)])
 def test_pos_conv_launches_are_bit_equal_on_card(cuda, cg, k, b, t):
     """Two launches of each pos-conv wrapper on the same inputs are
     bit-equal, a dW that splits its time tiles (C/G = 16: 64 tile blocks;

@@ -34,7 +34,8 @@ def _port(robust=False, **kw):
 # JAX's d % 64 rule; C/G = 80: the pos-conv kernels' 80-channel instances);
 # "xls_r_2b" is hidden 1920 (D = 120, C/G = 120); "base_384" and
 # "robust_c1024" have front ends of 384 and 1024 channels (the conv01
-# kernels' narrow and wide instances)
+# kernels' narrow and wide instances); "base_g8" and "robust_g8" have 8
+# pos-conv groups (C/G = 96 and 128)
 CONFIGS = {
     "tiny": lambda: _port(),
     "tiny_robust": lambda: _port(robust=True),
@@ -46,6 +47,8 @@ CONFIGS = {
                                                          intermediate_size=7680),
     "base_384": lambda: port_config.Wav2Vec2Config(filter_sizes=[384] * 7),
     "robust_c1024": lambda: port_config.RobustWav2Vec2Config(filter_sizes=[1024] * 7),
+    "base_g8": lambda: port_config.Wav2Vec2Config(num_conv_pos_embedding_groups=8),
+    "robust_g8": lambda: port_config.RobustWav2Vec2Config(num_conv_pos_embedding_groups=8),
 }
 
 # per config: (conv front end, pos conv in bf16, flash in bf16)
@@ -58,6 +61,8 @@ COVERED = {
     "xls_r_2b": (True, True, False),
     "base_384": (True, True, True),
     "robust_c1024": (True, True, True),
+    "base_g8": (True, True, True),
+    "robust_g8": (True, True, True),
 }
 
 
@@ -85,15 +90,22 @@ def test_f32_takes_no_kernel(name):
 @pytest.mark.parametrize("c,groups,k,ok", [(768, 16, 128, True), (1024, 16, 128, True),
                                            (256, 16, 128, True), (1024, 16, 36, True),
                                            (768, 16, 36, False), (768, 16, 127, False),
-                                           (768, 8, 128, False), (770, 16, 128, False),
+                                           (768, 8, 128, True), (770, 16, 128, False),
                                            (1920, 16, 128, True), (1920, 16, 36, True),
                                            (1920, 16, 130, False), (1920, 16, 136, False),
-                                           (1920, 15, 128, False)])
+                                           (1920, 15, 128, True), (1920, 14, 128, False), (512, 16, 128, True),
+                                           (1536, 16, 128, True), (1792, 16, 128, True),
+                                           (2048, 16, 128, True), (1024, 8, 128, True),
+                                           (2048, 16, 132, True), (2048, 16, 136, False),
+                                           (1792, 16, 264, True), (1792, 16, 268, False),
+                                           (384, 16, 128, False), (640, 16, 128, False),
+                                           (2304, 16, 128, False), (1536, 16, 36, True)])
 def test_pos_conv_supports_taps_and_groups(c, groups, k, ok):
-    """C/G in the instances (48, 64, 16, 80, 120), a tap count the dW
-    kernel's tap blocks divide (8, or 4 at 64 and 120 channels a group),
-    and at 120 channels a group a window the forward's shared memory holds
-    (up to 132 taps)."""
+    """C/G in the instances (the multiples of 16 up to 128, and 120: not 24,
+    40 or 144), a tap count the dW kernel's tap blocks divide (8 at 16, 48
+    and 80 channels a group, else 4), and a window the forward's shared
+    memory holds (up to 132 taps at 120 and 128, 264 at 112).  768 in 8
+    groups is C/G = 96 and 1920 in 15 is C/G = 128: both instances now."""
     assert pos_conv.supports(c, groups, torch.bfloat16, k) is ok
 
 
@@ -129,38 +141,74 @@ def test_conv01_widths_are_the_cuda_instances():
     assert set(launched) == set(conv_frontend.KERNEL_WIDTHS)
 
 
+def _pos_conv_source() -> str:
+    return (pathlib.Path(pos_conv.__file__).parents[2] / "csrc" / "pos_conv.cu").read_text()
+
+
 def _dw_launches():
-    """C/G -> (kTapStep, kTaps) of each `launch_dw<CG, kTapStep, kTaps>` instance
-    that `w2v2_pos_conv_dw` in `csrc/pos_conv.cu` dispatches to."""
-    src = (pathlib.Path(pos_conv.__file__).parents[2] / "csrc" / "pos_conv.cu").read_text()
+    """C/G -> (kTapStep, kTaps, kNSplit) of each `launch_dw<CG, kTapStep,
+    kTaps, kNSplit>` instance that `w2v2_pos_conv_dw` in `csrc/pos_conv.cu`
+    dispatches to."""
+    src = _pos_conv_source()
     entry = src[src.index('extern "C" int w2v2_pos_conv_dw'):]
     entry = entry[:entry.index("\n}\n")]
-    found = re.findall(r"case (\d+): return \(int\)launch_dw<(\d+), (\d+), (\d+)>", entry)
-    assert all(case == cg for case, cg, _, _ in found)
-    return {int(cg): (int(step), int(taps)) for _, cg, step, taps in found}
+    found = re.findall(r"case (\d+): return \(int\)launch_dw<(\d+), (\d+), (\d+), (\d+)>", entry)
+    assert all(case == cg for case, cg, *_ in found)
+    assert len(found) == entry.count("case ")
+    return {int(cg): (int(step), int(taps), int(split)) for _, cg, step, taps, split in found}
+
+
+def _forward_launches():
+    """The C/G that the forward / dx switch (`dispatch` in
+    `csrc/pos_conv.cu`) sends to a `launch<CG, kMode>` instance."""
+    src = _pos_conv_source()
+    entry = src[src.index("int dispatch("):]
+    entry = entry[:entry.index("\n}\n")]
+    found = re.findall(r"case (\d+): return \(int\)launch<(\d+), kMode>", entry)
+    assert all(case == cg for case, cg in found) and len(found) == entry.count("case ")
+    return [int(cg) for _, cg in found]
+
+
+def test_both_c_switches_dispatch_exactly_the_widths():
+    """The forward / dx switch and the dW switch hold one case for each
+    `pos_conv.WIDTHS` entry, and those are the multiples of 16 up to 128
+    and 120: what `supports` admits in bf16 at 128 taps, for every C/G up
+    to 160."""
+    fwd = _forward_launches()
+    assert len(fwd) == len(set(fwd)) and set(fwd) == set(_dw_launches()) == set(pos_conv.WIDTHS)
+    rule = {cg for cg in range(1, 161) if (cg % 16 == 0 and cg <= 128) or cg == 120}
+    assert set(pos_conv.WIDTHS) == rule == {16, 32, 48, 64, 80, 96, 112, 120, 128}
+    for cg in range(1, 161):
+        assert pos_conv.supports(16 * cg, 16, torch.bfloat16, 128) is (cg in rule)
 
 
 def _dw_instances():
     """C/G -> the tap counts each dW instance takes are multiples of (its kTapStep)."""
-    return {cg: step for cg, (step, _) in _dw_launches().items()}
+    return {cg: step for cg, (step, _, _) in _dw_launches().items()}
 
 
 def test_dw_tap_rule_is_the_cuda_instances():
     """`pos_conv.supports` and `pos_conv_dw` share one tap rule, and it is the
-    C entry's: the same C/G widths, the same taps a block."""
-    assert _dw_instances() == pos_conv.DW_TAP_BLOCK
-    assert set(pos_conv.DW_TAP_BLOCK) == set(pos_conv.KERNEL_GROUP_WIDTHS)
+    C entry's: the same C/G widths, the same taps a block, each dividing 16
+    (so every tap count JAX's Pallas kernels take)."""
+    assert _dw_instances() == {cg: w.tap_step for cg, w in pos_conv.WIDTHS.items()}
+    assert all(16 % step == 0 for step in _dw_instances().values())
 
 
 def test_dw_cta_taps_are_the_cuda_instances():
     """`dw_splits` counts the dW kernel's tap blocks with the C entry's taps a
-    CTA (kTaps), and each is a whole number of 128-row warpgroup halves of
-    `tap_rows` M rows a tap (C/G, padded to 128 at 120)."""
-    assert {cg: taps for cg, (_, taps) in _dw_launches().items()} == pos_conv.DW_CTA_TAPS
-    assert all(taps * pos_conv.tap_rows(cg) % 128 == 0 for cg, taps in pos_conv.DW_CTA_TAPS.items())
+    CTA (kTaps) and output-channel shares (kNSplit), and each block is a
+    whole number of 128-row warpgroup halves of `dw_tap_rows` M rows a tap
+    (C/G, padded to 128 at 120 and at 112's 4 taps)."""
+    assert {cg: (taps, split) for cg, (_, taps, split) in _dw_launches().items()} == {
+        cg: (w.dw_taps, w.dw_n_split) for cg, w in pos_conv.WIDTHS.items()}
+    for cg, w in pos_conv.WIDTHS.items():
+        assert w.dw_taps * pos_conv.dw_tap_rows(cg, w.dw_taps) % 128 == 0
+    assert [cg for cg in pos_conv.WIDTHS if pos_conv.dw_tap_rows(cg, pos_conv.WIDTHS[cg].dw_taps)
+            != cg] == [112, 120]
 
 
-@pytest.mark.parametrize("cg", sorted(pos_conv.DW_TAP_BLOCK))
+@pytest.mark.parametrize("cg", sorted(pos_conv.WIDTHS))
 @pytest.mark.parametrize("k", [4, 8, 12, 36, 128])
 def test_pos_conv_supports_exactly_the_taps_the_dw_kernel_takes(cg, k):
     """A tap count passes `supports` at C/G = cg exactly when the dW

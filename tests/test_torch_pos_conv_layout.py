@@ -12,7 +12,9 @@ width, ceil(C/G / 64) boxes of 64 columns a tap.  At C/G = 120 the
 contraction is padded to 128 channels with zeros in both operands (8 k
 steps), the forward's N is 120 of the 128 columns its two boxes hold, and
 dW pads each tap's M rows to 128 and splits the group's output channels
-over three CTAs.
+over three CTAs.  At 32, 96, 112 and 128 the contraction is C/G itself; dW
+splits the output channels of 96, 112 and 128 over two CTAs, and at 112
+pads a tap's M rows to 128.
 """
 
 import math
@@ -111,7 +113,9 @@ def _walk_forward(x, w, groups, pad, dx):
 
 @pytest.mark.parametrize("cg,k,t", [(48, 128, 37), (64, 36, 50), (16, 8, 21), (48, 8, 5),
                                     (80, 128, 37), (80, 8, 5), (80, 16, 1), (120, 128, 37),
-                                    (120, 4, 5), (120, 8, 1)])
+                                    (120, 4, 5), (120, 8, 1), (32, 128, 37), (32, 4, 5),
+                                    (96, 128, 37), (96, 8, 1), (112, 128, 37), (112, 4, 5),
+                                    (128, 128, 37), (128, 4, 5), (128, 8, 1)])
 def test_forward_walk_over_tap_boxes_is_the_plain_forward(cg, k, t):
     x, _, kernel, bias, groups = _case(cg, k, 2, t, cg + k)
     w = kernel.to(torch.bfloat16)  # what the wrappers pass
@@ -127,7 +131,9 @@ def test_forward_walk_over_tap_boxes_is_the_plain_forward(cg, k, t):
 
 @pytest.mark.parametrize("cg,k,t", [(48, 128, 37), (64, 36, 50), (16, 8, 21), (64, 4, 3),
                                     (80, 128, 37), (80, 8, 3), (80, 16, 1), (120, 128, 37),
-                                    (120, 8, 3), (120, 4, 1)])
+                                    (120, 8, 3), (120, 4, 1), (32, 128, 37), (32, 8, 3),
+                                    (96, 128, 37), (96, 4, 1), (112, 128, 37), (112, 8, 3),
+                                    (128, 128, 37), (128, 8, 3), (128, 4, 1)])
 def test_dx_walk_over_flipped_tap_boxes_is_the_plain_dx(cg, k, t):
     """dx reads the forward's kernel with the taps flipped and each box read
     K-major: that is `dx_kernel`'s flipped, in/out-swapped kernel."""
@@ -142,8 +148,8 @@ def _dw_a_rows(cg, taps):
     """(tap, channel) that each M row of a dW CTA reads, by the kernel's
     ldmatrix.trans addresses: warp w of consumer warpgroup wg, m64 tile m,
     matrix half q & 1 of its 16 rows, row e of that 8-channel matrix; a
-    tap's rows padded to tap_rows (padding rows read the 8 rows above)."""
-    rows = pos_conv.tap_rows(cg)
+    tap's rows padded to dw_tap_rows (padding rows read the 8 rows above)."""
+    rows = pos_conv.dw_tap_rows(cg, taps)
     m_rows = taps * rows
     got = [None] * m_rows
     for wg in range(2):
@@ -159,24 +165,26 @@ def _dw_a_rows(cg, taps):
 
 
 def _walk_dw(x, dpre, k, groups, splits):
-    """dW as the kernel's CTAs sum it: a block of DW_CTA_TAPS taps (the last
-    one ragged) of tap_rows M rows each (`_dw_a_rows`; rows past CG not
-    stored) and one of the DW_N_SPLIT shares of the group's output channels
-    (the first CG / DW_N_SPLIT of a 64-channel dpre box from the share's
-    first, zero past C) over the 64-step time tiles n = (b, t0) of its
-    split, [n_all s / S, n_all (s + 1) / S), the splits added in order."""
+    """dW as the kernel's CTAs sum it: a block of `dw_taps` taps (the last
+    one ragged) of dw_tap_rows M rows each (`_dw_a_rows`; rows past CG not
+    stored) and one of the `dw_n_split` shares of the group's output
+    channels (the first CG / dw_n_split of a 64-channel dpre box from the
+    share's first, zero past C) over the 64-step time tiles n = (b, t0) of
+    its split, [n_all s / S, n_all (s + 1) / S), the splits added in order."""
     b, t, c = x.shape
     cg = c // groups
-    taps, tt = pos_conv.DW_CTA_TAPS[cg], pos_conv.DW_TIME_TILE
-    kn = cg // pos_conv.DW_N_SPLIT[cg]
+    taps, tt = pos_conv.WIDTHS[cg].dw_taps, pos_conv.DW_TIME_TILE
+    kn = cg // pos_conv.WIDTHS[cg].dw_n_split
     tpr = -(-t // tt)
     n_all = b * tpr
     rows = tt + taps
     a_rows = _dw_a_rows(cg, taps)
     row_tap = torch.tensor([tap for tap, _ in a_rows])
     row_ch = torch.tensor([ch for _, ch in a_rows])
-    # x rows t0 + tap0 - K/2 .. (the box), dpre rows t0 .. t0 + 63; zero outside
-    xp = F.pad(x, (0, 0, k // 2 + tt, k + 2 * tt)).double()
+    # x rows t0 + tap0 - K/2 .. (the box; its `dw_window_cols` channels from
+    # the group's first), dpre rows t0 .. t0 + 63; zero outside
+    xp = F.pad(x, (0, BOX, k // 2 + tt, k + 2 * tt)).double()
+    cols = max(cg, pos_conv.dw_window_cols(cg))
     dp = F.pad(dpre, (0, BOX, 0, tt)).double()
     dw = torch.zeros(k, cg, c, dtype=torch.float64)
     for tap0 in range(0, k, taps):
@@ -188,7 +196,7 @@ def _walk_dw(x, dpre, k, groups, splits):
                     for n in range(n_all * s // splits, n_all * (s + 1) // splits):
                         bi, t0 = n // tpr, (n % tpr) * tt
                         lo = t0 + tap0 + tt  # x row t0 + tap0 - K/2 in xp
-                        win = xp[bi, lo:lo + rows, g * cg:(g + 1) * cg]
+                        win = xp[bi, lo:lo + rows, g * cg:g * cg + cols]
                         d = dp[bi, t0:t0 + tt, g * cg + o0:g * cg + o0 + BOX][:, :kn]
                         # A[mrow, step] = window[tap + step, channel] of the row
                         a = win[row_tap[:, None] + torch.arange(tt)[None, :], row_ch[:, None]]
@@ -199,7 +207,7 @@ def _walk_dw(x, dpre, k, groups, splits):
                     total = total + p
                 # the epilogue: M row (tap, i) to dW[tap0 + tap, i], i < CG
                 for mrow, (tap, _) in enumerate(a_rows):
-                    i = mrow % pos_conv.tap_rows(cg)
+                    i = mrow % pos_conv.dw_tap_rows(cg, taps)
                     if tap0 + tap < k and i < cg:
                         dw[tap0 + tap, i, g * cg + o0:g * cg + o0 + kn] = total[mrow]
     return dw
@@ -208,7 +216,11 @@ def _walk_dw(x, dpre, k, groups, splits):
 @pytest.mark.parametrize("cg,k,b,t,splits", [(48, 24, 3, 130, 1), (64, 36, 2, 65, 3),
                                              (16, 40, 1, 200, 2), (48, 8, 2, 1, 1),
                                              (80, 24, 2, 130, 1), (80, 16, 1, 200, 3),
-                                             (120, 24, 2, 130, 1), (120, 8, 1, 200, 3)])
+                                             (120, 24, 2, 130, 1), (120, 8, 1, 200, 3),
+                                             (32, 24, 2, 130, 1), (32, 40, 1, 200, 2),
+                                             (96, 24, 2, 130, 1), (96, 12, 1, 200, 3),
+                                             (112, 24, 2, 130, 1), (112, 8, 1, 200, 3),
+                                             (128, 24, 2, 130, 1), (128, 12, 1, 200, 3)])
 def test_dw_walk_over_time_tiles_is_the_plain_dw(cg, k, b, t, splits):
     """Every (b, t) is in one time tile of one split, the x box starts at the
     tap block's shift, and ragged tap blocks and splits drop nothing."""
@@ -231,18 +243,27 @@ def test_dw_walk_over_time_tiles_is_the_plain_dw(cg, k, b, t, splits):
     (128, 120, 16, 8, 768, 1),   # 1920-d (XLS-R 2B): 22 tap blocks x 16 groups x 3 = 1056
     (4, 120, 16, 3, 129, 2),     # 1 x 16 x 3 = 48 CTAs: 2 splits
     (24, 120, 4, 2, 65, 2),      # 4 x 4 x 3 = 48 CTAs: 2 splits of the 4 time tiles
+    (128, 32, 16, 8, 768, 1),    # 512 channels: 8 tap blocks x 16 groups = 128
+    (128, 96, 16, 8, 768, 1),    # base widths in 8 groups / 1536 in 16: 16 x 16 x 2 = 512
+    (128, 96, 8, 8, 768, 1),     # base_g8 (768-d, 8 groups): 16 x 8 x 2 = 256
+    (128, 112, 16, 8, 768, 1),   # 1792 channels: 32 x 16 x 2 = 1024
+    (128, 128, 16, 8, 768, 1),   # 2048 channels: 32 x 16 x 2 = 1024
+    (128, 128, 8, 8, 768, 1),    # robust_g8 (1024-d, 8 groups): 32 x 8 x 2 = 512
+    (16, 32, 4, 2, 300, 10),     # 1 x 4 = 4 CTAs: 33 would fit, 10 time tiles
+    (4, 128, 4, 3, 129, 9),      # 1 x 4 x 2 = 8 CTAs: 16 would fit, 9 time tiles
 ])
 def test_dw_splits_fill_the_card_and_no_more(k, cg, groups, b, t, want):
     """`dw_splits` as `pos_conv_dw` calls it: 1 where the tap blocks fill the
     SMs, else as many splits as fit, never more than the time tiles."""
     got = pos_conv.dw_splits(k, cg, groups, b, t, 132)
     assert got == want
-    blocks = -(-k // pos_conv.DW_CTA_TAPS[cg]) * groups * pos_conv.DW_N_SPLIT[cg]
+    w = pos_conv.WIDTHS[cg]
+    blocks = -(-k // w.dw_taps) * groups * w.dw_n_split
     tiles = b * -(-t // pos_conv.DW_TIME_TILE)
     assert 1 <= got <= max(1, tiles) and (got == 1 or blocks * got <= 132)
 
 
-@pytest.mark.parametrize("cg", [16, 48, 64, 80, 120])
+@pytest.mark.parametrize("cg", sorted(pos_conv.WIDTHS))
 def test_tap_boxes_load_exactly_the_group(cg):
     """A tap's 64-column boxes hold the group's CG x CG weights of that tap
     and zeros past them (rows CG .. tap_rows - 1, columns CG .. of the last
@@ -265,15 +286,19 @@ def test_tap_boxes_load_exactly_the_group(cg):
     win = _window(x, 1, cg, 2, 4)
     assert win.shape == (2, 8, rows) and not win[..., cg:].any()
     assert torch.equal(win[:, 2:7, :cg], x[:, :, cg:2 * cg])
-    kn = cg // pos_conv.DW_N_SPLIT[cg]
-    assert pos_conv.DW_N_SPLIT[cg] * kn == cg and kn % 8 == 0 and kn <= BOX
-    taps = pos_conv.DW_CTA_TAPS[cg]
+    w = pos_conv.WIDTHS[cg]
+    kn = cg // w.dw_n_split
+    assert w.dw_n_split * kn == cg and kn % 8 == 0 and kn <= BOX
+    taps = w.dw_taps
+    m_rows = pos_conv.dw_tap_rows(cg, taps)
     a_rows = _dw_a_rows(cg, taps)
-    assert len(a_rows) == taps * rows and len(a_rows) % 128 == 0
+    assert len(a_rows) == taps * m_rows and len(a_rows) % 128 == 0
+    cols = pos_conv.dw_window_cols(cg)
     for tap in range(taps):
-        real = [a_rows[tap * rows + i] for i in range(cg)]
+        real = [a_rows[tap * m_rows + i] for i in range(cg)]
         assert real == [(tap, i) for i in range(cg)]
-        assert all(t == tap and ch < cg for t, ch in a_rows[tap * rows + cg:(tap + 1) * rows])
+        # padding rows read inside the x window and their own tap
+        assert all(t == tap and ch < max(cg, cols) for t, ch in a_rows[tap * m_rows + cg:(tap + 1) * m_rows])
 
 
 def _dw_bank_groups(cg, cols):
@@ -283,8 +308,9 @@ def _dw_bank_groups(cg, cols):
     by the kernel's addresses: window rows of `cols` channels, with the
     128-byte swizzle (chunk c of row r at c ^ r % 8) where `cols` is 64,
     plain otherwise; the stage 1024-byte aligned."""
-    rows = pos_conv.tap_rows(cg)
-    m_rows = pos_conv.DW_CTA_TAPS[cg] * rows
+    taps = pos_conv.WIDTHS[cg].dw_taps
+    rows = pos_conv.dw_tap_rows(cg, taps)
+    m_rows = taps * rows
     pitch = 2 * cols
     out = []
     for wg in range(2):
@@ -303,42 +329,48 @@ def _dw_bank_groups(cg, cols):
     return out
 
 
-@pytest.mark.parametrize("cg", [48, 64, 80, 120])
+@pytest.mark.parametrize("cg", [48, 64, 80, 120, 32, 96, 112, 128])
 def test_dw_window_ldmatrix_rows_hit_distinct_banks(cg):
     """Each 8-row matrix of the dW kernel's ldmatrix_x4_trans reads 8 rows of
     16 bytes, one phase of the shared memory's 32 banks: the rows must start
     in 8 distinct 16-byte bank groups, or the load is serialised.  The
     window of `dw_window_cols` channels has that at every width; at 80 an
-    unpadded row (160 bytes) puts rows r and r + 4 on the same banks."""
+    unpadded row (160 bytes) puts rows r and r + 4 on the same banks, and so
+    do rows of 96 and 128 channels (192, 256 bytes)."""
     cols = pos_conv.dw_window_cols(cg)
     assert cols >= min(cg, BOX) and (2 * cols) % 16 == 0
     for groups in _dw_bank_groups(cg, cols):
         assert len(set(groups)) == 8
-    if cg == 80:
+    if cg in (80, 96, 128):
         assert any(len(set(groups)) < 8 for groups in _dw_bank_groups(cg, cg))
 
 
 def test_forward_shared_memory_fits_the_block():
-    """`MAX_TAPS` against the forward / dx kernel's shared memory as its
-    header note lays it out (`FwdLayout::bytes`): 1024 bytes of alignment
-    slack, 4 weight slots of ceil(CG / 64) boxes of tap_rows rows x 64
-    columns, 8 bytes a barrier, and a window of 256 + K rows of tap_rows
-    bf16 channels; 144,448 bytes at 80 channels a group and 128 taps,
-    230,464 at 120, of the 232,448 a block may take.  At 120 the most taps
-    that fit is 132, and `supports` stops there; at the other widths 128
-    taps fit with room to spare, and at 48 and 64 two CTAs an SM."""
+    """Each width's `max_taps` against the forward / dx kernel's shared
+    memory as its header note lays it out (`FwdLayout::bytes`): 1024 bytes
+    of alignment slack, 4 weight slots of ceil(CG / 64) boxes of tap_rows
+    rows x 64 columns, 8 bytes a barrier, and a window of 256 + K rows of
+    tap_rows bf16 channels; 144,448 bytes at 80 channels a group and 128
+    taps, 230,464 at 120 and 128, of the 232,448 a block may take.  At 120
+    and 128 the most taps that fit is 132, and `supports` stops there; at
+    the other widths 128 taps fit with room to spare, and at 32, 48 and 64
+    two CTAs an SM."""
     def fwd_bytes(cg, k):
         rows = pos_conv.tap_rows(cg)
         slot = -(-cg // BOX) * rows * BOX * 2
         return 1024 + 4 * slot + 2 * 4 * 8 + (256 + k) * rows * 2
 
     limit = 232_448
-    assert fwd_bytes(80, 128) == 144_448 and fwd_bytes(120, 128) == 230_464
-    assert 2 * fwd_bytes(48, 128) <= limit and 2 * fwd_bytes(64, 128) <= limit
-    step = pos_conv.DW_TAP_BLOCK[120]
-    most = max(k for k in range(step, 512, step) if fwd_bytes(120, k) <= limit)
-    assert pos_conv.MAX_TAPS == {120: most} == {120: 132}
-    for k in (128, 132, 136):
-        assert pos_conv.supports(1920, 16, torch.bfloat16, k) is (k <= 132)
-    for cg in pos_conv.KERNEL_GROUP_WIDTHS:
-        assert fwd_bytes(cg, 128) <= limit
+    assert pos_conv.SMEM_PER_BLOCK == limit
+    assert fwd_bytes(80, 128) == 144_448 and fwd_bytes(120, 128) == fwd_bytes(128, 128) == 230_464
+    assert (fwd_bytes(32, 128), fwd_bytes(96, 128), fwd_bytes(112, 128)) == (42_048, 173_120, 201_792)
+    for cg in (32, 48, 64):
+        assert 2 * fwd_bytes(cg, 128) <= limit
+    for cg, w in pos_conv.WIDTHS.items():
+        assert fwd_bytes(cg, 128) <= limit and pos_conv.fwd_smem_bytes(cg, 128) == fwd_bytes(cg, 128)
+        most = max(k for k in range(w.tap_step, 8192, w.tap_step) if fwd_bytes(cg, k) <= limit)
+        assert w.max_taps == most >= 128
+    assert pos_conv.WIDTHS[120].max_taps == pos_conv.WIDTHS[128].max_taps == 132
+    for c in (1920, 2048):
+        for k in (128, 132, 136):
+            assert pos_conv.supports(c, 16, torch.bfloat16, k) is (k <= 132)
