@@ -238,6 +238,12 @@ Phases, each printing one JSON line:
                 conv); row 0 against the card's plain f32 forward (5% / 10%
                 of the logit scale); 1 + 3 stage-2 steps at B=8; two
                 stage-2 gradients bit-equal.
+ 13h. pos_odd8, base_g32, robust_g128 -- the same at the odd multiples of
+                8 below 128 (C/G = 8, 24, 40, 56, 72, 88, 104: the
+                contraction padded to whole k steps), then
+                `Wav2Vec2Config(num_conv_pos_embedding_groups=32)` (C/G =
+                24) and `RobustWav2Vec2Config(num_conv_pos_embedding_
+                groups=128)` (C/G = 8) as 13g's two models.
  14. export  -- `cli.export.main` at base width and depth: `torch_export` on
                 the card (symbolic batch, 246000 samples), the program run
                 in a process that imports `ops.kernels` alone (no model
@@ -423,7 +429,8 @@ SHORT_PATHS = ("inference", "train") + ROBUST_PATHS + ("pretrain", "pretrain_gat
 TRAIN_PATHS = ("train", "pretrain", "pretrain_gather", "cli", "remat", "pretrain_cli")
 CTC_PATHS = ("train", "robust_train", "long_train", "cli", "remat", "xlarge_train",
              "xls_r_2b_train", "robust_h128_train", "base_h192_train", "robust_h256_train",
-             "base_c384_train", "robust_c1024_train", "base_g8_train", "robust_g8_train")
+             "base_c384_train", "robust_c1024_train", "base_g8_train", "robust_g8_train",
+             "base_g32_train", "robust_g128_train")
 # a CTC loss and its gradient: one launch of each wrapper
 CTC_STEP = {"ctc_loss_fwd": 1, "ctc_loss_bwd": 1}
 LONG_PATHS = ("long_inference", "long_train")
@@ -583,6 +590,11 @@ def profile_forward(model, config, x, reps: int = 3):
     return profile_device(forward, reps, "forward")
 
 
+def pos_source(cg: int) -> str:
+    """The source that instantiates the pos-conv kernels at C/G = `cg`."""
+    return CSRC + ("pos_conv_odd8.cu" if cg in POS_ODD8_WIDTHS else "pos_conv.cu")
+
+
 def pos_conv_eval_check(kernel, bias, shapes, name, gen):
     """The inference pos conv against its plain version at each (rows, T) of
     `shapes`, launched twice (bit-equal).  Returns (max err, mean err, tol,
@@ -620,7 +632,7 @@ def pos_conv_eval_record(kernel, bias, b, t, name, paths, gen):
         return torch.nn.functional.gelu(y[:, :, :t], approximate="tanh")
 
     return dict(
-        name=name, counter="pos_conv", paths=paths, route="cuda", source=CSRC + "pos_conv.cu",
+        name=name, counter="pos_conv", paths=paths, route="cuda", source=pos_source(cg),
         replaces=PALLAS + "pos_conv.py:250", shape=[b, t, h], channels_per_group=cg,
         max_abs_err=err, mean_abs_err=mean_err, tol=tol, relaunch_bit_equal=True,
         ms=time_ms(lambda: pc.pos_conv(xs, kernel, bias, groups=groups, gelu_approx=True), 20),
@@ -913,7 +925,7 @@ def pos_conv_train_records(kernel, bias, b, t, suffix, paths, gen):
         bms, by = bound(nbytes, flops, PEAK_BF16)
         records.append(dict(
             name=name + suffix, counter=name, paths=paths, route="cuda",
-            source=CSRC + "pos_conv.cu", replaces=replaces, shape=[b, t, h], channels_per_group=cg,
+            source=pos_source(cg), replaces=replaces, shape=[b, t, h], channels_per_group=cg,
             max_abs_err=err, mean_abs_err=mean_err, tol=tols[name], relaunch_bit_equal=True,
             ms=time_ms(kern_fn, 20), plain_ms=time_ms(plain_fn, 3, 1),
             bound_ms=bms, bound_by=by, library_ms=time_ms(lib_fn, 20),
@@ -3906,7 +3918,20 @@ def conv_widths_phase(smi: str, records) -> dict:
 POS_WIDTHS = (32, 96, 112, 128)
 POS_WIDTHS_B = ROBUST_B  # the instances' batch, x 768 frames, in 16 groups
 POS_EDGES = ((1, 63), (3, 129))  # (rows, T): a short T, an odd one over ragged dW splits
-POS_WIDTH_MODELS = {"base_g8": (Wav2Vec2Config, B), "robust_g8": (RobustWav2Vec2Config, ROBUST_B)}
+# phase -> (family, pos-conv groups, the forward's batch)
+POS_WIDTH_MODELS = {"base_g8": (Wav2Vec2Config, 8, B), "robust_g8": (RobustWav2Vec2Config, 8, ROBUST_B)}
+# Phase 13h: the odd multiples of 8 below 128 channels a group, which the
+# kernels pad to whole k steps, and the same two architectures driven
+# through two of them: base with its pos conv in 32 groups (C/G = 24),
+# robust/large in 128 (C/G = 8)
+POS_ODD8_WIDTHS = (8, 24, 40, 56, 72, 88, 104)
+POS_ODD8_MODELS = {"base_g32": (Wav2Vec2Config, 32, B),
+                   "robust_g128": (RobustWav2Vec2Config, 128, ROBUST_B)}
+# the published architectures these models change (16 pos-conv groups)
+POS_FAMILY = {False: "facebook/wav2vec2-base-960h's architecture (768-d, 12 post-norm layers, 12 heads "
+                     "of 64, FFN 3072, GroupNorm conv stack)",
+              True: "facebook/wav2vec2-large-robust's architecture (1024-d, 24 pre-norm layers, 16 heads "
+                    "of 64, FFN 4096, LayerNorm conv stack with bias)"}
 POS_WIDTH_STEPS = 3  # stage-2 steps: two warm, one timed
 # the models' weights: seed 0, the base and robust cells' seed.  From seed 1
 # base_g8's row-0 logits nearly tie between two classes over most frames,
@@ -3981,72 +4006,67 @@ def check_pos_conv_at(model, records, b: int, path: str, train: bool) -> None:
     torch.cuda.empty_cache()
 
 
-def pos_widths_phase(smi: str, records) -> dict:
-    """Phase 13g.  First the pos-conv kernels at every C/G in `POS_WIDTHS`
-    (`pos_width_records`): the 96 and 128 instances, which the two models
-    below run, become records of the kernels line (`pos_conv_cg96`,
-    `pos_conv_train_fwd_cg96`, ...; `_cg128`), the 32 and 112 ones go into
-    this phase's line with the same keys (launches 0: no path here runs
-    them).  Then, through `wide_phases` with weights from `POS_WIDTH_SEED`,
-    `Wav2Vec2Config(num_conv_pos_embedding_groups=8)` (base_g8: C/G = 96,
-    B=16 x 246000, `groupnorm_stats`, `fused_conv01`, `pos_conv` 1 each and
-    flash 12 a forward) and `RobustWav2Vec2Config(num_conv_pos_embedding_
-    groups=8)` (robust_g8: C/G = 128, a ragged B=8 batch with its mask,
-    `conv01_robust` 1, `pos_conv` 1, flash 24): ms a forward, and with the
-    pos-conv kernels turned off through `supports` (the plain conv, what
-    the card ran at these widths before); row 0 against the card's plain
-    f32 forward; 1 stage-1 and 3 stage-2 steps at B=8; two identical stage-2
-    gradients bit-equal.  Before each model runs, its own pos conv is held
-    at its paths' shapes (`check_pos_conv_at`; base_g8 also its front end
-    at B=8).  Their front-end, flash and CTC kernels are those of the base
-    and robust cells at the same instances, whose records take these paths.
-    Returns {path: launch counts}."""
+def pos_widths_phase(smi: str, records, widths=POS_WIDTHS, models=POS_WIDTH_MODELS,
+                     name="pos_widths") -> dict:
+    """Phases 13g (`POS_WIDTHS`, `POS_WIDTH_MODELS`) and 13h
+    (`POS_ODD8_WIDTHS`, `POS_ODD8_MODELS`).  First the pos-conv kernels at
+    every C/G in `widths` (`pos_width_records`): the instances that the
+    models below run become records of the kernels line (`pos_conv_cg96`,
+    `pos_conv_train_fwd_cg96`, ...), the others go into this phase's line
+    (`name`) with the same keys (launches 0: no path here runs them).
+    Then, through `wide_phases` with weights from `POS_WIDTH_SEED`, each
+    model: `family(num_conv_pos_embedding_groups=groups)` (the base family
+    at B=16 x 246000: `groupnorm_stats`, `fused_conv01`, `pos_conv` 1 each
+    and flash 12 a forward; the robust/large one on a ragged B=8 batch with
+    its mask: `conv01_robust` 1, `pos_conv` 1, flash 24): ms a forward, and
+    with the pos-conv kernels turned off through `supports` (the plain
+    conv, what the card ran at these widths before); row 0 against the
+    card's plain f32 forward; 1 stage-1 and 3 stage-2 steps at B=8; two
+    identical stage-2 gradients bit-equal.  Before each model runs, its own
+    pos conv is held at its paths' shapes (`check_pos_conv_at`; the base
+    family also its front end at B=8).  Their front-end, flash and CTC
+    kernels are those of the base and robust cells at the same instances,
+    whose records take these paths.  Returns {path: launch counts}."""
     t = time.perf_counter()
     gen = torch.Generator().manual_seed(2300)
-    on_path = {96: ("base_g8", "base_g8_train"), 128: ("robust_g8", "robust_g8_train")}
+    on_path = {family().hidden_size // groups: (phase, phase + "_train")
+               for phase, (family, groups, _) in models.items()}
     others = []
-    for cg in POS_WIDTHS:
+    for cg in widths:
         recs = pos_width_records(cg, on_path.get(cg, ()), gen)
         if cg in on_path:
             records.extend(recs)
         else:
             others += [{**{k: v for k, v in r.items() if k not in ("counter", "paths")}, "launches": 0}
                        for r in recs]
-    emit({"phase": "pos_widths", "seconds": time.perf_counter() - t, "not_on_a_path": others,
-          "card": smi})
-    joins = {"base_g8": ("groupnorm_stats", "fused_conv01", "flash_attention_fwd"),
-             "base_g8_train": ("groupnorm_stats", "fused_conv01", "flash_attention_fwd",
-                               "flash_attention_bwd"),
-             "robust_g8": ("conv01_robust", "flash_attention_fwd"),
-             "robust_g8_train": ("conv01_robust", "flash_attention_fwd", "flash_attention_bwd")}
+    emit({"phase": name, "seconds": time.perf_counter() - t, "not_on_a_path": others, "card": smi})
     by_name = {r["name"]: r for r in records}
-    for path, names in joins.items():
-        for n in names:
-            by_name[n]["paths"] = tuple(by_name[n]["paths"]) + (path,)
+    for phase, (family, _, _) in models.items():
+        front = ("conv01_robust",) if family().is_robust else ("groupnorm_stats", "fused_conv01")
+        for path, flash in ((phase, ("flash_attention_fwd",)),
+                            (phase + "_train", ("flash_attention_fwd", "flash_attention_bwd"))):
+            for n in front + flash:
+                by_name[n]["paths"] = tuple(by_name[n]["paths"]) + (path,)
     by_path = {}
-    for phase, (family, b) in POS_WIDTH_MODELS.items():
-        config = family(num_conv_pos_embedding_groups=8)
-        cg = config.hidden_size // 8
+    for phase, (family, groups, b) in models.items():
+        config = family(num_conv_pos_embedding_groups=groups)
+        cg = config.hidden_size // groups
         t = time.perf_counter()
         model = Wav2Vec2ForCTC(config, device="cuda",
                                generator=torch.Generator().manual_seed(POS_WIDTH_SEED))
-        what = ("facebook/wav2vec2-base-960h's architecture (768-d, 12 post-norm layers, 12 heads "
-                "of 64, FFN 3072, GroupNorm conv stack) with the pos conv in 8 groups of 96 in place "
-                "of 16 of 48" if not config.is_robust else
-                "facebook/wav2vec2-large-robust's architecture (1024-d, 24 pre-norm layers, 16 heads "
-                "of 64, FFN 4096, LayerNorm conv stack with bias) with the pos conv in 8 groups of "
-                "128 in place of 16 of 64")
+        what = (f"{POS_FAMILY[config.is_robust]} with the pos conv in {groups} groups of {cg} in "
+                f"place of 16 of {config.hidden_size // 16}")
         info = {"config": what + f", CTC head of vocab 32, seed {POS_WIDTH_SEED}",
                 "parameters": sum(p.numel() for p in model.parameters()),
                 "init_s": time.perf_counter() - t}
         if not config.is_robust:
-            # base_g8's steps run its front end and stage 1's pos conv at B=8
-            # (phase 3 holds the front end at 16 and 32)
+            # the base family's steps run its front end and stage 1's pos
+            # conv at B=8 (phase 3 holds the front end at 16 and 32)
             check_eval_kernels_at(model, records, ROBUST_B, phase + "_train", pos=f"pos_conv_cg{cg}")
         check_pos_conv_at(model, records, b, phase, train=False)
         check_pos_conv_at(model, records, ROBUST_B, phase + "_train", train=True)
-        by_path.update(wide_phases(phase, f"{phase} (pos conv 8 groups of {cg})", config, model, info,
-                                   cg, smi, records, seed=cg, remat=False, steps=POS_WIDTH_STEPS,
+        by_path.update(wide_phases(phase, f"{phase} (pos conv {groups} groups of {cg})", config, model,
+                                   info, cg, smi, records, seed=cg, remat=False, steps=POS_WIDTH_STEPS,
                                    pos_records=False, b=b, plain_site="pos_conv",
                                    weights_seed=POS_WIDTH_SEED))
         del model
@@ -5549,6 +5569,11 @@ def main() -> int:
     # base and robust/large with their pos conv in 8 groups (96 and 128)
     by_path.update(pos_widths_phase(smi, records))
     lap("pos_widths")
+    # 13h. the pos-conv instances at the odd multiples of 8 below 128 channels
+    # a group, then base with its pos conv in 32 groups (24) and robust/large
+    # in 128 (8)
+    by_path.update(pos_widths_phase(smi, records, POS_ODD8_WIDTHS, POS_ODD8_MODELS, "pos_odd8"))
+    lap("pos_odd8")
     # 14. export: torch.export run in a process of its own, then ONNX
     by_path.update(export_phase(smi))
     lap("export")

@@ -30,8 +30,9 @@ prints a skipped row.
 samples) and K = 128 taps: base (C = 768, 16 groups) `pos_conv` at B=16 and
 `pos_conv_train_fwd`, `pos_conv_dx`, `pos_conv_dw` at B=32; robust/large
 (C = 1024, C/G = 64), the 1280-d family (C/G = 80), XLS-R 2B (C = 1920,
-C/G = 120) and C/G = 32, 96, 112 and 128 (C = 512 ... 2048, 16 groups) all
-four at B=8, and `pos_conv` at 80, 120 and 128 also at 32 and 64 taps (a
+C/G = 120) and C/G = 32, 96, 112 and 128 (C = 512 ... 2048, 16 groups) and
+the odd multiples of 8, 8 ... 104 (C = 128 ... 1664, 16 groups), all four
+at B=8, and `pos_conv` at 80, 120 and 128 also at 32 and 64 taps (a
 launch's fixed cost against its cost a tap).  Under `--root`,
 a width that tree's `pos_conv.supports` does not cover prints a skipped row;
 in this tree it fails.
@@ -248,7 +249,9 @@ def bench_pos_conv(torch, label, other_tree=False):
     for c, cg, cases in ((768, 48, (("pos_conv", 16, 128), ("pos_conv_train_fwd", 32, 128),
                                     ("pos_conv_dx", 32, 128), ("pos_conv_dw", 32, 128))),
                          (1024, 64, b8), (1280, 80, b8 + taps), (1920, 120, b8 + taps),
-                         (512, 32, b8), (1536, 96, b8), (1792, 112, b8), (2048, 128, b8 + taps)):
+                         (512, 32, b8), (1536, 96, b8), (1792, 112, b8), (2048, 128, b8 + taps),
+                         (128, 8, b8), (384, 24, b8), (640, 40, b8), (896, 56, b8), (1152, 72, b8),
+                         (1408, 88, b8), (1664, 104, b8)):
         groups = c // cg
         if other_tree and not pc.supports(c, groups, torch.bfloat16, 128):
             print(json.dumps({"label": label, "channels_per_group": cg,

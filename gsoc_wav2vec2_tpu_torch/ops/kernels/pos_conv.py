@@ -1,5 +1,7 @@
-"""Grouped positional convolution (`csrc/pos_conv.cu`): the inference
-forward, and the training forward with its backward kernels.
+"""Grouped positional convolution (`csrc/pos_conv.cuh`, instantiated in
+`csrc/pos_conv.cu` and `csrc/pos_conv_odd8.cu`): the inference forward, and
+the training forward with its backward kernels, at every multiple of 8 up
+to 128 channels a group (`WIDTHS`).
 
 Counterpart of `gsoc_wav2vec2_tpu/ops/pallas/pos_conv.py`:
 
@@ -41,14 +43,15 @@ DW_TIME_TILE = 64  # time steps a stage of the dW kernel
 
 def tap_rows(cg: int) -> int:
     """A tap's C // groups channels padded with zeros to whole k steps of 16
-    (`FwdLayout::kKRows`): 128 at 120, cg elsewhere."""
+    (`FwdLayout::kKRows`): cg + 8 where cg is an odd multiple of 8 (8, 24,
+    .., 104, 120), cg at the multiples of 16."""
     return -(-cg // 16) * 16
 
 
 def dw_tap_rows(cg: int, taps: int) -> int:
     """M rows a tap of the dW kernel (`DwLayout::kTapRows`): `tap_rows`, or
     128 where `taps` taps of it would not fill whole 128-row warpgroup
-    halves (at 120, and at 112 with 4 taps a CTA)."""
+    halves (at 72 with 4 taps a CTA, 104 with 3, 112 with 4, 120 with 6)."""
     rows = tap_rows(cg)
     return 128 if taps * rows % 128 else rows
 
@@ -56,12 +59,14 @@ def dw_tap_rows(cg: int, taps: int) -> int:
 def dw_window_cols(cg: int) -> int:
     """Channels a row of the dW kernel's x window (`DwLayout::kXCols`): a
     64-channel box with the 128-byte swizzle up to 64 channels a group;
-    wider, the group's channels unswizzled, 8 more where cg / 8 is even, so
-    that the row pitch is an odd number of 16-byte units (88 at 80, 104 at
-    96, 120 at 112 and 120, 136 at 128)."""
+    wider, unswizzled, the channels its M rows read (cg, or `dw_tap_rows` -
+    8 where a padding row reads past cg), 8 more where that is an even
+    number of 16-byte units, so that the row pitch is odd (88 at 80 and 88,
+    104 at 96, 120 at 72, 104, 112 and 120, 136 at 128)."""
     if cg <= 64:
         return 64
-    return cg if (cg // 8) % 2 else cg + 8
+    reach = max(cg, dw_tap_rows(cg, WIDTHS[cg].dw_taps) - 8)
+    return reach if (reach // 8) % 2 else reach + 8
 
 
 def fwd_smem_bytes(cg: int, kernel_size: int) -> int:
@@ -76,14 +81,15 @@ def fwd_smem_bytes(cg: int, kernel_size: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class Width:
     """One C // groups the CUDA kernels are instantiated for: a case of both
-    C switches of `csrc/pos_conv.cu` (`dispatch` and `w2v2_pos_conv_dw`,
-    whose `launch_dw<CG, kTapStep, kTaps, kNSplit>` gives the last three
-    fields)."""
+    C switches, the forward / dx one (`dispatch` in `csrc/pos_conv.cu`,
+    `dispatch_odd8` in `csrc/pos_conv_odd8.cu`) and the dW one
+    (`w2v2_pos_conv_dw`, `dw_odd8`), whose `launch_dw<CG, kTapStep, kTaps,
+    kNSplit>` gives the last three fields."""
 
     cg: int
     tap_step: int    # kTapStep: the tap counts the instance takes are its multiples
     dw_taps: int     # kTaps: taps a dW CTA, M = taps * `dw_tap_rows`
-    dw_n_split: int  # kNSplit: CTAs that share a tap block's output channels
+    dw_n_split: int  # kNSplit: CTAs that share a tap block's output channels (N = cg / it)
 
     @property
     def max_taps(self) -> int:
@@ -95,12 +101,19 @@ class Width:
 
 
 WIDTHS = {w.cg: w for w in (
+    Width(8, 8, 16, 1),    # robust/large widths in 128 groups
     Width(16, 8, 32, 1),   # the narrow geometry of the tests
+    Width(24, 4, 16, 1),   # base widths in 32 groups
     Width(32, 4, 16, 1),   # 512 channels in 16 groups
+    Width(40, 8, 16, 1),   # 640 channels in 16 groups
     Width(48, 8, 16, 1),   # base
+    Width(56, 4, 8, 1),    # 896 channels in 16 groups
     Width(64, 4, 8, 1),    # robust/large
+    Width(72, 4, 4, 1),    # 1152 channels in 16 groups: N = 72 over two dpre boxes
     Width(80, 8, 8, 2),    # the 1280-d family (HuBERT-xlarge, XLS-R 1B)
+    Width(88, 4, 4, 1),    # 1408 channels in 16 groups: N = 88 over two dpre boxes
     Width(96, 4, 8, 2),    # base widths in 8 groups
+    Width(104, 4, 3, 1),   # 1664 channels in 16 groups: N = 104 over two dpre boxes
     Width(112, 4, 4, 2),   # 1792 channels in 16 groups
     Width(120, 4, 6, 3),   # XLS-R 2B's 1920-d
     Width(128, 4, 4, 2),   # robust/large widths in 8 groups
@@ -110,10 +123,11 @@ WIDTHS = {w.cg: w for w in (
 def supports(c: int, groups: int, dtype: torch.dtype, kernel_size: int = 128) -> bool:
     """Whether the pos-conv kernels' instances cover a (.., C) activation of
     `dtype` convolved in `groups` groups with `kernel_size` taps: bf16, C //
-    groups in `WIDTHS` (the multiples of 16 up to 128, and 120), a tap count
-    that is a multiple of the width's `tap_step` (4 or 8) and at most its
-    `max_taps` (132 at 120 and 128).  Elsewhere the card runs
-    `pos_conv_plain` through autograd, as the JAX package runs XLA's conv."""
+    groups in `WIDTHS` (every multiple of 8 up to 128), a tap count that is
+    a multiple of the width's `tap_step` (4 or 8) and at most its
+    `max_taps` (132 at 120 and 128).  Elsewhere (C // groups past 128 or
+    off the multiples of 8, f32) the card runs `pos_conv_plain` through
+    autograd, as the JAX package runs XLA's conv."""
     if dtype != torch.bfloat16 or groups < 1 or c % groups:
         return False
     w = WIDTHS.get(c // groups)

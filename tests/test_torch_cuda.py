@@ -355,7 +355,7 @@ def test_pos_conv_train_kernels_match_plain_on_card(cuda, c):
 
 # C at 16 groups for each C/G instance
 POS_CONV_C = {48: 768, 64: 1024, 16: 256, 80: 1280, 120: 1920, 32: 512, 96: 1536, 112: 1792,
-              128: 2048}
+              128: 2048, 8: 128, 24: 384, 40: 640, 56: 896, 72: 1152, 88: 1408, 104: 1664}
 
 
 def _pos_conv_case(cuda, cg, k, b, t, seed):
@@ -400,7 +400,9 @@ def test_pos_conv_kernels_match_plain_at_tile_edges(cuda, cg, b, t):
     the forward's B across a tap's two weight boxes, dx's k steps in both,
     and dW's unswizzled x window; so at 96, 112 and 128, where dW also
     splits a group's output channels over two CTAs (and pads a tap's rows
-    to 128 at 112)."""
+    to 128 at 112).  At the odd multiples of 8 (8 .. 104) the contraction
+    is padded to whole k steps with zeros in both operands, and dW's N
+    spans two dpre boxes at 72, 88 and 104."""
     _check_pos_conv_wrappers(cuda, cg, 128, b, t, seed=t + 7 * b)
 
 
@@ -408,7 +410,10 @@ def test_pos_conv_kernels_match_plain_at_tile_edges(cuda, cg, b, t):
 @pytest.mark.parametrize("cg,k", [(64, 36), (64, 4), (48, 8), (48, 24), (16, 8), (16, 40),
                                   (80, 8), (80, 24), (120, 4), (120, 8), (120, 24), (120, 132),
                                   (32, 4), (32, 36), (96, 4), (96, 36), (112, 4), (112, 36),
-                                  (112, 264), (128, 4), (128, 16), (128, 36), (128, 132)])
+                                  (112, 264), (128, 4), (128, 16), (128, 36), (128, 132),
+                                  (8, 8), (8, 24), (24, 4), (24, 36), (40, 8), (40, 24), (56, 4),
+                                  (56, 36), (72, 8), (72, 24), (88, 4), (88, 36), (104, 4),
+                                  (104, 36), (104, 264)])
 def test_pos_conv_kernels_match_plain_at_small_tap_counts(cuda, cg, k):
     """36 taps at 64 channels a group, the smallest tap count each instance
     takes, counts that end inside a dW CTA's tap block, and at 112, 120 and
@@ -422,12 +427,18 @@ def test_pos_conv_kernels_match_plain_at_small_tap_counts(cuda, cg, k):
                                      (80, 128, 2, 300), (80, 8, 3, 129), (120, 128, 2, 300),
                                      (120, 4, 3, 129), (32, 128, 2, 300), (96, 128, 2, 300),
                                      (96, 8, 3, 129), (112, 128, 2, 300), (112, 4, 3, 129),
-                                     (128, 128, 2, 300), (128, 4, 3, 129)])
+                                     (128, 128, 2, 300), (128, 4, 3, 129), (8, 128, 2, 300),
+                                     (8, 8, 3, 129), (24, 128, 2, 300), (40, 8, 3, 129),
+                                     (56, 128, 2, 300), (72, 128, 2, 300), (72, 8, 3, 129),
+                                     (88, 128, 2, 300), (88, 4, 3, 129), (104, 128, 2, 300),
+                                     (104, 4, 3, 129)])
 def test_pos_conv_launches_are_bit_equal_on_card(cuda, cg, k, b, t):
     """Two launches of each pos-conv wrapper on the same inputs are
     bit-equal, a dW that splits its time tiles (C/G = 16: 64 tile blocks;
     C/G = 80 at 8 taps: 32 CTAs, two a tap block; C/G = 120 at 4 taps: 48
-    CTAs, three a tap block, 2 splits) included."""
+    CTAs, three a tap block, 2 splits; the odd multiples of 8 at their
+    smallest tap counts: 8 splits at 8 and 88, 4 at 72 and 104)
+    included."""
     x, dpre, kernel, bias, groups = _pos_conv_case(cuda, cg, k, b, t, 5)
     runs = [(pos_conv.pos_conv(x, kernel, bias, groups=groups, gelu_approx=True),
              *pos_conv.pos_conv_train_fwd(x, kernel, bias, groups=groups, gelu_approx=True),

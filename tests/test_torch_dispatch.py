@@ -49,6 +49,8 @@ CONFIGS = {
     "robust_c1024": lambda: port_config.RobustWav2Vec2Config(filter_sizes=[1024] * 7),
     "base_g8": lambda: port_config.Wav2Vec2Config(num_conv_pos_embedding_groups=8),
     "robust_g8": lambda: port_config.RobustWav2Vec2Config(num_conv_pos_embedding_groups=8),
+    "base_g32": lambda: port_config.Wav2Vec2Config(num_conv_pos_embedding_groups=32),
+    "robust_g128": lambda: port_config.RobustWav2Vec2Config(num_conv_pos_embedding_groups=128),
 }
 
 # per config: (conv front end, pos conv in bf16, flash in bf16)
@@ -63,6 +65,8 @@ COVERED = {
     "robust_c1024": (True, True, True),
     "base_g8": (True, True, True),
     "robust_g8": (True, True, True),
+    "base_g32": (True, True, True),
+    "robust_g128": (True, True, True),
 }
 
 
@@ -98,14 +102,15 @@ def test_f32_takes_no_kernel(name):
                                            (2048, 16, 128, True), (1024, 8, 128, True),
                                            (2048, 16, 132, True), (2048, 16, 136, False),
                                            (1792, 16, 264, True), (1792, 16, 268, False),
-                                           (384, 16, 128, False), (640, 16, 128, False),
-                                           (2304, 16, 128, False), (1536, 16, 36, True)])
+                                           (384, 16, 128, True), (640, 16, 128, True),
+                                           (2304, 16, 128, False), (1536, 16, 36, True),
+                                           (960, 16, 128, False)])
 def test_pos_conv_supports_taps_and_groups(c, groups, k, ok):
-    """C/G in the instances (the multiples of 16 up to 128, and 120: not 24,
-    40 or 144), a tap count the dW kernel's tap blocks divide (8 at 16, 48
-    and 80 channels a group, else 4), and a window the forward's shared
-    memory holds (up to 132 taps at 120 and 128, 264 at 112).  768 in 8
-    groups is C/G = 96 and 1920 in 15 is C/G = 128: both instances now."""
+    """C/G in the instances (every multiple of 8 up to 128: 24 and 40, not
+    60 or 144), a tap count the dW kernel's tap blocks divide (8 at 8, 16,
+    40, 48 and 80 channels a group, else 4), and a window the forward's
+    shared memory holds (up to 132 taps at 120 and 128, 264 at 104 and
+    112).  768 in 8 groups is C/G = 96 and 1920 in 15 is C/G = 128."""
     assert pos_conv.supports(c, groups, torch.bfloat16, k) is ok
 
 
@@ -141,43 +146,56 @@ def test_conv01_widths_are_the_cuda_instances():
     assert set(launched) == set(conv_frontend.KERNEL_WIDTHS)
 
 
-def _pos_conv_source() -> str:
-    return (pathlib.Path(pos_conv.__file__).parents[2] / "csrc" / "pos_conv.cu").read_text()
+def _switch(source: str, head: str) -> str:
+    """The body of the function of `csrc/<source>` that starts with `head`."""
+    src = (pathlib.Path(pos_conv.__file__).parents[2] / "csrc" / source).read_text()
+    entry = src[src.index(head):]
+    return entry[:entry.index("\n}\n")]
+
+
+# the C entry points' switches (multiples of 16 and 120) send every other
+# C/G to the odd multiples of 8's switches in `csrc/pos_conv_odd8.cu`
+DW_SWITCHES = (("pos_conv.cu", 'extern "C" int w2v2_pos_conv_dw'), ("pos_conv_odd8.cu", "int dw_odd8("))
+FORWARD_SWITCHES = (("pos_conv.cu", "int dispatch("), ("pos_conv_odd8.cu", "int dispatch_odd8("))
 
 
 def _dw_launches():
     """C/G -> (kTapStep, kTaps, kNSplit) of each `launch_dw<CG, kTapStep,
     kTaps, kNSplit>` instance that `w2v2_pos_conv_dw` in `csrc/pos_conv.cu`
-    dispatches to."""
-    src = _pos_conv_source()
-    entry = src[src.index('extern "C" int w2v2_pos_conv_dw'):]
-    entry = entry[:entry.index("\n}\n")]
-    found = re.findall(r"case (\d+): return \(int\)launch_dw<(\d+), (\d+), (\d+), (\d+)>", entry)
-    assert all(case == cg for case, cg, *_ in found)
-    assert len(found) == entry.count("case ")
-    return {int(cg): (int(step), int(taps), int(split)) for _, cg, step, taps, split in found}
+    and `dw_odd8` in `csrc/pos_conv_odd8.cu` dispatch to."""
+    launches = {}
+    for source, head in DW_SWITCHES:
+        entry = _switch(source, head)
+        found = re.findall(r"case (\d+): return \(int\)launch_dw<(\d+), (\d+), (\d+), (\d+)>", entry)
+        assert all(case == cg for case, cg, *_ in found)
+        assert len(found) == entry.count("case ")
+        assert not launches.keys() & {int(cg) for _, cg, *_ in found}
+        launches.update({int(cg): (int(step), int(taps), int(split))
+                         for _, cg, step, taps, split in found})
+    return launches
 
 
 def _forward_launches():
-    """The C/G that the forward / dx switch (`dispatch` in
-    `csrc/pos_conv.cu`) sends to a `launch<CG, kMode>` instance."""
-    src = _pos_conv_source()
-    entry = src[src.index("int dispatch("):]
-    entry = entry[:entry.index("\n}\n")]
-    found = re.findall(r"case (\d+): return \(int\)launch<(\d+), kMode>", entry)
-    assert all(case == cg for case, cg in found) and len(found) == entry.count("case ")
-    return [int(cg) for _, cg in found]
+    """The C/G that the forward / dx switches (`dispatch` in
+    `csrc/pos_conv.cu`, `dispatch_odd8` in `csrc/pos_conv_odd8.cu`) send to
+    a `launch<CG, kMode>` instance."""
+    launched = []
+    for source, head in FORWARD_SWITCHES:
+        entry = _switch(source, head)
+        found = re.findall(r"case (\d+): return \(int\)launch<(\d+), kMode>", entry)
+        assert all(case == cg for case, cg in found) and len(found) == entry.count("case ")
+        launched += [int(cg) for _, cg in found]
+    return launched
 
 
 def test_both_c_switches_dispatch_exactly_the_widths():
     """The forward / dx switch and the dW switch hold one case for each
-    `pos_conv.WIDTHS` entry, and those are the multiples of 16 up to 128
-    and 120: what `supports` admits in bf16 at 128 taps, for every C/G up
-    to 160."""
+    `pos_conv.WIDTHS` entry, and those are every multiple of 8 up to 128:
+    what `supports` admits in bf16 at 128 taps, for every C/G up to 160."""
     fwd = _forward_launches()
     assert len(fwd) == len(set(fwd)) and set(fwd) == set(_dw_launches()) == set(pos_conv.WIDTHS)
-    rule = {cg for cg in range(1, 161) if (cg % 16 == 0 and cg <= 128) or cg == 120}
-    assert set(pos_conv.WIDTHS) == rule == {16, 32, 48, 64, 80, 96, 112, 120, 128}
+    rule = {cg for cg in range(1, 161) if cg % 8 == 0 and cg <= 128}
+    assert set(pos_conv.WIDTHS) == rule == set(range(8, 129, 8))
     for cg in range(1, 161):
         assert pos_conv.supports(16 * cg, 16, torch.bfloat16, 128) is (cg in rule)
 
@@ -199,13 +217,15 @@ def test_dw_cta_taps_are_the_cuda_instances():
     """`dw_splits` counts the dW kernel's tap blocks with the C entry's taps a
     CTA (kTaps) and output-channel shares (kNSplit), and each block is a
     whole number of 128-row warpgroup halves of `dw_tap_rows` M rows a tap
-    (C/G, padded to 128 at 120 and at 112's 4 taps)."""
+    (C/G, padded to whole 16-row slabs at the odd multiples of 8, 128 at
+    120, and past the slab to 128 at 72's 4 taps, 104's 3 and 112's 4)."""
     assert {cg: (taps, split) for cg, (_, taps, split) in _dw_launches().items()} == {
         cg: (w.dw_taps, w.dw_n_split) for cg, w in pos_conv.WIDTHS.items()}
     for cg, w in pos_conv.WIDTHS.items():
         assert w.dw_taps * pos_conv.dw_tap_rows(cg, w.dw_taps) % 128 == 0
-    assert [cg for cg in pos_conv.WIDTHS if pos_conv.dw_tap_rows(cg, pos_conv.WIDTHS[cg].dw_taps)
-            != cg] == [112, 120]
+    rows = {cg: pos_conv.dw_tap_rows(cg, w.dw_taps) for cg, w in pos_conv.WIDTHS.items()}
+    assert [cg for cg in pos_conv.WIDTHS if rows[cg] != cg] == [8, 24, 40, 56, 72, 88, 104, 112, 120]
+    assert [cg for cg in pos_conv.WIDTHS if rows[cg] != pos_conv.tap_rows(cg)] == [72, 104, 112]
 
 
 @pytest.mark.parametrize("cg", sorted(pos_conv.WIDTHS))

@@ -14,7 +14,10 @@ steps), the forward's N is 120 of the 128 columns its two boxes hold, and
 dW pads each tap's M rows to 128 and splits the group's output channels
 over three CTAs.  At 32, 96, 112 and 128 the contraction is C/G itself; dW
 splits the output channels of 96, 112 and 128 over two CTAs, and at 112
-pads a tap's M rows to 128.
+pads a tap's M rows to 128.  At the odd multiples of 8 below 128 (8 ..
+104) the contraction is padded to the multiple of 16 above C/G, as at
+120; dW reads 72's, 88's and 104's output channels from two 64-channel
+dpre boxes, and pads 72's and 104's tap rows to 128.
 """
 
 import math
@@ -115,7 +118,10 @@ def _walk_forward(x, w, groups, pad, dx):
                                     (80, 128, 37), (80, 8, 5), (80, 16, 1), (120, 128, 37),
                                     (120, 4, 5), (120, 8, 1), (32, 128, 37), (32, 4, 5),
                                     (96, 128, 37), (96, 8, 1), (112, 128, 37), (112, 4, 5),
-                                    (128, 128, 37), (128, 4, 5), (128, 8, 1)])
+                                    (128, 128, 37), (128, 4, 5), (128, 8, 1), (8, 128, 37),
+                                    (8, 8, 5), (24, 128, 37), (40, 8, 5), (56, 128, 37),
+                                    (72, 128, 37), (72, 8, 1), (88, 128, 37), (104, 128, 37),
+                                    (104, 4, 5)])
 def test_forward_walk_over_tap_boxes_is_the_plain_forward(cg, k, t):
     x, _, kernel, bias, groups = _case(cg, k, 2, t, cg + k)
     w = kernel.to(torch.bfloat16)  # what the wrappers pass
@@ -133,7 +139,10 @@ def test_forward_walk_over_tap_boxes_is_the_plain_forward(cg, k, t):
                                     (80, 128, 37), (80, 8, 3), (80, 16, 1), (120, 128, 37),
                                     (120, 8, 3), (120, 4, 1), (32, 128, 37), (32, 8, 3),
                                     (96, 128, 37), (96, 4, 1), (112, 128, 37), (112, 8, 3),
-                                    (128, 128, 37), (128, 8, 3), (128, 4, 1)])
+                                    (128, 128, 37), (128, 8, 3), (128, 4, 1), (8, 128, 37),
+                                    (8, 8, 3), (24, 128, 37), (40, 8, 3), (56, 128, 37),
+                                    (72, 128, 37), (72, 8, 1), (88, 128, 37), (104, 128, 37),
+                                    (104, 4, 3)])
 def test_dx_walk_over_flipped_tap_boxes_is_the_plain_dx(cg, k, t):
     """dx reads the forward's kernel with the taps flipped and each box read
     K-major: that is `dx_kernel`'s flipped, in/out-swapped kernel."""
@@ -168,13 +177,15 @@ def _walk_dw(x, dpre, k, groups, splits):
     """dW as the kernel's CTAs sum it: a block of `dw_taps` taps (the last
     one ragged) of dw_tap_rows M rows each (`_dw_a_rows`; rows past CG not
     stored) and one of the `dw_n_split` shares of the group's output
-    channels (the first CG / dw_n_split of a 64-channel dpre box from the
-    share's first, zero past C) over the 64-step time tiles n = (b, t0) of
-    its split, [n_all s / S, n_all (s + 1) / S), the splits added in order."""
+    channels (the first CG / dw_n_split of the 64-channel dpre boxes from
+    the share's first, one box where the share is at most 64 channels, else
+    two; zero past C) over the 64-step time tiles n = (b, t0) of its split,
+    [n_all s / S, n_all (s + 1) / S), the splits added in order."""
     b, t, c = x.shape
     cg = c // groups
     taps, tt = pos_conv.WIDTHS[cg].dw_taps, pos_conv.DW_TIME_TILE
     kn = cg // pos_conv.WIDTHS[cg].dw_n_split
+    boxes = -(-kn // BOX)
     tpr = -(-t // tt)
     n_all = b * tpr
     rows = tt + taps
@@ -185,7 +196,7 @@ def _walk_dw(x, dpre, k, groups, splits):
     # the group's first), dpre rows t0 .. t0 + 63; zero outside
     xp = F.pad(x, (0, BOX, k // 2 + tt, k + 2 * tt)).double()
     cols = max(cg, pos_conv.dw_window_cols(cg))
-    dp = F.pad(dpre, (0, BOX, 0, tt)).double()
+    dp = F.pad(dpre, (0, 2 * BOX, 0, tt)).double()
     dw = torch.zeros(k, cg, c, dtype=torch.float64)
     for tap0 in range(0, k, taps):
         for g in range(groups):
@@ -197,7 +208,7 @@ def _walk_dw(x, dpre, k, groups, splits):
                         bi, t0 = n // tpr, (n % tpr) * tt
                         lo = t0 + tap0 + tt  # x row t0 + tap0 - K/2 in xp
                         win = xp[bi, lo:lo + rows, g * cg:g * cg + cols]
-                        d = dp[bi, t0:t0 + tt, g * cg + o0:g * cg + o0 + BOX][:, :kn]
+                        d = dp[bi, t0:t0 + tt, g * cg + o0:g * cg + o0 + boxes * BOX][:, :kn]
                         # A[mrow, step] = window[tap + step, channel] of the row
                         a = win[row_tap[:, None] + torch.arange(tt)[None, :], row_ch[:, None]]
                         acc += a @ d
@@ -220,7 +231,13 @@ def _walk_dw(x, dpre, k, groups, splits):
                                              (32, 24, 2, 130, 1), (32, 40, 1, 200, 2),
                                              (96, 24, 2, 130, 1), (96, 12, 1, 200, 3),
                                              (112, 24, 2, 130, 1), (112, 8, 1, 200, 3),
-                                             (128, 24, 2, 130, 1), (128, 12, 1, 200, 3)])
+                                             (128, 24, 2, 130, 1), (128, 12, 1, 200, 3),
+                                             (8, 40, 3, 130, 1), (8, 16, 1, 200, 2),
+                                             (24, 24, 2, 130, 1), (40, 24, 2, 130, 1),
+                                             (56, 24, 2, 130, 1), (56, 12, 1, 200, 3),
+                                             (72, 24, 2, 130, 1), (72, 8, 1, 200, 3),
+                                             (88, 24, 2, 130, 1), (88, 12, 1, 200, 3),
+                                             (104, 24, 2, 130, 1), (104, 8, 1, 200, 3)])
 def test_dw_walk_over_time_tiles_is_the_plain_dw(cg, k, b, t, splits):
     """Every (b, t) is in one time tile of one split, the x box starts at the
     tap block's shift, and ragged tap blocks and splits drop nothing."""
@@ -251,6 +268,13 @@ def test_dw_walk_over_time_tiles_is_the_plain_dw(cg, k, b, t, splits):
     (128, 128, 8, 8, 768, 1),    # robust_g8 (1024-d, 8 groups): 32 x 8 x 2 = 512
     (16, 32, 4, 2, 300, 10),     # 1 x 4 = 4 CTAs: 33 would fit, 10 time tiles
     (4, 128, 4, 3, 129, 9),      # 1 x 4 x 2 = 8 CTAs: 16 would fit, 9 time tiles
+    (128, 24, 32, 8, 768, 1),    # base_g32 (768-d, 32 groups): 8 tap blocks x 32 = 256
+    (128, 8, 128, 8, 768, 1),    # robust_g128 (1024-d, 128 groups): 8 x 128 = 1024
+    (128, 72, 16, 8, 768, 1),    # 1152 channels: 32 x 16 = 512
+    (128, 104, 16, 8, 768, 1),   # 1664 channels: 43 x 16 = 688
+    (4, 88, 16, 3, 129, 8),      # 1 x 16 = 16 CTAs: 8 would fit, 9 time tiles
+    (4, 104, 16, 3, 129, 4),     # 2 x 16 = 32 CTAs: 4 splits
+    (8, 8, 4, 2, 300, 10),       # 1 x 4 = 4 CTAs: 33 would fit, 10 time tiles
 ])
 def test_dw_splits_fill_the_card_and_no_more(k, cg, groups, b, t, want):
     """`dw_splits` as `pos_conv_dw` calls it: 1 where the tap blocks fill the
@@ -270,8 +294,9 @@ def test_tap_boxes_load_exactly_the_group(cg):
     box): never the next group's columns, which a 3-D map's box from the
     group's first column would load at 16 and 48 channels, nor the next
     tap's rows.  The window's chunks past CG are zero; the dW CTAs' output
-    shares tile the group's columns, and a dW tap's tap_rows M rows read
-    each of its CG channels."""
+    shares tile the group's columns, each in one 64-channel dpre box but
+    at 72, 88 and 104 (a share of the whole group, in two), and a dW tap's
+    tap_rows M rows read each of its CG channels."""
     groups, k = 3, 2
     rows = pos_conv.tap_rows(cg)
     w = torch.arange(1, 1 + k * cg * groups * cg, dtype=torch.float64).reshape(k, cg, groups * cg)
@@ -288,7 +313,7 @@ def test_tap_boxes_load_exactly_the_group(cg):
     assert torch.equal(win[:, 2:7, :cg], x[:, :, cg:2 * cg])
     w = pos_conv.WIDTHS[cg]
     kn = cg // w.dw_n_split
-    assert w.dw_n_split * kn == cg and kn % 8 == 0 and kn <= BOX
+    assert w.dw_n_split * kn == cg and kn % 8 == 0 and -(-kn // BOX) == (2 if cg in (72, 88, 104) else 1)
     taps = w.dw_taps
     m_rows = pos_conv.dw_tap_rows(cg, taps)
     a_rows = _dw_a_rows(cg, taps)
@@ -329,7 +354,7 @@ def _dw_bank_groups(cg, cols):
     return out
 
 
-@pytest.mark.parametrize("cg", [48, 64, 80, 120, 32, 96, 112, 128])
+@pytest.mark.parametrize("cg", [48, 64, 80, 120, 32, 96, 112, 128, 8, 24, 40, 56, 72, 88, 104])
 def test_dw_window_ldmatrix_rows_hit_distinct_banks(cg):
     """Each 8-row matrix of the dW kernel's ldmatrix_x4_trans reads 8 rows of
     16 bytes, one phase of the shared memory's 32 banks: the rows must start
@@ -353,8 +378,9 @@ def test_forward_shared_memory_fits_the_block():
     tap_rows bf16 channels; 144,448 bytes at 80 channels a group and 128
     taps, 230,464 at 120 and 128, of the 232,448 a block may take.  At 120
     and 128 the most taps that fit is 132, and `supports` stops there; at
-    the other widths 128 taps fit with room to spare, and at 32, 48 and 64
-    two CTAs an SM."""
+    the other widths 128 taps fit with room to spare, and up to 64 two CTAs
+    an SM.  An odd multiple of 8 takes the bytes of the multiple of 16
+    above it."""
     def fwd_bytes(cg, k):
         rows = pos_conv.tap_rows(cg)
         slot = -(-cg // BOX) * rows * BOX * 2
@@ -364,7 +390,9 @@ def test_forward_shared_memory_fits_the_block():
     assert pos_conv.SMEM_PER_BLOCK == limit
     assert fwd_bytes(80, 128) == 144_448 and fwd_bytes(120, 128) == fwd_bytes(128, 128) == 230_464
     assert (fwd_bytes(32, 128), fwd_bytes(96, 128), fwd_bytes(112, 128)) == (42_048, 173_120, 201_792)
-    for cg in (32, 48, 64):
+    for cg in (8, 24, 40, 56, 72, 88, 104):  # the layout of the multiple of 16 above
+        assert fwd_bytes(cg, 128) == fwd_bytes(cg + 8, 128)
+    for cg in (8, 16, 24, 32, 40, 48, 56, 64):
         assert 2 * fwd_bytes(cg, 128) <= limit
     for cg, w in pos_conv.WIDTHS.items():
         assert fwd_bytes(cg, 128) <= limit and pos_conv.fwd_smem_bytes(cg, 128) == fwd_bytes(cg, 128)
