@@ -244,6 +244,22 @@ Phases, each printing one JSON line:
                 `Wav2Vec2Config(num_conv_pos_embedding_groups=32)` (C/G =
                 24) and `RobustWav2Vec2Config(num_conv_pos_embedding_
                 groups=128)` (C/G = 8) as 13g's two models.
+ 13i. f32    -- `--compute_dtype float32` (TF32 off): the flash kernels'
+                f32 instance at head dim 64 (`flash_attention_f32.cu`)
+                against its plain versions (out and lse 1e-4, gradients 1e-3
+                and 1e-4 of their scale, every launch twice bit-equal) at
+                the tile edges, at (16, 12, 768, 64) with a ragged bias,
+                dropout 0 and 0.1, and at (1, 12, 5999, 64) with dropout,
+                timed beside their bound (494.7 TFLOP/s TF32 / 3), the plain
+                versions and SDPA in f32; then `Wav2Vec2Config()` (B=16 x
+                246000) and `RobustWav2Vec2Config()` (ragged B=8 with its
+                mask) at full width and depth in f32 through
+                `predict_batch` (flash forward 12 / 24 a forward, no other
+                kernel), ms a forward beside the plain attention's, row 0
+                against the card's plain f32 forward (4e-3); one stage-2
+                step each at B=8 (dropout 0.1, SpecAugment; flash forward
+                and backward one a layer, CTC 1 + 1), two identical
+                stage-2 gradients bit-equal.
  14. export  -- `cli.export.main` at base width and depth: `torch_export` on
                 the card (symbolic batch, 246000 samples), the program run
                 in a process that imports `ops.kernels` alone (no model
@@ -392,6 +408,7 @@ from flash_bench import front_params
 # Published H100 SXM peaks (dense): bf16 tensor cores, HBM3.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12  # outside the tensor cores
+PEAK_TF32 = 494.7e12  # dense TF32 tensor cores; an f32 product as three TF32 ones runs at a third
 PEAK_BYTES = 3.35e12
 HOST_CYCLES_PER_CALL = 1e6  # device clocks (~0.5 ms) of sleep per timed call: above any wrapper's host time
 MUFU_EX2 = 132 * 16 * 1.98e9  # exp2 results a second: 16 a clock on each of 132 SMs at 1.98 GHz
@@ -988,6 +1005,12 @@ def flash_dropout_errors(q, kk, v, dout, kb, rate, seed, what, backward=True, fl
     return (err, mean_err), out, lse, rel, bwd_abs, bwd_mean
 
 
+def flash_peak(dtype) -> float:
+    """The peak a flash product runs at: bf16 tensor cores, or in f32 three
+    TF32 products a product (`csrc/flash_attention_f32.cu`)."""
+    return PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32 / 3
+
+
 def flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed):
     """Times and bounds of the flash forward (with dropout `rate`) and of the
     backward at q's shape: (forward dict, backward dict), each with ms (CUDA
@@ -996,11 +1019,11 @@ def flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed):
     kernels SDPA launched."""
     b, heads, l, d = q.shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    n_qkv = q.numel()
+    n_qkv, esize, peak = q.numel(), q.element_size(), flash_peak(q.dtype)
     mask4 = kb[:, None, None, :].to(q.dtype)  # SDPA's additive mask
     shape = dict(shape=[b, heads, l, d], dropout=rate, ragged_bias=True)
-    nbytes = 4 * n_qkv * 2 + b * heads * l * 4 + b * l * 4
-    bms, by = bound(nbytes, 4 * b * heads * l * l * d, PEAK_BF16)
+    nbytes = 4 * n_qkv * esize + b * heads * l * 4 + b * l * 4
+    bms, by = bound(nbytes, 4 * b * heads * l * l * d, peak)
     run_flash = lambda: fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
     run_library = lambda: sdpa(q, kk, v, attn_mask=mask4, dropout_p=rate, scale=1.0)
     dev_ms, _ = device_kernels(run_flash)
@@ -1015,8 +1038,8 @@ def flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed):
     # backward: q, k, v, out, dout, lse, bias in; dq, dk, dv out; the five
     # products S, dP, dV, dK, dQ of 2 B H L^2 D each; the exponentials of p
     # in both passes (dK/dV and dQ recompute them)
-    nbytes = 8 * n_qkv * 2 + b * heads * l * 4 + b * l * 4
-    bms, by = bound(nbytes, 5 * 2 * b * heads * l * l * d, PEAK_BF16)
+    nbytes = 8 * n_qkv * esize + b * heads * l * 4 + b * l * 4
+    bms, by = bound(nbytes, 5 * 2 * b * heads * l * l * d, peak)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, kk, v))
     lib_out = sdpa(qg, kg, vg, attn_mask=mask4, dropout_p=rate, scale=1.0)
     run_flash = lambda: fa.flash_attention_bwd(q, kk, v, kb, out, lse, dout, dropout_rate=rate, seed=seed)
@@ -1033,9 +1056,9 @@ def flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed):
     return fwd, bwd
 
 
-def _peaky(b, heads, l, d, gen, n=4):
-    """bf16 q, k, v (and dout) with scores of std ~2 after the D^-1/2 prescale."""
-    ts = [torch.randn(b, heads, l, d, generator=gen).cuda().to(torch.bfloat16) for _ in range(n)]
+def _peaky(b, heads, l, d, gen, n=4, dtype=torch.bfloat16):
+    """q, k, v (and dout) in `dtype` with scores of std ~2 after the D^-1/2 prescale."""
+    ts = [torch.randn(b, heads, l, d, generator=gen).cuda().to(dtype) for _ in range(n)]
     ts[0] = ts[0] * (2.0 * d ** -0.5)
     return ts
 
@@ -4112,7 +4135,7 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
     turned off through `fa.supports`), or with `plain_site` "front_end" of
     the plain conv layer loop (`cf.supports`) or "pos_conv" of the plain pos
     conv (`pc.supports`); row 0 against the card's plain f32
-    forward (no kernel in f32) at the family's cell's bounds (base 5% of the
+    forward (flash turned off: every site plain) at the family's cell's bounds (base 5% of the
     logit scale, robust 10%); with `pos_records` the four pos-conv kernels
     at (8, 768, C) against their plain versions, timed (into `records`,
     names ending `_cg{cg}`); one stage-1 and `steps` stage-2 steps of the
@@ -4189,9 +4212,10 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
         plain = {f"ms_per_forward_plain_{plain_site}": statistics.median(plain_reps),
                  f"plain_{plain_site}_min_max": [min(plain_reps), max(plain_reps)]}
     profile = profile_device(forward, 2, "forward", top=10)
-    # row 0 (full length) through the card's f32 path: every site plain
+    # row 0 (full length) through the card's f32 path, every site plain (flash
+    # turned off: its f32 instance would take heads of 64)
     before = read_counts()
-    with torch.inference_mode():
+    with torch.inference_mode(), supports_off(fa):
         want = wav2vec2_for_ctc_forward(model, config, x[:1],
                                         torch.ones(1, SAMPLES, device=dev) if robust else None,
                                         compute_dtype=torch.float32)[0]
@@ -4261,6 +4285,278 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
 
 
 # the exported program, run in a process that imports the port's kernels alone
+# -- phase 13i: the f32 path (`--compute_dtype float32`) -----------------------
+
+# the f32 paths: the base and robust/large families' forward and stage-2 step
+F32_MODELS = {"base_f32": (Wav2Vec2Config, B), "robust_f32": (RobustWav2Vec2Config, ROBUST_B)}
+F32_TOL = 1e-4        # out and lse (the JAX package's own f32 flash tests)
+F32_GRAD_TOL = 1e-3   # each gradient, absolute; and 1e-4 of its max |value|
+F32_LOGITS_TOL = 4e-3  # the JAX parity tests' logits bound (tests/test_parity.py)
+
+
+def flash_f32_errors(q, kk, v, dout, kb, rate, seed, what, floor=0.0):
+    """The f32 flash forward and backward against their plain versions on
+    the same inputs (TF32 off), each launched twice, bit-equal: out and lse
+    within `F32_TOL`; each gradient within `F32_GRAD_TOL` and within 1e-4 of
+    its max |value| (+ `floor`: at L = 1, ds = p (dp - delta) is the rounding
+    of dp and delta, and dq, dk are ~1e-5).  Returns (out err, lse err,
+    {dq, dk, dv: [err, err / scale]}, out, lse)."""
+    out, lse = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
+    again = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
+    require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+            f"flash f32 {what}: two forward launches differ")
+    pout, plse = fa.flash_attention_fwd_plain(q, kk, v, kb, dropout_rate=rate, seed=seed)
+    grads = fa.flash_attention_bwd(q, kk, v, kb, pout, plse, dout, dropout_rate=rate, seed=seed)
+    again = fa.flash_attention_bwd(q, kk, v, kb, pout, plse, dout, dropout_rate=rate, seed=seed)
+    require(all(torch.equal(a, c) for a, c in zip(grads, again)), f"flash f32 bwd {what}: two launches differ")
+    pgrads = fa.flash_attention_bwd_plain(q, kk, v, kb, pout, plse, dout, dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    err, lse_err = errors(out, pout)[0], errors(lse, plse)[0]
+    require(out.dtype == torch.float32 and err <= F32_TOL and lse_err <= F32_TOL,
+            f"flash f32 {what}: out {err}, lse {lse_err}")
+    by = {}
+    for name, g, pg in zip(("dq", "dk", "dv"), grads, pgrads):
+        gerr, scale = errors(g, pg)[0], pg.abs().max().item()
+        require(g.dtype == torch.float32 and gerr <= F32_GRAD_TOL and gerr <= 1e-4 * scale + floor,
+                f"flash f32 bwd {name} {what}: {gerr} (scale {scale})")
+        by[name] = [gerr, gerr / scale if scale else 0.0]
+    return err, lse_err, by, out, lse
+
+
+def check_flash_f32_kernels(records, heads: int = 12) -> None:
+    """The f32 flash kernels at head dim 64 (`csrc/flash_attention_f32.cu`)
+    against their plain versions (`flash_f32_errors`: every launch twice,
+    bit-equal) at the tile edges L = `FLASH_EDGES` on (2, 3, L, 64), no bias
+    and ragged, dropout 0 and 0.1; at the base inference shape (16, 12, 768,
+    64) with a ragged bias, dropout 0 and 0.1; and at the long regime (1,
+    12, 5999, 64) with dropout (where JAX switches to its kv-blocked
+    kernels).  Timed at both shapes beside their bound (three TF32 products
+    a product: `flash_peak`), the plain versions and SDPA in f32 with the
+    same mask (a yardstick the port never calls).  Appends the records
+    `flash_attention_fwd_f32_d64` and `flash_attention_bwd_f32_d64`."""
+    gen = torch.Generator().manual_seed(6400)
+    rate, drop_seed, d = 0.1, 4321, 64
+    edge = {"max_abs_err": 0.0, "lse_max_abs_err": 0.0, "bwd_max_rel_err": 0.0, "bwd_max_abs_err_at_L1": 0.0}
+    for l in FLASH_EDGES:
+        q, kk, v, dout = _peaky(2, 3, l, d, gen, dtype=torch.float32)
+        for bias in (None, _ragged_bias(2, l, gen)):
+            for r in (0.0, rate):
+                err, lse_err, by, _, _ = flash_f32_errors(
+                    q, kk, v, dout, bias, r, drop_seed, f"L={l} bias={bias is not None} rate={r}",
+                    floor=1e-4 if l == 1 else 0.0)
+                edge["max_abs_err"] = max(edge["max_abs_err"], err)
+                edge["lse_max_abs_err"] = max(edge["lse_max_abs_err"], lse_err)
+                key, i = ("bwd_max_abs_err_at_L1", 0) if l == 1 else ("bwd_max_rel_err", 1)
+                edge[key] = max([edge[key]] + [e[i] for e in by.values()])
+    del q, kk, v, dout
+    t = RobustWav2Vec2Config().conv_output_length(SAMPLES)
+    q, kk, v, dout = _peaky(B, heads, t, d, gen, dtype=torch.float32)
+    kb = _ragged_bias(B, t, gen)
+    what = f"({B}, {heads}, {t}, {d})"
+    err, lse_err, by0, _, _ = flash_f32_errors(q, kk, v, dout, kb, 0.0, drop_seed, what)
+    derr, dlse_err, by, out, lse = flash_f32_errors(q, kk, v, dout, kb, rate, drop_seed, what)
+    run_flash = lambda: fa.flash_attention_fwd(q, kk, v, kb)
+    run_library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kk, v, attn_mask=kb[:, None, None, :], scale=1.0)
+    dev_ms, _ = device_kernels(run_flash)
+    lib_dev_ms, lib_kernels = device_kernels(run_library)
+    bms, bby = bound(4 * q.numel() * 4 + B * heads * t * 4 + B * t * 4, 4 * B * heads * t * t * d,
+                     flash_peak(torch.float32))
+    tols = dict(tol=F32_TOL, lse_tol=F32_TOL)
+    fwd = dict(
+        name="flash_attention_fwd_f32_d64", counter="flash_attention_fwd",
+        paths=tuple(p for phase in F32_MODELS for p in (phase, phase + "_train")),
+        route="cuda", source=CSRC + "flash_attention_f32.cu", replaces=PALLAS + "flash_attention.py:224",
+        also_replaces=[PALLAS + "flash_attention.py:516"], head_dim=d, dtype="float32",
+        shape=[B, heads, t, d], ragged_bias=True, max_abs_err=err, lse_max_abs_err=lse_err, **tols,
+        relaunch_bit_equal=True, ms=time_ms(run_flash, 30), device_ms=dev_ms,
+        plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(q, kk, v, kb), 3, 1),
+        bound_ms=bms, bound_by=bby, bound_peak="494.7 TFLOP/s dense TF32 / 3 (three TF32 products)",
+        exp_bound_ms=exp_bound_ms(B * heads * t * t), library_ms=time_ms(run_library, 30),
+        library="scaled_dot_product_attention in f32, the same additive mask",
+        library_device_ms=lib_dev_ms, library_kernels=lib_kernels,
+        edges=dict(shape=[2, 3, "L", d], checked_at_L=list(FLASH_EDGES), **edge))
+    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, drop_seed)
+    fwd["dropout"] = dict(max_abs_err=derr, lse_max_abs_err=dlse_err, **tols, **fwd_rec)
+    grad_tol = f"{F32_GRAD_TOL} abs and 1e-4 x each gradient's max |value|"
+    bwd = dict(
+        name="flash_attention_bwd_f32_d64", counter="flash_attention_bwd",
+        paths=tuple(phase + "_train" for phase in F32_MODELS),
+        route="cuda", source=CSRC + "flash_attention_f32.cu", replaces=PALLAS + "flash_attention.py:285",
+        also_replaces=[PALLAS + "flash_attention.py:595", PALLAS + "flash_attention.py:638"],
+        head_dim=d, dtype="float32", max_abs_err=max(e[0] for e in by.values()), err_by_grad=by,
+        no_dropout_err_by_grad=by0, tol=grad_tol, relaunch_bit_equal=True, **bwd_rec)
+    del q, kk, v, dout, kb, out, lse
+    torch.cuda.empty_cache()
+    l = RobustWav2Vec2Config().conv_output_length(LONG_SAMPLES)
+    q, kk, v, dout = _peaky(1, heads, l, d, gen, dtype=torch.float32)
+    kb = _ragged_bias(1, l, gen)
+    lerr, llse, lby, out, lse = flash_f32_errors(q, kk, v, dout, kb, rate, drop_seed, f"L={l}")
+    fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, drop_seed)
+    fwd["long"] = dict(max_abs_err=lerr, lse_max_abs_err=llse, **tols, **fwd_rec)
+    bwd["long"] = dict(max_abs_err=max(e[0] for e in lby.values()), err_by_grad=lby, tol=grad_tol,
+                       **bwd_rec)
+    del q, kk, v, dout, kb, out, lse
+    records.extend((fwd, bwd))
+    torch.cuda.empty_cache()
+
+
+def f32_model_phase(phase: str, family, b: int, smi: str) -> dict:
+    """One family at full width and depth (heads of 64), weights from seed
+    0, in f32 on the card (TF32 off, as `main` sets it): a batch of `b` x
+    246000 (the robust family ragged, with its mask) through
+    `GreedyCTCEvaluator.predict_batch` with its `compute_dtype` f32, one
+    launch of the f32 flash forward a layer and no other kernel; ms a
+    forward, and with the flash kernels off (the plain attention, what the
+    card ran in f32 before); row 0's logits against the card's plain f32
+    forward of that row (`F32_LOGITS_TOL`); then one stage-2 step of the
+    first `ROBUST_B` rows with the recipe's dropout 0.1 and SpecAugment (and
+    the mask), no remat: the flash forward and backward one a layer, the CTC
+    pair 1 each; two identical stage-2 losses and gradients bit-equal
+    (under `cudnn.deterministic`: the f32 pos conv is cuDNN's; the tensors
+    that differ under its defaults are recorded).  Returns {phase: the
+    forward's launches, phase + "_train": the step's}."""
+    config = family()
+    robust, layers = config.is_robust, config.num_layers
+    require(config.dropout == 0.1 and config.apply_spec_augment
+            and fa.supports(config.hidden_size // config.num_heads, torch.float32),
+            f"{phase}: the recipe's regularisation, and heads the f32 flash kernels take")
+    t = time.perf_counter()
+    model = Wav2Vec2ForCTC(config, device="cuda", generator=torch.Generator().manual_seed(0))
+    init_s = time.perf_counter() - t
+    evaluator = GreedyCTCEvaluator(model)
+    evaluator.compute_dtype = torch.float32  # the card's default is bf16
+    rng = np.random.default_rng(25)
+    speech, lengths = _ragged_batch(rng, b, SAMPLES, 80000 if robust else SAMPLES)
+    per_forward = {"flash_attention_fwd": layers}
+    reset_counts()
+    t = time.perf_counter()
+    texts = evaluator.predict_batch(speech, lengths)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t
+    launches = read_counts()
+    expect_counts(f"one {phase} forward", launches, per_forward)
+    require(len(texts) == b, "predict_batch returned the wrong number of transcripts")
+
+    x = torch.from_numpy(speech).cuda()
+    m = (torch.from_numpy((np.arange(SAMPLES)[None, :] < lengths[:, None]).astype(np.float32)).cuda()
+         if robust else None)
+
+    def forward():
+        with torch.inference_mode():
+            return wav2vec2_for_ctc_forward(model, config, x, m, compute_dtype=torch.float32)
+
+    def timed(n):
+        reps = []
+        for _ in range(n):
+            t = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t) * 1e3)
+        return reps
+
+    logits = forward()
+    torch.cuda.synchronize()
+    frames = config.conv_output_length(SAMPLES)
+    require(logits.dtype == torch.float32 and logits.shape == (b, frames, config.vocab_size)
+            and bool(torch.isfinite(logits).all()), f"{phase} logits {tuple(logits.shape)} {logits.dtype}")
+    row0 = logits[0].cpu()
+    del logits
+    reps = timed(3)
+    before = read_counts()
+    with supports_off(fa):
+        plain_reps = timed(2)
+        with torch.inference_mode():
+            want = wav2vec2_for_ctc_forward(model, config, x[:1],
+                                            torch.ones(1, SAMPLES, device="cuda") if robust else None,
+                                            compute_dtype=torch.float32)[0]
+    expect_counts(f"the {phase} forwards with the plain attention", counts_since(before), {})
+    err, mean_err, scale, agree = logits_vs(row0, want)
+    require(err <= F32_LOGITS_TOL, f"{phase}: row 0 through the kernels vs the plain f32 forward: {err}")
+    del x, m, want
+    emit({"phase": phase, "config": f"{family.__name__}() (full width and depth), f32, seed 0",
+          "init_s": init_s, "batch": [b, SAMPLES], "lengths": lengths.tolist(),
+          "launches_per_forward": per_forward, "predict_batch_s": batch_s,
+          "ms_per_forward": statistics.median(reps), "ms_min_max": [min(reps), max(reps)],
+          "ms_per_forward_plain_attention": statistics.median(plain_reps),
+          "plain_attention_min_max": [min(plain_reps), max(plain_reps)],
+          "row0_vs_plain_f32_max_abs_err": err, "row0_vs_plain_f32_mean_abs_err": mean_err,
+          "logit_scale": scale, "argmax_agree": agree, "tol": F32_LOGITS_TOL, "card": smi})
+
+    # one stage-2 step: the recipe's regularisation; the robust family's mask
+    tb = ROBUST_B
+    batch = {"speech": speech[:tb], "labels": _labels(rng, tb, config.vocab_size, 120)}
+    if robust:
+        batch["attention_mask"] = (np.arange(SAMPLES)[None, :] < lengths[:tb, None]).astype(np.int32)
+    kw = dict(with_attention_mask=robust, length_aware=robust, remat=False, compute_dtype=torch.float32)
+    per_step = {"flash_attention_fwd": layers, "flash_attention_bwd": layers, **CTC_STEP}
+    set_trainable(model, STAGE2)
+    st = create_train_state(model, create_optimizer(model, 1e-4))
+    step = make_train_step(config, division_factor=tb, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    st, metrics = step(st, batch, torch.Generator().manual_seed(0))
+    loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    train = read_counts()
+    expect_counts(f"the {phase} stage-2 step", train, per_step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(np.isfinite(loss) and np.isfinite(norm), f"{phase} stage-2 loss {loss}, grad norm {norm}")
+    # two stage-2 losses and gradients of one batch from one seed: bit-equal.
+    # In f32 the pos conv is a plain grouped conv (cuDNN), whose default
+    # backward algorithms may sum with atomics: the tensors that differ under
+    # them are recorded, and the check runs with `cudnn.deterministic`.
+    loss_fn = make_ctc_loss_fn(config, division_factor=tb, **kw)
+
+    def two_grads():
+        grads, losses = [], []
+        for _ in range(2):
+            model.zero_grad(set_to_none=True)
+            value = loss_fn(model, batch, torch.Generator().manual_seed(7))
+            value.backward()
+            losses.append(value.item())
+            grads.append({n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None})
+        model.zero_grad(set_to_none=True)
+        differ = sorted(n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n]))
+        return differ, losses, len(grads[0])
+
+    differ_default, _, _ = two_grads()
+    saved, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+    try:
+        differ, losses, tensors = two_grads()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    require(not differ and losses[0] == losses[1],
+            f"two identical {phase} stage-2 gradients differ (cudnn.deterministic): {differ}")
+    emit({"phase": phase + "_train", "config": f"{family.__name__}(), f32, dropout 0.1, SpecAugment"
+          + (", mask" if robust else "") + ", no remat, seed 0", "batch": [tb, SAMPLES],
+          "launches_per_stage2_step": per_step, "stage2_loss": loss, "stage2_grad_norm": norm,
+          "first_step_ms": step_ms, "peak_memory_gb": peak_gb, "grad_tensors": tensors,
+          "two_grads_bit_equal": "with cudnn.deterministic",
+          "differ_under_cudnn_defaults": differ_default, "card": smi})
+    del st, model, evaluator
+    torch.cuda.empty_cache()
+    return {phase: launches, phase + "_train": train}
+
+
+def f32_phase(smi: str, records) -> dict:
+    """Phase 13i: `--compute_dtype float32`, where the JAX package runs its
+    dtype-generic Pallas flash kernels on f32 inputs: the f32 flash kernels
+    at head dim 64 (`check_flash_f32_kernels`), then the base and
+    robust/large families through them (`f32_model_phase`).  Returns {path:
+    launch counts}."""
+    t = time.perf_counter()
+    check_flash_f32_kernels(records)
+    emit({"phase": "f32_kernels", "checked": [r["name"] for r in records[-2:]],
+          "seconds": time.perf_counter() - t, "card": smi})
+    by_path = {}
+    for phase, (family, b) in F32_MODELS.items():
+        by_path.update(f32_model_phase(phase, family, b, smi))
+    return by_path
+
+
 EXPORT_CHILD = r"""
 import json, statistics, sys, time
 import numpy as np, torch
@@ -5574,6 +5870,10 @@ def main() -> int:
     # in 128 (8)
     by_path.update(pos_widths_phase(smi, records, POS_ODD8_WIDTHS, POS_ODD8_MODELS, "pos_odd8"))
     lap("pos_odd8")
+    # 13i. `--compute_dtype float32`: the f32 flash kernels at head dim 64, then
+    # base and robust/large in f32 through them
+    by_path.update(f32_phase(smi, records))
+    lap("f32")
     # 14. export: torch.export run in a process of its own, then ONNX
     by_path.update(export_phase(smi))
     lap("export")

@@ -16,7 +16,9 @@ seeded stream past it) and `MetricLogger`.  At the end `for_ctc/` holds a
 `--ema_decay` `for_ctc_ema/` the EMA backbone under the same head.
 
 Through the port's kernels in bf16, with `--remat --remat_policy dots`
-(`--device cpu` runs the f32 plain path).  On several cards, one process a
+(`--compute_dtype float32` runs the flash kernels' f32 instance where the
+head dim is 64 and every other site plain; `--device cpu` runs the f32
+plain path).  On several cards, one process a
 card under `torchrun`, as `cli.train` runs them: a (data, model) mesh, the
 global batch `--batch_size_per_device` x ranks / model axis, each rank
 loading its data group's rows in lockstep, the span masks drawn at the

@@ -14,8 +14,10 @@ mid-epoch, and `--resume` skips the updates that checkpoint already holds in
 that epoch's `seed + epoch` batch stream, so a resumed run is the straight
 run bit for bit (the step's generator is part of the checkpoint).
 
-Through the port's kernels in bf16 (`--compute_dtype float32` runs every
-site plain), with JAX's `--remat --remat_policy dots` by default (each
+Through the port's kernels in bf16 (`--compute_dtype float32` runs the
+flash kernels' f32 instance where the head dim is 64, as JAX runs its
+Pallas flash kernels on f32 inputs, and every other site plain), with
+JAX's `--remat --remat_policy dots` by default (each
 encoder layer recomputed in the backward, its matrix products kept).  On
 several cards, one process a card under `torchrun`: a (data, model) mesh
 with `--model_axis` ranks a tensor-parallel group (`parallel/`), the global

@@ -401,8 +401,9 @@ def wav2vec2_forward(
     """(B, L_samples) normalised waveform [+ 0/1 sample mask] ->
     (B, L_frames, hidden_size) hidden states.  `training` and `generator`
     as in the module docstring, `remat` as in `encoder_forward`.  The
-    kernels run in bf16 only; in f32 on the card every site takes its plain
-    torch op, in full f32 when the
+    kernels run in bf16; in f32 on the card attention with heads of 64 runs
+    the flash kernels' f32 instance (JAX runs its Pallas flash kernels on
+    f32 inputs) and every other site its plain torch op, in full f32 when the
     caller sets `torch.backends.cuda.matmul.allow_tf32 = False` and
     `torch.backends.cudnn.allow_tf32 = False` (cuDNN's convolutions
     default to TF32).  Under a `mesh` (`parallel.Mesh`) `batch` holds this

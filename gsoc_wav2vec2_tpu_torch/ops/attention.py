@@ -76,9 +76,11 @@ def mha(
     (`attention_seed`).  When the projections need gradients the call goes
     through the `FlashAttention` autograd function (kernel backward);
     otherwise through the forward kernel alone, called as its
-    `torch.library` operator (which `torch.export` keeps).  On the card, where the
-    kernels do not take the head dim or dtype (`flash.supports`), it is the
-    kernel's plain version through autograd: the same hash dropout bits.
+    `torch.library` operator (which `torch.export` keeps).  The kernels take
+    heads of 64, 128, 192 and 256 in bf16 and of 64 in f32 (`--compute_dtype
+    float32`); on the card, where they do not take the head dim or dtype
+    (`flash.supports`), it is the kernel's plain version through autograd:
+    the same hash dropout bits.
 
     Under a `mesh` (`parallel.Mesh`) the call is this rank's shard, as
     JAX's `shard_mapped_flash_attention`: its rows of the batch, and under a

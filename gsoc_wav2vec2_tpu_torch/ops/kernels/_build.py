@@ -44,6 +44,14 @@ I = ctypes.c_int
 U = ctypes.c_uint
 F = ctypes.c_float
 LL = ctypes.c_longlong
+# q, k, v, bias, out, lse, BH, H, L, D, stride_b, stride_h, stride_l,
+# seed, threshold, hash_stride, inv_keep, dropout, stream
+_FLASH_FWD = [P, P, P, P, P, P, I, I, I, I, LL, LL, LL, I, U, U, F, I, P]
+# q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H, L, D,
+# qkv strides (b, h, l), out strides, dout strides,
+# seed, threshold, hash_stride, inv_keep, dropout, stream
+_FLASH_BWD = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+              LL, LL, LL, LL, LL, LL, LL, LL, LL, I, U, U, F, I, P]
 # entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
     # x, w0 (10, C) f32, gamma, beta, scale, shift, B, L, ld, t0, C, eps, stream
@@ -60,14 +68,9 @@ SIGNATURES = {
     "w2v2_pos_conv_dx": [P, P, P, I, I, I, I, I, P],
     # x, dpre, part, dw, B, T, C, G, K, splits, stream
     "w2v2_pos_conv_dw": [P, P, P, P, I, I, I, I, I, I, P],
-    # q, k, v, bias, out, lse, BH, H, L, D, stride_b, stride_h, stride_l,
-    # seed, threshold, hash_stride, inv_keep, dropout, stream
-    "w2v2_flash_fwd": [P, P, P, P, P, P, I, I, I, I, LL, LL, LL, I, U, U, F, I, P],
-    # q, k, v, bias, out, lse, dout, delta, dq, dk, dv, BH, H, L, D,
-    # qkv strides (b, h, l), out strides, dout strides,
-    # seed, threshold, hash_stride, inv_keep, dropout, stream
-    "w2v2_flash_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
-                       LL, LL, LL, LL, LL, LL, LL, LL, LL, I, U, U, F, I, P],
+    # the flash kernels, bf16 (`csrc/flash_attention.cu`) and f32 (`_f32.cu`)
+    "w2v2_flash_fwd": _FLASH_FWD, "w2v2_flash_fwd_f32": _FLASH_FWD,
+    "w2v2_flash_bwd": _FLASH_BWD, "w2v2_flash_bwd_f32": _FLASH_BWD,
     # dneg, idx, order, start, off, ticket, work, part, meta, out,
     # B, N, D, ld, L, shares, bf16, stream
     "w2v2_scatter_rows_add": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],

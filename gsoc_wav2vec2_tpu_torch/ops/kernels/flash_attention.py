@@ -1,4 +1,5 @@
-"""Flash attention, head dims 64, 128, 192 and 256 (`csrc/flash_attention.cu`):
+"""Flash attention, head dims 64, 128, 192 and 256 in bf16
+(`csrc/flash_attention.cu`) and 64 in f32 (`csrc/flash_attention_f32.cu`):
 forward with in-kernel prob dropout, backward, and the
 `torch.autograd.Function` over both.
 
@@ -12,7 +13,9 @@ from `mask_to_bias`); the kernels mask the ragged edge themselves, so L
 needs no padding.  q, k, v may be strided views (the heads split out of the
 projections); the kernels read them in place through TMA tensor maps
 (`tma_layout`), which take a 16-byte-aligned base and 16-byte byte strides;
-a view that breaks those rules is copied first.
+a view that breaks those rules is copied first.  In f32 everything stays
+f32, as in JAX's kernel run on f32 inputs (p is not rounded): each product
+is three TF32 products on the tensor cores, ~2^-22 of f32 off.
 
 Dropout is the JAX kernel's counter hash (`dropout_mask`): the keep bit of
 element (b, h, row, col) hashes seed + b*H + h and row * Lp + col, with Lp =
@@ -35,8 +38,14 @@ from . import _build
 # accumulator alone (D / 2 f32 a consumer thread: 160) leaves too few of the
 # 240 registers a consumer warpgroup has, so those run the plain attention
 HEAD_DIMS = (64, 128, 192, 256)
-# bf16 columns of one TMA box: one 128-byte swizzle row
-BOX_COLS = 64
+# the dtypes the kernels take, each with its head dims: f32 at 64 only
+# (`csrc/flash_attention_f32.cu`; 128, 192 and 256 are still to be ported)
+KERNEL_HEAD_DIMS = {torch.bfloat16: HEAD_DIMS, torch.float32: (64,)}
+# the C entry points (forward, backward) of each dtype
+_ENTRY = {torch.bfloat16: ("w2v2_flash_fwd", "w2v2_flash_bwd"),
+          torch.float32: ("w2v2_flash_fwd_f32", "w2v2_flash_bwd_f32")}
+# one TMA box row is one 128-byte swizzle row: 64 bf16 or 32 f32 columns
+BOX_BYTES = 128
 
 
 def _mix_seed(seed) -> torch.Tensor:
@@ -140,22 +149,23 @@ def flash_attention_bwd_plain(
 
 def supports(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the flash kernels take heads of `head_dim` in `dtype`: 64,
-    128, 192 or 256, bf16 (the JAX kernel takes every multiple of 64).
-    Elsewhere the card runs `flash_attention_fwd_plain` through autograd,
-    with the same hash dropout."""
-    return head_dim in HEAD_DIMS and dtype == torch.bfloat16
+    128, 192 or 256 in bf16, 64 in f32 (the JAX kernel takes every multiple
+    of 64 in either).  Elsewhere the card runs `flash_attention_fwd_plain`
+    through autograd, with the same hash dropout."""
+    return head_dim in KERNEL_HEAD_DIMS.get(dtype, ())
 
 
 def _check(name, q, k, v, bias):
     b, h, l, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name} takes head dims {HEAD_DIMS}, got {d}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise ValueError(f"{name} takes bf16 q, k, v, got {q.dtype}")
+    if q.dtype not in KERNEL_HEAD_DIMS or any(t.dtype != q.dtype for t in (k, v)):
+        raise ValueError(f"{name} takes bf16 or f32 q, k, v of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not supports(d, q.dtype):
+        raise ValueError(f"{name} takes head dims {KERNEL_HEAD_DIMS[q.dtype]} in {q.dtype}, got {d}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k, v must share one (B, H, L, D) shape")
     st = q.stride()
-    if (not (st == k.stride() == v.stride()) or not _layout_ok(tuple(q.shape), st)
+    if (not (st == k.stride() == v.stride()) or not _layout_ok(tuple(q.shape), st, q.element_size())
             or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16):
         q, k, v = _dense(q), _dense(k), _dense(v)
     if bias is not None:
@@ -165,15 +175,16 @@ def _check(name, q, k, v, bias):
     return q, k, v, bias
 
 
-def tma_layout(shape, strides):
-    """The 4-D tensor map the kernels read a (B, H, L, D) tensor through, as
-    `encode_bhld` in `csrc/flash_attention.cu` builds it from the element
-    strides (sb, sh, sl, 1): dims innermost first, (D, L, H, B), or (D, H,
-    L, B) when sh < sl (the heads of a row side by side, as in the (B, L, H*D)
-    projections), so that the strides ascend; a dimension of size 1 gets the
-    packed stride.  Returns (dims, byte strides of dims 1-3, box,
-    heads_inner); the box is 64 rows of 64 elements (one 128-byte swizzle
-    row), D / 64 boxes a row of D (rows of 128 to 512 bytes)."""
+def tma_layout(shape, strides, esize: int = 2):
+    """The 4-D tensor map the kernels read a (B, H, L, D) tensor of
+    `esize`-byte elements through, as `encode_bhld` in
+    `csrc/flash_attention.cuh` builds it from the element strides (sb, sh,
+    sl, 1): dims innermost first, (D, L, H, B), or (D, H, L, B) when sh < sl
+    (the heads of a row side by side, as in the (B, L, H*D) projections), so
+    that the strides ascend; a dimension of size 1 gets the packed stride.
+    Returns (dims, byte strides of dims 1-3, box, heads_inner); the box is 64
+    rows of one 128-byte swizzle row (64 bf16 or 32 f32 elements), D x esize
+    / 128 boxes a row of D."""
     b, h, l, d = shape
     sb, sh, sl = strides[:3]
     heads_inner = sh < sl
@@ -184,25 +195,27 @@ def tma_layout(shape, strides):
         if dims[i + 1] == 1:
             st[i] = span
         span = st[i] * dims[i + 1]
-    box = [BOX_COLS, 1, 64, 1] if heads_inner else [BOX_COLS, 64, 1, 1]
-    return dims, [2 * s for s in st], box, heads_inner
+    cols = BOX_BYTES // esize
+    box = [cols, 1, 64, 1] if heads_inner else [cols, 64, 1, 1]
+    return dims, [esize * s for s in st], box, heads_inner
 
 
 def _strided_ok(x: torch.Tensor) -> bool:
-    """What TMA reads in place: rows of D contiguous bf16 (D in `HEAD_DIMS`) at
-    a 16-byte-aligned base, byte strides that are multiples of 16 below 2^40, and nested
-    (non-overlapping) dimensions in the `tma_layout` order."""
-    return x.data_ptr() % 16 == 0 and _layout_ok(tuple(x.shape), x.stride())
+    """What TMA reads in place: rows of D contiguous elements (D in
+    `HEAD_DIMS`) at a 16-byte-aligned base, byte strides that are multiples
+    of 16 below 2^40, and nested (non-overlapping) dimensions in the
+    `tma_layout` order."""
+    return x.data_ptr() % 16 == 0 and _layout_ok(tuple(x.shape), x.stride(), x.element_size())
 
 
 @functools.lru_cache(maxsize=256)
-def _layout_ok(shape, strides) -> bool:
+def _layout_ok(shape, strides, esize: int = 2) -> bool:
     if len(shape) != 4 or shape[-1] not in HEAD_DIMS or strides[-1] != 1:
         return False
-    dims, byte_strides, _, _ = tma_layout(shape, strides)
+    dims, byte_strides, _, _ = tma_layout(shape, strides, esize)
     if any(s % 16 or s >= 2**40 for s in byte_strides):
         return False
-    spans = [dims[0] * 2] + [s * n for s, n in zip(byte_strides, dims[1:])]
+    spans = [dims[0] * esize] + [s * n for s, n in zip(byte_strides, dims[1:])]
     return all(s >= span for s, span in zip(byte_strides, spans))
 
 
@@ -238,8 +251,8 @@ def flash_attention_fwd(
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     sb, sh, sl = q.stride()[:3]
-    lib = _build.library()
-    _build.check("flash_attention_fwd", lib.w2v2_flash_fwd(
+    fwd = getattr(_build.library(), _ENTRY[q.dtype][0])
+    _build.check("flash_attention_fwd", fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if bias is None else bias.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b * h, h, l, d, sb, sh, sl,
         int(seed), threshold, stride, inv_keep, drop, _build.stream_of(q)))
@@ -283,16 +296,16 @@ def flash_attention_bwd(
     b, h, l, d = q.shape
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, l):
         raise ValueError("flash_attention_bwd: out, dout (B, H, L, D) and lse (B, H, L) expected")
-    if out.dtype != torch.bfloat16 or dout.dtype != torch.bfloat16 or lse.dtype != torch.float32:
-        raise ValueError("flash_attention_bwd takes bf16 out, dout and f32 lse")
+    if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd takes out and dout in q's dtype and f32 lse")
     out = out if _strided_ok(out) else _dense(out)
     dout = dout if _strided_ok(dout) else _dense(dout)
     lse = lse.contiguous()
     threshold, stride, inv_keep, drop = _dropout_args(l, dropout_rate)
     delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((b, l, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    lib = _build.library()
-    _build.check("flash_attention_bwd", lib.w2v2_flash_bwd(
+    bwd = getattr(_build.library(), _ENTRY[q.dtype][1])
+    _build.check("flash_attention_bwd", bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if bias is None else bias.data_ptr(),
         out.data_ptr(), lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, l, d,

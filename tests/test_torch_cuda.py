@@ -38,7 +38,11 @@ def test_kernel_wrappers_raise_on_wrong_dtype(cuda):
     kernel = torch.randn(128, 48, 768, device=cuda)
     with pytest.raises(ValueError):
         pos_conv.pos_conv(xs, kernel, torch.zeros(768, device=cuda), groups=16, gelu_approx=True)
-    q = torch.randn(2, 4, 64, 64, device=cuda)
+    # flash takes bf16 at 64-256 and f32 at 64: f32 at 128 and f16 raise
+    q = torch.randn(2, 4, 64, 128, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_fwd(q, q, q)
+    q = torch.randn(2, 4, 64, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         flash_attention.flash_attention_fwd(q, q, q)
     # the kernels compute tanh GELU only; the erf form raises
@@ -459,10 +463,15 @@ def test_train_kernel_wrappers_raise_on_wrong_dtype(cuda):
         pos_conv.pos_conv_dx(x, kernel, groups=16)
     with pytest.raises(ValueError):
         pos_conv.pos_conv_dw(x, x, 128, groups=16)
-    q = torch.randn(2, 4, 64, 64, device=cuda)
+    # flash's backward takes bf16 at 64-256 and f32 at 64: f32 at 128 raises,
+    # and so do out / dout in another dtype than q's
+    q = torch.randn(2, 4, 64, 128, device=cuda)
     lse = torch.zeros(2, 4, 64, device=cuda)
     with pytest.raises(ValueError):
         flash_attention.flash_attention_bwd(q, q, q, None, q, lse, q)
+    q = torch.randn(2, 4, 64, 64, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_bwd(q, q, q, None, q.bfloat16(), lse, q)
 
 
 @pytest.mark.cuda
@@ -808,6 +817,187 @@ def test_flash_misaligned_views_are_copied_on_card(cuda, d):
             assert (got.float() - want.float()).abs().max().item() <= 0.01 * want.float().abs().max().item()
 
 
+# -- the flash kernels in f32 at head dim 64 (csrc/flash_attention_f32.cu) --
+
+FLASH_F32_EDGES = (1, 63, 64, 65, 127, 128, 129, 768, 1249)
+
+
+def _peaky_f32(b, h, l, g, cuda):
+    """f32 q, k, v, dout (B, H, L, 64), scores of std ~6 as `_peaky_qkv`."""
+    q, k, v, dout = (torch.randn(b, h, l, 64, generator=g).to(cuda) for _ in range(4))
+    return q * (6.0 / 8.0), k, v, dout
+
+
+def _unit_f32(b, h, l, g, cuda):
+    """Unit-scale f32 q, k, v, dout (B, H, L, 64): N(0, 1), q with the model's
+    D^-1/2 prescale (scores of std 1), the inputs the f32 tolerances are
+    stated for."""
+    q, k, v, dout = (torch.randn(b, h, l, 64, generator=g).to(cuda) for _ in range(4))
+    return q / 8.0, k, v, dout
+
+
+def _f32_matches(got, want, lse=None, plse=None, grads=(), pgrads=(), floor=0.0):
+    """The f32 kernels' tolerances (the JAX package's own f32 flash tests,
+    TF32 off in the plain versions): out and lse within 1e-4; each gradient
+    within 1e-3 and within 1e-4 of its max |value| (+ `floor` where the
+    gradient is 0 up to rounding: at L = 1 ds = p (dp - delta) is the
+    rounding of dp and delta, and dq, dk are ~1e-5)."""
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4, err
+    if lse is not None:
+        err = (lse - plse).abs().max().item()
+        assert err <= 1e-4, err
+    for g, pg in zip(grads, pgrads):
+        assert g.dtype == torch.float32
+        err, scale = (g - pg).abs().max().item(), pg.abs().max().item()
+        assert err <= 1e-3 and err <= 1e-4 * scale + floor, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", FLASH_F32_EDGES)
+def test_flash_f32_tiles_and_edges_match_plain_on_card(cuda, l):
+    """The f32 kernels against the plain versions at every edge of their
+    64-row tiles: no bias and a ragged bias, dropout 0 and 0.1 (the bf16
+    kernels' hash bits), q/k/v contiguous and as projection head views."""
+    from gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention import _strided_ok
+
+    g = torch.Generator().manual_seed(2000 + l)
+    q, k, v, dout = _peaky_f32(2, 3, l, g, cuda)
+    ragged = torch.zeros(2, l)
+    ragged[1, max(1, (2 * l) // 3):] = -10000.0
+    ragged = ragged.to(cuda)
+    views = (q, k, v), tuple(_proj_view(x) for x in (q, k, v))
+    assert _strided_ok(views[1][0]) and (l == 1 or not views[1][0].is_contiguous())
+    for bias in (None, ragged):
+        for rate in (0.0, 0.1):
+            pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=rate, seed=5)
+            pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, bias, pout, plse, dout,
+                                                               dropout_rate=rate, seed=5)
+            for qq, kk, vv in views:
+                out, lse = flash_attention.flash_attention_fwd(qq, kk, vv, bias, dropout_rate=rate, seed=5)
+                dd = dout if qq is q else _proj_view(dout)
+                grads = flash_attention.flash_attention_bwd(qq, kk, vv, bias, pout, plse, dd,
+                                                            dropout_rate=rate, seed=5)
+                assert out.dtype == torch.float32
+                _f32_matches(out, pout, lse, plse, grads, pgrads, floor=1e-4 if l == 1 else 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [5999, 8192])
+def test_flash_f32_long_sequences_match_plain_on_card(cuda, l):
+    """Past 4096 frames (JAX's kv-blocked kernels): f32 forward and backward
+    with dropout 0.1 and a ragged key bias against the plain versions, on
+    unit-scale inputs (the 1e-3 on a gradient is absolute: the sums over L
+    keys grow with the gradients' scale, which the 1e-4 relative bound
+    follows)."""
+    g = torch.Generator().manual_seed(l)
+    q, k, v, dout = _unit_f32(1, 2, l, g, cuda)
+    bias = torch.zeros(1, l)
+    bias[0, (2 * l) // 3:] = -10000.0
+    bias = bias.to(cuda)
+    out, lse = flash_attention.flash_attention_fwd(q, k, v, bias, dropout_rate=0.1, seed=7)
+    pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=0.1, seed=7)
+    grads = flash_attention.flash_attention_bwd(q, k, v, bias, pout, plse, dout, dropout_rate=0.1, seed=7)
+    pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, bias, pout, plse, dout,
+                                                       dropout_rate=0.1, seed=7)
+    _f32_matches(out, pout, lse, plse, grads, pgrads)
+
+
+@pytest.mark.cuda
+def test_flash_f32_launches_are_deterministic_on_card(cuda):
+    """No float atomics in f32 either: two launches of the forward and of the
+    backward give equal bits (dropout, ragged bias, a ragged last tile)."""
+    g = torch.Generator().manual_seed(13)
+    q, k, v, dout = _peaky_f32(2, 4, 1000, g, cuda)
+    bias = torch.zeros(2, 1000)
+    bias[0, 700:] = -10000.0
+    bias = bias.to(cuda)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, bias, dropout_rate=0.1, seed=3)
+        grads = flash_attention.flash_attention_bwd(q, k, v, bias, out, lse, dout,
+                                                    dropout_rate=0.1, seed=3)
+        runs.append((out, lse) + tuple(grads))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_f32_misaligned_views_are_copied_on_card(cuda):
+    """f32 views that break TMA's 16-byte rules (a base 4 bytes off, a row
+    stride of 66 elements: 264 bytes) are copied by the wrappers and give the
+    plain versions' results."""
+    from gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention import _strided_ok
+
+    g = torch.Generator().manual_seed(14)
+    b, h, l = 1, 2, 200
+    q, k, v, dout = _peaky_f32(b, h, l, g, cuda)
+    n = q.numel()
+
+    def shifted(x):
+        flat = torch.empty(n + 8, dtype=x.dtype, device=cuda)
+        y = flat[1:1 + n].view(x.shape)
+        y.copy_(x)
+        return y
+
+    def wide(x):
+        buf = torch.zeros(b, h, l, 66, dtype=x.dtype, device=cuda)
+        buf[..., :64] = x
+        return buf[..., :64]
+
+    pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v)
+    pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, None, pout, plse, dout)
+    for make in (shifted, wide):
+        qq, kk, vv, dd = (make(x) for x in (q, k, v, dout))
+        assert not _strided_ok(qq)
+        out, lse = flash_attention.flash_attention_fwd(qq, kk, vv)
+        grads = flash_attention.flash_attention_bwd(qq, kk, vv, None, make(pout), plse, dd)
+        _f32_matches(out, pout, lse, plse, grads, pgrads)
+
+
+@pytest.mark.cuda
+def test_f32_step_on_card_goes_through_the_flash_kernels(cuda):
+    """An f32 stage-2 step of a small model with heads of 64 launches the f32
+    flash forward and backward once a layer (no other kernel but CTC's), and
+    its loss and gradients match the same step through the plain attention
+    on the card (TF32 off): loss rtol 1e-5, gradients 1e-4 of their scale
+    + 1e-5 (k_proj's bias has a gradient of 0 up to rounding: the softmax
+    does not see a shift common to all keys)."""
+    from gsoc_wav2vec2_tpu_torch.training import make_ctc_loss_fn, set_trainable
+
+    cfg = Wav2Vec2Config(**{**SMALL_BASE, "dropout": 0.1})
+    model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(4))
+    g = torch.Generator().manual_seed(5)
+    batch = {"speech": torch.randn(2, 16000, generator=g),
+             "labels": torch.randint(1, cfg.vocab_size, (2, 8), generator=g)}
+    set_trainable(model, ("feature_extractor",))
+    loss_fn = make_ctc_loss_fn(cfg, division_factor=2, compute_dtype=torch.float32, remat=False)
+    results = []
+    for kernels in (True, False):
+        model.zero_grad(set_to_none=True)
+        _zero_launches()
+        saved = flash_attention.supports
+        if not kernels:
+            flash_attention.supports = lambda *a, **kw: False
+        try:
+            loss = loss_fn(model, batch, torch.Generator().manual_seed(7))
+            loss.backward()
+        finally:
+            flash_attention.supports = saved
+        torch.cuda.synchronize()
+        launches = _launches_since_zero()
+        n = cfg.num_layers if kernels else 0
+        assert launches == {k: n if k.startswith("flash") else 0 for k in ALL_KERNELS}, launches
+        results.append((loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()
+                                      if p.grad is not None}))
+    (loss, grads), (ploss, pgrads) = results
+    assert abs(loss - ploss) <= 1e-5 * abs(ploss)
+    for name, gk in grads.items():
+        scale = pgrads[name].abs().max().item()
+        err = (gk - pgrads[name]).abs().max().item()
+        assert err <= 1e-4 * scale + 1e-5, (name, err, scale)
+
+
 # -- the conv front-end kernels (wgmma + TMA multicast) and the F1 dispatch --
 
 def _conv_inputs(robust, c, b, t1, g, cuda, extra=7):
@@ -1023,8 +1213,10 @@ def test_tiny_config_forward_and_step_run_on_card(cuda, robust):
 @pytest.mark.parametrize("small", ["tiny", "kernel_widths"])
 def test_f32_forward_on_card_matches_cpu(cuda, small):
     """An f32 forward on the card (TF32 off, as the fixture sets it) takes
-    the plain op at every site, also at widths the kernels cover, and
-    matches the f32 CPU copy at the JAX parity tests' logits tolerance."""
+    the flash kernels' f32 instance where the head dim is 64 (one launch a
+    layer) and the plain op at every other site, also at widths the bf16
+    kernels cover, and matches the f32 CPU copy at the JAX parity tests'
+    logits tolerance."""
     cfg = Wav2Vec2Config(**(TINY if small == "tiny" else SMALL_BASE))
     model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(2))
     x = torch.randn(2, 16000, generator=torch.Generator().manual_seed(3))
@@ -1032,7 +1224,10 @@ def test_f32_forward_on_card_matches_cpu(cuda, small):
     with torch.inference_mode():
         logits = wav2vec2_for_ctc_forward(model, cfg, x.to(cuda), compute_dtype=torch.float32)
         torch.cuda.synchronize()
-    assert all(n == 0 for n in _launches_since_zero().values())
+    d = cfg.hidden_size // cfg.num_heads
+    flash = cfg.num_layers if d == 64 else 0
+    assert (small == "kernel_widths") == (d == 64)
+    assert _launches_since_zero() == {k: flash if k == "flash_attention_fwd" else 0 for k in ALL_KERNELS}
     assert logits.dtype == torch.float32
     cpu = model.to("cpu")
     with torch.inference_mode():
