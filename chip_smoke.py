@@ -259,7 +259,20 @@ Phases, each printing one JSON line:
                 against the card's plain f32 forward (4e-3); one stage-2
                 step each at B=8 (dropout 0.1, SpecAugment; flash forward
                 and backward one a layer, CTC 1 + 1), two identical
-                stage-2 gradients bit-equal.
+                stage-2 gradients bit-equal under the training CLIs' own
+                setting (`training.deterministic_training`), the gradients
+                that differ under cuDNN's defaults recorded; the kernels
+                also at std-6 scores on (1, 2, 8192, 64) under the relative
+                gradient bound.
+ 13j. f32_wide -- 13i at head dims 128, 192 and 256
+                (`flash_attention_f32_wide.cu`): the kernels at (8, 8, 768,
+                128) and (8, 4, 768, 256) with a ragged bias and (16, 4,
+                768, 192) without, the long regime and the tile edges at
+                each; then `RobustWav2Vec2Config(num_heads=8)` (ragged B=8),
+                `Wav2Vec2Config(num_heads=4)` (B=16) and
+                `RobustWav2Vec2Config(num_heads=4)` (ragged B=8) at full
+                width and depth in f32 as 13i's two models (flash 24 / 12 /
+                24 a forward and a stage-2 step).
  14. export  -- `cli.export.main` at base width and depth: `torch_export` on
                 the card (symbolic batch, 246000 samples), the program run
                 in a process that imports `ops.kernels` alone (no model
@@ -393,6 +406,7 @@ from gsoc_wav2vec2_tpu_torch.training import (
     create_optimizer,
     create_pretrain_optimizer,
     create_train_state,
+    deterministic_training,
     make_ctc_loss_fn,
     make_train_step,
     pretrain_lr_schedule,
@@ -1013,16 +1027,17 @@ def flash_peak(dtype) -> float:
 
 def flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed):
     """Times and bounds of the flash forward (with dropout `rate`) and of the
-    backward at q's shape: (forward dict, backward dict), each with ms (CUDA
-    events), device_ms (profiler), plain_ms, bound_ms, bound_by, exp_bound_ms
-    and library_ms (SDPA with the same mask and rate), with the names of the
-    kernels SDPA launched."""
+    backward at q's shape, with the key bias `kb` or none: (forward dict,
+    backward dict), each with ms (CUDA events), device_ms (profiler),
+    plain_ms, bound_ms, bound_by, exp_bound_ms and library_ms (SDPA with the
+    same mask and rate), with the names of the kernels SDPA launched."""
     b, heads, l, d = q.shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
     n_qkv, esize, peak = q.numel(), q.element_size(), flash_peak(q.dtype)
-    mask4 = kb[:, None, None, :].to(q.dtype)  # SDPA's additive mask
-    shape = dict(shape=[b, heads, l, d], dropout=rate, ragged_bias=True)
-    nbytes = 4 * n_qkv * esize + b * heads * l * 4 + b * l * 4
+    mask4 = None if kb is None else kb[:, None, None, :].to(q.dtype)  # SDPA's additive mask
+    shape = dict(shape=[b, heads, l, d], dropout=rate, ragged_bias=kb is not None)
+    bias_bytes = 0 if kb is None else b * l * 4
+    nbytes = 4 * n_qkv * esize + b * heads * l * 4 + bias_bytes
     bms, by = bound(nbytes, 4 * b * heads * l * l * d, peak)
     run_flash = lambda: fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
     run_library = lambda: sdpa(q, kk, v, attn_mask=mask4, dropout_p=rate, scale=1.0)
@@ -1038,7 +1053,7 @@ def flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed):
     # backward: q, k, v, out, dout, lse, bias in; dq, dk, dv out; the five
     # products S, dP, dV, dK, dQ of 2 B H L^2 D each; the exponentials of p
     # in both passes (dK/dV and dQ recompute them)
-    nbytes = 8 * n_qkv * esize + b * heads * l * 4 + b * l * 4
+    nbytes = 8 * n_qkv * esize + b * heads * l * 4 + bias_bytes
     bms, by = bound(nbytes, 5 * 2 * b * heads * l * l * d, peak)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, kk, v))
     lib_out = sdpa(qg, kg, vg, attn_mask=mask4, dropout_p=rate, scale=1.0)
@@ -1056,10 +1071,10 @@ def flash_train_records(q, kk, v, dout, kb, out, lse, rate, seed):
     return fwd, bwd
 
 
-def _peaky(b, heads, l, d, gen, n=4, dtype=torch.bfloat16):
-    """q, k, v (and dout) in `dtype` with scores of std ~2 after the D^-1/2 prescale."""
+def _peaky(b, heads, l, d, gen, n=4, dtype=torch.bfloat16, std=2.0):
+    """q, k, v (and dout) in `dtype` with scores of std ~`std` after the D^-1/2 prescale."""
     ts = [torch.randn(b, heads, l, d, generator=gen).cuda().to(dtype) for _ in range(n)]
-    ts[0] = ts[0] * (2.0 * d ** -0.5)
+    ts[0] = ts[0] * (std * d ** -0.5)
     return ts
 
 
@@ -4285,22 +4300,44 @@ def wide_phases(phase, what, config, model, info, cg, smi, records, *, seed, rem
 
 
 # the exported program, run in a process that imports the port's kernels alone
-# -- phase 13i: the f32 path (`--compute_dtype float32`) -----------------------
+# -- phases 13i, 13j: the f32 path (`--compute_dtype float32`) -----------------
 
-# the f32 paths: the base and robust/large families' forward and stage-2 step
-F32_MODELS = {"base_f32": (Wav2Vec2Config, B), "robust_f32": (RobustWav2Vec2Config, ROBUST_B)}
+# the f32 paths: a family's forward and stage-2 step, (family, batch, config
+# fields changed): 13i base and robust/large with heads of 64, 13j the
+# robust/large widths at 8 heads of 128, base at 4 of 192, robust/large at 4
+# of 256 (13d's and 13e's geometries)
+F32_MODELS = {"base_f32": (Wav2Vec2Config, B, {}), "robust_f32": (RobustWav2Vec2Config, ROBUST_B, {})}
+F32_WIDE_MODELS = {
+    "robust_h128_f32": (RobustWav2Vec2Config, ROBUST_B, {"num_heads": H128_HEADS}),
+    "base_h192_f32": (Wav2Vec2Config, B, {"num_heads": WIDE_HEADS}),
+    "robust_h256_f32": (RobustWav2Vec2Config, ROBUST_B, {"num_heads": WIDE_HEADS}),
+}
+# the f32 flash kernels' checks: head dim -> (batch, heads, ragged key bias,
+# the paths that run the instance, the scores' std).  The wide instances are
+# checked on unit-scale inputs (scores of std 1), the inputs the 1e-3
+# gradient bound is stated for: with dout and v N(0, 1) the gradients' scale
+# grows with sqrt(D), and at std 2 the long regime's dq at D = 128 was 1.7e-3
+# off at a scale of 35 (4.8e-5 of it).  Every head dim also runs the std-6
+# case under the relative bound.
+F32_KERNELS = {64: (B, 12, True, tuple(F32_MODELS), 2.0)}
+F32_WIDE_KERNELS = {128: (ROBUST_B, H128_HEADS, True, ("robust_h128_f32",), 1.0),
+                    192: (B, WIDE_HEADS, False, ("base_h192_f32",), 1.0),
+                    256: (ROBUST_B, WIDE_HEADS, True, ("robust_h256_f32",), 1.0)}
 F32_TOL = 1e-4        # out and lse (the JAX package's own f32 flash tests)
 F32_GRAD_TOL = 1e-3   # each gradient, absolute; and 1e-4 of its max |value|
 F32_LOGITS_TOL = 4e-3  # the JAX parity tests' logits bound (tests/test_parity.py)
+F32_PEAKY_L = 8192    # the std-6 case: its gradients grow with the scores' scale
 
 
-def flash_f32_errors(q, kk, v, dout, kb, rate, seed, what, floor=0.0):
+def flash_f32_errors(q, kk, v, dout, kb, rate, seed, what, floor=0.0, relative=False):
     """The f32 flash forward and backward against their plain versions on
     the same inputs (TF32 off), each launched twice, bit-equal: out and lse
     within `F32_TOL`; each gradient within `F32_GRAD_TOL` and within 1e-4 of
     its max |value| (+ `floor`: at L = 1, ds = p (dp - delta) is the rounding
-    of dp and delta, and dq, dk are ~1e-5).  Returns (out err, lse err,
-    {dq, dk, dv: [err, err / scale]}, out, lse)."""
+    of dp and delta, and dq, dk are ~1e-5).  With `relative` (scores of std
+    6, whose outputs grow past unit scale) each of out, lse and the
+    gradients is held within 1e-4 of its max |value| alone.  Returns (out
+    err, lse err, {dq, dk, dv: [err, err / scale]}, out, lse)."""
     out, lse = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
     again = fa.flash_attention_fwd(q, kk, v, kb, dropout_rate=rate, seed=seed)
     require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
@@ -4312,37 +4349,46 @@ def flash_f32_errors(q, kk, v, dout, kb, rate, seed, what, floor=0.0):
     pgrads = fa.flash_attention_bwd_plain(q, kk, v, kb, pout, plse, dout, dropout_rate=rate, seed=seed)
     torch.cuda.synchronize()
     err, lse_err = errors(out, pout)[0], errors(lse, plse)[0]
-    require(out.dtype == torch.float32 and err <= F32_TOL and lse_err <= F32_TOL,
+    out_tol, lse_tol = ((1e-4 * pout.abs().max().item(), 1e-4 * plse.abs().max().item()) if relative
+                        else (F32_TOL, F32_TOL))
+    require(out.dtype == torch.float32 and err <= out_tol and lse_err <= lse_tol,
             f"flash f32 {what}: out {err}, lse {lse_err}")
+    grad_tol = math.inf if relative else F32_GRAD_TOL
     by = {}
     for name, g, pg in zip(("dq", "dk", "dv"), grads, pgrads):
         gerr, scale = errors(g, pg)[0], pg.abs().max().item()
-        require(g.dtype == torch.float32 and gerr <= F32_GRAD_TOL and gerr <= 1e-4 * scale + floor,
+        require(g.dtype == torch.float32 and gerr <= grad_tol and gerr <= 1e-4 * scale + floor,
                 f"flash f32 bwd {name} {what}: {gerr} (scale {scale})")
         by[name] = [gerr, gerr / scale if scale else 0.0]
     return err, lse_err, by, out, lse
 
 
-def check_flash_f32_kernels(records, heads: int = 12) -> None:
-    """The f32 flash kernels at head dim 64 (`csrc/flash_attention_f32.cu`)
-    against their plain versions (`flash_f32_errors`: every launch twice,
-    bit-equal) at the tile edges L = `FLASH_EDGES` on (2, 3, L, 64), no bias
-    and ragged, dropout 0 and 0.1; at the base inference shape (16, 12, 768,
-    64) with a ragged bias, dropout 0 and 0.1; and at the long regime (1,
-    12, 5999, 64) with dropout (where JAX switches to its kv-blocked
-    kernels).  Timed at both shapes beside their bound (three TF32 products
-    a product: `flash_peak`), the plain versions and SDPA in f32 with the
-    same mask (a yardstick the port never calls).  Appends the records
-    `flash_attention_fwd_f32_d64` and `flash_attention_bwd_f32_d64`."""
-    gen = torch.Generator().manual_seed(6400)
-    rate, drop_seed, d = 0.1, 4321, 64
+def check_flash_f32_kernels(records, d: int, b: int, heads: int, ragged: bool, paths,
+                            std: float) -> None:
+    """The f32 flash kernels at head dim `d` (`csrc/flash_attention_f32.cu`
+    at 64, `_f32_wide.cu` at 128-256) against their plain versions
+    (`flash_f32_errors`: every launch twice, bit-equal) at the tile edges L
+    = `FLASH_EDGES` on (2, 3, L, d), no bias and ragged, dropout 0 and 0.1;
+    at (b, heads, 768, d), with a ragged bias where `ragged`, dropout 0 and
+    0.1; at the long regime (1, heads, 5999, d) with dropout and a ragged
+    bias (where JAX switches to its kv-blocked kernels); and at scores of
+    std 6 on (1, 2, `F32_PEAKY_L`, d) with dropout, under the relative
+    gradient bound alone; the other inputs N(0, 1), q scaled to scores of
+    std `std`.  Timed at the first two shapes beside their bound
+    (three TF32 products a product: `flash_peak`), the plain versions and
+    SDPA in f32 with the same mask (a yardstick the port never calls).
+    Appends the records `flash_attention_fwd_f32_d{d}` and
+    `flash_attention_bwd_f32_d{d}`, run by `paths` and their stage-2 steps."""
+    gen = torch.Generator().manual_seed(100 * d)
+    rate, drop_seed = 0.1, 4321
+    source = CSRC + ("flash_attention_f32.cu" if d == 64 else "flash_attention_f32_wide.cu")
     edge = {"max_abs_err": 0.0, "lse_max_abs_err": 0.0, "bwd_max_rel_err": 0.0, "bwd_max_abs_err_at_L1": 0.0}
     for l in FLASH_EDGES:
-        q, kk, v, dout = _peaky(2, 3, l, d, gen, dtype=torch.float32)
+        q, kk, v, dout = _peaky(2, 3, l, d, gen, dtype=torch.float32, std=std)
         for bias in (None, _ragged_bias(2, l, gen)):
             for r in (0.0, rate):
                 err, lse_err, by, _, _ = flash_f32_errors(
-                    q, kk, v, dout, bias, r, drop_seed, f"L={l} bias={bias is not None} rate={r}",
+                    q, kk, v, dout, bias, r, drop_seed, f"d={d} L={l} bias={bias is not None} rate={r}",
                     floor=1e-4 if l == 1 else 0.0)
                 edge["max_abs_err"] = max(edge["max_abs_err"], err)
                 edge["lse_max_abs_err"] = max(edge["lse_max_abs_err"], lse_err)
@@ -4350,29 +4396,29 @@ def check_flash_f32_kernels(records, heads: int = 12) -> None:
                 edge[key] = max([edge[key]] + [e[i] for e in by.values()])
     del q, kk, v, dout
     t = RobustWav2Vec2Config().conv_output_length(SAMPLES)
-    q, kk, v, dout = _peaky(B, heads, t, d, gen, dtype=torch.float32)
-    kb = _ragged_bias(B, t, gen)
-    what = f"({B}, {heads}, {t}, {d})"
+    q, kk, v, dout = _peaky(b, heads, t, d, gen, dtype=torch.float32, std=std)
+    kb = _ragged_bias(b, t, gen) if ragged else None
+    what = f"({b}, {heads}, {t}, {d})"
     err, lse_err, by0, _, _ = flash_f32_errors(q, kk, v, dout, kb, 0.0, drop_seed, what)
     derr, dlse_err, by, out, lse = flash_f32_errors(q, kk, v, dout, kb, rate, drop_seed, what)
     run_flash = lambda: fa.flash_attention_fwd(q, kk, v, kb)
     run_library = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, kk, v, attn_mask=kb[:, None, None, :], scale=1.0)
+        q, kk, v, attn_mask=None if kb is None else kb[:, None, None, :], scale=1.0)
     dev_ms, _ = device_kernels(run_flash)
     lib_dev_ms, lib_kernels = device_kernels(run_library)
-    bms, bby = bound(4 * q.numel() * 4 + B * heads * t * 4 + B * t * 4, 4 * B * heads * t * t * d,
-                     flash_peak(torch.float32))
+    bms, bby = bound(4 * q.numel() * 4 + b * heads * t * 4 + (b * t * 4 if ragged else 0),
+                     4 * b * heads * t * t * d, flash_peak(torch.float32))
     tols = dict(tol=F32_TOL, lse_tol=F32_TOL)
     fwd = dict(
-        name="flash_attention_fwd_f32_d64", counter="flash_attention_fwd",
-        paths=tuple(p for phase in F32_MODELS for p in (phase, phase + "_train")),
-        route="cuda", source=CSRC + "flash_attention_f32.cu", replaces=PALLAS + "flash_attention.py:224",
+        name=f"flash_attention_fwd_f32_d{d}", counter="flash_attention_fwd",
+        paths=tuple(p for phase in paths for p in (phase, phase + "_train")),
+        route="cuda", source=source, replaces=PALLAS + "flash_attention.py:224",
         also_replaces=[PALLAS + "flash_attention.py:516"], head_dim=d, dtype="float32",
-        shape=[B, heads, t, d], ragged_bias=True, max_abs_err=err, lse_max_abs_err=lse_err, **tols,
+        shape=[b, heads, t, d], score_std=std, ragged_bias=ragged, max_abs_err=err, lse_max_abs_err=lse_err, **tols,
         relaunch_bit_equal=True, ms=time_ms(run_flash, 30), device_ms=dev_ms,
         plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(q, kk, v, kb), 3, 1),
         bound_ms=bms, bound_by=bby, bound_peak="494.7 TFLOP/s dense TF32 / 3 (three TF32 products)",
-        exp_bound_ms=exp_bound_ms(B * heads * t * t), library_ms=time_ms(run_library, 30),
+        exp_bound_ms=exp_bound_ms(b * heads * t * t), library_ms=time_ms(run_library, 30),
         library="scaled_dot_product_attention in f32, the same additive mask",
         library_device_ms=lib_dev_ms, library_kernels=lib_kernels,
         edges=dict(shape=[2, 3, "L", d], checked_at_L=list(FLASH_EDGES), **edge))
@@ -4380,31 +4426,51 @@ def check_flash_f32_kernels(records, heads: int = 12) -> None:
     fwd["dropout"] = dict(max_abs_err=derr, lse_max_abs_err=dlse_err, **tols, **fwd_rec)
     grad_tol = f"{F32_GRAD_TOL} abs and 1e-4 x each gradient's max |value|"
     bwd = dict(
-        name="flash_attention_bwd_f32_d64", counter="flash_attention_bwd",
-        paths=tuple(phase + "_train" for phase in F32_MODELS),
-        route="cuda", source=CSRC + "flash_attention_f32.cu", replaces=PALLAS + "flash_attention.py:285",
+        name=f"flash_attention_bwd_f32_d{d}", counter="flash_attention_bwd",
+        paths=tuple(phase + "_train" for phase in paths),
+        route="cuda", source=source, replaces=PALLAS + "flash_attention.py:285",
         also_replaces=[PALLAS + "flash_attention.py:595", PALLAS + "flash_attention.py:638"],
         head_dim=d, dtype="float32", max_abs_err=max(e[0] for e in by.values()), err_by_grad=by,
         no_dropout_err_by_grad=by0, tol=grad_tol, relaunch_bit_equal=True, **bwd_rec)
     del q, kk, v, dout, kb, out, lse
     torch.cuda.empty_cache()
     l = RobustWav2Vec2Config().conv_output_length(LONG_SAMPLES)
-    q, kk, v, dout = _peaky(1, heads, l, d, gen, dtype=torch.float32)
+    q, kk, v, dout = _peaky(1, heads, l, d, gen, dtype=torch.float32, std=std)
     kb = _ragged_bias(1, l, gen)
-    lerr, llse, lby, out, lse = flash_f32_errors(q, kk, v, dout, kb, rate, drop_seed, f"L={l}")
+    lerr, llse, lby, out, lse = flash_f32_errors(q, kk, v, dout, kb, rate, drop_seed, f"d={d} L={l}")
     fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, drop_seed)
     fwd["long"] = dict(max_abs_err=lerr, lse_max_abs_err=llse, **tols, **fwd_rec)
     bwd["long"] = dict(max_abs_err=max(e[0] for e in lby.values()), err_by_grad=lby, tol=grad_tol,
                        **bwd_rec)
     del q, kk, v, dout, kb, out, lse
+    q, kk, v, dout = _peaky(1, 2, F32_PEAKY_L, d, gen, dtype=torch.float32, std=6.0)
+    kb = _ragged_bias(1, F32_PEAKY_L, gen)
+    perr, plse_err, pby, _, _ = flash_f32_errors(q, kk, v, dout, kb, rate, drop_seed,
+                                                 f"d={d} L={F32_PEAKY_L} std 6", relative=True)
+    bwd["peaky"] = dict(shape=[1, 2, F32_PEAKY_L, d], score_std=6, dropout=rate, ragged_bias=True,
+                        out_max_abs_err=perr, lse_max_abs_err=plse_err, err_by_grad=pby,
+                        tol="1e-4 x the max |value| of out, lse and each gradient")
+    del q, kk, v, dout, kb
     records.extend((fwd, bwd))
     torch.cuda.empty_cache()
 
 
-def f32_model_phase(phase: str, family, b: int, smi: str) -> dict:
-    """One family at full width and depth (heads of 64), weights from seed
-    0, in f32 on the card (TF32 off, as `main` sets it): a batch of `b` x
-    246000 (the robust family ragged, with its mask) through
+@contextlib.contextmanager
+def cudnn_defaults():
+    """cuDNN's algorithm choice as PyTorch starts (not deterministic, no
+    benchmarking), whatever an earlier phase's CLI set; restored after."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def f32_model_phase(phase: str, family, b: int, smi: str, fields: dict) -> dict:
+    """`family(**fields)` at full width and depth, weights from seed 0, in
+    f32 on the card (TF32 off, as `main` sets it): a batch of `b` x 246000
+    (the robust family ragged, with its mask) through
     `GreedyCTCEvaluator.predict_batch` with its `compute_dtype` f32, one
     launch of the f32 flash forward a layer and no other kernel; ms a
     forward, and with the flash kernels off (the plain attention, what the
@@ -4412,11 +4478,12 @@ def f32_model_phase(phase: str, family, b: int, smi: str) -> dict:
     forward of that row (`F32_LOGITS_TOL`); then one stage-2 step of the
     first `ROBUST_B` rows with the recipe's dropout 0.1 and SpecAugment (and
     the mask), no remat: the flash forward and backward one a layer, the CTC
-    pair 1 each; two identical stage-2 losses and gradients bit-equal
-    (under `cudnn.deterministic`: the f32 pos conv is cuDNN's; the tensors
-    that differ under its defaults are recorded).  Returns {phase: the
-    forward's launches, phase + "_train": the step's}."""
-    config = family()
+    pair 1 each; two identical stage-2 losses and gradients bit-equal under
+    the training CLIs' setting (`training.deterministic_training`: the f32
+    pos conv is cuDNN's; the tensors that differ under cuDNN's defaults are
+    recorded).  Returns {phase: the forward's launches, phase + "_train":
+    the step's}."""
+    config = family(**fields)
     robust, layers = config.is_robust, config.num_layers
     require(config.dropout == 0.1 and config.apply_spec_augment
             and fa.supports(config.hidden_size // config.num_heads, torch.float32),
@@ -4474,7 +4541,8 @@ def f32_model_phase(phase: str, family, b: int, smi: str) -> dict:
     err, mean_err, scale, agree = logits_vs(row0, want)
     require(err <= F32_LOGITS_TOL, f"{phase}: row 0 through the kernels vs the plain f32 forward: {err}")
     del x, m, want
-    emit({"phase": phase, "config": f"{family.__name__}() (full width and depth), f32, seed 0",
+    described = f"{family.__name__}({', '.join(f'{k}={v}' for k, v in fields.items())})"
+    emit({"phase": phase, "config": f"{described} (full width and depth), f32, seed 0",
           "init_s": init_s, "batch": [b, SAMPLES], "lengths": lengths.tolist(),
           "launches_per_forward": per_forward, "predict_batch_s": batch_s,
           "ms_per_forward": statistics.median(reps), "ms_min_max": [min(reps), max(reps)],
@@ -4504,10 +4572,10 @@ def f32_model_phase(phase: str, family, b: int, smi: str) -> dict:
     expect_counts(f"the {phase} stage-2 step", train, per_step)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(np.isfinite(loss) and np.isfinite(norm), f"{phase} stage-2 loss {loss}, grad norm {norm}")
-    # two stage-2 losses and gradients of one batch from one seed: bit-equal.
-    # In f32 the pos conv is a plain grouped conv (cuDNN), whose default
-    # backward algorithms may sum with atomics: the tensors that differ under
-    # them are recorded, and the check runs with `cudnn.deterministic`.
+    # two stage-2 losses and gradients of one batch from one seed: bit-equal
+    # under the CLIs' setting.  In f32 the pos conv is a plain grouped conv
+    # (cuDNN), whose default backward algorithms may sum with atomics: the
+    # tensors that differ under them are recorded.
     loss_fn = make_ctc_loss_fn(config, division_factor=tb, **kw)
 
     def two_grads():
@@ -4522,38 +4590,38 @@ def f32_model_phase(phase: str, family, b: int, smi: str) -> dict:
         differ = sorted(n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n]))
         return differ, losses, len(grads[0])
 
-    differ_default, _, _ = two_grads()
-    saved, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
-    try:
+    with cudnn_defaults():
+        differ_default, _, _ = two_grads()
+        deterministic_training()
         differ, losses, tensors = two_grads()
-    finally:
-        torch.backends.cudnn.deterministic = saved
     require(not differ and losses[0] == losses[1],
-            f"two identical {phase} stage-2 gradients differ (cudnn.deterministic): {differ}")
-    emit({"phase": phase + "_train", "config": f"{family.__name__}(), f32, dropout 0.1, SpecAugment"
+            f"two identical {phase} stage-2 gradients differ (deterministic_training): {differ}")
+    emit({"phase": phase + "_train", "config": f"{described}, f32, dropout 0.1, SpecAugment"
           + (", mask" if robust else "") + ", no remat, seed 0", "batch": [tb, SAMPLES],
           "launches_per_stage2_step": per_step, "stage2_loss": loss, "stage2_grad_norm": norm,
           "first_step_ms": step_ms, "peak_memory_gb": peak_gb, "grad_tensors": tensors,
-          "two_grads_bit_equal": "with cudnn.deterministic",
+          "two_grads_bit_equal": "under training.deterministic_training",
           "differ_under_cudnn_defaults": differ_default, "card": smi})
     del st, model, evaluator
     torch.cuda.empty_cache()
     return {phase: launches, phase + "_train": train}
 
 
-def f32_phase(smi: str, records) -> dict:
-    """Phase 13i: `--compute_dtype float32`, where the JAX package runs its
-    dtype-generic Pallas flash kernels on f32 inputs: the f32 flash kernels
-    at head dim 64 (`check_flash_f32_kernels`), then the base and
-    robust/large families through them (`f32_model_phase`).  Returns {path:
-    launch counts}."""
+def f32_phase(smi: str, records, kernels=F32_KERNELS, models=F32_MODELS, what="f32_kernels") -> dict:
+    """Phases 13i (`F32_KERNELS`, `F32_MODELS`) and 13j (`F32_WIDE_KERNELS`,
+    `F32_WIDE_MODELS`): `--compute_dtype float32`, where the JAX package runs
+    its dtype-generic Pallas flash kernels on f32 inputs: the f32 flash
+    kernels at each head dim (`check_flash_f32_kernels`), then each model
+    through them (`f32_model_phase`).  Returns {path: launch counts}."""
     t = time.perf_counter()
-    check_flash_f32_kernels(records)
-    emit({"phase": "f32_kernels", "checked": [r["name"] for r in records[-2:]],
+    n = len(records)
+    for d, (b, heads, ragged, paths, std) in kernels.items():
+        check_flash_f32_kernels(records, d, b, heads, ragged, paths, std)
+    emit({"phase": what, "checked": [r["name"] for r in records[n:]],
           "seconds": time.perf_counter() - t, "card": smi})
     by_path = {}
-    for phase, (family, b) in F32_MODELS.items():
-        by_path.update(f32_model_phase(phase, family, b, smi))
+    for phase, (family, b, fields) in models.items():
+        by_path.update(f32_model_phase(phase, family, b, smi, fields))
     return by_path
 
 
@@ -5874,6 +5942,10 @@ def main() -> int:
     # base and robust/large in f32 through them
     by_path.update(f32_phase(smi, records))
     lap("f32")
+    # 13j. the f32 flash kernels at head dims 128, 192 and 256, then 13d's and
+    # 13e's geometries in f32 through them
+    by_path.update(f32_phase(smi, records, F32_WIDE_KERNELS, F32_WIDE_MODELS, "f32_wide_kernels"))
+    lap("f32_wide")
     # 14. export: torch.export run in a process of its own, then ONNX
     by_path.update(export_phase(smi))
     lap("export")

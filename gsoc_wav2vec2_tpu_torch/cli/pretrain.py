@@ -16,9 +16,10 @@ seeded stream past it) and `MetricLogger`.  At the end `for_ctc/` holds a
 `--ema_decay` `for_ctc_ema/` the EMA backbone under the same head.
 
 Through the port's kernels in bf16, with `--remat --remat_policy dots`
-(`--compute_dtype float32` runs the flash kernels' f32 instance where the
-head dim is 64 and every other site plain; `--device cpu` runs the f32
-plain path).  On several cards, one process a
+(`--compute_dtype float32` runs the flash kernels' f32 instances at head
+dims 64-256 and every other site plain; `--device cpu` runs the f32 plain
+path), with cuDNN held to deterministic algorithms
+(`training.deterministic_training`).  On several cards, one process a
 card under `torchrun`, as `cli.train` runs them: a (data, model) mesh, the
 global batch `--batch_size_per_device` x ranks / model axis, each rank
 loading its data group's rows in lockstep, the span masks drawn at the
@@ -63,6 +64,7 @@ from ..parallel.mesh import global_rows
 from ..training import (
     create_pretrain_optimizer,
     create_train_state,
+    deterministic_training,
     pretrain_lr_schedule,
     set_learning_rate,
     set_trainable,
@@ -233,6 +235,7 @@ def main(args: PretrainingArgs, config: Optional[Wav2Vec2PretrainingConfig] = No
         raise ValueError(f"--ema_decay must be in [0, 1), got {args.ema_decay}")
     remat = remat_value(args)
     compute_dtype = _compute_dtype(args)
+    deterministic_training()
     if not (args.train_tfrecords or args.train_dir):
         raise ValueError("no training data: pass --train_tfrecords or --train_dir")
     config = config if config is not None else load_config(args)
@@ -390,7 +393,8 @@ def parse_args(argv=None) -> PretrainingArgs:
     for name in ("lr", "weight_decay", "adam_eps", "gumbel_temp_max", "gumbel_temp_min",
                  "gumbel_temp_decay", "mask_time_prob", "ema_decay"):
         parser.add_argument(f"--{name}", type=float, default=getattr(defaults, name))
-    parser.add_argument("--compute_dtype", type=str, default="bfloat16", choices=sorted(_DTYPES))
+    parser.add_argument("--compute_dtype", type=str, default="bfloat16", choices=sorted(_DTYPES),
+                        help="bfloat16 or float32 only (the JAX CLI takes any jnp dtype name)")
     parser.add_argument("--remat", action=argparse.BooleanOptionalAction, default=True,
                         help="recompute each encoder layer in the backward")
     parser.add_argument("--remat_policy", type=str, default="dots", choices=["full", "dots"])

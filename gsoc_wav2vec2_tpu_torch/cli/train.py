@@ -15,8 +15,9 @@ that epoch's `seed + epoch` batch stream, so a resumed run is the straight
 run bit for bit (the step's generator is part of the checkpoint).
 
 Through the port's kernels in bf16 (`--compute_dtype float32` runs the
-flash kernels' f32 instance where the head dim is 64, as JAX runs its
-Pallas flash kernels on f32 inputs, and every other site plain), with
+flash kernels' f32 instances at head dims 64-256, as JAX runs its Pallas
+flash kernels on f32 inputs, and every other site plain), with cuDNN held
+to deterministic algorithms (`training.deterministic_training`), with
 JAX's `--remat --remat_policy dots` by default (each
 encoder layer recomputed in the backward, its matrix products kept).  On
 several cards, one process a card under `torchrun`: a (data, model) mesh
@@ -57,6 +58,7 @@ from ..parallel.mesh import Mesh
 from ..training import (
     create_optimizer,
     create_train_state,
+    deterministic_training,
     make_grad_accum_steps,
     make_train_step,
     set_learning_rate,
@@ -467,6 +469,7 @@ def main(args: TrainingArgs) -> None:
         raise ValueError(f"--ema_decay must be in [0, 1), got {args.ema_decay}")
     remat_value(args)
     _compute_dtype(args)
+    deterministic_training()
     device = rank_device(args.device)
     multihost.initialize(device)  # nothing to do for one process
     model = _build_model(args, device)
@@ -541,7 +544,8 @@ def parse_args(argv=None) -> TrainingArgs:
     for name in ("stage1_lr", "stage2_lr1", "stage2_lr2", "ema_decay"):
         parser.add_argument(f"--{name}", type=float, default=getattr(defaults, name))
     parser.add_argument("--model_id", type=str, default=None)
-    parser.add_argument("--compute_dtype", type=str, default="bfloat16", choices=sorted(_DTYPES))
+    parser.add_argument("--compute_dtype", type=str, default="bfloat16", choices=sorted(_DTYPES),
+                        help="bfloat16 or float32 only (the JAX CLI takes any jnp dtype name)")
     parser.add_argument("--length_aware_loss", action="store_true")
     parser.add_argument("--remat", action=argparse.BooleanOptionalAction, default=True,
                         help="recompute each encoder layer in the backward")

@@ -1,9 +1,10 @@
-// What the flash-attention kernels share across their two translation units:
-// `flash_attention.cu` (bf16, head dims 64-256, wgmma) and
+// What the flash-attention kernels share across their translation units:
+// `flash_attention.cu` (bf16, head dims 64-256, wgmma),
 // `flash_attention_f32.cu` (f32, head dim 64, mma.sync in three TF32
-// products): the hash dropout, the exp2, the forward's online-softmax step
-// and the 4-D tensor maps.  Kept apart so that a new instance in one unit
-// leaves the other's SASS as it was.
+// products) and `flash_attention_f32_wide.cu` (f32, head dims 128-256, the
+// same products with D split across warps): the hash dropout, the exp2,
+// the forward's online-softmax step and the 4-D tensor maps.  Kept apart so
+// that a new instance in one unit leaves the others' SASS as it was.
 #pragma once
 
 #include "common.cuh"
@@ -98,16 +99,17 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], const float* bias2,
 // n2, B) with (n1, n2) = (H, L) when sh < sl (the heads of a row side by
 // side: projections and the (B, L, H, D) outputs), else (L, H), so that the
 // strides ascend; a dimension of size 1 gets the packed stride.  Boxes are
-// 64 rows x one 128-byte swizzle row (64 bf16 or 32 f32 elements; D x
-// sizeof(T) / 128 of them a row), 128-byte swizzle, zero fill.
+// kBoxRows rows (64; 32 in f32 past head dim 64) x one 128-byte swizzle row
+// (64 bf16 or 32 f32 elements; D x sizeof(T) / 128 of them a row), 128-byte
+// swizzle, zero fill.
 // *heads_inner says which order was taken.  The wrapper's `tma_layout`
 // (ops/kernels/flash_attention.py) computes the same dims and strides and
 // refuses what TMA would.
-template <int D, typename T = __nv_bfloat16>
+template <int D, typename T = __nv_bfloat16, int kBoxRows = 64>
 cudaError_t encode_bhld(CUtensorMap* map, const void* base, int B, int H, int L, long long sb,
                         long long sh, long long sl, bool* heads_inner) {
   static_assert(sizeof(T) == 2 || sizeof(T) == 4, "bf16 or f32");
-  constexpr cuuint32_t kCols = 128 / sizeof(T), kRows = 64;
+  constexpr cuuint32_t kCols = 128 / sizeof(T), kRows = kBoxRows;
   const w2v2::EncodeTiled encode = w2v2::encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   const bool hi = sh < sl;

@@ -77,7 +77,7 @@ def mha(
     through the `FlashAttention` autograd function (kernel backward);
     otherwise through the forward kernel alone, called as its
     `torch.library` operator (which `torch.export` keeps).  The kernels take
-    heads of 64, 128, 192 and 256 in bf16 and of 64 in f32 (`--compute_dtype
+    heads of 64, 128, 192 and 256 in bf16 and in f32 (`--compute_dtype
     float32`); on the card, where they do not take the head dim or dtype
     (`flash.supports`), it is the kernel's plain version through autograd:
     the same hash dropout bits.

@@ -68,9 +68,12 @@ SIGNATURES = {
     "w2v2_pos_conv_dx": [P, P, P, I, I, I, I, I, P],
     # x, dpre, part, dw, B, T, C, G, K, splits, stream
     "w2v2_pos_conv_dw": [P, P, P, P, I, I, I, I, I, I, P],
-    # the flash kernels, bf16 (`csrc/flash_attention.cu`) and f32 (`_f32.cu`)
+    # the flash kernels, bf16 (`csrc/flash_attention.cu`) and f32 (`_f32.cu`
+    # at head dim 64, `_f32_wide.cu` at 128-256)
     "w2v2_flash_fwd": _FLASH_FWD, "w2v2_flash_fwd_f32": _FLASH_FWD,
+    "w2v2_flash_fwd_f32_wide": _FLASH_FWD,
     "w2v2_flash_bwd": _FLASH_BWD, "w2v2_flash_bwd_f32": _FLASH_BWD,
+    "w2v2_flash_bwd_f32_wide": _FLASH_BWD,
     # dneg, idx, order, start, off, ticket, work, part, meta, out,
     # B, N, D, ld, L, shares, bf16, stream
     "w2v2_scatter_rows_add": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],

@@ -1,7 +1,7 @@
 """Flash attention, head dims 64, 128, 192 and 256 in bf16
-(`csrc/flash_attention.cu`) and 64 in f32 (`csrc/flash_attention_f32.cu`):
-forward with in-kernel prob dropout, backward, and the
-`torch.autograd.Function` over both.
+(`csrc/flash_attention.cu`) and in f32 (`csrc/flash_attention_f32.cu` at 64,
+`csrc/flash_attention_f32_wide.cu` at 128-256): forward with in-kernel prob
+dropout, backward, and the `torch.autograd.Function` over both.
 
 Counterpart of `gsoc_wav2vec2_tpu/ops/pallas/flash_attention.py`
 (`_flash_fwd`, `_flash_bwd` and the custom VJP `_flash_attention_core`):
@@ -38,14 +38,20 @@ from . import _build
 # accumulator alone (D / 2 f32 a consumer thread: 160) leaves too few of the
 # 240 registers a consumer warpgroup has, so those run the plain attention
 HEAD_DIMS = (64, 128, 192, 256)
-# the dtypes the kernels take, each with its head dims: f32 at 64 only
-# (`csrc/flash_attention_f32.cu`; 128, 192 and 256 are still to be ported)
-KERNEL_HEAD_DIMS = {torch.bfloat16: HEAD_DIMS, torch.float32: (64,)}
-# the C entry points (forward, backward) of each dtype
+# the dtypes the kernels take, each at every head dim, and their C entry
+# points (forward, backward); f32 past head dim 64 adds `_wide`
+# (`csrc/flash_attention_f32.cu` at 64, `csrc/flash_attention_f32_wide.cu`)
 _ENTRY = {torch.bfloat16: ("w2v2_flash_fwd", "w2v2_flash_bwd"),
           torch.float32: ("w2v2_flash_fwd_f32", "w2v2_flash_bwd_f32")}
 # one TMA box row is one 128-byte swizzle row: 64 bf16 or 32 f32 columns
 BOX_BYTES = 128
+
+
+def _entry(dtype: torch.dtype, head_dim: int, backward: bool):
+    """The C entry point of the kernels for `dtype` at `head_dim`."""
+    name = _ENTRY[dtype][backward]
+    wide = dtype == torch.float32 and head_dim > 64
+    return getattr(_build.library(), name + "_wide" if wide else name)
 
 
 def _mix_seed(seed) -> torch.Tensor:
@@ -149,19 +155,19 @@ def flash_attention_bwd_plain(
 
 def supports(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the flash kernels take heads of `head_dim` in `dtype`: 64,
-    128, 192 or 256 in bf16, 64 in f32 (the JAX kernel takes every multiple
-    of 64 in either).  Elsewhere the card runs `flash_attention_fwd_plain`
+    128, 192 or 256 in bf16 or f32 (the JAX kernel takes every multiple of
+    64 in either).  Elsewhere the card runs `flash_attention_fwd_plain`
     through autograd, with the same hash dropout."""
-    return head_dim in KERNEL_HEAD_DIMS.get(dtype, ())
+    return head_dim in HEAD_DIMS and dtype in _ENTRY
 
 
 def _check(name, q, k, v, bias):
     b, h, l, d = q.shape
-    if q.dtype not in KERNEL_HEAD_DIMS or any(t.dtype != q.dtype for t in (k, v)):
+    if q.dtype not in _ENTRY or any(t.dtype != q.dtype for t in (k, v)):
         raise ValueError(f"{name} takes bf16 or f32 q, k, v of one dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not supports(d, q.dtype):
-        raise ValueError(f"{name} takes head dims {KERNEL_HEAD_DIMS[q.dtype]} in {q.dtype}, got {d}")
+        raise ValueError(f"{name} takes head dims {HEAD_DIMS}, got {d}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k, v must share one (B, H, L, D) shape")
     st = q.stride()
@@ -183,8 +189,9 @@ def tma_layout(shape, strides, esize: int = 2):
     (the heads of a row side by side, as in the (B, L, H*D) projections), so
     that the strides ascend; a dimension of size 1 gets the packed stride.
     Returns (dims, byte strides of dims 1-3, box, heads_inner); the box is 64
-    rows of one 128-byte swizzle row (64 bf16 or 32 f32 elements), D x esize
-    / 128 boxes a row of D."""
+    rows (32 for f32 past head dim 64: those kernels stream 32-row tiles to
+    fit their shared memory) of one 128-byte swizzle row (64 bf16 or 32 f32
+    elements), D x esize / 128 boxes a row of D."""
     b, h, l, d = shape
     sb, sh, sl = strides[:3]
     heads_inner = sh < sl
@@ -195,8 +202,8 @@ def tma_layout(shape, strides, esize: int = 2):
         if dims[i + 1] == 1:
             st[i] = span
         span = st[i] * dims[i + 1]
-    cols = BOX_BYTES // esize
-    box = [cols, 1, 64, 1] if heads_inner else [cols, 64, 1, 1]
+    cols, rows = BOX_BYTES // esize, 32 if esize == 4 and d > 64 else 64
+    box = [cols, 1, rows, 1] if heads_inner else [cols, rows, 1, 1]
     return dims, [esize * s for s in st], box, heads_inner
 
 
@@ -251,8 +258,7 @@ def flash_attention_fwd(
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     sb, sh, sl = q.stride()[:3]
-    fwd = getattr(_build.library(), _ENTRY[q.dtype][0])
-    _build.check("flash_attention_fwd", fwd(
+    _build.check("flash_attention_fwd", _entry(q.dtype, d, False)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if bias is None else bias.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b * h, h, l, d, sb, sh, sl,
         int(seed), threshold, stride, inv_keep, drop, _build.stream_of(q)))
@@ -304,8 +310,7 @@ def flash_attention_bwd(
     threshold, stride, inv_keep, drop = _dropout_args(l, dropout_rate)
     delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((b, l, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    bwd = getattr(_build.library(), _ENTRY[q.dtype][1])
-    _build.check("flash_attention_bwd", bwd(
+    _build.check("flash_attention_bwd", _entry(q.dtype, d, True)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if bias is None else bias.data_ptr(),
         out.data_ptr(), lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, l, d,

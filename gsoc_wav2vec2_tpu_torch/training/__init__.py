@@ -1,5 +1,6 @@
 """Train state, optimizer recipes (CTC fine-tuning, pretraining), train / eval steps."""
 
+from .determinism import deterministic_training
 from .state import (
     TrainState,
     create_optimizer,
@@ -26,6 +27,7 @@ __all__ = [
     "create_optimizer",
     "create_pretrain_optimizer",
     "create_train_state",
+    "deterministic_training",
     "get_learning_rate",
     "pretrain_lr_schedule",
     "set_learning_rate",

@@ -6,6 +6,7 @@ has only PyTorch:
 """
 
 import copy
+import math
 
 import pytest
 import torch
@@ -38,8 +39,8 @@ def test_kernel_wrappers_raise_on_wrong_dtype(cuda):
     kernel = torch.randn(128, 48, 768, device=cuda)
     with pytest.raises(ValueError):
         pos_conv.pos_conv(xs, kernel, torch.zeros(768, device=cuda), groups=16, gelu_approx=True)
-    # flash takes bf16 at 64-256 and f32 at 64: f32 at 128 and f16 raise
-    q = torch.randn(2, 4, 64, 128, device=cuda)
+    # flash takes bf16 and f32 at 64-256: f32 at 320 and f16 raise
+    q = torch.randn(2, 4, 64, 320, device=cuda)
     with pytest.raises(ValueError):
         flash_attention.flash_attention_fwd(q, q, q)
     q = torch.randn(2, 4, 64, 64, device=cuda, dtype=torch.float16)
@@ -463,9 +464,9 @@ def test_train_kernel_wrappers_raise_on_wrong_dtype(cuda):
         pos_conv.pos_conv_dx(x, kernel, groups=16)
     with pytest.raises(ValueError):
         pos_conv.pos_conv_dw(x, x, 128, groups=16)
-    # flash's backward takes bf16 at 64-256 and f32 at 64: f32 at 128 raises,
-    # and so do out / dout in another dtype than q's
-    q = torch.randn(2, 4, 64, 128, device=cuda)
+    # flash's backward takes bf16 and f32 at 64-256: f32 at 320 raises, and
+    # so do out / dout in another dtype than q's
+    q = torch.randn(2, 4, 64, 320, device=cuda)
     lse = torch.zeros(2, 4, 64, device=cuda)
     with pytest.raises(ValueError):
         flash_attention.flash_attention_bwd(q, q, q, None, q, lse, q)
@@ -817,31 +818,34 @@ def test_flash_misaligned_views_are_copied_on_card(cuda, d):
             assert (got.float() - want.float()).abs().max().item() <= 0.01 * want.float().abs().max().item()
 
 
-# -- the flash kernels in f32 at head dim 64 (csrc/flash_attention_f32.cu) --
+# -- the flash kernels in f32 (csrc/flash_attention_f32.cu at head dim 64,
+# csrc/flash_attention_f32_wide.cu at 128, 192 and 256) --
 
-FLASH_F32_EDGES = (1, 63, 64, 65, 127, 128, 129, 768, 1249)
-
-
-def _peaky_f32(b, h, l, g, cuda):
-    """f32 q, k, v, dout (B, H, L, 64), scores of std ~6 as `_peaky_qkv`."""
-    q, k, v, dout = (torch.randn(b, h, l, 64, generator=g).to(cuda) for _ in range(4))
-    return q * (6.0 / 8.0), k, v, dout
+FLASH_F32_EDGES = (1, 31, 33, 63, 64, 65, 127, 128, 129, 768, 1249)
+F32_HEAD_DIMS = (64, 128, 192, 256)
 
 
-def _unit_f32(b, h, l, g, cuda):
-    """Unit-scale f32 q, k, v, dout (B, H, L, 64): N(0, 1), q with the model's
+def _peaky_f32(b, h, l, g, cuda, d=64):
+    """f32 q, k, v, dout (B, H, L, D), scores of std ~6 as `_peaky_qkv`."""
+    q, k, v, dout = (torch.randn(b, h, l, d, generator=g).to(cuda) for _ in range(4))
+    return q * (6.0 / d ** 0.5), k, v, dout
+
+
+def _unit_f32(b, h, l, g, cuda, d=64):
+    """Unit-scale f32 q, k, v, dout (B, H, L, D): N(0, 1), q with the model's
     D^-1/2 prescale (scores of std 1), the inputs the f32 tolerances are
     stated for."""
-    q, k, v, dout = (torch.randn(b, h, l, 64, generator=g).to(cuda) for _ in range(4))
-    return q / 8.0, k, v, dout
+    q, k, v, dout = (torch.randn(b, h, l, d, generator=g).to(cuda) for _ in range(4))
+    return q / d ** 0.5, k, v, dout
 
 
-def _f32_matches(got, want, lse=None, plse=None, grads=(), pgrads=(), floor=0.0):
+def _f32_matches(got, want, lse=None, plse=None, grads=(), pgrads=(), floor=0.0, grad_abs=1e-3):
     """The f32 kernels' tolerances (the JAX package's own f32 flash tests,
     TF32 off in the plain versions): out and lse within 1e-4; each gradient
-    within 1e-3 and within 1e-4 of its max |value| (+ `floor` where the
-    gradient is 0 up to rounding: at L = 1 ds = p (dp - delta) is the
-    rounding of dp and delta, and dq, dk are ~1e-5)."""
+    within `grad_abs` (1e-3, the bound for unit-scale inputs) and within
+    1e-4 of its max |value| (+ `floor` where the gradient is 0 up to
+    rounding: at L = 1 ds = p (dp - delta) is the rounding of dp and delta,
+    and dq, dk are ~1e-5)."""
     err = (got - want).abs().max().item()
     assert err <= 1e-4, err
     if lse is not None:
@@ -850,19 +854,25 @@ def _f32_matches(got, want, lse=None, plse=None, grads=(), pgrads=(), floor=0.0)
     for g, pg in zip(grads, pgrads):
         assert g.dtype == torch.float32
         err, scale = (g - pg).abs().max().item(), pg.abs().max().item()
-        assert err <= 1e-3 and err <= 1e-4 * scale + floor, (err, scale)
+        assert err <= grad_abs and err <= 1e-4 * scale + floor, (err, scale)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("l", FLASH_F32_EDGES)
-def test_flash_f32_tiles_and_edges_match_plain_on_card(cuda, l):
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
+def test_flash_f32_tiles_and_edges_match_plain_on_card(cuda, d, l):
     """The f32 kernels against the plain versions at every edge of their
-    64-row tiles: no bias and a ragged bias, dropout 0 and 0.1 (the bf16
-    kernels' hash bits), q/k/v contiguous and as projection head views."""
+    tiles (64 rows at head dim 64, 32 past it): no bias and a ragged bias,
+    dropout 0 and 0.1 (the bf16 kernels' hash bits), q/k/v contiguous and
+    as projection head views.  The scores have std 6: past head dim 64 the
+    gradients reach a scale of ~70 (dq 1.02e-3 off at D = 192, L = 1249:
+    1.5e-5 of it), so there they are held by the relative bound alone, as
+    `test_flash_f32_long_peaky_scores_within_relative_bound_on_card` holds
+    std-6 scores at every head dim."""
     from gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention import _strided_ok
 
-    g = torch.Generator().manual_seed(2000 + l)
-    q, k, v, dout = _peaky_f32(2, 3, l, g, cuda)
+    g = torch.Generator().manual_seed(2000 + l + d)
+    q, k, v, dout = _peaky_f32(2, 3, l, g, cuda, d)
     ragged = torch.zeros(2, l)
     ragged[1, max(1, (2 * l) // 3):] = -10000.0
     ragged = ragged.to(cuda)
@@ -879,19 +889,21 @@ def test_flash_f32_tiles_and_edges_match_plain_on_card(cuda, l):
                 grads = flash_attention.flash_attention_bwd(qq, kk, vv, bias, pout, plse, dd,
                                                             dropout_rate=rate, seed=5)
                 assert out.dtype == torch.float32
-                _f32_matches(out, pout, lse, plse, grads, pgrads, floor=1e-4 if l == 1 else 0.0)
+                _f32_matches(out, pout, lse, plse, grads, pgrads, floor=1e-4 if l == 1 else 0.0,
+                             grad_abs=1e-3 if d == 64 else math.inf)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("l", [5999, 8192])
-def test_flash_f32_long_sequences_match_plain_on_card(cuda, l):
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
+def test_flash_f32_long_sequences_match_plain_on_card(cuda, d, l):
     """Past 4096 frames (JAX's kv-blocked kernels): f32 forward and backward
     with dropout 0.1 and a ragged key bias against the plain versions, on
     unit-scale inputs (the 1e-3 on a gradient is absolute: the sums over L
     keys grow with the gradients' scale, which the 1e-4 relative bound
     follows)."""
-    g = torch.Generator().manual_seed(l)
-    q, k, v, dout = _unit_f32(1, 2, l, g, cuda)
+    g = torch.Generator().manual_seed(l + d)
+    q, k, v, dout = _unit_f32(1, 2, l, g, cuda, d)
     bias = torch.zeros(1, l)
     bias[0, (2 * l) // 3:] = -10000.0
     bias = bias.to(cuda)
@@ -904,11 +916,12 @@ def test_flash_f32_long_sequences_match_plain_on_card(cuda, l):
 
 
 @pytest.mark.cuda
-def test_flash_f32_launches_are_deterministic_on_card(cuda):
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
+def test_flash_f32_launches_are_deterministic_on_card(cuda, d):
     """No float atomics in f32 either: two launches of the forward and of the
     backward give equal bits (dropout, ragged bias, a ragged last tile)."""
-    g = torch.Generator().manual_seed(13)
-    q, k, v, dout = _peaky_f32(2, 4, 1000, g, cuda)
+    g = torch.Generator().manual_seed(13 + d)
+    q, k, v, dout = _peaky_f32(2, 4, 1000, g, cuda, d)
     bias = torch.zeros(2, 1000)
     bias[0, 700:] = -10000.0
     bias = bias.to(cuda)
@@ -923,15 +936,16 @@ def test_flash_f32_launches_are_deterministic_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_flash_f32_misaligned_views_are_copied_on_card(cuda):
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
+def test_flash_f32_misaligned_views_are_copied_on_card(cuda, d):
     """f32 views that break TMA's 16-byte rules (a base 4 bytes off, a row
-    stride of 66 elements: 264 bytes) are copied by the wrappers and give the
-    plain versions' results."""
+    stride of D + 2 elements: 264 bytes at 64) are copied by the wrappers and
+    give the plain versions' results."""
     from gsoc_wav2vec2_tpu_torch.ops.kernels.flash_attention import _strided_ok
 
-    g = torch.Generator().manual_seed(14)
+    g = torch.Generator().manual_seed(14 + d)
     b, h, l = 1, 2, 200
-    q, k, v, dout = _peaky_f32(b, h, l, g, cuda)
+    q, k, v, dout = _peaky_f32(b, h, l, g, cuda, d)
     n = q.numel()
 
     def shifted(x):
@@ -941,9 +955,9 @@ def test_flash_f32_misaligned_views_are_copied_on_card(cuda):
         return y
 
     def wide(x):
-        buf = torch.zeros(b, h, l, 66, dtype=x.dtype, device=cuda)
-        buf[..., :64] = x
-        return buf[..., :64]
+        buf = torch.zeros(b, h, l, d + 2, dtype=x.dtype, device=cuda)
+        buf[..., :d] = x
+        return buf[..., :d]
 
     pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v)
     pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, None, pout, plse, dout)
@@ -996,6 +1010,100 @@ def test_f32_step_on_card_goes_through_the_flash_kernels(cuda):
         scale = pgrads[name].abs().max().item()
         err = (gk - pgrads[name]).abs().max().item()
         assert err <= 1e-4 * scale + 1e-5, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
+def test_flash_f32_long_peaky_scores_within_relative_bound_on_card(cuda, d):
+    """Scores of std 6 at L = 8192 (dropout 0.1, ragged key bias): the
+    gradients grow with the scores' scale, so they are held within 1e-4 of
+    their max |value| (1.5e-3 off at a dq scale of 63 at head dim 64), out
+    and lse within 1e-4, beside the unit-scale long case."""
+    l = 8192
+    g = torch.Generator().manual_seed(60 + d)
+    q, k, v, dout = _peaky_f32(1, 2, l, g, cuda, d)
+    bias = torch.zeros(1, l)
+    bias[0, (2 * l) // 3:] = -10000.0
+    bias = bias.to(cuda)
+    out, lse = flash_attention.flash_attention_fwd(q, k, v, bias, dropout_rate=0.1, seed=9)
+    pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=0.1, seed=9)
+    grads = flash_attention.flash_attention_bwd(q, k, v, bias, pout, plse, dout, dropout_rate=0.1, seed=9)
+    pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, bias, pout, plse, dout,
+                                                       dropout_rate=0.1, seed=9)
+    assert (out - pout).abs().max().item() <= 1e-4
+    assert (lse - plse).abs().max().item() <= 1e-4
+    for got, want in zip(grads, pgrads):
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        assert err <= 1e-4 * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", F32_HEAD_DIMS[1:])
+def test_flash_f32_wide_fully_masked_rows_match_plain_on_card(cuda, d):
+    """A batch row whose one key is masked (-10000, L = 1): its score is ~
+    -1e4, where one f32 ulp is ~1e-3.  The wide f32 kernels add the bias in
+    the natural domain, as JAX's kernel does, so p = 1 and lse = s exactly,
+    as in the plain versions.  (Past L = 1 such a row's softmax runs over
+    scores on f32's ~1e-3 grid at 1e4, in the plain version too: its
+    output is that grid's, and no bound of 1e-4 holds it.)"""
+    l = 1
+    g = torch.Generator().manual_seed(70 + d)
+    q, k, v, dout = _unit_f32(2, 3, l, g, cuda, d)
+    bias = torch.zeros(2, l)
+    bias[1] = -10000.0
+    bias = bias.to(cuda)
+    for rate in (0.0, 0.1):
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, bias, dropout_rate=rate, seed=2)
+        pout, plse = flash_attention.flash_attention_fwd_plain(q, k, v, bias, dropout_rate=rate, seed=2)
+        grads = flash_attention.flash_attention_bwd(q, k, v, bias, pout, plse, dout, dropout_rate=rate,
+                                                    seed=2)
+        pgrads = flash_attention.flash_attention_bwd_plain(q, k, v, bias, pout, plse, dout,
+                                                           dropout_rate=rate, seed=2)
+        _f32_matches(out, pout, lse, plse, grads, pgrads, floor=1e-4)
+
+
+@pytest.fixture
+def cli_determinism():
+    """What the training CLIs set (`training.deterministic_training`), undone
+    after the test."""
+    from gsoc_wav2vec2_tpu_torch.training import deterministic_training
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    deterministic_training()
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+@pytest.mark.cuda
+def test_f32_robust_steps_are_bit_equal_under_the_cli_settings(cuda, cli_determinism):
+    """Two identical f32 stage-2 losses and gradients of the robust family
+    (full width, 2 layers, dropout 0.1, SpecAugment, a ragged mask) are
+    bit-equal under the settings the training CLIs make: the f32 pos conv is
+    cuDNN's grouped conv, whose default backward differs run to run."""
+    from gsoc_wav2vec2_tpu_torch.models.config import RobustWav2Vec2Config
+    from gsoc_wav2vec2_tpu_torch.training import make_ctc_loss_fn, set_trainable
+
+    cfg = RobustWav2Vec2Config(num_layers=2)
+    model = Wav2Vec2ForCTC(cfg, device=cuda, generator=torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    mask = torch.ones(2, 32000, dtype=torch.int32)
+    mask[1, 21000:] = 0
+    batch = {"speech": torch.randn(2, 32000, generator=g) * mask,
+             "labels": torch.randint(1, cfg.vocab_size, (2, 12), generator=g), "attention_mask": mask}
+    set_trainable(model, ("feature_extractor",))
+    loss_fn = make_ctc_loss_fn(cfg, division_factor=2, with_attention_mask=True, length_aware=True,
+                               compute_dtype=torch.float32, remat=False)
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch, torch.Generator().manual_seed(7))
+        loss.backward()
+        runs.append((loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()
+                                   if p.grad is not None}))
+    (loss, grads), (again, regrads) = runs
+    assert loss == again and torch.isfinite(torch.tensor(loss))
+    assert any("pos_conv" in n for n in grads)
+    assert [n for n in grads if not torch.equal(grads[n], regrads[n])] == []
 
 
 # -- the conv front-end kernels (wgmma + TMA multicast) and the F1 dispatch --

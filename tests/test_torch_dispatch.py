@@ -85,13 +85,13 @@ def test_each_site_supports_exactly_the_kernel_instances(name):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_f32_takes_no_kernel(name):
     """In f32 the pos conv takes no kernel (JAX runs it bf16-only too); flash
-    takes its f32 kernels exactly where the head dim is 64, as JAX runs its
-    dtype-generic Pallas kernels on f32 inputs."""
+    takes its f32 kernels exactly where the head dim is 64, 128, 192 or 256,
+    as JAX runs its dtype-generic Pallas kernels on f32 inputs."""
     cfg = CONFIGS[name]()
     h, g = cfg.hidden_size, cfg.num_conv_pos_embedding_groups
     assert not pos_conv.supports(h, g, torch.float32, cfg.num_conv_pos_embeddings)
     d = h // cfg.num_heads
-    assert flash_attention.supports(d, torch.float32) is (d == 64)
+    assert flash_attention.supports(d, torch.float32) is (d in (64, 128, 192, 256))
 
 
 @pytest.mark.parametrize("c,groups,k,ok", [(768, 16, 128, True), (1024, 16, 128, True),

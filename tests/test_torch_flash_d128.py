@@ -241,14 +241,15 @@ def test_head_dim_128_views_that_break_tma_rules_are_refused():
 def test_flash_supports_head_dims_64_and_128_in_bf16():
     """The kernels take heads of 64 and 128 (and 192 and 256) in bf16: a
     model with heads of 128 runs them on the card, as JAX runs Pallas
-    there; 80, 120 and 320 (no instance) run the plain attention, and so
-    does f32 at every head dim but 64 (the one f32 instance)."""
+    there; 80, 120 and 320 (no instance) run the plain attention.  f32
+    takes the kernels at the same four head dims."""
     assert flash_attention.supports(128, torch.bfloat16)
     assert flash_attention.supports(64, torch.bfloat16)
     for d in (192, 256):
         assert flash_attention.supports(d, torch.bfloat16), d
     for d in (80, 120, 320):
         assert not flash_attention.supports(d, torch.bfloat16), d
-    assert flash_attention.supports(64, torch.float32)
-    for d in (128, 192, 256):
+    for d in (64, 128, 192, 256):
+        assert flash_attention.supports(d, torch.float32), d
+    for d in (80, 120, 320):
         assert not flash_attention.supports(d, torch.float32), d

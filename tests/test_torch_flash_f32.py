@@ -261,15 +261,15 @@ def test_f32_rows_68_apart_are_read_in_place():
 
 def test_check_takes_f32_and_refuses_mixed_dtypes_and_other_head_dims():
     """`_check` keeps f32 projection views as they are; q, k, v of mixed
-    dtypes, f32 at head dims without an f32 instance, and dtypes without
-    any instance raise."""
+    dtypes, f32 at a head dim without an f32 instance (320), and dtypes
+    without any instance raise."""
     q, k, v = (_proj_view(2, 50, 4) for _ in range(3))
     qq, kk, vv, bias = _check("t", q, k, v, torch.zeros(2, 50))
     assert qq is q and kk is k and vv is v and bias.dtype == torch.float32
     with pytest.raises(ValueError, match="one dtype"):
         _check("t", q, k.bfloat16(), v, None)
     with pytest.raises(ValueError, match="head dims"):
-        x = torch.zeros(2, 4, 50, 128)
+        x = torch.zeros(2, 4, 50, 320)
         _check("t", x, x, x, None)
     with pytest.raises(ValueError, match="one dtype"):
         x = torch.zeros(2, 4, 50, D, dtype=torch.float16)
@@ -281,11 +281,11 @@ def test_check_takes_f32_and_refuses_mixed_dtypes_and_other_head_dims():
 
 def test_flash_supports_f32_at_head_dim_64_only():
     """f32 takes the kernels at head dim 64 (base, large, large-robust and
-    XLSR-53 heads); every other head dim runs the plain attention in f32,
-    until the f32 instances at 128, 192 and 256 are ported; bf16 is as it
-    was."""
-    assert flash_attention.supports(64, torch.float32)
-    for d in (80, 120, 128, 192, 256, 320):
+    XLSR-53 heads), and at 128, 192 and 256 (`csrc/flash_attention_f32_wide.cu`);
+    80, 120 and 320 run the plain attention in f32; bf16 is as it was."""
+    for d in (64, 128, 192, 256):
+        assert flash_attention.supports(d, torch.float32), d
+    for d in (80, 120, 320):
         assert not flash_attention.supports(d, torch.float32), d
     for d in (64, 128, 192, 256):
         assert flash_attention.supports(d, torch.bfloat16), d
