@@ -265,10 +265,12 @@ Phases, each printing one JSON line:
                 also at std-6 scores on (1, 2, 8192, 64) under the relative
                 gradient bound.
  13j. f32_wide -- 13i at head dims 128, 192 and 256
-                (`flash_attention_f32_wide.cu`): the kernels at (8, 8, 768,
-                128) and (8, 4, 768, 256) with a ragged bias and (16, 4,
-                768, 192) without, the long regime and the tile edges at
-                each; then `RobustWav2Vec2Config(num_heads=8)` (ragged B=8),
+                (`flash_attention_f32_wide.cu`, TF32 wgmma): first the TF32
+                probe (the card's wgmma reads f32 operands truncated, the A
+                operand where the kernels put it), then the kernels at (8,
+                8, 768, 128) and (8, 4, 768, 256) with a ragged bias and
+                (16, 4, 768, 192) without, the long regime and the tile
+                edges of their 64-row blocks and 32-row tiles at each; then `RobustWav2Vec2Config(num_heads=8)` (ragged B=8),
                 `Wav2Vec2Config(num_heads=4)` (B=16) and
                 `RobustWav2Vec2Config(num_heads=4)` (ragged B=8) at full
                 width and depth in f32 as 13i's two models (flash 24 / 12 /
@@ -4323,6 +4325,9 @@ F32_KERNELS = {64: (B, 12, True, tuple(F32_MODELS), 2.0)}
 F32_WIDE_KERNELS = {128: (ROBUST_B, H128_HEADS, True, ("robust_h128_f32",), 1.0),
                     192: (B, WIDE_HEADS, False, ("base_h192_f32",), 1.0),
                     256: (ROBUST_B, WIDE_HEADS, True, ("robust_h256_f32",), 1.0)}
+# the wide f32 kernels' tile edges: 64-row blocks and 32-row tiles, each L =
+# 1, tile - 1, tile, tile + 1 and 2 tile + 1, and a ragged multi-tile length
+F32_WIDE_EDGES = (1, 31, 32, 33, 63, 64, 65, 129, 1249)
 F32_TOL = 1e-4        # out and lse (the JAX package's own f32 flash tests)
 F32_GRAD_TOL = 1e-3   # each gradient, absolute; and 1e-4 of its max |value|
 F32_LOGITS_TOL = 4e-3  # the JAX parity tests' logits bound (tests/test_parity.py)
@@ -4368,7 +4373,8 @@ def check_flash_f32_kernels(records, d: int, b: int, heads: int, ragged: bool, p
     """The f32 flash kernels at head dim `d` (`csrc/flash_attention_f32.cu`
     at 64, `_f32_wide.cu` at 128-256) against their plain versions
     (`flash_f32_errors`: every launch twice, bit-equal) at the tile edges L
-    = `FLASH_EDGES` on (2, 3, L, d), no bias and ragged, dropout 0 and 0.1;
+    = `FLASH_EDGES` (past 64 `F32_WIDE_EDGES`) on (2, 3, L, d), no bias and
+    ragged, dropout 0 and 0.1;
     at (b, heads, 768, d), with a ragged bias where `ragged`, dropout 0 and
     0.1; at the long regime (1, heads, 5999, d) with dropout and a ragged
     bias (where JAX switches to its kv-blocked kernels); and at scores of
@@ -4382,8 +4388,9 @@ def check_flash_f32_kernels(records, d: int, b: int, heads: int, ragged: bool, p
     gen = torch.Generator().manual_seed(100 * d)
     rate, drop_seed = 0.1, 4321
     source = CSRC + ("flash_attention_f32.cu" if d == 64 else "flash_attention_f32_wide.cu")
+    edges = FLASH_EDGES if d == 64 else F32_WIDE_EDGES
     edge = {"max_abs_err": 0.0, "lse_max_abs_err": 0.0, "bwd_max_rel_err": 0.0, "bwd_max_abs_err_at_L1": 0.0}
-    for l in FLASH_EDGES:
+    for l in edges:
         q, kk, v, dout = _peaky(2, 3, l, d, gen, dtype=torch.float32, std=std)
         for bias in (None, _ragged_bias(2, l, gen)):
             for r in (0.0, rate):
@@ -4421,7 +4428,7 @@ def check_flash_f32_kernels(records, d: int, b: int, heads: int, ragged: bool, p
         exp_bound_ms=exp_bound_ms(b * heads * t * t), library_ms=time_ms(run_library, 30),
         library="scaled_dot_product_attention in f32, the same additive mask",
         library_device_ms=lib_dev_ms, library_kernels=lib_kernels,
-        edges=dict(shape=[2, 3, "L", d], checked_at_L=list(FLASH_EDGES), **edge))
+        edges=dict(shape=[2, 3, "L", d], checked_at_L=list(edges), **edge))
     fwd_rec, bwd_rec = flash_train_records(q, kk, v, dout, kb, out, lse, rate, drop_seed)
     fwd["dropout"] = dict(max_abs_err=derr, lse_max_abs_err=dlse_err, **tols, **fwd_rec)
     grad_tol = f"{F32_GRAD_TOL} abs and 1e-4 x each gradient's max |value|"
@@ -4607,17 +4614,39 @@ def f32_model_phase(phase: str, family, b: int, smi: str, fields: dict) -> dict:
     return {phase: launches, phase + "_train": train}
 
 
+def tf32_truncation_check() -> dict:
+    """`flash_attention.tf32_probe` (one SS and one RS TF32 wgmma against the
+    identity): a 64 x 8 matrix of small integers comes back exact (the A
+    operand where the wide f32 kernels put it, in shared memory and in
+    registers), and f32 values with random low mantissa bits come back with
+    their 13 low bits cleared through both: the kernels take an operand's
+    raw bits as its TF32 hi on that (`csrc/flash_attention_f32_wide.cu`)."""
+    x = torch.arange(512, dtype=torch.float32, device="cuda").reshape(64, 8)
+    ys, yr = fa.tf32_probe(x)
+    require(torch.equal(ys, x) and torch.equal(yr, x), "tf32 probe: the A operand is not where it was put")
+    g = torch.Generator().manual_seed(27)
+    bits = torch.randint(0, 2 ** 23, (64, 8), generator=g, dtype=torch.int32)
+    xb = ((torch.randn(64, 8, generator=g).view(torch.int32) & ~0x7FFFFF) | bits).view(torch.float32).cuda()
+    ys, yr = fa.tf32_probe(xb)
+    trunc = (xb.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    require(torch.equal(ys, trunc) and torch.equal(yr, trunc),
+            "tf32 probe: the card's wgmma does not read f32 by dropping 13 bits")
+    return {"layout_exact": True, "reads_f32_truncated": True, "values": 2 * x.numel()}
+
+
 def f32_phase(smi: str, records, kernels=F32_KERNELS, models=F32_MODELS, what="f32_kernels") -> dict:
     """Phases 13i (`F32_KERNELS`, `F32_MODELS`) and 13j (`F32_WIDE_KERNELS`,
     `F32_WIDE_MODELS`): `--compute_dtype float32`, where the JAX package runs
-    its dtype-generic Pallas flash kernels on f32 inputs: the f32 flash
-    kernels at each head dim (`check_flash_f32_kernels`), then each model
-    through them (`f32_model_phase`).  Returns {path: launch counts}."""
+    its dtype-generic Pallas flash kernels on f32 inputs: past head dim 64 the
+    TF32 probe first (`tf32_truncation_check`), the f32 flash kernels at each
+    head dim (`check_flash_f32_kernels`), then each model through them
+    (`f32_model_phase`).  Returns {path: launch counts}."""
     t = time.perf_counter()
     n = len(records)
+    probe = tf32_truncation_check() if any(d > 64 for d in kernels) else None
     for d, (b, heads, ragged, paths, std) in kernels.items():
         check_flash_f32_kernels(records, d, b, heads, ragged, paths, std)
-    emit({"phase": what, "checked": [r["name"] for r in records[n:]],
+    emit({"phase": what, "checked": [r["name"] for r in records[n:]], "tf32_probe": probe,
           "seconds": time.perf_counter() - t, "card": smi})
     by_path = {}
     for phase, (family, b, fields) in models.items():

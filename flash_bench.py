@@ -1,6 +1,6 @@
 """Times the port's hand-written kernels on one NVIDIA GPU.
 
-    python3 flash_bench.py [--family flash|conv|pos_conv|scatter|ctc|forward] [--root DIR] [--label NAME]
+    python3 flash_bench.py [--family flash|flash_f32|conv|pos_conv|scatter|ctc|forward] [--root DIR] [--label NAME]
 
 `--family flash` (the default): at each shape of the main paths (base
 inference, base training, robust, long; head dim 64), of the robust widths
@@ -13,6 +13,16 @@ backward wrappers of
 `scaled_dot_product_attention` with the same mask and dropout rate; and the
 wrappers' host time a call at a tiny shape.  Under `--root`, a head dim
 that tree's `flash_attention.supports` does not take prints a skipped row.
+
+`--family flash_f32`: the same wrappers in f32 (`--compute_dtype float32`,
+TF32 off), each shape with a ragged key bias, unit-scale inputs (q with the
+model's D^-1/2): the robust widths at 8 heads of 128 ((8, 8, 768, 128)), the
+base widths at 4 heads of 192 ((16, 4, 768, 192)) and the robust widths at 4
+heads of 256 ((8, 4, 768, 256)), each without and with dropout 0.1, and the
+long regime (1, H, 5999, D) with it; head dim 64 at (16, 12, 768, 64), both
+ways, and (1, 12, 5999, 64).  Beside them `scaled_dot_product_attention` in
+f32 with the same mask and rate.  Under `--root`, a head dim that tree's
+`flash_attention.supports` does not take in f32 prints a skipped row.
 
 `--family conv`: the conv front-end kernels of
 `gsoc_wav2vec2_tpu_torch.ops.kernels.conv_frontend` at the main paths'
@@ -121,26 +131,39 @@ def profiled_ms(torch, fn, reps):
             top.self_device_time_total / 1e3 / reps, top.key[:80])
 
 
-def bench_flash(torch, label):
+# (B, H, L, D, dropout rate, ragged key bias) of `--family flash` (bf16) and
+# `--family flash_f32`
+FLASH_SHAPES = ((16, 12, 768, 64, 0.0, False), (32, 12, 768, 64, 0.1, True),
+                (8, 16, 768, 64, 0.0, True), (8, 16, 768, 64, 0.1, True),
+                (1, 12, 5999, 64, 0.1, True), (8, 8, 768, 128, 0.0, True),
+                (8, 8, 768, 128, 0.1, True), (1, 8, 5999, 128, 0.1, True),
+                (16, 4, 768, 192, 0.0, True), (16, 4, 768, 192, 0.1, True),
+                (1, 4, 5999, 192, 0.1, True), (8, 4, 768, 256, 0.0, True),
+                (8, 4, 768, 256, 0.1, True), (1, 4, 5999, 256, 0.1, True))
+F32_SHAPES = ((8, 8, 768, 128, 0.0, True), (8, 8, 768, 128, 0.1, True), (16, 4, 768, 192, 0.0, True),
+              (16, 4, 768, 192, 0.1, True), (8, 4, 768, 256, 0.0, True), (8, 4, 768, 256, 0.1, True),
+              (1, 8, 5999, 128, 0.1, True), (1, 4, 5999, 192, 0.1, True), (1, 4, 5999, 256, 0.1, True),
+              (16, 12, 768, 64, 0.0, True), (16, 12, 768, 64, 0.1, True), (1, 12, 5999, 64, 0.1, True))
+
+
+def flash_rows(torch, label, dtype, shapes, score_std, iters, reps):
+    """One row a shape: the flash forward and backward wrappers in `dtype`
+    and `scaled_dot_product_attention` with the same mask and rate (q scaled
+    to scores of std ~`score_std`), events over `iters` calls and the
+    profiler's device ms over `reps`, for the wrappers also by kernel."""
     from gsoc_wav2vec2_tpu_torch.ops.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator().manual_seed(0)
-    for b, h, l, d, rate, ragged in ((16, 12, 768, 64, 0.0, False), (32, 12, 768, 64, 0.1, True),
-                                     (8, 16, 768, 64, 0.0, True), (8, 16, 768, 64, 0.1, True),
-                                     (1, 12, 5999, 64, 0.1, True), (8, 8, 768, 128, 0.0, True),
-                                     (8, 8, 768, 128, 0.1, True), (1, 8, 5999, 128, 0.1, True),
-                                     (16, 4, 768, 192, 0.0, True), (16, 4, 768, 192, 0.1, True),
-                                     (1, 4, 5999, 192, 0.1, True), (8, 4, 768, 256, 0.0, True),
-                                     (8, 4, 768, 256, 0.1, True), (1, 4, 5999, 256, 0.1, True)):
-        row = {"label": label, "shape": [b, h, l, d], "dropout": rate, "ragged_bias": ragged}
-        if not fa.supports(d, torch.bfloat16):
+    for b, h, l, d, rate, ragged in shapes:
+        row = {"label": label, "dtype": str(dtype).split(".")[-1], "shape": [b, h, l, d], "dropout": rate,
+               "ragged_bias": ragged}
+        if not fa.supports(d, dtype):
             print(json.dumps({**row, "skipped": "the tree's flash_attention.supports does not take it"}),
                   flush=True)
             continue
-        q, k, v, dout = (torch.randn(b, h, l, d, generator=gen).cuda().to(torch.bfloat16)
-                         for _ in range(4))
-        q = q * (2.0 / d ** 0.5)  # scores of std ~2
+        q, k, v, dout = (torch.randn(b, h, l, d, generator=gen).cuda().to(dtype) for _ in range(4))
+        q = q * (score_std / d ** 0.5)
         bias, mask = None, None
         if ragged:
             lengths = torch.randint(l // 4, l + 1, (b,), generator=gen)
@@ -156,12 +179,22 @@ def bench_flash(torch, label):
             "sdpa_bwd": lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True),
         }
         for name, fn in fns.items():
-            row[name + "_ms"] = events_ms(torch, fn, 50)
-            row[name + "_device_ms"] = profiled_ms(torch, fn, 10)[0]
+            row[name + "_ms"] = events_ms(torch, fn, iters)
+            rows = profiled_rows(torch, fn, reps)
+            row[name + "_device_ms"] = sum(e.self_device_time_total for e in rows) / 1e3 / reps if rows else None
+            if name in ("fwd", "bwd"):  # the wrapper's kernels apart, under their full names
+                row[name + "_kernels_ms"] = {e.key: e.self_device_time_total / 1e3 / reps for e in rows}
         print(json.dumps(row), flush=True)
         del q, k, v, dout, out, lse, qg, kg, vg, lib_out
         torch.cuda.empty_cache()
+
+
+def bench_flash(torch, label):
+    from gsoc_wav2vec2_tpu_torch.ops.kernels import flash_attention as fa
+
+    flash_rows(torch, label, torch.bfloat16, FLASH_SHAPES, 2.0, 50, 10)
     # the wrappers' host time a call, where the device is not the limit
+    gen = torch.Generator().manual_seed(1)
     q, k, v, dout = (torch.randn(1, 1, 64, 64, generator=gen).cuda().to(torch.bfloat16)
                      for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v)
@@ -176,6 +209,12 @@ def bench_flash(torch, label):
         row[name + "_host_us"] = (time.perf_counter() - t) / 500 * 1e6
         torch.cuda.synchronize()
     print(json.dumps(row), flush=True)
+
+
+def bench_flash_f32(torch, label):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flash_rows(torch, label, torch.float32, F32_SHAPES, 1.0, 20, 5)
 
 
 def front_params(torch, c: int, robust: bool, gen, dev):
@@ -392,7 +431,7 @@ def bench_forward(torch, label):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--family", choices=("flash", "conv", "pos_conv", "scatter", "ctc", "forward"),
+    ap.add_argument("--family", choices=("flash", "flash_f32", "conv", "pos_conv", "scatter", "ctc", "forward"),
                     default="flash")
     ap.add_argument("--root", default=".", help="checkout to import the package from")
     ap.add_argument("--label", default="this tree")
@@ -406,7 +445,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     pos_conv = lambda torch, label: bench_pos_conv(torch, label, other_tree=args.root != ".")
-    {"flash": bench_flash, "conv": bench_conv, "pos_conv": pos_conv,
+    {"flash": bench_flash, "flash_f32": bench_flash_f32, "conv": bench_conv, "pos_conv": pos_conv,
      "scatter": bench_scatter, "ctc": bench_ctc, "forward": bench_forward}[args.family](torch, args.label)
     print(smi, flush=True)
     return 0

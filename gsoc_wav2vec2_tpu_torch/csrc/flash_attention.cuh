@@ -2,9 +2,10 @@
 // `flash_attention.cu` (bf16, head dims 64-256, wgmma),
 // `flash_attention_f32.cu` (f32, head dim 64, mma.sync in three TF32
 // products) and `flash_attention_f32_wide.cu` (f32, head dims 128-256, the
-// same products with D split across warps): the hash dropout, the exp2,
-// the forward's online-softmax step and the 4-D tensor maps.  Kept apart so
-// that a new instance in one unit leaves the others' SASS as it was.
+// same products on TF32 wgmma): the hash dropout, the exp2, the forward's
+// online-softmax step (the f32 units' with the key bias in the natural
+// domain) and the 4-D tensor maps.  Kept apart so that a new instance in one
+// unit leaves the others' SASS as it was.
 #pragma once
 
 #include "common.cuh"
@@ -88,6 +89,54 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], const float* bias2,
   for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     float p = ex2(fmaf(sc[i], scale, -m_run[r]));
+    rsum[r] += p;
+    if (kDrop && !keep_bit(dr, row0 + 8 * r, key0 + 8 * (i >> 2) + 2 * tq + (i & 1))) p = 0.f;
+    sc[i] = p;
+  }
+}
+
+// The key bias of `key` (the (B, L) row `kb`, or 0 without one), -inf at or
+// past L, in the natural domain (the f32 units)
+__device__ __forceinline__ float key_bias(const float* kb, int key, int L) {
+  return key < L ? (kb ? kb[key] : 0.f) : -CUDART_INF_F;
+}
+
+// The f32 units' forward softmax step on a 64 x (2N) score tile, as
+// `softmax_tile` but with the key bias (`bias`, natural domain) added to the
+// scores as JAX's kernel adds it (s + bias, then exp(s - m) as ex2 of the
+// difference times log2 e): a row whose every key is masked has s ~ -1e4,
+// where folding the bias into the log2 domain (bias x log2 e) puts p ~1e-3
+// off 1 and lse an ulp of 1e4 off; here both are exact, as in JAX.
+template <bool kDrop, int N>
+__device__ __forceinline__ void softmax_tile_nat(float (&sc)[N], const float* bias, bool masked,
+                                                 float m_run[2], float alpha[2], float rsum[2],
+                                                 const Dropout& dr, int row0, int key0, int tq) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const float2 b2 = *reinterpret_cast<const float2*>(&bias[8 * j + 2 * tq]);
+      sc[4 * j + 0] += b2.x;
+      sc[4 * j + 1] += b2.y;
+      sc[4 * j + 2] += b2.x;
+      sc[4 * j + 3] += b2.y;
+    }
+  }
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < N; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mx[r] = fmaxf(m_run[r], mx[r]);
+    alpha[r] = ex2((m_run[r] - mx[r]) * kLog2e);  // 0 on the first tile
+    m_run[r] = mx[r];
+    rsum[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    float p = ex2((sc[i] - m_run[r]) * kLog2e);
     rsum[r] += p;
     if (kDrop && !keep_bit(dr, row0 + 8 * r, key0 + 8 * (i >> 2) + 2 * tq + (i & 1))) p = 0.f;
     sc[i] = p;

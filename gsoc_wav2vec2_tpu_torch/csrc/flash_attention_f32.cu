@@ -21,7 +21,7 @@
 // split is most of the issued instructions: it rounds on the bits
 // (`tf32_rna`, 5 instructions a split), where cvt.rna.tf32.f32 cost 9 with
 // its NaN tests and the kernels 1.3-1.55x the time for the same bits (on
-// the H100, `logs/f32_turns.py` by turns).
+// the H100, by turns).
 //
 // Why mma.sync and not wgmma.  wgmma reads TF32 operands from shared memory
 // only K-major: the transpose bits exist for 16-bit types alone.  Of the
@@ -42,8 +42,12 @@
 // through a two-stage ring: thread 0 issues the next tile's TMA loads into
 // the stage the block left at the last barrier while every warp computes on
 // the other, one mbarrier a stage, one __syncthreads a tile.  The per-row f32
-// values of a tile (the key bias x log2 e, -inf past L; lse x log2 e and
-// delta, 0 past L) are written into the stage by the first 64 threads.  TMA
+// values of a tile (the key bias, -inf past L; lse and delta, 0 past L) are
+// written into the stage by the first 64 threads.  The key bias is added in
+// the natural domain, as JAX's kernel adds it (`softmax_tile_nat`; p = exp(s
+// + bias - lse) as ex2 of the difference times log2 e): exact on a row whose
+// every key is masked, where folding it into the log2 domain put p ~1e-3 off
+// 1.  TMA
 // zero-fills rows past L, so nothing is padded; outputs are written (B, L, H,
 // D) f32 straight from the accumulators, rows past L skipped.  About 81 KB /
 // 97 KB of shared memory (forward / backward): two blocks an SM.
@@ -168,10 +172,6 @@ __device__ __forceinline__ void mma_cols(float (&acc)[32], const Frag& a, const 
     mma3(&acc[4 * nt], a, x[at(8 * kc + 2 * tq, 8 * nt + g)], x[at(8 * kc + 2 * tq + 1, 8 * nt + g)]);
 }
 
-__device__ __forceinline__ float key_bias2(const float* kb, int key, int L) {
-  return key < L ? (kb ? kb[key] * kLog2e : 0.f) : -CUDART_INF_F;
-}
-
 // rows g and g + 8 of a 16 x 64 accumulator (times scale[r]) to (B, L, H,
 // D) f32 rows row0, row0 + 8 of (b, h); rows at or past L are skipped
 __device__ __forceinline__ void store_rows(float* out, const float (&acc)[32], const float scale[2],
@@ -201,7 +201,7 @@ struct FwdSmem {
   float q[kTileFloats];
   float k[2][kTileFloats];
   float v[2][kTileFloats];
-  float bias[2][kTile];  // key bias x log2 e; -inf at or past L
+  float bias[2][kTile];  // key bias; -inf at or past L
   uint64_t full[2], q_full;
 };
 
@@ -218,7 +218,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_con
   const int tiles = (L + kTile - 1) / kTile;
   const float* kb = bias ? bias + (size_t)b * L : nullptr;
   if (tid == 0) init_ring(sm.full, &sm.q_full);
-  if (tid < kTile) sm.bias[0][tid] = key_bias2(kb, tid, L);
+  if (tid < kTile) sm.bias[0][tid] = key_bias(kb, tid, L);
   __syncthreads();
   if (tid == 0) {
     w2v2::mbar_arrive_expect_tx(&sm.q_full, kTileBytes);
@@ -238,7 +238,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_con
   float o[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 domain
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max
   float l_run[2] = {0.f, 0.f};                      // this thread's partial sums
   for (int it = 0; it < tiles; ++it) {
     const int s = it & 1, key0 = it * kTile;
@@ -248,7 +248,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_con
         load_tile(sm.k[s ^ 1], &k_map, hi, &sm.full[s ^ 1], key0 + kTile, h, b);
         load_tile(sm.v[s ^ 1], &v_map, hi, &sm.full[s ^ 1], key0 + kTile, h, b);
       }
-      if (tid < kTile) sm.bias[s ^ 1][tid] = key_bias2(kb, key0 + kTile + tid, L);
+      if (tid < kTile) sm.bias[s ^ 1][tid] = key_bias(kb, key0 + kTile + tid, L);
     }
     w2v2::mbar_wait(&sm.full[s], (it >> 1) & 1);
     float sc[32];
@@ -257,8 +257,8 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_con
 #pragma unroll
     for (int ks = 0; ks < kD / 8; ++ks) mma_rows(sc, qa[ks], sm.k[s], ks, g, tq);
     float alpha[2], rsum[2];
-    softmax_tile<kDrop>(sc, sm.bias[s], bias != nullptr || key0 + kTile > L, m_run, alpha, rsum, dr,
-                        row0, key0, tq);
+    softmax_tile_nat<kDrop>(sc, sm.bias[s], bias != nullptr || key0 + kTile > L, m_run, alpha, rsum, dr,
+                            row0, key0, tq);
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rsum[r];
 #pragma unroll
@@ -281,7 +281,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_con
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     scale[r] = (kDrop ? dr.inv_keep : 1.f) / l_run[r];
     const int row = row0 + 8 * r;
-    if (row < L && tq == 0) lse[(size_t)bh * L + row] = (m_run[r] + log2f(l_run[r])) * kLn2;
+    if (row < L && tq == 0) lse[(size_t)bh * L + row] = m_run[r] + log2f(l_run[r]) * kLn2;
   }
   store_rows(out, o, scale, row0, b, h, H, L, tq);
 }
@@ -313,7 +313,7 @@ struct DkdvSmem {
   float v[kTileFloats];
   float q[2][kTileFloats];
   float dout[2][kTileFloats];
-  float lse[2][kTile];    // lse x log2 e; 0 at or past L
+  float lse[2][kTile];    // 0 at or past L
   float delta[2][kTile];  // 0 at or past L
   uint64_t full[2], kv_full;
 };
@@ -337,7 +337,7 @@ flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __gri
   if (tid == 0) init_ring(sm.full, &sm.kv_full);
   if (tid < kTile) {
     const bool valid = tid < L;
-    sm.lse[0][tid] = valid ? lse_bh[tid] * kLog2e : 0.f;
+    sm.lse[0][tid] = valid ? lse_bh[tid] : 0.f;
     sm.delta[0][tid] = valid ? delta_bh[tid] : 0.f;
   }
   __syncthreads();
@@ -352,9 +352,9 @@ flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __gri
 
   const int key0 = k0 + 16 * w + g;  // this thread's keys: key0, key0 + 8
   const Dropout dr = make_dropout(seed, bh, threshold, stride, inv_keep);
-  float kb2[2];  // key bias x log2 e; -inf at or past L (those keys get p = 0)
+  float kb[2];  // key bias; -inf at or past L (those keys get p = 0)
 #pragma unroll
-  for (int r = 0; r < 2; ++r) kb2[r] = key_bias2(bias ? bias + (size_t)b * L : nullptr, key0 + 8 * r, L);
+  for (int r = 0; r < 2; ++r) kb[r] = key_bias(bias ? bias + (size_t)b * L : nullptr, key0 + 8 * r, L);
   float dka[32], dva[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
@@ -371,7 +371,7 @@ flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __gri
       if (tid < kTile) {
         const int row = q0 + kTile + tid;
         const bool valid = row < L;
-        sm.lse[s ^ 1][tid] = valid ? lse_bh[row] * kLog2e : 0.f;
+        sm.lse[s ^ 1][tid] = valid ? lse_bh[row] : 0.f;
         sm.delta[s ^ 1][tid] = valid ? delta_bh[row] : 0.f;
       }
     }
@@ -395,7 +395,7 @@ flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __gri
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, i = 4 * j + e;
-        const float p = ex2(fmaf(st[i], kLog2e, kb2[r] - ((e & 1) ? ls.y : ls.x)));
+        const float p = ex2((st[i] + kb[r] - ((e & 1) ? ls.y : ls.x)) * kLog2e);  // exp(s + b - lse)
         const bool keep = !kDrop || keep_bit(dr, q0 + 8 * j + 2 * tq + (e & 1), key0 + 8 * r);
         st[i] = kDrop ? (keep ? p * dr.inv_keep : 0.f) : p;  // r, the dropped p
         const float dp = kDrop ? (keep ? dpt[i] * dr.inv_keep : 0.f) : dpt[i];
@@ -422,7 +422,7 @@ struct DqSmem {
   float dout[kTileFloats];
   float k[2][kTileFloats];
   float v[2][kTileFloats];
-  float bias[2][kTile];  // key bias x log2 e; -inf at or past L
+  float bias[2][kTile];  // key bias; -inf at or past L
   uint64_t full[2], qd_full;
 };
 
@@ -440,7 +440,7 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_
   const int tiles = (L + kTile - 1) / kTile;
   const float* kb = bias ? bias + (size_t)b * L : nullptr;
   if (tid == 0) init_ring(sm.full, &sm.qd_full);
-  if (tid < kTile) sm.bias[0][tid] = key_bias2(kb, tid, L);
+  if (tid < kTile) sm.bias[0][tid] = key_bias(kb, tid, L);
   __syncthreads();
   if (tid == 0) {
     w2v2::mbar_arrive_expect_tx(&sm.qd_full, 2 * kTileBytes);
@@ -453,11 +453,11 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_
 
   const int row0 = q0 + 16 * w + g;  // this thread's rows: row0, row0 + 8
   const Dropout dr = make_dropout(seed, bh, threshold, stride, inv_keep);
-  float lse2[2], dl[2];
+  float lse_r[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    lse2[r] = row < L ? lse[(size_t)bh * L + row] * kLog2e : 0.f;
+    lse_r[r] = row < L ? lse[(size_t)bh * L + row] : 0.f;
     dl[r] = row < L ? delta[(size_t)bh * L + row] : 0.f;
   }
   float dqa[32];
@@ -473,7 +473,7 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_
         load_tile(sm.k[s ^ 1], &k_map, hi_in, &sm.full[s ^ 1], key0 + kTile, h, b);
         load_tile(sm.v[s ^ 1], &v_map, hi_in, &sm.full[s ^ 1], key0 + kTile, h, b);
       }
-      if (tid < kTile) sm.bias[s ^ 1][tid] = key_bias2(kb, key0 + kTile + tid, L);
+      if (tid < kTile) sm.bias[s ^ 1][tid] = key_bias(kb, key0 + kTile + tid, L);
     }
     w2v2::mbar_wait(&sm.full[s], (it >> 1) & 1);
 
@@ -492,7 +492,7 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, i = 4 * j + e;
-        const float p = ex2(fmaf(sc[i], kLog2e, ((e & 1) ? b2.y : b2.x) - lse2[r]));
+        const float p = ex2((sc[i] + ((e & 1) ? b2.y : b2.x) - lse_r[r]) * kLog2e);  // exp(s + b - lse)
         float d = dp[i];
         if (kDrop)
           d = keep_bit(dr, row0 + 8 * r, key0 + 8 * j + 2 * tq + (e & 1)) ? d * dr.inv_keep : 0.f;

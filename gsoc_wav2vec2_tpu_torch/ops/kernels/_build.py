@@ -74,6 +74,8 @@ SIGNATURES = {
     "w2v2_flash_fwd_f32_wide": _FLASH_FWD,
     "w2v2_flash_bwd": _FLASH_BWD, "w2v2_flash_bwd_f32": _FLASH_BWD,
     "w2v2_flash_bwd_f32_wide": _FLASH_BWD,
+    # x (64 x 8 f32), y_ss, y_rs, stream: how TF32 wgmma reads f32 (`_f32_wide.cu`)
+    "w2v2_tf32_probe": [P, P, P, P],
     # dneg, idx, order, start, off, ticket, work, part, meta, out,
     # B, N, D, ld, L, shares, bf16, stream
     "w2v2_scatter_rows_add": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],

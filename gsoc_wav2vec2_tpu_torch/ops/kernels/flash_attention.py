@@ -323,6 +323,21 @@ def flash_attention_bwd(
 flash_attention_bwd.launches = 0
 
 
+def tf32_probe(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (64, 8) f32 on the card through one SS and one RS TF32 wgmma
+    against the identity (`w2v2_tf32_probe`): (y_ss, y_rs), x as the card's
+    tensor cores read it from shared memory and from registers.  The wide f32
+    kernels take an operand's raw bits as its TF32 hi, which holds where both
+    drop the 13 low mantissa bits (`csrc/flash_attention_f32_wide.cu`)."""
+    if not x.is_cuda or x.dtype != torch.float32 or tuple(x.shape) != (64, 8):
+        raise ValueError("tf32_probe takes a (64, 8) f32 CUDA tensor")
+    x = x.contiguous()
+    y_ss, y_rs = torch.empty_like(x), torch.empty_like(x)
+    _build.check("tf32_probe", _build.library().w2v2_tf32_probe(
+        x.data_ptr(), y_ss.data_ptr(), y_rs.data_ptr(), _build.stream_of(x)))
+    return y_ss, y_rs
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the counterpart of JAX's custom VJP).
     The forward saves q, k, v, the bias, out and lse; the backward is the

@@ -821,7 +821,7 @@ def test_flash_misaligned_views_are_copied_on_card(cuda, d):
 # -- the flash kernels in f32 (csrc/flash_attention_f32.cu at head dim 64,
 # csrc/flash_attention_f32_wide.cu at 128, 192 and 256) --
 
-FLASH_F32_EDGES = (1, 31, 33, 63, 64, 65, 127, 128, 129, 768, 1249)
+FLASH_F32_EDGES = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 768, 1249)
 F32_HEAD_DIMS = (64, 128, 192, 256)
 
 
@@ -1038,12 +1038,29 @@ def test_flash_f32_long_peaky_scores_within_relative_bound_on_card(cuda, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", F32_HEAD_DIMS[1:])
+def test_tf32_wgmma_reads_f32_operands_truncated_on_card(cuda):
+    """The wide f32 kernels take an operand's raw f32 bits as its TF32 hi:
+    the card's wgmma drops the 13 low mantissa bits, from shared memory and
+    from registers alike (`flash_attention.tf32_probe`); small integers come
+    back exact, so the A operand lies where the kernels put it."""
+    x = torch.arange(512, dtype=torch.float32, device=cuda).reshape(64, 8)
+    for y in flash_attention.tf32_probe(x):
+        assert torch.equal(y, x)
+    g = torch.Generator().manual_seed(27)
+    bits = torch.randint(0, 2 ** 23, (64, 8), generator=g, dtype=torch.int32)
+    xb = ((torch.randn(64, 8, generator=g).view(torch.int32) & ~0x7FFFFF) | bits).view(torch.float32).to(cuda)
+    trunc = (xb.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    for y in flash_attention.tf32_probe(xb):
+        assert torch.equal(y, trunc), (y - trunc).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
 def test_flash_f32_wide_fully_masked_rows_match_plain_on_card(cuda, d):
     """A batch row whose one key is masked (-10000, L = 1): its score is ~
-    -1e4, where one f32 ulp is ~1e-3.  The wide f32 kernels add the bias in
-    the natural domain, as JAX's kernel does, so p = 1 and lse = s exactly,
-    as in the plain versions.  (Past L = 1 such a row's softmax runs over
+    -1e4, where one f32 ulp is ~1e-3.  The f32 kernels add the bias in the
+    natural domain at every head dim, as JAX's kernel does, so p = 1 and lse
+    = s exactly, as in the plain versions.  (Past L = 1 such a row's softmax runs over
     scores on f32's ~1e-3 grid at 1e4, in the plain version too: its
     output is that grid's, and no bound of 1e-4 holds it.)"""
     l = 1

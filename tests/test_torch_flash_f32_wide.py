@@ -8,9 +8,9 @@ nothing: held here against JAX's `flash_attention` and its custom-VJP
 gradients with the Pallas kernels in interpret mode, in f32, at (2, 2, L,
 D); a tiny robust model with heads of 128 and tiny base models with heads of
 192 and 256, in f32, against the JAX forward and stage-2 gradients through
-the Pallas kernels; the TMA layout of f32 views at 4, 6 and 8 boxes a row
-(32-row boxes); and the card's dispatch by head dim and dtype.  Inputs come
-from numpy seeds.
+the Pallas kernels; the kernels' three-TF32 products emulated against f64;
+the TMA layout of f32 views at 4, 6 and 8 boxes a row (32-row boxes); and
+the card's dispatch by head dim and dtype.  Inputs come from numpy seeds.
 """
 
 import functools
@@ -200,6 +200,127 @@ def test_tiny_model_f32_stage2_grads_match_jax_flash_at_wide_heads(pallas_interp
             np.testing.assert_allclose(got, want, atol=1e-4, err_msg=name)
         else:
             assert p.grad is None and not want.any(), name
+
+
+# --- the split's arithmetic -----------------------------------------------------
+
+
+def _tf32_hi(x):
+    """x with its 13 low mantissa bits cleared: the TF32 value the card's
+    wgmma reads from an f32 operand (`w2v2_tf32_probe` checks it on the
+    card)."""
+    return (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_rna(x):
+    """x rounded to TF32, to nearest with ties away from zero, on the bits."""
+    return ((x.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    """(hi, lo) as the card reads them: the raw bits as hi (read truncated)
+    and lo = x - hi (exact in f32) rounded to TF32 (`lo_of_raw`)."""
+    hi = _tf32_hi(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _rz(x):
+    """f64 x rounded toward zero to f32: the card's tensor-core accumulation
+    as modelled here (a k step's 8 products summed exactly, added to the
+    accumulator, the sum truncated)."""
+    f = x.astype(np.float32)
+    return np.where(np.abs(f.astype(np.float64)) > np.abs(x), np.nextafter(f, np.float32(0)), f)
+
+
+def _three_tf32(a, b, partial=64, lo=_tf32_rna):
+    """a (M, K) @ b (N, K)^T as `csrc/flash_attention_f32_wide.cu` forms it:
+    hi the raw bits, lo = x - hi rounded to TF32 (`lo(x - hi)` as the card
+    reads it); per `partial` columns of K an accumulator of its own, to
+    which each k step of 8 adds a_lo b_hi, a_hi b_lo, a_hi b_hi in that
+    order, each add truncated (`_rz`).  A slab of 8 k steps (`rows_entry`)
+    issues its second half's two shared-memory products first and their lo
+    x hi products after them.  The partials are added in f32, rounded to
+    nearest."""
+    ahi, bhi = _tf32_hi(a), _tf32_hi(b)
+    alo, blo = _tf32_hi(lo(a - ahi)), _tf32_hi(lo(b - bhi))
+    acc = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for k0 in range(0, a.shape[1], partial):
+        steps = list(range(k0, min(k0 + partial, a.shape[1]), 8))
+        first, second = (steps[:4], steps[4:]) if len(steps) == 8 else (steps, [])
+        order = [(x, y, k) for k in first for x, y in ((alo, bhi), (ahi, blo), (ahi, bhi))]
+        order += [(x, y, k) for k in second for x, y in ((ahi, blo), (ahi, bhi))]
+        order += [(alo, bhi, k) for k in second]
+        part = np.zeros_like(acc)
+        for x, y, k in order:
+            part = _rz(part.astype(np.float64) + x[:, k:k + 8].astype(np.float64) @ y[:, k:k + 8].astype(np.float64).T)
+        acc = acc + part
+    return acc
+
+
+def _products(kind, d, rng):
+    """The operands of one of the kernels' two kinds of product at head dim
+    d: "scores" (S = Q K^T: 64 queries x 32 keys, K = d, `rows_entry`) or
+    "output" (O += P V: P 64 x 32 probabilities in [0, 1], V^T d x 32, K =
+    the 32 keys, `cols_entry`)."""
+    if kind == "scores":
+        return (rng.standard_normal((64, d)).astype(np.float32) / np.float32(d ** 0.5),
+                rng.standard_normal((32, d)).astype(np.float32))
+    p = rng.random((64, 32)).astype(np.float32)
+    return p / p.sum(-1, keepdims=True), rng.standard_normal((d, 32)).astype(np.float32)
+
+
+def _errors(kind, d, **design):
+    """(|error| against the f64 product, 2^-20 x sum_k |a_k b_k|, a, b, the
+    f64 product) of `_three_tf32(**design)` on seeded inputs."""
+    a, b = _products(kind, d, np.random.default_rng(90 + d))
+    exact = a.astype(np.float64) @ b.astype(np.float64).T
+    bound = 2.0 ** -20 * (np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64).T)
+    got = _three_tf32(a, b, **design)
+    assert got.dtype == np.float32
+    return np.abs(got - exact), bound, a, b, exact
+
+
+@pytest.mark.parametrize("kind", ["scores", "output"])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_three_tf32_products_within_2_to_the_minus_20_of_the_f64_product(d, kind):
+    """The kernels' three TF32 products against the f64 product on seeded
+    inputs, the card's accumulation modelled as truncating: every element
+    within 2^-20 x sum_k |a_k b_k|, and on average within a tenth of it.
+    One TF32 product (hi x hi) misses the first bound on most elements, so
+    the bound can fail."""
+    err, bound, a, b, exact = _errors(kind, d)
+    assert (err <= bound).all(), (err / bound).max()
+    assert err.mean() <= bound.mean() / 10, err.mean() / bound.mean()
+    one = _tf32_hi(a).astype(np.float64) @ _tf32_hi(b).astype(np.float64).T
+    assert (np.abs(one - exact) > bound).mean() > 0.9
+
+
+@pytest.mark.parametrize("design", ["one accumulator over D", "lo truncated"])
+def test_three_tf32_products_miss_the_bound_in_the_designs_the_card_refused(design):
+    """The two designs that failed the card's f32 tests at their bounds miss
+    the emulation's average bound at D = 256: the scores as one truncating
+    chain of 96 products over all of D (no 64-column partials), and the
+    output with each lo left to the card's truncation (not rounded to
+    TF32).  So the emulation pins the partials and the rounded lo."""
+    if design == "one accumulator over D":
+        err, bound, *_ = _errors("scores", 256, partial=256)
+    else:
+        err, bound, *_ = _errors("output", 256, lo=lambda x: x)
+    assert err.mean() > bound.mean() / 10, err.mean() / bound.mean()
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0 ** -30, 2.0 ** 30])
+def test_tf32_split_parts_are_tf32_and_within_2_to_the_minus_21(scale):
+    """Both parts of the split are TF32 values (the card reads them whole),
+    x - hi is exact in f32, and |x - hi - lo| <= 2^-21 |x|, at any scale."""
+    x = (np.random.default_rng(3).standard_normal(100000) * scale).astype(np.float32)
+    hi, lo = _split(x)
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+    rest = x.astype(np.float64) - hi.astype(np.float64)
+    assert np.array_equal(rest, (x - hi).astype(np.float64))
+    err = np.abs(rest - lo.astype(np.float64))
+    assert (err <= 2.0 ** -21 * np.abs(x)).all()
 
 
 # --- the TMA layout of f32 views at 4, 6 and 8 boxes a row ------------------------
